@@ -97,3 +97,8 @@ def pytest_configure(config):
         "rehydration) — docs/DESIGN.md §37; the master_kill soak "
         "episode itself is slow-lane",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the PyTorch port's CUDA kernels); "
+        "skips where torch sees no CUDA device",
+    )
