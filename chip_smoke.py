@@ -3,19 +3,33 @@
     python3 chip_smoke.py
 
 Drives ``dlrover_tpu_torch`` (and nothing of the JAX package) through
-its serving path at the full width and depth of the flagship TpuLM
-(vocab 32000, embed 1024, 16 layers, 8 heads of 128, mlp 4096, bf16
-compute; random weights from a seed), in phases that each print one
-JSON line:
+its serving and training paths at the full width and depth of the
+flagship TpuLM (vocab 32000, embed 1024, 16 layers, 8 heads of 128, mlp
+4096, bf16 compute, f32 master params; random weights from a seed), in
+phases that each print JSON lines:
 
 1. device: the card's name, and its power limit from nvidia-smi;
 2. build: the CUDA kernels, compiled from ``dlrover_tpu_torch/ops/csrc``;
 3. kernels: every kernel against its plain PyTorch version on the card,
-   at the main path's shape and at the flagship and GQA decode shapes,
-   with its time (CUDA events, cold L2), its bandwidth bound, the plain
-   version's time and a library call's time;
+   with its time (CUDA events, cold L2), its bound, the plain version's
+   time and a library call's time. Decode attention (B5) at the main
+   path's shape and at the flagship and GQA decode shapes; flash
+   attention forward (B1) and its dq and dk/dv backward kernels (B2) at
+   the training shape (b=8, s=2048, h=kh=8, d=128, causal), a GQA shape
+   (b=2, h=32, kh=8), a non-causal one and a ragged s=1000, each held
+   elementwise and with a planted fault its bound must reject;
 4. generate(): b=8, prompt 128, 256 new tokens, fp and int8 KV caches;
-5. ServingEngine: 8 slots, max_len 1024, 16 greedy requests.
+5. ServingEngine: 8 slots, max_len 1024, 16 greedy requests;
+6. train: ``make_train_step`` on the flagship, remat ``mlp_only``,
+   micro-batch 8 x seq 2048 with ``grad_accum`` 2 (the JAX package's
+   compute phase uses 16; cut for this script's time limit). One
+   grad_accum=1 step through the kernels against the same step through
+   plain attention (loss, grad norm and every leaf's gradient), and a
+   planted fault the gradient gate must reject; 6 steps through the
+   kernels with falling loss,
+   exact kernel launch counts and a second run from the same seed that
+   gives the same losses; step time, tokens/s, model FLOP share, peak
+   memory and a profiled step.
 
 Phases 4 and 5 check the tokens against the argmax of the port's own
 teacher-forced forward over prompt + output, check that repeated runs
@@ -35,6 +49,18 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "int8": 1979e12}
+# Training phase: micro-batch x seq, grad_accum (cut from 16), steps.
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_GA, TRAIN_STEPS = 8, 2048, 2, 6
+# A flash kernel's output passes against its plain version when every
+# element has |got - ref| <= FLASH_REL |ref| + FLASH_ROW rms_d(ref) +
+# FLASH_FLOOR rms(ref): rms_d over the head dim of the element's own
+# query row (out, dq) or key (dk, dv), rms over the whole tensor (see
+# phase_flash_kernels).
+FLASH_REL, FLASH_ROW, FLASH_FLOOR = 2e-2, 2e-2, 1e-3
+# The grad_accum=1 step through the kernels against the same step through
+# plain attention (see phase_train): relative loss and grad norm gaps,
+# and the largest per-leaf relative L2 distance of the clipped gradients.
+TRAIN_GATES = {"loss": 1e-4, "grad_norm": 2e-4, "grads": 5e-2}
 # Largest gap (logit units) allowed between the max teacher-forced logit
 # and the logit of the token the decode path chose: the forward and the
 # cached decode round to bf16 at different places (and int8 caches
@@ -82,7 +108,8 @@ def phase_build():
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "per_source_s": per_source,
           "ptxas": {s: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
+                        if "registers" in ln or "spill" in ln
+                        or "entry function" in ln]
                     for s, log in _ext.build_logs.items()}})
 
 
@@ -217,6 +244,196 @@ def phase_kernels():
     return results
 
 
+def _flash_bound(name, q, k, causal):
+    """Least time for one flash kernel's work: the larger of its bytes
+    (inputs read once, outputs written once) over the HBM rate and its
+    tensor-core flops over the bf16 peak. Causal work counts the
+    s(s+1)/2 visible (row, key) pairs; per pair and head dim a product
+    costs 2 flops: B1 runs QK^T and PV, dq runs QK^T, dO.V^T and dS.K,
+    dk/dv runs QK^T, dO.V^T, P^T.dO and dS^T.Q."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv
+    products = {"flash_forward": 2, "flash_backward_dq": 3,
+                "flash_backward_dkv": 4}[name]
+    flops = 2 * products * b * h * d * pairs
+    q_bytes, kv_bytes = q.numel() * 2, k.numel() * 2
+    stats = b * h * sq * 4
+    moved = {
+        "flash_forward": q_bytes + 2 * kv_bytes + q_bytes + stats,
+        "flash_backward_dq": 3 * q_bytes + 2 * kv_bytes + 2 * stats,
+        "flash_backward_dkv": 2 * q_bytes + 4 * kv_bytes + 2 * stats,
+    }[name]
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS_PER_S["bfloat16"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", moved, flops)
+
+
+def _sdpa_fwd_bwd(q, k, v, do, causal):
+    """One library forward call, and one library backward call (dq, dk
+    and dv together) on a graph built once, both on the same inputs;
+    only timed."""
+    import torch.nn.functional as F
+
+    h, kh = q.shape[2], k.shape[2]
+    leaves = [t.transpose(1, 2).detach().requires_grad_(True)
+              for t in (q, k, v)]
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, enable_gqa=h != kh
+        )
+
+    out = fwd()
+    return fwd, lambda: torch.autograd.grad(out, leaves, dot,
+                                            retain_graph=True)
+
+
+def _flash_ratio(got, want):
+    """Largest |got - want| / (FLASH_REL |want| + FLASH_ROW rms_d(want) +
+    FLASH_FLOOR rms(want)) over a ``[b, s, heads, d]`` tensor; at most 1
+    passes."""
+    want = want.float()
+    sq = want.square()
+    tol = (FLASH_REL * want.abs()
+           + FLASH_ROW * sq.mean(dim=-1, keepdim=True).sqrt()
+           + FLASH_FLOOR * sq.mean().sqrt())
+    return float(((got.float() - want).abs() / tol).max())
+
+
+def _planted_faults(q, k, v, do, lse, delta, causal):
+    """What kernels that skip their last 64-wide tile would return, from
+    the plain versions: B1 and B2's dq without the last kv tile (with
+    the full rows' lse and delta, as such a dq kernel would read them),
+    B2's dk/dv without the last q tile (its keys get no gradient)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    cut = 64 * ((q.shape[1] - 1) // 64)
+    out, _ = fa.flash_attention_reference(q, k[:, :cut], v[:, :cut], causal)
+    dq = fa._plain_backward(q, k[:, :cut], v[:, :cut], lse, do, delta,
+                            causal, None, want_dkv=False)[0]
+    _, dk, dv = fa._plain_backward(q[:, :cut], k, v, lse[..., :cut],
+                                   do[:, :cut], delta[..., :cut], causal,
+                                   None, want_dq=False)
+    return {"out": out, "dq": dq, "dk": dk, "dv": dv}
+
+
+def phase_flash_kernels():
+    """B1 and B2 against their plain versions, at the training shape and
+    three more. lse is f32 from the same f32 sums, within 1e-3. out, dq,
+    dk and dv are bf16 and pass elementwise (see _flash_ratio). The
+    kernel rounds P to bf16 from a running max and the plain version
+    from the final one, and both round dS to bf16 from dP sums in
+    another order, so a few P and dS elements round the other way: an
+    element's error scales with the size of its own row or key, not the
+    tensor's. That size spans decades under a causal mask: row i (key
+    j) spreads over ~i (s - j) terms, so early rows and keys are ~1 and
+    late ones ~1/sqrt(s). The bound follows it through the row's (key's)
+    rms over the head dim; the relative term covers large elements, and
+    the tensor-wide floor covers rows that are all rounding noise (dq of
+    row 0, where dP - delta cancels). A bound scaled to the largest
+    value would pass garbage in the late rows. Every shape also plants a
+    fault (kernels that skip their last tile, see _planted_faults) and
+    checks that the same bound rejects it."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    shapes = [  # label, b, s, h, kh, d, causal
+        ("train", TRAIN_MICRO, TRAIN_SEQ, 8, 8, 128, True),
+        ("gqa", 2, 2048, 32, 8, 128, True),
+        ("full", 2, 2048, 8, 8, 128, False),
+        ("ragged_1000", 2, 1000, 8, 8, 128, True),
+    ]
+    rows = {}
+    for label, b, s, h, kh, d, causal in shapes:
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(b, s, kh, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(b, s, kh, d, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        out, lse = fa.flash_forward(q, k, v, causal)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal)
+        out_err = (out.float() - ref_out.float()).abs()
+        lse_err = float((lse - ref_lse).abs().max())
+        check(lse_err <= 1e-3, f"flash_forward/{label}: lse err {lse_err}")
+        delta = fa.flash_backward_delta(do, ref_out)
+        dq = fa.flash_backward_dq(q, k, v, do, ref_lse, delta, causal)
+        dk, dv = fa.flash_backward_dkv(q, k, v, do, ref_lse, delta, causal)
+        torch.cuda.synchronize()
+        refs = dict(zip(("dq", "dk", "dv"), fa.flash_backward_reference(
+            q, k, v, ref_out, ref_lse, do, causal)))
+        refs["out"] = ref_out
+        got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+        ratio = {n: _flash_ratio(got[n], refs[n]) for n in got}
+        grad_err = {n: float((got[n].float() - refs[n].float()).abs().max())
+                    for n in ("dq", "dk", "dv")}
+        faults = _planted_faults(q, k, v, do, ref_lse, delta, causal)
+        fault_ratio = {n: _flash_ratio(faults[n], refs[n]) for n in got}
+        # The planted fault against a bound of 1e-2 max|ref|, for the
+        # gradients: how far a bound scaled to the largest value sees.
+        fault_vs_max = {
+            n: float((faults[n].float() - refs[n].float()).abs().max())
+            / (1e-2 * float(refs[n].float().abs().max()))
+            for n in ("dq", "dk", "dv")}
+        emit({"phase": "flash_bounds", "shape": label, "ratio": ratio,
+              "planted_fault_ratio": fault_ratio,
+              "planted_fault_vs_1e-2_max_ref": fault_vs_max})
+        for n in got:
+            check(ratio[n] <= 1.0, f"flash/{label}: {n} at {ratio[n]} of "
+                                   f"its bound")
+            check(fault_ratio[n] > 1.0,
+                  f"flash/{label}: the {n} bound passes a kernel that "
+                  f"skips its last tile ({fault_ratio[n]})")
+        del refs, ref_out, got, faults, dq, dk, dv
+        library_ms = {"sdpa forward": None,
+                      "sdpa backward (dq, dk, dv in one call)": None}
+        for lib_name, lib in zip(library_ms,
+                                 _sdpa_fwd_bwd(q, k, v, do, causal)):
+            library_ms[lib_name] = _time_ms(lib)
+        kernel_calls = {
+            "flash_forward": (
+                lambda: fa.flash_forward(q, k, v, causal),
+                lambda: fa.flash_attention_reference(q, k, v, causal),
+                "sdpa forward", float(out_err.max())),
+            "flash_backward_dq": (
+                lambda: fa.flash_backward_dq(q, k, v, do, ref_lse, delta,
+                                             causal),
+                lambda: fa._plain_backward(q, k, v, ref_lse, do, delta,
+                                           causal, None, want_dkv=False),
+                "sdpa backward (dq, dk, dv in one call)", grad_err["dq"]),
+            "flash_backward_dkv": (
+                lambda: fa.flash_backward_dkv(q, k, v, do, ref_lse, delta,
+                                              causal),
+                lambda: fa._plain_backward(q, k, v, ref_lse, do, delta,
+                                           causal, None, want_dq=False),
+                "sdpa backward (dq, dk, dv in one call)",
+                max(grad_err["dk"], grad_err["dv"])),
+        }
+        for name, (kernel, plain, lib_name, err) in kernel_calls.items():
+            ms = _time_ms(kernel)
+            plain_ms = _time_ms(plain, iters=5)
+            bound_ms, bound_by, moved, flops = _flash_bound(name, q, k,
+                                                            causal)
+            row = {
+                "phase": "kernel", "kernel": name, "shape": label, "b": b,
+                "s": s, "h": h, "kh": kh, "d": d, "causal": causal,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms[lib_name], "library": lib_name,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                "flops": flops, "bound_share": bound_ms / ms,
+                "tflops": flops / ms / 1e9,
+            }
+            if name == "flash_forward":
+                row["lse_max_abs_err"] = lse_err
+            emit(row)
+            rows[(name, label)] = row
+        del kernel_calls
+        torch.cuda.empty_cache()
+    return rows
+
+
 # ---- main path -----------------------------------------------------------
 
 
@@ -259,17 +476,17 @@ def _device_profile(fn):
     return wall, device
 
 
-def _profile_row(label, wall, device):
+def _profile_row(label, wall, device, kernel="decode_attention",
+                 match="decode_attention_kernel", top_n=6):
     total = sum(ms for _, ms in device.values())
-    attn = sum(ms for name, (_, ms) in device.items()
-               if "decode_attention_kernel" in name)
-    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:6]
+    attn = sum(ms for name, (_, ms) in device.items() if match in name)
+    top = sorted(device.items(), key=lambda kv: -kv[1][1])[:top_n]
     return {
         "phase": "profile", "run": label, "wall_ms": wall * 1e3,
         "device_ms": total,
         "device_busy_share": total / (wall * 1e3) if total else None,
-        "decode_attention_ms": attn,
-        "decode_attention_share_of_device": attn / total if total else None,
+        f"{kernel}_ms": attn,
+        f"{kernel}_share_of_device": attn / total if total else None,
         "top_device": [[name[:60], n, ms] for name, (n, ms) in top],
     }
 
@@ -383,6 +600,182 @@ def phase_engine(cfg, params):
     return row
 
 
+def _leaf_names(tree, prefix=""):
+    """Names of ``train_step.param_leaves(tree)``, in its order."""
+    names = []
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            names += _leaf_names(tree[key], f"{prefix}{key}.")
+        else:
+            names.append(prefix + key)
+    return names
+
+
+def _train_state(cfg, tc):
+    """Fresh f32 master params from the seed, and their optimizer."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    params = llama.init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED), device="cuda"
+    )
+    opt = ts.make_optimizer(tc)
+    return opt, ts.init_train_state(cfg, opt, params)
+
+
+def phase_train(cfg):
+    """The training main path: ``make_train_step`` -> ``loss_fn`` ->
+    ``forward`` -> ``run_layer_stack`` with the flash kernels, on a
+    fixed batch from seed 1. Returns the flash kernels' launch counts
+    over the 6-step run."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops.attention import dot_product_attention
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    rs = np.random.RandomState(SEED + 1)
+    tokens = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (TRAIN_GA * TRAIN_MICRO, TRAIN_SEQ + 1)
+    ).astype(np.int32)).cuda()
+
+    # Check one: a grad_accum=1 step through plain attention, through the
+    # kernels, and through two planted faults (the kernels given all but
+    # the last 64 keys, or only the first half of them: B1 and B2
+    # skipping their last kv tile, or stopping halfway), from the same
+    # params. The lr is 0 at the first update, so the step leaves the
+    # params alone and Adam's first moment holds 0.1 x the clipped
+    # gradients: each leaf's relative L2 distance to the plain step's
+    # shows where the gradients part. All run bf16 matmuls, and the
+    # kernels round P and their outputs at other places than plain
+    # attention, so the gradients part by bf16 noise (a few percent) even
+    # with sound kernels; the gates sit above that, and only the larger
+    # fault is required to fail them.
+    tc1 = ts.TrainConfig(warmup_steps=2, grad_accum=1)
+
+    def keys_cut(cut):
+        def attention_fn(q, k, v, causal=True, **_):
+            return fa.flash_attention(q, k[:, :cut], v[:, :cut], causal)
+        return lambda p, b: llama.loss_fn(cfg, p, b,
+                                          attention_fn=attention_fn)
+
+    variants = {
+        "plain": lambda p, b: llama.loss_fn(
+            cfg, p, b, attention_fn=dot_product_attention),
+        "kernel": None,
+        "fault_last_tile": keys_cut(64 * ((TRAIN_SEQ - 1) // 64)),
+        "fault_half": keys_cut(TRAIN_SEQ // 2),
+    }
+    one, plain_moments = {}, None
+    for label, loss_fn in variants.items():
+        opt, state = _train_state(cfg, tc1)
+        step = ts.make_train_step(cfg, tc1, opt, device="cuda",
+                                  loss_fn=loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        state, m = step(state, {"tokens": tokens[:TRAIN_MICRO]})
+        # Peak memory of the step alone: the plain step's moments, kept
+        # for the comparison, are not counted.
+        held = sum(t.numel() * 4 for t in plain_moments or ())
+        row = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "step_s": time.monotonic() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated() - held}
+        moments = [state["opt_state"].state[p]["exp_avg"]
+                   for p in ts.param_leaves(state["params"])]
+        if plain_moments is None:
+            plain_moments = moments
+        else:
+            ref = one["plain"]
+            row["loss_rel"] = abs(row["loss"] - ref["loss"]) / ref["loss"]
+            row["grad_norm_rel"] = abs(
+                row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            dist = [float((a - b).norm() / b.norm())
+                    for a, b in zip(moments, plain_moments)]
+            row["grads_rel_l2"] = dict(zip(_leaf_names(state["params"]),
+                                           dist))
+            row["grads"] = max(dist)
+        one[label] = row
+        del opt, state, step, m, moments
+        torch.cuda.empty_cache()
+    del plain_moments
+    emit({"phase": "train_vs_plain", "micro_batch": TRAIN_MICRO,
+          "seq": TRAIN_SEQ, "gates": TRAIN_GATES, **one})
+    gate_keys = {"loss": "loss_rel", "grad_norm": "grad_norm_rel",
+                 "grads": "grads"}
+    for gate, key in gate_keys.items():
+        check(one["kernel"][key] <= TRAIN_GATES[gate],
+              f"train: kernel vs plain {key} {one['kernel'][key]} > "
+              f"{TRAIN_GATES[gate]}")
+    for gate, key in (("grads", "grads"), ("grad_norm", "grad_norm_rel")):
+        check(one["fault_half"][key] > TRAIN_GATES[gate],
+              f"train: the {gate} gate passes a planted fault "
+              f"({one['fault_half'][key]})")
+
+    # Check two: TRAIN_STEPS steps through the kernels, twice from the
+    # same seed.
+    tc = ts.TrainConfig(warmup_steps=2, grad_accum=TRAIN_GA)
+    runs = []
+    for run in range(2):
+        opt, state = _train_state(cfg, tc)
+        step = ts.make_train_step(cfg, tc, opt, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        losses, norms, times = [], [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.monotonic()
+            state, m = step(state, {"tokens": tokens})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        launches = dict(fa.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        runs.append((losses, norms, times, launches, peak))
+        if run == 0:
+            # Where a step's time goes (profiling adds host time per op,
+            # so the busy share is a lower bound).
+            wall, device = _device_profile(
+                lambda: float(step(state, {"tokens": tokens})[1]["loss"]))
+            emit(_profile_row("train/step", wall, device, kernel="flash",
+                              match="flash_", top_n=10))
+        del opt, state, step
+        torch.cuda.empty_cache()
+
+    losses, norms, times, launches, peak = runs[0]
+    step_s = float(np.mean(times[1:]))
+    tokens_per_step = TRAIN_GA * TRAIN_MICRO * TRAIN_SEQ
+    flops_per_token = (cfg.flops_per_token()
+                       + cfg.attention_flops_per_token(TRAIN_SEQ))
+    rerun_rel = max(abs(a - b) / abs(b) for a, b in zip(runs[1][0], losses))
+    row = {
+        "phase": "train", "remat_policy": cfg.remat_policy,
+        "micro_batch": TRAIN_MICRO, "seq": TRAIN_SEQ,
+        "grad_accum": TRAIN_GA, "grad_accum_reduced_from": 16,
+        "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+        "step_s": times, "step_s_mean_after_first": step_s,
+        "tokens_per_s": tokens_per_step / step_s,
+        "model_flops_per_token": flops_per_token,
+        "model_tflops_per_s": flops_per_token * tokens_per_step / step_s
+        / 1e12,
+        "model_flops_share_of_peak": flops_per_token * tokens_per_step
+        / step_s / PEAK_OPS_PER_S["bfloat16"],
+        "peak_memory_gib": peak / 2**30, "launches": launches,
+        "rerun_losses": runs[1][0], "rerun_max_rel_diff": rerun_rel,
+        "rerun_bitwise_equal": runs[1][0] == losses,
+    }
+    emit(row)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train: non-finite loss or grad norm {losses} {norms}")
+    check(losses[-1] < losses[0], f"train: loss did not fall {losses}")
+    want = cfg.n_layers * TRAIN_STEPS * TRAIN_GA
+    for name, n in launches.items():
+        check(n == want, f"train: {name} launched {n} times, want {want}")
+    check(rerun_rel <= 1e-6, f"train: a second run gave {runs[1][0]}, "
+                             f"the first {losses}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -397,6 +790,7 @@ def main():
     smi = phase_device()
     phase_build()
     kernel_rows = phase_kernels()
+    flash_rows = phase_flash_kernels()
 
     cfg = flagship_config()
     params = llama.init_params(
@@ -423,20 +817,34 @@ def main():
         check(got == want, f"generate/{kv}: {got} launches, want {want}")
     check(eng_launches["decode_attention_fp"] >= cfg.n_layers,
           "engine: the decode kernel never launched")
+
+    del params
+    torch.cuda.empty_cache()
+    launches.update(phase_train(cfg))
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 
     replaces = {
         "decode_attention_fp": "dlrover_tpu/ops/decode_attention.py:234",
         "decode_attention_int8": "dlrover_tpu/ops/decode_attention.py:244",
+        "flash_forward": "dlrover_tpu/ops/pallas_attention.py:53",
+        "flash_backward_dq": "dlrover_tpu/ops/pallas_attention.py:242",
+        "flash_backward_dkv": "dlrover_tpu/ops/pallas_attention.py:301",
     }
+    sources = {
+        "decode_attention": "dlrover_tpu_torch/ops/csrc/decode_attention.cu",
+        "flash": "dlrover_tpu_torch/ops/csrc/flash_attention.cu",
+    }
+    rows = [(name, kernel_rows[("main_path", kv)], sources["decode_attention"])
+            for name, kv in (("decode_attention_fp", "fp"),
+                             ("decode_attention_int8", "int8"))]
+    rows += [(name, flash_rows[(name, "train")], sources["flash"])
+             for name in ("flash_forward", "flash_backward_dq",
+                          "flash_backward_dkv")]
     kernels = []
-    for name, kv in (("decode_attention_fp", "fp"),
-                     ("decode_attention_int8", "int8")):
-        row = kernel_rows[("main_path", kv)]
+    for name, row, source in rows:
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "dlrover_tpu_torch/ops/csrc/decode_attention.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor anything of the
-JAX package. Checked in a fresh interpreter (this test process has JAX
-loaded by ``tests/conftest.py``) and by a scan of every import statement
-in the port's sources and in ``chip_smoke.py``."""
+JAX package. Checked in a fresh interpreter that serves and takes a
+training step on the CPU (this test process has JAX loaded by
+``tests/conftest.py``) and by a scan of every import statement in the
+port's sources and in ``chip_smoke.py``."""
 
 import ast
 import json
@@ -34,8 +35,15 @@ eng = ServingEngine(cfg, params, slots=1, max_len=16, prefill_chunk=8,
                     device="cpu")
 req = eng.submit(np.arange(4), 2)
 eng.run_until_idle()
+from dlrover_tpu_torch.trainer import train_step as ts
+tc = ts.TrainConfig(grad_accum=2)
+opt = ts.make_optimizer(tc)
+state = ts.init_train_state(cfg, opt, params)
+state, m = ts.make_train_step(cfg, tc, opt, device="cpu")(
+    state, {"tokens": np.zeros((4, 9), np.int32)})
 print(json.dumps({
     "tokens": out.tokens.shape[1] + len(req.tokens),
+    "train_step": state["step"], "loss": float(m["loss"]),
     "leaked": sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -54,6 +62,7 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["tokens"] == 5
+    assert result["train_step"] == 1 and result["loss"] > 0
     assert result["leaked"] == []
 
 

@@ -7,7 +7,10 @@ JAX, run them with the repository conftest left out:
 
 Tolerances: bf16 outputs within 1e-2 + 1e-2 * |ref| (the kernel and the
 plain version round the same f32 result to bf16, from sums taken in
-another order); f32 outputs within 2e-5."""
+another order); f32 outputs within 2e-5. Flash attention: lse (f32)
+within 1e-3; gradients within 1e-2 * max|ref| + 1e-6 (dS is rounded to bf16
+before the dq/dk products in both, from dP sums taken in another order,
+so a few elements round the other way)."""
 
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 from dlrover_tpu_torch.models import generate as gen
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops import decode_attention as da
+from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops.kv_quant import quantize_kv
 from dlrover_tpu_torch.serving import ServingEngine
 
@@ -121,3 +125,194 @@ def test_engine_on_card_matches_cpu(cuda):
         return [r.tokens for r in reqs]
 
     assert serve(cuda) == serve("cpu")
+
+
+def _flash_inputs(device, b, sq, skv, h, kh, d, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    q = torch.randn(b, sq, h, d, generator=g, device=device).bfloat16()
+    k = torch.randn(b, skv, kh, d, generator=g, device=device).bfloat16()
+    v = torch.randn(b, skv, kh, d, generator=g, device=device).bfloat16()
+    do = torch.randn(b, sq, h, d, generator=g, device=device).bfloat16()
+    return q, k, v, do
+
+
+def _flash_ratio(got, want):
+    """Largest |got - want| / (2e-2 |want| + 2e-2 rms_d(want) + 1e-3
+    rms(want) + 1e-6) over a ``[b, s, heads, d]`` tensor: the
+    elementwise bound chip_smoke.py holds the flash kernels to at full
+    size, with rms_d over the head dim of the element's own query row or
+    key (a row's rounding errors scale with its own size, which spans
+    decades under a causal mask). The 1e-6 floor covers all-zero
+    references (one key per row: dP equals delta up to f32 rounding, so
+    dq is ~1e-8 rather than 0)."""
+    want = want.float()
+    sq = want.square()
+    tol = (2e-2 * want.abs() + 2e-2 * sq.mean(dim=-1, keepdim=True).sqrt()
+           + 1e-3 * sq.mean().sqrt() + 1e-6)
+    return float(((got.float() - want).abs() / tol).max())
+
+
+def _assert_flash_close(got, want, name):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    ratio = _flash_ratio(got, want)
+    assert ratio <= 1.0, f"{name}: at {ratio} of its bound"
+
+
+def _skip_last_tile(q, k, v, do, lse, delta, causal):
+    """What kernels that skip their last 64-wide tile would return: out
+    and dq without the last kv tile, dk/dv without the last q tile
+    (sq == skv)."""
+    cut = 64 * ((q.shape[1] - 1) // 64)
+    out, _ = fa.flash_attention_reference(q, k[:, :cut], v[:, :cut], causal)
+    dq = fa._plain_backward(q, k[:, :cut], v[:, :cut], lse, do, delta,
+                            causal, None, want_dkv=False)[0]
+    _, dk, dv = fa._plain_backward(q[:, :cut], k, v, lse[..., :cut],
+                                   do[:, :cut], delta[..., :cut], causal,
+                                   None, want_dq=False)
+    return out, dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,h,kh,d", [
+    (2, 128, 128, 4, 4, 64),
+    (2, 200, 200, 8, 2, 128),    # GQA, ragged tail
+    (1, 72, 72, 4, 2, 16),       # d below the 64-wide instantiation
+    (2, 130, 130, 4, 4, 128),
+    (1, 100, 192, 4, 1, 32),     # sq != skv
+    (1, 1, 1, 2, 1, 128),
+])
+def test_flash_kernels_match_plain_versions(cuda, causal, b, sq, skv, h, kh,
+                                            d):
+    q, k, v, do = _flash_inputs(cuda, b, sq, skv, h, kh, d, sq * 31 + h)
+    before = dict(fa.launch_counts)
+    out, lse = fa.flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal)
+    _assert_flash_close(out, want_out, "out")
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    delta = fa.flash_backward_delta(do, want_out)
+    dq = fa.flash_backward_dq(q, k, v, do, want_lse, delta, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, want_lse, delta, causal)
+    torch.cuda.synchronize()
+    ref = (want_out,) + fa.flash_backward_reference(q, k, v, want_out,
+                                                    want_lse, do, causal)
+    names = ("out", "dq", "dk", "dv")
+    for name, got, want in zip(names[1:], (dq, dk, dv), ref[1:]):
+        _assert_flash_close(got, want, name)
+    for name in fa.launch_counts:
+        assert fa.launch_counts[name] == before[name] + 1
+    if sq == skv and sq > 64:
+        # The same bound rejects kernels that skip their last tile.
+        faults = _skip_last_tile(q, k, v, do, want_lse, delta, causal)
+        for name, fault, want in zip(names, faults, ref):
+            assert _flash_ratio(fault, want) > 1.0, name
+
+
+def test_flash_reads_strided_inputs(cuda):
+    """q/k/v as views into one packed [b, s, 3, h, d] tensor (no copy)
+    give what their contiguous copies give, bit for bit."""
+    g = torch.Generator(cuda).manual_seed(5)
+    qkv = torch.randn(2, 96, 3, 4, 64, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv.unbind(dim=2)
+    assert not q.is_contiguous()
+    a_out, a_lse = fa.flash_forward(q, k, v)
+    b_out, b_lse = fa.flash_forward(q.contiguous(), k.contiguous(),
+                                    v.contiguous())
+    torch.testing.assert_close(a_out, b_out, rtol=0, atol=0)
+    torch.testing.assert_close(a_lse, b_lse, rtol=0, atol=0)
+
+
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    q, k, v, do = _flash_inputs("cpu", 2, 80, 80, 4, 2, 64, 11)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_(True)
+                  for t in (q, k, v)]
+        out = fa.flash_attention(*leaves)
+        out.backward(do.to(dev))
+        grads[str(dev)] = [out.detach().cpu()] + [
+            t.grad.cpu() for t in leaves
+        ]
+    cpu, card = grads["cpu"], grads[str(cuda)]
+    for name, got, want in zip(("out", "dq", "dk", "dv"), card, cpu):
+        _assert_flash_close(got, want, name)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_forward(q, q, q)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(qb[..., :24], qb[..., :24], qb[..., :24])
+    with pytest.raises(ValueError, match="kv_heads"):
+        fa.flash_forward(torch.zeros(1, 8, 3, 64, device=cuda).bfloat16(),
+                         qb, qb)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two steps of the bf16 tiny config: the card (flash kernels) and
+    the CPU (plain attention) give losses within bf16 noise."""
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    cfg = llama.tiny_config(n_layers=2, dtype="bfloat16", head_dim=64,
+                            n_heads=4, n_kv_heads=2)
+    tc = ts.TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    tokens = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (2, 65)).astype(np.int32)
+    )
+    losses = {}
+    for dev in ("cpu", cuda):
+        params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+        params = {k: (v.to(dev) if torch.is_tensor(v) else
+                      {n: w.to(dev) for n, w in v.items()})
+                  for k, v in params.items()}
+        opt = ts.make_optimizer(tc)
+        state = ts.init_train_state(cfg, opt, params)
+        step = ts.make_train_step(cfg, tc, opt, device=dev)
+        out = []
+        for _ in range(2):
+            state, m = step(state, {"tokens": tokens.to(dev)})
+            out.append(float(m["loss"]))
+        losses[str(dev)] = out
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=2e-2)
+
+
+def test_remat_policies_on_card(cuda):
+    """Through the kernels, every remat policy gives the gradients of
+    no remat (recompute runs the same kernels on the same inputs), and
+    the forward kernel runs once per layer under mlp_only (the flash op
+    stays outside checkpointing) and twice under dots/full."""
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    tokens = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 256, (2, 97)).astype(np.int32)
+    ).to(cuda)
+    grads = {}
+    for policy, remat in (("none", False), ("mlp_only", True),
+                          ("attn_save", True), ("dots", True),
+                          ("full", True)):
+        cfg = llama.tiny_config(
+            n_layers=2, dtype="bfloat16", head_dim=64, n_heads=4,
+            n_kv_heads=2, remat=remat,
+            remat_policy="mlp_only" if policy == "none" else policy)
+        params = llama.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                                   device=cuda)
+        leaves = ts.param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        fa.reset_launch_counts()
+        loss, _ = llama.loss_fn(cfg, params, {"tokens": tokens})
+        grads[policy] = torch.autograd.grad(loss, leaves)
+        forwards = 2 * cfg.n_layers if policy in ("dots", "full") else (
+            cfg.n_layers)
+        assert fa.launch_counts == {
+            "flash_forward": forwards,
+            "flash_backward_dq": cfg.n_layers,
+            "flash_backward_dkv": cfg.n_layers,
+        }, policy
+    for policy, got in grads.items():
+        for g, r in zip(got, grads["none"]):
+            torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-5,
+                                       msg=policy)
