@@ -29,7 +29,20 @@ phases that each print JSON lines:
    kernels with falling loss,
    exact kernel launch counts and a second run from the same seed that
    gives the same losses; step time, tokens/s, model FLOP share, peak
-   memory and a profiled step.
+   memory and a profiled step;
+7. fused CE kernels: B3 (forward) and B4 (dx, dw) against their plain
+   versions at the CE A/B shape (n=16384, d=1024, V=32000, bf16), a
+   ragged one (n=4100, V=32003) and a masked one (30% of the rows with
+   weight 0), elementwise, each with a planted fault the same bounds must
+   reject; times, bounds and the dense route's time;
+8. CE A/B (the JAX package's ``bench.py`` ``ce_ab_phase``): loss, dx and
+   dw at n=16384, d=1024, V=32000 through the dense logits, the chunked
+   fused CE and the B3/B4 kernels: ms and peak memory of each;
+9. train through the fused CE: one grad_accum=1 flagship step each
+   through the dense CE, the chunked fused CE (``DLROVER_TPU_FUSED_CE=on``)
+   and a ``loss_fn`` that reaches B3/B4, held against the dense step
+   with a planted fault the gates must reject; then 3 steps through
+   B3/B4 with falling loss, exact launch counts and a bitwise rerun.
 
 Phases 4 and 5 check the tokens against the argmax of the port's own
 teacher-forced forward over prompt + output, check that repeated runs
@@ -39,6 +52,7 @@ line, which is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -67,6 +81,19 @@ TRAIN_GATES = {"loss": 1e-4, "grad_norm": 2e-4, "grads": 5e-2}
 # quantize K/V), so near-ties may break either way; a wrong token from
 # a broken kernel lands far below the max.
 ARGMAX_GAP = {"fp": 0.25, "int8": 0.5}
+# Fused CE (B3, B4). The CE A/B shape (bench.py ce_ab_phase) and z-loss.
+CE_N, CE_D, CE_V, CE_Z = 16384, 1024, 32000, 1e-4
+# B3's per_tok and logz pass within CE_STAT_REL |ref| of the plain
+# version (f32 sums of the same bf16 products in another order). B4's dx
+# and dw pass elementwise within CE_REL |ref| + CE_ROW rms_d(ref) +
+# CE_FLOOR rms(ref), rms_d over d of the element's row (dx) or vocab
+# column (dw), as the flash bound (see phase_ce_kernels).
+CE_STAT_REL = 1e-5
+CE_REL, CE_ROW, CE_FLOOR = 2e-2, 2e-2, 1e-3
+# A grad_accum=1 step through a fused CE route against the same step
+# through the dense CE (see phase_train_ce): as TRAIN_GATES.
+CE_TRAIN_GATES = {"loss": 1e-4, "grad_norm": 2e-4, "grads": 5e-2}
+CE_TRAIN_STEPS = 3
 
 
 def emit(obj):
@@ -776,6 +803,441 @@ def phase_train(cfg):
     return launches
 
 
+# ---- fused cross-entropy ---------------------------------------------------
+
+
+def _ce_inputs(n, d, v, gen, masked=False):
+    """bf16 x [n, d] and w [d, V] scaled as bench.py's CE A/B (w ~
+    N(0, 1) / 32), int32 targets with row 0's in the last vocab column
+    (every kernel's last tile holds a target), and token-mean weights,
+    30% of them zero when ``masked`` (row 0 kept)."""
+    x = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(d, v, generator=gen, device="cuda") / 32).bfloat16()
+    tgt = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    tgt[0] = v - 1
+    keep = torch.ones(n, device="cuda")
+    if masked:
+        keep = (torch.rand(n, generator=gen, device="cuda") >= 0.3).float()
+        keep[0] = 1.0
+    return x, w, tgt, keep / keep.sum()
+
+
+def _ce_ratio(got, want, dim):
+    """Largest |got - want| / (CE_REL |want| + CE_ROW rms_d(want) +
+    CE_FLOOR rms(want)), rms_d over ``dim`` (d); at most 1 passes."""
+    want = want.float()
+    sq = want.square()
+    tol = (CE_REL * want.abs()
+           + CE_ROW * sq.mean(dim=dim, keepdim=True).sqrt()
+           + CE_FLOOR * sq.mean().sqrt()) + 1e-30
+    return float(((got.float() - want).abs() / tol).max())
+
+
+def _stat_ratio(got, want):
+    return float(((got - want).abs() / (CE_STAT_REL * want.abs())).max())
+
+
+def _ce_bound(name, n, d, v, active_rows):
+    """Least time for one fused-CE kernel's work: its bytes (x, w, the
+    row inputs and the outputs, each once) over the HBM rate, against 2 n
+    d V flops per logits-sized product over the bf16 peak. B3 runs one
+    product over every row; dx and dw run two (the logits again, then g
+    @ w^T or x^T @ g) over the rows with a nonzero weight (the others
+    give zeros)."""
+    inputs = n * d * 2 + d * v * 2 + n * 4
+    moved, flops = {
+        "fused_ce_forward": (inputs + 2 * n * 4, 2 * n * d * v),
+        "fused_ce_backward_dx": (inputs + 3 * n * 4 + n * d * 2,
+                                 4 * active_rows * d * v),
+        "fused_ce_backward_dw": (inputs + 3 * n * 4 + d * v * 4,
+                                 4 * active_rows * d * v),
+    }[name]
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS_PER_S["bfloat16"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", moved, flops)
+
+
+def _dense_ce_calls(x, w, tgt, coef_a, coef_b):
+    """The dense route's calls at B3's and B4's shape (no single PyTorch
+    call computes either), only timed: B3 <- the cuBLAS logits product
+    (bf16 in, f32 out) then logsumexp and the target gather; dx <-
+    softmax-grad from stored f32 logits, rounded to bf16, then g @ w^T;
+    dw <- the same softmax-grad, then x^T @ g (f32 out)."""
+    from dlrover_tpu_torch.ops.fused_ce import _mm_f32
+
+    rows = torch.arange(x.shape[0], device=x.device)
+    tl = tgt.long()
+    logits = _mm_f32(x, w)
+
+    def forward():
+        lg = _mm_f32(x, w)
+        return torch.logsumexp(lg, dim=-1), lg[rows, tl]
+
+    def grad():
+        g = torch.softmax(logits, dim=-1).mul_(coef_a[:, None])
+        g[rows, tl] -= coef_b
+        return g.bfloat16()
+
+    return {
+        "fused_ce_forward": forward,
+        "fused_ce_backward_dx": lambda: grad() @ w.t(),
+        "fused_ce_backward_dw": lambda: _mm_f32(x.t(), grad()),
+    }
+
+
+def phase_ce_kernels():
+    """B3 and B4 against their plain versions (the vocab-scan loops of
+    ``ops/fused_ce``) on the same inputs, at the CE A/B shape, a ragged
+    one and a masked one. B4 gets the plain forward's logz and the
+    coefficients of a token-mean loss: a = wgt (1 + 2 z logz), b = wgt.
+    per_tok and logz pass within CE_STAT_REL; dx (bf16 on both sides:
+    an element may round one bf16 ulp the other way) and dw pass
+    elementwise (see _ce_ratio). Each shape also plants a fault and
+    checks that the same bounds reject it: B3 and dx without their last
+    vocab tile (128 and 64 columns), dw without its last 64-row tile;
+    row 0's target sits in the last vocab column."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+    shapes = [  # label, n, d, V, masked
+        ("ce_ab", CE_N, CE_D, CE_V, False),
+        ("ragged", 4100, CE_D, 32003, False),
+        ("masked", CE_N, CE_D, CE_V, True),
+    ]
+    rows = {}
+    for label, n, d, v, masked in shapes:
+        x, w, tgt, wgt = _ce_inputs(n, d, v, gen, masked)
+        per_tok, logz = fc.fused_ce_forward(x, w, tgt, CE_Z)
+        torch.cuda.synchronize()
+        ref_pt, ref_logz = fc._xla_forward(x, w, tgt, CE_Z)
+        a = wgt * (1.0 + 2.0 * CE_Z * ref_logz)
+        b = wgt
+        dx = fc.fused_ce_backward_dx(x, w, tgt, ref_logz, a, b)
+        dw = fc.fused_ce_backward_dw(x, w, tgt, ref_logz, a, b)
+        torch.cuda.synchronize()
+        ref_dx, ref_dw = fc._xla_backward(x, w, tgt, ref_logz, a, b)
+        ref_dx = ref_dx.bfloat16()
+        ratio = {"per_tok": _stat_ratio(per_tok, ref_pt),
+                 "logz": _stat_ratio(logz, ref_logz),
+                 "dx": _ce_ratio(dx, ref_dx, -1),
+                 "dw": _ce_ratio(dw, ref_dw, 0)}
+        err = {"fused_ce_forward": max(float((per_tok - ref_pt).abs().max()),
+                                       float((logz - ref_logz).abs().max())),
+               "fused_ce_backward_dx": float(
+                   (dx.float() - ref_dx.float()).abs().max()),
+               "fused_ce_backward_dw": float((dw - ref_dw).abs().max())}
+        del dx, dw
+        f_pt, f_logz = fc._xla_forward(x, w[:, :128 * ((v - 1) // 128)],
+                                       tgt, CE_Z)
+        f_dx, _ = fc._xla_backward(x, w[:, :64 * ((v - 1) // 64)], tgt,
+                                   ref_logz, a, b, want_dw=False)
+        cut = 64 * ((n - 1) // 64)
+        _, f_dw = fc._xla_backward(x[:cut], w, tgt[:cut], ref_logz[:cut],
+                                   a[:cut], b[:cut], want_dx=False)
+        fault = {"per_tok": _stat_ratio(f_pt, ref_pt),
+                 "logz": _stat_ratio(f_logz, ref_logz),
+                 "dx": _ce_ratio(f_dx.bfloat16(), ref_dx, -1),
+                 "dw": _ce_ratio(f_dw, ref_dw, 0)}
+        del f_pt, f_logz, f_dx, f_dw, ref_dx, ref_dw
+        emit({"phase": "ce_bounds", "shape": label, "ratio": ratio,
+              "planted_fault_ratio": fault})
+        for out in ratio:
+            check(ratio[out] <= 1.0,
+                  f"fused_ce/{label}: {out} at {ratio[out]} of its bound")
+        # Each kernel's fault must fail its outputs' bounds (B3's last
+        # tile may hold only a few columns: row 0's per_tok loses its
+        # target logit, while logz moves by their small share).
+        for kernel, outs in (("B3", ("per_tok", "logz")), ("dx", ("dx",)),
+                             ("dw", ("dw",))):
+            worst = max(fault[o] for o in outs)
+            check(worst > 1.0,
+                  f"fused_ce/{label}: the {kernel} bounds pass a kernel "
+                  f"that skips its last tile ({worst})")
+
+        active = int((wgt > 0).sum())
+        library = _dense_ce_calls(x, w, tgt, a, b)
+        calls = {
+            "fused_ce_forward": (
+                lambda: fc.fused_ce_forward(x, w, tgt, CE_Z),
+                lambda: fc._xla_forward(x, w, tgt, CE_Z)),
+            "fused_ce_backward_dx": (
+                lambda: fc.fused_ce_backward_dx(x, w, tgt, ref_logz, a, b),
+                lambda: fc._xla_backward(x, w, tgt, ref_logz, a, b,
+                                         want_dw=False)),
+            "fused_ce_backward_dw": (
+                lambda: fc.fused_ce_backward_dw(x, w, tgt, ref_logz, a, b),
+                lambda: fc._xla_backward(x, w, tgt, ref_logz, a, b,
+                                         want_dx=False)),
+        }
+        for name, (kernel, plain) in calls.items():
+            ms = _time_ms(kernel, iters=10)
+            plain_ms = _time_ms(plain, iters=3)
+            library_ms = _time_ms(library[name], iters=5)
+            bound_ms, bound_by, moved, flops = _ce_bound(name, n, d, v,
+                                                         active)
+            row = {
+                "phase": "kernel", "kernel": name, "shape": label, "n": n,
+                "d": d, "v": v, "active_rows": active,
+                "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "library": "dense route, two calls: " + {
+                    "fused_ce_forward": "cuBLAS logits, logsumexp+gather",
+                    "fused_ce_backward_dx": "softmax-grad, g @ w^T",
+                    "fused_ce_backward_dw": "softmax-grad, x^T @ g",
+                }[name],
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                "flops": flops, "bound_share": bound_ms / ms,
+                "tflops": flops / ms / 1e9,
+            }
+            emit(row)
+            rows[(name, label)] = row
+        del library, calls, x, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ce_ab():
+    """bench.py's ce_ab_phase on the card: loss, dx and dw (fwd+bwd) at
+    n=16384, d=1024, V=32000 (bf16 x and w, token-mean) through the dense
+    logits (the port's dense CE: a bf16 product cast to f32, then
+    ``cross_entropy``), the chunked fused CE and the B3/B4 kernels; ms
+    (CUDA events, cold L2) and peak memory above the inputs, and the
+    [n, V] logits GEMM alone with an f32 and a bf16 output. The routes
+    must agree: chunked vs kernels within 1e-5 on the loss and the B4
+    bounds on dx and dw; dense (bf16 logits) within 1e-3 on the loss."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    x, w, tgt, _ = _ce_inputs(CE_N, CE_D, CE_V, gen)
+    routes = {
+        "dense": lambda xl, wl: llama.cross_entropy((xl @ wl).float(), tgt),
+        "chunked": lambda xl, wl: fc.fused_cross_entropy(
+            xl, wl, tgt, impl="chunked"),
+        "pallas": lambda xl, wl: fc.fused_cross_entropy(
+            xl, wl, tgt, impl="pallas"),
+    }
+
+    def fwd_bwd(route):
+        xl = x.detach().requires_grad_(True)
+        wl = w.detach().requires_grad_(True)
+        loss = routes[route](xl, wl)
+        return (loss.detach(),) + torch.autograd.grad(loss, [xl, wl])
+
+    out, ms, peak = {}, {}, {}
+    for route in routes:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out[route] = fwd_bwd(route)
+        torch.cuda.synchronize()
+        peak[route] = torch.cuda.max_memory_allocated() - base
+        ms[route] = _time_ms(lambda: fwd_bwd(route), iters=5)
+    # The chunked route's logits product alone: bf16 operands with an f32
+    # output (what the port runs), beside the same GEMM with a bf16 output.
+    logits_gemm_ms = {
+        "bf16_in_f32_out": _time_ms(lambda: fc._mm_f32(x, w), iters=10),
+        "bf16_out": _time_ms(lambda: x @ w, iters=10),
+    }
+    loss = {r: float(o[0]) for r, o in out.items()}
+    ref = out["pallas"]
+    agree = {
+        "chunked_vs_pallas_loss_rel": abs(loss["chunked"] - loss["pallas"])
+        / loss["pallas"],
+        "dense_vs_pallas_loss_rel": abs(loss["dense"] - loss["pallas"])
+        / loss["pallas"],
+        "chunked_vs_pallas_dx_ratio": _ce_ratio(out["chunked"][1], ref[1],
+                                                -1),
+        "chunked_vs_pallas_dw_ratio": _ce_ratio(out["chunked"][2], ref[2],
+                                                0),
+    }
+    row = {
+        "phase": "ce_ab", "n": CE_N, "d": CE_D, "v": CE_V,
+        "ce_auto_path": ("dense" if fc.auto_prefers_dense(CE_N, CE_V)
+                         else "fused"),
+        "ce_auto_crossover_nv": fc.AUTO_FUSED_MIN_NV,
+        "ce_dense_ms": ms["dense"], "ce_fused_chunked_ms": ms["chunked"],
+        "ce_fused_pallas_ms": ms["pallas"],
+        "ce_fused_chunked_vs_dense": ms["chunked"] / ms["dense"],
+        "ce_fused_pallas_vs_dense": ms["pallas"] / ms["dense"],
+        "ce_auto_pin_consistent": int(
+            (ms["chunked"] / ms["dense"] >= 1.0)
+            == fc.auto_prefers_dense(CE_N, CE_V)),
+        "peak_bytes": peak, "loss": loss, "logits_gemm_ms": logits_gemm_ms,
+        "ce_fused_logits_bytes_saved_mb": CE_N * CE_V * 4 / 1e6,
+        **agree,
+    }
+    emit(row)
+    check(agree["chunked_vs_pallas_loss_rel"] <= 1e-5,
+          f"ce_ab: chunked vs kernels loss {agree}")
+    check(agree["dense_vs_pallas_loss_rel"] <= 1e-3,
+          f"ce_ab: dense vs kernels loss {agree}")
+    check(agree["chunked_vs_pallas_dx_ratio"] <= 1.0
+          and agree["chunked_vs_pallas_dw_ratio"] <= 1.0,
+          f"ce_ab: chunked vs kernels gradients {agree}")
+    del out, x, w
+    torch.cuda.empty_cache()
+    return row
+
+
+def _kernel_ce_loss(cfg, vocab_cut=None):
+    """A ``loss_fn`` for ``make_train_step`` that reaches B3/B4:
+    forward_hidden -> final_hidden -> fused_cross_entropy(impl="pallas").
+    With ``vocab_cut`` the kernels see only the first columns of the
+    unembedding (a planted fault: tokens past the cut lose their target
+    logit and those columns get no gradient)."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        x, aux = llama.forward_hidden(cfg, params, tokens[:, :-1])
+        w = params["lm_head"].to(cfg.compute_dtype)
+        ce = fc.fused_cross_entropy(
+            llama.final_hidden(cfg, params, x),
+            w if vocab_cut is None else w[:, :vocab_cut], tokens[:, 1:],
+            impl="pallas")
+        return ce + cfg.moe_aux_weight * aux, {"ce": ce, "aux": aux}
+
+    return loss_fn
+
+
+def phase_train_ce(cfg):
+    """Training through the fused CE on the flagship at micro-batch
+    8 x 2048 (N V = 5.24e8, below the auto crossover, so each route is
+    chosen explicitly). Check one: a grad_accum=1 step through the dense
+    CE (``DLROVER_TPU_FUSED_CE=off``), the chunked fused CE (``on``),
+    the B3/B4 kernels and a planted fault (the kernels given the first
+    half of the vocabulary), from the same params; each fused step's
+    loss, grad norm and per-leaf gradient (Adam's first moment, as in
+    phase_train) against the dense step's. The dense CE rounds its
+    logits to bf16, the fused routes keep them in f32, so they part by
+    bf16 noise; the gates sit above it and the fault must fail them. Two
+    more steps of each route are timed. Check two: CE_TRAIN_STEPS steps
+    through B3/B4 (grad_accum TRAIN_GA) with falling loss, one launch of
+    each kernel per micro-step, and a rerun from the same seed giving
+    the same losses bit for bit. Returns the kernels' launch counts over
+    the first run."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    rs = np.random.RandomState(SEED + 1)
+    tokens = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (TRAIN_GA * TRAIN_MICRO, TRAIN_SEQ + 1)
+    ).astype(np.int32)).cuda()
+    micro_tokens = TRAIN_MICRO * TRAIN_SEQ
+    tc1 = ts.TrainConfig(warmup_steps=2, grad_accum=1)
+    variants = {  # label: (DLROVER_TPU_FUSED_CE, loss_fn)
+        "dense": ("off", None),
+        "chunked": ("on", None),
+        "kernels": ("off", _kernel_ce_loss(cfg)),
+        "fault_half": ("off", _kernel_ce_loss(cfg, cfg.vocab_size // 2)),
+    }
+    saved_env = os.environ.get("DLROVER_TPU_FUSED_CE")
+    one, dense_moments = {}, None
+    try:
+        for label, (env, loss_fn) in variants.items():
+            os.environ["DLROVER_TPU_FUSED_CE"] = env
+            opt, state = _train_state(cfg, tc1)
+            step = ts.make_train_step(cfg, tc1, opt, device="cuda",
+                                      loss_fn=loss_fn)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, m = step(state, {"tokens": tokens[:TRAIN_MICRO]})
+            held = sum(t.numel() * 4 for t in dense_moments or ())
+            row = {"loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]),
+                   "peak_bytes": torch.cuda.max_memory_allocated() - held}
+            moments = [state["opt_state"].state[p]["exp_avg"]
+                       for p in ts.param_leaves(state["params"])]
+            if dense_moments is None:
+                # A copy: the timed steps below update the moments in place.
+                dense_moments = [t.clone() for t in moments]
+            else:
+                ref = one["dense"]
+                row["loss_rel"] = abs(row["loss"] - ref["loss"]) / ref["loss"]
+                row["grad_norm_rel"] = abs(
+                    row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+                dist = [float((a - b).norm() / b.norm())
+                        for a, b in zip(moments, dense_moments)]
+                row["grads_rel_l2"] = dict(zip(
+                    _leaf_names(state["params"]), dist))
+                row["grads"] = max(dist)
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                step(state, {"tokens": tokens[:TRAIN_MICRO]})
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t0)
+            row["step_s"] = times
+            row["tokens_per_s"] = micro_tokens / float(np.mean(times))
+            one[label] = row
+            del opt, state, step, m, moments
+            torch.cuda.empty_cache()
+    finally:
+        if saved_env is None:
+            os.environ.pop("DLROVER_TPU_FUSED_CE", None)
+        else:
+            os.environ["DLROVER_TPU_FUSED_CE"] = saved_env
+    del dense_moments
+    emit({"phase": "train_ce_vs_dense", "micro_batch": TRAIN_MICRO,
+          "seq": TRAIN_SEQ, "gates": CE_TRAIN_GATES, **one})
+    gate_keys = {"loss": "loss_rel", "grad_norm": "grad_norm_rel",
+                 "grads": "grads"}
+    for label in ("chunked", "kernels"):
+        for gate, key in gate_keys.items():
+            check(one[label][key] <= CE_TRAIN_GATES[gate],
+                  f"train_ce: {label} vs dense {key} {one[label][key]} > "
+                  f"{CE_TRAIN_GATES[gate]}")
+    for gate, key in gate_keys.items():
+        check(one["fault_half"][key] > CE_TRAIN_GATES[gate],
+              f"train_ce: the {gate} gate passes a planted fault "
+              f"({one['fault_half'][key]})")
+
+    tc = ts.TrainConfig(warmup_steps=2, grad_accum=TRAIN_GA)
+    runs = []
+    for _ in range(2):
+        opt, state = _train_state(cfg, tc)
+        step = ts.make_train_step(cfg, tc, opt, device="cuda",
+                                  loss_fn=_kernel_ce_loss(cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fc.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(CE_TRAIN_STEPS):
+            t0 = time.monotonic()
+            state, m = step(state, {"tokens": tokens})
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        runs.append((losses, times, dict(fc.launch_counts),
+                     torch.cuda.max_memory_allocated()))
+        del opt, state, step
+        torch.cuda.empty_cache()
+    losses, times, launches, peak = runs[0]
+    step_s = float(np.mean(times[1:]))
+    emit({"phase": "train_ce", "route": "B3/B4 kernels",
+          "micro_batch": TRAIN_MICRO, "seq": TRAIN_SEQ,
+          "grad_accum": TRAIN_GA, "steps": CE_TRAIN_STEPS, "losses": losses,
+          "step_s": times, "step_s_mean_after_first": step_s,
+          "tokens_per_s": TRAIN_GA * micro_tokens / step_s,
+          "peak_memory_gib": peak / 2**30, "launches": launches,
+          "rerun_losses": runs[1][0],
+          "rerun_bitwise_equal": runs[1][0] == losses})
+    check(all(np.isfinite(losses)), f"train_ce: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"train_ce: loss did not fall {losses}")
+    want = CE_TRAIN_STEPS * TRAIN_GA
+    for name, n in launches.items():
+        check(n == want, f"train_ce: {name} launched {n} times, want {want}")
+    check(runs[1][0] == losses, f"train_ce: a rerun gave {runs[1][0]}, "
+                                f"the first {losses}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -821,6 +1283,9 @@ def main():
     del params
     torch.cuda.empty_cache()
     launches.update(phase_train(cfg))
+    ce_rows = phase_ce_kernels()
+    phase_ce_ab()
+    launches.update(phase_train_ce(cfg))
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 
@@ -830,10 +1295,14 @@ def main():
         "flash_forward": "dlrover_tpu/ops/pallas_attention.py:53",
         "flash_backward_dq": "dlrover_tpu/ops/pallas_attention.py:242",
         "flash_backward_dkv": "dlrover_tpu/ops/pallas_attention.py:301",
+        "fused_ce_forward": "dlrover_tpu/ops/fused_ce.py:310",
+        "fused_ce_backward_dx": "dlrover_tpu/ops/fused_ce.py:357",
+        "fused_ce_backward_dw": "dlrover_tpu/ops/fused_ce.py:395",
     }
     sources = {
         "decode_attention": "dlrover_tpu_torch/ops/csrc/decode_attention.cu",
         "flash": "dlrover_tpu_torch/ops/csrc/flash_attention.cu",
+        "fused_ce": "dlrover_tpu_torch/ops/csrc/fused_ce.cu",
     }
     rows = [(name, kernel_rows[("main_path", kv)], sources["decode_attention"])
             for name, kv in (("decode_attention_fp", "fp"),
@@ -841,6 +1310,9 @@ def main():
     rows += [(name, flash_rows[(name, "train")], sources["flash"])
              for name in ("flash_forward", "flash_backward_dq",
                           "flash_backward_dkv")]
+    rows += [(name, ce_rows[(name, "ce_ab")], sources["fused_ce"])
+             for name in ("fused_ce_forward", "fused_ce_backward_dx",
+                          "fused_ce_backward_dw")]
     kernels = []
     for name, row, source in rows:
         kernels.append({

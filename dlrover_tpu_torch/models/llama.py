@@ -7,11 +7,13 @@ leaf for leaf (``models/convert.py``). Functions over tensors, no
 ``nn.Module`` state. Dense only: MoE and pipeline stages raise
 ``NotImplementedError`` until their slices are ported.
 
-Training runs ``loss_fn`` -> ``forward`` -> ``forward_hidden`` ->
-``run_layer_stack``, a loop over the stacked layers with the
-reference's remat policies as ``torch.utils.checkpoint``. On a CUDA
-device the attention is the flash kernel pair (``ops/flash_attention``),
-as the reference picks its Pallas flash kernel on the TPU.
+Training runs ``loss_fn`` -> ``forward_hidden`` -> ``run_layer_stack``,
+a loop over the stacked layers with the reference's remat policies as
+``torch.utils.checkpoint``, then either the dense logits and
+``cross_entropy`` or the fused CE (``ops/fused_ce``), as
+``DLROVER_TPU_FUSED_CE`` and ``resolve_ce_path`` pick. On a CUDA device
+the attention is the flash kernel pair (``ops/flash_attention``), as
+the reference picks its Pallas flash kernel on the TPU.
 """
 
 import dataclasses
@@ -28,6 +30,10 @@ from torch.utils.checkpoint import (
 )
 
 from dlrover_tpu_torch.ops.attention import dot_product_attention
+from dlrover_tpu_torch.ops.fused_ce import (
+    auto_prefers_dense,
+    fused_cross_entropy,
+)
 from dlrover_tpu_torch.ops.norms import rms_norm
 from dlrover_tpu_torch.ops.rope import apply_rope
 
@@ -424,8 +430,6 @@ def resolve_ce_path(config: TpuLMConfig, n_tokens: int) -> str:
     """"fused" | "dense": the CE path ``loss_fn`` takes for a batch of
     ``n_tokens`` tokens. "auto" picks the fused CE only at or above the
     N*V crossover of ``ops/fused_ce.AUTO_FUSED_MIN_NV``."""
-    from dlrover_tpu_torch.ops.fused_ce import auto_prefers_dense
-
     mode = _fused_ce_mode()
     use_fused = mode == "on" or (
         mode == "auto"
@@ -438,16 +442,26 @@ def resolve_ce_path(config: TpuLMConfig, n_tokens: int) -> str:
 
 def loss_fn(config: TpuLMConfig, params, batch, attention_fn=None):
     """batch: {"tokens": [b, s+1], optional "mask": [b, s]}. Next-token
-    LM loss; returns (loss, {"ce", "aux"})."""
+    LM loss; returns (loss, {"ce", "aux"}). The CE runs fused
+    (``ops/fused_ce.fused_cross_entropy``, no [b, s, vocab] logits) or
+    dense as ``resolve_ce_path`` picks."""
     tokens = batch["tokens"][:, :-1]
     targets = batch["tokens"][:, 1:]
     if resolve_ce_path(config, tokens.numel()) == "fused":
-        raise NotImplementedError(
-            "the fused cross-entropy (ops/fused_ce.py with kernels B3/B4) "
-            "is the next slice of the port; set DLROVER_TPU_FUSED_CE=off "
-            "for the dense path"
+        x, aux = forward_hidden(config, params, tokens,
+                                attention_fn=attention_fn)
+        # Long sequences cap the CE row chunk at 4096, as the reference
+        # does for its whole-program compile at 32k tokens.
+        ce = fused_cross_entropy(
+            final_hidden(config, params, x),
+            params["lm_head"].to(config.compute_dtype),
+            targets,
+            batch.get("mask"),
+            block_rows=4096 if tokens.shape[1] >= 32768 else None,
         )
-    logits, aux = forward(config, params, tokens, attention_fn=attention_fn)
-    ce = cross_entropy(logits, targets, batch.get("mask"))
+    else:
+        logits, aux = forward(config, params, tokens,
+                              attention_fn=attention_fn)
+        ce = cross_entropy(logits, targets, batch.get("mask"))
     loss = ce + config.moe_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}

@@ -10,7 +10,8 @@ plain version round the same f32 result to bf16, from sums taken in
 another order); f32 outputs within 2e-5. Flash attention: lse (f32)
 within 1e-3; gradients within 1e-2 * max|ref| + 1e-6 (dS is rounded to bf16
 before the dq/dk products in both, from dP sums taken in another order,
-so a few elements round the other way)."""
+so a few elements round the other way). Fused cross-entropy: per_tok and
+logz (f32) within rtol 1e-5; dx and dw elementwise (see _ce_ratio)."""
 
 import numpy as np
 import pytest
@@ -316,3 +317,181 @@ def test_remat_policies_on_card(cuda):
         for g, r in zip(got, grads["none"]):
             torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-5,
                                        msg=policy)
+
+
+def _ce_inputs(device, n, d, v, masked, seed):
+    """bf16 x [n, d], w [d, V] (scaled as the flagship's lm_head), int32
+    targets (row 0's in the last vocab column), and the backward's
+    coefficients for a token-mean loss (a = b = 0 on masked rows)."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=device).bfloat16()
+    w = (torch.randn(d, v, generator=g, device=device) / d ** 0.5).bfloat16()
+    tgt = torch.randint(0, v, (n,), generator=g, device=device,
+                        dtype=torch.int32)
+    tgt[0] = v - 1
+    keep = torch.ones(n, device=device)
+    if masked:
+        keep = (torch.rand(n, generator=g, device=device) >= 0.3).float()
+        keep[0] = 1.0
+    wgt = keep / keep.sum()
+    _, logz = fc._xla_forward(x, w, tgt, 1e-4)
+    return x, w, tgt, logz, wgt * (1.0 + 2e-4 * logz), wgt
+
+
+def _ce_ratio(got, want, dim):
+    """Largest |got - want| / (2e-2 |want| + 2e-2 rms_d(want) + 1e-3
+    rms(want) + 1e-30): the elementwise bound chip_smoke.py holds B4's
+    outputs to, rms_d over d of the element's row (dx, dim=-1) or column
+    (dw, dim=0)."""
+    want = want.float()
+    sq = want.square()
+    tol = (2e-2 * want.abs() + 2e-2 * sq.mean(dim=dim, keepdim=True).sqrt()
+           + 1e-3 * sq.mean().sqrt() + 1e-30)
+    return float(((got.float() - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize("n,d,v,masked", [
+    (100, 256, 1003, False),     # ragged rows and vocab
+    (300, 128, 77, True),        # one partial vocab tile, masked rows
+    (1000, 1024, 4099, True),    # the flagship's d
+    (64, 512, 128, False),       # exact tiles
+])
+def test_fused_ce_kernels_match_plain_versions(cuda, n, d, v, masked):
+    """B3 against its plain version: per_tok and logz within rtol 1e-5
+    (f32 sums of the same bf16 products in another order). B4 dx and dw
+    within _ce_ratio's bound (dx is rounded to bf16 on both sides, from
+    f32 sums in another order, so an element may land one bf16 ulp
+    away). A planted fault (the last vocab tile, or dw's last 64-row
+    tile, left out) fails the same bounds."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    x, w, tgt, logz, a, b = _ce_inputs(cuda, n, d, v, masked, n + v)
+    before = dict(fc.launch_counts)
+    per_tok, got_logz = fc.fused_ce_forward(x, w, tgt, 1e-4)
+    dx = fc.fused_ce_backward_dx(x, w, tgt, logz, a, b)
+    dw = fc.fused_ce_backward_dw(x, w, tgt, logz, a, b)
+    torch.cuda.synchronize()
+    for name in fc.launch_counts:
+        assert fc.launch_counts[name] == before[name] + 1
+    want_pt, want_logz = fc._xla_forward(x, w, tgt, 1e-4)
+    torch.testing.assert_close(per_tok, want_pt, rtol=1e-5, atol=0)
+    torch.testing.assert_close(got_logz, want_logz, rtol=1e-5, atol=0)
+    want_dx, want_dw = fc._xla_backward(x, w, tgt, logz, a, b)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert _ce_ratio(dx, want_dx.bfloat16(), -1) <= 1.0
+    assert _ce_ratio(dw, want_dw, 0) <= 1.0
+    if masked:
+        assert not dx[a == 0].any()
+    fault_pt, _ = fc._xla_forward(x, w[:, :128 * ((v - 1) // 128)], tgt,
+                                  1e-4)
+    assert not torch.allclose(fault_pt, want_pt, rtol=1e-5, atol=0)
+    fault_dx, _ = fc._xla_backward(x, w[:, :64 * ((v - 1) // 64)], tgt, logz,
+                                   a, b, want_dw=False)
+    assert _ce_ratio(fault_dx.bfloat16(), want_dx.bfloat16(), -1) > 1.0
+    cut = 64 * ((n - 1) // 64)
+    _, fault_dw = fc._xla_backward(x[:cut], w, tgt[:cut], logz[:cut],
+                                   a[:cut], b[:cut], want_dx=False)
+    assert _ce_ratio(fault_dw, want_dw, 0) > 1.0
+
+
+def test_fused_ce_kernels_rerun_bitwise(cuda):
+    """One owner per output element and a fixed order of sums: a second
+    launch gives the same bits."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    x, w, tgt, logz, a, b = _ce_inputs(cuda, 200, 256, 999, True, 3)
+    first = (fc.fused_ce_forward(x, w, tgt, 1e-4)
+             + (fc.fused_ce_backward_dx(x, w, tgt, logz, a, b),
+                fc.fused_ce_backward_dw(x, w, tgt, logz, a, b)))
+    second = (fc.fused_ce_forward(x, w, tgt, 1e-4)
+              + (fc.fused_ce_backward_dx(x, w, tgt, logz, a, b),
+                 fc.fused_ce_backward_dw(x, w, tgt, logz, a, b)))
+    for p, q in zip(first, second):
+        assert torch.equal(p, q)
+
+
+def test_fused_ce_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    x = torch.zeros(16, 128, device=cuda)
+    w = torch.zeros(128, 40, device=cuda)
+    tgt = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc.fused_ce_forward(x, w, tgt, 1e-4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc.fused_cross_entropy(x, w, tgt, impl="pallas")
+    with pytest.raises(ValueError, match="d 96"):
+        fc.fused_ce_forward(x[:, :96].bfloat16(), w[:96].bfloat16(), tgt,
+                            1e-4)
+    with pytest.raises(ValueError, match="tensor on"):
+        fc.fused_ce_forward(x.bfloat16(), w.bfloat16().cpu(), tgt, 1e-4)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked", "xla"])
+def test_fused_cross_entropy_on_card_matches_cpu(cuda, impl):
+    """bf16 hidden states and unembedding, masked: the loss on the card
+    within rtol 1e-5 of the CPU's (f32 logits on both), dx and dw within
+    _ce_ratio's bound."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    x, w, tgt, _, _, _ = _ce_inputs("cpu", 3 * 77, 256, 1000, False, 9)
+    mask = (torch.rand(3 * 77, generator=torch.Generator().manual_seed(1))
+            > 0.3).float()
+    out = {}
+    for dev in ("cpu", cuda):
+        xl = x.to(dev).requires_grad_(True)
+        wl = w.to(dev).requires_grad_(True)
+        loss = fc.fused_cross_entropy(xl.reshape(3, 77, 256), wl,
+                                      tgt.to(dev).reshape(3, 77),
+                                      mask.to(dev).reshape(3, 77), impl=impl)
+        out[str(dev)] = (loss.detach().cpu(),) + tuple(
+            g.cpu() for g in torch.autograd.grad(loss, [xl, wl]))
+    cpu, card = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-5, atol=0)
+    assert _ce_ratio(card[1], cpu[1], -1) <= 1.0
+    assert _ce_ratio(card[2], cpu[2], 0) <= 1.0
+
+
+def test_train_step_through_fused_ce_kernels_on_card(cuda):
+    """A bf16 tiny config (embed 128, which the kernels take) trained
+    through a loss_fn that reaches B3/B4: one launch of each per
+    micro-step, and losses within bf16 noise of the CPU's."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    cfg = llama.tiny_config(n_layers=2, dtype="bfloat16", embed_dim=128,
+                            head_dim=64, n_heads=4, n_kv_heads=2)
+    tc = ts.TrainConfig(learning_rate=1e-3, warmup_steps=1, grad_accum=2)
+
+    def loss_fn(params, batch):
+        toks = batch["tokens"]
+        x, aux = llama.forward_hidden(cfg, params, toks[:, :-1])
+        ce = fc.fused_cross_entropy(
+            llama.final_hidden(cfg, params, x),
+            params["lm_head"].to(cfg.compute_dtype), toks[:, 1:],
+            impl="pallas")
+        return ce + cfg.moe_aux_weight * aux, {"ce": ce, "aux": aux}
+
+    tokens = torch.from_numpy(
+        np.random.RandomState(2).randint(0, 256, (4, 65)).astype(np.int32))
+    losses = {}
+    for dev in ("cpu", cuda):
+        params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+        params = {k: (v.to(dev) if torch.is_tensor(v) else
+                      {n: t.to(dev) for n, t in v.items()})
+                  for k, v in params.items()}
+        opt = ts.make_optimizer(tc)
+        state = ts.init_train_state(cfg, opt, params)
+        step = ts.make_train_step(cfg, tc, opt, device=dev, loss_fn=loss_fn)
+        fc.reset_launch_counts()
+        out = []
+        for _ in range(2):
+            state, m = step(state, {"tokens": tokens.to(dev)})
+            out.append(float(m["loss"]))
+        losses[str(dev)] = out
+        want = 0 if dev == "cpu" else 2 * tc.grad_accum
+        assert set(fc.launch_counts.values()) == {want}, dev
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=2e-2)

@@ -1,9 +1,10 @@
-"""The port's training path (``loss_fn`` -> ``forward`` ->
-``run_layer_stack``, ``make_train_step``) against the JAX package on
-``tiny_config``: JAX params cross with ``params_from_numpy``, the same
-numpy tokens go through both. Where JAX reaches the flash kernels they
-run in interpret mode; the port's flash wrappers run their plain
-versions on the CPU.
+"""The port's training path (``loss_fn`` -> ``forward_hidden`` ->
+``run_layer_stack``, then the dense or the fused cross-entropy;
+``make_train_step``) against the JAX package on ``tiny_config``: JAX
+params cross with ``params_from_numpy``, the same numpy tokens go
+through both. Where JAX reaches the flash or fused-CE kernels they run
+in interpret mode; the port's kernel wrappers run their plain versions
+on the CPU.
 
 Tolerances (f32): logits and loss within 2e-5 / rtol 1e-5 (same math,
 sums in another order); every param gradient within 1e-5 + 1e-4 * |g|;
@@ -26,11 +27,13 @@ import jax.numpy as jnp
 import optax
 
 from dlrover_tpu.models import llama as jax_llama
+from dlrover_tpu.ops import fused_ce as jax_fused_ce
 from dlrover_tpu.ops.pallas_attention import make_flash_attention as jax_flash
 from dlrover_tpu.parallel.mesh import MeshConfig, build_mesh
 from dlrover_tpu.trainer import train_step as jax_ts
 from dlrover_tpu_torch.models import convert, llama
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import fused_ce
 from dlrover_tpu_torch.trainer import train_step as ts
 
 
@@ -254,10 +257,128 @@ def test_resolve_ce_path_matches_jax(monkeypatch, env, n_tokens, vocab):
 
 
 def test_fused_ce_branch_raises_until_ported(monkeypatch, jax_params):
+    """The fused branch is ported: with DLROVER_TPU_FUSED_CE=on it runs
+    (it raised until the fused CE landed) and gives the dense loss
+    within rtol 1e-5 (f32 logits on both routes)."""
+    batch = {"tokens": torch.from_numpy(_tokens(0, (1, 9)))}
+    params = convert.params_from_numpy(jax_params, "cpu")
     monkeypatch.setenv("DLROVER_TPU_FUSED_CE", "on")
-    with pytest.raises(NotImplementedError, match="fused cross-entropy"):
-        llama.loss_fn(_cfg(), convert.params_from_numpy(jax_params, "cpu"),
-                      {"tokens": torch.from_numpy(_tokens(0, (1, 9)))})
+    fused, fused_m = llama.loss_fn(_cfg(), params, batch)
+    monkeypatch.setenv("DLROVER_TPU_FUSED_CE", "off")
+    dense, dense_m = llama.loss_fn(_cfg(), params, batch)
+    np.testing.assert_allclose(float(fused), float(dense), rtol=1e-5)
+    np.testing.assert_allclose(float(fused_m["ce"]), float(dense_m["ce"]),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["on", "auto_above_crossover"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fused_loss_and_every_grad_match_jax(monkeypatch, jax_params, mode,
+                                             masked):
+    """loss_fn through the fused branch (the chunked route) against JAX's
+    loss_fn through its fused branch: loss, ce and all 12 gradients. In
+    "auto" the tiny batch crosses a crossover lowered to 1 on both
+    sides."""
+    if mode == "on":
+        monkeypatch.setenv("DLROVER_TPU_FUSED_CE", "on")
+    else:
+        monkeypatch.setenv("DLROVER_TPU_FUSED_CE", "auto")
+        monkeypatch.setattr(fused_ce, "AUTO_FUSED_MIN_NV", 1)
+        monkeypatch.setattr(jax_fused_ce, "AUTO_FUSED_MIN_NV", 1)
+    assert llama.resolve_ce_path(_cfg(), 64) == "fused"
+    toks = _tokens(11, (2, 33))
+    mask = (np.random.RandomState(12).rand(2, 32) > 0.3).astype(np.float32)
+    jbatch = {"tokens": jnp.asarray(toks)}
+    tbatch = {"tokens": torch.from_numpy(toks)}
+    if masked:
+        jbatch["mask"] = jnp.asarray(mask)
+        tbatch["mask"] = torch.from_numpy(mask)
+    (want_loss, want_m), want_g = jax.value_and_grad(
+        lambda p: jax_llama.loss_fn(_jax_cfg(), p, jbatch), has_aux=True,
+    )(jax_params)
+    params = convert.params_from_numpy(jax_params, "cpu")
+    leaves = ts.param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = llama.loss_fn(_cfg(), params, tbatch)
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(metrics["ce"].detach()),
+                               float(want_m["ce"]), rtol=1e-5)
+    _grads_close(_tree_like(params, grads), want_g)
+
+
+def _jax_pallas_loss(cfg):
+    """loss_fn for JAX's make_train_step: forward_hidden -> final_hidden
+    -> fused_cross_entropy(impl="pallas") (kernels B3/B4, interpret mode
+    on the CPU)."""
+    def loss(params, batch):
+        tokens, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        x, aux = jax_llama.forward_hidden(cfg, params, tokens)
+        ce = jax_fused_ce.fused_cross_entropy(
+            jax_llama.final_hidden(cfg, params, x),
+            params["lm_head"].astype(cfg.compute_dtype), targets,
+            impl="pallas")
+        return ce + cfg.moe_aux_weight * aux, {"ce": ce, "aux": aux}
+
+    return loss
+
+
+def _port_pallas_loss(cfg):
+    """The same loss_fn in the port (the kernel wrappers run their plain
+    versions on the CPU)."""
+    def loss(params, batch):
+        tokens, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        x, aux = llama.forward_hidden(cfg, params, tokens)
+        ce = fused_ce.fused_cross_entropy(
+            llama.final_hidden(cfg, params, x),
+            params["lm_head"].to(cfg.compute_dtype), targets, impl="pallas")
+        return ce + cfg.moe_aux_weight * aux, {"ce": ce, "aux": aux}
+
+    return loss
+
+
+def test_train_trajectory_through_fused_ce_kernels_matches_jax():
+    """Three make_train_step steps whose loss_fn reaches the fused CE's
+    kernel route (impl="pallas") on both sides: loss and grad_norm
+    within rtol 1e-4 each step, final params as in
+    test_train_trajectory_matches_jax."""
+    jcfg = jax_llama.tiny_config(n_layers=2)
+    jtc = jax_ts.TrainConfig(learning_rate=5e-3, warmup_steps=2)
+    mesh = build_mesh(MeshConfig(dp=1), jax.devices()[:1])
+    jopt = jax_ts.make_optimizer(jtc)
+    jstate, _ = jax_ts.init_train_state(jcfg, jopt, mesh, jax.random.key(0))
+    params = convert.params_from_numpy(jax.device_get(jstate["params"]),
+                                       "cpu")
+    jstep, _ = jax_ts.make_train_step(jcfg, jtc, jopt, mesh,
+                                      loss_fn=_jax_pallas_loss(jcfg))
+
+    cfg = llama.TpuLMConfig(**dataclasses.asdict(jcfg))
+    tc = ts.TrainConfig(**dataclasses.asdict(jtc))
+    opt = ts.make_optimizer(tc)
+    state = ts.init_train_state(cfg, opt, params)
+    step = ts.make_train_step(cfg, tc, opt, device="cpu",
+                              loss_fn=_port_pallas_loss(cfg))
+    toks = _tokens(13, (2, 17))
+    losses = []
+    for _ in range(3):
+        jstate, jm = jstep(jstate, {"tokens": jnp.asarray(toks)})
+        state, m = step(state, {"tokens": toks})
+        losses.append(float(m["loss"]))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    assert losses[-1] < losses[0]
+    want = jax.tree_util.tree_leaves_with_path(
+        jax.device_get(jstate["params"]))
+    got = dict(jax.tree_util.tree_leaves_with_path(
+        convert.params_to_numpy(state["params"])))
+    for path, w in want:
+        diff = np.abs(got[path] - w)
+        assert diff.mean() <= 1e-6, (path, diff.mean())
+        assert diff.max() <= tc.learning_rate, (path, diff.max())
 
 
 @pytest.mark.parametrize("lr,warmup", [(5e-3, 2), (3e-4, 100), (1e-3, 0)])
@@ -370,11 +491,21 @@ def test_bf16_steps_stay_finite():
         state["params"]))
 
 
-def test_eval_step_matches_jax(jax_params):
+@pytest.mark.parametrize("ce_mode", ["off", "on"])
+def test_eval_step_matches_jax(monkeypatch, jax_params, ce_mode):
+    """The eval step on both sides, dense or through the fused branch.
+    Fused, the port runs under no_grad, so the chunked route computes the
+    loss alone (its gradient sweep would raise here)."""
+    monkeypatch.setenv("DLROVER_TPU_FUSED_CE", ce_mode)
     toks = _tokens(10, (2, 17))
     mesh = build_mesh(MeshConfig(dp=1), jax.devices()[:1])
     want = jax_ts.make_eval_step(_jax_cfg(), mesh)(
         jax_params, {"tokens": jnp.asarray(toks)})
+
+    def no_sweep(*a, **k):
+        raise AssertionError("the gradient sweep ran in the eval step")
+
+    monkeypatch.setattr(fused_ce, "_chunked_fwd_pass", no_sweep)
     got = ts.make_eval_step(_cfg(), device="cpu")(
         convert.params_from_numpy(jax_params, "cpu"), {"tokens": toks})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
