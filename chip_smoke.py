@@ -42,9 +42,33 @@ phases that each print JSON lines:
    through the dense CE, the chunked fused CE (``DLROVER_TPU_FUSED_CE=on``)
    and a ``loss_fn`` that reaches B3/B4, held against the dense step
    with a planted fault the gates must reject; then 3 steps through
-   B3/B4 with falling loss, exact launch counts and a bitwise rerun.
+   B3/B4 with falling loss, exact launch counts and a bitwise rerun;
+10. paged decode attention (B6) against its plain version, fp and int8,
+    through a shuffled block table over a pool larger than the batch
+    needs and filled with noise, with stale ids past every row's fill:
+    the paged engine's shape (b=16, h=kh=8, d=128, block 16, 64 blocks a
+    row, 513 blocks; int8 also over its engine's 993 blocks) with
+    fills that include 0, 1, 15, 16, 17 and 1024, GQA h=32/kh=8, and
+    blocks of 32 and 128 rows; times, the bytes bound, and gather + SDPA
+    as the library call. Two planted faults the same tolerance must
+    reject (a kernel that ignores the table, one that drops a row's last
+    partly filled block), and whether B6 through an identity table
+    equals B5 bit for bit (reported);
+11. PagedServingEngine on the flagship, full depth: (a) fp at the bytes
+    of phase 5's flat engine and twice its slots (16 slots, 513 blocks
+    of 16 rows), 32 greedy requests (prompts 16-300, 32-128 new tokens,
+    60% opening with one shared 48-token prefix), run twice from the
+    same seed; (b) the same requests over 129 blocks, which forces cache
+    eviction and preemption and must give the same tokens; (c) an int8
+    pool at equal bytes (993 blocks), 16 slots. The prefill chunk is
+    32, not phase 5's 64: a resume point is chunk-aligned, so chunks of
+    64 would discard every hit on a 48-token prefix (48 -> 0). Checks:
+    every request complete, no step errors, the teacher-forced argmax
+    gap, prefix hits that skip prefill, block conservation with no block
+    left in use, and B6 launched exactly n_layers times per decode step.
+    Then 20 steps of an fp and an int8 engine under the profiler.
 
-Phases 4 and 5 check the tokens against the argmax of the port's own
+Phases 4, 5 and 11 check the tokens against the argmax of the port's own
 teacher-forced forward over prompt + output, check that repeated runs
 agree, and read the kernels' launch counters to show the decode path
 went through them. Any failure raises (exit code 1) before the last
@@ -179,19 +203,22 @@ def _decode_inputs(b, h, kh, d, max_len, lengths, kv, gen):
     return q, k, v, lens, ()
 
 
-def _decode_bound(q, k, lens, kv):
+def _decode_bound(q, k, lens, kv, tables=None):
     """Least time for this call's work: the bytes it must move (each
-    input read once, the output written once; only filled cache rows)
-    over the HBM rate, against the q.k and p.v flops over the peak rate
-    of the inputs' type."""
+    input read once, the output written once; only filled cache rows,
+    and for a paged cache the block table) over the HBM rate, against
+    the q.k and p.v flops over the peak rate of the inputs' type. ``k``
+    is a flat cache [b, max_len, kh, d], or with ``tables`` [b,
+    max_blocks] a pool [num_blocks, block_size, kh, d]."""
     from dlrover_tpu_torch.ops.kv_quant import bytes_per_head_row
 
     b, h, d = q.shape
-    _, max_len, kh, _ = k.shape
+    kh = k.shape[2]
+    max_len = k.shape[1] * (1 if tables is None else tables.shape[1])
     rows = int(torch.clamp(lens, 0, max_len).sum())
     row_bytes = kh * bytes_per_head_row(d, kv, fp_itemsize=k.element_size())
     moved = 2 * rows * row_bytes + 2 * q.numel() * q.element_size() \
-        + lens.numel() * 4
+        + lens.numel() * 4 + (0 if tables is None else tables.numel() * 4)
     flops = 4 * rows * (h // kh) * kh * d
     rate = PEAK_OPS_PER_S["int8" if kv == "int8" else "bfloat16"]
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / rate
@@ -461,6 +488,170 @@ def phase_flash_kernels():
     return rows
 
 
+# ---- paged decode attention (B6) ---------------------------------------
+
+
+def _paged_inputs(b, h, kh, d, bs, mb, nb, lengths, kv, gen, rs):
+    """q, pools of ``nb`` blocks filled with noise, and a table that
+    hands each row its blocks from a shuffle of 1..nb-1; entries past a
+    row's fill name another row's blocks, as a recycled slot's do."""
+    from dlrover_tpu_torch.ops.kv_quant import quantize_kv
+
+    q = torch.randn(b, h, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(nb, bs, kh, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(nb, bs, kh, d, generator=gen, device="cuda").bfloat16()
+    need = [-(-n // bs) for n in lengths]
+    check(sum(need) <= nb - 1, f"paged inputs need {sum(need)} of {nb - 1}")
+    ids = rs.permutation(nb - 1) + 1
+    tables = np.zeros((b, mb), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = ids[at:at + n]
+        at += n
+    for i, n in enumerate(need):
+        other = tables[(i + 1) % b, :need[(i + 1) % b]]
+        stale = other if len(other) else ids[:1]
+        tables[i, n:] = np.resize(stale, mb - n)
+    tables = torch.from_numpy(tables).cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if kv == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        return q, k, v, tables, lens, (ks, vs)
+    return q, k, v, tables, lens, ()
+
+
+def _paged_sdpa_call(q, k, v, tables, lens):
+    """The library's route to the fp kernel's function: gather every
+    row's logical cache through the table, then one masked SDPA call
+    (rows of fill 0 give NaN there; it is only timed)."""
+    import torch.nn.functional as F
+
+    b, h, d = q.shape
+    kh = k.shape[2]
+    max_len = tables.shape[1] * k.shape[1]
+    idx = tables.long()
+    mask = (torch.arange(max_len, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def call():
+        kt = k[idx].reshape(b, max_len, kh, d).transpose(1, 2)
+        vt = v[idx].reshape(b, max_len, kh, d).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=h != kh
+        )
+
+    return call
+
+
+def phase_paged_kernels():
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.ops.kv_quant import quantize_kv
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 6)
+    rs = np.random.RandomState(SEED + 6)
+    # (label, b, h, kh, d, block_size, max_blocks, num_blocks, top random
+    # fill, kvs): the fp and the int8 paged engine as served below, then GQA
+    # and larger blocks.
+    shapes = [
+        ("engine", 16, 8, 8, 128, 16, 64, 513, 700, ("fp", "int8")),
+        ("engine_int8", 16, 8, 8, 128, 16, 64, 993, 700, ("int8",)),
+        ("gqa", 16, 32, 8, 128, 16, 64, 513, 700, ("fp", "int8")),
+        ("block_32", 16, 8, 8, 128, 32, 32, 257, 700, ("fp", "int8")),
+        ("block_128", 16, 8, 8, 128, 128, 8, 65, 500, ("fp", "int8")),
+    ]
+
+    def within(got, want):
+        # As B5's rows: bf16 outputs, both round one f32 result, summed
+        # in another order.
+        err = (got.float() - want.float()).abs()
+        return bool(torch.all(err <= 1e-2 + 1e-2 * want.float().abs())), err
+
+    results = {}
+    for label, b, h, kh, d, bs, mb, nb, top, kvs in shapes:
+        fixed = [0, 1, 15, 16, 17, bs * mb]
+        lengths = fixed + [int(x) for x in
+                           rs.randint(2, top, size=b - len(fixed))]
+        for kv in kvs:
+            q, k, v, tables, lens, scales = _paged_inputs(
+                b, h, kh, d, bs, mb, nb, lengths, kv, gen, rs
+            )
+            got = da.paged_decode_attention(q, k, v, tables, lens, *scales)
+            torch.cuda.synchronize()
+            want = da.paged_decode_attention_reference(q, k, v, tables, lens,
+                                                       *scales)
+            ok, err = within(got, want)
+            check(ok, f"paged {label}/{kv}: kernel disagrees, max err "
+                      f"{float(err.max())}")
+            check(bool(torch.all(got[0] == 0)),
+                  f"paged {label}/{kv}: fill-0 row not zero")
+            # Planted faults, from the plain version: the pool read as if
+            # row i's blocks were i * max_blocks + j, and every row cut
+            # to its last full block.
+            identity = torch.arange(b * mb, dtype=torch.int32,
+                                    device="cuda").reshape(b, mb) % nb
+            faults = {
+                "ignores_table": da.paged_decode_attention_reference(
+                    q, k, v, identity, lens, *scales),
+                "drops_last_block": da.paged_decode_attention_reference(
+                    q, k, v, tables, lens - lens % bs, *scales),
+            }
+            fault_err = {}
+            for name, out in faults.items():
+                passed, ferr = within(out, want)
+                fault_err[name] = float(ferr.max())
+                check(not passed, f"paged {label}/{kv}: the tolerance passes "
+                                  f"a kernel that {name}")
+            ms = _time_ms(lambda: da.paged_decode_attention(
+                q, k, v, tables, lens, *scales))
+            plain_ms = _time_ms(lambda: da.paged_decode_attention_reference(
+                q, k, v, tables, lens, *scales))
+            library_ms = (
+                _time_ms(_paged_sdpa_call(q, k, v, tables, lens))
+                if kv == "fp" else None
+            )
+            bound_ms, bound_by, moved = _decode_bound(q, k, lens, kv, tables)
+            row = {
+                "phase": "kernel", "kernel": f"paged_decode_attention_{kv}",
+                "shape": label, "kv": kv, "b": b, "h": h, "kh": kh, "d": d,
+                "block_size": bs, "max_blocks": mb, "num_blocks": nb,
+                "lengths": lengths, "max_abs_err": float(err.max()),
+                "planted_fault_max_abs_err": fault_err, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": "gather through the table, then SDPA + mask",
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                "bound_share": bound_ms / ms,
+            }
+            emit(row)
+            results[(label, kv)] = row
+
+    # Reported, not gated: B6 through an identity table against B5 on the
+    # same rows (the two share their body, so the bits should agree).
+    b, S, h, kh, d, bs = 8, 1024, 8, 8, 128, 16
+    q = torch.randn(b, h, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(b, S, kh, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(b, S, kh, d, generator=gen, device="cuda").bfloat16()
+    lens = torch.tensor([0, 1, 17, S] + list(rs.randint(2, S, size=b - 4)),
+                        dtype=torch.int32, device="cuda")
+    tables = torch.arange(b * S // bs, dtype=torch.int32,
+                          device="cuda").reshape(b, S // bs)
+    same = {}
+    for kv in ("fp", "int8"):
+        caches, scales = (k, v), ()
+        if kv == "int8":
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            caches, scales = (kq, vq), (ks, vs)
+        flat = da.decode_attention(q, *caches, lens, *scales)
+        paged = da.paged_decode_attention(
+            q, *(t.reshape(b * S // bs, bs, *t.shape[2:]) for t in caches),
+            tables, lens,
+            *(t.reshape(b * S // bs, bs, kh) for t in scales))
+        same[kv] = bool(torch.equal(flat, paged))
+    emit({"phase": "paged_vs_flat", "b": b, "max_len": S, "block_size": bs,
+          "identity_table_equals_flat_bitwise": same})
+    return results
+
+
 # ---- main path -----------------------------------------------------------
 
 
@@ -625,6 +816,212 @@ def phase_engine(cfg, params):
     }
     emit(row)
     return row
+
+
+def _paged_workload(cfg, n_requests=32, prefix_share=0.6, prefix_len=48):
+    """32 greedy requests, all submitted at once: prompts of 16-300
+    tokens, 32-128 new tokens, and ``prefix_share`` of the prompts
+    opening with ONE fixed ``prefix_len``-token system prefix (the
+    shared-system-prompt workload a prefix cache exists for; the prefix
+    counts toward the prompt's length)."""
+    rs = np.random.RandomState(SEED + 7)
+    prefix = rs.randint(0, cfg.vocab_size, size=prefix_len).astype(np.int32)
+    work = []
+    for _ in range(n_requests):
+        prompt = rs.randint(0, cfg.vocab_size,
+                            size=int(rs.randint(16, 301))).astype(np.int32)
+        shared = bool(rs.rand() < prefix_share)
+        if shared:
+            n = min(prefix_len, len(prompt))
+            prompt[:n] = prefix[:n]
+        work.append((prompt, int(rs.randint(32, 129)),
+                     shared and len(prompt) > prefix_len))
+    return work
+
+
+def _paged_engine(cfg, params, kv, slots, num_blocks):
+    """A warmed-up PagedServingEngine at the paged phase's settings, its
+    registry, and a one-element count of its ``_decode`` calls (the
+    warmup's included): each makes one B6 launch per layer."""
+    from dlrover_tpu_torch.observability.registry import MetricsRegistry
+    from dlrover_tpu_torch.serving import PagedServingEngine
+
+    reg = MetricsRegistry()
+    eng = PagedServingEngine(
+        cfg, params, slots=slots, max_len=1024, prefill_chunk=32,
+        block_size=16, num_blocks=num_blocks, kv_cache_dtype=kv,
+        registry=reg,
+    )
+    decode_calls = [0]
+    real_decode = eng._decode
+
+    def counted(active):
+        decode_calls[0] += 1
+        return real_decode(active)
+
+    eng._decode = counted
+    eng.warmup()
+    torch.cuda.synchronize()
+    return eng, reg, decode_calls
+
+
+def _profile_paged(cfg, params, work, kv, num_blocks, skip=60, window=20):
+    """Where a paged iteration's time goes: ``window`` steps under the
+    profiler after ``skip`` unprofiled ones (every slot busy, most steps
+    running a prefill chunk and a decode step; profiling adds host time
+    per op, so the busy share is a lower bound). Returns the B6 launches
+    the engine must have made."""
+    eng, _, decode_calls = _paged_engine(cfg, params, kv, 16, num_blocks)
+    for p, n, _ in work:
+        eng.submit(p, n)
+    for _ in range(skip):
+        eng.step()
+    before = decode_calls[0]
+
+    def steps():
+        for _ in range(window):
+            eng.step()
+
+    wall, device = _device_profile(steps)
+    row = _profile_row(f"paged_engine/{kv}/{window} steps", wall, device)
+    row["decode_steps"] = decode_calls[0] - before
+    emit(row)
+    return cfg.n_layers * decode_calls[0]
+
+
+def _run_paged(cfg, params, work, label, kv, slots, num_blocks):
+    """One PagedServingEngine over ``work``; checks what every run must
+    show and returns (row, tokens per request, B6 launches wanted)."""
+    eng, reg, decode_calls = _paged_engine(cfg, params, kv, slots,
+                                           num_blocks)
+    used = reg.get("serving_kv_blocks")
+    peak_used = 0
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, n) for p, n, _ in work]
+    while eng.pending():
+        eng.step()
+        peak_used = max(peak_used, int(used.value(state="used")))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    for r, (_, n, _) in zip(reqs, work):
+        check(r.state == "done" and not r.failed and not r.truncated,
+              f"{label}: request {r.rid} ended {r.state} "
+              f"failed={r.failed} truncated={r.truncated}")
+        check(len(r.tokens) == n,
+              f"{label}: request {r.rid} got {len(r.tokens)} of {n}")
+        check(r.requeues == 0, f"{label}: request {r.rid} was requeued")
+    errors = reg.get("serving_step_errors_total").value()
+    check(errors == 0, f"{label}: {errors} step errors")
+    eng.check_block_invariants()
+    stats = eng.kv_stats()
+    check(stats["used"] == 0 and
+          stats["free"] + stats["cached"] == num_blocks - 1,
+          f"{label}: blocks left in use at the end: {stats}")
+    prompt_tokens = int(sum(len(p) for p, _, _ in work))
+    prefill_tokens = int(reg.get("serving_tokens_total").value(
+        kind="prefill"))
+    wasted = reg.get("serving_tokens_wasted_total")
+    check(stats["prefix_hits"] > 0, f"{label}: no prefix hit: {stats}")
+    check(prefill_tokens - int(wasted.value(kind="prefill")) < prompt_tokens,
+          f"{label}: {prefill_tokens} prefill tokens for {prompt_tokens} "
+          f"prompt tokens: the hits skipped nothing")
+    worst, agree = 0.0, []
+    for r, (p, _, _) in zip(reqs, work):
+        seq = torch.from_numpy(
+            np.concatenate([p, np.asarray(r.tokens, np.int32)])
+        ).cuda()[None]
+        w, a = _argmax_gap(cfg, params, seq, len(p), kv,
+                           f"{label}/request {r.rid}")
+        worst = max(worst, w)
+        agree.append(a)
+
+    def ttft(hit):
+        """Among the shared-prefix requests that hit (or missed) the
+        cache: submit to first token, and admission to first token (all
+        requests are submitted at once, and only those that wait for a
+        slot can hit, so the first mostly measures the queue)."""
+        rs = [r for r, (_, _, shared) in zip(reqs, work)
+              if shared and (r.prefix_hit_blocks > 0) == hit]
+        if not rs:
+            return {"n": 0}
+        ts = sorted(r.ttft_s for r in rs)
+        admit = [r.first_token_ts - r.admit_ts for r in rs]
+        return {"n": len(ts), "p50_s": float(np.median(ts)), "max_s": ts[-1],
+                "after_admit_p50_s": float(np.median(admit)),
+                "after_admit_max_s": max(admit)}
+
+    gen_tokens = sum(len(r.tokens) for r in reqs)
+    row = {
+        "phase": "paged_engine", "run": label, "kv": kv,
+        "requests": len(reqs), "slots": slots, "max_len": eng.max_len,
+        "prefill_chunk": eng.prefill_chunk, "block_size": eng.block_size,
+        "num_blocks": num_blocks,
+        "pool_mib": (num_blocks * eng._block_bytes) / 2**20,
+        "prompt_tokens": prompt_tokens, "prefill_tokens": prefill_tokens,
+        "new_tokens": gen_tokens, "wall_s": wall,
+        "decode_tok_s": gen_tokens / wall,
+        "total_tok_s": (gen_tokens + prompt_tokens) / wall,
+        "ttft_shared_prefix_hit": ttft(True),
+        "ttft_shared_prefix_miss": ttft(False),
+        "ttft_p50_s": float(np.median([r.ttft_s for r in reqs])),
+        "prefix_hit_rate": stats["prefix_hit_rate"],
+        "prefix_hits": stats["prefix_hits"],
+        "prefix_hit_blocks": stats["prefix_hit_blocks"],
+        "cow_copies": stats["cow_copies"],
+        "preemptions": int(reg.get("serving_kv_preemptions_total").value()),
+        "tokens_wasted": {k: int(wasted.value(kind=k))
+                          for k in ("prefill", "decode")},
+        "evicted_blocks": stats["prefix_evicted_blocks"],
+        "peak_blocks_used": peak_used,
+        "iterations": reg.get("serving_iterations_total").value(),
+        "decode_steps": decode_calls[0], "step_errors": errors,
+        "argmax_gap_max": worst, "argmax_agree": float(np.mean(agree)),
+    }
+    emit(row)
+    return row, [r.tokens for r in reqs], cfg.n_layers * decode_calls[0]
+
+
+def phase_paged_engine(cfg, params):
+    """The paged main path: submit -> step -> admission through the
+    prefix cache -> chunked paged prefill -> ragged paged decode with
+    every single-token attention through B6. Returns the B6 launches the
+    runs must have made, by kernel."""
+    from dlrover_tpu_torch.ops.kv_quant import bytes_per_head_row
+
+    work = _paged_workload(cfg)
+    # Phase 5's flat engine holds 8 slots x 1024 rows: the same bytes as
+    # blocks, twice the slots.
+    fp_blocks = 8 * 1024 // 16 + 1
+    want = {"fp": 0, "int8": 0}
+    row, tokens, n = _run_paged(cfg, params, work, "fp", "fp", 16, fp_blocks)
+    want["fp"] += n
+    check(row["preemptions"] == 0, f"paged fp: {row['preemptions']} "
+                                   f"preemptions at {fp_blocks} blocks")
+    _, again, n = _run_paged(cfg, params, work, "fp_rerun", "fp", 16,
+                             fp_blocks)
+    want["fp"] += n
+    check(again == tokens, "paged fp: two runs from one seed disagree")
+    # Two full slots' worth of blocks for 16 slots: the relief ladder
+    # (evict the cache, then preempt the youngest) must run, and change
+    # no token.
+    row, small, n = _run_paged(cfg, params, work, "fp_oversubscribed", "fp",
+                               16, 2 * 64 + 1)
+    want["fp"] += n
+    check(row["preemptions"] > 0, "paged fp, 129 blocks: no preemption")
+    check(small == tokens,
+          "paged fp, 129 blocks: tokens differ from the 513-block run")
+    # int8 at equal bytes: a row costs 132 bytes a head against 256, so
+    # ~1.94x the blocks. The slots stay at 16: with a slot for each of
+    # the 32 requests all are admitted before any prompt is cached, and
+    # nothing could hit.
+    fp_row = bytes_per_head_row(cfg.head_dim, "fp", 2)
+    int8_blocks = ((fp_blocks - 1) * fp_row
+                   // bytes_per_head_row(cfg.head_dim, "int8") + 1)
+    _, _, n = _run_paged(cfg, params, work, "int8", "int8", 16, int8_blocks)
+    want["int8"] += n
+    want["fp"] += _profile_paged(cfg, params, work, "fp", fp_blocks)
+    want["int8"] += _profile_paged(cfg, params, work, "int8", int8_blocks)
+    return {f"paged_decode_attention_{kv}": n for kv, n in want.items()}
 
 
 def _leaf_names(tree, prefix=""):
@@ -1252,6 +1649,7 @@ def main():
     smi = phase_device()
     phase_build()
     kernel_rows = phase_kernels()
+    paged_rows = phase_paged_kernels()
     flash_rows = phase_flash_kernels()
 
     cfg = flagship_config()
@@ -1264,12 +1662,16 @@ def main():
     da.reset_launch_counts()
     eng_row = phase_engine(cfg, params)
     eng_launches = dict(da.launch_counts)
+    da.reset_launch_counts()
+    paged_want = phase_paged_engine(cfg, params)
+    paged_launches = dict(da.launch_counts)
     launches = {
-        name: gen_launches[name] + eng_launches[name]
+        name: gen_launches[name] + eng_launches[name] + paged_launches[name]
         for name in da.launch_counts
     }
     emit({"phase": "launches", "generate": gen_launches,
-          "engine": eng_launches,
+          "engine": eng_launches, "paged_engine": paged_launches,
+          "paged_engine_want": paged_want,
           "per_decoded_token_generate": cfg.n_layers})
     # generate(): one launch per layer per single-token step, in two
     # full runs and one profiled run of 32 tokens.
@@ -1279,6 +1681,15 @@ def main():
         check(got == want, f"generate/{kv}: {got} launches, want {want}")
     check(eng_launches["decode_attention_fp"] >= cfg.n_layers,
           "engine: the decode kernel never launched")
+    # The paged engines: one B6 launch per layer per decode step (each
+    # engine's warmup step included), and no other decode kernel.
+    for name, want in paged_want.items():
+        check(paged_launches[name] == want,
+              f"paged engine: {paged_launches[name]} launches of {name}, "
+              f"want {want}")
+    check(paged_launches["decode_attention_fp"] == 0
+          and paged_launches["decode_attention_int8"] == 0,
+          f"paged engine launched the flat kernel: {paged_launches}")
 
     del params
     torch.cuda.empty_cache()
@@ -1292,6 +1703,10 @@ def main():
     replaces = {
         "decode_attention_fp": "dlrover_tpu/ops/decode_attention.py:234",
         "decode_attention_int8": "dlrover_tpu/ops/decode_attention.py:244",
+        "paged_decode_attention_fp":
+            "dlrover_tpu/ops/decode_attention.py:254",
+        "paged_decode_attention_int8":
+            "dlrover_tpu/ops/decode_attention.py:267",
         "flash_forward": "dlrover_tpu/ops/pallas_attention.py:53",
         "flash_backward_dq": "dlrover_tpu/ops/pallas_attention.py:242",
         "flash_backward_dkv": "dlrover_tpu/ops/pallas_attention.py:301",
@@ -1307,6 +1722,11 @@ def main():
     rows = [(name, kernel_rows[("main_path", kv)], sources["decode_attention"])
             for name, kv in (("decode_attention_fp", "fp"),
                              ("decode_attention_int8", "int8"))]
+    rows += [("paged_decode_attention_fp", paged_rows[("engine", "fp")],
+              sources["decode_attention"]),
+             ("paged_decode_attention_int8",
+              paged_rows[("engine_int8", "int8")],
+              sources["decode_attention"])]
     rows += [(name, flash_rows[(name, "train")], sources["flash"])
              for name in ("flash_forward", "flash_backward_dq",
                           "flash_backward_dkv")]

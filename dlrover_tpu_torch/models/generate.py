@@ -31,7 +31,10 @@ import torch.nn.functional as F
 from dlrover_tpu_torch.common.env_utils import resolve_env_choice
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.attention import dot_product_attention
-from dlrover_tpu_torch.ops.decode_attention import decode_attention
+from dlrover_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    paged_decode_attention,
+)
 from dlrover_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from dlrover_tpu_torch.ops.norms import rms_norm
 from dlrover_tpu_torch.ops.rope import apply_rope
@@ -155,12 +158,17 @@ def _fused_mlp(config, p, x):
 
 
 def _append(cache: torch.Tensor, new: torch.Tensor,
-            cursor: Union[int, torch.Tensor]) -> None:
-    """Write ``new`` [b, sq, ...] into ``cache`` [b, max_len, ...] in
-    place: at one shared cursor (an int), or one row per batch row at a
-    per-row [b] cursor (ragged slots; sq must be 1)."""
+            cursor: Union[int, torch.Tensor, tuple]) -> None:
+    """Write ``new`` [b, sq, ...] into ``cache`` in place. A flat
+    [b, max_len, ...] cache takes one shared cursor (an int) or one row
+    per batch row at a per-row [b] cursor (ragged slots; sq must be 1).
+    A paged [num_blocks, block_size, ...] pool takes a ``(block, offset)``
+    pair of [b] vectors, one pool row per batch row (sq must be 1; rows
+    sharing a target may land in any order)."""
     if isinstance(cursor, int):
         cache[:, cursor:cursor + new.shape[1]] = new
+    elif isinstance(cursor, tuple):
+        cache[cursor] = new[:, 0]
     else:
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, cursor] = new[:, 0]
@@ -168,7 +176,7 @@ def _append(cache: torch.Tensor, new: torch.Tensor,
 
 def _layer_decode(
     config, p, x, positions, k_cache, v_cache, cursor, fill=None,
-    k_scale=None, v_scale=None,
+    k_scale=None, v_scale=None, block_tables=None, plain_attention=False,
 ):
     """One decoder block over [b, sq] new tokens with cache append.
 
@@ -178,7 +186,10 @@ def _layer_decode(
     attends through the decode kernel over ``fill`` [b] rows (the fill
     after the append, clamped to max_len); a prefill attends over the
     whole cache with the positional causal mask, so unfilled rows never
-    show."""
+    show (``plain_attention`` sends a single token that way too). With
+    ``block_tables`` [b, max_blocks] the caches are block pools
+    [num_blocks, block_size, kh, d], ``cursor`` is a ``(block, offset)``
+    pair and the single-token step attends through the paged kernel."""
     residual = x
     q, k, v = _fused_qkv(config, p, x, positions)
     quantized = k_scale is not None
@@ -192,7 +203,12 @@ def _layer_decode(
     else:
         _append(k_cache, k.to(k_cache.dtype), cursor)
         _append(v_cache, v.to(v_cache.dtype), cursor)
-    if q.shape[1] == 1:
+    if block_tables is not None:
+        attn = paged_decode_attention(
+            q[:, 0].contiguous(), k_cache, v_cache, block_tables, fill,
+            k_scale=k_scale, v_scale=v_scale,
+        )[:, None]
+    elif q.shape[1] == 1 and not plain_attention:
         attn = decode_attention(
             q[:, 0].contiguous(), k_cache, v_cache, fill,
             k_scale=k_scale, v_scale=v_scale,

@@ -1,9 +1,15 @@
 // Single-query (decode-step) attention over a per-row-filled KV cache,
-// written by hand for Hopper (sm_90a).
+// flat or paged, written by hand for Hopper (sm_90a).
 //
-// Replaces the TPU kernel dlrover_tpu/ops/decode_attention.py::
-// decode_attention (Pallas bodies _kernel and _kernel_q8 over
-// _decode_body). Same math: for every (row b, query head), an online
+// Replaces the TPU kernels dlrover_tpu/ops/decode_attention.py::
+// decode_attention (Pallas bodies _kernel and _kernel_q8) and
+// ::paged_decode_attention (_paged_kernel and _paged_kernel_q8), all
+// over _decode_body. The two share this file's body and differ only in
+// how a logical cache row becomes an address: the flat cache is
+// [b, max_len, kh, d]; the paged one is a pool [num_blocks, block_size,
+// kh, d] shared by all sequences, and logical row r of sequence b lives
+// at pool row block_tables[b, r / block_size] * block_size +
+// r % block_size. Same math: for every (row b, query head), an online
 // softmax over the cache rows < min(length[b], max_len), f32
 // accumulation, GQA by giving one block all query heads of a kv head,
 // and for int8 caches the per-(row, head) K scale multiplying the
@@ -20,6 +26,13 @@
 //     every K/V byte the block reads;
 //   - the loop covers only the filled rows, so a ragged batch reads
 //     no padding;
+//   - the paged kernel follows the table itself, per 16-byte vector of
+//     a row (a tile of 32 to 128 rows spans several pool blocks that
+//     need not be adjacent; the table entries sit in L1), so no
+//     gathered copy of the cache is ever written. It reads a table
+//     entry only for rows below the fill: entries past it are stale
+//     and may name another sequence's block. Pool offsets are size_t
+//     (a pool of a few GiB passes 2^31 elements);
 //   - K/V tiles of 16 KB each are loaded with 16-byte vector loads into
 //     registers while the previous tile is being computed from shared
 //     memory (a two-stage software pipeline), so load latency overlaps
@@ -75,15 +88,32 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// Where logical row r (below the fill) of this sequence lives, in rows
+// from the head base: r itself in a flat cache, the pool row named by
+// the sequence's table row in a paged one.
+template <bool kPaged>
+__device__ __forceinline__ size_t cache_row(int r, const int* table_row,
+                                            int block_size) {
+  if constexpr (kPaged) {
+    const int blk = r / block_size;
+    return static_cast<size_t>(__ldg(table_row + blk)) * block_size +
+           (r - blk * block_size);
+  } else {
+    return static_cast<size_t>(r);
+  }
+}
+
 // Global -> registers for the K/V tile starting at row `base`; rows
-// past the fill are zero and never read from the cache.
-template <typename KVT, int kMaxVecs, int kVecElems>
+// past the fill are zero and never read from the cache (nor is their
+// table entry).
+template <typename KVT, bool kPaged, int kMaxVecs, int kVecElems>
 __device__ __forceinline__ void load_tile(uint4 (&k_reg)[kMaxVecs],
                                           uint4 (&v_reg)[kMaxVecs],
                                           const KVT* k_head,
                                           const KVT* v_head, int base, int n,
                                           size_t row_stride, int vecs_per_row,
-                                          int tile_vecs) {
+                                          int tile_vecs, const int* table_row,
+                                          int block_size) {
 #pragma unroll
   for (int i = 0; i < kMaxVecs; ++i) {
     const int idx = threadIdx.x + i * kThreads;
@@ -93,7 +123,8 @@ __device__ __forceinline__ void load_tile(uint4 (&k_reg)[kMaxVecs],
     uint4 vz = kz;
     if (idx < tile_vecs && base + r < n) {
       const size_t off =
-          static_cast<size_t>(base + r) * row_stride + c * kVecElems;
+          cache_row<kPaged>(base + r, table_row, block_size) * row_stride +
+          c * kVecElems;
       kz = __ldg(reinterpret_cast<const uint4*>(k_head + off));
       vz = __ldg(reinterpret_cast<const uint4*>(v_head + off));
     }
@@ -103,8 +134,10 @@ __device__ __forceinline__ void load_tile(uint4 (&k_reg)[kMaxVecs],
 }
 
 // QT: type of q and out (f32 or bf16). KVT: cache type (QT, or int8
-// with kQuant). Grid (kh, b, ceil(g / kMaxGroup)), kThreads threads.
-template <typename QT, typename KVT, bool kQuant>
+// with kQuant). kPaged: k/v (and the scales) are pools read through
+// `tables` [b, max_blocks], and max_len is max_blocks * block_size.
+// Grid (kh, b, ceil(g / kMaxGroup)), kThreads threads.
+template <typename QT, typename KVT, bool kQuant, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const QT* __restrict__ q,
                             const KVT* __restrict__ k,
@@ -113,7 +146,9 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ v_scale,
                             const int* __restrict__ length,
                             QT* __restrict__ out, int h, int kh,
-                            int max_len, int d, float scale) {
+                            int max_len, int d, float scale,
+                            const int* __restrict__ tables, int block_size,
+                            int max_blocks) {
   // 16 KB of K and of V per tile at d = 128, whatever the cache type.
   constexpr int kTile = 128 / sizeof(KVT);
   constexpr int kVecElems = 16 / sizeof(KVT);
@@ -128,6 +163,8 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float m_s[kMaxGroup];
   __shared__ float l_s[kMaxGroup];
   __shared__ float corr_s[kMaxGroup];
+  // Paged int8: the pool row of each tile row, for the scale reads.
+  __shared__ int row_s[(kQuant && kPaged) ? kTile : 1];
 
   const int ih = blockIdx.x;
   const int ib = blockIdx.y;
@@ -150,7 +187,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   const size_t row_stride = static_cast<size_t>(kh) * d;  // elements
-  const size_t head_off = static_cast<size_t>(ib) * max_len * kh + ih;
+  const size_t head_off =
+      kPaged ? static_cast<size_t>(ih)
+             : static_cast<size_t>(ib) * max_len * kh + ih;
+  const int* table_row =
+      kPaged ? tables + static_cast<size_t>(ib) * max_blocks : nullptr;
   const KVT* k_head = k + head_off * d;
   const KVT* v_head = v + head_off * d;
   const float* ks_head = kQuant ? k_scale + head_off : nullptr;  // stride kh
@@ -167,8 +208,9 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = (n + kTile - 1) / kTile;
 
   if (n_tiles > 0)
-    load_tile<KVT, kMaxVecs, kVecElems>(k_reg, v_reg, k_head, v_head, 0, n,
-                                        row_stride, vecs_per_row, tile_vecs);
+    load_tile<KVT, kPaged, kMaxVecs, kVecElems>(
+        k_reg, v_reg, k_head, v_head, 0, n, row_stride, vecs_per_row,
+        tile_vecs, table_row, block_size);
   for (int t = 0; t < n_tiles; ++t) {
     const int base = t * kTile;
     const int rows = min(kTile, n - base);
@@ -181,11 +223,16 @@ __global__ void __launch_bounds__(kThreads)
         reinterpret_cast<uint4*>(v_s)[idx] = v_reg[i];
       }
     }
+    if constexpr (kQuant && kPaged) {
+      if (tid < rows)
+        row_s[tid] = static_cast<int>(
+            cache_row<true>(base + tid, table_row, block_size));
+    }
     __syncthreads();
     if (t + 1 < n_tiles)  // in flight while this tile computes
-      load_tile<KVT, kMaxVecs, kVecElems>(k_reg, v_reg, k_head, v_head,
-                                          base + kTile, n, row_stride,
-                                          vecs_per_row, tile_vecs);
+      load_tile<KVT, kPaged, kMaxVecs, kVecElems>(
+          k_reg, v_reg, k_head, v_head, base + kTile, n, row_stride,
+          vecs_per_row, tile_vecs, table_row, block_size);
 
     // Logits: warp w takes rows w, w + kWarps, ...; lanes split d.
     for (int r = warp; r < rows; r += kWarps) {
@@ -202,8 +249,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kMaxGroup; ++j)
         if (j < ng) s[j] = warp_sum(s[j]);
       if (lane == 0) {
-        const float ksc =
-            kQuant ? ks_head[static_cast<size_t>(base + r) * kh] : 1.f;
+        float ksc = 1.f;
+        if constexpr (kQuant) {
+          const size_t row = kPaged ? static_cast<size_t>(row_s[r])
+                                    : static_cast<size_t>(base + r);
+          ksc = ks_head[row * kh];
+        }
 #pragma unroll
         for (int j = 0; j < kMaxGroup; ++j) {
           if (j < ng) {
@@ -229,7 +280,11 @@ __global__ void __launch_bounds__(kThreads)
         float p = expf(pj[r] - m_new);
         sum += p;
         // V dequant folds into p; l keeps the unscaled p.
-        if (kQuant) p *= vs_head[static_cast<size_t>(base + r) * kh];
+        if constexpr (kQuant) {
+          const size_t row = kPaged ? static_cast<size_t>(row_s[r])
+                                    : static_cast<size_t>(base + r);
+          p *= vs_head[row * kh];
+        }
         pj[r] = p;
       }
       sum = warp_sum(sum);
@@ -267,17 +322,48 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename QT, typename KVT, bool kQuant>
+// What one launch reads besides its data pointers. `tables` is null
+// for a flat cache; for a paged one max_len is max_blocks * block_size.
+struct Shape {
+  int b, h, kh, max_len, d;
+  float scale;
+  const void* tables;
+  int block_size, max_blocks;
+};
+
+template <typename QT, typename KVT, bool kQuant, bool kPaged>
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* length, void* out, int b, int h,
-           int kh, int max_len, int d, float scale, cudaStream_t stream) {
-  const dim3 grid(kh, b, (h / kh + kMaxGroup - 1) / kMaxGroup);
-  decode_attention_kernel<QT, KVT, kQuant><<<grid, kThreads, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KVT*>(k),
-      static_cast<const KVT*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(length),
-      static_cast<QT*>(out), h, kh, max_len, d, scale);
+           const void* vs, const void* length, void* out, const Shape& s,
+           cudaStream_t stream) {
+  const dim3 grid(s.kh, s.b, (s.h / s.kh + kMaxGroup - 1) / kMaxGroup);
+  decode_attention_kernel<QT, KVT, kQuant, kPaged>
+      <<<grid, kThreads, 0, stream>>>(
+          static_cast<const QT*>(q), static_cast<const KVT*>(k),
+          static_cast<const KVT*>(v), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<const int*>(length),
+          static_cast<QT*>(out), s.h, s.kh, s.max_len, s.d, s.scale,
+          static_cast<const int*>(s.tables), s.block_size, s.max_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPaged>
+int dispatch(int dtype, int quantized, const void* q, const void* k,
+             const void* v, const void* ks, const void* vs,
+             const void* length, void* out, const Shape& s,
+             cudaStream_t stream) {
+  if (s.b < 1 || s.kh < 1 || s.h % s.kh != 0 || s.d % 16 != 0 ||
+      s.d > kMaxHeadDim || s.max_len < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    return quantized ? launch<__nv_bfloat16, int8_t, true, kPaged>(
+                           q, k, v, ks, vs, length, out, s, stream)
+                     : launch<__nv_bfloat16, __nv_bfloat16, false, kPaged>(
+                           q, k, v, ks, vs, length, out, s, stream);
+  }
+  return quantized ? launch<float, int8_t, true, kPaged>(q, k, v, ks, vs,
+                                                         length, out, s, stream)
+                   : launch<float, float, false, kPaged>(q, k, v, ks, vs,
+                                                         length, out, s, stream);
 }
 
 }  // namespace
@@ -292,25 +378,28 @@ int dlr_decode_attention(int dtype, int quantized, const void* q,
                          const void* v_scale, const void* length, void* out,
                          int b, int h, int kh, int max_len, int d,
                          float scale, void* stream) {
-  if (b < 1 || kh < 1 || h % kh != 0 || d % 16 != 0 || d > kMaxHeadDim ||
-      max_len < 1 || (dtype != 0 && dtype != 1))
+  const Shape s{b, h, kh, max_len, d, scale, nullptr, 0, 0};
+  return dispatch<false>(dtype, quantized, q, k, v, k_scale, v_scale, length,
+                         out, s, static_cast<cudaStream_t>(stream));
+}
+
+// The paged variant: k, v are pools [num_blocks, block_size, kh, d]
+// (k_scale, v_scale [num_blocks, block_size, kh]) and block_tables is
+// int32 [b, max_blocks]. Entries at or past a row's fill are never read.
+int dlr_paged_decode_attention(int dtype, int quantized, const void* q,
+                               const void* k, const void* v,
+                               const void* k_scale, const void* v_scale,
+                               const void* block_tables, const void* length,
+                               void* out, int b, int h, int kh,
+                               int block_size, int max_blocks, int d,
+                               float scale, void* stream) {
+  if (block_tables == nullptr || block_size < 1 || max_blocks < 1 ||
+      max_blocks > INT32_MAX / block_size)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return quantized
-               ? launch<__nv_bfloat16, int8_t, true>(q, k, v, k_scale, v_scale,
-                                                     length, out, b, h, kh,
-                                                     max_len, d, scale, s)
-               : launch<__nv_bfloat16, __nv_bfloat16, false>(
-                     q, k, v, k_scale, v_scale, length, out, b, h, kh,
-                     max_len, d, scale, s);
-  }
-  return quantized ? launch<float, int8_t, true>(q, k, v, k_scale, v_scale,
-                                                 length, out, b, h, kh,
-                                                 max_len, d, scale, s)
-                   : launch<float, float, false>(q, k, v, k_scale, v_scale,
-                                                 length, out, b, h, kh,
-                                                 max_len, d, scale, s);
+  const Shape s{b, h, kh, max_blocks * block_size, d, scale, block_tables,
+                block_size, max_blocks};
+  return dispatch<true>(dtype, quantized, q, k, v, k_scale, v_scale, length,
+                        out, s, static_cast<cudaStream_t>(stream));
 }
 
 const char* dlr_cuda_error_string(int code) {

@@ -1,8 +1,16 @@
 """Continuous-batching serving engine of the port (slot-pooled KV
 cache, ragged per-slot decode through the decode-attention kernel,
-iteration-level scheduling)."""
+iteration-level scheduling); ``serving/kvpool`` is the paged
+block-table variant with cross-request prefix reuse."""
 
 from dlrover_tpu_torch.serving.engine import ServingEngine
+from dlrover_tpu_torch.serving.kvpool import (
+    SENTINEL_BLOCK,
+    BlockAllocator,
+    BlockPoolExhausted,
+    PagedServingEngine,
+    PrefixCache,
+)
 from dlrover_tpu_torch.serving.metrics import serving_metrics
 from dlrover_tpu_torch.serving.scheduler import (
     DECODE,
@@ -16,6 +24,11 @@ from dlrover_tpu_torch.serving.scheduler import (
 
 __all__ = [
     "ServingEngine",
+    "PagedServingEngine",
+    "BlockAllocator",
+    "BlockPoolExhausted",
+    "PrefixCache",
+    "SENTINEL_BLOCK",
     "Scheduler",
     "Request",
     "SloClass",

@@ -16,8 +16,10 @@ per-slot fills, iteration-level scheduling (port of
   with a positional causal mask, so a long prompt interleaves with
   decode iterations instead of stalling them.
 
-Not ported yet: speculative decoding (``spec_k > 0`` raises), the paged
-engine, the fleet, tracing spans and fault points.
+The paged engine (``serving/kvpool``) subclasses this one and overrides
+the pool hooks and the two device steps. Not ported yet: speculative
+decoding (``spec_k > 0`` raises), the fleet, tracing spans and fault
+points.
 
 Typical use::
 
@@ -144,7 +146,10 @@ class ServingEngine:
                 self.scheduler.queue.remove(req)
             except ValueError:
                 pass
+        slot = req.slot
         self.scheduler.evict(req)
+        if slot >= 0:
+            self._release_slot(req, slot)
         self.metrics.requests.inc(outcome="cancelled")
 
     def pending(self) -> int:
@@ -195,6 +200,7 @@ class ServingEngine:
         for name, depth in sch.queue_depth_by_class().items():
             self.metrics.class_queue_depth.set(depth, slo_class=name)
         self.metrics.active_slots.set(len(sch.active()))
+        self._sync_pool_metrics()
         if self._iter_decoded:
             per_tok = (time.monotonic() - t0) / self._iter_decoded
             for _ in range(self._iter_decoded):
@@ -212,17 +218,37 @@ class ServingEngine:
             f"engine did not drain within {max_iters} iterations"
         )
 
-    # ---- internals ---------------------------------------------------------
+    # ---- pool hooks (overridden by the paged engine, serving/kvpool) -------
 
     def _admit_slot(self, req: Request) -> None:
-        """A recycled slot starts from fill 0: stale KV above the cursor
-        is invisible and rewritten before visibility."""
+        """Bind engine-side per-slot state for a freshly admitted
+        request. A recycled slot starts from fill 0: stale KV above the
+        cursor is invisible and rewritten before visibility."""
         self._lengths[req.slot] = 0
         self._tokens[req.slot] = 0
         self._temps[req.slot] = req.temperature
 
+    def _release_slot(self, req: Request, slot: int) -> None:
+        """A request left its slot (finish/cancel). The flat pool has
+        nothing to reclaim — stale rows are invisible; the paged engine
+        returns the slot's blocks to the allocator here."""
+
     def _reset_pool(self) -> None:
+        """Rebuild ALL device-side cache state after a failed step (the
+        pool may hold half-written rows)."""
         self._k, self._v = self._fresh_pool()
+
+    def _sync_pool_metrics(self) -> None:
+        """Per-iteration pool gauges; the flat pool has none beyond the
+        slot gauges step() already sets."""
+
+    def _prompt_in_cache(self, req: Request) -> None:
+        """The last prefill chunk of ``req`` has landed, and the request
+        still holds its slot. Nothing to do for the flat pool; the paged
+        engine registers the prompt's full blocks with its prefix cache
+        here."""
+
+    # ---- internals ---------------------------------------------------------
 
     def _report_shed(self, req: Request, finished: List[Request]) -> None:
         finished.append(req)
@@ -339,6 +365,7 @@ class ServingEngine:
         self.metrics.tokens.inc(n_valid, kind="prefill")
         if req.prefill_pos < req.prompt_len:
             return  # more chunks to come; `first` is discarded unread
+        self._prompt_in_cache(req)
         tok = int(first)
         req.first_token_ts = time.monotonic()
         if req.requeues == 0:
@@ -374,7 +401,10 @@ class ServingEngine:
                 self._finish(r, finished)
 
     def _finish(self, req: Request, finished: List[Request]):
+        slot = req.slot
         self.scheduler.finish(req)
+        if slot >= 0:
+            self._release_slot(req, slot)
         finished.append(req)
         self.metrics.requests.inc(
             outcome="truncated" if req.truncated else "finished"

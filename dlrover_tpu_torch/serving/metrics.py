@@ -3,8 +3,8 @@ of ``dlrover_tpu/serving/metrics.py``).
 
 Registration is idempotent (the registry returns existing families), so
 several engines in one process share counters; gauges describe the last
-engine to update them. The paged-pool and speculative-decoding families
-arrive with those engines.
+engine to update them. The speculative-decoding families and the
+flight-recorder annotations arrive with those parts.
 """
 
 from dlrover_tpu_torch.observability.registry import default_registry
@@ -47,7 +47,7 @@ class ServingMetrics:
         self.tokens_wasted = reg.counter(
             "serving_tokens_wasted_total",
             "computed tokens thrown away by progress resets (step-error "
-            "requeues)",
+            "requeues, pool preemptions)",
             labelnames=("kind",),
         )
         self.iterations = reg.counter(
@@ -85,6 +85,43 @@ class ServingMetrics:
             "serving_token_latency_seconds",
             "per-decoded-token latency (iteration wall time)",
             buckets=_LATENCY_BUCKETS,
+        )
+        # ---- paged KV pool (serving/kvpool) -----------------------------
+        self.kv_blocks = reg.gauge(
+            "serving_kv_blocks",
+            "paged KV pool blocks by state (free | used: referenced by "
+            "a live slot's block table | cached: held warm by the "
+            "prefix cache only); states sum to the managed pool size",
+            labelnames=("state",),
+        )
+        self.kv_blocks_total = reg.gauge(
+            "serving_kv_blocks_total",
+            "managed (allocatable) blocks in the paged KV pool",
+        )
+        self.kv_bytes_in_use = reg.gauge(
+            "serving_kv_bytes_in_use",
+            "bytes of KV pool HBM referenced by live slots or the "
+            "prefix cache (allocated blocks x block bytes, K+V)",
+        )
+        self.prefix_lookups = reg.counter(
+            "serving_prefix_lookups_total",
+            "prefix-cache lookups at admission, by outcome",
+            labelnames=("outcome",),
+        )
+        self.prefix_hit_blocks = reg.counter(
+            "serving_prefix_hit_blocks_total",
+            "warm blocks handed to admitted requests by the prefix "
+            "cache (each skips block_size tokens of prefill)",
+        )
+        self.kv_cow_copies = reg.counter(
+            "serving_kv_cow_copies_total",
+            "copy-on-write block privatizations (a shared block was "
+            "about to be rewritten)",
+        )
+        self.kv_preemptions = reg.counter(
+            "serving_kv_preemptions_total",
+            "requests preempted (re-queued, progress reset) to free "
+            "blocks for an older request under pool pressure",
         )
 
 

@@ -1,6 +1,7 @@
 """Request state machine + iteration-level scheduler for the engine
-(the port's own copy of ``dlrover_tpu/serving/scheduler.py``, without
-the paged-pool, migration and speculative-decoding hooks, which arrive
+(the port's own copy of ``dlrover_tpu/serving/scheduler.py``, with the
+paged pool's hooks — the admission gate and pool-pressure preemption —
+and without the migration and speculative-decoding fields, which arrive
 with those engines).
 
 Orca-style continuous batching, host side: requests move QUEUED →
@@ -78,6 +79,7 @@ class Request:
     # (shed from the queue past its TTL), or a caller-supplied reason.
     failure_reason: str = ""
     requeues: int = 0                  # step-error restarts of this request
+    preemptions: int = 0               # pool-pressure evictions
     submit_ts: float = 0.0
     # Absolute deadline on the submit clock; a QUEUED request past it is
     # shed (never admitted to prefill) — a dead client's request must
@@ -89,6 +91,9 @@ class Request:
     # Named SLO class this request was admitted under; "default" on
     # single-class schedulers.
     slo_class: str = "default"
+    # Paged engines (serving/kvpool): warm prefix-cache blocks this
+    # request's block table started from — 0 on a miss or a flat engine.
+    prefix_hit_blocks: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -144,6 +149,11 @@ class Scheduler:
         # waiting for a slot); the engine drains and reports them with
         # the same metrics as pump-time sheds.
         self._admission_shed: List[Request] = []
+        # Optional engine veto on the next admission (the paged
+        # engine's block watermark: admitting a request the pool
+        # cannot hold would only thrash preemptions). Returning False
+        # stops THIS admission round; the request keeps its place.
+        self.admission_gate = None
         self.by_slot: List[Optional[Request]] = [None] * slots
         self._free: Deque[int] = deque(range(slots))
         self._rid = itertools.count()
@@ -254,7 +264,9 @@ class Scheduler:
         """The weighted-fair winner among per-class queue heads;
         expired candidates are shed on the way (admission-time TTL).
         DRR credit is charged only for an admission that actually
-        happens: sheds are free. The single-class path is O(1) (queue head); the multi-class head
+        happens: sheds and admission-gate vetoes are free, so pool
+        pressure cannot invert the configured class weights. The
+        single-class path is O(1) (queue head); the multi-class head
         scan stops once every class has a head, and ``deque.remove``
         of a head is near-front."""
         while True:
@@ -262,7 +274,13 @@ class Scheduler:
                 return None
             charge = False
             if len(self.slo_classes) == 1:
-                req = self.queue.popleft()
+                req = self.queue[0]
+                if (
+                    not self._expired(req, now)
+                    and self._gate_vetoes(req)
+                ):
+                    return None
+                self.queue.popleft()
             else:
                 heads: Dict[str, Request] = {}
                 for queued in self.queue:
@@ -295,6 +313,13 @@ class Scheduler:
                     )
                     charge = True
                 req = heads[name]
+                if (
+                    not self._expired(req, now)
+                    and self._gate_vetoes(req)
+                ):
+                    # Veto before any charge or removal: the request
+                    # keeps its place AND its class keeps its credit.
+                    return None
                 if charge:
                     self._credits[name] -= 1.0
                 self.queue.remove(req)
@@ -315,6 +340,12 @@ class Scheduler:
 
     def _expired(self, req: Request, now: float) -> bool:
         return req.deadline is not None and now > req.deadline
+
+    def _gate_vetoes(self, req: Request) -> bool:
+        return (
+            self.admission_gate is not None
+            and not self.admission_gate(req)
+        )
 
     def drain_admission_shed(self) -> List[Request]:
         """Requests shed by :meth:`admit`'s deadline check; the engine
@@ -363,6 +394,27 @@ class Scheduler:
         finish(); split so callers/metrics can tell outcomes apart."""
         self.finish(req, now)
 
+    def preempt(self, req: Request) -> None:
+        """Pool-pressure preemption (paged engine): return ONE in-slot
+        request to the FRONT of the queue with its progress reset,
+        freeing its slot (and, at the engine, its blocks) for an older
+        request. Unlike a step-error requeue this does NOT count
+        against the request's requeue budget — being the youngest when
+        the pool runs dry is scheduling, not failure."""
+        if req.slot >= 0:
+            self.by_slot[req.slot] = None
+            self._free.append(req.slot)
+            req.slot = -1
+        req.state = QUEUED
+        req.prefill_pos = 0
+        req.tokens = []
+        req.truncated = False
+        req.first_token_ts = None
+        req.admit_ts = None
+        req.prefix_hit_blocks = 0
+        req.preemptions += 1
+        self.queue.appendleft(req)
+
     # ---- failure recovery --------------------------------------------------
 
     def requeue_active(self) -> List[Request]:
@@ -385,6 +437,7 @@ class Scheduler:
             req.truncated = False
             req.first_token_ts = None
             req.admit_ts = None
+            req.prefix_hit_blocks = 0
             req.requeues += 1
             self.queue.appendleft(req)
         return victims

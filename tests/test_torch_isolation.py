@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither JAX nor anything of the
-JAX package. Checked in a fresh interpreter that serves and takes a
-training step on the CPU (this test process has JAX loaded by
-``tests/conftest.py``) and by a scan of every import statement in the
-port's sources and in ``chip_smoke.py``."""
+JAX package. Checked in a fresh interpreter that serves (flat and
+paged engines) and takes a training step on the CPU (this test process
+has JAX loaded by ``tests/conftest.py``) and by a scan of every import
+statement in the port's sources and in ``chip_smoke.py``."""
 
 import ast
 import json
@@ -24,7 +24,7 @@ for m in pkgutil.walk_packages(dlrover_tpu_torch.__path__,
                                "dlrover_tpu_torch."):
     importlib.import_module(m.name)
 from dlrover_tpu_torch.models import generate, llama
-from dlrover_tpu_torch.serving import ServingEngine
+from dlrover_tpu_torch.serving import PagedServingEngine, ServingEngine
 import torch
 cfg = llama.tiny_config()
 params = llama.init_params(cfg, torch.Generator().manual_seed(0),
@@ -35,6 +35,17 @@ eng = ServingEngine(cfg, params, slots=1, max_len=16, prefill_chunk=8,
                     device="cpu")
 req = eng.submit(np.arange(4), 2)
 eng.run_until_idle()
+paged_tokens = 0
+for kv in ("fp", "int8"):
+    peng = PagedServingEngine(cfg, params, slots=2, max_len=16,
+                              prefill_chunk=8, block_size=8,
+                              kv_cache_dtype=kv, device="cpu")
+    for _ in range(2):
+        preq = peng.submit(np.arange(9), 2)
+        peng.run_until_idle()
+        paged_tokens += len(preq.tokens)
+    peng.check_block_invariants()
+    assert preq.prefix_hit_blocks == 1
 from dlrover_tpu_torch.trainer import train_step as ts
 tc = ts.TrainConfig(grad_accum=2)
 opt = ts.make_optimizer(tc)
@@ -43,6 +54,7 @@ state, m = ts.make_train_step(cfg, tc, opt, device="cpu")(
     state, {"tokens": np.zeros((4, 9), np.int32)})
 print(json.dumps({
     "tokens": out.tokens.shape[1] + len(req.tokens),
+    "paged_tokens": paged_tokens,
     "train_step": state["step"], "loss": float(m["loss"]),
     "leaked": sorted(
         m for m in sys.modules
@@ -62,6 +74,7 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["tokens"] == 5
+    assert result["paged_tokens"] == 8
     assert result["train_step"] == 1 and result["loss"] > 0
     assert result["leaked"] == []
 
@@ -77,6 +90,13 @@ def _imports(path: Path):
 
 
 _SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_scan_covers_the_paged_engine_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    assert {"serving/kvpool/__init__.py", "serving/kvpool/allocator.py",
+            "serving/kvpool/engine.py",
+            "serving/kvpool/prefix_cache.py"} <= scanned
 
 
 @pytest.mark.parametrize(

@@ -22,7 +22,7 @@ from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops import decode_attention as da
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops.kv_quant import quantize_kv
-from dlrover_tpu_torch.serving import ServingEngine
+from dlrover_tpu_torch.serving import PagedServingEngine, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +126,146 @@ def test_engine_on_card_matches_cpu(cuda):
         return [r.tokens for r in reqs]
 
     assert serve(cuda) == serve("cpu")
+
+
+def _paged_inputs(device, dtype, kv, h, kh, d, bs, mb, lengths, seed):
+    """q, noise-filled pools twice the batch's need, a shuffled table
+    whose entries past each row's fill name another row's blocks."""
+    g = torch.Generator(device).manual_seed(seed)
+    b = len(lengths)
+    nb = 2 * b * mb + 1
+    q = torch.randn(b, h, d, generator=g, device=device).to(dtype)
+    k = torch.randn(nb, bs, kh, d, generator=g, device=device).to(dtype)
+    v = torch.randn(nb, bs, kh, d, generator=g, device=device).to(dtype)
+    tables = (torch.randperm(nb - 1, generator=g, device=device)[:b * mb]
+              + 1).reshape(b, mb).int()
+    for i, n in enumerate(lengths):
+        used = -(-min(n, bs * mb) // bs)
+        tables[i, used:] = tables[(i + 1) % b, :mb - used].flip(0)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    scales = ()
+    if kv == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        scales = (ks, vs)
+    return q, k, v, tables.contiguous(), lens, scales
+
+
+def _paged_faults(q, k, v, tables, lens, scales):
+    """What two broken paged kernels would return, from the plain
+    version: one that ignores the table (reads the pool as if row i's
+    blocks were i * max_blocks + j), one that drops each row's last,
+    partly filled block."""
+    b, mb = tables.shape
+    bs = k.shape[1]
+    identity = torch.arange(b * mb, dtype=torch.int32,
+                            device=q.device).reshape(b, mb)
+    no_table = da.paged_decode_attention_reference(q, k, v, identity, lens,
+                                                   *scales)
+    short = da.paged_decode_attention_reference(
+        q, k, v, tables, lens - lens % bs, *scales)
+    return {"ignores_table": no_table, "drops_last_block": short}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("h,kh,d,bs", [
+    (8, 8, 128, 16), (32, 8, 128, 16), (8, 8, 128, 32), (8, 8, 128, 128),
+    (8, 2, 64, 8), (4, 2, 16, 1), (40, 2, 32, 24),
+])
+def test_paged_kernel_matches_plain_version(cuda, dtype, kv, h, kh, d, bs):
+    mb = max(2, 320 // bs)
+    cap = bs * mb
+    lengths = [0, 1, bs - 1, bs, bs + 1, 77 % cap, cap]
+    q, k, v, tables, lens, scales = _paged_inputs(
+        cuda, dtype, kv, h, kh, d, bs, mb, lengths, seed=h * 7 + d + bs)
+    before = dict(da.launch_counts)
+    got = da.paged_decode_attention(q, k, v, tables, lens, *scales)
+    torch.cuda.synchronize()
+    want = da.paged_decode_attention_reference(q, k, v, tables, lens,
+                                               *scales)
+    torch.testing.assert_close(got, want, **_tol(dtype))
+    assert torch.all(got[0] == 0)
+    name = f"paged_decode_attention_{kv}"
+    assert da.launch_counts[name] == before[name] + 1
+    for fault, out in _paged_faults(q, k, v, tables, lens, scales).items():
+        if fault == "drops_last_block" and bs == 1:
+            continue  # no block is ever partly filled
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(out, want, **_tol(dtype))
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_paged_kernel_through_an_identity_table_is_the_flat_kernel(cuda, kv):
+    """The two kernels share their body: the same rows in the same
+    order give the same bits."""
+    g = torch.Generator(cuda).manual_seed(5)
+    b, S, h, kh, d, bs = 4, 256, 8, 8, 128, 16
+    q = torch.randn(b, h, d, generator=g, device=cuda).bfloat16()
+    k = torch.randn(b, S, kh, d, generator=g, device=cuda).bfloat16()
+    v = torch.randn(b, S, kh, d, generator=g, device=cuda).bfloat16()
+    lens = torch.tensor([0, 17, 200, S], dtype=torch.int32, device=cuda)
+    scales = ()
+    if kv == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        scales = (ks, vs)
+    flat = da.decode_attention(q, k, v, lens, *scales)
+    tables = torch.arange(b * S // bs, dtype=torch.int32,
+                          device=cuda).reshape(b, S // bs)
+    pool = lambda t: t.reshape(b * S // bs, bs, *t.shape[2:])  # noqa: E731
+    paged = da.paged_decode_attention(
+        q, pool(k), pool(v), tables, lens, *(pool(s) for s in scales))
+    torch.testing.assert_close(paged, flat, rtol=0, atol=0)
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(2, 4, 128, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(9, 16, 2, 128, device=cuda, dtype=torch.bfloat16)
+    tables = torch.zeros(2, 4, device=cuda, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        da.paged_decode_attention(q, k, k, tables.long(), 3)
+    with pytest.raises(ValueError, match="tables"):
+        da.paged_decode_attention(q, k, k, tables[:1], 3)
+    with pytest.raises(TypeError):
+        da.paged_decode_attention(q, k.float(), k.float(), tables, 3)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.paged_decode_attention(q[..., :24].contiguous(),
+                                  k[..., :24].contiguous(),
+                                  k[..., :24].contiguous(), tables, 3)
+    with pytest.raises(TypeError, match="int8"):
+        da.paged_decode_attention(q, k, k, tables, 3,
+                                  torch.ones(9, 16, 2, device=cuda),
+                                  torch.ones(9, 16, 2, device=cuda))
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_paged_engine_on_card_matches_cpu(cuda, kv_dtype):
+    """tiny f32 config, an oversubscribed pool with a shared prefix:
+    greedy tokens through the paged kernel equal those through its plain
+    version on the CPU, and the bookkeeping is the same."""
+    cfg = llama.tiny_config()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rs = np.random.RandomState(1)
+    shared = rs.randint(0, 256, 16)
+    prompts = [np.concatenate([shared, rs.randint(0, 256, n)])
+               for n in (5, 9, 3)] + [rs.randint(0, 256, 12)]
+
+    def serve(device):
+        eng = PagedServingEngine(cfg, params, slots=3, max_len=48,
+                                 prefill_chunk=8, block_size=8,
+                                 num_blocks=11, kv_cache_dtype=kv_dtype,
+                                 device=device)
+        eng.warmup()
+        reqs = [eng.submit(p, 10) for p in prompts]
+        eng.run_until_idle()
+        eng.check_block_invariants()
+        return [r.tokens for r in reqs], eng.kv_stats()
+
+    before = da.launch_counts[f"paged_decode_attention_{kv_dtype}"]
+    assert serve(cuda) == serve("cpu")
+    assert da.launch_counts[f"paged_decode_attention_{kv_dtype}"] > before
 
 
 def _flash_inputs(device, b, sq, skv, h, kh, d, seed):
