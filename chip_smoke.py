@@ -67,6 +67,32 @@ phases that each print JSON lines:
     gap, prefix hits that skip prefill, block conservation with no block
     left in use, and B6 launched exactly n_layers times per decode step.
     Then 20 steps of an fp and an int8 engine under the profiler.
+12. MoE kernels: the grouped FFN forward (B7) and its dx, dw_gu and
+    dw_down kernels (B8) against their plain versions at the MoE
+    training shape (8 x 2048 tokens, d = f = 1024, 8 experts, top-2,
+    routed by a router), a skewed routing (half the copies on one
+    expert, one expert empty) and a decode step (8 tokens), elementwise
+    as B4, each with a planted fault the same bound must reject; times,
+    bounds, and the per-expert matmul loop as the library yardstick;
+13. MoE ``generate()`` on ``moe_config()`` (bench.py's moe_phase model:
+    the flagship's attention, 8 experts of mlp 1024, top-2, dropless,
+    535M params, 233M active): b=8, prompt 128, 256 new tokens, fp
+    cache; a bitwise rerun and exact B5 and B7 launches. Routing flips
+    (positions whose top-2 expert set differs between the cached path
+    and the teacher-forced forward at some layer) are counted and
+    reported, not bounded. The teacher-forced gap is held to ARGMAX_GAP
+    at every position once the forward is pinned to the decode path's
+    routing, and at every position without a flip in the free forward;
+    every flip at the first layer must be a near-tie (MOE_TIE);
+14. MoE ``ServingEngine``: phase 5's 16 requests, every one complete;
+    tokens/s and TTFT;
+15. MoE training: ``make_train_step``, remat ``mlp_only``, micro-batch 8
+    x 2048, grad_accum 1. One step through the kernels against the same
+    step through the plain grouped FFN (TRAIN_GATES) with a planted
+    fault the gates must reject; 6 steps with falling loss, a bitwise
+    rerun, exact B1, B2, B7 and B8 launches; step time, tokens/s, the
+    share of the bf16 peak on 6 x active params a token, peak memory
+    and a profiled step.
 
 Phases 4, 5 and 11 check the tokens against the argmax of the port's own
 teacher-forced forward over prompt + output, check that repeated runs
@@ -75,6 +101,7 @@ went through them. Any failure raises (exit code 1) before the last
 line, which is ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -118,6 +145,14 @@ CE_REL, CE_ROW, CE_FLOOR = 2e-2, 2e-2, 1e-3
 # through the dense CE (see phase_train_ce): as TRAIN_GATES.
 CE_TRAIN_GATES = {"loss": 1e-4, "grad_norm": 2e-4, "grads": 5e-2}
 CE_TRAIN_STEPS = 3
+# MoE training (bench.py moe_phase): micro-batch x seq, grad_accum 1, steps.
+MOE_MICRO, MOE_SEQ, MOE_STEPS = 8, 2048, 6
+# MoE generate(): a routing flip at the first layer, where the cached
+# decode path and the teacher-forced forward read the same K/V and only
+# rounding separates them, must be a near-tie: the forward's router has
+# its k-th and (k+1)-th expert within MOE_TIE in log-probability (see
+# phase_moe_generate).
+MOE_TIE = 0.1
 
 
 def emit(obj):
@@ -226,20 +261,31 @@ def _decode_bound(q, k, lens, kv, tables=None):
             "bytes" if t_bytes >= t_ops else "operations", moved)
 
 
-def _sdpa_call(q, k, v, lens):
-    """One library call computing the fp kernel's function (rows of
-    fill 0 give NaN there; it is only timed)."""
+def _sdpa_call(q, k, v, lens, scales=()):
+    """The library's route to the kernel's function: one masked SDPA
+    call, after an int8 cache (``scales`` given) is dequantised to bf16
+    inside the timed call (rows of fill 0 give NaN there; it is only
+    timed)."""
     import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops.kv_quant import dequantize_kv
 
     b, h, d = q.shape
     _, max_len, kh, _ = k.shape
     qs = q[:, :, None, :]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(max_len, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
-    return lambda: F.scaled_dot_product_attention(
-        qs, kt, vt, attn_mask=mask, enable_gqa=h != kh
-    )
+
+    def call():
+        kk, vv = k, v
+        if scales:
+            kk = dequantize_kv(k, scales[0], torch.bfloat16)
+            vv = dequantize_kv(v, scales[1], torch.bfloat16)
+        return F.scaled_dot_product_attention(
+            qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+            enable_gqa=h != kh)
+
+    return call
 
 
 def phase_kernels():
@@ -280,9 +326,7 @@ def phase_kernels():
                                                       *scales))
             plain_ms = _time_ms(lambda: da.decode_attention_reference(
                 q, k, v, lens, *scales))
-            library_ms = (
-                _time_ms(_sdpa_call(q, k, v, lens)) if kv == "fp" else None
-            )
+            library_ms = _time_ms(_sdpa_call(q, k, v, lens, scales))
             bound_ms, bound_by, moved = _decode_bound(q, k, lens, kv)
             row = {
                 "phase": "kernel", "shape": label, "kv": kv,
@@ -290,6 +334,8 @@ def phase_kernels():
                 "lengths": [int(x) for x in lengths],
                 "max_abs_err": float(err.max()), "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
+                "library": ("int8 -> bf16 dequantise, then " if scales
+                            else "") + "SDPA + mask",
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": moved, "bound_share": bound_ms / ms,
             }
@@ -521,11 +567,14 @@ def _paged_inputs(b, h, kh, d, bs, mb, nb, lengths, kv, gen, rs):
     return q, k, v, tables, lens, ()
 
 
-def _paged_sdpa_call(q, k, v, tables, lens):
-    """The library's route to the fp kernel's function: gather every
-    row's logical cache through the table, then one masked SDPA call
-    (rows of fill 0 give NaN there; it is only timed)."""
+def _paged_sdpa_call(q, k, v, tables, lens, scales=()):
+    """The library's route to the kernel's function: gather every row's
+    logical cache through the table (an int8 pool with its scales, then
+    dequantised to bf16), then one masked SDPA call (rows of fill 0 give
+    NaN there; it is only timed)."""
     import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops.kv_quant import dequantize_kv
 
     b, h, d = q.shape
     kh = k.shape[2]
@@ -534,12 +583,17 @@ def _paged_sdpa_call(q, k, v, tables, lens):
     mask = (torch.arange(max_len, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
 
+    def logical(pool, scale):
+        rows = pool[idx]
+        if scale is not None:
+            rows = dequantize_kv(rows, scale[idx], torch.bfloat16)
+        return rows.reshape(b, max_len, kh, d).transpose(1, 2)
+
     def call():
-        kt = k[idx].reshape(b, max_len, kh, d).transpose(1, 2)
-        vt = v[idx].reshape(b, max_len, kh, d).transpose(1, 2)
+        ks, vs = scales or (None, None)
         return F.scaled_dot_product_attention(
-            q[:, :, None, :], kt, vt, attn_mask=mask, enable_gqa=h != kh
-        )
+            q[:, :, None, :], logical(k, ks), logical(v, vs), attn_mask=mask,
+            enable_gqa=h != kh)
 
     return call
 
@@ -606,10 +660,8 @@ def phase_paged_kernels():
                 q, k, v, tables, lens, *scales))
             plain_ms = _time_ms(lambda: da.paged_decode_attention_reference(
                 q, k, v, tables, lens, *scales))
-            library_ms = (
-                _time_ms(_paged_sdpa_call(q, k, v, tables, lens))
-                if kv == "fp" else None
-            )
+            library_ms = _time_ms(
+                _paged_sdpa_call(q, k, v, tables, lens, scales))
             bound_ms, bound_by, moved = _decode_bound(q, k, lens, kv, tables)
             row = {
                 "phase": "kernel", "kernel": f"paged_decode_attention_{kv}",
@@ -618,7 +670,9 @@ def phase_paged_kernels():
                 "lengths": lengths, "max_abs_err": float(err.max()),
                 "planted_fault_max_abs_err": fault_err, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
-                "library": "gather through the table, then SDPA + mask",
+                "library": "gather through the table, then "
+                           + ("int8 -> bf16 dequantise, " if scales else "")
+                           + "SDPA + mask",
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
                 "bound_share": bound_ms / ms,
             }
@@ -655,10 +709,11 @@ def phase_paged_kernels():
 # ---- main path -----------------------------------------------------------
 
 
-def _argmax_gap(cfg, params, seqs, start, kv, label):
-    """Teacher-forced check: for each token a row produced from
-    position ``start`` on, the gap between the max logit of the port's
-    forward at the previous position and the chosen token's logit."""
+def _argmax_gaps(cfg, params, seqs, start):
+    """Teacher-forced gaps [b, n]: for each token a row produced from
+    position ``start`` on, the max logit of the port's forward at the
+    previous position less the chosen token's logit; and whether each
+    chosen token is that argmax."""
     from dlrover_tpu_torch.models import llama
 
     with torch.inference_mode():
@@ -666,11 +721,17 @@ def _argmax_gap(cfg, params, seqs, start, kv, label):
     pred = logits[:, start - 1:-1]
     chosen = seqs[:, start:].long()
     gap = pred.max(dim=-1).values - pred.gather(-1, chosen[..., None])[..., 0]
+    return gap, pred.argmax(dim=-1) == chosen
+
+
+def _argmax_gap(cfg, params, seqs, start, kv, label, gated=True):
+    """The worst teacher-forced gap (held to ARGMAX_GAP[kv] when
+    ``gated``) and the share of tokens that are the argmax."""
+    gap, hit = _argmax_gaps(cfg, params, seqs, start)
     worst = float(gap.max())
-    agree = float((pred.argmax(dim=-1) == chosen).float().mean())
-    check(worst <= ARGMAX_GAP[kv],
+    check(not gated or worst <= ARGMAX_GAP[kv],
           f"{label}: token {worst} logits below the teacher-forced max")
-    return worst, agree
+    return worst, float(hit.float().mean())
 
 
 def _device_profile(fn):
@@ -762,8 +823,15 @@ def phase_generate(cfg, params):
     return out
 
 
-def phase_engine(cfg, params):
+def phase_engine(cfg, params, phase="engine", gated=True):
+    """The flat engine: 8 slots, 16 greedy requests. Every request must
+    complete; the teacher-forced gap is held to ARGMAX_GAP when
+    ``gated``, else reported. Returns the decode-attention and grouped
+    FFN launches counted up to the engine's last step, before the
+    teacher-forced checks (whose forward launches B7 on a MoE model)."""
     from dlrover_tpu_torch.observability.registry import MetricsRegistry
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.ops import moe_dispatch as md
     from dlrover_tpu_torch.serving import ServingEngine
 
     rs = np.random.RandomState(SEED + 2)
@@ -780,15 +848,16 @@ def phase_engine(cfg, params):
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    launches = {**da.launch_counts, **md.launch_counts}
     for r, n in zip(reqs, news):
         check(r.state == "done" and not r.failed and not r.truncated,
-              f"engine: request {r.rid} ended {r.state} "
+              f"{phase}: request {r.rid} ended {r.state} "
               f"failed={r.failed} truncated={r.truncated}")
         check(len(r.tokens) == n,
-              f"engine: request {r.rid} got {len(r.tokens)} of {n}")
-        check(r.requeues == 0, f"engine: request {r.rid} was requeued")
+              f"{phase}: request {r.rid} got {len(r.tokens)} of {n}")
+        check(r.requeues == 0, f"{phase}: request {r.rid} was requeued")
     errors = reg.get("serving_step_errors_total").value()
-    check(errors == 0, f"engine: {errors} step errors")
+    check(errors == 0, f"{phase}: {errors} step errors")
     worst = 0.0
     agree = []
     for r, p in zip(reqs, prompts):
@@ -796,13 +865,13 @@ def phase_engine(cfg, params):
             np.concatenate([p, np.asarray(r.tokens, np.int32)])
         ).cuda()[None]
         w, a = _argmax_gap(cfg, params, seq, len(p), "fp",
-                           f"engine/request {r.rid}")
+                           f"{phase}/request {r.rid}", gated)
         worst = max(worst, w)
         agree.append(a)
     ttfts = sorted(r.ttft_s for r in reqs)
     gen_tokens = sum(len(r.tokens) for r in reqs)
     row = {
-        "phase": "engine", "requests": len(reqs), "slots": 8,
+        "phase": phase, "requests": len(reqs), "slots": 8,
         "max_len": 1024, "prefill_chunk": 64,
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "new_tokens": gen_tokens, "wall_s": wall,
@@ -812,10 +881,12 @@ def phase_engine(cfg, params):
         "ttft_max_s": ttfts[-1],
         "iterations": reg.get("serving_iterations_total").value(),
         "step_errors": errors, "argmax_gap_max": worst,
+        "argmax_gap_gated": gated,
         "argmax_agree": float(np.mean(agree)),
+        "launches": launches,
     }
     emit(row)
-    return row
+    return launches
 
 
 def _paged_workload(cfg, n_requests=32, prefix_share=0.6, prefix_len=48):
@@ -1047,6 +1118,70 @@ def _train_state(cfg, tc):
     return opt, ts.init_train_state(cfg, opt, params)
 
 
+def _one_step_rows(cfg, tokens, variants):
+    """One grad_accum=1 step per variant, each from the seed's params:
+    ``variants`` maps a label to (a ``loss_fn`` for ``make_train_step``
+    or None, a context manager factory the step runs under or None).
+    Returns {label: row}; every row after the first (the reference)
+    carries its relative loss and grad-norm gaps and, per leaf, the
+    relative L2 distance of Adam's first moment (0.1 x the clipped
+    gradient: the lr is 0 at the first update) to the reference's."""
+    import contextlib
+
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    tc1 = ts.TrainConfig(warmup_steps=2, grad_accum=1)
+    one, ref_moments = {}, None
+    for label, (loss_fn, patch) in variants.items():
+        opt, state = _train_state(cfg, tc1)
+        step = ts.make_train_step(cfg, tc1, opt, device="cuda",
+                                  loss_fn=loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        with (patch or contextlib.nullcontext)():
+            state, m = step(state, {"tokens": tokens})
+        # Peak memory of the step alone: the reference's moments, kept
+        # for the comparison, are not counted.
+        held = sum(t.numel() * 4 for t in ref_moments or ())
+        row = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "step_s": time.monotonic() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated() - held}
+        moments = [state["opt_state"].state[p]["exp_avg"]
+                   for p in ts.param_leaves(state["params"])]
+        if ref_moments is None:
+            ref, ref_moments = row, moments
+        else:
+            row["loss_rel"] = abs(row["loss"] - ref["loss"]) / ref["loss"]
+            row["grad_norm_rel"] = abs(
+                row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            dist = [float((a - b).norm() / b.norm())
+                    for a, b in zip(moments, ref_moments)]
+            row["grads_rel_l2"] = dict(zip(_leaf_names(state["params"]),
+                                           dist))
+            row["grads"] = max(dist)
+        one[label] = row
+        del opt, state, step, m, moments
+        torch.cuda.empty_cache()
+    return one
+
+
+def _check_step_gates(phase, one, fault):
+    """The "kernel" row within TRAIN_GATES of the reference; the planted
+    ``fault`` row outside the gradient and grad-norm gates."""
+    gate_keys = {"loss": "loss_rel", "grad_norm": "grad_norm_rel",
+                 "grads": "grads"}
+    for gate, key in gate_keys.items():
+        check(one["kernel"][key] <= TRAIN_GATES[gate],
+              f"{phase}: kernel vs plain {key} {one['kernel'][key]} > "
+              f"{TRAIN_GATES[gate]}")
+    for gate in ("grads", "grad_norm"):
+        key = gate_keys[gate]
+        check(one[fault][key] > TRAIN_GATES[gate],
+              f"{phase}: the {gate} gate passes a planted fault "
+              f"({one[fault][key]})")
+
+
 def phase_train(cfg):
     """The training main path: ``make_train_step`` -> ``loss_fn`` ->
     ``forward`` -> ``run_layer_stack`` with the flash kernels, on a
@@ -1074,8 +1209,6 @@ def phase_train(cfg):
     # attention, so the gradients part by bf16 noise (a few percent) even
     # with sound kernels; the gates sit above that, and only the larger
     # fault is required to fail them.
-    tc1 = ts.TrainConfig(warmup_steps=2, grad_accum=1)
-
     def keys_cut(cut):
         def attention_fn(q, k, v, causal=True, **_):
             return fa.flash_attention(q, k[:, :cut], v[:, :cut], causal)
@@ -1083,57 +1216,16 @@ def phase_train(cfg):
                                           attention_fn=attention_fn)
 
     variants = {
-        "plain": lambda p, b: llama.loss_fn(
-            cfg, p, b, attention_fn=dot_product_attention),
-        "kernel": None,
-        "fault_last_tile": keys_cut(64 * ((TRAIN_SEQ - 1) // 64)),
-        "fault_half": keys_cut(TRAIN_SEQ // 2),
+        "plain": (lambda p, b: llama.loss_fn(
+            cfg, p, b, attention_fn=dot_product_attention), None),
+        "kernel": (None, None),
+        "fault_last_tile": (keys_cut(64 * ((TRAIN_SEQ - 1) // 64)), None),
+        "fault_half": (keys_cut(TRAIN_SEQ // 2), None),
     }
-    one, plain_moments = {}, None
-    for label, loss_fn in variants.items():
-        opt, state = _train_state(cfg, tc1)
-        step = ts.make_train_step(cfg, tc1, opt, device="cuda",
-                                  loss_fn=loss_fn)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.monotonic()
-        state, m = step(state, {"tokens": tokens[:TRAIN_MICRO]})
-        # Peak memory of the step alone: the plain step's moments, kept
-        # for the comparison, are not counted.
-        held = sum(t.numel() * 4 for t in plain_moments or ())
-        row = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-               "step_s": time.monotonic() - t0,
-               "peak_bytes": torch.cuda.max_memory_allocated() - held}
-        moments = [state["opt_state"].state[p]["exp_avg"]
-                   for p in ts.param_leaves(state["params"])]
-        if plain_moments is None:
-            plain_moments = moments
-        else:
-            ref = one["plain"]
-            row["loss_rel"] = abs(row["loss"] - ref["loss"]) / ref["loss"]
-            row["grad_norm_rel"] = abs(
-                row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
-            dist = [float((a - b).norm() / b.norm())
-                    for a, b in zip(moments, plain_moments)]
-            row["grads_rel_l2"] = dict(zip(_leaf_names(state["params"]),
-                                           dist))
-            row["grads"] = max(dist)
-        one[label] = row
-        del opt, state, step, m, moments
-        torch.cuda.empty_cache()
-    del plain_moments
+    one = _one_step_rows(cfg, tokens[:TRAIN_MICRO], variants)
     emit({"phase": "train_vs_plain", "micro_batch": TRAIN_MICRO,
           "seq": TRAIN_SEQ, "gates": TRAIN_GATES, **one})
-    gate_keys = {"loss": "loss_rel", "grad_norm": "grad_norm_rel",
-                 "grads": "grads"}
-    for gate, key in gate_keys.items():
-        check(one["kernel"][key] <= TRAIN_GATES[gate],
-              f"train: kernel vs plain {key} {one['kernel'][key]} > "
-              f"{TRAIN_GATES[gate]}")
-    for gate, key in (("grads", "grads"), ("grad_norm", "grad_norm_rel")):
-        check(one["fault_half"][key] > TRAIN_GATES[gate],
-              f"train: the {gate} gate passes a planted fault "
-              f"({one['fault_half'][key]})")
+    _check_step_gates("train", one, "fault_half")
 
     # Check two: TRAIN_STEPS steps through the kernels, twice from the
     # same seed.
@@ -1635,12 +1727,596 @@ def phase_train_ce(cfg):
     return launches
 
 
+# ---- MoE (B7, B8) ------------------------------------------------------------
+
+
+def moe_config():
+    """bench.py's moe_phase model (:725-729): the flagship's attention
+    with 8 experts of mlp 1024 in every layer, top-2, dropless (535M
+    params, 233M active); remat ``mlp_only``."""
+    from dlrover_tpu_torch.models import llama
+
+    return llama.TpuLMConfig(
+        vocab_size=32000, embed_dim=1024, n_layers=16, n_heads=8,
+        n_kv_heads=8, head_dim=128, mlp_dim=1024, dtype="bfloat16",
+        n_experts=8, moe_top_k=2, moe_impl="dropless",
+    )
+
+
+def _moe_kernel_inputs(n, routing, gen, d=1024, f=1024, e=8, k=2):
+    """bench.py ``_moe_bench_tensors``' scales (:773): x ~ N(0, 1) bf16
+    [n, d], router N(0, 1) / 8 f32, gate|up [e, d, 2f] and down [e, f, d]
+    N(0, 1) / sqrt(fan_in) bf16, and a bf16 cotangent dy ~ N(0, 1) [n k,
+    d]. ``routing`` "router" takes the router's top-k; "skewed" puts the
+    first half of the copies on expert 0 and the rest at random on
+    experts 0..e-2, so expert e-1 is empty. Returns the tensors, the
+    layout and its tile."""
+    from dlrover_tpu_torch.models import moe
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+    router = torch.randn(d, e, generator=gen, device="cuda") / 8
+    w_gu = (torch.randn(e, d, 2 * f, generator=gen, device="cuda")
+            / d ** 0.5).bfloat16()
+    w_down = (torch.randn(e, f, d, generator=gen, device="cuda")
+              / f ** 0.5).bfloat16()
+    dy = torch.randn(n * k, d, generator=gen, device="cuda").bfloat16()
+    m = n * k
+    if routing == "router":
+        fe = moe._top_k(torch.softmax(x.float() @ router, dim=-1), k)[1]
+    else:
+        fe = torch.randint(0, e - 1, (m,), generator=gen, device="cuda")
+        fe[: m // 2] = 0
+    tm = md.default_tile_m(m)
+    ids = md.build_dispatch_layout(fe.reshape(m).to(torch.int32), e, tm, k)
+    return x, w_gu, w_down, dy, ids, tm
+
+
+def _moe_bound(name, n, m, m_pad, T, d, f, e, e_routed):
+    """Least time for one B7/B8 kernel's work: its bytes (each input
+    once: x or its rows, dy, the weights of the experts that have rows,
+    the ids; each output once, the sorted a and dh at m_pad rows) over
+    the HBM rate, against 2 flops a multiply-add on the m real copies
+    over the bf16 peak (B7 6 m d f, dx 10 m d f, dw_gu 4 m d f, dw_down
+    2 m d f)."""
+    weights = e_routed * 3 * d * f * 2
+    ids = 2 * m_pad * 4 + T * 4
+    x_b, rows = n * d * 2, m * d * 2
+    moved, flops = {
+        "grouped_ffn_forward": (x_b + weights + ids + rows, 6 * m * d * f),
+        "grouped_ffn_backward_dx": (
+            x_b + rows + weights + ids + rows + m_pad * 3 * f * 2,
+            10 * m * d * f),
+        "grouped_ffn_backward_dw_gu": (
+            x_b + m_pad * 2 * f * 2 + m_pad * 4 + T * 4 + e * d * 2 * f * 4,
+            4 * m * d * f),
+        "grouped_ffn_backward_dw_down": (
+            m_pad * f * 2 + rows + m_pad * 4 + T * 4 + e * f * d * 4,
+            2 * m * d * f),
+    }[name]
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS_PER_S["bfloat16"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", moved, flops)
+
+
+def _moe_library_calls(x, w_gu, w_down, dy, dh, a, ids, tm):
+    """The library yardstick of each kernel, only timed: the per-expert
+    ``torch.matmul`` loop over the expert-sorted copies (the port's
+    "gmm" route), with the gather before it and the scatter after it.
+    Group sizes are read to the host here, outside the timed calls."""
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+    from dlrover_tpu_torch.ops.fused_ce import _mm_f32
+
+    ri, di, te = ids
+    e, _, two_f = w_gu.shape
+    f = two_f // 2
+    m, d = dy.shape
+    slots = (ri >= 0).nonzero()[:, 0]            # sorted copies, in order
+    src, dst = ri[slots].long(), di[slots].long()
+    sizes = torch.bincount(te.repeat_interleave(tm)[slots].long(),
+                           minlength=e).tolist()
+    ends = np.cumsum(sizes)
+    ranges = [(int(s1 - n), int(s1), g) for g, (n, s1) in
+              enumerate(zip(sizes, ends)) if n]
+
+    def forward():
+        xs = x[src]
+        outs = []
+        for s0, s1, g in ranges:
+            h = xs[s0:s1] @ w_gu[g]
+            outs.append((F.silu(h[:, :f]) * h[:, f:]) @ w_down[g])
+        y = torch.empty((m, d), dtype=x.dtype, device=x.device)
+        y[dst] = torch.cat(outs)
+        return y
+
+    def backward_dx():
+        xs, dys = x[src], dy[dst]
+        outs = []
+        for s0, s1, g in ranges:
+            h = (xs[s0:s1] @ w_gu[g]).float()
+            da = (dys[s0:s1] @ w_down[g].t()).float()
+            dhg, dhu = md._silu_bwd(h[:, :f], h[:, f:], da)
+            outs.append(torch.cat([dhg, dhu], dim=1).bfloat16()
+                        @ w_gu[g].t())
+        dx = torch.empty((m, d), dtype=x.dtype, device=x.device)
+        dx[dst] = torch.cat(outs)
+        return dx
+
+    def backward_dw(lhs, rhs, out_shape):
+        def call():
+            dw = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
+            ls, rs = lhs(), rhs()
+            for s0, s1, g in ranges:
+                dw[g] = _mm_f32(ls[s0:s1].t(), rs[s0:s1])
+            return dw
+        return call
+
+    return {
+        "grouped_ffn_forward": forward,
+        "grouped_ffn_backward_dx": backward_dx,
+        "grouped_ffn_backward_dw_gu": backward_dw(
+            lambda: x[src], lambda: dh[slots], (e, d, two_f)),
+        "grouped_ffn_backward_dw_down": backward_dw(
+            lambda: a[slots], lambda: dy[dst], (e, f, d)),
+    }
+
+
+def phase_moe_kernels():
+    """B7 and B8 (dx, dw_gu, dw_down) against their plain versions on the
+    same inputs: the training shape (8 x 2048 tokens routed by the
+    router, tile 128), a skewed routing (half the copies on one expert,
+    one expert empty) and a decode step (8 tokens, tile 16). Outputs pass
+    elementwise within CE_REL |ref| + CE_ROW rms_d(ref) + CE_FLOOR
+    rms(ref) (_ce_ratio: both round a, dh and the outputs at the same
+    places from f32 sums taken in another order), rms_d over d of a row
+    (y, dx_c, a, dh) or over the rows of a weight column (dw). The dw
+    kernels get the plain dx kernel's dh and a, so each is held alone.
+    One planted fault per kernel must fail the same bound: B7 and dx with
+    the last routed tile run on the next expert's weights, dw_gu and
+    dw_down without that tile's rows. Times: CUDA events, cold L2."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    shapes = [("train", MOE_MICRO * MOE_SEQ, "router"),
+              ("skewed", MOE_MICRO * MOE_SEQ, "skewed"),
+              ("decode", 8, "router")]
+    rows = {}
+    for label, n, routing in shapes:
+        x, w_gu, w_down, dy, ids, tm = _moe_kernel_inputs(n, routing, gen)
+        ri, di, te = ids
+        e, d, two_f = w_gu.shape
+        f, m, T = two_f // 2, dy.shape[0], te.shape[0]
+        y = md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te, m, tm)
+        dx_c, dh, a = md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri, di,
+                                                 te, tm)
+        torch.cuda.synchronize()
+        ref_y = md._forward_reference(x, w_gu, w_down, ri, di, te, m, tm)
+        ref_dx, ref_dh, ref_a = md._backward_dx_reference(
+            x, dy, w_gu, w_down, ri, di, te, tm)
+        dwgu = md.grouped_ffn_backward_dw_gu(x, ref_dh, ri, te, e, tm)
+        dwdn = md.grouped_ffn_backward_dw_down(ref_a, dy, di, te, e, tm)
+        torch.cuda.synchronize()
+        ref_gu = md._backward_dw_gu_reference(x, ref_dh, ri, te, e, tm)
+        ref_dn = md._backward_dw_down_reference(ref_a, dy, di, te, e, tm)
+        ratio = {"y": _ce_ratio(y, ref_y, -1),
+                 "dx_c": _ce_ratio(dx_c, ref_dx, -1),
+                 "dh": _ce_ratio(dh, ref_dh, -1), "a": _ce_ratio(a, ref_a, -1),
+                 "dw_gu": _ce_ratio(dwgu, ref_gu, 1),
+                 "dw_down": _ce_ratio(dwdn, ref_dn, 1)}
+
+        def err(p, q):
+            return float((p.float() - q.float()).abs().max())
+
+        errs = {
+            "grouped_ffn_forward": err(y, ref_y),
+            "grouped_ffn_backward_dx": max(err(dx_c, ref_dx), err(dh, ref_dh),
+                                           err(a, ref_a)),
+            "grouped_ffn_backward_dw_gu": err(dwgu, ref_gu),
+            "grouped_ffn_backward_dw_down": err(dwdn, ref_dn),
+        }
+        routed = (ri.view(-1, tm) >= 0).any(dim=1)
+        # Experts without rows: all-zero weight gradients.
+        has_rows = torch.zeros(e, dtype=torch.bool, device="cuda")
+        has_rows[te[routed].long()] = True
+        empty_zero = bool(not dwgu[~has_rows].any()
+                          and not dwdn[~has_rows].any())
+        e_routed = int(has_rows.sum())
+        del y, dx_c, dwgu, dwdn
+        # Planted faults, from the plain versions.
+        last = int(routed.nonzero().max())
+        te_bad = te.clone()
+        te_bad[last] = (te_bad[last] + 1) % e
+        cut = torch.arange(T * tm, device="cuda") // tm == last
+        ri_cut = torch.where(cut, -1, ri)
+        di_cut = torch.where(cut, -1, di)
+        fault = {
+            "y": _ce_ratio(md._forward_reference(
+                x, w_gu, w_down, ri, di, te_bad, m, tm), ref_y, -1),
+            "dx_c": _ce_ratio(md._backward_dx_reference(
+                x, dy, w_gu, w_down, ri, di, te_bad, tm)[0], ref_dx, -1),
+            "dw_gu": _ce_ratio(md._backward_dw_gu_reference(
+                x, ref_dh, ri_cut, te, e, tm), ref_gu, 1),
+            "dw_down": _ce_ratio(md._backward_dw_down_reference(
+                ref_a, dy, di_cut, te, e, tm), ref_dn, 1),
+        }
+        emit({"phase": "moe_bounds", "shape": label, "n": n, "m": m,
+              "tile_m": tm, "tiles": T, "experts_with_rows": e_routed,
+              "ratio": ratio, "planted_fault_ratio": fault,
+              "empty_experts_zero": empty_zero})
+        for out, r in ratio.items():
+            check(r <= 1.0, f"moe/{label}: {out} at {r} of its bound")
+        for out, r in fault.items():
+            check(r > 1.0, f"moe/{label}: the {out} bound passes a planted "
+                           f"fault ({r})")
+        check(empty_zero, f"moe/{label}: an expert without rows got a "
+                          f"nonzero weight gradient")
+
+        library = _moe_library_calls(x, w_gu, w_down, dy, ref_dh, ref_a, ids,
+                                     tm)
+        calls = {
+            "grouped_ffn_forward": (
+                lambda: md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te,
+                                               m, tm),
+                lambda: md._forward_reference(x, w_gu, w_down, ri, di, te,
+                                              m, tm)),
+            "grouped_ffn_backward_dx": (
+                lambda: md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri,
+                                                   di, te, tm),
+                lambda: md._backward_dx_reference(x, dy, w_gu, w_down, ri,
+                                                  di, te, tm)),
+            "grouped_ffn_backward_dw_gu": (
+                lambda: md.grouped_ffn_backward_dw_gu(x, ref_dh, ri, te, e,
+                                                      tm),
+                lambda: md._backward_dw_gu_reference(x, ref_dh, ri, te, e,
+                                                     tm)),
+            "grouped_ffn_backward_dw_down": (
+                lambda: md.grouped_ffn_backward_dw_down(ref_a, dy, di, te, e,
+                                                        tm),
+                lambda: md._backward_dw_down_reference(ref_a, dy, di, te, e,
+                                                       tm)),
+        }
+        for name, (kernel, plain) in calls.items():
+            ms = _time_ms(kernel, iters=10)
+            plain_ms = _time_ms(plain, iters=3)
+            library_ms = _time_ms(library[name], iters=5)
+            bound_ms, bound_by, moved, flops = _moe_bound(
+                name, n, m, T * tm, T, d, f, e, e_routed)
+            row = {
+                "phase": "kernel", "kernel": name, "shape": label, "n": n,
+                "m": m, "d": d, "f": f, "e": e, "tile_m": tm,
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "library": "per-expert torch.matmul loop with gather and "
+                           "scatter",
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                "flops": flops, "bound_share": bound_ms / ms,
+                "tflops": flops / ms / 1e9,
+            }
+            emit(row)
+            rows[(name, label)] = row
+        del library, calls, x, w_gu, w_down, dy, ref_dh, ref_a
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _routing_patch(top_k):
+    """A context manager under which every dropless MoE layer routes
+    through ``top_k(orig, probs, k)`` in place of ``models/moe._top_k``
+    (``orig``)."""
+    import contextlib
+
+    from dlrover_tpu_torch.models import moe
+
+    @contextlib.contextmanager
+    def patch():
+        orig = moe._top_k
+        moe._top_k = functools.partial(top_k, orig)
+        try:
+            yield
+        finally:
+            moe._top_k = orig
+
+    return patch()
+
+
+def _routing_recorder(store, margins=None):
+    """Every MoE layer appends its top-k expert ids [tokens, k] to
+    ``store`` and, given ``margins``, the log-probability gap between
+    its k-th and (k+1)-th expert [tokens] (kept on the device, no
+    sync)."""
+    def top_k(orig, probs, k):
+        values, indices = orig(probs, k)
+        store.append(indices)
+        if margins is not None:
+            top = torch.topk(probs, k + 1, dim=-1).values.log()
+            margins.append(top[..., k - 1] - top[..., k])
+        return values, indices
+
+    return _routing_patch(top_k)
+
+
+def _pinned_routing(ids):
+    """Layer ``l``'s call routes to ``ids[l]`` [tokens, k], gated by its
+    own probabilities there: the teacher-forced forward given the decode
+    path's expert choices."""
+    calls = iter(ids)
+
+    def top_k(orig, probs, k):
+        idx = next(calls)
+        return probs.gather(-1, idx), idx
+
+    return _routing_patch(top_k)
+
+
+def phase_moe_generate(cfg, params):
+    """MoE ``generate()``: b=8, prompt 128, 256 new greedy tokens, fp
+    cache, twice (the second timed), after a prefill-alone run. Checks:
+    the two runs agree bit for bit; exact launches per run (B7 once a
+    layer per forward: the prefill and 255 single-token steps; B5 once a
+    layer per single-token step; nothing else); the teacher-forced gap.
+
+    The cached path and the teacher-forced forward round bf16 at other
+    places, so a router near-tie may pick another expert set at some
+    layer: the position "flips". A flip changes that token's K/V at every
+    later layer, which every later position reads, so flips spread. The
+    gap is held (ARGMAX_GAP) at every position once the teacher-forced
+    forward is pinned to the decode path's routing, and at every
+    position without a flip in the free forward. Flips at the first
+    layer, where nothing has spread yet, must be near-ties (MOE_TIE).
+    Returns the launches of the timed run."""
+    from dlrover_tpu_torch.models import generate as gen
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    b, prompt_len, new = 8, 128, 256
+    L = cfg.n_layers
+    prompt = torch.randint(
+        0, cfg.vocab_size, (b, prompt_len),
+        generator=torch.Generator("cuda").manual_seed(SEED + 1),
+        device="cuda", dtype=torch.int32,
+    )
+
+    def run(n_new, store=None):
+        da.reset_launch_counts()
+        md.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if store is None:
+            toks = gen.generate(cfg, params, prompt, n_new).tokens.cpu()
+        else:
+            with _routing_recorder(store):
+                toks = gen.generate(cfg, params, prompt, n_new).tokens.cpu()
+        wall = time.monotonic() - t0
+        return toks, wall, {**da.launch_counts, **md.launch_counts}
+
+    def want(n_new):
+        counts = {name: 0 for name in (*da.launch_counts, *md.launch_counts)}
+        counts["grouped_ffn_forward"] = L * n_new
+        counts["decode_attention_fp"] = L * (n_new - 1)
+        return counts
+
+    _, t_prefill, launches = run(1)
+    check(launches == want(1), f"moe_generate/prefill: launches {launches}")
+    decode_ids = []
+    toks, _, launches = run(new, decode_ids)
+    check(launches == want(new), f"moe_generate: launches {launches}, want "
+                                 f"{want(new)}")
+    toks2, t_total, launches = run(new)
+    check(launches == want(new), f"moe_generate/rerun: launches {launches}")
+    check(toks.shape == (b, new), f"moe_generate: shape {toks.shape}")
+    check(torch.equal(toks, toks2), "moe_generate: two runs disagree")
+
+    seqs = torch.cat([prompt.cpu(), toks], dim=1).cuda()
+    s = seqs.shape[1]
+    n_pos = s - 1      # the last token is never fed to the decode path
+
+    def sets(ids):
+        """[L, b, s, k] sorted expert sets from per-layer [b s, k] ids."""
+        return torch.sort(torch.stack(
+            [t.reshape(b, -1, t.shape[-1]) for t in ids]), dim=-1).values
+
+    # Decode routing per layer: the prefill's call, then one call per
+    # single-token step.
+    cached = sets([torch.cat(
+        [decode_ids[layer].reshape(b, prompt_len, -1)]
+        + [decode_ids[L * (j + 1) + layer].reshape(b, 1, -1)
+           for j in range(new - 1)], dim=1).reshape(b * n_pos, -1)
+        for layer in range(L)])                        # [L, b, n_pos, k]
+    free_ids, margins = [], []
+    with _routing_recorder(free_ids, margins):
+        gap, hit = _argmax_gaps(cfg, params, seqs, prompt_len)
+    free = sets(free_ids)
+    pinned = torch.cat([cached, free[:, :, n_pos:]], dim=2)
+    with _pinned_routing([t.reshape(b * s, -1) for t in pinned]):
+        gap_pinned, hit_pinned = _argmax_gaps(cfg, params, seqs, prompt_len)
+
+    same = (cached == free[:, :, :n_pos]).all(dim=-1)          # [L, b, n]
+    agree = same.all(dim=0)
+    first = ~same[0]
+    tie_worst = (float(margins[0].reshape(b, s)[:, :n_pos][first].max())
+                 if bool(first.any()) else 0.0)
+    # Token t is chosen from position t - 1's logits.
+    held = agree[:, prompt_len - 1:]
+    gap_held = float(gap[held].max()) if bool(held.any()) else 0.0
+    row = {
+        "phase": "moe_generate", "kv": "fp", "batch": b,
+        "prompt_len": prompt_len, "new_tokens": new, "total_s": t_total,
+        "prefill_s": t_prefill,
+        "decode_tok_s": b * (new - 1) / (t_total - t_prefill),
+        "ms_per_step": 1e3 * (t_total - t_prefill) / (new - 1),
+        "argmax_gap_max_pinned_routing": float(gap_pinned.max()),
+        "argmax_agree_pinned_routing": float(hit_pinned.float().mean()),
+        "argmax_gap_max_without_flips": gap_held,
+        "argmax_gap_max_free": float(gap.max()),
+        "argmax_agree_free": float(hit.float().mean()),
+        "positions": b * n_pos,
+        "flip_share": 1.0 - float(agree.float().mean()),
+        "flip_share_per_layer": (~same).float().mean(dim=(1, 2)).tolist(),
+        "first_layer_flips": int(first.sum()),
+        "first_layer_flip_max_margin": tie_worst,
+        "launches": launches,
+    }
+    emit(row)
+    check(float(gap_pinned.max()) <= ARGMAX_GAP["fp"],
+          f"moe_generate: token {float(gap_pinned.max())} logits below the "
+          f"teacher-forced max under the decode path's routing")
+    check(gap_held <= ARGMAX_GAP["fp"],
+          f"moe_generate: token {gap_held} logits below the teacher-forced "
+          f"max at a position without a routing flip")
+    check(tie_worst <= MOE_TIE,
+          f"moe_generate: a first-layer routing flip at a log-probability "
+          f"margin of {tie_worst}, not a near-tie")
+    wall, device = _device_profile(lambda: gen.generate(
+        cfg, params, prompt, 32).tokens.cpu())
+    emit(_profile_row("moe_generate/32", wall, device, kernel="grouped_ffn",
+                      match="moe_", top_n=10))
+    return launches
+
+
+def phase_moe_train(cfg):
+    """MoE training through ``make_train_step`` (remat ``mlp_only``,
+    micro-batch 8 x 2048, grad_accum 1). Check one: a step through the
+    kernels against the same step through the plain ``grouped_ffn``,
+    both on one recorded routing, held to TRAIN_GATES, and a planted
+    fault (B8 dw_down leaving expert 0's gradient at zero) the gates must
+    reject; the plain step on its own routing is reported. Check two: MOE_STEPS
+    steps with falling loss, twice from the seed with equal losses bit
+    for bit, and exact launches: B1, B2 and each B8 kernel once a layer
+    a step, B7 twice (the checkpointed out+MLP flank runs it again in the
+    backward). Returns the launches of the first run."""
+    import contextlib
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    rs = np.random.RandomState(SEED + 1)
+    tokens = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (MOE_MICRO, MOE_SEQ + 1)).astype(np.int32)).cuda()
+
+    def patched(name, fn):
+        @contextlib.contextmanager
+        def patch():
+            orig = getattr(md, name)
+            setattr(md, name, fn(orig))
+            try:
+                yield
+            finally:
+                setattr(md, name, orig)
+        return patch
+
+    def drop_expert0(orig):
+        def dw_down(*args, **kwargs):
+            dw = orig(*args, **kwargs)
+            dw[0] = 0.0
+            return dw
+        return dw_down
+
+    # The kernels and the plain version round a and y at other places, so
+    # a router near-tie in a later layer may pick other experts, and the
+    # flip spreads to later positions through attention. The gated steps
+    # are therefore pinned to the routing of one recorded kernel step;
+    # the plain step with its own routing is reported beside them.
+    routing = []
+    _one_step_rows(cfg, tokens,
+                   {"record": (None, lambda: _routing_recorder(routing))})
+
+    def pinned(*patches):
+        @contextlib.contextmanager
+        def patch():
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_pinned_routing(routing))
+                for extra in patches:
+                    stack.enter_context(extra())
+                yield
+        return patch
+
+    plain = patched(
+        "grouped_ffn",
+        lambda orig: lambda *a, **k: orig(*a, **{**k, "plain": True}))
+    variants = {
+        "plain": (None, pinned(plain)),
+        "kernel": (None, pinned()),
+        "fault_dw_down": (None, pinned(patched("grouped_ffn_backward_dw_down",
+                                               drop_expert0))),
+        "plain_own_routing": (None, plain),
+    }
+    one = _one_step_rows(cfg, tokens, variants)
+    emit({"phase": "moe_train_vs_plain", "micro_batch": MOE_MICRO,
+          "seq": MOE_SEQ, "gates": TRAIN_GATES, **one})
+    _check_step_gates("moe_train", one, "fault_dw_down")
+
+    tc = ts.TrainConfig(warmup_steps=2, grad_accum=1)
+    runs = []
+    for run in range(2):
+        opt, state = _train_state(cfg, tc)
+        step = ts.make_train_step(cfg, tc, opt, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        md.reset_launch_counts()
+        losses, norms, times = [], [], []
+        for _ in range(MOE_STEPS):
+            t0 = time.monotonic()
+            state, m = step(state, {"tokens": tokens})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        launches = {**fa.launch_counts, **md.launch_counts}
+        runs.append((losses, norms, times, launches,
+                     torch.cuda.max_memory_allocated()))
+        if run == 0:
+            wall, device = _device_profile(
+                lambda: float(step(state, {"tokens": tokens})[1]["loss"]))
+            emit(_profile_row("moe_train/step", wall, device,
+                              kernel="grouped_ffn", match="moe_", top_n=12))
+        del opt, state, step
+        torch.cuda.empty_cache()
+
+    losses, norms, times, launches, peak = runs[0]
+    step_s = float(np.mean(times[1:]))
+    tokens_per_step = MOE_MICRO * MOE_SEQ
+    flops_per_token = 6.0 * cfg.count_active_params()
+    row = {
+        "phase": "moe_train", "remat_policy": cfg.remat_policy,
+        "micro_batch": MOE_MICRO, "seq": MOE_SEQ, "grad_accum": 1,
+        "steps": MOE_STEPS, "params": cfg.count_params(),
+        "active_params": cfg.count_active_params(), "losses": losses,
+        "grad_norms": norms, "step_s": times,
+        "step_s_mean_after_first": step_s,
+        "tokens_per_s": tokens_per_step / step_s,
+        "active_flops_per_token": flops_per_token,
+        "active_flops_share_of_peak": flops_per_token * tokens_per_step
+        / step_s / PEAK_OPS_PER_S["bfloat16"],
+        "peak_memory_gib": peak / 2**30, "launches": launches,
+        "rerun_losses": runs[1][0],
+        "rerun_bitwise_equal": runs[1][0] == losses,
+    }
+    emit(row)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"moe_train: non-finite loss or grad norm {losses} {norms}")
+    check(losses[-1] < losses[0], f"moe_train: loss did not fall {losses}")
+    per_layer = {name: 1 for name in launches}
+    per_layer["grouped_ffn_forward"] = 2
+    for name, n in launches.items():
+        want = per_layer[name] * cfg.n_layers * MOE_STEPS
+        check(n == want, f"moe_train: {name} launched {n} times, want {want}")
+    check(runs[1][0] == losses, f"moe_train: a rerun gave {runs[1][0]}, "
+                                f"the first {losses}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.ops import moe_dispatch as md
 
     # fp32 matmuls run in full fp32 (no TF32) for the plain versions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1660,8 +2336,8 @@ def main():
     gen_rows = phase_generate(cfg, params)
     gen_launches = dict(da.launch_counts)
     da.reset_launch_counts()
-    eng_row = phase_engine(cfg, params)
-    eng_launches = dict(da.launch_counts)
+    md.reset_launch_counts()
+    eng_launches = phase_engine(cfg, params)
     da.reset_launch_counts()
     paged_want = phase_paged_engine(cfg, params)
     paged_launches = dict(da.launch_counts)
@@ -1697,6 +2373,27 @@ def main():
     ce_rows = phase_ce_kernels()
     phase_ce_ab()
     launches.update(phase_train_ce(cfg))
+
+    moe_rows = phase_moe_kernels()
+    moe_cfg = moe_config()
+    moe_params = llama.init_params(
+        moe_cfg, torch.Generator("cuda").manual_seed(SEED), device="cuda"
+    )
+    moe_launches = {"generate": phase_moe_generate(moe_cfg, moe_params)}
+    da.reset_launch_counts()
+    md.reset_launch_counts()
+    moe_launches["engine"] = phase_engine(moe_cfg, moe_params,
+                                          phase="moe_engine", gated=False)
+    for name in ("decode_attention_fp", "grouped_ffn_forward"):
+        check(moe_launches["engine"][name] >= moe_cfg.n_layers,
+              f"moe_engine: {name} never launched")
+    del moe_params
+    torch.cuda.empty_cache()
+    moe_launches["train"] = phase_moe_train(moe_cfg)
+    emit({"phase": "moe_launches", **moe_launches})
+    for counts in moe_launches.values():
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 
@@ -1713,11 +2410,17 @@ def main():
         "fused_ce_forward": "dlrover_tpu/ops/fused_ce.py:310",
         "fused_ce_backward_dx": "dlrover_tpu/ops/fused_ce.py:357",
         "fused_ce_backward_dw": "dlrover_tpu/ops/fused_ce.py:395",
+        "grouped_ffn_forward": "dlrover_tpu/ops/moe_dispatch.py:188",
+        "grouped_ffn_backward_dx": "dlrover_tpu/ops/moe_dispatch.py:210",
+        "grouped_ffn_backward_dw_gu": "dlrover_tpu/ops/moe_dispatch.py:248",
+        "grouped_ffn_backward_dw_down":
+            "dlrover_tpu/ops/moe_dispatch.py:272",
     }
     sources = {
         "decode_attention": "dlrover_tpu_torch/ops/csrc/decode_attention.cu",
         "flash": "dlrover_tpu_torch/ops/csrc/flash_attention.cu",
         "fused_ce": "dlrover_tpu_torch/ops/csrc/fused_ce.cu",
+        "moe": "dlrover_tpu_torch/ops/csrc/moe_dispatch.cu",
     }
     rows = [(name, kernel_rows[("main_path", kv)], sources["decode_attention"])
             for name, kv in (("decode_attention_fp", "fp"),
@@ -1733,6 +2436,10 @@ def main():
     rows += [(name, ce_rows[(name, "ce_ab")], sources["fused_ce"])
              for name in ("fused_ce_forward", "fused_ce_backward_dx",
                           "fused_ce_backward_dw")]
+    rows += [(name, moe_rows[(name, "train")], sources["moe"])
+             for name in ("grouped_ffn_forward", "grouped_ffn_backward_dx",
+                          "grouped_ffn_backward_dw_gu",
+                          "grouped_ffn_backward_dw_down")]
     kernels = []
     for name, row, source in rows:
         kernels.append({

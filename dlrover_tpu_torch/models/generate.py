@@ -74,7 +74,7 @@ def init_cache(
     config: llama.TpuLMConfig, batch: int, max_len: int,
     kv_dtype: Optional[str] = None, device="cuda",
 ) -> DecodeCache:
-    llama.require_dense(config)
+    llama.require_flat_stack(config)
     kv_dtype = kv_dtype or _kv_cache_dtype()
     if kv_dtype not in ("fp", "int8"):
         raise ValueError(f"kv_dtype {kv_dtype!r} not in ('fp', 'int8')")
@@ -103,7 +103,10 @@ def init_cache(
 def _fuse_decode_params(config, layers):
     """wq|wk|wv -> one [L, d, h + 2kh, hd] projection and w_gate|w_up ->
     one [L, d, 2f]: two matmuls per layer fewer on every step, same
-    math."""
+    math. MoE layers are left as they are (their MLP is
+    ``llama.mlp_block``)."""
+    if config.n_experts > 0:
+        return layers
     fused = dict(layers)
     fused["wqkv"] = torch.cat(
         [layers["wq"], layers["wk"], layers["wv"]], dim=2
@@ -117,11 +120,11 @@ def _fuse_decode_params(config, layers):
 def prepare_decode_params(config, params, device="cuda"):
     """Decode-ready params on ``device``: matmul leaves cast to the
     compute dtype once (decode reads every weight each step, so bf16
-    halves those bytes), norm scales kept f32, and the fused projections
-    (:func:`_fuse_decode_params`)."""
-    llama.require_dense(config)
+    halves those bytes), norm scales and the MoE router kept f32, and
+    the fused projections (:func:`_fuse_decode_params`)."""
+    llama.require_flat_stack(config)
     cdt = config.compute_dtype
-    keep = {"attn_norm", "mlp_norm"}
+    keep = {"attn_norm", "mlp_norm", "router"}
     layers = {
         k: w.to(device=device, dtype=torch.float32 if k in keep else cdt)
         for k, w in params["layers"].items()
@@ -191,7 +194,10 @@ def _layer_decode(
     [num_blocks, block_size, kh, d], ``cursor`` is a ``(block, offset)``
     pair and the single-token step attends through the paged kernel."""
     residual = x
-    q, k, v = _fused_qkv(config, p, x, positions)
+    if "wqkv" in p:
+        q, k, v = _fused_qkv(config, p, x, positions)
+    else:
+        q, k, v = llama.attention_qkv(config, p, x, positions)
     quantized = k_scale is not None
     if quantized:
         kq, ks_new = quantize_kv(k)
@@ -226,7 +232,9 @@ def _layer_decode(
             kv_positions=torch.arange(max_len, device=q.device),
         )
     x = llama.attention_out(config, p, attn, residual)
-    return _fused_mlp(config, p, x)
+    if "w_gu" in p:
+        return _fused_mlp(config, p, x)
+    return llama.mlp_block(config, p, x)[0]
 
 
 def _forward_with_cache(config, params, tokens, cache: DecodeCache,

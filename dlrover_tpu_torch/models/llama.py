@@ -4,8 +4,10 @@
 Parameters are a plain dict of tensors with the reference's leaf names
 and its stacked ``[L, ...]`` layer layout, so a JAX param tree maps
 leaf for leaf (``models/convert.py``). Functions over tensors, no
-``nn.Module`` state. Dense only: MoE and pipeline stages raise
-``NotImplementedError`` until their slices are ported.
+``nn.Module`` state. MoE layers (``n_experts > 0``) run
+``models/moe.py``: gshard or dropless as ``_moe_resolve_impl`` picks.
+Pipeline stages raise ``NotImplementedError`` until their slice is
+ported.
 
 Training runs ``loss_fn`` -> ``forward_hidden`` -> ``run_layer_stack``,
 a loop over the stacked layers with the reference's remat policies as
@@ -29,6 +31,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from dlrover_tpu_torch.models import moe as moe_lib
 from dlrover_tpu_torch.ops.attention import dot_product_attention
 from dlrover_tpu_torch.ops.fused_ce import (
     auto_prefers_dense,
@@ -110,6 +113,17 @@ class TpuLMConfig:
         per_layer = attn + mlp + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab_size * d + d
 
+    def count_active_params(self) -> int:
+        """Params a single token touches: for MoE, top_k experts instead
+        of all of them (the 6N basis for MoE model FLOPs; equals
+        count_params() for dense configs)."""
+        if self.n_experts == 0:
+            return self.count_params()
+        dense_mlp = 3 * self.embed_dim * self.mlp_dim
+        all_mlp = dense_mlp * self.n_experts
+        active_mlp = dense_mlp * self.moe_top_k
+        return self.count_params() - self.n_layers * (all_mlp - active_mlp)
+
 
 def tiny_config(**overrides) -> TpuLMConfig:
     """A config small enough for CPU tests (the reference's defaults)."""
@@ -127,9 +141,8 @@ def tiny_config(**overrides) -> TpuLMConfig:
     return TpuLMConfig(**defaults)
 
 
-def require_dense(config: TpuLMConfig) -> None:
-    if config.n_experts > 0:
-        raise NotImplementedError("MoE layers are not ported yet")
+def require_flat_stack(config: TpuLMConfig) -> None:
+    """The port runs the flat layer stack: pipeline stages raise."""
     if config.pp_stages > 1:
         raise NotImplementedError(
             "pipeline stages are not ported; the port runs the flat "
@@ -145,7 +158,7 @@ def init_params(
     """f32 params: normal(0, 1/sqrt(fan_in)); norm scales zero (the
     (1 + scale) parameterization makes zero the identity). Draws from
     ``generator``, which must live on ``device``."""
-    require_dense(config)
+    require_flat_stack(config)
     d, hd = config.embed_dim, config.head_dim
     h, kv = config.n_heads, config.n_kv_heads
     f, v = config.mlp_dim, config.vocab_size
@@ -167,10 +180,21 @@ def init_params(
         "wv": dense((L, d, kv, hd), d),
         "wo": dense((L, h, hd, d), h * hd),
         "mlp_norm": zeros((L, d)),
-        "w_gate": dense((L, d, f), d),
-        "w_up": dense((L, d, f), d),
-        "w_down": dense((L, f, d), f),
     }
+    if config.n_experts > 0:
+        e = config.n_experts
+        layers.update(
+            router=dense((L, d, e), d),
+            w_gate=dense((L, e, d, f), d),
+            w_up=dense((L, e, d, f), d),
+            w_down=dense((L, e, f, d), f),
+        )
+    else:
+        layers.update(
+            w_gate=dense((L, d, f), d),
+            w_up=dense((L, d, f), d),
+            w_down=dense((L, f, d), f),
+        )
     return {
         "embed": dense((v, d), 1.0),
         "layers": layers,
@@ -212,15 +236,38 @@ def attention_out(config: TpuLMConfig, p, attn, residual):
     return residual + out.to(residual.dtype)
 
 
+def _moe_resolve_impl(config: TpuLMConfig) -> str:
+    """"gshard" | "dropless" on one device (the reference's no-mesh
+    case): explicit ``moe_impl``, or for "auto" dropless once the
+    capacity factor reaches 2.0 (where it is also drop-free) and gshard
+    below."""
+    if config.moe_impl == "gshard":
+        return "gshard"
+    if config.moe_impl == "dropless" or config.capacity_factor >= 2.0:
+        return "dropless"
+    return "gshard"
+
+
 def mlp_block(config: TpuLMConfig, p, x):
-    """Residual dense SwiGLU MLP. Returns (x, aux) as the reference."""
-    require_dense(config)
+    """Residual MLP, dense SwiGLU or MoE. Returns (x, aux) as the
+    reference: for MoE ``aux = aux_loss + 0.001 * router_z_loss``."""
     cdt = config.compute_dtype
     hx = rms_norm(x, p["mlp_norm"]).to(cdt)
-    g = hx @ p["w_gate"].to(cdt)
-    u = hx @ p["w_up"].to(cdt)
-    out = (F.silu(g) * u) @ p["w_down"].to(cdt)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if config.n_experts > 0:
+        experts = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
+        if _moe_resolve_impl(config) == "dropless":
+            out, metrics = moe_lib.moe_mlp_dropless(
+                hx, *experts, top_k=config.moe_top_k)
+        else:
+            out, metrics = moe_lib.moe_mlp(
+                hx, *experts, top_k=config.moe_top_k,
+                capacity_factor=config.capacity_factor)
+        aux = metrics.aux_loss + 0.001 * metrics.router_z_loss
+    else:
+        g = hx @ p["w_gate"].to(cdt)
+        u = hx @ p["w_up"].to(cdt)
+        out = (F.silu(g) * u) @ p["w_down"].to(cdt)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + out.to(x.dtype), aux
 
 
@@ -306,11 +353,12 @@ def run_layer_stack(config: TpuLMConfig, layer_params, x, positions,
     whole-layer checkpointing (``dots`` / ``full``), since their
     residuals are O(s^2)."""
     # Matmul leaves go to the compute dtype once, outside the loop; the
-    # norm scales stay f32 (rms_norm computes in f32). Gradients still
-    # reach the f32 master params through the cast.
+    # norm scales and the MoE router stay f32 (rms_norm and the router
+    # compute in f32, and a rounded router would flip near-tie routing).
+    # Gradients still reach the f32 master params through the cast.
     cdt = config.compute_dtype
     if cdt != torch.float32:
-        keep_f32 = {"attn_norm", "mlp_norm"}
+        keep_f32 = {"attn_norm", "mlp_norm", "router"}
         layer_params = {
             k: (v if k in keep_f32 else v.to(cdt))
             for k, v in layer_params.items()
@@ -364,7 +412,7 @@ def forward_hidden(config: TpuLMConfig, params, tokens, positions=None,
     With neither ``attention_fn`` nor ``positions`` given (contiguous
     [0..s) positions), the attention is ``default_attention_fn`` of the
     tokens' device: the flash kernels on the card."""
-    require_dense(config)
+    require_flat_stack(config)
     if attention_fn is None and positions is None:
         attention_fn = default_attention_fn(tokens.device)
     b, s = tokens.shape

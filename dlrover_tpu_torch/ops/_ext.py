@@ -22,7 +22,10 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-SOURCES = ("decode_attention.cu", "flash_attention.cu", "fused_ce.cu")
+SOURCES = (
+    "decode_attention.cu", "flash_attention.cu", "fused_ce.cu",
+    "moe_dispatch.cu",
+)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -67,7 +67,7 @@ class ServingEngine:
         spec_k: int = 0,
         device="cuda",
     ):
-        llama.require_dense(config)
+        llama.require_flat_stack(config)
         if max_len % 8:
             raise ValueError("max_len must be a multiple of 8")
         if max_len % prefill_chunk:

@@ -110,6 +110,11 @@ class PagedServingEngine(ServingEngine):
         spec_k: int = 0,
         device="cuda",
     ):
+        if config.n_experts > 0:
+            raise NotImplementedError(
+                "the paged engine does not serve MoE configs yet; the flat "
+                "ServingEngine does"
+            )
         if kv_cache_dtype not in ("fp", "int8"):
             raise ValueError(
                 f"kv_cache_dtype {kv_cache_dtype!r} not in "

@@ -126,7 +126,7 @@ def init_train_state(config: llama.TpuLMConfig, optimizer: Optimizer,
                      params) -> Dict[str, Any]:
     """{"params", "opt_state", "step"} over ``params`` (f32 master
     params on one device; they become autograd leaves in place)."""
-    llama.require_dense(config)
+    llama.require_flat_stack(config)
     for p in param_leaves(params):
         if p.dtype != torch.float32:
             raise TypeError(f"master params must be f32, got {p.dtype}")

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of the
 JAX package. Checked in a fresh interpreter that serves (flat and
-paged engines) and takes a training step on the CPU (this test process
+paged engines), takes a training step, and generates and trains one
+step with a dropless MoE config on the CPU (this test process
 has JAX loaded by ``tests/conftest.py``) and by a scan of every import
 statement in the port's sources and in ``chip_smoke.py``."""
 
@@ -52,10 +53,24 @@ opt = ts.make_optimizer(tc)
 state = ts.init_train_state(cfg, opt, params)
 state, m = ts.make_train_step(cfg, tc, opt, device="cpu")(
     state, {"tokens": np.zeros((4, 9), np.int32)})
+moe_cfg = llama.tiny_config(n_layers=2, n_experts=4, moe_top_k=2,
+                            moe_impl="dropless")
+moe_params = llama.init_params(moe_cfg, torch.Generator().manual_seed(1),
+                               device="cpu")
+moe_out = generate.generate(moe_cfg, moe_params,
+                            np.ones((2, 3), np.int32), 2, device="cpu")
+moe_tc = ts.TrainConfig()
+moe_opt = ts.make_optimizer(moe_tc)
+moe_state = ts.init_train_state(moe_cfg, moe_opt, moe_params)
+moe_state, moe_m = ts.make_train_step(moe_cfg, moe_tc, moe_opt,
+                                      device="cpu")(
+    moe_state, {"tokens": np.arange(18, dtype=np.int32).reshape(2, 9)})
 print(json.dumps({
     "tokens": out.tokens.shape[1] + len(req.tokens),
     "paged_tokens": paged_tokens,
     "train_step": state["step"], "loss": float(m["loss"]),
+    "moe_tokens": list(moe_out.tokens.shape),
+    "moe_train_step": moe_state["step"], "moe_loss": float(moe_m["loss"]),
     "leaked": sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -76,6 +91,8 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     assert result["tokens"] == 5
     assert result["paged_tokens"] == 8
     assert result["train_step"] == 1 and result["loss"] > 0
+    assert result["moe_tokens"] == [2, 2]
+    assert result["moe_train_step"] == 1 and result["moe_loss"] > 0
     assert result["leaked"] == []
 
 
@@ -96,7 +113,8 @@ def test_scan_covers_the_paged_engine_modules():
     scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
     assert {"serving/kvpool/__init__.py", "serving/kvpool/allocator.py",
             "serving/kvpool/engine.py",
-            "serving/kvpool/prefix_cache.py"} <= scanned
+            "serving/kvpool/prefix_cache.py", "models/moe.py",
+            "ops/moe_dispatch.py"} <= scanned
 
 
 @pytest.mark.parametrize(

@@ -635,3 +635,189 @@ def test_train_step_through_fused_ce_kernels_on_card(cuda):
         want = 0 if dev == "cpu" else 2 * tc.grad_accum
         assert set(fc.launch_counts.values()) == {want}, dev
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=2e-2)
+
+
+# ---- MoE grouped FFN (B7, B8) ---------------------------------------------
+
+
+def _moe_inputs(device, n, d, f, e, k, routing, seed):
+    """bf16 x [n, d], w_gu [e, d, 2f], w_down [e, f, d] (scaled by 1 /
+    sqrt(fan_in)), dy [n k, d], and the layout of a routing: "random",
+    "skewed" (half the copies on expert 0, expert e - 1 empty) or
+    "one" (every copy on expert 1)."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=device).bfloat16()
+    w_gu = (torch.randn(e, d, 2 * f, generator=g, device=device)
+            / d ** 0.5).bfloat16()
+    w_down = (torch.randn(e, f, d, generator=g, device=device)
+              / f ** 0.5).bfloat16()
+    dy = torch.randn(n * k, d, generator=g, device=device).bfloat16()
+    fe = torch.randint(0, e, (n * k,), generator=g, device=device)
+    if routing == "skewed":
+        fe[: n * k // 2] = 0
+        fe[fe == e - 1] = 1
+    elif routing == "one":
+        fe[:] = 1
+    tm = md.default_tile_m(n * k)
+    ids = md.build_dispatch_layout(fe.to(torch.int32), e, tm, k)
+    return x, w_gu, w_down, dy, ids, tm
+
+
+@pytest.mark.parametrize("n,d,f,e,k,routing", [
+    (8, 1024, 1024, 8, 2, "random"),      # a decode step, tile 16
+    (600, 256, 384, 8, 2, "skewed"),      # tile 128, an empty expert
+    (40, 128, 128, 4, 2, "one"),          # tile 16, three empty experts
+    (700, 384, 256, 4, 1, "random"),      # top-1, tile 16
+])
+def test_moe_kernels_match_plain_versions(cuda, n, d, f, e, k, routing):
+    """B7 and B8 against their plain versions: bf16 outputs (y, dx_c, a,
+    dh) and the f32 weight gradients within the elementwise bound of
+    _ce_ratio (both round a, dh and y at the same places from f32 sums
+    in another order). Rows of y and dx_c that no slot names are not
+    compared (the kernels leave them unwritten)."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, w_gu, w_down, dy, (ri, di, te), tm = _moe_inputs(
+        cuda, n, d, f, e, k, routing, n + d)
+    m = n * k
+    before = dict(md.launch_counts)
+    y = md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te, m, tm)
+    dx_c, dh, a = md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri, di,
+                                             te, tm)
+    dwgu = md.grouped_ffn_backward_dw_gu(x, dh, ri, te, e, tm)
+    dwdn = md.grouped_ffn_backward_dw_down(a, dy, di, te, e, tm)
+    torch.cuda.synchronize()
+    for name in md.launch_counts:
+        assert md.launch_counts[name] == before[name] + 1
+    want_y = md._forward_reference(x, w_gu, w_down, ri, di, te, m, tm)
+    want_dx, want_dh, want_a = md._backward_dx_reference(
+        x, dy, w_gu, w_down, ri, di, te, tm)
+    assert _ce_ratio(y, want_y, -1) <= 1.0
+    assert _ce_ratio(dx_c, want_dx, -1) <= 1.0
+    assert _ce_ratio(a, want_a, -1) <= 1.0
+    assert _ce_ratio(dh, want_dh, -1) <= 1.0
+    want_gu = md._backward_dw_gu_reference(x, want_dh, ri, te, e, tm)
+    want_dn = md._backward_dw_down_reference(want_a, dy, di, te, e, tm)
+    assert dwgu.dtype == dwdn.dtype == torch.float32
+    assert _ce_ratio(dwgu, want_gu, 1) <= 1.0
+    assert _ce_ratio(dwdn, want_dn, 1) <= 1.0
+    # padding slots carry zero a and dh; experts without rows get zeros
+    pad = ri < 0
+    assert not a[pad].any() and not dh[pad].any()
+    routed = torch.zeros(e, dtype=torch.bool, device=cuda)
+    routed[te[(ri.view(-1, tm) >= 0).any(dim=1)].long()] = True
+    assert not dwgu[~routed].any() and not dwdn[~routed].any()
+    # A planted fault fails the same bound: the last tile of routed rows
+    # run with the next expert's weights.
+    last = int((ri.view(-1, tm) >= 0).any(dim=1).nonzero().max())
+    te_bad = te.clone()
+    te_bad[last] = (te_bad[last] + 1) % e
+    bad = md._forward_reference(x, w_gu, w_down, ri, di, te_bad, m, tm)
+    assert _ce_ratio(bad, want_y, -1) > 1.0
+
+
+def test_moe_kernels_rerun_bitwise(cuda):
+    """No atomics, one owner per output element: a second launch gives
+    the same bits."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, w_gu, w_down, dy, (ri, di, te), tm = _moe_inputs(
+        cuda, 600, 256, 256, 8, 2, "random", 7)
+
+    def run():
+        y = md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te, 1200, tm)
+        dx_c, dh, a = md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri, di,
+                                                 te, tm)
+        return (y, dx_c, dh, a,
+                md.grouped_ffn_backward_dw_gu(x, dh, ri, te, 8, tm),
+                md.grouped_ffn_backward_dw_down(a, dy, di, te, 8, tm))
+
+    for p, q in zip(run(), run()):
+        assert torch.equal(p, q)
+
+
+def test_moe_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, w_gu, w_down, _, (ri, di, te), tm = _moe_inputs(
+        cuda, 8, 128, 128, 4, 2, "random", 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        md.grouped_ffn_forward(x.float(), w_gu.float(), w_down.float(), ri,
+                               di, te, 16, tm)
+    with pytest.raises(TypeError, match="int32"):
+        md.grouped_ffn_forward(x, w_gu, w_down, ri.long(), di, te, 16, tm)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        md.grouped_ffn_forward(x[:, :64].contiguous(),
+                               w_gu[:, :64].contiguous(), w_down[..., :64]
+                               .contiguous(), ri, di, te, 16, tm)
+    with pytest.raises(ValueError, match="tile_m"):
+        md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te[:4], 16, 32)
+    # Shapes that disagree would read or write past a buffer.
+    x, w_gu, w_down, dy, (ri, di, te), tm = _moe_inputs(
+        cuda, 8, 256, 128, 4, 2, "random", 2)
+    with pytest.raises(ValueError, match="w_down has shape"):
+        md.grouped_ffn_forward(x, w_gu, w_down.transpose(1, 2).contiguous(),
+                               ri, di, te, 16, tm)
+    with pytest.raises(ValueError, match="row_ids has shape"):
+        md.grouped_ffn_forward(x, w_gu, w_down, ri[:-tm], di, te, 16, tm)
+    with pytest.raises(ValueError, match="g has shape"):
+        md.grouped_ffn_backward_dx(x, dy[:, :128].contiguous(), w_gu, w_down,
+                                   ri, di, te, tm)
+    dh = torch.zeros(ri.shape[0] - tm, 256, dtype=torch.bfloat16,
+                     device=cuda)
+    with pytest.raises(ValueError, match="rhs has shape"):
+        md.grouped_ffn_backward_dw_gu(x, dh, ri, te, 4, tm)
+    a = torch.zeros(ri.shape[0], 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="ids has shape"):
+        md.grouped_ffn_backward_dw_down(a, dy, di[:-tm], te, 4, tm)
+
+
+def test_moe_train_step_on_card_matches_cpu(cuda):
+    """A dropless MoE TpuLM at tiny widths, bf16: one make_train_step
+    step through B7/B8 on the card against the same step on the CPU (the
+    plain versions): loss within rtol 2e-3 (bf16 rounding at other
+    places) and each kernel launched."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    cfg = llama.tiny_config(n_layers=2, embed_dim=128, n_heads=1,
+                            n_kv_heads=1, head_dim=128, mlp_dim=128,
+                            n_experts=4, moe_top_k=2, moe_impl="dropless",
+                            dtype="bfloat16")
+    toks = np.random.RandomState(0).randint(0, 256, (2, 65)).astype(np.int32)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+        params = {k: ({n: t.to(device) for n, t in v.items()}
+                      if isinstance(v, dict) else v.to(device))
+                  for k, v in params.items()}
+        tc = ts.TrainConfig(warmup_steps=2)
+        opt = ts.make_optimizer(tc)
+        state = ts.init_train_state(cfg, opt, params)
+        md.reset_launch_counts()
+        _, m = ts.make_train_step(cfg, tc, opt, device=device)(
+            state, {"tokens": toks})
+        losses[device] = float(m["loss"])
+        if device == "cuda":
+            assert all(n > 0 for n in md.launch_counts.values())
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-3)
+
+
+def test_moe_generate_on_card_launches_b7(cuda):
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    cfg = llama.tiny_config(n_layers=2, embed_dim=128, n_heads=1,
+                            n_kv_heads=1, head_dim=128, mlp_dim=128,
+                            n_experts=4, moe_top_k=2, moe_impl="dropless",
+                            dtype="bfloat16")
+    params = llama.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                               device=cuda)
+    md.reset_launch_counts()
+    out = gen.generate(cfg, params, np.ones((2, 5), np.int32), 4,
+                       device=cuda)
+    assert out.tokens.shape == (2, 4)
+    # one launch per layer per forward: the prefill and 3 decode steps
+    assert md.launch_counts["grouped_ffn_forward"] == 2 * 4
