@@ -13,11 +13,13 @@ phases that each print JSON lines:
 3. kernels: every kernel against its plain PyTorch version on the card,
    with its time (CUDA events, cold L2), its bound, the plain version's
    time and a library call's time. Decode attention (B5) at the main
-   path's shape and at the flagship and GQA decode shapes; flash
-   attention forward (B1) and its dq and dk/dv backward kernels (B2) at
-   the training shape (b=8, s=2048, h=kh=8, d=128, causal), a GQA shape
-   (b=2, h=32, kh=8), a non-causal one and a ragged s=1000, each held
-   elementwise and with a planted fault its bound must reject;
+   path's shape and at the flagship and GQA decode shapes, also at fills
+   on every edge of its split-K partition; flash attention forward (B1)
+   and its dq and dk/dv backward kernels (B2) at the training shape
+   (b=8, s=2048, h=kh=8, d=128, causal), a GQA shape (b=2, h=32, kh=8), a
+   non-causal one and a ragged s=1000, each held elementwise and with a
+   planted fault its bound must reject; B1, B5 and B6 give the same
+   bytes on a second call;
 4. generate(): b=8, prompt 128, 256 new tokens, fp and int8 KV caches;
 5. ServingEngine: 8 slots, max_len 1024, 16 greedy requests;
 6. train: ``make_train_step`` on the flagship, remat ``mlp_only``,
@@ -48,8 +50,9 @@ phases that each print JSON lines:
     needs and filled with noise, with stale ids past every row's fill:
     the paged engine's shape (b=16, h=kh=8, d=128, block 16, 64 blocks a
     row, 513 blocks; int8 also over its engine's 993 blocks) with
-    fills that include 0, 1, 15, 16, 17 and 1024, GQA h=32/kh=8, and
-    blocks of 32 and 128 rows; times, the bytes bound, and gather + SDPA
+    fills that include 0, 1, 15, 16, 17 and 1024 (and, apart, fills on
+    every split edge), GQA h=32/kh=8, and blocks of 32 and 128 rows;
+    times, the bytes bound, and gather + SDPA
     as the library call. Two planted faults the same tolerance must
     reject (a kernel that ignores the table, one that drops a row's last
     partly filled block), and whether B6 through an identity table
@@ -98,7 +101,9 @@ Phases 4, 5 and 11 check the tokens against the argmax of the port's own
 teacher-forced forward over prompt + output, check that repeated runs
 agree, and read the kernels' launch counters to show the decode path
 went through them. Any failure raises (exit code 1) before the last
-line, which is ``{"ok": true, "device": {...}}``.
+line, which is ``{"ok": true, "device": {...}}``; before it come the
+ptxas lines of the redesigned sources, the card's name and power limit,
+and the ``kernels`` line.
 """
 
 import functools
@@ -187,16 +192,19 @@ def phase_device():
 
 
 def phase_build():
+    """Builds every kernel source; returns nvcc's ptxas lines per source
+    (entry functions, registers, shared memory, spills)."""
     from dlrover_tpu_torch.ops import _ext
 
     t0 = time.monotonic()
     per_source = _ext.build()
+    ptxas = {s: [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
+             for s, log in _ext.build_logs.items()}
     emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "per_source_s": per_source,
-          "ptxas": {s: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln
-                        or "entry function" in ln]
-                    for s, log in _ext.build_logs.items()}})
+          "per_source_s": per_source, "ptxas": ptxas})
+    return ptxas
 
 
 # ---- kernels -----------------------------------------------------------
@@ -288,6 +296,29 @@ def _sdpa_call(q, k, v, lens, scales=()):
     return call
 
 
+def _split_edges(b, h, kh, max_len):
+    """Fills on every edge of the kernel's split-K partition of max_len
+    (B5/B6, see ``ops/decode_attention.split_plan``): 0, 1, split - 1,
+    split, split + 1 and max_len, the rest of the batch at random."""
+    from dlrover_tpu_torch.ops import decode_attention as da
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split, _ = da.split_plan(b, h, kh, max_len, sms)
+    return [0, 1, split - 1, split, split + 1, max_len], split
+
+
+def _check_rerun(name, call):
+    """A redesigned kernel gives the same bytes from run to run: two
+    calls on the same inputs agree bit for bit (every output tensor)."""
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(same, f"{name}: two calls on the same inputs differ")
+    return same
+
+
 def phase_kernels():
     from dlrover_tpu_torch.ops import decode_attention as da
 
@@ -301,6 +332,10 @@ def phase_kernels():
         ("gqa_2048", 8, 32, 8, 128, 2048),
     ]
     rs = np.random.RandomState(SEED)
+    # The split-edge inputs draw from streams of their own, so the timed
+    # rows keep the inputs of earlier runs.
+    edge_gen = torch.Generator("cuda").manual_seed(SEED + 9)
+    edge_rs = np.random.RandomState(SEED + 9)
     results = {}
     for label, b, h, kh, d, max_len in shapes:
         # Ragged fills: empty, one row, full, the rest at random.
@@ -322,6 +357,25 @@ def phase_kernels():
                       f"{float(err.max())}")
             check(bool(torch.all(got[0] == 0)),
                   f"{label}/{kv}: fill-0 row not zero")
+            bitwise = _check_rerun(
+                f"{label}/{kv}",
+                lambda: da.decode_attention(q, k, v, lens, *scales))
+            edges, split = _split_edges(b, h, kh, max_len)
+            edge_lengths = edges + list(
+                edge_rs.randint(2, max_len, size=b - len(edges)))
+            eq, ek, ev, elens, escales = _decode_inputs(
+                b, h, kh, d, max_len, edge_lengths, kv, edge_gen)
+            egot = da.decode_attention(eq, ek, ev, elens, *escales)
+            torch.cuda.synchronize()
+            ewant = da.decode_attention_reference(eq, ek, ev, elens,
+                                                  *escales)
+            eerr = (egot.float() - ewant.float()).abs()
+            check(bool(torch.all(eerr <= 1e-2 + 1e-2 * ewant.float().abs())),
+                  f"{label}/{kv}: kernel disagrees at the split edges "
+                  f"{edge_lengths}, max err {float(eerr.max())}")
+            check(bool(torch.all(egot[0] == 0)),
+                  f"{label}/{kv}: fill-0 row not zero at the split edges")
+            del eq, ek, ev, escales
             ms = _time_ms(lambda: da.decode_attention(q, k, v, lens,
                                                       *scales))
             plain_ms = _time_ms(lambda: da.decode_attention_reference(
@@ -338,6 +392,9 @@ def phase_kernels():
                             else "") + "SDPA + mask",
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "bytes": moved, "bound_share": bound_ms / ms,
+                "bitwise_rerun": bitwise, "split_rows": split,
+                "split_edge_lengths": [int(x) for x in edge_lengths],
+                "split_edge_max_abs_err": float(eerr.max()),
             }
             emit(row)
             results[(label, kv)] = row
@@ -454,6 +511,8 @@ def phase_flash_kernels():
         do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
         out, lse = fa.flash_forward(q, k, v, causal)
         torch.cuda.synchronize()
+        bitwise = _check_rerun(f"flash_forward/{label}",
+                               lambda: fa.flash_forward(q, k, v, causal))
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal)
         out_err = (out.float() - ref_out.float()).abs()
         lse_err = float((lse - ref_lse).abs().max())
@@ -527,6 +586,7 @@ def phase_flash_kernels():
             }
             if name == "flash_forward":
                 row["lse_max_abs_err"] = lse_err
+                row["bitwise_rerun"] = bitwise
             emit(row)
             rows[(name, label)] = row
         del kernel_calls
@@ -604,6 +664,10 @@ def phase_paged_kernels():
 
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     rs = np.random.RandomState(SEED + 6)
+    # The split-edge inputs draw from streams of their own (see
+    # phase_kernels).
+    edge_gen = torch.Generator("cuda").manual_seed(SEED + 10)
+    edge_rs = np.random.RandomState(SEED + 10)
     # (label, b, h, kh, d, block_size, max_blocks, num_blocks, top random
     # fill, kvs): the fp and the int8 paged engine as served below, then GQA
     # and larger blocks.
@@ -626,7 +690,24 @@ def phase_paged_kernels():
         fixed = [0, 1, 15, 16, 17, bs * mb]
         lengths = fixed + [int(x) for x in
                            rs.randint(2, top, size=b - len(fixed))]
+        edges, split = _split_edges(b, h, kh, bs * mb)
+        edge_lengths = edges + [int(x) for x in
+                                edge_rs.randint(2, top, size=b - len(edges))]
         for kv in kvs:
+            eq, ek, ev, etables, elens, escales = _paged_inputs(
+                b, h, kh, d, bs, mb, nb, edge_lengths, kv, edge_gen, edge_rs
+            )
+            egot = da.paged_decode_attention(eq, ek, ev, etables, elens,
+                                             *escales)
+            torch.cuda.synchronize()
+            ok, eerr = within(egot, da.paged_decode_attention_reference(
+                eq, ek, ev, etables, elens, *escales))
+            check(ok, f"paged {label}/{kv}: kernel disagrees at the split "
+                      f"edges {edge_lengths}, max err {float(eerr.max())}")
+            check(bool(torch.all(egot[0] == 0)),
+                  f"paged {label}/{kv}: fill-0 row not zero at the split "
+                  f"edges")
+            del eq, ek, ev, etables, escales
             q, k, v, tables, lens, scales = _paged_inputs(
                 b, h, kh, d, bs, mb, nb, lengths, kv, gen, rs
             )
@@ -639,6 +720,9 @@ def phase_paged_kernels():
                       f"{float(err.max())}")
             check(bool(torch.all(got[0] == 0)),
                   f"paged {label}/{kv}: fill-0 row not zero")
+            bitwise = _check_rerun(
+                f"paged {label}/{kv}", lambda: da.paged_decode_attention(
+                    q, k, v, tables, lens, *scales))
             # Planted faults, from the plain version: the pool read as if
             # row i's blocks were i * max_blocks + j, and every row cut
             # to its last full block.
@@ -674,7 +758,9 @@ def phase_paged_kernels():
                            + ("int8 -> bf16 dequantise, " if scales else "")
                            + "SDPA + mask",
                 "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
-                "bound_share": bound_ms / ms,
+                "bound_share": bound_ms / ms, "bitwise_rerun": bitwise,
+                "split_rows": split, "split_edge_lengths": edge_lengths,
+                "split_edge_max_abs_err": float(eerr.max()),
             }
             emit(row)
             results[(label, kv)] = row
@@ -2323,7 +2409,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     kernel_rows = phase_kernels()
     paged_rows = phase_paged_kernels()
     flash_rows = phase_flash_kernels()
@@ -2449,6 +2535,9 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # The sources whose kernels were redesigned for Hopper (B1; B5 and B6).
+    emit({"ptxas": {src: ptxas.get(src, []) for src in
+                    ("flash_attention.cu", "decode_attention.cu")}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

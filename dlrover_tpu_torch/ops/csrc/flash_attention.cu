@@ -6,7 +6,8 @@
 //   - flash_dq_kernel   <- flash_backward_T / _bwd_dq_kernel (B2);
 //   - flash_dkv_kernel  <- flash_backward_T / _bwd_dkv_kernel (B2).
 // Same math: logits from bf16 products with f32 accumulation, scaled
-// after the product; causal mask (row >= column) with the finite
+// after the product; causal mask (row >= column, both counted from 0)
+// with the finite
 // NEG_INF = -2^30; online softmax with P rounded to bf16 before P.V;
 // out = acc / max(l, 1e-30), rows whose max stayed at NEG_INF give 0,
 // lse = m + log(max(l, 1e-30)). The backward recomputes
@@ -17,29 +18,52 @@
 // Bound on the H100: tensor-core operations. At the training shape
 // (s = 2048, d = 128) each block does ~64 flops per byte it loads, and
 // the whole call moves only q/k/v/out once (the s x s scores never
-// leave the chip). Design, simple and right first:
-//   - mma.sync.m16n8k16 bf16 -> f32 (Hopper's warp-level tensor-core
-//     path; wgmma, TMA and warp specialisation are later perf work);
-//   - 4 warps per block, each owning 16 rows of a 64-row tile; the
-//     score tile stays in registers and is turned into the A operand
-//     of the next product without touching shared memory;
-//   - 64-row tiles staged through shared memory with cp.async, two
-//     buffers, so the next tile loads while this one computes; rows
-//     padded by 16 bytes so ldmatrix reads are free of bank conflicts;
-//   - the TPU ran its grid cell after cell and carried (acc, m, l) in
-//     scratch; here the kv loop lives inside the block and the cells
-//     run as concurrent blocks; causal blocks with the most tiles are
-//     scheduled first;
-//   - the GQA sum of dk/dv stays inside one block (it loops over the
-//     group's query heads), so there are no atomics and the result is
-//     deterministic;
-//   - q/k/v/dO are read through their [b, s, h, d] strides; a ragged
-//     tail (s not a multiple of 64) is zero-filled by cp.async, masked
-//     with NEG_INF, and never stored.
+// leave the chip).
+//
+// B1 is built for Hopper's own tensor-core path:
+//   - TMA: one producer thread loads the Q tile once and streams K and
+//     V tiles of 64 kv rows through a four-stage ring in shared memory,
+//     in the 128-byte swizzle, with full and empty mbarriers per stage
+//     (no __syncthreads in the kv loop). Rank-4 (d, heads, seq, b)
+//     tensor maps over the strided [b, s, h, d] inputs zero-fill the
+//     ragged tail and the columns past d (a d of 16-64 computes at 64);
+//   - wgmma: two consumer warpgroups of 64 query rows each run
+//     S = Q K^T as m64n64k16 from shared memory, keep the online
+//     softmax in registers (row max and sum across the 4 threads of a
+//     row), round P to bf16 in registers and feed it as the register A
+//     operand of O += P V (the m64nNk16 accumulator layout of a 16-bit
+//     product is the A-fragment layout); V is read MN-major, so no
+//     transposed copy is written;
+//   - overlap: a warpgroup issues tile i's S right before tile i-1's
+//     P V, so its softmax of tile i runs while P V holds the tensor
+//     cores, and the two warpgroups take turns issuing (named barriers),
+//     so one's softmax overlaps the other's products;
+//   - registers: ptxas holds this kernel to 168 a thread (as for 384
+//     threads, also with one producer warp and with setmaxnreg), so the
+//     S tile is [64 x 64]: [64 x 128] beside O [64 x 128] and P spilled
+//     and serialised every wgmma;
+//   - the softmax keeps the first design's arithmetic (x = s scale,
+//     p = expf(x - m) over 64-column tiles), and B1 gives its bits
+//     exactly. Cheaper exponents run faster but move every downstream
+//     bit (tools/torch_flash_exp_ab.py; PERF.md section 6);
+//   - causal: only the tiles that cross the diagonal or the ragged edge
+//     apply the mask; the blocks with the most kv tiles start first.
+// The backward (B2), still the first design: mma.sync.m16n8k16 bf16 ->
+// f32 in 4 warps over 64-row tiles staged through a two-buffer cp.async
+// ring; the GQA sum of dk/dv stays inside one block (it loops over the
+// group's query heads), so there are no atomics and the result is
+// deterministic; a ragged tail is zero-filled by cp.async, masked with
+// NEG_INF, and never stored.
+// ptxas -v (sm_90a, CUDA 12.8): flash_fwd_kernel<128> 168 registers,
+// 0 bytes of spills, 164,968 bytes of dynamic shared memory; <64> 155
+// registers, 0 spills, 83,048 bytes; flash_dq_kernel<128> 170 and
+// flash_dkv_kernel<128> 254 registers, 0 spills (chip_smoke.py's ptxas
+// line; PERF.md section 6).
 //
 // Plain C interface, bound with ctypes (ops/_ext.py): no PyTorch
 // headers, so nvcc builds this file in seconds.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -265,140 +289,462 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long row_stride,
   }
 }
 
-// ---- B1: forward ------------------------------------------------------------
+// ---- B1: forward, TMA + wgmma, warp-specialised -----------------------------
 //
-// Grid (q tiles, h, b). Shared: Q tile, two K and two V buffers.
+// Grid (q tiles of 128 rows, h, b), 288 threads: warpgroups 0 and 1
+// are consumers of 64 query rows each, warp 8 the producer (one thread
+// issues every TMA load). Shared memory (each box 1024-byte
+// aligned, in the 128-byte swizzle TMA writes and wgmma reads): the Q
+// tile (kD / 64 boxes of [128 rows x 64 columns]), and a ring of
+// FwdCfg::kStages K and V tiles of kN kv rows (kD / 64 boxes of
+// [kN rows x 64 columns] each); then the barriers.
+
+constexpr int kFwdRows = 128;     // q rows of a block
+// Two consumer warpgroups and one producer warp (whose lane 0 issues
+// every TMA load).
+constexpr int kFwdThreads = 288;
+
+// kv rows a tile (kN) and ring depth. ptxas holds a thread of this
+// kernel to 168 registers: S [64 x 128] beside O [64 x 128] in f32 and
+// the bf16 P spills and serialises the wgmma, S [64 x 64] does not. 64
+// kv rows is also the first design's tile, so the running max, and with
+// it every rounding of P, follows the same sequence.
+template <int kD>
+struct FwdCfg {
+  static constexpr int kN = 64;
+  static constexpr int kStages = 4;
+  static constexpr int kBoxes = kD / 64;
+  static constexpr int kQBytes = kBoxes * kFwdRows * 128;
+  static constexpr int kKVBytes = kBoxes * kN * 128;  // one K or V tile
+  static constexpr int kSmem =
+      kQBytes + 2 * kStages * kKVBytes + 1024 + 8 * (1 + 3 * kStages);
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Spin until the barrier's phase of this parity has completed. A wait
+// that outlasts ~2^35 cycles (a lost TMA completion or arrival) traps,
+// so a fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 35)) asm volatile("trap;");
+}
+
+// One [128 x 64] box of a rank-4 (d, heads, seq, b) tensor map at
+// (col, head, row, batch) into shared memory; rows and columns outside
+// the tensor are zero-filled.
+__device__ __forceinline__ void tma_load_box(uint32_t dst, const CUtensorMap* map,
+                                             uint32_t bar, int col, int head,
+                                             int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
+      "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units), and
+// the swizzle mode in bits 62-63.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Named barrier `id` over the 256 consumer threads: sync waits for the
+// barrier, arrive counts this thread and moves on.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins accumulator registers after a wait: the compiler may not move
+// their uses above it (it sees the asynchronous writes as done when the
+// wgmma was issued).
+template <int NT>
+__device__ __forceinline__ void fence_operands(float (&a)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(a[i][e])::"memory");
+}
+
+template <int NT>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared
+// memory (descriptors da, db); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (the
+// accumulator layout of a 16-bit product), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (the
+// accumulator layout of a 16-bit product), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
-  constexpr int ld = kD + 8;
-  constexpr int kTileElems = kTile * ld;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kTileElems;
-  bf16* v_s = k_s + 2 * kTileElems;
+__device__ __forceinline__ void wgmma_rs(float (&d)[kD / 8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (kD == 128)
+    wgmma_rs_n128(d, a, db);
+  else
+    wgmma_rs_n64(d, a, db);
+}
 
-  const int n_qt = (p.seq_q + kTile - 1) / kTile;
+template <int kD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const Params p) {
+  using Cfg = FwdCfg<kD>;
+  constexpr int kN = Cfg::kN, kStages = Cfg::kStages, kBoxes = Cfg::kBoxes;
+  static_assert(kN == 64, "S = Q K^T runs as m64n64k16");
+  constexpr int kQBox = kFwdRows * 128, kKVBox = kN * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  auto k_s = [&](int st) { return base + Cfg::kQBytes + st * Cfg::kKVBytes; };
+  auto v_s = [&](int st) {
+    return base + Cfg::kQBytes + (kStages + st) * Cfg::kKVBytes;
+  };
+  const uint32_t bars = base + Cfg::kQBytes + 2 * kStages * Cfg::kKVBytes;
+  const uint32_t q_full = bars;
+  auto full_k = [&](int st) { return bars + 8 * (1 + st); };
+  auto full_v = [&](int st) { return bars + 8 * (1 + kStages + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + 2 * kStages + st); };
+
+  const int n_qt = (p.seq_q + kFwdRows - 1) / kFwdRows;
   const int qt = n_qt - 1 - blockIdx.x;  // the longest causal rows first
   const int head = blockIdx.y, bi = blockIdx.z;
   const int kvh = head / (p.h / p.kh);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  const bf16* qb = p.q + bi * p.sq.b + head * p.sq.h;
-  const bf16* kb = p.k + bi * p.sk.b + kvh * p.sk.h;
-  const bf16* vb = p.v + bi * p.sv.b + kvh * p.sv.h;
-
+  const int q0 = qt * kFwdRows;
   // Causal: the tile's last row sees kv tiles up to its own index. Tile
   // 0 comes first, so every row has a finite max before any tile that
   // masks all of its columns.
-  int n_kt = (p.seq_k + kTile - 1) / kTile;
+  int n_kt = (p.seq_k + kN - 1) / kN;
   if (p.causal) {
-    const int last_row = min(q0 + kTile - 1, p.seq_q - 1);
-    n_kt = min(n_kt, last_row / kTile + 1);
+    const int last_row = min(q0 + kFwdRows - 1, p.seq_q - 1);
+    n_kt = min(n_kt, last_row / kN + 1);
   }
 
-  load_tile<kD>(q_s, qb, p.sq.s, q0, p.seq_q, p.d);
-  load_tile<kD>(k_s, kb, p.sk.s, 0, p.seq_k, p.d);
-  load_tile<kD>(v_s, vb, p.sv.s, 0, p.seq_k, p.d);
-  cp_async_commit();
-
-  float o[kD / 8][4];
-  zero(o);
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};
-  const int row_base = q0 + warp * 16 + g;  // rows row_base, row_base + 8
-
-  for (int it = 0; it < n_kt; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_kt) {
-      load_tile<kD>(k_s + (buf ^ 1) * kTileElems, kb, p.sk.s,
-                    (it + 1) * kTile, p.seq_k, p.d);
-      load_tile<kD>(v_s + (buf ^ 1) * kTileElems, vb, p.sv.s,
-                    (it + 1) * kTile, p.seq_k, p.d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full_k(st), 1);
+      mbar_init(full_v(st), 1);
+      mbar_init(empty(st), 8);  // one arrival per consumer warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float s[8][4];
-    zero(s);
-    gemm_nt<kD, 8>(s, q_s + warp * 16 * ld, k_s + buf * kTileElems, lane);
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer warp
+  if (wg == 2) {
+    // Producer: one thread issues every load.
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, Cfg::kQBytes);
+      for (int bx = 0; bx < kBoxes; ++bx)
+        tma_load_box(q_s + bx * kQBox, &map_q, q_full, bx * 64, head, q0, bi);
+      for (int it = 0; it < n_kt; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(empty(st), (it / kStages - 1) & 1);
+        mbar_expect_tx(full_k(st), Cfg::kKVBytes);
+        for (int bx = 0; bx < kBoxes; ++bx)
+          tma_load_box(k_s(st) + bx * kKVBox, &map_k, full_k(st), bx * 64,
+                       kvh, it * kN, bi);
+        mbar_expect_tx(full_v(st), Cfg::kKVBytes);
+        for (int bx = 0; bx < kBoxes; ++bx)
+          tma_load_box(v_s(st) + bx * kKVBox, &map_v, full_v(st), bx * 64,
+                       kvh, it * kN, bi);
+      }
+    }
+  } else {
+    // Consumers: warpgroup c owns q rows q0 + 64 c .. + 63; warp w of it
+    // rows + 16 w + g and + 8 (lane = 4 g + t), as the wgmma accumulator
+    // lays them out. Tile it's S = Q K^T runs on the tensor cores while
+    // tile it - 1's O += P V is issued right behind it, so the softmax
+    // of tile it overlaps that product.
+    const int c = wg;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row_base = q0 + 64 * c + 16 * warp + g;
 
-    const int k0 = it * kTile;
-    const bool masked =
-        (p.causal && k0 + kTile - 1 > q0) || k0 + kTile > p.seq_k;
-    float mt[2] = {m[0], m[1]};
+    float o[kD / 8][4];
+    zero(o);
+    float m[2] = {kNegInf, kNegInf};  // running max of the scaled logits
+    float l[2] = {0.f, 0.f};          // this thread's share of the row sum
+    float s[kN / 8][4];
+    uint32_t pa[kN / 16][4];
+
+    // S = Q K^T [64 x kN] of ring stage st: 16 columns of the reduction
+    // a step; a step inside a 64-column box moves the start by 32 bytes.
+    auto issue_s = [&](int st) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss_n64(
+            s, smem_desc(q_s + (kk / 4) * kQBox + c * 64 * 128 + col, 16, 1024),
+            smem_desc(k_s(st) + (kk / 4) * kKVBox + col, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P V: V [kN kv rows x kD] is MN-major; a step of 16 kv rows
+    // moves 2048 bytes, the second 64-column box sits kKVBox on.
+    auto issue_pv = [&](int st) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale;
-        if (masked) {
-          const int row = row_base + (e >> 1) * 8;
-          const int col = k0 + nt * 8 + 2 * t + (e & 1);
-          if (col >= p.seq_k || (p.causal && col > row)) x = kNegInf;
+      for (int kk = 0; kk < kN / 16; ++kk)
+        wgmma_rs<kD>(o, pa[kk], smem_desc(v_s(st) + kk * 2048, kKVBox, 1024));
+      wgmma_commit();
+    };
+    // The online softmax of tile it in s, in the first design's
+    // arithmetic (so B1 gives its bits): x = s scale, masked to NEG_INF
+    // on tiles that cross the diagonal or the ragged edge, p = exp(x - m).
+    // Returns the rescale of the rows' earlier sums in corr.
+    auto softmax = [&](int it, float (&corr)[2]) {
+      const int k0 = it * kN;
+      const bool masked = (p.causal && k0 + kN - 1 > q0 + 64 * c) ||
+                          k0 + kN > p.seq_k;
+      float mt[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < kN / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * p.scale;
+          if (masked) {
+            const int row = row_base + (e >> 1) * 8;
+            const int col = k0 + nt * 8 + 2 * t + (e & 1);
+            if (col >= p.seq_k || (p.causal && col > row)) x = kNegInf;
+          }
+          s[nt][e] = x;
+          mt[e >> 1] = fmaxf(mt[e >> 1], x);
         }
-        s[nt][e] = x;
-        mt[e >> 1] = fmaxf(mt[e >> 1], x);
       }
-    }
-    float corr[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = quad_max(mt[r]);  // the new running max of the row
-      corr[r] = expf(m[r] - mt[r]);
-      m[r] = mt[r];
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = pe;
-        rs[e >> 1] += pe;
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = quad_max(mt[r]);  // the new running max of the row
+        corr[r] = expf(m[r] - mt[r]);
+        m[r] = mt[r];
       }
-    }
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+      for (int nt = 0; nt < kN / 8; ++nt) {
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
-    }
-    uint32_t pa[4][4];
-    to_a<8>(pa, s);
-    gemm_pv<kD, 4>(o, pa, v_s + buf * kTileElems, lane);
-    __syncthreads();  // all warps are done with buf before it is refilled
-  }
+        for (int e = 0; e < 4; ++e) {
+          const float pe = expf(s[nt][e] - m[e >> 1]);
+          s[nt][e] = pe;
+          rs[e >> 1] += pe;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+    };
 
-  float div[2];
+    // The two warpgroups take turns issuing their products (named
+    // barriers 1 and 2, 256 threads each): one's softmax runs while the
+    // other's products hold the tensor cores. Warpgroup 1 opens the turn
+    // of warpgroup 0; each issues n_kt + 1 times, and the last turn of
+    // warpgroup 1 hands nothing on, so every arrival is consumed.
+    auto my_turn = [&]() { named_sync(1 + c); };
+    auto pass_turn = [&]() { named_arrive(2 - c); };
+    if (c == 1) named_arrive(1);
+    mbar_wait(q_full, 0);
+    mbar_wait(full_k(0), 0);
+    my_turn();
+    wgmma_fence();
+    issue_s(0);
+    pass_turn();
+    wgmma_wait<0>();
+    fence_operands(s);
+    float corr[2];
+    softmax(0, corr);
+    to_a<kN / 8>(pa, s);  // P in bf16, in the accumulator layout: A of P V
+    for (int it = 1; it < n_kt; ++it) {
+      const int st = it % kStages, prev = (it - 1) % kStages;
+      mbar_wait(full_k(st), (it / kStages) & 1);
+      mbar_wait(full_v(prev), ((it - 1) / kStages) & 1);
+      my_turn();
+      wgmma_fence();
+      issue_s(st);
+      issue_pv(prev);
+      pass_turn();
+      wgmma_wait<1>();  // S done; P V of tile it - 1 still running
+      fence_operands(s);
+      softmax(it, corr);
+      wgmma_wait<0>();
+      // P V has read pa and written o: only now may pa's registers take
+      // other values, and o and the next P be touched.
+      fence_operands(o);
+      fence_operands(pa);
+      fence_operands(s);
+      if (lane == 0) mbar_arrive(empty(prev));
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);  // the row's l is split over the quad
-    div[r] = fmaxf(l[r], 1e-30f);
-  }
-  // Rows that saw no key: the output is zero (acc / +inf), not acc / l.
-  float o_div[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    o_div[r] = m[r] > kNegInf / 2 ? div[r] : __int_as_float(0x7f800000);
-  const long long row_stride = static_cast<long long>(p.h) * p.d;
-  store_rows<kD>(p.out + (static_cast<long long>(bi) * p.seq_q * p.h + head) *
-                             p.d,
-                 row_stride, q0 + warp * 16, p.seq_q, p.d, o, o_div, lane);
-  if (t == 0) {
-    float* lse = p.lse + (static_cast<long long>(bi) * p.h + head) * p.seq_q;
+      for (int dt = 0; dt < kD / 8; ++dt) {
+        o[dt][0] *= corr[0];
+        o[dt][1] *= corr[0];
+        o[dt][2] *= corr[1];
+        o[dt][3] *= corr[1];
+      }
+      to_a<kN / 8>(pa, s);
+    }
+    const int last = (n_kt - 1) % kStages;
+    mbar_wait(full_v(last), ((n_kt - 1) / kStages) & 1);
+    my_turn();
+    wgmma_fence();
+    issue_pv(last);
+    if (c == 0) pass_turn();
+    wgmma_wait<0>();
+    fence_operands(o);
+    fence_operands(pa);
+
+    float div[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int row = row_base + r * 8;
-      if (row < p.seq_q) lse[row] = m[r] + logf(div[r]);
+      l[r] = quad_sum(l[r]);  // the row's l is split over the quad
+      div[r] = fmaxf(l[r], 1e-30f);
+    }
+    // Rows that saw no key: the output is zero (acc / +inf), not acc / l.
+    float o_div[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      o_div[r] = m[r] > kNegInf / 2 ? div[r] : __int_as_float(0x7f800000);
+    const long long row_stride = static_cast<long long>(p.h) * p.d;
+    store_rows<kD>(
+        p.out + (static_cast<long long>(bi) * p.seq_q * p.h + head) * p.d,
+        row_stride, q0 + 64 * c + 16 * warp, p.seq_q, p.d, o, o_div, lane);
+    if (t == 0) {
+      float* lse = p.lse + (static_cast<long long>(bi) * p.h + head) * p.seq_q;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_base + r * 8;
+        if (row < p.seq_q) lse[row] = m[r] + logf(div[r]);
+      }
     }
   }
 }
@@ -665,6 +1011,78 @@ int fill(Params* p, const long long* dims, const long long* strides,
   return 0;
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call: taken through the runtime's
+// entry-point query, so the library links no libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A rank-4 (d, heads, seq, b) map of a [b, seq, heads, d] bf16 tensor
+// read through its strides, boxes of [rows x 64 columns] in the
+// 128-byte swizzle: rows past seq of one (b, head) slice and columns
+// past d are zero-filled, never the next slice's.
+int tensor_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
+               int b, const Strides& st, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(b)};
+  // A dimension of size 1 may carry any stride: give it the packed one.
+  const long long sh = heads == 1 ? d : st.h;
+  const long long ss = seq == 1 ? heads * sh : st.s;
+  const long long sb = b == 1 ? seq * ss : st.b;
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(sh) * 2,
+                               static_cast<cuuint64_t>(ss) * 2,
+                               static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, bytes, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int kD>
+int launch_fwd(const void* q, const void* k, const void* v, const Params& p,
+               cudaStream_t stream) {
+  constexpr int kN = FwdCfg<kD>::kN;
+  CUtensorMap maps[3];
+  int rc = tensor_map(&maps[0], q, p.d, p.h, p.seq_q, p.b, p.sq, kFwdRows);
+  if (!rc) rc = tensor_map(&maps[1], k, p.d, p.kh, p.seq_k, p.b, p.sk, kN);
+  if (!rc) rc = tensor_map(&maps[2], v, p.d, p.kh, p.seq_k, p.b, p.sv, kN);
+  if (rc) return rc;
+  const size_t smem = FwdCfg<kD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.seq_q + kFwdRows - 1) / kFwdRows, p.h, p.b);
+  flash_fwd_kernel<kD><<<grid, kFwdThreads, smem, stream>>>(maps[0], maps[1],
+                                                            maps[2], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -676,16 +1094,11 @@ int dlr_flash_forward(const void* q, const void* k, const void* v, void* out,
   Params p = {};
   int rc = fill(&p, dims, strides, 3, scale);
   if (rc) return rc;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
   p.out = static_cast<bf16*>(out);
   p.lse = static_cast<float*>(lse);
-  const dim3 grid((p.seq_q + kTile - 1) / kTile, p.h, p.b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.d <= 64)
-    return launch(flash_fwd_kernel<64>, grid, 5 * tile_bytes(64), p, s);
-  return launch(flash_fwd_kernel<128>, grid, 5 * tile_bytes(128), p, s);
+  if (p.d <= 64) return launch_fwd<64>(q, k, v, p, s);
+  return launch_fwd<128>(q, k, v, p, s);
 }
 
 int dlr_flash_backward_dq(const void* q, const void* k, const void* v,

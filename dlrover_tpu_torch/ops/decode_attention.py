@@ -14,12 +14,19 @@ tensor they run :func:`decode_attention_reference` and
 the same math. There is no other route: a CUDA call that cannot launch
 raises.
 
+The kernel is split-K flash decoding: :func:`split_plan` cuts max_len
+into splits of 64-256 rows so that the grid fills the card's SMs several
+times over; each split writes a partial softmax (m, l, acc) to scratch
+allocated here, and the last split of a (row, kv head) to finish, found
+through a per-stream ticket buffer (:func:`_tickets`), combines them in
+split order. One CUDA launch per call either way.
+
 The fill lengths are per row (a scalar is broadcast), so the serving
 engines' ragged slots each read only their own filled rows.
 """
 
 import ctypes
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +35,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 # Finite "minus infinity" of the reference kernel's online softmax.
 _NEG_INF = -1e30
+# Split-K: rows per split (multiples of 64, at most the kernel's 256),
+# query heads per block, and the blocks per SM the plan aims for.
+_SPLIT_ALIGN, _SPLIT_MAX, _MAX_GROUP, _WAVES = 64, 256, 8, 8
 
 # Kernel launches per body, counted where the wrapper launches it.
 launch_counts: Dict[str, int] = {
@@ -38,6 +48,9 @@ launch_counts: Dict[str, int] = {
 }
 
 _lib = None
+_sm_counts: Dict[int, int] = {}
+# Per (device, stream): int32 ticket counters, zero between launches.
+_ticket_buffers: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -54,18 +67,115 @@ def _library():
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.dlr_decode_attention.argtypes = [
             i, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i, i, i, i, i, ctypes.c_float, ptr,
+            ptr, ptr, ptr, i, i, i, i, i, i, i, ctypes.c_float, ptr,
         ]
         lib.dlr_decode_attention.restype = i
         lib.dlr_paged_decode_attention.argtypes = [
             i, i, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-            i, i, i, i, i, i, ctypes.c_float, ptr,
+            ptr, ptr, ptr, i, i, i, i, i, i, i, i, ctypes.c_float, ptr,
         ]
         lib.dlr_paged_decode_attention.restype = i
         lib.dlr_cuda_error_string.argtypes = [i]
         lib.dlr_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def split_plan(b: int, h: int, kh: int, max_len: int,
+               sms: int) -> Tuple[int, int]:
+    """(split_rows, n_splits) of the kernel's split-K partition: the
+    fewest rows per split (a multiple of 64, at most 256) that give
+    b * kh * ceil(h / kh / 8) * n_splits about 8 blocks per SM, and
+    n_splits = ceil(max_len / split_rows). One split means no scratch:
+    the block writes its output directly."""
+    blocks = b * kh * -(-(h // kh) // _MAX_GROUP)
+    want = -(-max_len * blocks // (_WAVES * sms))
+    rows = min(_SPLIT_MAX, max(_SPLIT_ALIGN,
+                               -(-want // _SPLIT_ALIGN) * _SPLIT_ALIGN))
+    return rows, -(-max_len // rows)
+
+
+def split_k_reference(q, k_cache, v_cache, length, split_rows: int,
+                      k_scale=None, v_scale=None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, f32: each split of
+    ``split_rows`` rows below a row's fill keeps its own max m, sum l and
+    unnormalised acc; the partials are combined in split order as
+    m* = max m_s, l = sum l_s e^(m_s - m*), out = sum acc_s e^(m_s - m*)
+    / max(l, 1e-30). Same function as :func:`decode_attention_reference`
+    (the CPU tests hold the two together)."""
+    b, h, d = q.shape
+    _, max_len, kh, _ = k_cache.shape
+    g = h // kh
+    lens = _row_lengths(length, b, q.device).clamp(0, max_len)
+    qg = q.float().reshape(b, kh, g, d)
+    out = torch.zeros(b, kh, g, d, device=q.device)
+    for i in range(b):
+        n = int(lens[i])
+        m_all, l_all, acc_all = [], [], []
+        for r0 in range(0, n, split_rows):
+            r1 = min(n, r0 + split_rows)
+            s = torch.einsum("kgd,skd->kgs", qg[i],
+                             k_cache[i, r0:r1].float()) * d ** -0.5
+            if k_scale is not None:
+                s = s * k_scale[i, r0:r1].float().T[:, None, :]
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            l_all.append(p.sum(dim=-1, keepdim=True))
+            if v_scale is not None:
+                p = p * v_scale[i, r0:r1].float().T[:, None, :]
+            acc_all.append(torch.einsum("kgs,skd->kgd", p,
+                                        v_cache[i, r0:r1].float()))
+            m_all.append(m)
+        if not m_all:
+            continue
+        m_star = torch.stack(m_all).amax(dim=0)
+        w = [torch.exp(m - m_star) for m in m_all]
+        l_tot = sum(l * wi for l, wi in zip(l_all, w))
+        acc = sum(a * wi for a, wi in zip(acc_all, w))
+        out[i] = acc / torch.clamp(l_tot, min=1e-30)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The ticket counters of ``stream`` on ``device``: at least ``n``
+    int32 zeros. The kernel's last split of each (row, kv head) resets
+    its counter, so a buffer stays zero between launches; launches on
+    one stream run in order, and each stream has its own buffer, so no
+    two launches in flight share a counter."""
+    key = (str(device), stream)
+    buf = _ticket_buffers.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ticket_buffers[key] = buf
+    return buf
+
+
+def _scratch(q, b, h, kh, max_len, d, stream):
+    """(split_rows, n_splits, part_acc, part_ml, tickets) for one launch:
+    the partials and tickets are None when one split covers max_len."""
+    rows, n_splits = split_plan(b, h, kh, max_len, _sm_count(q.device))
+    if n_splits == 1:
+        return rows, 1, None, None, None
+    part_acc = torch.empty(b * h * n_splits * d, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(b * h * n_splits * 2, dtype=torch.float32,
+                          device=q.device)
+    gz = -(-(h // kh) // _MAX_GROUP)
+    return (rows, n_splits, part_acc, part_ml,
+            _tickets(q.device, stream, b * gz * kh))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _row_lengths(length, b: int, device) -> torch.Tensor:
@@ -203,13 +313,14 @@ def decode_attention(
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        rows, n_splits, part_acc, part_ml, tickets = _scratch(
+            q, b, h, kh, max_len, d, stream)
         rc = lib.dlr_decode_attention(
             _DTYPE_CODES[q.dtype], int(quantized),
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_scale.data_ptr() if quantized else None,
-            v_scale.data_ptr() if quantized else None,
-            lens.data_ptr(), out.data_ptr(),
-            b, h, kh, max_len, d, d ** -0.5, stream,
+            _ptr(k_scale), _ptr(v_scale), lens.data_ptr(), out.data_ptr(),
+            _ptr(part_acc), _ptr(part_ml), _ptr(tickets),
+            b, h, kh, max_len, d, rows, n_splits, d ** -0.5, stream,
         )
     _raise_on(rc, lib, "decode_attention")
     launch_counts[
@@ -306,13 +417,16 @@ def paged_decode_attention(
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        rows, n_splits, part_acc, part_ml, tickets = _scratch(
+            q, b, h, kh, max_blocks * block_size, d, stream)
         rc = lib.dlr_paged_decode_attention(
             _DTYPE_CODES[q.dtype], int(quantized),
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quantized else None,
-            v_scale.data_ptr() if quantized else None,
-            block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-            b, h, kh, block_size, max_blocks, d, d ** -0.5, stream,
+            _ptr(k_scale), _ptr(v_scale), block_tables.data_ptr(),
+            lens.data_ptr(), out.data_ptr(),
+            _ptr(part_acc), _ptr(part_ml), _ptr(tickets),
+            b, h, kh, block_size, max_blocks, d, rows, n_splits, d ** -0.5,
+            stream,
         )
     _raise_on(rc, lib, what)
     launch_counts[

@@ -165,10 +165,13 @@ def flash_backward_reference(
 
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
-    """``t`` if the kernel can read it through its strides (unit last
-    stride, rows on 16-byte boundaries), else a contiguous copy."""
+    """``t`` if the kernels can read it through its strides (unit last
+    stride, rows on 16-byte boundaries, no dimension of size > 1 with
+    stride 0: B1's tensor maps take byte strides that are positive
+    multiples of 16), else a contiguous copy."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(st % 8 == 0 for st in t.stride()[:3]))
+          and all(st % 8 == 0 and (st > 0 or n == 1)
+                  for st, n in zip(t.stride()[:3], t.shape[:3])))
     return t if ok else t.contiguous()
 
 

@@ -188,3 +188,63 @@ def test_attention_fn_declares_saveable_residuals():
         fn(q, k, v, causal=True, q_positions=pos, kv_positions=pos),
         fa.flash_attention(q, k, v), rtol=0, atol=0,
     )
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [32, 64])
+def test_forward_matches_jax_kernel_head_dims(causal, d):
+    """B1 takes any head dim that is a multiple of 16 up to 128 (the
+    kernel computes d <= 64 at 64 and the rest at 128, its tensor maps
+    zero-filling the columns past d): the plain version at the widths
+    between the ones above."""
+    q, k, v, _ = _inputs(7, 2, 64, 4, 2, d)
+    want_out, want_lse = _jax_forward(q, k, v, causal)
+    out, lse = fa.flash_attention_reference(_t(q), _t(k), _t(v), causal)
+    np.testing.assert_allclose(_np(out), np.asarray(want_out), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(_np(lse), np.asarray(want_lse), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("sq,skv", [(1, 1), (1, 77), (40, 72), (72, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_uneven_lengths_match_numpy(sq, skv, causal):
+    """seq_q != seq_k: rows and columns both count from 0, so row i sees
+    keys j <= i (every row sees key 0); numpy in float64 as the yardstick."""
+    rs = np.random.RandomState(sq * 100 + skv)
+    q = rs.randn(2, sq, 4, 32).astype(np.float32)
+    k = rs.randn(2, skv, 2, 32).astype(np.float32)
+    v = rs.randn(2, skv, 2, 32).astype(np.float32)
+    out, lse = fa.flash_attention_reference(_t(q), _t(k), _t(v), causal)
+    kk = np.repeat(k, 2, axis=2).astype(np.float64)
+    vv = np.repeat(v, 2, axis=2).astype(np.float64)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kk) / np.sqrt(32)
+    if causal:
+        s = np.where(np.arange(sq)[:, None] >= np.arange(skv)[None, :], s,
+                     -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    want = np.einsum("bhqk,bkhd->bqhd", p / p.sum(-1, keepdims=True), vv)
+    np.testing.assert_allclose(_np(out), want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        _np(lse), (m[..., 0] + np.log(p.sum(-1))), rtol=2e-5, atol=2e-5)
+
+
+def test_strided_keeps_what_the_tensor_maps_take():
+    """B1 reads q/k/v through rank-4 tensor maps: views with unit last
+    stride and strides that are positive multiples of 8 elements pass as
+    they are (the fused qkv projection's slices); a stride of 0 on a
+    dimension of size > 1 (an expand), a unit-stride miss or an odd
+    stride gets a contiguous copy. A dimension of size 1 may carry any
+    stride."""
+    qkv = torch.zeros(2, 16, 12, 32, dtype=torch.bfloat16)
+    for t in (qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]):
+        assert fa._strided(t) is t
+    one = torch.zeros(1, 16, 4, 32).as_strided((1, 16, 4, 32),
+                                               (0, 128, 32, 1))
+    assert fa._strided(one) is one
+    expanded = torch.zeros(2, 16, 1, 32).expand(2, 16, 4, 32)
+    copy = fa._strided(expanded)
+    assert copy is not expanded and copy.is_contiguous()
+    for bad in (qkv[..., ::2], qkv[:, :, :, 1:17]):
+        assert fa._strided(bad).is_contiguous()

@@ -219,6 +219,77 @@ def test_paged_kernel_through_an_identity_table_is_the_flat_kernel(cuda, kv):
     torch.testing.assert_close(paged, flat, rtol=0, atol=0)
 
 
+def _split_edge_lengths(b, h, kh, max_len):
+    """Fills on every edge of the kernel's split-K partition of max_len:
+    0, 1, split - 1, split, split + 1, max_len, then one more row."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split, n_splits = da.split_plan(b, h, kh, max_len, sms)
+    assert n_splits > 1
+    return [0, 1, split - 1, split, split + 1, max_len, split // 2][:b]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("h,kh,d", [(8, 2, 128), (40, 2, 32)])
+def test_kernel_at_split_edges_reruns_bitwise(cuda, dtype, kv, h, kh, d):
+    """B5 at fills on every split edge, GQA groups of 4 and 20 (blockIdx.z
+    splits the latter 8 + 8 + 4): within the plain version's tolerance,
+    the fill-0 row zero, and two calls give the same bits (the partials
+    are combined in split order)."""
+    b, max_len = 7, 1500
+    lengths = _split_edge_lengths(b, h, kh, max_len)
+    g = torch.Generator(cuda).manual_seed(h + d)
+    q = torch.randn(b, h, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, max_len, kh, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, max_len, kh, d, generator=g, device=cuda).to(dtype)
+    scales = ()
+    if kv == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+        scales = (ks, vs)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = da.decode_attention(q, k, v, lens, *scales)
+    again = da.decode_attention(q, k, v, lens, *scales)
+    torch.cuda.synchronize()
+    want = da.decode_attention_reference(q, k, v, lens, *scales)
+    torch.testing.assert_close(got, want, **_tol(dtype))
+    assert torch.all(got[0] == 0)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+@pytest.mark.parametrize("h,kh,d,bs", [(8, 2, 128, 16), (40, 2, 32, 24)])
+def test_paged_kernel_at_split_edges_reruns_bitwise(cuda, dtype, kv, h, kh,
+                                                    d, bs):
+    """B6 at fills on every split edge, through a shuffled table with
+    stale entries past each fill: within the plain version's tolerance,
+    the fill-0 row zero, two calls bitwise equal, and through an identity
+    table bitwise equal to B5 (one body)."""
+    b, mb = 7, 64
+    lengths = _split_edge_lengths(b, h, kh, bs * mb)
+    q, k, v, tables, lens, scales = _paged_inputs(
+        cuda, dtype, kv, h, kh, d, bs, mb, lengths, seed=d + bs)
+    got = da.paged_decode_attention(q, k, v, tables, lens, *scales)
+    again = da.paged_decode_attention(q, k, v, tables, lens, *scales)
+    torch.cuda.synchronize()
+    want = da.paged_decode_attention_reference(q, k, v, tables, lens,
+                                               *scales)
+    torch.testing.assert_close(got, want, **_tol(dtype))
+    assert torch.all(got[0] == 0)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+    logical = lambda t: da._logical_view(t, tables).contiguous()  # noqa: E731
+    flat = da.decode_attention(q, logical(k), logical(v), lens,
+                               *(logical(sc) for sc in scales))
+    identity = torch.arange(b * mb, dtype=torch.int32,
+                            device=cuda).reshape(b, mb)
+    pool = lambda t: t.reshape(b * mb, bs, *t.shape[2:])  # noqa: E731
+    paged = da.paged_decode_attention(
+        q, pool(logical(k)), pool(logical(v)), identity, lens,
+        *(pool(logical(sc)) for sc in scales))
+    torch.testing.assert_close(paged, flat, rtol=0, atol=0)
+
+
 def test_paged_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(2, 4, 128, device=cuda, dtype=torch.bfloat16)
     k = torch.zeros(9, 16, 2, 128, device=cuda, dtype=torch.bfloat16)
@@ -347,6 +418,47 @@ def test_flash_kernels_match_plain_versions(cuda, causal, b, sq, skv, h, kh,
         faults = _skip_last_tile(q, k, v, do, want_lse, delta, causal)
         for name, fault, want in zip(names, faults, ref):
             assert _flash_ratio(fault, want) > 1.0, name
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 112, 128])
+@pytest.mark.parametrize("sq,skv,causal", [
+    (1, 1, True), (1, 77, False), (130, 130, True), (300, 200, True),
+    (200, 300, False), (257, 257, False),
+])
+def test_flash_forward_shapes_rerun_bitwise(cuda, d, sq, skv, causal):
+    """B1 (TMA + wgmma) at every head-dim class it takes (d <= 64
+    computes at 64, the rest at 128, the tensor maps zero-filling the
+    columns past d), seq_q != seq_k, s = 1 and s not a multiple of 64 or
+    128, GQA: within the flash bound of the plain version, lse within
+    1e-3, and two calls give the same bits."""
+    q, k, v, _ = _flash_inputs(cuda, 2, sq, skv, 4, 2, d, d * 7 + sq)
+    out, lse = fa.flash_forward(q, k, v, causal)
+    out2, lse2 = fa.flash_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal)
+    _assert_flash_close(out, want_out, "out")
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    torch.testing.assert_close(out2, out, rtol=0, atol=0)
+    torch.testing.assert_close(lse2, lse, rtol=0, atol=0)
+
+
+def test_flash_forward_reads_fused_qkv_with_gqa(cuda):
+    """The flagship's q/k/v are slices of one fused projection
+    [b, s, h + 2 kh, d]: B1's tensor maps read them through their
+    strides, bit for bit as their contiguous copies, within the bound."""
+    g = torch.Generator(cuda).manual_seed(6)
+    h, kh = 8, 2
+    qkv = torch.randn(2, 333, h + 2 * kh, 128, generator=g,
+                      device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    assert fa._strided(q) is q and fa._strided(k) is k
+    out, lse = fa.flash_forward(q, k, v)
+    c_out, c_lse = fa.flash_forward(q.contiguous(), k.contiguous(),
+                                    v.contiguous())
+    torch.testing.assert_close(out, c_out, rtol=0, atol=0)
+    torch.testing.assert_close(lse, c_lse, rtol=0, atol=0)
+    want_out, _ = fa.flash_attention_reference(q, k, v)
+    _assert_flash_close(out, want_out, "out")
 
 
 def test_flash_reads_strided_inputs(cuda):

@@ -193,3 +193,92 @@ def test_paged_engine_refuses_moe(moe):
     with pytest.raises(NotImplementedError, match="MoE"):
         PagedServingEngine(cfg, params, slots=1, max_len=32, prefill_chunk=8,
                            block_size=8, device="cpu")
+
+
+def _flip_share(gen_ids, fwd_ids, n_layers, b, prompt_len, new):
+    """Share of (layer, row, position) whose top-k expert set differs
+    between the cached decode path (``gen_ids``: per layer the prefill's
+    [b * prompt_len, k] ids, then per layer one [b, k] call a
+    single-token step) and the teacher-forced forward over prompt +
+    output (``fwd_ids``: per layer [b * s, k]). The last token is never
+    fed to the decode path."""
+    n_pos = prompt_len + new - 1
+    k = gen_ids[0].shape[-1]
+    flips = 0
+    for layer in range(n_layers):
+        steps = [gen_ids[n_layers * (j + 1) + layer].reshape(b, 1, k)
+                 for j in range(new - 1)]
+        cached = np.concatenate(
+            [gen_ids[layer].reshape(b, prompt_len, k)] + steps, axis=1)
+        free = fwd_ids[layer].reshape(b, -1, k)[:, :n_pos]
+        flips += int(np.any(np.sort(cached, -1) != np.sort(free, -1),
+                            axis=-1).sum())
+    return flips / (n_layers * b * n_pos)
+
+
+def test_routing_flips_match_jax(monkeypatch):
+    """The cached decode path and the teacher-forced forward round bf16
+    at other places, so a router near-tie may pick another top-2 set at
+    a (layer, position): a routing flip, which then changes that token's
+    K/V for every later layer and position. On the same numpy weights and
+    prompts, in bf16, the port flips no more than twice as often as the
+    JAX package (or neither flips): the flips belong to the model's
+    arithmetic, not to a fault of the port's decode path."""
+    from dlrover_tpu_torch.models import moe as pt_moe
+
+    L, b, prompt_len, new = 2, 8, 16, 16
+    jcfg = jax_llama.tiny_config(n_layers=L, n_experts=4, moe_top_k=2,
+                                 moe_impl="dropless", dtype="bfloat16")
+    jparams, _ = jax_llama.init_params(jcfg, jax.random.key(3))
+    jparams = jax.device_get(jparams)
+    cfg = llama.TpuLMConfig(**dataclasses.asdict(jcfg))
+    params = convert.params_from_numpy(jparams, "cpu")
+    prompt = _tokens(9, (b, prompt_len))
+
+    store = []
+    top_k = jax.lax.top_k
+
+    def recorded(x, k):
+        values, ids = top_k(x, k)
+        jax.debug.callback(lambda a: store.append(np.asarray(a)), ids,
+                           ordered=True)
+        return values, ids
+
+    monkeypatch.setattr(jax.lax, "top_k", recorded)
+    jax.clear_caches()
+    jtoks = np.asarray(jax_gen.generate(jcfg, jparams, jnp.asarray(prompt),
+                                        max_new_tokens=new).tokens)
+    jax.effects_barrier()
+    j_gen, store[:] = list(store), []
+    jax_llama.forward(jcfg, jparams,
+                      jnp.asarray(np.concatenate([prompt, jtoks], 1)))
+    jax.effects_barrier()
+    j_fwd, store[:] = list(store), []
+    monkeypatch.setattr(jax.lax, "top_k", top_k)
+    jax.clear_caches()
+
+    orig = pt_moe._top_k
+
+    def recorded_pt(probs, k):
+        values, ids = orig(probs, k)
+        store.append(ids.numpy())
+        return values, ids
+
+    monkeypatch.setattr(pt_moe, "_top_k", recorded_pt)
+    toks = generate.generate(cfg, params, prompt, new, device="cpu").tokens
+    p_gen, store[:] = list(store), []
+    llama.forward(cfg, params, torch.cat([torch.from_numpy(prompt).long(),
+                                          toks.long()], 1))
+    p_fwd = list(store)
+
+    for ids in (j_gen, p_gen):
+        assert len(ids) >= L * new and ids[0].shape == (b * prompt_len, 2)
+    jax_share = _flip_share(j_gen, j_fwd, L, b, prompt_len, new)
+    port_share = _flip_share(p_gen, p_fwd, L, b, prompt_len, new)
+    assert port_share <= 2 * jax_share, (port_share, jax_share)
+    # The measure sees a flip: the first decode step routed elsewhere at
+    # layer 0 flips every row there.
+    planted = list(p_gen)
+    planted[L] = (planted[L] + 1) % 4
+    assert _flip_share(planted, p_fwd, L, b, prompt_len, new) >= \
+        port_share + 1 / (L * (prompt_len + new - 1))
