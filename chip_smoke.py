@@ -18,8 +18,8 @@ phases that each print JSON lines:
    and its dq and dk/dv backward kernels (B2) at the training shape
    (b=8, s=2048, h=kh=8, d=128, causal), a GQA shape (b=2, h=32, kh=8), a
    non-causal one and a ragged s=1000, each held elementwise and with a
-   planted fault its bound must reject; B1, B5 and B6 give the same
-   bytes on a second call;
+   planted fault its bound must reject; B1, B2 (dq and dk/dv, at all
+   four flash shapes), B5 and B6 give the same bytes on a second call;
 4. generate(): b=8, prompt 128, 256 new tokens, fp and int8 KV caches;
 5. ServingEngine: 8 slots, max_len 1024, 16 greedy requests;
 6. train: ``make_train_step`` on the flagship, remat ``mlp_only``,
@@ -102,8 +102,10 @@ teacher-forced forward over prompt + output, check that repeated runs
 agree, and read the kernels' launch counters to show the decode path
 went through them. Any failure raises (exit code 1) before the last
 line, which is ``{"ok": true, "device": {...}}``; before it come the
-ptxas lines of the redesigned sources, the card's name and power limit,
-and the ``kernels`` line.
+ptxas lines of the redesigned sources (registers, spills and the C75xx
+performance notes of each entry function: B1 and B2's four flash
+kernels, B5/B6), the card's name and power limit, and the ``kernels``
+line.
 """
 
 import functools
@@ -200,7 +202,7 @@ def phase_build():
     per_source = _ext.build()
     ptxas = {s: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln
-                 or "entry function" in ln]
+                 or "entry function" in ln or "C75" in ln]
              for s, log in _ext.build_logs.items()}
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "per_source_s": per_source, "ptxas": ptxas})
@@ -477,6 +479,26 @@ def _planted_faults(q, k, v, do, lse, delta, causal):
     return {"out": out, "dq": dq, "dk": dk, "dv": dv}
 
 
+# B1/B2's shapes in phase_flash_kernels: label, b, s, h, kh, d, causal.
+FLASH_SHAPES = (
+    ("train", TRAIN_MICRO, TRAIN_SEQ, 8, 8, 128, True),
+    ("gqa", 2, 2048, 32, 8, 128, True),
+    ("full", 2, 2048, 8, 8, 128, False),
+    ("ragged_1000", 2, 1000, 8, 8, 128, True),
+)
+
+
+def flash_inputs():
+    """Each of FLASH_SHAPES with its q, k, v and dO (bf16, on the card),
+    drawn in turn from one generator seeded SEED + 3."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 3)
+    for label, b, s, h, kh, d, causal in FLASH_SHAPES:
+        shapes = ((b, s, h, d), (b, s, kh, d), (b, s, kh, d), (b, s, h, d))
+        yield (label, b, s, h, kh, d, causal,
+               tuple(torch.randn(shape, generator=gen, device="cuda")
+                     .bfloat16() for shape in shapes))
+
+
 def phase_flash_kernels():
     """B1 and B2 against their plain versions, at the training shape and
     three more. lse is f32 from the same f32 sums, within 1e-3. out, dq,
@@ -493,26 +515,17 @@ def phase_flash_kernels():
     row 0, where dP - delta cancels). A bound scaled to the largest
     value would pass garbage in the late rows. Every shape also plants a
     fault (kernels that skip their last tile, see _planted_faults) and
-    checks that the same bound rejects it."""
+    checks that the same bound rejects it. B1, dq and dk/dv each give
+    the same bits on a second call (``bitwise_rerun``)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator("cuda").manual_seed(SEED + 3)
-    shapes = [  # label, b, s, h, kh, d, causal
-        ("train", TRAIN_MICRO, TRAIN_SEQ, 8, 8, 128, True),
-        ("gqa", 2, 2048, 32, 8, 128, True),
-        ("full", 2, 2048, 8, 8, 128, False),
-        ("ragged_1000", 2, 1000, 8, 8, 128, True),
-    ]
     rows = {}
-    for label, b, s, h, kh, d, causal in shapes:
-        q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(b, s, kh, d, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(b, s, kh, d, generator=gen, device="cuda").bfloat16()
-        do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    for label, b, s, h, kh, d, causal, (q, k, v, do) in flash_inputs():
         out, lse = fa.flash_forward(q, k, v, causal)
         torch.cuda.synchronize()
-        bitwise = _check_rerun(f"flash_forward/{label}",
-                               lambda: fa.flash_forward(q, k, v, causal))
+        bitwise = {"out": _check_rerun(
+            f"flash_forward/{label}",
+            lambda: fa.flash_forward(q, k, v, causal))}
         ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal)
         out_err = (out.float() - ref_out.float()).abs()
         lse_err = float((lse - ref_lse).abs().max())
@@ -521,6 +534,13 @@ def phase_flash_kernels():
         dq = fa.flash_backward_dq(q, k, v, do, ref_lse, delta, causal)
         dk, dv = fa.flash_backward_dkv(q, k, v, do, ref_lse, delta, causal)
         torch.cuda.synchronize()
+        bitwise["dq"] = _check_rerun(
+            f"flash_backward_dq/{label}",
+            lambda: fa.flash_backward_dq(q, k, v, do, ref_lse, delta, causal))
+        bitwise["dkv"] = _check_rerun(
+            f"flash_backward_dkv/{label}",
+            lambda: fa.flash_backward_dkv(q, k, v, do, ref_lse, delta,
+                                          causal))
         refs = dict(zip(("dq", "dk", "dv"), fa.flash_backward_reference(
             q, k, v, ref_out, ref_lse, do, causal)))
         refs["out"] = ref_out
@@ -537,6 +557,7 @@ def phase_flash_kernels():
             / (1e-2 * float(refs[n].float().abs().max()))
             for n in ("dq", "dk", "dv")}
         emit({"phase": "flash_bounds", "shape": label, "ratio": ratio,
+              "bitwise_rerun": bitwise,
               "planted_fault_ratio": fault_ratio,
               "planted_fault_vs_1e-2_max_ref": fault_vs_max})
         for n in got:
@@ -584,9 +605,11 @@ def phase_flash_kernels():
                 "flops": flops, "bound_share": bound_ms / ms,
                 "tflops": flops / ms / 1e9,
             }
+            row["bitwise_rerun"] = bitwise[
+                {"flash_forward": "out", "flash_backward_dq": "dq",
+                 "flash_backward_dkv": "dkv"}[name]]
             if name == "flash_forward":
                 row["lse_max_abs_err"] = lse_err
-                row["bitwise_rerun"] = bitwise
             emit(row)
             rows[(name, label)] = row
         del kernel_calls
@@ -2402,6 +2425,7 @@ def main():
         return 1
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import moe_dispatch as md
 
     # fp32 matmuls run in full fp32 (no TF32) for the plain versions.
@@ -2535,9 +2559,11 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-    # The sources whose kernels were redesigned for Hopper (B1; B5 and B6).
+    # The sources whose kernels were redesigned for Hopper (B1 and B2; B5
+    # and B6).
     emit({"ptxas": {src: ptxas.get(src, []) for src in
-                    ("flash_attention.cu", "decode_attention.cu")}})
+                    ("flash_attention.cu", "decode_attention.cu")},
+          "flash_dynamic_smem_bytes": fa.dynamic_smem_bytes()})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

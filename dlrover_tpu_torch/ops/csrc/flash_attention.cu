@@ -38,27 +38,52 @@
 //     P V, so its softmax of tile i runs while P V holds the tensor
 //     cores, and the two warpgroups take turns issuing (named barriers),
 //     so one's softmax overlaps the other's products;
-//   - registers: ptxas holds this kernel to 168 a thread (as for 384
-//     threads, also with one producer warp and with setmaxnreg), so the
+//   - registers: 168 a thread, what ptxas gives a block of 288
+//     threads (it counts them as three warpgroups, as for 384), so the
 //     S tile is [64 x 64]: [64 x 128] beside O [64 x 128] and P spilled
-//     and serialised every wgmma;
+//     and serialised every wgmma. With mbar_wait's trap in the
+//     consumers' path ptxas ignores setmaxnreg (as found for B2);
 //   - the softmax keeps the first design's arithmetic (x = s scale,
 //     p = expf(x - m) over 64-column tiles), and B1 gives its bits
 //     exactly. Cheaper exponents run faster but move every downstream
 //     bit (tools/torch_flash_exp_ab.py; PERF.md section 6);
 //   - causal: only the tiles that cross the diagonal or the ragged edge
 //     apply the mask; the blocks with the most kv tiles start first.
-// The backward (B2), still the first design: mma.sync.m16n8k16 bf16 ->
-// f32 in 4 warps over 64-row tiles staged through a two-buffer cp.async
-// ring; the GQA sum of dk/dv stays inside one block (it loops over the
-// group's query heads), so there are no atomics and the result is
-// deterministic; a ragged tail is zero-filled by cp.async, masked with
-// NEG_INF, and never stored.
-// ptxas -v (sm_90a, CUDA 12.8): flash_fwd_kernel<128> 168 registers,
-// 0 bytes of spills, 164,968 bytes of dynamic shared memory; <64> 155
-// registers, 0 spills, 83,048 bytes; flash_dq_kernel<128> 170 and
-// flash_dkv_kernel<128> 254 registers, 0 spills (chip_smoke.py's ptxas
-// line; PERF.md section 6).
+// B2 (dq and dk/dv, two launches) is built from the same parts:
+//   - 384 threads: two consumer warpgroups of 64 rows each and a
+//     producer warpgroup; the producer gives its registers up
+//     (setmaxnreg.dec 40) and the consumers take 232 (setmaxnreg.inc),
+//     which dk and dv (128 f32 a thread) beside S^T and dP^T (64) need.
+//     The consumers' barrier waits carry no trap (a trap in their path
+//     makes ptxas ignore setmaxnreg); the producer keeps watch, trapping,
+//     until every stage is released;
+//   - dq: a block owns 128 q rows (Q and dO loaded once by TMA) and
+//     streams K and V in 64-row tiles through a 4-stage ring; S = Q K^T
+//     and dP = dO V^T as m64n64k16 from shared memory, dS in registers
+//     as the A operand of dq += dS K (K read MN-major from the same
+//     stage), tile i's S and dP issued ahead of tile i - 1's dS K,
+//     the two warpgroups taking turns as in B1;
+//   - dk/dv: a block owns 128 kv rows (K and V loaded once) and streams
+//     Q, dO and the tile's lse and delta (copied by the producer warp:
+//     compact [b, h, seq_q] f32 rows are not 16-byte aligned in general)
+//     over the group's query heads and the q tiles at or past the
+//     diagonal; S^T = K Q^T and dP^T = V dO^T, then dv += P^T dO and
+//     dk += dS^T Q with P^T and dS^T as register A operands;
+//   - the first design's arithmetic and order of sums (mma.sync over
+//     64-row tiles), so B2 gives its bits exactly: x = s scale,
+//     NEG_INF for masked entries, expf(x - lse), dS = p (dp - delta)
+//     scale rounded to bf16; dq over kv tiles ascending, dk and dv over
+//     (query head, q tile) ascending, 16-row k steps ascending;
+//   - the GQA sum of dk/dv stays inside one block, so there are no
+//     atomics and the result is deterministic; ragged edges are
+//     zero-filled by TMA, masked with NEG_INF, and never stored.
+// ptxas -v (sm_90a, nvcc 12.9; chip_smoke.py's ptxas line, PERF.md
+// section 6): flash_fwd_kernel<128> 168 registers, 0 bytes of spills,
+// 164,968 bytes of dynamic shared memory; <64> 155 registers, 0 spills,
+// 83,048 bytes. flash_dq_kernel and flash_dkv_kernel, <128> and <64>:
+// 168 registers (the launch's; the consumers run at 232), 0 spills, no
+// wgmma serialisation note; 199,752 bytes of dynamic shared memory at
+// <128>, 101,448 at <64>.
 //
 // Plain C interface, bound with ctypes (ops/_ext.py): no PyTorch
 // headers, so nvcc builds this file in seconds.
@@ -72,19 +97,14 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kTile = 64;      // rows of a q or kv tile (16 per warp)
 constexpr float kNegInf = -1073741824.f;  // -2^30, ops/attention.py NEG_INF
 
 struct Strides {
   long long b, s, h;  // element strides of a [b, s, h, d] tensor (d: 1)
 };
 
+// The inputs q, k, v and dO reach the kernels through tensor maps.
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* dout;
   const float* lse_in;
   const float* delta;
   bf16* out;
@@ -103,108 +123,14 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; with valid == false the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ---- warp-level products --------------------------------------------------
-//
-// Fragment layout of an m16n8 f32 accumulator c[4] (lane = 4 g + t):
-// c[0], c[1] at row g, columns 2t, 2t + 1; c[2], c[3] at row g + 8.
-
-// acc[16 x 8 NT] += A[16 x kD] . B[8 NT x kD]^T; A and B rows in shared
-// memory with row stride kD + 8.
-template <int kD, int NT>
-__device__ __forceinline__ void gemm_nt(float (&acc)[NT][4], const bf16* a_s,
-                                        const bf16* b_s, int lane) {
-  constexpr int ld = kD + 8;
-  const int i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
-    uint32_t a[4];
-    ldmatrix_x4(a, a_s + (lane % 16) * ld + kc * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, b_s + (nt * 8 + r + (i / 2) * 8) * ld + kc * 16 +
-                         (i % 2) * 8);
-      mma_bf16(acc[nt], a, b[0], b[1]);
-      mma_bf16(acc[nt + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x kD] += P[16 x 16 KC] . B[16 KC x kD]; P as A fragments in
-// registers, B row-major in shared memory (row stride kD + 8).
-template <int kD, int KC>
-__device__ __forceinline__ void gemm_pv(float (&acc)[kD / 8][4],
-                                        const uint32_t (&pa)[KC][4],
-                                        const bf16* b_s, int lane) {
-  constexpr int ld = kD + 8;
-  const int i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; dt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, b_s + (kc * 16 + r + (i % 2) * 8) * ld + dt * 8 +
-                               (i / 2) * 8);
-      mma_bf16(acc[dt], pa[kc], b[0], b[1]);
-      mma_bf16(acc[dt + 1], pa[kc], b[2], b[3]);
-    }
-  }
-}
+// Fragment layout of an m64nN f32 accumulator (the wgmma layout, as an
+// m16n8 one per warp and 8 columns; lane = 4 g + t): d[nt][0], d[nt][1]
+// at row g, columns 8 nt + 2t, + 1; d[nt][2], d[nt][3] at row g + 8.
 
 // An accumulator tile [16 x 8 NT], rounded to bf16, as the A operand
 // [16 x 16 (NT / 2)] of the next product.
@@ -226,33 +152,6 @@ __device__ __forceinline__ void zero(float (&a)[NT][4]) {
   for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
-}
-
-// Rows row0 .. row0 + 63 of one (batch, head) slice into shared memory
-// (row stride kD + 8); rows >= n and columns >= d are zero-filled.
-template <int kD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* base,
-                                          long long row_stride, int row0,
-                                          int n, int d) {
-  constexpr int kChunks = kD / 8;
-#pragma unroll
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool valid = row0 + r < n && c * 8 < d;
-    const bf16* src =
-        valid ? base + static_cast<long long>(row0 + r) * row_stride + c * 8
-              : base;
-    cp_async16(dst + r * (kD + 8) + c * 8, src, valid);
-  }
-}
-
-// 64 per-row f32 statistics (lse or delta) of rows row0 .. into shared.
-__device__ __forceinline__ void load_stats(float* dst, const float* src,
-                                           int row0, int n) {
-  if (threadIdx.x < kTile) {
-    const int r = row0 + threadIdx.x;
-    cp_async4(dst + threadIdx.x, r < n ? src + r : src, r < n);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -357,6 +256,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   const long long t0 = clock64();
   while (!mbar_try_wait(bar, parity))
     if (clock64() - t0 > (1ll << 35)) asm volatile("trap;");
+}
+
+// The same wait without the trap, for B2's consumers: a trap in their
+// path makes ptxas hold them to the launch's 168 registers a thread
+// whatever setmaxnreg gives them (B2's dk/dv then spilled 284 bytes and
+// serialised its wgmma; tools/setmaxnreg_probe.py and PERF.md section
+// 7). B2's producer keeps watch for them instead: it waits, trapping,
+// until they have released every stage, so a lost completion still
+// ends the launch with an error.
+__device__ __forceinline__ void mbar_spin(uint32_t bar, int parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
 }
 
 // One [128 x 64] box of a rank-4 (d, heads, seq, b) tensor map at
@@ -749,245 +660,424 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// ---- B2: dq ---------------------------------------------------------------
+// ---- B2: backward, TMA + wgmma, warp-specialised ----------------------------
 //
-// Grid (q tiles, h, b). Shared: Q and dO tiles, two K and two V buffers.
+// Both kernels run 384 threads: warpgroups 0 and 1 are consumers of 64
+// rows each of the tile the block owns (128 q rows for dq, 128 kv rows
+// for dk/dv), warpgroup 2 the producer. ptxas gives a block of 288
+// threads the registers of a block of 384 (168 a thread), and dk and dv
+// alone take 128 a thread, so the producer warpgroup gives its
+// registers up with setmaxnreg.dec (kProducerRegs) and the consumers
+// take kConsumerRegs (tools/setmaxnreg_probe.py: 0 spills). The owned
+// tile's two tensors (Q and dO; K and V) are loaded once; the other two
+// stream through a ring of 64-row tiles in the 128-byte swizzle, with
+// full and empty mbarriers per stage. Products and order of sums are the
+// first design's (mma.sync over 64-row tiles), so B2 keeps its bits:
+// S and dP over the head dim in 16-wide steps ascending, dq over kv
+// tiles ascending, dk and dv over (query head, q tile) ascending, each
+// in 16-row steps ascending.
+
+constexpr int kBwdThreads = 384;
+constexpr int kBwdRows = 128;  // rows of the owned tile
+constexpr int kBwdN = 64;      // rows of a streamed tile
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
 template <int kD>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
-  constexpr int ld = kD + 8;
-  constexpr int kTileElems = kTile * ld;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kTileElems;
-  bf16* k_s = do_s + kTileElems;
-  bf16* v_s = k_s + 2 * kTileElems;
+struct BwdCfg {
+  static constexpr int kStages = 4;
+  static constexpr int kBoxes = kD / 64;
+  static constexpr int kOwnBox = kBwdRows * 128;  // one box of an owned tensor
+  static constexpr int kRingBox = kBwdN * 128;    // one box of a streamed one
+  static constexpr int kOwnBytes = kBoxes * kOwnBox;
+  static constexpr int kRingBytes = kBoxes * kRingBox;
+  static constexpr int kStatBytes = 2 * kBwdN * 4;  // lse and delta (dk/dv)
+  static constexpr int kBars = 2 * kOwnBytes + 2 * kStages * kRingBytes +
+                               kStages * kStatBytes;
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
 
-  const int n_qt = (p.seq_q + kTile - 1) / kTile;
-  const int qt = n_qt - 1 - blockIdx.x;
-  const int head = blockIdx.y, bi = blockIdx.z;
-  const int kvh = head / (p.h / p.kh);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  const bf16* qb = p.q + bi * p.sq.b + head * p.sq.h;
-  const bf16* dob = p.dout + bi * p.sdo.b + head * p.sdo.h;
-  const bf16* kb = p.k + bi * p.sk.b + kvh * p.sk.h;
-  const bf16* vb = p.v + bi * p.sv.b + kvh * p.sv.h;
-
-  int n_kt = (p.seq_k + kTile - 1) / kTile;
-  if (p.causal) {
-    const int last_row = min(q0 + kTile - 1, p.seq_q - 1);
-    n_kt = min(n_kt, last_row / kTile + 1);
-  }
-
-  load_tile<kD>(q_s, qb, p.sq.s, q0, p.seq_q, p.d);
-  load_tile<kD>(do_s, dob, p.sdo.s, q0, p.seq_q, p.d);
-  load_tile<kD>(k_s, kb, p.sk.s, 0, p.seq_k, p.d);
-  load_tile<kD>(v_s, vb, p.sv.s, 0, p.seq_k, p.d);
-  cp_async_commit();
-
-  const int row_base = q0 + warp * 16 + g;
-  const long long stat0 = (static_cast<long long>(bi) * p.h + head) * p.seq_q;
-  float lse[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_base + r * 8;
-    lse[r] = row < p.seq_q ? p.lse_in[stat0 + row] : 0.f;
-    dl[r] = row < p.seq_q ? p.delta[stat0 + row] : 0.f;
-  }
-
-  float dq[kD / 8][4];
-  zero(dq);
-  for (int it = 0; it < n_kt; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_kt) {
-      load_tile<kD>(k_s + (buf ^ 1) * kTileElems, kb, p.sk.s,
-                    (it + 1) * kTile, p.seq_k, p.d);
-      load_tile<kD>(v_s + (buf ^ 1) * kTileElems, vb, p.sv.s,
-                    (it + 1) * kTile, p.seq_k, p.d);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    gemm_nt<kD, 8>(s, q_s + warp * 16 * ld, k_s + buf * kTileElems, lane);
-    gemm_nt<kD, 8>(dp, do_s + warp * 16 * ld, v_s + buf * kTileElems, lane);
-    const int k0 = it * kTile;
-    const bool masked =
-        (p.causal && k0 + kTile - 1 > q0) || k0 + kTile > p.seq_k;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale;
-        if (masked) {
-          const int row = row_base + (e >> 1) * 8;
-          const int col = k0 + nt * 8 + 2 * t + (e & 1);
-          if (col >= p.seq_k || (p.causal && col > row)) x = kNegInf;
-        }
-        const float pe = expf(x - lse[e >> 1]);
-        s[nt][e] = pe * (dp[nt][e] - dl[e >> 1]) * p.scale;  // dS
-      }
-    }
-    uint32_t dsa[4][4];
-    to_a<8>(dsa, s);
-    gemm_pv<kD, 4>(dq, dsa, k_s + buf * kTileElems, lane);
-    __syncthreads();
-  }
-
-  const float one[2] = {1.f, 1.f};
-  store_rows<kD>(p.dq + (static_cast<long long>(bi) * p.seq_q * p.h + head) *
-                            p.d,
-                 static_cast<long long>(p.h) * p.d, q0 + warp * 16, p.seq_q,
-                 p.d, dq, one, lane);
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// ---- B2: dk / dv ----------------------------------------------------------
-//
-// Grid (kv tiles, kh, b). Each warp owns 16 kv rows and works on the
-// transposed products: S^T = K.Q^T, dP^T = V.dO^T, then dv += P^T.dO and
-// dk += dS^T.Q. The loop runs over the group's query heads and, for each,
-// the q tiles at or past the diagonal, in halves of 32 q rows to keep
-// the two [16 x kD] accumulators and the score tiles in registers.
-// Shared: K and V tiles, two Q, dO, lse and delta buffers.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
+// The shared-memory layout both kernels share (offsets from a
+// 1024-byte-aligned base): the owned tile's tensors a and b, the ring's
+// tensors a and b per stage, the stats slots, then the barriers: the
+// owned tile's, then full and empty per stage.
 template <int kD>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Params p) {
-  constexpr int ld = kD + 8;
-  constexpr int kTileElems = kTile * ld;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kTileElems;
-  bf16* q_s = v_s + kTileElems;         // 2 buffers
-  bf16* do_s = q_s + 2 * kTileElems;    // 2 buffers
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileElems);  // 2 x 64
-  float* dl_s = lse_s + 2 * kTile;                                 // 2 x 64
+struct BwdSmem {
+  using Cfg = BwdCfg<kD>;
+  uint32_t base;
+  unsigned char* ptr;  // generic address of base
+  __device__ explicit BwdSmem(unsigned char* raw) {
+    const uint32_t r = smem_addr(raw);
+    base = (r + 1023) & ~1023u;
+    ptr = raw + (base - r);
+  }
+  __device__ uint32_t own(int i) const { return base + i * Cfg::kOwnBytes; }
+  __device__ uint32_t ring(int i, int st) const {
+    return base + 2 * Cfg::kOwnBytes + (i * Cfg::kStages + st) * Cfg::kRingBytes;
+  }
+  __device__ float* stats(int st) const {
+    return reinterpret_cast<float*>(
+        ptr + 2 * Cfg::kOwnBytes + 2 * Cfg::kStages * Cfg::kRingBytes +
+        st * Cfg::kStatBytes);
+  }
+  __device__ uint32_t own_full() const { return base + Cfg::kBars; }
+  __device__ uint32_t full(int st) const { return base + Cfg::kBars + 8 * (1 + st); }
+  __device__ uint32_t empty(int st) const {
+    return base + Cfg::kBars + 8 * (1 + Cfg::kStages + st);
+  }
+  __device__ void init(int full_count) const {
+    mbar_init(own_full(), 1);
+    for (int st = 0; st < Cfg::kStages; ++st) {
+      mbar_init(full(st), full_count);
+      mbar_init(empty(st), 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
+// Both tensors of a tile (kD / 64 boxes each) onto one barrier.
+template <int kD>
+__device__ __forceinline__ void tma_load_pair(uint32_t dst_a, uint32_t dst_b,
+                                              const CUtensorMap* map_a,
+                                              const CUtensorMap* map_b,
+                                              uint32_t bar, int box_bytes,
+                                              int head, int row, int batch) {
+  mbar_expect_tx(bar, 2 * (kD / 64) * box_bytes);
+  for (int bx = 0; bx < kD / 64; ++bx) {
+    tma_load_box(dst_a + bx * box_bytes, map_a, bar, bx * 64, head, row, batch);
+    tma_load_box(dst_b + bx * box_bytes, map_b, bar, bx * 64, head, row, batch);
+  }
+}
+
+// d[64 x 64] = A[64 x kD] . B[64 x kD]^T, A (64 rows from a_row of an
+// owned box of a_box bytes) and B (a streamed tile) K-major in the
+// 128-byte swizzle: 16 columns of the reduction a step, a step inside a
+// 64-column box moves the start by 32 bytes.
+template <int kD>
+__device__ __forceinline__ void issue_nt(float (&d)[8][4], uint32_t a,
+                                         int a_box, uint32_t b, int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n64(d, smem_desc(a + (kk / 4) * a_box + col, 16, 1024),
+                 smem_desc(b + (kk / 4) * b_box + col, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64 x kD] += A[64 x 64] . B[64 x kD], A as bf16 fragments in
+// registers, B a streamed tile read MN-major: a step of 16 rows moves
+// 2048 bytes, the second 64-column box sits kRingBox on.
+template <int kD>
+__device__ __forceinline__ void issue_nn(float (&acc)[kD / 8][4],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kBwdN / 16; ++kk)
+    wgmma_rs<kD>(acc, a[kk],
+                 smem_desc(b + kk * 2048, BwdCfg<kD>::kRingBox, 1024));
+}
+
+// dq. Grid (q tiles of 128 rows, h, b), the longest causal rows first.
+// Q and dO are loaded once; K and V stream in 64-row tiles. Each tile:
+// S = Q K^T and dP = dO V^T (SS), dS = exp(S scale - lse) (dP - delta)
+// scale in registers, rounded to bf16 as the A operand of dq += dS K (K
+// MN-major from the same stage). Tile it's S and dP are issued ahead of
+// tile it - 1's dS K, so dS of tile it is computed while that product
+// runs, and the two warpgroups take turns issuing (named barriers 1 and
+// 2, as in B1), so one's dS overlaps the other's products.
+template <int kD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const Params p) {
+  using Cfg = BwdCfg<kD>;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdSmem<kD> sm(smem_raw);
+  const uint32_t q_s = sm.own(0), do_s = sm.own(1);
+
+  const int n_qt = (p.seq_q + kBwdRows - 1) / kBwdRows;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kBwdRows;
+  const int head = blockIdx.y, bi = blockIdx.z;
+  const int kvh = head / (p.h / p.kh);
+  // kv tiles the block's rows see: under a causal mask, up to the one
+  // that holds its last row. Both warpgroups run them all (they take
+  // turns). Warpgroup 0's 64 rows may end before the last tile starts:
+  // there its dS is all zeros, which leaves dq as it is, bit for bit.
+  int n_kt = (p.seq_k + kBwdN - 1) / kBwdN;
+  if (p.causal)
+    n_kt = min(n_kt, min(q0 + kBwdRows - 1, p.seq_q - 1) / kBwdN + 1);
+
+  if (threadIdx.x == 0) sm.init(1);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
+  if (wg == 2) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      tma_load_pair<kD>(q_s, do_s, &map_q, &map_do, sm.own_full(),
+                        Cfg::kOwnBox, head, q0, bi);
+      for (int it = 0; it < n_kt; ++it) {
+        const int st = it % kStages;
+        if (it >= kStages) mbar_wait(sm.empty(st), (it / kStages - 1) & 1);
+        tma_load_pair<kD>(sm.ring(0, st), sm.ring(1, st), &map_k, &map_v,
+                          sm.full(st), Cfg::kRingBox, kvh, it * kBwdN, bi);
+      }
+      for (int it = max(0, n_kt - kStages); it < n_kt; ++it)  // the watch
+        mbar_wait(sm.empty(it % kStages), (it / kStages) & 1);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row_base = q0 + 64 * c + 16 * warp + g;  // rows + 0, + 8
+    const long long stat0 = (static_cast<long long>(bi) * p.h + head) * p.seq_q;
+    float lse[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_base + r * 8;
+      lse[r] = row < p.seq_q ? p.lse_in[stat0 + row] : 0.f;
+      dl[r] = row < p.seq_q ? p.delta[stat0 + row] : 0.f;
+    }
+    float dq[kD / 8][4];
+    zero(dq);
+    float s[8][4], dp[8][4];
+    uint32_t dsa[4][4];
+    const uint32_t q_c = q_s + c * 64 * 128, do_c = do_s + c * 64 * 128;
+    auto issue_s_dp = [&](int st) {
+      issue_nt<kD>(s, q_c, Cfg::kOwnBox, sm.ring(0, st), Cfg::kRingBox);
+      issue_nt<kD>(dp, do_c, Cfg::kOwnBox, sm.ring(1, st), Cfg::kRingBox);
+      wgmma_commit();
+    };
+    auto issue_dq = [&](int st) {
+      issue_nn<kD>(dq, dsa, sm.ring(0, st));
+      wgmma_commit();
+    };
+    // dS of tile it in s, from S in s and dP in dp.
+    auto grad_s = [&](int it) {
+      const int k0 = it * kBwdN;
+      const bool masked =
+          (p.causal && k0 + kBwdN - 1 > q0 + 64 * c) || k0 + kBwdN > p.seq_k;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * p.scale;
+          if (masked) {
+            const int row = row_base + (e >> 1) * 8;
+            const int col = k0 + nt * 8 + 2 * t + (e & 1);
+            if (col >= p.seq_k || (p.causal && col > row)) x = kNegInf;
+          }
+          const float pe = expf(x - lse[e >> 1]);
+          s[nt][e] = pe * (dp[nt][e] - dl[e >> 1]) * p.scale;
+        }
+      }
+    };
+    auto my_turn = [&]() { named_sync(1 + c); };
+    auto pass_turn = [&]() { named_arrive(2 - c); };
+    if (c == 1) named_arrive(1);
+    mbar_spin(sm.own_full(), 0);
+    mbar_spin(sm.full(0), 0);
+    my_turn();
+    wgmma_fence();
+    issue_s_dp(0);
+    pass_turn();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    grad_s(0);
+    to_a<8>(dsa, s);  // dS in bf16, in the accumulator layout: A of dS K
+    for (int it = 1; it < n_kt; ++it) {
+      const int st = it % kStages, prev = (it - 1) % kStages;
+      mbar_spin(sm.full(st), (it / kStages) & 1);
+      my_turn();
+      wgmma_fence();
+      issue_s_dp(st);
+      issue_dq(prev);
+      pass_turn();
+      wgmma_wait<1>();  // S and dP done; dS K of tile it - 1 running
+      fence_operands(s);
+      fence_operands(dp);
+      grad_s(it);
+      wgmma_wait<0>();
+      // dS K of tile it - 1 has read dsa and written dq: only now may
+      // dsa take tile it's dS, and its K/V stage be refilled.
+      fence_operands(dq);
+      fence_operands(dsa);
+      fence_operands(s);
+      if (lane == 0) mbar_arrive(sm.empty(prev));
+      to_a<8>(dsa, s);
+    }
+    my_turn();
+    wgmma_fence();
+    issue_dq((n_kt - 1) % kStages);
+    if (c == 0) pass_turn();
+    wgmma_wait<0>();
+    fence_operands(dq);
+    fence_operands(dsa);
+    if (lane == 0) mbar_arrive(sm.empty((n_kt - 1) % kStages));  // the watch
+    const float one[2] = {1.f, 1.f};
+    store_rows<kD>(
+        p.dq + (static_cast<long long>(bi) * p.seq_q * p.h + head) * p.d,
+        static_cast<long long>(p.h) * p.d, q0 + 64 * c + 16 * warp, p.seq_q,
+        p.d, dq, one, lane);
+  }
+}
+
+// dk / dv. Grid (kv tiles of 128 rows, kh, b), kv tile 0 (the most q
+// tiles under a causal mask) first. K and V are loaded once; Q and dO
+// stream in 64-row tiles over the group's query heads and, for each,
+// the q tiles at or past the diagonal (head-major, q tiles ascending,
+// the first design's walk); the producer warp copies each tile's lse
+// and delta (compact [b, h, seq_q] f32 rows, not 16-byte aligned in
+// general) into the stage's slot before it arrives on the stage's full
+// barrier. Each step: S^T = K Q^T and dP^T = V dO^T (SS), P^T =
+// exp(S^T scale - lse[col]) rounded to bf16 for dv += P^T dO, dS^T =
+// P^T (dP^T - delta[col]) scale from the f32 P^T rounded to bf16 for
+// dk += dS^T Q (dO and Q MN-major from the same stage). No product sits
+// behind a branch: warpgroup 1 also runs the q tile of each head that
+// its kv rows cannot see under a causal mask (all masked: P^T and dS^T
+// are zeros, which leave dk and dv as they are, bit for bit), and a
+// warpgroup past seq_k runs on zero-filled rows it never stores.
+template <int kD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const Params p) {
+  using Cfg = BwdCfg<kD>;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const BwdSmem<kD> sm(smem_raw);
+  const uint32_t k_s = sm.own(0), v_s = sm.own(1);
+
+  const int kvh = blockIdx.y, bi = blockIdx.z;
   const int group = p.h / p.kh;
-  const int k0 = kt * kTile;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-
-  const bf16* kb = p.k + bi * p.sk.b + kvh * p.sk.h;
-  const bf16* vb = p.v + bi * p.sv.b + kvh * p.sv.h;
-
-  const int n_qt = (p.seq_q + kTile - 1) / kTile;
-  const int first_qt = p.causal ? min(kt, n_qt) : 0;
+  const int k0 = blockIdx.x * kBwdRows;
+  const int n_qt = (p.seq_q + kBwdN - 1) / kBwdN;
+  const int first_qt = p.causal ? min(k0 / kBwdN, n_qt) : 0;
   const int per_head = n_qt - first_qt;
   const int n_it = group * per_head;
 
-  // Sources of iteration j: query head kvh * group + j / per_head, q tile
-  // first_qt + j % per_head.
-  auto prefetch = [&](int j, int buf) {
-    const int head = kvh * group + j / per_head;
-    const int q0 = (first_qt + j % per_head) * kTile;
-    load_tile<kD>(q_s + buf * kTileElems, p.q + bi * p.sq.b + head * p.sq.h,
-                  p.sq.s, q0, p.seq_q, p.d);
-    load_tile<kD>(do_s + buf * kTileElems,
-                  p.dout + bi * p.sdo.b + head * p.sdo.h, p.sdo.s, q0,
-                  p.seq_q, p.d);
-    const long long stat0 =
-        (static_cast<long long>(bi) * p.h + head) * p.seq_q;
-    load_stats(lse_s + buf * kTile, p.lse_in + stat0, q0, p.seq_q);
-    load_stats(dl_s + buf * kTile, p.delta + stat0, q0, p.seq_q);
-  };
+  // Full barriers: the producer warp's 32 lanes (lane 0 with the bytes).
+  if (threadIdx.x == 0) sm.init(32);
+  __syncthreads();
 
-  load_tile<kD>(k_s, kb, p.sk.s, k0, p.seq_k, p.d);
-  load_tile<kD>(v_s, vb, p.sv.s, k0, p.seq_k, p.d);
-  if (n_it > 0) prefetch(0, 0);
-  cp_async_commit();
-
-  float dk[kD / 8][4], dv[kD / 8][4];
-  zero(dk);
-  zero(dv);
-  const int n_base = k0 + warp * 16 + g;  // kv rows n_base, n_base + 8
-
-  for (int it = 0; it < n_it; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_it) {
-      prefetch(it + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const int q0 = (first_qt + it % per_head) * kTile;
-    const bool masked =
-        (p.causal && k0 + kTile - 1 > q0) || q0 + kTile > p.seq_q;
-    const bf16* qt_s = q_s + buf * kTileElems;
-    const bf16* dot_s = do_s + buf * kTileElems;
-    const float* lse_t = lse_s + buf * kTile;
-    const float* dl_t = dl_s + buf * kTile;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float st[4][4], dpt[4][4];
-      zero(st);
-      zero(dpt);
-      gemm_nt<kD, 4>(st, k_s + warp * 16 * ld, qt_s + half * 32 * ld, lane);
-      gemm_nt<kD, 4>(dpt, v_s + warp * 16 * ld, dot_s + half * 32 * ld,
-                     lane);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int mi = half * 32 + nt * 8 + 2 * t + (e & 1);  // q row in tile
-          float x = st[nt][e] * p.scale;
-          if (masked) {
-            const int n = n_base + (e >> 1) * 8;
-            const int row = q0 + mi;
-            if (row >= p.seq_q || (p.causal && n > row)) x = kNegInf;
-          }
-          const float pe = expf(x - lse_t[mi]);
-          st[nt][e] = pe;
-          dpt[nt][e] = pe * (dpt[nt][e] - dl_t[mi]) * p.scale;  // dS^T
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 288 && n_it > 0) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0)
+        tma_load_pair<kD>(k_s, v_s, &map_k, &map_v, sm.own_full(),
+                          Cfg::kOwnBox, kvh, k0, bi);
+      for (int j = 0; j < n_it; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) mbar_wait(sm.empty(st), (j / kStages - 1) & 1);
+        const int head = kvh * group + j / per_head;
+        const int q0 = (first_qt + j % per_head) * kBwdN;
+        const long long stat0 =
+            (static_cast<long long>(bi) * p.h + head) * p.seq_q;
+        float* slot = sm.stats(st);
+        for (int r = lane; r < kBwdN; r += 32) {
+          const int row = q0 + r;
+          slot[r] = row < p.seq_q ? p.lse_in[stat0 + row] : 0.f;
+          slot[kBwdN + r] = row < p.seq_q ? p.delta[stat0 + row] : 0.f;
         }
+        if (lane == 0)
+          tma_load_pair<kD>(sm.ring(0, st), sm.ring(1, st), &map_q, &map_do,
+                            sm.full(st), Cfg::kRingBox, head, q0, bi);
+        else
+          mbar_arrive(sm.full(st));
       }
-      uint32_t pa[2][4];
-      to_a<4>(pa, st);
-      gemm_pv<kD, 2>(dv, pa, dot_s + half * 32 * ld, lane);
-      to_a<4>(pa, dpt);
-      gemm_pv<kD, 2>(dk, pa, qt_s + half * 32 * ld, lane);
+      for (int j = max(0, n_it - kStages); j < n_it; ++j)  // the watch
+        mbar_wait(sm.empty(j % kStages), (j / kStages) & 1);
     }
-    __syncthreads();
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int kc0 = k0 + 64 * c;  // this warpgroup's first kv row
+    const int n_base = kc0 + 16 * warp + lane / 4;  // kv rows + 0, + 8
+    const uint32_t k_c = k_s + c * 64 * 128, v_c = v_s + c * 64 * 128;
+    float dk[kD / 8][4], dv[kD / 8][4];
+    zero(dk);
+    zero(dv);
+    if (n_it > 0) mbar_spin(sm.own_full(), 0);
+    for (int j = 0; j < n_it; ++j) {
+      const int st = j % kStages;
+      const int q0 = (first_qt + j % per_head) * kBwdN;
+      mbar_spin(sm.full(st), (j / kStages) & 1);
+      {
+        float s[8][4], dp[8][4];
+        wgmma_fence();
+        issue_nt<kD>(s, k_c, Cfg::kOwnBox, sm.ring(0, st), Cfg::kRingBox);
+        issue_nt<kD>(dp, v_c, Cfg::kOwnBox, sm.ring(1, st), Cfg::kRingBox);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(s);
+        fence_operands(dp);
+        const float* lse_t = sm.stats(st);
+        const float* dl_t = lse_t + kBwdN;
+        const bool masked =
+            (p.causal && kc0 + 63 > q0) || q0 + kBwdN > p.seq_q;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int mi = nt * 8 + 2 * t + (e & 1);  // q row in the tile
+            float x = s[nt][e] * p.scale;
+            if (masked) {
+              const int n = n_base + (e >> 1) * 8;
+              const int row = q0 + mi;
+              if (row >= p.seq_q || (p.causal && n > row)) x = kNegInf;
+            }
+            const float pe = expf(x - lse_t[mi]);
+            s[nt][e] = pe;
+            dp[nt][e] = pe * (dp[nt][e] - dl_t[mi]) * p.scale;  // dS^T
+          }
+        }
+        uint32_t pa[4][4], dsa[4][4];
+        to_a<8>(pa, s);
+        to_a<8>(dsa, dp);
+        wgmma_fence();
+        issue_nn<kD>(dv, pa, sm.ring(1, st));
+        issue_nn<kD>(dk, dsa, sm.ring(0, st));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(dk);
+        fence_operands(dv);
+        fence_operands(pa);
+        fence_operands(dsa);
+      }
+      if (lane == 0) mbar_arrive(sm.empty(st));
+    }
+    const float one[2] = {1.f, 1.f};
+    const long long row_stride = static_cast<long long>(p.kh) * p.d;
+    const long long base =
+        (static_cast<long long>(bi) * p.seq_k * p.kh + kvh) * p.d;
+    store_rows<kD>(p.dk + base, row_stride, kc0 + 16 * warp, p.seq_k, p.d,
+                   dk, one, lane);
+    store_rows<kD>(p.dv + base, row_stride, kc0 + 16 * warp, p.seq_k, p.d,
+                   dv, one, lane);
   }
-  cp_async_wait<0>();  // a block with no q tile still started K/V loads
-
-  const float one[2] = {1.f, 1.f};
-  const long long row_stride = static_cast<long long>(p.kh) * p.d;
-  const long long base =
-      (static_cast<long long>(bi) * p.seq_k * p.kh + kvh) * p.d;
-  store_rows<kD>(p.dk + base, row_stride, k0 + warp * 16, p.seq_k, p.d, dk,
-                 one, lane);
-  store_rows<kD>(p.dv + base, row_stride, k0 + warp * 16, p.seq_k, p.d, dv,
-                 one, lane);
 }
 
 // ---- launch ---------------------------------------------------------------
-
-constexpr size_t tile_bytes(int kd) {
-  return static_cast<size_t>(kTile) * (kd + 8) * sizeof(bf16);
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // dims: b, h, kh, seq_q, seq_k, d, causal. strides: (b, s, h) of each
 // strided input in the order the entry point names them.
@@ -1083,6 +1173,33 @@ int launch_fwd(const void* q, const void* k, const void* v, const Params& p,
   return static_cast<int>(cudaGetLastError());
 }
 
+// B2: the four rank-4 maps (Q and dO over seq_q and the query heads, K
+// and V over seq_k and the kv heads), the owned tensors in boxes of 128
+// rows and the streamed ones in boxes of 64, then one launch.
+template <int kD, bool kDq>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               const Params& p, cudaStream_t stream) {
+  const int q_rows = kDq ? kBwdRows : kBwdN, kv_rows = kDq ? kBwdN : kBwdRows;
+  CUtensorMap maps[4];
+  int rc = tensor_map(&maps[0], q, p.d, p.h, p.seq_q, p.b, p.sq, q_rows);
+  if (!rc)
+    rc = tensor_map(&maps[1], dout, p.d, p.h, p.seq_q, p.b, p.sdo, q_rows);
+  if (!rc) rc = tensor_map(&maps[2], k, p.d, p.kh, p.seq_k, p.b, p.sk, kv_rows);
+  if (!rc) rc = tensor_map(&maps[3], v, p.d, p.kh, p.seq_k, p.b, p.sv, kv_rows);
+  if (rc) return rc;
+  auto kernel = kDq ? flash_dq_kernel<kD> : flash_dkv_kernel<kD>;
+  const size_t smem = BwdCfg<kD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = kDq ? p.seq_q : p.seq_k;
+  const dim3 grid((rows + kBwdRows - 1) / kBwdRows, kDq ? p.h : p.kh, p.b);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                              maps[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1109,18 +1226,12 @@ int dlr_flash_backward_dq(const void* q, const void* k, const void* v,
   Params p = {};
   int rc = fill(&p, dims, strides, 4, scale);
   if (rc) return rc;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
   p.lse_in = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = static_cast<bf16*>(dq);
-  const dim3 grid((p.seq_q + kTile - 1) / kTile, p.h, p.b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.d <= 64)
-    return launch(flash_dq_kernel<64>, grid, 6 * tile_bytes(64), p, s);
-  return launch(flash_dq_kernel<128>, grid, 6 * tile_bytes(128), p, s);
+  if (p.d <= 64) return launch_bwd<64, true>(q, k, v, dout, p, s);
+  return launch_bwd<128, true>(q, k, v, dout, p, s);
 }
 
 int dlr_flash_backward_dkv(const void* q, const void* k, const void* v,
@@ -1131,22 +1242,20 @@ int dlr_flash_backward_dkv(const void* q, const void* k, const void* v,
   Params p = {};
   int rc = fill(&p, dims, strides, 4, scale);
   if (rc) return rc;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
   p.lse_in = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dk = static_cast<bf16*>(dk);
   p.dv = static_cast<bf16*>(dv);
-  const dim3 grid((p.seq_k + kTile - 1) / kTile, p.kh, p.b);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t stats = 4 * kTile * sizeof(float);
-  if (p.d <= 64)
-    return launch(flash_dkv_kernel<64>, grid, 6 * tile_bytes(64) + stats, p,
-                  s);
-  return launch(flash_dkv_kernel<128>, grid, 6 * tile_bytes(128) + stats, p,
-                s);
+  if (p.d <= 64) return launch_bwd<64, false>(q, k, v, dout, p, s);
+  return launch_bwd<128, false>(q, k, v, dout, p, s);
+}
+
+// Dynamic shared memory a launch takes: B1 (backward = 0) or either B2
+// kernel (backward = 1; dq and dk/dv share one layout), at head dim d.
+int dlr_flash_smem_bytes(int backward, int d) {
+  if (backward) return d <= 64 ? BwdCfg<64>::kSmem : BwdCfg<128>::kSmem;
+  return d <= 64 ? FwdCfg<64>::kSmem : FwdCfg<128>::kSmem;
 }
 
 const char* dlr_flash_error_string(int code) {

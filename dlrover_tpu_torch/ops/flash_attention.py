@@ -67,8 +67,21 @@ def _library():
             fn.restype = ctypes.c_int
         lib.dlr_flash_error_string.argtypes = [ctypes.c_int]
         lib.dlr_flash_error_string.restype = ctypes.c_char_p
+        lib.dlr_flash_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dlr_flash_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def dynamic_smem_bytes() -> Dict[str, int]:
+    """Dynamic shared memory of a launch of each flash kernel
+    instantiation (ptxas reports only static shared memory)."""
+    lib = _library()
+    return {f"{name}<{d}>": lib.dlr_flash_smem_bytes(backward, d)
+            for name, backward in (("flash_fwd_kernel", 0),
+                                   ("flash_dq_kernel", 1),
+                                   ("flash_dkv_kernel", 1))
+            for d in (64, 128)}
 
 
 # ---- plain PyTorch versions ---------------------------------------------
@@ -167,8 +180,8 @@ def flash_backward_reference(
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernels can read it through its strides (unit last
     stride, rows on 16-byte boundaries, no dimension of size > 1 with
-    stride 0: B1's tensor maps take byte strides that are positive
-    multiples of 16), else a contiguous copy."""
+    stride 0: B1's and B2's tensor maps take byte strides that are
+    positive multiples of 16), else a contiguous copy."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
           and all(st % 8 == 0 and (st > 0 or n == 1)
                   for st, n in zip(t.stride()[:3], t.shape[:3])))
@@ -266,8 +279,8 @@ def flash_forward(
 
 def flash_backward_dq(q, k, v, do, lse, delta, causal=True,
                       softmax_scale=None) -> torch.Tensor:
-    """Kernel B2, dq half: one block per (b, head, 64-row q tile) loops
-    over the kv tiles. CPU tensors run the plain version."""
+    """Kernel B2, dq half: one block per (b, head, 128-row q tile) loops
+    over 64-row kv tiles. CPU tensors run the plain version."""
     if not _device(q, "flash_backward_dq"):
         return _plain_backward(q, k, v, lse, do, delta, causal,
                                softmax_scale, want_dkv=False)[0]
@@ -295,10 +308,10 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal=True,
 
 def flash_backward_dkv(q, k, v, do, lse, delta, causal=True,
                        softmax_scale=None):
-    """Kernel B2, dk/dv half: one block per (b, kv head, 64-row kv
-    tile) loops over the query heads of its group and the q tiles at or
-    past the diagonal. Returns (dk, dv). CPU tensors run the plain
-    version."""
+    """Kernel B2, dk/dv half: one block per (b, kv head, 128-row kv
+    tile) loops over the query heads of its group and the 64-row q
+    tiles at or past the diagonal. Returns (dk, dv). CPU tensors run the
+    plain version."""
     if not _device(q, "flash_backward_dkv"):
         return _plain_backward(q, k, v, lse, do, delta, causal,
                                softmax_scale, want_dq=False)[1:]

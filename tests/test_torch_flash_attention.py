@@ -230,6 +230,44 @@ def test_uneven_lengths_match_numpy(sq, skv, causal):
         _np(lse), (m[..., 0] + np.log(p.sum(-1))), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("sq,skv", [(1, 1), (1, 77), (100, 192),
+                                    (129, 129), (200, 130), (130, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_uneven_lengths_match_numpy(sq, skv, causal):
+    """B2's plain version (what the dq and dk/dv kernels are held to on
+    the card) at lengths on and across the kernels' 64- and 128-row tile
+    edges, seq_q != seq_k both ways, GQA (h=4, kh=2): dq, dk and dv
+    against numpy's gradients of the same attention in float64."""
+    rs = np.random.RandomState(sq * 1000 + skv)
+    b, h, kh, d = 2, 4, 2, 32
+    q = rs.randn(b, sq, h, d).astype(np.float32)
+    k = rs.randn(b, skv, kh, d).astype(np.float32)
+    v = rs.randn(b, skv, kh, d).astype(np.float32)
+    do = rs.randn(b, sq, h, d).astype(np.float32)
+    out, lse = fa.flash_attention_reference(_t(q), _t(k), _t(v), causal)
+    dq, dk, dv = fa.flash_backward_reference(_t(q), _t(k), _t(v), out, lse,
+                                             _t(do), causal)
+    f64 = lambda a: a.astype(np.float64)  # noqa: E731
+    kk, vv = np.repeat(f64(k), h // kh, 2), np.repeat(f64(v), h // kh, 2)
+    scale = 1 / np.sqrt(d)
+    s = np.einsum("bqhd,bkhd->bhqk", f64(q), kk) * scale
+    if causal:
+        s = np.where(np.arange(sq)[:, None] >= np.arange(skv)[None, :], s,
+                     -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    o = np.einsum("bhqk,bkhd->bqhd", p, vv)
+    dp = np.einsum("bqhd,bkhd->bhqk", f64(do), vv)
+    delta = (f64(do) * o).sum(-1).transpose(0, 2, 1)[..., None]
+    ds = p * (dp - delta) * scale
+    want_dq = np.einsum("bhqk,bkhd->bqhd", ds, kk)
+    per_head = lambda g: g.reshape(b, skv, kh, h // kh, d).sum(3)  # noqa
+    want_dk = per_head(np.einsum("bhqk,bqhd->bkhd", ds, f64(q)))
+    want_dv = per_head(np.einsum("bhqk,bqhd->bkhd", p, f64(do)))
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        np.testing.assert_allclose(_np(got), want, rtol=2e-5, atol=2e-5)
+
+
 def test_strided_keeps_what_the_tensor_maps_take():
     """B1 reads q/k/v through rank-4 tensor maps: views with unit last
     stride and strides that are positive multiples of 8 elements pass as

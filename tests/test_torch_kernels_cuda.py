@@ -442,6 +442,62 @@ def test_flash_forward_shapes_rerun_bitwise(cuda, d, sq, skv, causal):
     torch.testing.assert_close(lse2, lse, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 112, 128])
+@pytest.mark.parametrize("sq,skv,causal", [
+    (1, 1, True), (1, 77, False), (127, 127, True), (129, 129, True),
+    (257, 257, False), (300, 200, True), (200, 300, False),
+    (129, 257, True),
+])
+def test_flash_backward_shapes_rerun_bitwise(cuda, d, sq, skv, causal):
+    """B2 (TMA + wgmma) at every head-dim class it takes (d <= 64
+    computes at 64, the rest at 128), s = 1, seq_q != seq_k both ways,
+    lengths on either side of its 128-row owned tiles (127, 129, 257)
+    and not multiples of its 64-row streamed tiles, GQA (4 query heads
+    on 2 kv heads): dq, dk and dv within the flash bound of the plain
+    version, and two calls give the same bits."""
+    q, k, v, do = _flash_inputs(cuda, 2, sq, skv, 4, 2, d, d * 5 + sq + skv)
+    want_out, want_lse = fa.flash_attention_reference(q, k, v, causal)
+    delta = fa.flash_backward_delta(do, want_out)
+    dq = fa.flash_backward_dq(q, k, v, do, want_lse, delta, causal)
+    dk, dv = fa.flash_backward_dkv(q, k, v, do, want_lse, delta, causal)
+    dq2 = fa.flash_backward_dq(q, k, v, do, want_lse, delta, causal)
+    dk2, dv2 = fa.flash_backward_dkv(q, k, v, do, want_lse, delta, causal)
+    torch.cuda.synchronize()
+    refs = fa.flash_backward_reference(q, k, v, want_out, want_lse, do,
+                                       causal)
+    for name, got, again, want in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      (dq2, dk2, dv2), refs):
+        _assert_flash_close(got, want, name)
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_flash_backward_reads_fused_qkv_and_strided_do(cuda):
+    """B2's tensor maps read q/k/v as slices of one fused projection
+    [b, s, h + 2 kh, d] and dO as a strided view (every other head of a
+    wider tensor): dq, dk and dv equal those of the contiguous copies
+    bit for bit, within the bound of the plain version."""
+    g = torch.Generator(cuda).manual_seed(8)
+    h, kh = 8, 2
+    qkv = torch.randn(2, 333, h + 2 * kh, 128, generator=g,
+                      device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kh], qkv[:, :, h + kh:]
+    do = torch.randn(2, 333, 2 * h, 128, generator=g,
+                     device=cuda).bfloat16()[:, :, ::2]
+    assert fa._strided(q) is q and fa._strided(do) is do
+    assert not do.is_contiguous()
+    out, lse = fa.flash_attention_reference(q, k, v)
+    delta = fa.flash_backward_delta(do, out)
+    got = (fa.flash_backward_dq(q, k, v, do, lse, delta),
+           *fa.flash_backward_dkv(q, k, v, do, lse, delta))
+    c = [t.contiguous() for t in (q, k, v, do)]
+    want = (fa.flash_backward_dq(*c, lse, delta),
+            *fa.flash_backward_dkv(*c, lse, delta))
+    refs = fa.flash_backward_reference(q, k, v, out, lse, do)
+    for name, a, b, ref in zip(("dq", "dk", "dv"), got, want, refs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        _assert_flash_close(a, ref, name)
+
+
 def test_flash_forward_reads_fused_qkv_with_gqa(cuda):
     """The flagship's q/k/v are slices of one fused projection
     [b, s, h + 2 kh, d]: B1's tensor maps read them through their
