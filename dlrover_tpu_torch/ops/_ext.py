@@ -61,6 +61,10 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library of one source, named by a hash of that source and the
+    flags. Each source is self-contained (it includes no header of its
+    own; the TMA, mbarrier and wgmma helpers are copied into each file
+    that uses them), so the source's bytes decide the build."""
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()

@@ -25,8 +25,7 @@
 // Bound on the H100: tensor-core operations at the training shape (m =
 // 32768 copies, d = f = 1024, 8 experts: B7 6 m d f flops, B8 dx 10 m d
 // f, dw_gu 4 m d f, dw_down 2 m d f; 69-347 us at 989 TFLOP/s); at a
-// decode step (16 copies) the bytes of the experts' weights. Design,
-// simple and right first:
+// decode step (16 copies) the bytes of the experts' weights. Design:
 //   - the TPU kernel keeps a 128-row tile and its [128, 2f] hidden in
 //     VMEM; a block here has 227 KB of shared memory (a [128, 1024] bf16
 //     x tile alone is 256 KB), so each product is a tiled GEMM over
@@ -43,19 +42,22 @@
 //     dy @ w_down^T for the same 64 columns of f (the contraction is d
 //     for both) and applies the silu-gate backward in registers; the
 //     second is the forward's second launch with w_gu read transposed;
-//   - the weight gradients: one block per (expert, 128 x 128 output
-//     tile) walks that expert's slots in order (the wrapper finds each
-//     expert's tile range on the device), so sums run in a fixed order
-//     with no atomics and reruns are bitwise equal; an expert with no
-//     rows still owns its all-padding tile and writes zeros;
-//   - gathers are cp.async 16-byte vectors per row; an id of -1
-//     zero-fills; a tile whose ids are all -1 skips its products (the
+//   - the weight gradients run on Hopper's own path (TMA, wgmma,
+//     warp specialisation; see "B8 dw" below): persistent blocks take
+//     (expert, output tile) units, experts with the most rows first
+//     (ranked from the wrapper's tile ranges on the device), and each
+//     unit walks its expert's slots in order, so sums run in a fixed
+//     order with no atomics and reruns are bitwise equal; an expert with
+//     no rows writes zeros;
+//   - B7 and dx gather with cp.async 16-byte vectors per row; an id of
+//     -1 zero-fills; a tile whose ids are all -1 skips its products (the
 //     first launches still write its zero a and dh rows, which the
 //     weight gradients read).
 //
 // Plain C interface, bound with ctypes (ops/_ext.py): no PyTorch headers,
 // so nvcc builds this file in seconds.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -205,25 +207,6 @@ __device__ __forceinline__ void load_nk(bf16* dst, const bf16* w,
   }
 }
 
-// A [kBK][kBN] tile of slots s0 .. s0 + kBK (slots >= s_end zero-fill):
-// row ids[slot] of src (-1 zero-fills) or row slot when ids is null,
-// columns col0 .. col0 + kBN.
-__device__ __forceinline__ void load_slots(bf16* dst, const bf16* src,
-                                           long long ld, const int* ids,
-                                           long long s0, long long s_end,
-                                           int col0) {
-  constexpr int chunks = kBN / 8;
-  for (int i = threadIdx.x; i < kBK * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    const long long slot = s0 + r;
-    long long row = -1;
-    if (slot < s_end) row = ids ? ids[slot] : slot;
-    const bool valid = row >= 0;
-    const bf16* p = valid ? src + row * ld + col0 + c : src;
-    cp_async16(dst + r * kLdN + c, p, valid);
-  }
-}
-
 // ---- warp-level products over one kBK slice -------------------------------
 
 // acc[16 MT x 8 NT] += A . B; A row-major [rows][kLd] from the warp's
@@ -283,39 +266,6 @@ __device__ __forceinline__ void mma_nk(float (&acc)[MT][NT][4], const bf16* a,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
         mma_bf16(acc[mt][NT - 1], af[mt], bfr[0], bfr[1]);
-    }
-  }
-}
-
-// acc[16 MT x 8 NT] += At^T . B; At and B [kBK][kLdN] tiles whose rows
-// are the contraction, At from the warp's first output row (column of
-// At), B from its first output column.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_tn(float (&acc)[MT][NT][4],
-                                       const bf16* at, const bf16* b,
-                                       int lane) {
-  const int i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < kBK / 16; ++kc) {
-    uint32_t bfr[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t q[4];
-      ldmatrix_x4_trans(q, b + (kc * 16 + r + (i % 2) * 8) * kLdN + nt * 8 +
-                               (i / 2) * 8);
-      bfr[nt][0] = q[0];
-      bfr[nt][1] = q[1];
-      bfr[nt + 1][0] = q[2];
-      bfr[nt + 1][1] = q[3];
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      uint32_t af[4];
-      ldmatrix_x4_trans(af, at + (kc * 16 + (lane / 16) * 8 + r) * kLdN +
-                                mt * 16 + (i % 2) * 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        mma_bf16(acc[mt][nt], af, bfr[nt][0], bfr[nt][1]);
     }
   }
 }
@@ -603,68 +553,470 @@ __global__ void __launch_bounds__(kThreads, 2) moe_out_kernel(Params p) {
   }
 }
 
-struct DwParams {
-  const bf16* lhs;       // [lhs_rows, M]
-  const bf16* rhs;       // [rhs_rows, N]
-  const int* lhs_ids;    // [m_pad] or null (slot order)
-  const int* rhs_ids;    // [m_pad] or null
-  const int* bounds;     // [E + 1]: expert e's tiles [b[e], b[e + 1])
-  float* dw;             // [E, M, N]
-  int M, N, tile_m;
+// ---- B8 dw: TMA + wgmma, warp-specialised, persistent ----------------------
+//
+// dw[e] = sum over e's slots s of lhs[row_l(s)]^T rhs[row_r(s)]: both
+// operands are read along the slots, so both sit MN-major in shared
+// memory (wgmma's transpose bits). One operand is in slot order (the
+// sorted dh or a) and arrives by TMA in [64 slots x 64 columns] boxes.
+// The other is gathered by ids (x by row_ids, dy by dest_ids), which
+// TMA cannot do; the producer's 128 threads load each of its rows'
+// 64-column segments by both routes at once (gather_stage): some as
+// [1 row x 64 columns] TMA boxes at the row the id names (the 128-byte
+// swizzle follows the shared-memory address, so a row lands where a
+// [64 x 64] box would put it; row -1 is zero-filled), the others as
+// eight 16-byte cp.async written into the same swizzle, whose arrival on
+// the stage's full barrier fires when they land
+// (cp.async.mbarrier.arrive.noinc; the consumers fence the async proxy
+// before wgmma reads them). The gathered rows bound the kernel, so the
+// tile is shaped to fetch each as few times as the registers allow:
+// [128 x 256] for dw_gu (x's rows, 128 columns, once per 256 columns of
+// dh; [64 x 512] halves the fetches but doubles dh's, and ran slower),
+// [256 x 128] for dw_down (dy's rows, 128 columns, once per 256 rows of
+// a), else [128 x 256] or [128 x 128]. Pairs of blocks sharing each
+// gathered row by TMA multicast also ran slower (the pair waits on its
+// slower block).
+//
+// A unit is one [kTileM x kTileN] tile of one expert's dw; the block
+// walks the expert's slots in stages of 64, in order, and owns the tile
+// alone, so there are no atomics on dw and reruns are bitwise equal.
+// Blocks are persistent (one an SM) and take units from a work counter
+// (an int the wrapper zeroes), experts with the most slots first (the
+// order is ranked from `bounds` in the kernel: nothing is read back to
+// the host). Under skew the heavy expert's units start first and the
+// others fill the remaining SMs; whichever block takes a unit computes
+// the same bits.
+//
+// 384 threads: warpgroups 0 and 1 are consumers, each with a
+// [kWM x kWN] f32 accumulator (16384 elements, 128 a thread) in
+// registers (setmaxnreg.inc kConsumerRegs); warpgroup 2 is the producer
+// (setmaxnreg.dec). A ring of stages, each the lhs tile [64 slots x
+// kTileM] and the rhs tile [64 slots x kTileN] as 1024-byte-aligned
+// boxes of [64 slots x 64 columns]; full barriers count the producer's
+// 128 threads (thread 0 adds the stage's TMA bytes), empty barriers one
+// arrival per consumer warp. Each stage carries its unit and flags
+// (first, last, no slots) for the consumers, who keep one stage's
+// products in flight behind the next. The consumers' barrier waits carry
+// no trap (a trap in their path makes ptxas ignore setmaxnreg); they
+// give up after ~2^32 cycles, and the producer keeps watch, trapping,
+// until every stage is released.
+
+constexpr int kDwThreads = 384;
+constexpr int kDwK = 64;           // slots of a stage
+constexpr int kBox = kDwK * 128;   // one [64 slots x 64 columns] box
+constexpr int kDwMaxGroups = 1024;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// A [kTileM x kTileN] unit; the two consumer warpgroups split it along M.
+template <int kTileM, int kTileN>
+struct DwCfg {
+  static constexpr int kWM = kTileM / 2, kWN = kTileN;
+  static_assert(kWM % 64 == 0 && kWN % 128 == 0 && kWM * kWN <= 16384,
+                "warpgroup tile");
+  static constexpr int kABytes = (kTileM / 64) * kBox;
+  static constexpr int kBBytes = (kTileN / 64) * kBox;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = kStageBytes <= 6 * kBox ? 4 : 3;
+  static constexpr int kBars = kStages * kStageBytes;
+  // Barriers (full, empty), the stages' unit and flags, the unit
+  // broadcast slots and the expert order.
+  static constexpr int kSmem =
+      1024 + kBars + 16 * kStages + 16 * kStages + 16 + 4 * kDwMaxGroups;
 };
 
-// B8 dw_gu and dw_down. Grid (N / kBN, M / kBN, E). dw[e] over a
-// 128 x 128 tile = sum over e's slots s of lhs[row_l(s)]^T rhs[row_r(s)],
-// in slot order.
-__global__ void __launch_bounds__(kThreads, 2) moe_dw_kernel(DwParams p) {
-  constexpr int MT = 2, NT = 8;  // warps 4 x 2 over 128 x 128
-  constexpr int kT = kBK * kLdN;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* l_s = reinterpret_cast<bf16*>(smem);
-  bf16* r_s = l_s + kStages * kT;
+struct DwParams {
+  const bf16* gathered;  // [rows, width]: lhs or rhs, rows gathered by ids
+  const int* ids;        // [m_pad], -1 on padding
+  const int* bounds;     // [E + 1]: expert e's tiles [b[e], b[e + 1])
+  int* next_unit;        // work counter, 0 at launch
+  float* dw;             // [E, M, N]
+  int M, N, tile_m, n_groups;
+};
 
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBN, e = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const long long s0 = static_cast<long long>(p.bounds[e]) * p.tile_m;
-  const long long s_end = static_cast<long long>(p.bounds[e + 1]) * p.tile_m;
-  const int n_k = static_cast<int>((s_end - s0 + kBK - 1) / kBK);
-  auto load = [&](int it) {
-    if (it < n_k) {
-      const long long s = s0 + static_cast<long long>(it) * kBK;
-      load_slots(l_s + (it % kStages) * kT, p.lhs, p.M, p.lhs_ids, s, s_end,
-                 m0);
-      load_slots(r_s + (it % kStages) * kT, p.rhs, p.N, p.rhs_ids, s, s_end,
-                 n0);
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+// Adds to the transaction count of the current phase without arriving.
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// The producer's wait: one that outlasts ~2^35 cycles (a lost TMA
+// completion or arrival) traps, so a fault ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 35)) asm volatile("trap;");
+}
+
+// The consumers' wait: no trap (see above). After ~2^32 cycles it gives
+// up and clears `live`, and a thread that has given up waits no more,
+// so a fault ends the launch with wrong sums instead of a hang.
+__device__ __forceinline__ void mbar_spin(uint32_t bar, int parity,
+                                          bool& live) {
+  if (!live || mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) {
+      live = false;
+      return;
     }
-    cp_async_commit();
-  };
-  for (int s = 0; s < kStages - 1; ++s) load(s);
+}
 
-  float acc[MT][NT][4];
-  zero(acc);
-  for (int it = 0; it < n_k; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    load(it + kStages - 1);
-    const int s = it % kStages;
-    mma_tn<MT, NT>(acc, l_s + s * kT + wm * MT * 16, r_s + s * kT + wn * NT * 8,
-                   lane);
+// One [64 rows x 64 columns] box of a 2-D (columns, rows) tensor map at
+// (col, row); rows past the tensor are zero-filled.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// 16-byte cp.async to a shared-memory address; valid == false
+// zero-fills and reads nothing.
+__device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The producer warpgroup's own barrier (id 3, 128 threads).
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 3, 128;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle:
+// start address, leading and stride byte offsets (16-byte units), and
+// the swizzle mode in bits 62-63. MN-major: the leading offset steps 64
+// elements of M or N (one box), the stride offset 8 rows of K.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins accumulator registers after a wait: the compiler may not move
+// their uses above it.
+template <int NT>
+__device__ __forceinline__ void fence_operands(float (&a)[NT][4]) {
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(a[i][e])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B MN-major in shared
+// memory (descriptors da, db); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tt_n128(float (&d)[16][4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Of every 8 row segments of a gathered tile, kLsuRows go by 16-byte
+// cp.async (the load/store path) and the rest by TMA: the two run side
+// by side, and TMA alone spends ~25 cycles a one-row box. 6 of 8 ran
+// fastest of the nine splits tools/torch_dw_probe.py times (PERF.md).
+constexpr int kLsuRows = 6;
+
+// The gathered tile of one stage: rows ids[s + r] (r < 64; slots past
+// s_end and ids of -1 read as zeros) of the gathered tensor, columns
+// col0 .. col0 + kCols, at row r of the tile's [64 x 64] boxes, each
+// [1 row x 64 columns] segment by TMA (row -1 is zero-filled) or by
+// eight 16-byte cp.async written into the same 128-byte swizzle
+// (chunk j of row r at chunk j ^ (r % 8)). Producer thread pt of 128
+// issues its segments; pt 0 counts the TMA bytes of the stage.
+template <int kCols>
+__device__ __forceinline__ void gather_stage(uint32_t dst,
+                                             const CUtensorMap* map,
+                                             const bf16* src, int ld,
+                                             uint32_t bar, const int* ids,
+                                             long long s, long long s_end,
+                                             int col0, int pt) {
+  constexpr int kRowBoxes = kDwK * (kCols / 64);
+  for (int i = pt; i < kRowBoxes; i += 128) {
+    const int r = i % kDwK, bx = i / kDwK;
+    const long long slot = s + r;
+    const int row = slot < s_end ? ids[slot] : -1;
+    const uint32_t at = dst + bx * kBox + r * 128;
+    if (i % 8 < kLsuRows) {
+      const bf16* from =
+          src + (row >= 0 ? static_cast<long long>(row) * ld + col0 + 64 * bx
+                          : 0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        cp_async16_to(at + ((j ^ (r % 8)) << 4), from + 8 * j, row >= 0);
+    } else {
+      tma_load_2d(at, map, bar, col0 + 64 * bx, row);
+    }
   }
-  cp_async_wait<0>();
+}
 
-  const int g = lane / 4, t = lane % 4;
+// Bytes of a stage's gathered tile that arrive by TMA.
+template <int kCols>
+__host__ __device__ constexpr int gathered_tma_bytes() {
+  return (kDwK * (kCols / 64) / 8) * (8 - kLsuRows) * 128;
+}
+
+template <bool kGatherLhs, int kTileM, int kTileN>
+__global__ void __launch_bounds__(kDwThreads, 1)
+    moe_dw_kernel(const __grid_constant__ CUtensorMap map_sorted,
+                  const __grid_constant__ CUtensorMap map_gathered,
+                  const DwParams p) {
+  using Cfg = DwCfg<kTileM, kTileN>;
+  constexpr int kStages = Cfg::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  auto a_s = [&](int st) { return base + st * Cfg::kStageBytes; };
+  auto b_s = [&](int st) { return a_s(st) + Cfg::kABytes; };
+  const uint32_t bars = base + Cfg::kBars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  int4* meta = reinterpret_cast<int4*>(gbase + Cfg::kBars + 16 * kStages);
+  int* sched = reinterpret_cast<int*>(meta + kStages);
+  int* order = sched + 4;
+
+  const int n_n = p.N / kTileN, per_group = (p.M / kTileM) * n_n;
+  const int n_units = p.n_groups * per_group;
+  // The experts by slot count, most first (ties by index).
+  for (int e = threadIdx.x; e < p.n_groups; e += kDwThreads) {
+    const int ce = p.bounds[e + 1] - p.bounds[e];
+    int rank = 0;
+    for (int o = 0; o < p.n_groups; ++o) {
+      const int co = p.bounds[o + 1] - p.bounds[o];
+      rank += co > ce || (co == ce && o < e);
+    }
+    order[rank] = e;
+  }
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 128);  // the producer's threads, with their bytes
+      mbar_init(empty(st), 8);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Unit u: expert order[u / per_group], tile (m0, n0) of its dw.
+  auto decode = [&](int u, int& e, int& m0, int& n0) {
+    e = order[u / per_group];
+    const int t = u % per_group;
+    m0 = (t / n_n) * kTileM;
+    n0 = (t % n_n) * kTileN;
+  };
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<kProducerRegs>();
+    const int pt = threadIdx.x - 256;
+    int g = 0;  // stages issued
+    for (int i = 0;; ++i) {
+      if (pt == 0) sched[i & 1] = atomicAdd(p.next_unit, 1);
+      producer_sync();
+      const int u = sched[i & 1];
+      const bool done = u >= n_units;
+      int e = 0, m0 = 0, n0 = 0, n_k = 1;
+      long long s0 = 0, s_end = 0;
+      if (!done) {
+        decode(u, e, m0, n0);
+        s0 = static_cast<long long>(p.bounds[e]) * p.tile_m;
+        s_end = static_cast<long long>(p.bounds[e + 1]) * p.tile_m;
+        n_k = max(1, static_cast<int>((s_end - s0 + kDwK - 1) / kDwK));
+      }
+      // done: one stage of unit -1 tells the consumers to stop.
+      for (int k = 0; k < n_k; ++k, ++g) {
+        const int st = g % kStages;
+        if (g >= kStages) mbar_wait(empty(st), (g / kStages - 1) & 1);
+        const long long s = s0 + static_cast<long long>(k) * kDwK;
+        const bool has = !done && s < s_end;
+        if (pt == 0) {
+          meta[st] = make_int4(done ? -1 : u,
+                               (k == 0) | ((k == n_k - 1) << 1) | (!has << 2),
+                               0, 0);
+          if (has) {
+            constexpr int kBytes = kGatherLhs ? Cfg::kBBytes : Cfg::kABytes;
+            const uint32_t dst = kGatherLhs ? b_s(st) : a_s(st);
+            const int col0 = kGatherLhs ? n0 : m0;
+            mbar_expect_tx_only(
+                full(st),
+                kBytes + gathered_tma_bytes<kGatherLhs ? kTileM : kTileN>());
+            for (int bx = 0; bx < kBytes / kBox; ++bx)
+              tma_load_2d(dst + bx * kBox, &map_sorted, full(st),
+                          col0 + 64 * bx, static_cast<int>(s));
+          }
+        }
+        if (has) {
+          if (kGatherLhs)
+            gather_stage<kTileM>(a_s(st), &map_gathered, p.gathered, p.M,
+                                 full(st), p.ids, s, s_end, m0, pt);
+          else
+            gather_stage<kTileN>(b_s(st), &map_gathered, p.gathered, p.N,
+                                 full(st), p.ids, s, s_end, n0, pt);
+        }
+        // This thread's arrival, once its cp.async copies have landed.
+        asm volatile(
+            "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                full(st))
+            : "memory");
+      }
+      if (done) break;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (pt == 0)  // the watch
+      for (int j = max(0, g - kStages); j < g; ++j)
+        mbar_wait(empty(j % kStages), (j / kStages) & 1);
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    // This warpgroup's [kWM x kWN], rows mo .. of the unit: kH products
+    // m64n128, (mi, ni) over the rows and columns.
+    constexpr int kMi = Cfg::kWM / 64, kNi = Cfg::kWN / 128, kH = kMi * kNi;
+    const int mo = c * Cfg::kWM;
+    float acc[kH][16][4];
+    bool live = true;
+    int held = -1;  // the stage whose products may still be running
+    for (int g = 0;; ++g) {
+      const int st = g % kStages;
+      mbar_spin(full(st), (g / kStages) & 1, live);
+      const int4 mt = meta[st];
+      if (mt.x < 0 || !live) {
+        if (lane == 0) mbar_arrive(empty(st));
+        break;
+      }
+      const bool first = mt.y & 1, last = mt.y & 2, none = mt.y & 4;
+      if (!none) {
+        // Part of the gathered tile came through the generic proxy
+        // (cp.async); wgmma reads through the async proxy.
+        fence_proxy_async();
+        wgmma_fence();
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+        for (int kk = 0; kk < kDwK / 16; ++kk)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long row = m0 + wm * MT * 16 + mt * 16 + g + 8 * h;
-      float* out = p.dw + (static_cast<long long>(e) * p.M + row) * p.N + n0 +
-                   wn * NT * 8 + 2 * t;
+          for (int mi = 0; mi < kMi; ++mi)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        *reinterpret_cast<float2*>(out + nt * 8) =
-            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+            for (int ni = 0; ni < kNi; ++ni)
+              wgmma_tt_n128(
+                  acc[mi * kNi + ni],
+                  smem_desc(a_s(st) + (mo / 64 + mi) * kBox + kk * 2048, kBox,
+                            1024),
+                  smem_desc(b_s(st) + 2 * ni * kBox + kk * 2048,
+                            kBox, 1024),
+                  !(first && kk == 0));
+        wgmma_commit();
+        // The previous stage's products are done: release its stage.
+        wgmma_wait<1>();
+        if (held >= 0 && lane == 0) mbar_arrive(empty(held));
+        held = st;
+      } else if (lane == 0) {
+        mbar_arrive(empty(st));
+      }
+      if (last) {
+        wgmma_wait<0>();
+        if (held >= 0 && lane == 0) mbar_arrive(empty(held));
+        held = -1;
+        int e, m0, n0;
+        decode(mt.x, e, m0, n0);
+        const int g8 = lane / 4, t = lane % 4;
+#pragma unroll
+        for (int mi = 0; mi < kMi; ++mi)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const long long row =
+                m0 + mo + 64 * mi + 16 * warp + g8 + 8 * r;
+            float* out = p.dw +
+                         (static_cast<long long>(e) * p.M + row) * p.N + n0 +
+                         2 * t;
+#pragma unroll
+            for (int ni = 0; ni < kNi; ++ni)
+#pragma unroll
+              for (int nt = 0; nt < 16; ++nt) {
+                const float(&a)[16][4] = acc[mi * kNi + ni];
+                *reinterpret_cast<float2*>(out + 128 * ni + 8 * nt) =
+                    none ? make_float2(0.f, 0.f)
+                         : make_float2(a[nt][2 * r], a[nt][2 * r + 1]);
+              }
+          }
+      }
     }
   }
 }
@@ -737,6 +1089,90 @@ int backward_dx(const Params& p, cudaStream_t stream) {
                 out_smem<BM, true>(), p, stream);
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver call: taken through the runtime's
+// entry-point query, so the library links no libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 2-D (cols, rows) map of a row-major [rows, cols] bf16 tensor (cols a
+// multiple of 8), boxes of [box_rows x 64 columns] in the 128-byte
+// swizzle; rows outside [0, rows) are zero-filled.
+int tensor_map_2d(CUtensorMap* map, const void* ptr, long long cols,
+                  long long rows, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t bytes[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, bytes, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The unit tile that fetches each gathered row the fewest times (see
+// moe_dw_kernel), as the shape allows: dw_gu [128 x 256] (dh's 2f is a
+// multiple of 256), dw_down [256 x 128] when f allows, else [128 x 256]
+// or [128 x 128].
+void dw_tile(bool gather_lhs, int M, int N, int* tm, int* tn) {
+  if (!gather_lhs && M % 256 == 0) {
+    *tm = 256;
+    *tn = 128;
+  } else {
+    *tm = 128;
+    *tn = N % 256 ? 128 : 256;
+  }
+}
+
+// B8 dw: the slot-ordered operand's map ([m_pad, width], boxes of 64
+// rows), the gathered operand's (boxes of one row), and one persistent
+// block an SM, at most one a unit.
+template <bool kGatherLhs, int kTileM, int kTileN>
+int launch_dw(const void* sorted, long long m_pad, long long gathered_rows,
+              const DwParams& p, cudaStream_t stream) {
+  CUtensorMap maps[2];
+  const int width = kGatherLhs ? p.M : p.N;  // of the gathered operand
+  int rc = tensor_map_2d(&maps[0], sorted, kGatherLhs ? p.N : p.M, m_pad, 64);
+  if (!rc) rc = tensor_map_2d(&maps[1], p.gathered, width, gathered_rows, 1);
+  if (rc) return rc;
+  auto kernel = moe_dw_kernel<kGatherLhs, kTileM, kTileN>;
+  const int smem = DwCfg<kTileM, kTileN>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = p.n_groups * (p.M / kTileM) * (p.N / kTileN);
+  kernel<<<units < sms ? units : sms, kDwThreads, smem, stream>>>(maps[0],
+                                                                 maps[1], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -784,33 +1220,55 @@ int dlr_moe_backward_dx(const void* x, const void* dy, const void* w_gu,
   return p.tile_m == 128 ? backward_dx<128>(p, s) : backward_dx<16>(p, s);
 }
 
-// dims: M, N, m_pad, tile_m, E, lhs_rows, rhs_rows.
+// dims: M, N, m_pad, tile_m, E, lhs_rows, rhs_rows. Exactly one of
+// lhs_ids and rhs_ids is given; the other operand is read in slot order
+// (its first m_pad rows). work: one int32, zero at launch (the units'
+// counter).
 int dlr_moe_backward_dw(const void* lhs, const void* rhs, const void* lhs_ids,
                         const void* rhs_ids, const void* bounds, void* dw,
-                        const long long* dims, void* stream) {
+                        const long long* dims, void* work, void* stream) {
   for (int i = 0; i < 7; ++i)
     if (dims[i] < 1 || dims[i] > (1LL << 30))
       return static_cast<int>(cudaErrorInvalidValue);
+  const bool gather_lhs = lhs_ids != nullptr;
   DwParams p = {};
-  p.lhs = static_cast<const bf16*>(lhs);
-  p.rhs = static_cast<const bf16*>(rhs);
-  p.lhs_ids = static_cast<const int*>(lhs_ids);
-  p.rhs_ids = static_cast<const int*>(rhs_ids);
+  p.gathered = static_cast<const bf16*>(gather_lhs ? lhs : rhs);
+  p.ids = static_cast<const int*>(gather_lhs ? lhs_ids : rhs_ids);
   p.bounds = static_cast<const int*>(bounds);
+  p.next_unit = static_cast<int*>(work);
   p.dw = static_cast<float*>(dw);
   p.M = static_cast<int>(dims[0]);
   p.N = static_cast<int>(dims[1]);
   p.tile_m = static_cast<int>(dims[3]);
-  const int n_groups = static_cast<int>(dims[4]);
-  // Slots read without ids must exist in their operand (the sorted a or
-  // dh has m_pad rows).
-  if (p.M % kBN || p.N % kBN || (p.tile_m != 16 && p.tile_m != 128) ||
-      n_groups > 65535 || (!lhs_ids && dims[5] < dims[2]) ||
-      (!rhs_ids && dims[6] < dims[2]))
+  p.n_groups = static_cast<int>(dims[4]);
+  const long long m_pad = dims[2];
+  // The slot-ordered operand must hold m_pad rows; TMA and the 16-byte
+  // copies need 16-byte aligned rows; a gathered lhs (dw_gu, N = 2f)
+  // goes with N in 256s.
+  if (p.M % 128 || p.N % (gather_lhs ? 256 : 128) ||
+      (p.tile_m != 16 && p.tile_m != 128) ||
+      p.n_groups > kDwMaxGroups || (lhs_ids != nullptr) == (rhs_ids != nullptr) ||
+      dims[gather_lhs ? 6 : 5] < m_pad ||
+      (reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(rhs)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch(moe_dw_kernel, dim3(p.N / kBN, p.M / kBN, n_groups),
-                bf16_bytes(2LL * kStages * kBK * kLdN), p,
-                static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int tm, tn;
+  dw_tile(gather_lhs, p.M, p.N, &tm, &tn);
+  if (gather_lhs) return launch_dw<true, 128, 256>(rhs, m_pad, dims[5], p, s);
+  if (tm == 256) return launch_dw<false, 256, 128>(lhs, m_pad, dims[6], p, s);
+  return tn == 256 ? launch_dw<false, 128, 256>(lhs, m_pad, dims[6], p, s)
+                   : launch_dw<false, 128, 128>(lhs, m_pad, dims[6], p, s);
+}
+
+// The unit tile and dynamic shared memory of a dw launch with M x N
+// units, the gathered operand the lhs (dw_gu) or not (dw_down).
+int dlr_moe_dw_config(int M, int N, int gather_lhs, int* smem, int* tile_m,
+                      int* tile_n) {
+  dw_tile(gather_lhs != 0, M, N, tile_m, tile_n);
+  *smem = *tile_m == 256   ? DwCfg<256, 128>::kSmem
+          : *tile_n == 256 ? DwCfg<128, 256>::kSmem
+                           : DwCfg<128, 128>::kSmem;
+  return 0;
 }
 
 const char* dlr_moe_error_string(int code) {

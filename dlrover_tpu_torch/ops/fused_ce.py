@@ -251,10 +251,22 @@ def _library():
         for fn in (lib.dlr_ce_forward, lib.dlr_ce_backward_dx,
                    lib.dlr_ce_backward_dw):
             fn.restype = ctypes.c_int
+        lib.dlr_ce_dw_config.argtypes = [ctypes.c_int, ptr, ptr]
+        lib.dlr_ce_dw_config.restype = ctypes.c_int
         lib.dlr_ce_error_string.argtypes = [ctypes.c_int]
         lib.dlr_ce_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def dw_kernel_config(d: int) -> Dict[str, int]:
+    """B4 dw's launch at hidden size d: its dynamic shared memory and
+    its cluster size (ptxas reports neither)."""
+    smem, cluster = ctypes.c_int(), ctypes.c_int()
+    rc = _library().dlr_ce_dw_config(d, ctypes.byref(smem),
+                                     ctypes.byref(cluster))
+    _raise_on(rc, "fused_ce_backward_dw")
+    return {"dynamic_smem_bytes": smem.value, "cluster": cluster.value}
 
 
 def _on_card(x, name) -> bool:
@@ -291,7 +303,7 @@ def _kernel_args(x, w, tgt, stats=()):
         if s.dtype != torch.float32 or tuple(s.shape) != (n,):
             raise TypeError(f"row stats must be f32 [{n}]; got {s.dtype} "
                             f"{tuple(s.shape)}")
-    ldw = _ceil_to(v, 8)  # 16-byte aligned rows for cp.async
+    ldw = _ceil_to(v, 8)  # 16-byte aligned rows for cp.async and TMA
     w = F.pad(w, (0, ldw - v)) if ldw != v else w.contiguous()
     dims = (ctypes.c_longlong * 4)(n, d, v, ldw)
     return (x.contiguous(), w, tgt.to(torch.int32).contiguous(),

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 _SOURCE = "moe_dispatch.cu"
 _KERNEL_ALIGN = 128   # the kernels take d and f multiples of this
 _TILES = (16, 128)    # ... and these tile_m
+_MAX_GROUPS = 1024    # the dw kernels rank at most this many experts
 
 # Kernel launches per kernel, counted where the wrapper launches it (B7
 # and B8 dx each run as two CUDA launches and count once).
@@ -230,14 +231,27 @@ def _library():
         ptr = ctypes.c_void_p
         lib.dlr_moe_forward.argtypes = [ptr] * 10
         lib.dlr_moe_backward_dx.argtypes = [ptr] * 12
-        lib.dlr_moe_backward_dw.argtypes = [ptr] * 8
+        lib.dlr_moe_backward_dw.argtypes = [ptr] * 9
         for fn in (lib.dlr_moe_forward, lib.dlr_moe_backward_dx,
                    lib.dlr_moe_backward_dw):
             fn.restype = ctypes.c_int
+        lib.dlr_moe_dw_config.argtypes = [ctypes.c_int] * 3 + [ptr] * 3
+        lib.dlr_moe_dw_config.restype = ctypes.c_int
         lib.dlr_moe_error_string.argtypes = [ctypes.c_int]
         lib.dlr_moe_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def dw_kernel_config(m: int, n: int, gather_lhs: bool) -> Dict[str, int]:
+    """B8 dw's launch for an [m, n] weight gradient (dw_gu gathers the
+    lhs, dw_down the rhs): its unit tile and dynamic shared memory
+    (ptxas reports only static shared memory)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _library().dlr_moe_dw_config(m, n, int(gather_lhs),
+                                 *map(ctypes.byref, out))
+    return {"dynamic_smem_bytes": out[0].value,
+            "tile": [out[1].value, out[2].value]}
 
 
 def _on_card(x, name) -> bool:
@@ -389,7 +403,14 @@ def _dw_kernel(name, lhs, rhs, lhs_ids, rhs_ids, tile_expert, n_groups,
                tile_m):
     """``dw[e] = sum over e's tiles lhs_t^T @ rhs_t`` [E, c_l, c_r] f32,
     lhs or rhs rows gathered by their ids (the other read in slot
-    order)."""
+    order). The kernel's persistent blocks take tiles of dw from a work
+    counter, zeroed here, experts with the most rows first."""
+    if (lhs_ids is None) == (rhs_ids is None):
+        raise ValueError(f"{name}: exactly one operand is gathered by ids")
+    if n_groups > _MAX_GROUPS:
+        raise ValueError(f"{name}: {n_groups} experts, the kernel takes at "
+                         f"most {_MAX_GROUPS}")
+    lhs, rhs = lhs.contiguous(), rhs.contiguous()
     ids = tuple(t for t in (lhs_ids, rhs_ids) if t is not None)
     _check_shapes(name, lhs=(lhs, (None, None)), rhs=(rhs, (None, None)))
     _check(name, tile_m, (lhs, rhs), ids + (tile_expert,),
@@ -405,6 +426,7 @@ def _dw_kernel(name, lhs, rhs, lhs_ids, rhs_ids, tile_expert, n_groups,
     bounds = _expert_tile_bounds(tile_expert, n_groups)
     dw = torch.empty((n_groups, lhs.shape[1], rhs.shape[1]),
                      dtype=torch.float32, device=lhs.device)
+    work = torch.zeros(1, dtype=torch.int32, device=lhs.device)
     with torch.cuda.device(lhs.device):
         rc = _library().dlr_moe_backward_dw(
             lhs.data_ptr(), rhs.data_ptr(),
@@ -413,7 +435,7 @@ def _dw_kernel(name, lhs, rhs, lhs_ids, rhs_ids, tile_expert, n_groups,
             bounds.data_ptr(), dw.data_ptr(),
             _dims(lhs.shape[1], rhs.shape[1], m_pad, tile_m, n_groups,
                   lhs.shape[0], rhs.shape[0]),
-            _stream(lhs),
+            work.data_ptr(), _stream(lhs),
         )
     _raise_on(rc, name)
     launch_counts[name] += 1

@@ -149,6 +149,28 @@ def test_plain_kernels_match_pallas_interpret(n, d, v):
     assert not dx.numpy()[::3].any()  # a = b = 0 rows get no gradient
 
 
+@pytest.mark.parametrize("n,v", [(31, 63), (33, 65), (65, 129)])
+def test_plain_dw_matches_pallas_at_kernel_tile_edges(n, v):
+    """B4 dw's plain version against ``_pallas_backward`` in interpret
+    mode where the card kernel's tiles end: its clusters own 64 vocab
+    columns and step over 32 rows, so n and V one short of, and one past,
+    a multiple of each."""
+    x, w, tgt, a, b = _stats_inputs(5, n, 32, v)
+    _, j_logz = jax_ce._pallas_forward(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(tgt), 1e-4, 8, 128,
+        interpret=True)
+    _, j_dw = jax_ce._pallas_backward(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(tgt), j_logz,
+        jnp.asarray(a), jnp.asarray(b), 8, 128, interpret=True)
+    tx, tw, tt = map(torch.from_numpy, (x, w, tgt))
+    dw = fused_ce.fused_ce_backward_dw(
+        tx, tw, tt, torch.tensor(np.asarray(j_logz)), torch.from_numpy(a),
+        torch.from_numpy(b), block_v=64)
+    assert tuple(dw.shape) == (32, v)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(j_dw), rtol=1e-4,
+                               atol=1e-6)
+
+
 def _bf16(a):
     return torch.from_numpy(a).bfloat16()
 

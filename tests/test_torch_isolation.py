@@ -126,3 +126,35 @@ def test_source_imports_no_jax_and_no_jax_package(path):
         if name.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu")
     ]
     assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+
+
+_KERNEL_SOURCES = sorted((PORT / "ops" / "csrc").glob("*.cu"))
+
+
+@pytest.mark.parametrize("path", _KERNEL_SOURCES,
+                         ids=[p.name for p in _KERNEL_SOURCES])
+def test_kernel_source_is_self_contained(path):
+    """``ops/_ext.library_path`` hashes only the source's own bytes, so a
+    kernel source may include system and toolkit headers but none of the
+    port's own; and every source in ``csrc/`` is one ``_ext`` builds."""
+    from dlrover_tpu_torch.ops import _ext
+
+    assert path.name in _ext.SOURCES
+    local = [ln for ln in path.read_text().splitlines()
+             if ln.lstrip().startswith("#include") and '"' in ln]
+    assert local == [], f"{path.name} includes {local}"
+
+
+def test_library_name_follows_the_source_bytes(tmp_path, monkeypatch):
+    """An edited source gets a library of another name (built anew); the
+    same bytes give the same name."""
+    from dlrover_tpu_torch.ops import _ext
+
+    monkeypatch.setattr(_ext, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = _ext.library_path("k.cu")
+    assert _ext.library_path("k.cu") == first
+    src.write_text("// two\n")
+    assert _ext.library_path("k.cu") != first
+    assert first.parent == _ext.BUILD_DIR and first.suffix == ".so"

@@ -11,7 +11,10 @@ another order); f32 outputs within 2e-5. Flash attention: lse (f32)
 within 1e-3; gradients within 1e-2 * max|ref| + 1e-6 (dS is rounded to bf16
 before the dq/dk products in both, from dP sums taken in another order,
 so a few elements round the other way). Fused cross-entropy: per_tok and
-logz (f32) within rtol 1e-5; dx and dw elementwise (see _ce_ratio)."""
+logz (f32) within rtol 1e-5; dx and dw elementwise (see _ce_ratio); the
+MoE weight gradients the same way. The dw kernels (B4 dw, B8 dw_gu and
+dw_down) sum in a fixed order with one owner per element: a rerun gives
+the same bits."""
 
 import numpy as np
 import pytest
@@ -737,6 +740,29 @@ def test_fused_ce_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fc.fused_ce_forward(x.bfloat16(), w.bfloat16().cpu(), tgt, 1e-4)
 
 
+@pytest.mark.parametrize("n,d,v,masked", [
+    (4100, 1024, 32003, True),   # ragged rows and vocab, the flagship's d
+    (4100, 1024, 32033, False),  # V = 32000 + a partial vocab tile
+    (4100, 512, 32003, True),    # one block a cluster
+    (4100, 128, 32033, False),   # the narrowest d
+    (33, 1024, 65, True),        # one row past a step, one column past a tile
+])
+def test_fused_ce_dw_at_its_tile_edges(cuda, n, d, v, masked):
+    """B4 dw (clusters over d, 64-column vocab tiles, 32-row steps)
+    against its plain version where its tiles end, within _ce_ratio's
+    bound; a second launch gives the same bits."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    x, w, tgt, logz, a, b = _ce_inputs(cuda, n, d, v, masked, n + d + v)
+    dw = fc.fused_ce_backward_dw(x, w, tgt, logz, a, b)
+    again = fc.fused_ce_backward_dw(x, w, tgt, logz, a, b)
+    torch.cuda.synchronize()
+    _, want = fc._xla_backward(x, w, tgt, logz, a, b, want_dx=False)
+    assert tuple(dw.shape) == (d, v) and dw.dtype == torch.float32
+    assert _ce_ratio(dw, want, 0) <= 1.0
+    assert torch.equal(dw, again)
+
+
 @pytest.mark.parametrize("impl", ["pallas", "chunked", "xla"])
 def test_fused_cross_entropy_on_card_matches_cpu(cuda, impl):
     """bf16 hidden states and unembedding, masked: the loss on the card
@@ -886,6 +912,39 @@ def test_moe_kernels_match_plain_versions(cuda, n, d, f, e, k, routing):
     assert _ce_ratio(bad, want_y, -1) > 1.0
 
 
+@pytest.mark.parametrize("n,d,f,e,k,routing", [
+    (8, 1024, 1024, 8, 2, "random"),      # a decode step, tile 16
+    (600, 256, 384, 8, 2, "skewed"),      # tile 128, an empty expert
+    (40, 128, 128, 4, 2, "one"),          # tile 16, every row on one expert
+    (1200, 384, 384, 4, 2, "one"),        # tile 128, [128 x 128] dw_down units
+    (900, 256, 640, 6, 2, "random"),      # f != d, [128 x 256] units
+])
+def test_moe_dw_kernels_at_their_edges(cuda, n, d, f, e, k, routing):
+    """B8 dw_gu and dw_down against their plain versions (fed the plain
+    dx's dh and a) within _ce_ratio's bound at both tile_m, experts with
+    no rows and one with every row, f != d; experts without rows get
+    zeros and a second launch gives the same bits."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, w_gu, w_down, dy, (ri, di, te), tm = _moe_inputs(
+        cuda, n, d, f, e, k, routing, n + f)
+    _, dh, a = md._backward_dx_reference(x, dy, w_gu, w_down, ri, di, te, tm)
+    routed = torch.zeros(e, dtype=torch.bool, device=cuda)
+    routed[te[(ri.view(-1, tm) >= 0).any(dim=1)].long()] = True
+    for name, call, plain in (
+            ("dw_gu", lambda: md.grouped_ffn_backward_dw_gu(x, dh, ri, te, e,
+                                                            tm),
+             lambda: md._backward_dw_gu_reference(x, dh, ri, te, e, tm)),
+            ("dw_down", lambda: md.grouped_ffn_backward_dw_down(a, dy, di, te,
+                                                                e, tm),
+             lambda: md._backward_dw_down_reference(a, dy, di, te, e, tm))):
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        assert _ce_ratio(got, plain(), 1) <= 1.0, name
+        assert torch.equal(got, again), name
+        assert not got[~routed].any(), name
+
+
 def test_moe_kernels_rerun_bitwise(cuda):
     """No atomics, one owner per output element: a second launch gives
     the same bits."""
@@ -940,6 +999,32 @@ def test_moe_wrappers_reject_what_the_kernels_do_not_take(cuda):
     a = torch.zeros(ri.shape[0], 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="ids has shape"):
         md.grouped_ffn_backward_dw_down(a, dy, di[:-tm], te, 4, tm)
+
+
+def test_dw_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """The dw kernels gather exactly one operand, rank at most 1024
+    experts, and take bf16."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, _, _, dy, (ri, di, te), tm = _moe_inputs(cuda, 8, 128, 128, 4, 2,
+                                                "random", 3)
+    dh = torch.zeros(ri.shape[0], 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="exactly one"):
+        md._dw_kernel("grouped_ffn_backward_dw_gu", x, dh, ri, ri, te, 4, tm)
+    with pytest.raises(ValueError, match="exactly one"):
+        md._dw_kernel("grouped_ffn_backward_dw_gu", dh, dh, None, None, te,
+                      4, tm)
+    with pytest.raises(ValueError, match="at most 1024"):
+        md.grouped_ffn_backward_dw_gu(x, dh, ri, te, 1025, tm)
+    with pytest.raises(TypeError, match="bfloat16"):
+        md.grouped_ffn_backward_dw_down(dh.float(), dy.float(), di, te, 4, tm)
+    xc, w, tgt, logz, a, b = _ce_inputs(cuda, 16, 128, 40, False, 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fc.fused_ce_backward_dw(xc.float(), w.float(), tgt, logz, a, b)
+    with pytest.raises(ValueError, match="d 96"):
+        fc.fused_ce_backward_dw(xc[:, :96].contiguous(), w[:96], tgt, logz,
+                                a, b)
 
 
 def test_moe_train_step_on_card_matches_cpu(cuda):

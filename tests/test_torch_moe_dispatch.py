@@ -93,6 +93,11 @@ def _ffn_inputs(case, dtype, seed=0):
     fe = rs.randint(0, e, n * k).astype(np.int32)
     if case == "empty_expert":
         fe = np.where(fe == 1, 0, fe).astype(np.int32)
+    elif case == "skewed":
+        # three quarters of the copies on expert 2, expert 3 empty: the
+        # order the dw kernels take the experts in is not their index
+        fe[: 3 * n * k // 4] = 2
+        fe = np.where(fe == 3, 1, fe).astype(np.int32)
     cast = (lambda a: a.astype(ml_dtypes.bfloat16)) if dtype == "bfloat16" \
         else (lambda a: a.astype(np.float32))
     return [cast(a) for a in (x, w_gu, w_down, dy)], fe, e, k
@@ -116,7 +121,7 @@ def ffn_cases():
     routing case), computed once for the module."""
     out = {}
     for dtype in ("float32", "bfloat16"):
-        for case in ("random", "empty_expert"):
+        for case in ("random", "empty_expert", "skewed"):
             (x, w_gu, w_down, dy), fe, e, k = _ffn_inputs(case, dtype)
             m = fe.shape[0]
             tm = jax_md.default_tile_m(m)
@@ -136,7 +141,7 @@ def ffn_cases():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["random", "empty_expert"])
+@pytest.mark.parametrize("case", ["random", "empty_expert", "skewed"])
 def test_grouped_ffn_forward_and_vjp_match_jax(ffn_cases, dtype, case):
     (x, w_gu, w_down, dy), fe, e, k, tm, want = ffn_cases[(dtype, case)]
     m = fe.shape[0]
@@ -153,6 +158,27 @@ def test_grouped_ffn_forward_and_vjp_match_jax(ffn_cases, dtype, case):
         # expert 1 has no rows: an exactly zero weight gradient
         assert not twgu.grad[1].any() and not twd.grad[1].any()
         assert twgu.grad[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["random", "empty_expert", "skewed"])
+def test_dw_plain_versions_match_pallas(ffn_cases, dtype, case):
+    """The B8 weight-gradient wrappers alone (their plain versions on the
+    CPU), fed the sorted dh and a of the plain dx, against the Pallas
+    grouped FFN's dw_gu and dw_down in interpret mode; an expert without
+    rows gets exact zeros."""
+    (x, w_gu, w_down, dy), fe, e, k, tm, want = ffn_cases[(dtype, case)]
+    tx, twgu, twd, tdy = (convert.params_from_numpy(a, "cpu")
+                          for a in (x, w_gu, w_down, dy))
+    ri, di, te = md.build_dispatch_layout(torch.from_numpy(fe), e, tm, k)
+    _, dh, a = md._backward_dx_reference(tx, tdy, twgu, twd, ri, di, te, tm)
+    dw_gu = md.grouped_ffn_backward_dw_gu(tx, dh, ri, te, e, tm)
+    dw_down = md.grouped_ffn_backward_dw_down(a, tdy, di, te, e, tm)
+    assert dw_gu.dtype == dw_down.dtype == torch.float32
+    _close(dw_gu.numpy(), want[2], dtype, "dw_gu")
+    _close(dw_down.numpy(), want[3], dtype, "dw_down")
+    empty = np.setdiff1d(np.arange(e), fe)
+    assert not dw_gu[empty].any() and not dw_down[empty].any()
 
 
 def test_plain_flag_equals_the_cpu_wrappers(ffn_cases):
@@ -233,6 +259,9 @@ def test_layout_builder_reads_nothing_back(monkeypatch):
     monkeypatch.setattr(torch, "bincount",
                         lambda *a, **k: calls.append("bincount"))
     fe = torch.from_numpy(np.random.RandomState(1).randint(0, 8, 300))
-    md.build_dispatch_layout(fe.to(torch.int32), 8, 16, 2)
+    _, _, te = md.build_dispatch_layout(fe.to(torch.int32), 8, 16, 2)
+    # nor do the dw kernels' tile ranges: the kernels rank the experts
+    # by their rows themselves
+    md._expert_tile_bounds(te, 8)
     assert calls == []
 
