@@ -36,8 +36,8 @@ phases that each print JSON lines:
    versions at the CE A/B shape (n=16384, d=1024, V=32000, bf16), a
    ragged one (n=4100, V=32003) and a masked one (30% of the rows with
    weight 0), elementwise, each with a planted fault the same bounds must
-   reject; B4 dw gives the same bits on a second call; times, bounds and
-   the dense route's time;
+   reject; B4 dx and dw give the same bits on a second call; times,
+   bounds and the dense route's time;
 8. CE A/B (the JAX package's ``bench.py`` ``ce_ab_phase``): loss, dx and
    dw at n=16384, d=1024, V=32000 through the dense logits, the chunked
    fused CE and the B3/B4 kernels: ms and peak memory of each;
@@ -76,9 +76,9 @@ phases that each print JSON lines:
     training shape (8 x 2048 tokens, d = f = 1024, 8 experts, top-2,
     routed by a router), a skewed routing (half the copies on one
     expert, one expert empty) and a decode step (8 tokens), elementwise
-    as B4, each with a planted fault the same bound must reject; dw_gu
-    and dw_down give the same bits on a second call; times, bounds, and
-    the per-expert matmul loop as the library yardstick;
+    as B4, each with a planted fault the same bound must reject; B7, B8
+    dx, dw_gu and dw_down give the same bits on a second call; times,
+    bounds, and the per-expert matmul loop as the library yardstick;
 13. MoE ``generate()`` on ``moe_config()`` (bench.py's moe_phase model:
     the flagship's attention, 8 experts of mlp 1024, top-2, dropless,
     535M params, 233M active): b=8, prompt 128, 256 new tokens, fp
@@ -106,9 +106,10 @@ went through them. Any failure raises (exit code 1) before the last
 line, which is ``{"ok": true, "device": {...}}``; before it come the
 ptxas lines of the redesigned sources (registers, spills and the C75xx
 performance notes of each entry function: B1 and B2's four flash
-kernels, B5/B6, B4 and B8 with the rest of their files) with the
-dynamic shared memory, tile and cluster size of the dw launches, the
-card's name and power limit, and the ``kernels`` line.
+kernels, B5/B6, B4 and B7/B8 with the rest of their files) with the
+dynamic shared memory, tile and cluster size of the B4 dx, B4 dw, B7
+and B8 dw launches, the card's name and power limit, and the
+``kernels`` line.
 """
 
 import functools
@@ -1530,10 +1531,15 @@ def phase_ce_kernels():
                    (dx.float() - ref_dx.float()).abs().max()),
                "fused_ce_backward_dw": float((dw - ref_dw).abs().max())}
         del dx, dw
-        # B4 dw (redesigned): the same bits on a second call.
-        bitwise = _check_rerun(
-            f"fused_ce_backward_dw/{label}",
-            lambda: fc.fused_ce_backward_dw(x, w, tgt, ref_logz, a, b))
+        # B4 dx and dw (redesigned): the same bits on a second call.
+        bitwise = {
+            "dx": _check_rerun(
+                f"fused_ce_backward_dx/{label}",
+                lambda: fc.fused_ce_backward_dx(x, w, tgt, ref_logz, a, b)),
+            "dw": _check_rerun(
+                f"fused_ce_backward_dw/{label}",
+                lambda: fc.fused_ce_backward_dw(x, w, tgt, ref_logz, a, b)),
+        }
         f_pt, f_logz = fc._xla_forward(x, w[:, :128 * ((v - 1) // 128)],
                                        tgt, CE_Z)
         f_dx, _ = fc._xla_backward(x, w[:, :64 * ((v - 1) // 64)], tgt,
@@ -1547,7 +1553,7 @@ def phase_ce_kernels():
                  "dw": _ce_ratio(f_dw, ref_dw, 0)}
         del f_pt, f_logz, f_dx, f_dw, ref_dx, ref_dw
         emit({"phase": "ce_bounds", "shape": label, "ratio": ratio,
-              "planted_fault_ratio": fault, "dw_bitwise_rerun": bitwise})
+              "planted_fault_ratio": fault, "bitwise_rerun": bitwise})
         for out in ratio:
             check(ratio[out] <= 1.0,
                   f"fused_ce/{label}: {out} at {ratio[out]} of its bound")
@@ -2041,8 +2047,16 @@ def phase_moe_kernels():
                           and not dwdn[~has_rows].any())
         e_routed = int(has_rows.sum())
         del y, dx_c, dwgu, dwdn
-        # The dw kernels (redesigned): the same bits on a second call.
+        # Every kernel (redesigned): the same bits on a second call.
         bitwise = {
+            "forward": _check_rerun(
+                f"moe/{label}/forward",
+                lambda: md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te,
+                                               m, tm)),
+            "dx": _check_rerun(
+                f"moe/{label}/dx",
+                lambda: md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri,
+                                                   di, te, tm)),
             "dw_gu": _check_rerun(
                 f"moe/{label}/dw_gu",
                 lambda: md.grouped_ffn_backward_dw_gu(x, ref_dh, ri, te, e,
@@ -2072,7 +2086,7 @@ def phase_moe_kernels():
         emit({"phase": "moe_bounds", "shape": label, "n": n, "m": m,
               "tile_m": tm, "tiles": T, "experts_with_rows": e_routed,
               "ratio": ratio, "planted_fault_ratio": fault,
-              "empty_experts_zero": empty_zero, "dw_bitwise_rerun": bitwise})
+              "empty_experts_zero": empty_zero, "bitwise_rerun": bitwise})
         for out, r in ratio.items():
             check(r <= 1.0, f"moe/{label}: {out} at {r} of its bound")
         for out, r in fault.items():
@@ -2579,12 +2593,16 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     # The sources whose kernels were redesigned for Hopper (B1 and B2; B5
-    # and B6; B4 dw; B8 dw), and the launch shapes ptxas does not print.
+    # and B6; B4 dx and dw; B7, B8 dx's second launch and B8 dw), and the
+    # launch shapes ptxas does not print.
     emit({"ptxas": {src: ptxas.get(src, []) for src in
                     ("flash_attention.cu", "decode_attention.cu",
                      "fused_ce.cu", "moe_dispatch.cu")},
           "flash_dynamic_smem_bytes": fa.dynamic_smem_bytes(),
+          "ce_dx_launch": {d: fc.dx_kernel_config(d)
+                           for d in (128, 384, 1024)},
           "ce_dw_launch": {d: fc.dw_kernel_config(d) for d in (128, 1024)},
+          "moe_ffn_launch": {tm: md.ffn_kernel_config(tm) for tm in (16, 128)},
           "moe_dw_launch": {
               "dw_gu": md.dw_kernel_config(1024, 2048, True),
               "dw_down": md.dw_kernel_config(1024, 1024, False)}})

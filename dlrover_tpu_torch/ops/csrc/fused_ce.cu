@@ -17,36 +17,30 @@
 // Bound on the H100: tensor-core operations. At the flagship shape
 // (n = 16384, d = 1024, V = 32000) B3 runs one logits-sized product
 // (2 n d V flops), dx and dw two each, against ~99 MB of inputs. B3
-// and dx (the first design):
+// (the first design):
 //   - mma.sync.m16n8k16 bf16 -> f32 with ldmatrix (.trans for the
-//     operands that are contiguous along the product's output), 8 warps;
+//     operand that is contiguous along the product's output), 8 warps;
 //     tiles staged through shared memory with cp.async, rows padded by 16
-//     bytes (or swizzled) so ldmatrix reads are free of bank conflicts;
-//   - B3: a block owns 64 rows and keeps their x tile in shared memory;
-//     w streams through a 5-stage ring of [64 d x 128 V] slices (the
+//     bytes so ldmatrix reads are free of bank conflicts;
+//   - a block owns 64 rows and keeps their x tile in shared memory; w
+//     streams through a 5-stage ring of [64 d x 128 V] slices (the
 //     contraction over d = 1024 is a K loop over them). Each warp owns 16
 //     rows x 64 columns of a vocab tile and keeps its own online
 //     (m, l, tl); the two column halves merge once at the end;
-//   - the backward accumulators are larger than a block's registers at
-//     64 rows ([64, 1024] f32 is 256 KB). dx: a block owns 32 rows, each
-//     warp keeping 32 rows x 128 columns of d in registers (128 f32 a
-//     thread), and loops over 32-column vocab tiles. The second product
-//     needs the whole [d, 32] operand at once, so dx keeps two w tiles
-//     [d x 32] (swizzled, 64 KB each): the next tile loads while this
-//     one computes. The 32 x 32 logits tile splits its K = d across warp
-//     quarters, summed in a fixed order through shared memory. Each
-//     logits tile is computed once per (row tile, vocab tile): recompute
-//     factor 1, so the backward pair runs four logits-sized products
-//     beyond B3's one (the TPU kernels run the same five);
-//   - dw runs on Hopper's own path (TMA, wgmma, a thread-block cluster
-//     over d; see "B4: dw" below);
+//   - the backward accumulators are larger than a block's registers
+//     ([128, 1024] f32 is 512 KB), so dx and dw run on Hopper's own path
+//     (TMA, wgmma, a thread-block cluster over d; see "B4: dw" and "B4:
+//     dx" below). Each logits tile is computed once per (row tile, vocab
+//     tile): recompute factor 1, so the backward pair runs four
+//     logits-sized products beyond B3's one (the TPU kernels run the
+//     same five);
 //   - one owner per output element and a fixed order of sums: no
 //     atomics, and reruns are bitwise identical;
 //   - the TPU ran its grid cell after cell and carried (m, l, tl) or the
 //     accumulator in scratch; here the sequential axis is a loop inside
 //     the block and the cells run as concurrent blocks;
-//   - ragged edges: rows >= n are zero-filled by cp.async, carry zero
-//     coefficients and are never stored; columns >= V are masked to
+//   - ragged edges: rows >= n are zero-filled (cp.async or TMA), carry
+//     zero coefficients and are never stored; columns >= V are masked to
 //     NEG_INF (exp gives 0) and never stored; the wrapper pads w's row
 //     stride to a multiple of 8 elements so every row is 16-byte aligned.
 //
@@ -63,14 +57,12 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarpD = 128;    // columns of d per warp in the backward
-constexpr int kMaxD = 8 * kWarpD;
+constexpr int kWarpD = 128;    // d is a multiple of this ...
+constexpr int kMaxD = 8 * kWarpD;  // ... up to this
 constexpr int kBK = 64;        // d-slice of one staged load
 constexpr float kNegInf = -1e30f;  // ops/fused_ce.py NEG_INF
 
 constexpr int kFwdRows = 64, kFwdCols = 128, kFwdStages = 5;
-constexpr int kDxRows = 32, kDxCols = 32;
-constexpr int kPartFloats = 6 * 512;  // K-split partial logits
 
 struct Params {
   const bf16* x;        // [n, d]
@@ -191,17 +183,6 @@ struct Padded {
   }
 };
 
-// Swizzled: a [rows x 32] tile with unpadded 64-byte rows; chunk c of row
-// r sits at chunk c ^ ((r / 2) % 4), so the 8 rows an ldmatrix reads at
-// one logical chunk fall in 8 distinct bank groups. Saves the padding's
-// 16 KB on a [1024 x 32] tile.
-struct Swizzled32 {
-  const bf16* base;
-  __device__ __forceinline__ const bf16* operator()(int row, int col) const {
-    return base + row * 32 + ((((col >> 3) ^ (row >> 1)) & 3) << 3);
-  }
-};
-
 // acc[16 x 8 NT] += A[16 x 16 KC] . B[k0 .., n0 ..]; A row-major (lda) in
 // shared memory, B a row-major [K x N] tile addressed by `b`.
 template <int KC, int NT, typename BTile>
@@ -220,131 +201,6 @@ __device__ __forceinline__ void mma_rr(float (&acc)[NT][4], const bf16* a,
                               n0 + nt * 8 + (i / 2) * 8));
       mma_bf16(acc[nt], af, bf[0], bf[1]);
       mma_bf16(acc[nt + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[16 MT x 8 NT] += A[16 MT x 16 KC] . B^T; A row-major (lda), B a tile
-// whose rows are the output columns (row n0 + j, columns k = 0 ..),
-// addressed by `b`.
-template <int MT, int KC, int NT, typename BTile>
-__device__ __forceinline__ void mma_rn(float (&acc)[MT][NT][4], const bf16* a,
-                                       int lda, const BTile& b, int n0,
-                                       int lane) {
-  const int i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      ldmatrix_x4(af[mt],
-                  a + (mt * 16 + lane % 16) * lda + kc * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, b(n0 + nt * 8 + r + (i / 2) * 8, kc * 16 + (i % 2) * 8));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(acc[mt][nt], af[mt], bf[0], bf[1]);
-        mma_bf16(acc[mt][nt + 1], af[mt], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// Per-row inputs of the backward for rows row and row + 8.
-struct RowStats {
-  int tgt[2];
-  float logz[2], a[2], b[2];
-};
-
-__device__ __forceinline__ RowStats row_stats(const Params& p, int row) {
-  RowStats s;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row + 8 * h;
-    const bool ok = r < p.n;
-    s.tgt[h] = ok ? p.tgt[r] : -1;
-    s.logz[h] = ok ? p.logz_in[r] : 0.f;
-    s.a[h] = ok ? p.coef_a[r] : 0.f;
-    s.b[h] = ok ? p.coef_b[r] : 0.f;
-  }
-  return s;
-}
-
-// A warp's [16 x 8 NT] logits fragment (columns col0 ..) as g = a
-// exp(logit - logz) - b [col == tgt], rounded to bf16, into dst (row
-// stride ldd).
-template <int NT>
-__device__ __forceinline__ void store_g(bf16* dst, int ldd,
-                                        const float (&s)[NT][4],
-                                        const RowStats& st, int col0, int v,
-                                        int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float gv[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = col0 + nt * 8 + 2 * t + j;
-        const float logit = col < v ? s[nt][2 * h + j] : kNegInf;
-        const float pe = expf(logit - st.logz[h]);
-        // a * p - b, rounded as the reference rounds it (no fused fma).
-        gv[j] = __fsub_rn(__fmul_rn(st.a[h], pe),
-                          col == st.tgt[h] ? st.b[h] : 0.f);
-      }
-      *reinterpret_cast<uint32_t*>(dst + (g + 8 * h) * ldd + nt * 8 + 2 * t) =
-          pack_bf16(gv[0], gv[1]);
-    }
-  }
-}
-
-// Columns col0 .. col0 + 31 of all d rows of w into a swizzled [d x 32]
-// tile; columns >= ldw are zero-filled.
-__device__ __forceinline__ void load_w_tile(bf16* dst, const Params& p,
-                                            int col0) {
-  const Swizzled32 tile{dst};
-  for (int i = threadIdx.x; i < p.d * 4; i += kThreads) {
-    const int r = i / 4, c = (i % 4) * 8;
-    const bool valid = col0 + c < p.ldw;
-    const bf16* src =
-        valid ? p.w + static_cast<long long>(r) * p.ldw + col0 + c : p.w;
-    cp_async16(const_cast<bf16*>(tile(r, c)), src, valid);
-  }
-}
-
-// The f32 logits of a 32-row x 32-column tile, x_s rows against w's
-// columns, over K = d, split across the block's 8 warps: warp w computes
-// rows (w % 2) * 16 .. + 16 over the K quarter w / 2. Quarters 1-3 go
-// through `part` (6 x 512 floats) and are added to quarter 0 in a fixed
-// order, so warps 0 and 1 return the tile's rows 0-15 and 16-31 in s.
-template <typename BTile>
-__device__ __forceinline__ void logits_32x32(float (&s)[4][4], const bf16* x_s,
-                                             int ldx, const BTile& w, int d,
-                                             float* part, int warp,
-                                             int lane) {
-  const int lr = warp % 2, kq = warp / 2, kd = d / 4;
-  zero(s);
-  for (int k0 = kq * kd; k0 < (kq + 1) * kd; k0 += 32)
-    mma_rr<2, 4>(s, x_s + lr * 16 * ldx + k0, ldx, w, k0, 0, lane);
-  if (kq > 0) {
-    float* slot = part + ((kq - 1) * 2 + lr) * 512;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) slot[(nt * 4 + e) * 32 + lane] = s[nt][e];
-  }
-  __syncthreads();
-  if (kq == 0) {
-#pragma unroll
-    for (int q = 1; q < 4; ++q) {
-      const float* slot = part + ((q - 1) * 2 + lr) * 512;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] += slot[(nt * 4 + e) * 32 + lane];
     }
   }
 }
@@ -462,72 +318,6 @@ __global__ void __launch_bounds__(kThreads, 1) ce_fwd_kernel(Params p) {
   }
 }
 
-// ---- B4: dx ---------------------------------------------------------------
-//
-// Grid: 32-row tiles. Shared: the x tile [32][d + 8] (resident), two
-// swizzled w tiles [d][32] (the next vocab tile loads while this one
-// computes), the g tile [32][32 + 8] and the K-split partial logits. Warp
-// w owns dx columns [128 w, 128 w + 128) of all 32 rows.
-
-__global__ void __launch_bounds__(kThreads, 1) ce_dx_kernel(Params p) {
-  constexpr int ldg = kDxCols + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldx = p.d + 8;
-  const int w_tile = p.d * kDxCols;
-  bf16* x_s = reinterpret_cast<bf16*>(smem);
-  bf16* w_s = x_s + kDxRows * ldx;
-  bf16* g_s = w_s + 2 * w_tile;
-  float* part = reinterpret_cast<float*>(g_s + kDxRows * ldg);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = blockIdx.x * kDxRows;
-  const int n_vt = (p.v + kDxCols - 1) / kDxCols;
-  const bool owns_d = warp * kWarpD < p.d;
-
-  load_rows<kDxRows>(x_s, ldx, p.x, p.d, row0, p.n, 0, p.d, p.d);
-  load_w_tile(w_s, p, 0);
-  cp_async_commit();
-  const RowStats st = row_stats(p, row0 + (warp % 2) * 16 + lane / 4);
-
-  float acc[2][kWarpD / 8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) zero(acc[mt]);
-
-  for (int vt = 0; vt < n_vt; ++vt) {
-    cp_async_wait<0>();  // tile vt has landed
-    __syncthreads();     // and tile vt - 1's buffer, g_s and part are free
-    if (vt + 1 < n_vt) {
-      load_w_tile(w_s + ((vt + 1) % 2) * w_tile, p, (vt + 1) * kDxCols);
-      cp_async_commit();
-    }
-    const Swizzled32 w{w_s + (vt % 2) * w_tile};
-    float s[4][4];
-    logits_32x32(s, x_s, ldx, w, p.d, part, warp, lane);
-    if (warp < 2)
-      store_g(g_s + warp * 16 * ldg, ldg, s, st, vt * kDxCols, p.v, lane);
-    __syncthreads();
-    if (owns_d)
-      mma_rn<2, kDxCols / 16, kWarpD / 8>(acc, g_s, ldg, w, warp * kWarpD,
-                                          lane);
-  }
-
-  if (!owns_d) return;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + mt * 16 + g + 8 * h;
-      if (r >= p.n) continue;
-      bf16* out = p.dx + static_cast<long long>(r) * p.d + warp * kWarpD;
-#pragma unroll
-      for (int nt = 0; nt < kWarpD / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(out + nt * 8 + 2 * t) =
-            pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-    }
-  }
-}
-
 // ---- B4: dw, a cluster over d, TMA + wgmma ----------------------------------
 //
 // dw[:, vt] = sum over row tiles of x^T g, computed as dw^T = g^T x: the
@@ -549,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1) ce_dx_kernel(Params p) {
 //     order in every block, so every block forms the identical g, and
 //     tells every block it is done reading (`freed`);
 //   - g^T = bf16(a exp(S^T - logz) - b [col == tgt]) in registers, with
-//     store_g's rounding, is the register A operand of dw^T += g^T x
+//     the reference's rounding, is the register A operand of dw^T += g^T x
 //     (its quarter of x's slice, read MN-major from the same stage).
 // The logits are computed once per (row tile, vocab tile), as before.
 // One owner per element of dw and a fixed order of sums: no atomics,
@@ -1092,7 +882,7 @@ __global__ void __launch_bounds__(kDwThreads, 1)
       // The previous dw product reads ga from registers: it must be done
       // before ga takes this step's g.
       settle(ahead);
-      // g^T in registers, rounded as store_g rounds g.
+      // g^T in registers, rounded as the reference rounds g.
       const float* sl = stats(st);
       const int* tg = reinterpret_cast<const int*>(sl);
       uint32_t ga[2][4];
@@ -1133,6 +923,447 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   // No block leaves while a peer may still write into it or arrive on
   // its barriers.
   cluster_sync();
+}
+
+// ---- B4: dx, a cluster over d, TMA + wgmma ----------------------------------
+//
+// dx[rows, :] = sum over vocab tiles of g w_vt^T, with g = bf16(a exp(S -
+// logz) - b [col == tgt]) and S = x w_vt. dx over 128 rows x d = 1024 is
+// 512 KB of f32, four blocks' registers, so a cluster of kC = d / kDS
+// blocks owns a 128-row tile: block (rank) r holds dx's d-slice [kDS r,
+// kDS (r + 1)), its consumer warpgroup c the rows 64 c .. 64 c + 63 of
+// it, with dx [64 x kDS] in registers. The two warpgroups own different
+// rows, so their chains are independent and interleave on the SM. Each
+// vocab tile of 64 columns:
+//   - each warpgroup computes the S partial [64 x 64] over its block's
+//     d-slice by wgmma (x's slice resident, K-major; w's [kDS x 64]
+//     stage streamed by TMA, read MN-major);
+//   - reduce-scatter: the tile's four 32-row blocks q (warps 2 (q % 2)
+//     and 2 (q % 2) + 1 of warpgroup q / 2) are owned by the blocks q %
+//     kC. A pair of warps whose rows another block owns pushes its f32
+//     fragments there (st.async, completing their bytes on the owner's
+//     `pready`: no fence, no remote load); an owner keeps its own in its
+//     slot. The next tile's partial is issued before any of this is
+//     waited for, so the exchange hides behind that product;
+//   - the owner sums the kC partials of its rows in rank order, forms g
+//     in registers, rounded as the reference rounds it (a p - b, no
+//     fused fma, then bf16), frees the senders' slots (`pfreed`) and
+//     all-gathers g: it pushes its bf16 fragments to the other blocks
+//     (st.async onto their `gready`), which load them into registers and
+//     free the owner's slot (`gfreed`). Every block thus uses the one g
+//     its owner formed;
+//   - g is the register A operand of dx += g w^T: w's stage read K-major
+//     (w[d, v] is contiguous along v, this product's K).
+// A block receives 3 x 8 KB of partials and 3 x 4 KB of g a step at kC
+// = 4, against 3 x 32 KB when every block summed all the partials
+// itself (PERF.md: pulling those through ld.shared::cluster, with
+// release arrivals, cost more than the products). The logits are
+// computed once per (row tile, vocab tile); one owner per element of dx
+// and of S and a fixed order of sums: no atomics, and reruns are
+// bitwise equal.
+//
+// 384 threads: two consumer warpgroups (setmaxnreg.inc kConsumerRegs)
+// and a producer thread (of warpgroup 2, setmaxnreg.dec) that loads x's
+// slice [128 rows x kDS] once and streams w's [kDS x 64] tiles through
+// a ring of kStages; a stage is freed when both warpgroups' dx products
+// on it are done, one tile later. The exchange's slots are single: a
+// sender waits for `pfreed`, an owner for `gfreed`, of the previous
+// tile. The consumers' waits carry no trap (see B2 in
+// flash_attention.cu); the producer's trap. Ragged edges: rows >= n are
+// zero-filled by TMA, carry zero coefficients and are never stored;
+// vocab columns >= V are zero-filled and masked to NEG_INF. At kC = 1
+// every block owns its rows: the partial makes the same round trip
+// through its slot, with nothing pushed.
+
+constexpr int kDxVt = 64;                // vocab columns of a step
+constexpr int kDxRows = 128;             // rows of a cluster's tile
+constexpr int kXRowBox = kDxRows * 128;  // a [128 rows x 64 d] box of x
+constexpr int kDxPart = 32 * kDxVt * 4;  // f32 partial of a 32-row block
+constexpr int kDxG = 32 * kDxVt * 2;     // bf16 g of a 32-row block
+
+template <int kDS, int kC>
+struct DxCfg {
+  static constexpr int kXBytes = kDS / 64 * kXRowBox;  // x[128 rows, slice]
+  static constexpr int kWBytes = kDS / 64 * kWBox;     // w[slice, 64 cols]
+  // Partials of the owned 32-row blocks (at most ceil(4 / kC)), one
+  // slot a source block; g of the other blocks' rows.
+  static constexpr int kOwned = (4 + kC - 1) / kC;
+  static constexpr int kSlotBytes = kOwned * kC * kDxPart;
+  static constexpr int kFixed = kXBytes + kSlotBytes + 4 * kDxG;
+  static constexpr int kStages =
+      1024 + kFixed + 4 * kWBytes + 256 <= 232448 ? 4 : 3;
+  static constexpr int kW = kXBytes;
+  static constexpr int kPart = kW + kStages * kWBytes;
+  static constexpr int kG = kPart + kSlotBytes;
+  static constexpr int kBars = kG + 4 * kDxG;
+  // x_full, full and empty per stage, pready[2], pfreed[4], gready[4],
+  // gfreed[2].
+  static constexpr int kSmem = 1024 + kBars + 8 * (1 + 2 * kStages + 12);
+};
+
+// A partial's 16 bytes to the same shared-memory offset in block
+// `owner`: a plain store if this block is the owner (local), else
+// st.async, completing them on the owner's barrier at offset bar (no
+// fence). One instruction under a predicate, not a branch: a branch
+// around the accumulator reads makes ptxas serialise the products.
+__device__ __forceinline__ void put_partial(uint32_t addr, int owner,
+                                            bool local, const float (&v)[4],
+                                            uint32_t bar) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 ra, rb;\n"
+      "setp.ne.u32 p, %7, 0;\n"
+      "@p st.shared.v4.f32 [%0], {%2, %3, %4, %5};\n"
+      "@!p mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "@!p mapa.shared::cluster.u32 rb, %6, %1;\n"
+      "@!p st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[ra], {%2, %3, %4, %5}, [rb];\n}\n" ::"r"(addr),
+      "r"(owner), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar),
+      "r"(static_cast<uint32_t>(local))
+      : "memory");
+}
+
+// 16 bytes to the same shared-memory offset in block `rank`, completing
+// them on that block's barrier at offset bar (st.async: no fence).
+__device__ __forceinline__ void st_async_u4(uint32_t addr, int rank,
+                                            const uint32_t (&v)[4],
+                                            uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b32 ra, rb;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mapa.shared::cluster.u32 rb, %6, %1;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[ra], {%2, %3, %4, %5}, [rb];\n}\n" ::"r"(addr),
+      "r"(rank), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]), "r"(bar)
+      : "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A K-major and B MN-major in
+// shared memory (descriptors da, db); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_kn_n64(float (&d)[8][4], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] += A[64 x 16] . B[16 x 128], A from registers (the
+// accumulator layout of a 16-bit product), B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_kmaj_n128(float (&d)[16][4],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int kDS, int kC>
+__global__ void __launch_bounds__(kDwThreads, 1)
+    ce_dx_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_w, const Params p) {
+  using Cfg = DxCfg<kDS, kC>;
+  constexpr int kStages = Cfg::kStages, kBoxes = kDS / 64;
+  constexpr int kH = kDS / 128;  // m64n128 products of the dx step
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t x_s = base;
+  auto w_s = [&](int st) { return base + Cfg::kW + st * Cfg::kWBytes; };
+  const uint32_t bars = base + Cfg::kBars;
+  const uint32_t x_full = bars;
+  auto full = [&](int st) { return bars + 8 * (1 + st); };
+  auto empty = [&](int st) { return bars + 8 * (1 + kStages + st); };
+  const uint32_t xbars = bars + 8 * (1 + 2 * kStages);
+  auto pready = [&](int o) { return xbars + 8 * o; };
+  auto pfreed = [&](int q) { return xbars + 8 * (2 + q); };
+  auto gready = [&](int q) { return xbars + 8 * (6 + q); };
+  auto gfreed = [&](int o) { return xbars + 8 * (10 + o); };
+  const int rank = kC > 1 ? cluster_rank() : 0;
+  const int row0 = (blockIdx.x / kC) * kDxRows;
+  const int d0 = rank * kDS;
+  const int n_vt = (p.v + kDxVt - 1) / kDxVt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(x_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < 4; ++i) {
+      if (i < 2) {
+        // The owner's expect_tx; then the senders' bytes.
+        mbar_init(pready(i), 1);
+        // The receivers' two warps in each other block.
+        mbar_init(gfreed(i), 2 * max(kC - 1, 1));
+      }
+      mbar_init(pfreed(i), 2);  // the owner's two warps
+      mbar_init(gready(i), 1);  // the receivers' expect_tx; then bytes
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Every block's barriers exist before any block arrives on them.
+  if constexpr (kC > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(x_full, Cfg::kXBytes);
+      for (int bx = 0; bx < kBoxes; ++bx)
+        tma_load_2d(x_s + bx * kXRowBox, &map_x, x_full, d0 + 64 * bx, row0);
+      for (int j = 0; j < n_vt; ++j) {
+        const int st = j % kStages;
+        if (j >= kStages) mbar_wait(empty(st), (j / kStages - 1) & 1);
+        mbar_expect_tx(full(st), Cfg::kWBytes);
+        for (int bx = 0; bx < kBoxes; ++bx)
+          tma_load_2d(w_s(st) + bx * kWBox, &map_w, full(st), j * kDxVt,
+                      d0 + 64 * bx);
+      }
+      // The watch: every stage released before the block leaves.
+      for (int j = max(0, n_vt - kStages); j < n_vt; ++j)
+        mbar_wait(empty(j % kStages), (j / kStages) & 1);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g8 = lane / 4, t = lane % 4;
+    // This warp's 32-row block, its owner, and the slots' offsets: a
+    // slot is [8 x 16 bytes] a thread, laid out [i][warp pair][lane].
+    const int q = 2 * c + warp / 2, owner = q % kC, oi = q / kC;
+    const bool owned = owner == rank;
+    const uint32_t frag = ((warp % 2) * 32 + lane) * 16;
+    auto pslot = [&](int r) {
+      return base + Cfg::kPart + (oi * kC + r) * kDxPart + frag;
+    };
+    const uint32_t gslot = base + Cfg::kG + q * kDxG + frag;
+    // This thread's rows: + 0 and + 8.
+    const int r_base = row0 + 64 * c + 16 * warp + g8;
+    float acc[kH][16][4];
+    // Zeroed here, not moved past the first product by the compiler.
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      zero(acc[h]);
+      fence_operands(acc[h]);
+    }
+    float s[8][4];
+    uint32_t ga[4][4];
+    bool live = true;
+    // Tile j's partial S over the block's d-slice: 16 d rows a step (A =
+    // x K-major, B = w MN-major). Past the last tile the group is empty:
+    // every step commits two groups (S(j + 1), dx(j)), so every wait
+    // below leaves exactly the newest one in flight. (Issuing the products
+    // past the last tile too, with no branch around them, lets ptxas keep
+    // them unserialised but makes it spill: slower, PERF.md.)
+    auto issue_s = [&](int j) {
+      if (j < n_vt) {
+        const int st = j % kStages;
+        mbar_spin<false>(full(st), (j / kStages) & 1, live);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDS / 16; ++kk)
+          wgmma_kn_n64(
+              s,
+              smem_desc(x_s + (kk / 4) * kXRowBox + 64 * c * 128 +
+                            (kk % 4) * 32,
+                        16, 1024),
+              smem_desc(w_s(st) + (kk / 4) * kWBox + (kk % 4) * 2048, kWBox,
+                        1024),
+              kk > 0);
+      }
+      wgmma_commit();
+    };
+    mbar_spin<false>(x_full, 0, live);
+    issue_s(0);
+    wgmma_commit();  // stands for dx(-1)
+    for (int j = 0; j < n_vt; ++j) {
+      const int st = j % kStages;
+      // S(j) is done; dx(j - 1), issued after it, may still run.
+      wgmma_wait<1>();
+      fence_operands(s);
+      // Reduce-scatter: this warp pair's partial to its rows' owner.
+      if constexpr (kC > 1)
+        if (!owned && j >= 1) mbar_spin<true>(pfreed(q), (j - 1) & 1, live);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        put_partial(pslot(rank) + nt * 1024, owner, owned, s[nt], pready(oi));
+      // The next tile's partial, and dx(j - 1), run while the exchange
+      // goes on.
+      issue_s(j + 1);
+      // dx(j - 1) reads ga from registers: done before ga takes g(j), and
+      // w's stage j - 1 is free. With peers this waits after the exchange
+      // (ga kept live through it, so nothing else takes those registers):
+      // the exchange, not the ring, sets the pace there.
+      auto settle = [&]() {
+        wgmma_wait<1>();
+        fence_operands(ga);
+        if (j > 0 && lane == 0) mbar_arrive(empty((j - 1) % kStages));
+      };
+      if constexpr (kC == 1) settle();
+      if (owned) {
+        if constexpr (kC > 1) {
+          if (warp % 2 == 0 && lane == 0)
+            mbar_expect_tx(pready(oi), (kC - 1) * kDxPart);
+          mbar_spin<true>(pready(oi), j & 1, live);
+        }
+        // The rows' inputs (cached; not held across the loop).
+        int tg[2];
+        float lz[2], ca[2], cb[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r_base + 8 * h;
+          const bool ok = r < p.n;
+          tg[h] = ok ? p.tgt[r] : -1;
+          lz[h] = ok ? p.logz_in[r] : 0.f;
+          ca[h] = ok ? p.coef_a[r] : 0.f;
+          cb[h] = ok ? p.coef_b[r] : 0.f;
+        }
+        // S(j) of these rows: the blocks' partials in rank order; g into
+        // this block's slot and every other block's.
+        const int v_base = j * kDxVt + 2 * t;
+        if constexpr (kC > 1)
+          if (j >= 1) mbar_spin<true>(gfreed(oi), (j - 1) & 1, live);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t gp[4];
+#pragma unroll
+          for (int n2 = 0; n2 < 2; ++n2) {
+            const int nt = 2 * i + n2;
+            float4 v = *reinterpret_cast<const float4*>(
+                gbase + (pslot(0) - base) + nt * 1024);
+#pragma unroll
+            for (int r = 1; r < kC; ++r) {
+              const float4 u = *reinterpret_cast<const float4*>(
+                  gbase + (pslot(r) - base) + nt * 1024);
+              v.x += u.x;
+              v.y += u.y;
+              v.z += u.z;
+              v.w += u.w;
+            }
+            const float lg[4] = {v.x, v.y, v.z, v.w};
+            float gv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int h = e >> 1, col = v_base + 8 * nt + (e & 1);
+              const float logit = col < p.v ? lg[e] : kNegInf;
+              // a p - b, rounded as the reference rounds it (no fused
+              // fma).
+              gv[e] = __fsub_rn(__fmul_rn(ca[h], expf(logit - lz[h])),
+                                col == tg[h] ? cb[h] : 0.f);
+            }
+            gp[2 * n2] = pack_bf16(gv[0], gv[1]);
+            gp[2 * n2 + 1] = pack_bf16(gv[2], gv[3]);
+          }
+          *reinterpret_cast<uint4*>(gbase + (gslot - base) + i * 1024) =
+              make_uint4(gp[0], gp[1], gp[2], gp[3]);
+          if constexpr (kC > 1)
+            for (int r = 0; r < kC; ++r)
+              if (r != rank) st_async_u4(gslot + i * 1024, r, gp, gready(q));
+        }
+        if constexpr (kC > 1) {
+          // The senders may refill their slots.
+          __syncwarp();
+          if (lane == 0)
+            for (int r = 0; r < kC; ++r)
+              if (r != rank) mbar_arrive_cluster_relaxed(pfreed(q), r);
+        }
+      } else if constexpr (kC > 1) {
+        if (warp % 2 == 0 && lane == 0) mbar_expect_tx(gready(q), kDxG);
+        mbar_spin<true>(gready(q), j & 1, live);
+      }
+      if constexpr (kC > 1) settle();
+      // g(j) of this warp's rows, from the slot its owner filled: the
+      // same loads on every warp (writes to an A operand inside a branch
+      // make ptxas serialise the products).
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 u =
+            *reinterpret_cast<const uint4*>(gbase + (gslot - base) + i * 1024);
+        ga[i][0] = u.x;
+        ga[i][1] = u.y;
+        ga[i][2] = u.z;
+        ga[i][3] = u.w;
+      }
+      if constexpr (kC > 1) {
+        __syncwarp();
+        if (!owned && lane == 0)
+          mbar_arrive_cluster_relaxed(gfreed(oi), owner);
+      }
+      // dx += g w^T: w's stage K-major, 16 vocab columns (32 bytes) a
+      // step, the second 128 rows of d 16 KB on.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < kH; ++h)
+          wgmma_rs_kmaj_n128(
+              acc[h], ga[kk],
+              smem_desc(w_s(st) + h * 128 * 128 + kk * 32, 16, 1024));
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < kH; ++h) fence_operands(acc[h]);
+    if (lane == 0) mbar_arrive(empty((n_vt - 1) % kStages));
+    // dx in x's dtype; rows >= n are not stored.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_base + 8 * r;
+      if (row >= p.n) continue;
+      bf16* out = p.dx + static_cast<long long>(row) * p.d + d0 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < kH; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+          *reinterpret_cast<uint32_t*>(out + 128 * h + 8 * nt) =
+              pack_bf16(acc[h][nt][2 * r], acc[h][nt][2 * r + 1]);
+    }
+  }
+  // No block leaves while a peer may still push into it or arrive on
+  // its barriers.
+  if constexpr (kC > 1) cluster_sync();
 }
 
 // ---- launch ---------------------------------------------------------------
@@ -1277,6 +1508,75 @@ struct ClusterSize {
   }
 };
 
+// Calls f.run<kDS, kC>() for B4 dx's d-slice kDS (256 where it divides
+// d, else 128) with d = kDS kC (at most 8 blocks a cluster).
+template <typename F>
+int with_dx_config(int d, const F& f) {
+  switch (d) {
+    case 128: return f.template run<128, 1>();
+    case 256: return f.template run<256, 1>();
+    case 384: return f.template run<128, 3>();
+    case 512: return f.template run<256, 2>();
+    case 640: return f.template run<128, 5>();
+    case 768: return f.template run<256, 3>();
+    case 896: return f.template run<128, 7>();
+    default: return f.template run<256, 4>();  // 1024
+  }
+}
+
+// B4 dx: x's map in [128 rows x 64] boxes, w's in [64 x 64]; clusters of
+// kC blocks, one cluster a 128-row tile.
+template <int kDS, int kC>
+int launch_dx(const Params& p, cudaStream_t stream) {
+  CUtensorMap maps[2];
+  int rc = tensor_map_2d(&maps[0], p.x, p.d, p.n, p.d, kDxRows);
+  if (!rc) rc = tensor_map_2d(&maps[1], p.w, p.v, p.d, p.ldw, 64);
+  if (rc) return rc;
+  auto kernel = ce_dx_kernel<kDS, kC>;
+  const int smem = DxCfg<kDS, kC>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((p.n + kDxRows - 1) / kDxRows) * kC);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct LaunchDx {
+  const Params& p;
+  cudaStream_t stream;
+  template <int kDS, int kC>
+  int run() const {
+    return launch_dx<kDS, kC>(p, stream);
+  }
+};
+
+struct DxSmemBytes {
+  template <int kDS, int kC>
+  int run() const {
+    return DxCfg<kDS, kC>::kSmem;
+  }
+};
+
+struct DxClusterSize {
+  template <int kDS, int kC>
+  int run() const {
+    return kC;
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -1316,12 +1616,11 @@ int dlr_ce_backward_dx(const void* x, const void* w, const void* tgt,
   p.coef_a = static_cast<const float*>(coef_a);
   p.coef_b = static_cast<const float*>(coef_b);
   p.dx = static_cast<bf16*>(dx);
-  const size_t smem = bf16_bytes(kDxRows * (p.d + 8)) +
-                      bf16_bytes(2LL * p.d * kDxCols) +
-                      bf16_bytes(kDxRows * (kDxCols + 8)) +
-                      kPartFloats * sizeof(float);
-  return launch(ce_dx_kernel, (p.n + kDxRows - 1) / kDxRows, smem, p,
-                static_cast<cudaStream_t>(stream));
+  // TMA reads x and w: 16-byte aligned rows.
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_dx_config(p.d, LaunchDx{p, s});
 }
 
 int dlr_ce_backward_dw(const void* x, const void* w, const void* tgt,
@@ -1343,6 +1642,15 @@ int dlr_ce_backward_dw(const void* x, const void* w, const void* tgt,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_dw_config(p.d, Launch{p, s});
+}
+
+// Dynamic shared memory and cluster size of a dx launch at d.
+int dlr_ce_dx_config(int d, int* smem, int* cluster) {
+  if (d < 128 || d > 1024 || d % 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem = with_dx_config(d, DxSmemBytes{});
+  *cluster = with_dx_config(d, DxClusterSize{});
+  return 0;
 }
 
 // Dynamic shared memory and cluster size of a dw launch at d.

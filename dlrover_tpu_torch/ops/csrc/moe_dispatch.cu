@@ -3,10 +3,10 @@
 // (sm_90a).
 //
 // Replaces the TPU kernels of dlrover_tpu/ops/moe_dispatch.py:
-//   - B7 <- _grouped_ffn_fwd / _fwd_kernel: moe_gate_up_kernel then
-//     moe_out_kernel<.., false>;
+//   - B7 <- _grouped_ffn_fwd / _fwd_kernel: moe_ffn_kernel<.., kFfnGateUp>
+//     then moe_ffn_kernel<.., kFfnDown>;
 //   - B8 dx <- _grouped_ffn_bwd / _dx_kernel: moe_dx_gate_up_kernel then
-//     moe_out_kernel<.., true>;
+//     moe_ffn_kernel<.., kFfnDownNK>;
 //   - B8 dw_gu <- _dw_accum_kernel and dw_down <- _dw_sorted_lhs_kernel:
 //     moe_dw_kernel.
 // Same math. The layout (ops/moe_dispatch.py build_dispatch_layout) cuts
@@ -27,21 +27,19 @@
 // f, dw_gu 4 m d f, dw_down 2 m d f; 69-347 us at 989 TFLOP/s); at a
 // decode step (16 copies) the bytes of the experts' weights. Design:
 //   - the TPU kernel keeps a 128-row tile and its [128, 2f] hidden in
-//     VMEM; a block here has 227 KB of shared memory (a [128, 1024] bf16
-//     x tile alone is 256 KB), so each product is a tiled GEMM over
-//     K-slices of 32 through a 3-stage cp.async ring, with mma.sync
-//     m16n8k16 (bf16 in, f32 accumulate) and ldmatrix, 8 warps;
-//   - the forward runs in two launches: a block owns one tile and 64
-//     columns of f and computes their gate AND up columns (interleaved
-//     8 by 8 in its B tile, so one thread holds h_g and h_u of the same
-//     element), writing a in x's dtype; then a block owns one tile and
-//     128 columns of d for a @ w_down and scatters its rows. The sorted a
-//     makes one extra round trip through memory (2 x 69 MB at the
-//     training shape), which the backward needs anyway;
-//   - dx likewise: the first launch computes the gathered x @ w_gu and
-//     dy @ w_down^T for the same 64 columns of f (the contraction is d
-//     for both) and applies the silu-gate backward in registers; the
-//     second is the forward's second launch with w_gu read transposed;
+//     VMEM; a block here has 227 KB of shared memory (a [128, 2f] bf16
+//     hidden tile alone is 512 KB at f = 1024), so the forward runs in
+//     two launches on one TMA + wgmma grouped-GEMM body (see "B7" below):
+//     the gathered x @ w_gu with silu(h_g) h_u in registers, writing the
+//     sorted a in x's dtype, then a @ w_down scattered to dest_ids. The
+//     sorted a makes one extra round trip through memory (2 x 69 MB at
+//     the training shape), which the backward needs anyway;
+//   - dx: the first launch (the first design: cp.async K-slices of 32
+//     through a 3-stage ring, mma.sync m16n8k16 with ldmatrix, 8 warps)
+//     computes the gathered x @ w_gu and dy @ w_down^T for the same 64
+//     columns of f and applies the silu-gate backward in registers; the
+//     second is the forward's second launch on the same body with w_gu
+//     read transposed;
 //   - the weight gradients run on Hopper's own path (TMA, wgmma,
 //     warp specialisation; see "B8 dw" below): persistent blocks take
 //     (expert, output tile) units, experts with the most rows first
@@ -49,10 +47,10 @@
 //     unit walks its expert's slots in order, so sums run in a fixed
 //     order with no atomics and reruns are bitwise equal; an expert with
 //     no rows writes zeros;
-//   - B7 and dx gather with cp.async 16-byte vectors per row; an id of
-//     -1 zero-fills; a tile whose ids are all -1 skips its products (the
-//     first launches still write its zero a and dh rows, which the
-//     weight gradients read).
+//   - gathered rows come by cp.async 16-byte vectors and one-row TMA
+//     boxes; an id of -1 zero-fills; a tile whose ids are all -1 skips
+//     its products (the first launches still write its zero a and dh
+//     rows, which the weight gradients read).
 //
 // Plain C interface, bound with ctypes (ops/_ext.py): no PyTorch headers,
 // so nvcc builds this file in seconds.
@@ -164,34 +162,32 @@ struct Warps {
 // Fragment layout of an m16n8 f32 accumulator c[4] (lane = 4 g + t):
 // c[0], c[1] at row g, columns 2t, 2t + 1; c[2], c[3] at row g + 8.
 
-// dst[r][c] = src[row(r)][k0 + c] for r < BM, c < kBK, row(r) = ids[r]
-// (ids in shared memory; -1 zero-fills) or row0 + r when ids is null.
+// dst[r][c] = src[ids[r]][k0 + c] for r < BM, c < kBK (ids in shared
+// memory; -1 zero-fills).
 template <int BM>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           long long ld, const int* ids,
-                                          long long row0, int k0) {
+                                          int k0) {
   constexpr int chunks = kBK / 8;
   for (int i = threadIdx.x; i < BM * chunks; i += kThreads) {
     const int r = i / chunks, c = (i % chunks) * 8;
-    const long long row = ids ? ids[r] : row0 + r;
+    const long long row = ids[r];
     const bool valid = row >= 0;
     const bf16* p = valid ? src + row * ld + k0 + c : src;
     cp_async16(dst + r * kLd + c, p, valid);
   }
 }
 
-// A [kBK][kBN] tile of w's rows k0 .. (row stride ldw). kGateUp: chunk j
-// (8 columns) holds w's columns (j odd ? f : 0) + c0 + 8 (j / 2), so
-// gate and up columns alternate 8 by 8; else columns c0 + 8 j.
-template <bool kGateUp>
+// A [kBK][kBN] tile of w's rows k0 .. (row stride ldw): chunk j (8
+// columns) holds w's columns (j odd ? f : 0) + c0 + 8 (j / 2), so gate
+// and up columns alternate 8 by 8.
 __device__ __forceinline__ void load_kn(bf16* dst, const bf16* w,
                                         long long ldw, int k0, int c0,
                                         int f) {
   constexpr int chunks = kBN / 8;
   for (int i = threadIdx.x; i < kBK * chunks; i += kThreads) {
     const int r = i / chunks, j = i % chunks;
-    const int col = kGateUp ? ((j & 1) ? f : 0) + c0 + (j >> 1) * 8
-                            : c0 + j * 8;
+    const int col = ((j & 1) ? f : 0) + c0 + (j >> 1) * 8;
     cp_async16(dst + r * kLdN + j * 8, w + (k0 + r) * ldw + col, true);
   }
 }
@@ -314,75 +310,6 @@ __device__ __forceinline__ void zero_rows(bf16* dst, long long ld, int tile,
   }
 }
 
-// B7, launch 1. Grid (f / kBF, T). a[slot, c0 .. c0 + kBF) =
-// bf16(silu(h_g) h_u) with h = x[row_ids] @ w_gu[e] over those columns.
-template <int BM>
-__global__ void __launch_bounds__(kThreads, 2)
-    moe_gate_up_kernel(Params p) {
-  using W = Warps<BM>;
-  constexpr int MT = W::MT, NT = W::NT;
-  constexpr int kA = BM * kLd, kB = kBK * kLdN;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int ids[kMaxTile];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);
-  bf16* b_s = a_s + kStages * kA;
-
-  const int tile = blockIdx.y, c0 = blockIdx.x * kBF;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % W::M, wn = warp / W::M;
-  if (!tile_ids<BM>(p, tile, ids, nullptr)) {
-    zero_rows<BM>(p.a, p.f, tile, c0);
-    return;
-  }
-  const long long ldw = 2LL * p.f;
-  const bf16* w =
-      p.w_gu + static_cast<long long>(p.tile_expert[tile]) * p.d * ldw;
-  const int n_k = p.d / kBK;
-  auto load = [&](int it) {
-    if (it < n_k) {
-      load_rows<BM>(a_s + (it % kStages) * kA, p.x, p.d, ids, 0, it * kBK);
-      load_kn<true>(b_s + (it % kStages) * kB, w, ldw, it * kBK, c0, p.f);
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < kStages - 1; ++s) load(s);
-
-  float acc[MT][NT][4];
-  zero(acc);
-  for (int it = 0; it < n_k; ++it) {
-    cp_async_wait<kStages - 2>();  // slice it has landed
-    __syncthreads();  // and every warp is done with the stage refilled next
-    load(it + kStages - 1);
-    const int s = it % kStages;
-    mma_kn<MT, NT>(acc, a_s + s * kA + wm * MT * 16 * kLd,
-                   b_s + s * kB + wn * NT * 8, lane);
-  }
-  cp_async_wait<0>();
-
-  // h tiles 2i (gate) and 2i + 1 (up) cover the same f columns.
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long slot =
-          static_cast<long long>(tile) * BM + wm * MT * 16 + mt * 16 + g +
-          8 * h;
-      bf16* out = p.a + slot * p.f + c0 + wn * (NT / 2) * 8 + 2 * t;
-#pragma unroll
-      for (int i = 0; i < NT / 2; ++i) {
-        float v[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float hg = acc[mt][2 * i][2 * h + j];
-          v[j] = hg * sigmoid(hg) * acc[mt][2 * i + 1][2 * h + j];
-        }
-        *reinterpret_cast<uint32_t*>(out + i * 8) = pack_bf16(v[0], v[1]);
-      }
-    }
-  }
-}
-
 // B8 dx, launch 1. Grid (f / kBF, T). Over the same 64 columns of f:
 // h = x[row_ids] @ w_gu[e] (gate and up), da = dy[dest_ids] @
 // w_down[e]^T; writes a = bf16(silu(h_g) h_u) and dh = bf16 of the
@@ -415,9 +342,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto load = [&](int it) {
     if (it < n_k) {
       bf16* st = base + (it % kStages) * kStage;
-      load_rows<BM>(st, p.x, p.d, ids, 0, it * kBK);
-      load_rows<BM>(st + kA, p.dy, p.d, dy_ids, 0, it * kBK);
-      load_kn<true>(st + 2 * kA, wgu, ldw, it * kBK, c0, p.f);
+      load_rows<BM>(st, p.x, p.d, ids, it * kBK);
+      load_rows<BM>(st + kA, p.dy, p.d, dy_ids, it * kBK);
+      load_kn(st + 2 * kA, wgu, ldw, it * kBK, c0, p.f);
       load_nk<kBF>(st + 2 * kA + kB, wdn, p.d, c0, it * kBK);
     }
     cp_async_commit();
@@ -470,85 +397,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         *reinterpret_cast<uint32_t*>(dh_out + p.f + i * 8) =
             pack_bf16(du[0], du[1]);
       }
-    }
-  }
-}
-
-// B7 launch 2 (kNK false) and B8 dx launch 2 (kNK true). Grid (d / kBN,
-// T). out[dest_ids[slot], n0 .. n0 + kBN) = bf16(src[slot] @ B) with
-// src the sorted a [m_pad, f] and B = w_down[e] [f, d] (kNK false), or
-// src the sorted dh [m_pad, 2f] and B = w_gu[e]^T, read from w_gu[e] [d,
-// 2f] (kNK true).
-template <int BM, bool kNK>
-__global__ void __launch_bounds__(kThreads, 2) moe_out_kernel(Params p) {
-  using W = Warps<BM>;
-  constexpr int MT = W::MT, NT = W::NT;
-  constexpr int kA = BM * kLd;
-  constexpr int kB = kNK ? kBN * kLd : kBK * kLdN;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int dest[kMaxTile];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);
-  bf16* b_s = a_s + kStages * kA;
-
-  const int tile = blockIdx.y, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % W::M, wn = warp / W::M;
-  const int tid = threadIdx.x;
-  int id = -1;
-  if (tid < BM) {
-    id = p.dest_ids[tile * BM + tid];
-    dest[tid] = id;
-  }
-  if (!__syncthreads_or(id >= 0)) return;
-
-  const int e = p.tile_expert[tile];
-  const int K = kNK ? 2 * p.f : p.f;
-  const bf16* src = kNK ? p.dh : p.a;
-  const bf16* w = kNK ? p.w_gu + e * static_cast<long long>(p.d) * K
-                      : p.w_down + e * static_cast<long long>(p.f) * p.d;
-  const long long row0 = static_cast<long long>(tile) * BM;
-  const int n_k = K / kBK;
-  auto load = [&](int it) {
-    if (it < n_k) {
-      load_rows<BM>(a_s + (it % kStages) * kA, src, K, nullptr, row0,
-                    it * kBK);
-      if (kNK)
-        load_nk<kBN>(b_s + (it % kStages) * kB, w, K, n0, it * kBK);
-      else
-        load_kn<false>(b_s + (it % kStages) * kB, w, p.d, it * kBK, n0, 0);
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < kStages - 1; ++s) load(s);
-
-  float acc[MT][NT][4];
-  zero(acc);
-  for (int it = 0; it < n_k; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    load(it + kStages - 1);
-    const int s = it % kStages;
-    const bf16* a = a_s + s * kA + wm * MT * 16 * kLd;
-    if (kNK)
-      mma_nk<MT, NT>(acc, a, b_s + s * kB + wn * NT * 8 * kLd, lane);
-    else
-      mma_kn<MT, NT>(acc, a, b_s + s * kB + wn * NT * 8, lane);
-  }
-  cp_async_wait<0>();
-
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int d_row = dest[wm * MT * 16 + mt * 16 + g + 8 * h];
-      if (d_row < 0) continue;
-      bf16* out = p.out + static_cast<long long>(d_row) * p.d + n0 +
-                  wn * NT * 8 + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        *reinterpret_cast<uint32_t*>(out + nt * 8) =
-            pack_bf16(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
     }
   }
 }
@@ -797,26 +645,26 @@ __device__ __forceinline__ void wgmma_tt_n128(float (&d)[16][4], uint64_t da,
 // fastest of the nine splits tools/torch_dw_probe.py times (PERF.md).
 constexpr int kLsuRows = 6;
 
-// The gathered tile of one stage: rows ids[s + r] (r < 64; slots past
-// s_end and ids of -1 read as zeros) of the gathered tensor, columns
-// col0 .. col0 + kCols, at row r of the tile's [64 x 64] boxes, each
+// The gathered tile of one stage: rows ids[s + r] (r < kRows; slots
+// past s_end and ids of -1 read as zeros) of the gathered tensor, columns
+// col0 .. col0 + kCols, at row r of the tile's [kRows x 64] boxes, each
 // [1 row x 64 columns] segment by TMA (row -1 is zero-filled) or by
 // eight 16-byte cp.async written into the same 128-byte swizzle
 // (chunk j of row r at chunk j ^ (r % 8)). Producer thread pt of 128
 // issues its segments; pt 0 counts the TMA bytes of the stage.
-template <int kCols>
+template <int kRows, int kCols>
 __device__ __forceinline__ void gather_stage(uint32_t dst,
                                              const CUtensorMap* map,
                                              const bf16* src, int ld,
                                              uint32_t bar, const int* ids,
                                              long long s, long long s_end,
                                              int col0, int pt) {
-  constexpr int kRowBoxes = kDwK * (kCols / 64);
+  constexpr int kRowBoxes = kRows * (kCols / 64);
   for (int i = pt; i < kRowBoxes; i += 128) {
-    const int r = i % kDwK, bx = i / kDwK;
+    const int r = i % kRows, bx = i / kRows;
     const long long slot = s + r;
     const int row = slot < s_end ? ids[slot] : -1;
-    const uint32_t at = dst + bx * kBox + r * 128;
+    const uint32_t at = dst + bx * kRows * 128 + r * 128;
     if (i % 8 < kLsuRows) {
       const bf16* from =
           src + (row >= 0 ? static_cast<long long>(row) * ld + col0 + 64 * bx
@@ -831,9 +679,9 @@ __device__ __forceinline__ void gather_stage(uint32_t dst,
 }
 
 // Bytes of a stage's gathered tile that arrive by TMA.
-template <int kCols>
+template <int kRows, int kCols>
 __host__ __device__ constexpr int gathered_tma_bytes() {
-  return (kDwK * (kCols / 64) / 8) * (8 - kLsuRows) * 128;
+  return (kRows * (kCols / 64) / 8) * (8 - kLsuRows) * 128;
 }
 
 template <bool kGatherLhs, int kTileM, int kTileN>
@@ -918,7 +766,7 @@ __global__ void __launch_bounds__(kDwThreads, 1)
             const int col0 = kGatherLhs ? n0 : m0;
             mbar_expect_tx_only(
                 full(st),
-                kBytes + gathered_tma_bytes<kGatherLhs ? kTileM : kTileN>());
+                kBytes + gathered_tma_bytes<kDwK, kGatherLhs ? kTileM : kTileN>());
             for (int bx = 0; bx < kBytes / kBox; ++bx)
               tma_load_2d(dst + bx * kBox, &map_sorted, full(st),
                           col0 + 64 * bx, static_cast<int>(s));
@@ -926,10 +774,10 @@ __global__ void __launch_bounds__(kDwThreads, 1)
         }
         if (has) {
           if (kGatherLhs)
-            gather_stage<kTileM>(a_s(st), &map_gathered, p.gathered, p.M,
+            gather_stage<kDwK, kTileM>(a_s(st), &map_gathered, p.gathered, p.M,
                                  full(st), p.ids, s, s_end, m0, pt);
           else
-            gather_stage<kTileN>(b_s(st), &map_gathered, p.gathered, p.N,
+            gather_stage<kDwK, kTileN>(b_s(st), &map_gathered, p.gathered, p.N,
                                  full(st), p.ids, s, s_end, n0, pt);
         }
         // This thread's arrival, once its cp.async copies have landed.
@@ -1021,6 +869,345 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   }
 }
 
+// ---- B7 and B8 dx's second launch: TMA + wgmma grouped GEMM ----------------
+//
+// One warp-specialised body for three products over the sorted layout,
+// each unit a [BM slots x kBN columns] output tile of one row tile:
+//   - kFfnGateUp (B7, launch 1): A = x[row_ids] (gathered by gather_stage,
+//     an id of -1 zero-fills), B = w_gu[e] read MN-major as two column
+//     blocks, gate at c0 and up at f + c0, so that one thread holds h_g
+//     and h_u of the same element; writes the sorted a = bf16(silu(h_g)
+//     h_u) (an all-padding tile writes its zero rows: the weight
+//     gradients read them);
+//   - kFfnDown (B7, launch 2): A = the sorted a by TMA, B = w_down[e]
+//     MN-major; rows scatter to dest_ids (-1: not written);
+//   - kFfnDownNK (B8 dx, launch 2): A = the sorted dh [m_pad, 2f], B =
+//     w_gu[e]^T read K-major from w_gu[e] [d, 2f] (one [kBN x 64] box).
+// A arrives K-major in the 128-byte swizzle, 64 columns of K a stage.
+//
+// BM 128 (training): 384 threads, two consumer warpgroups of 64 rows
+// each (setmaxnreg.inc kConsumerRegs), each holding [64 x 256] f32 as
+// two m64n128 accumulators; a producer warpgroup (setmaxnreg.dec) keeps
+// a ring of 4 stages of [128 x 64] A and [64 x 256] B (48 KB each) in
+// flight. BM 16 (a decode step): the same body at 256 threads and two
+// blocks an SM, one consumer warpgroup whose m64 products carry the
+// tile's 16 rows (rows 16-63 of its A window are never stored: a row of
+// the product depends on its own row of A only) over [16 x 128]
+// units: the step is bound by the experts' weight bytes, which more
+// units in flight stream faster.
+//
+// Blocks are persistent and take units u = blockIdx.x + i gridDim.x in
+// order (the n-blocks of a row tile, then the next tile): the blocks in
+// flight share their tiles' rows and their expert's weights in L2. Every
+// unit has one owner and sums its K in order: no atomics, reruns are
+// bitwise equal. The producer reads the tile's ids (a bar.red.or over
+// its warpgroup) and sends a tile without a valid row as one stage
+// flagged empty: no loads, no products. Consumers' waits carry no trap
+// (see B8 dw); the producer's trap and keep watch at the end.
+
+enum FfnMode { kFfnGateUp = 0, kFfnDown = 1, kFfnDownNK = 2 };
+// The gathering producer needs more than B8 dw's 40 registers (it
+// spills at 40); 2 x 128 x 224 + 128 x 56 fit the SM's 65536.
+constexpr int kFfnProducerRegs = 56, kFfnConsumerRegs = 224;
+
+template <int BM>
+struct FfnCfg {
+  static constexpr int kConsumers = BM == 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kMinBlocks = BM == 128 ? 1 : 2;
+  static constexpr int kBN = BM == 128 ? 256 : 128;  // columns of a unit
+  static constexpr int kHalf = kBN / 2;              // of one product
+  static constexpr int kABytes = (BM < 64 ? 64 : BM) * 128;  // rows read
+  static constexpr int kBBytes = kBN * 128;          // [64 K x kBN]
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = 4;
+  static constexpr int kBars = kStages * kStageBytes;
+  // Barriers (full, empty) and the stages' unit and flags.
+  static constexpr int kSmem = 1024 + kBars + 16 * kStages + 8 * kStages;
+};
+
+// True on every thread of the producer warpgroup (named barrier 3) if
+// any of its threads passes true.
+__device__ __forceinline__ bool producer_any(bool v) {
+  uint32_t out;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+      "bar.red.or.pred q, 3, 128, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(out)
+      : "r"(static_cast<uint32_t>(v))
+      : "memory");
+  return out != 0;
+}
+
+// Stores 4 bytes at dst if keep: a predicated st.global, no branch.
+__device__ __forceinline__ void store_if(bf16* dst, uint32_t v, bool keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %2, 0;\n"
+      "@p st.global.b32 [%0], %1;\n}\n" ::"l"(dst),
+      "r"(v), "r"(static_cast<uint32_t>(keep))
+      : "memory");
+}
+
+// d[64 x 8 NT] (+)= A[64 x 16] . B[16 x 8 NT], A K-major and B MN-major
+// (kTransB 1) or K-major (0) in shared memory; scale_d = 0 overwrites d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+}
+
+// Units of one launch: row tiles x column blocks (gate|up: kHalf columns
+// of f, each for gate and up; the down products: kBN columns of d, the
+// last block partly past d when d is not a multiple of kBN).
+template <int BM, int kMode>
+__host__ __device__ __forceinline__ int ffn_col_blocks(const Params& p) {
+  using Cfg = FfnCfg<BM>;
+  return kMode == kFfnGateUp ? p.f / Cfg::kHalf
+                          : (p.d + Cfg::kBN - 1) / Cfg::kBN;
+}
+
+template <int BM, int kMode>
+__global__ void __launch_bounds__(FfnCfg<BM>::kThreads,
+                                  FfnCfg<BM>::kMinBlocks)
+    moe_ffn_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   const Params p) {
+  using Cfg = FfnCfg<BM>;
+  constexpr int kStages = Cfg::kStages, kHalf = Cfg::kHalf;
+  constexpr int kNT = kHalf / 8;
+  constexpr bool kGather = kMode == kFfnGateUp;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  auto a_s = [&](int st) { return base + st * Cfg::kStageBytes; };
+  auto b_s = [&](int st) { return a_s(st) + Cfg::kABytes; };
+  const uint32_t bars = base + Cfg::kBars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  int2* meta = reinterpret_cast<int2*>(gbase + Cfg::kBars + 16 * kStages);
+
+  const int K = kMode == kFfnGateUp ? p.d : kMode == kFfnDown ? p.f : 2 * p.f;
+  const int n_k = K / 64;
+  const int n_n = ffn_col_blocks<BM, kMode>(p);
+  const int n_units = p.T * n_n;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 128);  // the producer's threads, with their bytes
+      mbar_init(empty(st), 4 * Cfg::kConsumers);  // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == Cfg::kConsumers) {
+    if constexpr (Cfg::kConsumers == 2) setmaxnreg_dec<kFfnProducerRegs>();
+    const int pt = threadIdx.x - 128 * Cfg::kConsumers;
+    const int* ids = kGather ? p.row_ids : p.dest_ids;
+    int g = 0;  // stages issued
+    for (int u = blockIdx.x;; u += gridDim.x) {
+      const bool done = u >= n_units;
+      const int tile = done ? 0 : u / n_n, nb = done ? 0 : u % n_n;
+      const long long s0 = static_cast<long long>(tile) * BM;
+      const bool has = producer_any(!done && pt < BM && ids[s0 + pt] >= 0);
+      const int e = has ? p.tile_expert[tile] : 0;
+      const int steps = has ? n_k : 1;
+      // done: one stage of unit -1 tells the consumers to stop.
+      for (int k = 0; k < steps; ++k, ++g) {
+        const int st = g % kStages;
+        if (g >= kStages) mbar_wait(empty(st), (g / kStages - 1) & 1);
+        if (pt == 0) {
+          meta[st] = make_int2(done ? -1 : u, (k == 0) |
+                                                  ((k == steps - 1) << 1) |
+                                                  (!has << 2));
+          if (has) {
+            const int k0 = 64 * k;
+            if constexpr (kMode == kFfnGateUp) {
+              mbar_expect_tx_only(
+                  full(st), Cfg::kBBytes + gathered_tma_bytes<BM, 64>());
+              const int c0 = nb * kHalf;
+              for (int bx = 0; bx < Cfg::kBN / 64; ++bx) {
+                const int h = bx / (kHalf / 64), j = bx % (kHalf / 64);
+                tma_load_2d(b_s(st) + bx * kBox, &map_b, full(st),
+                            h * p.f + c0 + 64 * j, e * p.d + k0);
+              }
+            } else {
+              mbar_expect_tx_only(full(st), BM * 128 + Cfg::kBBytes);
+              tma_load_2d(a_s(st), &map_a, full(st), k0,
+                          static_cast<int>(s0));
+              const int n0 = nb * Cfg::kBN;
+              if constexpr (kMode == kFfnDown) {
+                for (int bx = 0; bx < Cfg::kBN / 64; ++bx)
+                  tma_load_2d(b_s(st) + bx * kBox, &map_b, full(st),
+                              n0 + 64 * bx, e * p.f + k0);
+              } else {  // one [kBN rows of w_gu[e] x 64] box
+                tma_load_2d(b_s(st), &map_b, full(st), k0, e * p.d + n0);
+              }
+            }
+          }
+        }
+        if constexpr (kGather) {
+          if (has)
+            gather_stage<BM, 64>(a_s(st), &map_a, p.x, p.d, full(st),
+                                 p.row_ids, s0, s0 + BM, 64 * k, pt);
+        }
+        // This thread's arrival, once its cp.async copies have landed.
+        asm volatile(
+            "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                full(st))
+            : "memory");
+      }
+      if (done) break;
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (pt == 0)  // the watch
+      for (int j = max(0, g - kStages); j < g; ++j)
+        mbar_wait(empty(j % kStages), (j / kStages) & 1);
+  } else {
+    if constexpr (Cfg::kConsumers == 2) setmaxnreg_inc<kFfnConsumerRegs>();
+    const int c = wg;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const uint32_t a_row = BM == 128 ? c * 64 * 128 : 0;  // the WG's rows
+    float acc[2][kNT][4];
+    bool live = true;
+    int held = -1;  // the stage whose products may still be running
+    for (int g = 0;; ++g) {
+      const int st = g % kStages;
+      mbar_spin(full(st), (g / kStages) & 1, live);
+      const int2 mt = meta[st];
+      if (mt.x < 0 || !live) {
+        if (lane == 0) mbar_arrive(empty(st));
+        break;
+      }
+      const bool first = mt.y & 1, last = mt.y & 2, none = mt.y & 4;
+      if (!none) {
+        // Part of a gathered tile came through the generic proxy
+        // (cp.async); wgmma reads through the async proxy.
+        if constexpr (kGather) fence_proxy_async();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da =
+              smem_desc(a_s(st) + a_row + kk * 32, 16, 1024);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if constexpr (kMode == kFfnDownNK)
+              wgmma_ss<0>(acc[h], da,
+                          smem_desc(b_s(st) + h * kHalf * 128 + kk * 32, 16,
+                                    1024),
+                          !(first && kk == 0));
+            else
+              wgmma_ss<1>(acc[h], da,
+                          smem_desc(b_s(st) + h * (kHalf / 64) * kBox +
+                                        kk * 2048,
+                                    kBox, 1024),
+                          !(first && kk == 0));
+          }
+        }
+        wgmma_commit();
+        // The previous stage's products are done: release its stage.
+        wgmma_wait<1>();
+        if (held >= 0 && lane == 0) mbar_arrive(empty(held));
+        held = st;
+      } else if (lane == 0) {
+        mbar_arrive(empty(st));
+      }
+      if (!last) continue;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) fence_operands(acc[h]);
+      if (held >= 0 && lane == 0) mbar_arrive(empty(held));
+      held = -1;
+      const int tile = mt.x / n_n, nb = mt.x % n_n;
+      const int g8 = lane / 4, t = lane % 4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = (BM == 128 ? 64 * c : 0) + 16 * warp + g8 + 8 * r;
+        const long long slot = static_cast<long long>(tile) * BM + row;
+        // Stores under a predicate, not a branch around the accumulator
+        // reads (which makes ptxas serialise the products): at BM 16
+        // only the first warp's rows are the tile's; dest -1 is padding.
+        if constexpr (kMode == kFfnGateUp) {
+          const bool keep = row < BM;
+          bf16* out = p.a + (keep ? slot : 0) * p.f + nb * kHalf + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+            float v[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float hg = acc[0][nt][2 * r + j];
+              v[j] = hg * sigmoid(hg) * acc[1][nt][2 * r + j];
+            }
+            store_if(out + 8 * nt, none ? 0u : pack_bf16(v[0], v[1]), keep);
+          }
+        } else {
+          const int dest = row < BM && !none ? p.dest_ids[slot] : -1;
+          const int n0 = nb * Cfg::kBN;
+          bf16* out = p.out + static_cast<long long>(max(dest, 0)) * p.d +
+                      n0 + 2 * t;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt)
+              store_if(out + h * kHalf + 8 * nt,
+                       pack_bf16(acc[h][nt][2 * r], acc[h][nt][2 * r + 1]),
+                       dest >= 0 && n0 + h * kHalf < p.d);
+        }
+      }
+    }
+  }
+}
+
 // ---- launch ---------------------------------------------------------------
 
 template <typename Kernel, typename P>
@@ -1057,36 +1244,8 @@ int fill(Params* p, const long long* dims) {
 }
 
 template <int BM>
-size_t gate_up_smem() {
-  return bf16_bytes(kStages * (BM * kLd + kBK * kLdN));
-}
-
-template <int BM>
 size_t dx_gate_up_smem() {
   return bf16_bytes(kStages * (2 * BM * kLd + kBK * kLdN + kBF * kLd));
-}
-
-template <int BM, bool kNK>
-size_t out_smem() {
-  return bf16_bytes(kStages * (BM * kLd + (kNK ? kBN * kLd : kBK * kLdN)));
-}
-
-template <int BM>
-int forward(const Params& p, cudaStream_t stream) {
-  int rc = launch(moe_gate_up_kernel<BM>, dim3(p.f / kBF, p.T),
-                  gate_up_smem<BM>(), p, stream);
-  if (rc) return rc;
-  return launch(moe_out_kernel<BM, false>, dim3(p.d / kBN, p.T),
-                out_smem<BM, false>(), p, stream);
-}
-
-template <int BM>
-int backward_dx(const Params& p, cudaStream_t stream) {
-  int rc = launch(moe_dx_gate_up_kernel<BM>, dim3(p.f / kBF, p.T),
-                  dx_gate_up_smem<BM>(), p, stream);
-  if (rc) return rc;
-  return launch(moe_out_kernel<BM, true>, dim3(p.d / kBN, p.T),
-                out_smem<BM, true>(), p, stream);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1130,6 +1289,59 @@ int tensor_map_2d(CUtensorMap* map, const void* ptr, long long cols,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B7's launches and B8 dx's second one: the operands' maps (A: x's rows
+// as one-row boxes, or the sorted a / dh in [BM x 64] boxes; B: the
+// experts' weights in [64 x 64] boxes, or w_gu's rows in [kBN x 64]
+// boxes), then one persistent block an SM (two at BM 16), at most one a
+// unit.
+template <int BM, int kMode>
+int launch_ffn(const Params& p, cudaStream_t stream) {
+  using Cfg = FfnCfg<BM>;
+  const long long m_pad = static_cast<long long>(p.T) * BM;
+  const long long two_f = 2LL * p.f;
+  CUtensorMap maps[2];
+  int rc;
+  if (kMode == kFfnGateUp) {
+    rc = tensor_map_2d(&maps[0], p.x, p.d, p.n_src, 1);
+    if (!rc) rc = tensor_map_2d(&maps[1], p.w_gu, two_f, 1LL * p.e * p.d, 64);
+  } else if (kMode == kFfnDown) {
+    rc = tensor_map_2d(&maps[0], p.a, p.f, m_pad, BM);
+    if (!rc) rc = tensor_map_2d(&maps[1], p.w_down, p.d, 1LL * p.e * p.f, 64);
+  } else {
+    rc = tensor_map_2d(&maps[0], p.dh, two_f, m_pad, BM);
+    if (!rc)
+      rc = tensor_map_2d(&maps[1], p.w_gu, two_f, 1LL * p.e * p.d, Cfg::kBN);
+  }
+  if (rc) return rc;
+  auto kernel = moe_ffn_kernel<BM, kMode>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = p.T * ffn_col_blocks<BM, kMode>(p);
+  const int blocks = sms * Cfg::kMinBlocks;
+  kernel<<<units < blocks ? units : blocks, Cfg::kThreads, Cfg::kSmem,
+           stream>>>(maps[0], maps[1], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM>
+int forward(const Params& p, cudaStream_t stream) {
+  const int rc = launch_ffn<BM, kFfnGateUp>(p, stream);
+  return rc ? rc : launch_ffn<BM, kFfnDown>(p, stream);
+}
+
+template <int BM>
+int backward_dx(const Params& p, cudaStream_t stream) {
+  const int rc = launch(moe_dx_gate_up_kernel<BM>, dim3(p.f / kBF, p.T),
+                        dx_gate_up_smem<BM>(), p, stream);
+  return rc ? rc : launch_ffn<BM, kFfnDownNK>(p, stream);
 }
 
 // The unit tile that fetches each gathered row the fewest times (see
@@ -1194,6 +1406,12 @@ int dlr_moe_forward(const void* x, const void* w_gu, const void* w_down,
   p.tile_expert = static_cast<const int*>(tile_expert);
   p.a = static_cast<bf16*>(a);
   p.out = static_cast<bf16*>(y);
+  // TMA reads the weights and the sorted a, cp.async and TMA x's rows:
+  // 16-byte aligned.
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_gu) |
+       reinterpret_cast<uintptr_t>(w_down) | reinterpret_cast<uintptr_t>(a)) %
+      16)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return p.tile_m == 128 ? forward<128>(p, s) : forward<16>(p, s);
 }
@@ -1216,6 +1434,9 @@ int dlr_moe_backward_dx(const void* x, const void* dy, const void* w_gu,
   p.out = static_cast<bf16*>(dx_c);
   p.dh = static_cast<bf16*>(dh);
   p.a = static_cast<bf16*>(a);
+  if ((reinterpret_cast<uintptr_t>(w_gu) | reinterpret_cast<uintptr_t>(dh)) %
+      16)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return p.tile_m == 128 ? backward_dx<128>(p, s) : backward_dx<16>(p, s);
 }
@@ -1268,6 +1489,20 @@ int dlr_moe_dw_config(int M, int N, int gather_lhs, int* smem, int* tile_m,
   *smem = *tile_m == 256   ? DwCfg<256, 128>::kSmem
           : *tile_n == 256 ? DwCfg<128, 256>::kSmem
                            : DwCfg<128, 128>::kSmem;
+  return 0;
+}
+
+// The launch of the grouped-GEMM body (B7's two launches, B8 dx's
+// second) at tile_m: dynamic shared memory, threads and blocks an SM,
+// and the unit's columns.
+int dlr_moe_ffn_config(int tile_m, int* smem, int* threads, int* blocks,
+                       int* tile_n) {
+  if (tile_m != 16 && tile_m != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem = tile_m == 128 ? FfnCfg<128>::kSmem : FfnCfg<16>::kSmem;
+  *threads = tile_m == 128 ? FfnCfg<128>::kThreads : FfnCfg<16>::kThreads;
+  *blocks = tile_m == 128 ? FfnCfg<128>::kMinBlocks : FfnCfg<16>::kMinBlocks;
+  *tile_n = tile_m == 128 ? FfnCfg<128>::kBN : FfnCfg<16>::kBN;
   return 0;
 }
 

@@ -40,7 +40,7 @@ AUTO_FUSED_MIN_NV = 2 * 1024**3 // 4
 
 _SOURCE = "fused_ce.cu"
 _KERNEL_D = 128       # the kernels take d a multiple of this ...
-_KERNEL_MAX_D = 1024  # ... up to this (8 warps x 128 columns)
+_KERNEL_MAX_D = 1024  # ... up to this (B3 keeps a [64, d] x tile)
 
 # Kernel launches per kernel, counted where the wrapper launches it.
 launch_counts: Dict[str, int] = {
@@ -251,22 +251,33 @@ def _library():
         for fn in (lib.dlr_ce_forward, lib.dlr_ce_backward_dx,
                    lib.dlr_ce_backward_dw):
             fn.restype = ctypes.c_int
-        lib.dlr_ce_dw_config.argtypes = [ctypes.c_int, ptr, ptr]
-        lib.dlr_ce_dw_config.restype = ctypes.c_int
+        for fn in (lib.dlr_ce_dx_config, lib.dlr_ce_dw_config):
+            fn.argtypes = [ctypes.c_int, ptr, ptr]
+            fn.restype = ctypes.c_int
         lib.dlr_ce_error_string.argtypes = [ctypes.c_int]
         lib.dlr_ce_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def _launch_config(kind: str, d: int) -> Dict[str, int]:
+    smem, cluster = ctypes.c_int(), ctypes.c_int()
+    rc = getattr(_library(), f"dlr_ce_{kind}_config")(
+        d, ctypes.byref(smem), ctypes.byref(cluster))
+    _raise_on(rc, f"fused_ce_backward_{kind}")
+    return {"dynamic_smem_bytes": smem.value, "cluster": cluster.value}
+
+
+def dx_kernel_config(d: int) -> Dict[str, int]:
+    """B4 dx's launch at hidden size d: its dynamic shared memory and
+    its cluster size (ptxas reports neither)."""
+    return _launch_config("dx", d)
+
+
 def dw_kernel_config(d: int) -> Dict[str, int]:
     """B4 dw's launch at hidden size d: its dynamic shared memory and
     its cluster size (ptxas reports neither)."""
-    smem, cluster = ctypes.c_int(), ctypes.c_int()
-    rc = _library().dlr_ce_dw_config(d, ctypes.byref(smem),
-                                     ctypes.byref(cluster))
-    _raise_on(rc, "fused_ce_backward_dw")
-    return {"dynamic_smem_bytes": smem.value, "cluster": cluster.value}
+    return _launch_config("dw", d)
 
 
 def _on_card(x, name) -> bool:

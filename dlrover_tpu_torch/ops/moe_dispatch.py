@@ -237,6 +237,8 @@ def _library():
             fn.restype = ctypes.c_int
         lib.dlr_moe_dw_config.argtypes = [ctypes.c_int] * 3 + [ptr] * 3
         lib.dlr_moe_dw_config.restype = ctypes.c_int
+        lib.dlr_moe_ffn_config.argtypes = [ctypes.c_int] + [ptr] * 4
+        lib.dlr_moe_ffn_config.restype = ctypes.c_int
         lib.dlr_moe_error_string.argtypes = [ctypes.c_int]
         lib.dlr_moe_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -252,6 +254,17 @@ def dw_kernel_config(m: int, n: int, gather_lhs: bool) -> Dict[str, int]:
                                  *map(ctypes.byref, out))
     return {"dynamic_smem_bytes": out[0].value,
             "tile": [out[1].value, out[2].value]}
+
+
+def ffn_kernel_config(tile_m: int) -> Dict[str, int]:
+    """The launch of B7's two kernels and B8 dx's second at ``tile_m``:
+    dynamic shared memory, threads and blocks an SM, and the output
+    columns of a unit (ptxas reports none of these)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = _library().dlr_moe_ffn_config(tile_m, *map(ctypes.byref, out))
+    _raise_on(rc, "grouped_ffn_forward")
+    return {"dynamic_smem_bytes": out[0].value, "threads": out[1].value,
+            "blocks_per_sm": out[2].value, "tile_n": out[3].value}
 
 
 def _on_card(x, name) -> bool:

@@ -171,6 +171,29 @@ def test_plain_dw_matches_pallas_at_kernel_tile_edges(n, v):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("n,v", [(127, 63), (129, 65), (257, 129)])
+def test_plain_dx_matches_pallas_at_kernel_tile_edges(n, v):
+    """B4 dx's plain version against ``_pallas_backward`` in interpret
+    mode where the card kernel's tiles end: its clusters own 128 rows and
+    step over 64 vocab columns, so n and V one short of, and one past, a
+    multiple of each (masked rows, a = b = 0, get zeros)."""
+    x, w, tgt, a, b = _stats_inputs(6, n, 32, v)
+    _, j_logz = jax_ce._pallas_forward(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(tgt), 1e-4, 8, 128,
+        interpret=True)
+    j_dx, _ = jax_ce._pallas_backward(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(tgt), j_logz,
+        jnp.asarray(a), jnp.asarray(b), 8, 128, interpret=True)
+    tx, tw, tt = map(torch.from_numpy, (x, w, tgt))
+    dx = fused_ce.fused_ce_backward_dx(
+        tx, tw, tt, torch.tensor(np.asarray(j_logz)), torch.from_numpy(a),
+        torch.from_numpy(b), block_v=64)
+    assert tuple(dx.shape) == (n, 32)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(j_dx), rtol=1e-4,
+                               atol=1e-6)
+    assert not dx.numpy()[::3].any()
+
+
 def _bf16(a):
     return torch.from_numpy(a).bfloat16()
 

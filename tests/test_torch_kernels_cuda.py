@@ -763,6 +763,35 @@ def test_fused_ce_dw_at_its_tile_edges(cuda, n, d, v, masked):
     assert torch.equal(dw, again)
 
 
+@pytest.mark.parametrize("n,d,v,masked", [
+    (4100, 1024, 32003, True),   # ragged rows and vocab, clusters of 4
+    (129, 1024, 65, False),      # one row past a tile, one column past a step
+    (127, 512, 63, True),        # one short of each, clusters of 2
+    (300, 384, 1000, False),     # d-slices of 128, clusters of 3
+    (257, 768, 4097, True),      # d-slices of 256, clusters of 3
+    (200, 896, 129, False),      # clusters of 7
+    (130, 128, 4033, True),      # one block a tile, no exchange
+])
+def test_fused_ce_dx_at_its_tile_edges(cuda, n, d, v, masked):
+    """B4 dx (clusters over d, 128-row tiles, 64-column vocab steps, the
+    partials reduce-scattered and g all-gathered between the blocks)
+    against its plain version where its tiles end, within _ce_ratio's
+    bound; masked rows get zeros and a second launch gives the same
+    bits."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    x, w, tgt, logz, a, b = _ce_inputs(cuda, n, d, v, masked, n + d + v)
+    dx = fc.fused_ce_backward_dx(x, w, tgt, logz, a, b)
+    again = fc.fused_ce_backward_dx(x, w, tgt, logz, a, b)
+    torch.cuda.synchronize()
+    want, _ = fc._xla_backward(x, w, tgt, logz, a, b, want_dw=False)
+    assert tuple(dx.shape) == (n, d) and dx.dtype == torch.bfloat16
+    assert _ce_ratio(dx, want.bfloat16(), -1) <= 1.0
+    assert torch.equal(dx, again)
+    if masked:
+        assert not dx[a == 0].any()
+
+
 @pytest.mark.parametrize("impl", ["pallas", "chunked", "xla"])
 def test_fused_cross_entropy_on_card_matches_cpu(cuda, impl):
     """bf16 hidden states and unembedding, masked: the loss on the card
@@ -943,6 +972,65 @@ def test_moe_dw_kernels_at_their_edges(cuda, n, d, f, e, k, routing):
         assert _ce_ratio(got, plain(), 1) <= 1.0, name
         assert torch.equal(got, again), name
         assert not got[~routed].any(), name
+
+
+@pytest.mark.parametrize("n,d,f,e,k,routing", [
+    (8, 1024, 1024, 8, 2, "random"),      # a decode step, tile 16
+    (700, 384, 256, 4, 2, "skewed"),      # tile 128, d past a 256 unit
+    (40, 256, 640, 4, 2, "one"),          # tile 16, three empty experts
+    (1100, 1024, 128, 8, 1, "random"),    # top-1, tile 128, f one unit
+    (600, 128, 384, 6, 2, "skewed"),      # tile 128, d half a unit
+])
+def test_moe_ffn_kernels_at_their_edges(cuda, n, d, f, e, k, routing):
+    """B7 (gate|up, down) and B8 dx (its second launch on B7's body)
+    against their plain versions within _ce_ratio's bound where the
+    units end: tile_m 16 and 128, all-padding tiles, experts without
+    rows, d not a multiple of the 256-column unit. The sorted a and dh
+    are zero on padding slots, and a second launch gives the same
+    bits."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, w_gu, w_down, dy, (ri, di, te), tm = _moe_inputs(
+        cuda, n, d, f, e, k, routing, n + d + f)
+    assert (ri.view(-1, tm) < 0).all(dim=1).any()
+    m = n * k
+
+    def run():
+        return ((md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te, m,
+                                        tm),)
+                + md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri, di, te,
+                                             tm))
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    want = ((md._forward_reference(x, w_gu, w_down, ri, di, te, m, tm),)
+            + md._backward_dx_reference(x, dy, w_gu, w_down, ri, di, te, tm))
+    for name, g, a2, w_ in zip(("y", "dx_c", "dh", "a"), got, again, want):
+        assert _ce_ratio(g, w_, -1) <= 1.0, name
+        assert torch.equal(g, a2), name
+    pad = ri < 0
+    assert not got[2][pad].any() and not got[3][pad].any()
+
+
+def test_dx_ffn_wrappers_reject_misaligned_operands(cuda):
+    """TMA reads B4 dx's and B7's operands: a tensor whose data is not
+    16-byte aligned is refused by the C entry point and the wrapper
+    raises."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, w, tgt, logz, a, b = _ce_inputs(cuda, 16, 128, 40, False, 2)
+    shifted = torch.empty(16 * 128 + 1, dtype=x.dtype, device=cuda)
+    shifted[1:] = x.reshape(-1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fc.fused_ce_backward_dx(shifted[1:].view(16, 128), w, tgt, logz, a, b)
+    x, w_gu, w_down, _, (ri, di, te), tm = _moe_inputs(
+        cuda, 8, 128, 128, 4, 2, "random", 4)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted[1:] = x.reshape(-1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        md.grouped_ffn_forward(shifted[1:].view(x.shape), w_gu, w_down, ri,
+                               di, te, 16, tm)
 
 
 def test_moe_kernels_rerun_bitwise(cuda):

@@ -83,15 +83,16 @@ def test_silu_bwd_matches_jax():
 
 def _ffn_inputs(case, dtype, seed=0):
     """x [n, d], w_gu [e, d, 2f], w_down [e, f, d], dy [m, d] as numpy in
-    ``dtype`` (bf16 as ml_dtypes), and the routing."""
+    ``dtype`` (bf16 as ml_dtypes), and the routing. ``tile_128``: enough
+    copies for 128-row tiles (1200), expert 1 without rows."""
     rs = np.random.RandomState(seed)
-    n, d, f, e, k = 20, 16, 32, 4, 2
+    n, d, f, e, k = (600 if case == "tile_128" else 20), 16, 32, 4, 2
     x = rs.randn(n, d)
     w_gu = rs.randn(e, d, 2 * f) / np.sqrt(d)
     w_down = rs.randn(e, f, d) / np.sqrt(f)
     dy = rs.randn(n * k, d)
     fe = rs.randint(0, e, n * k).astype(np.int32)
-    if case == "empty_expert":
+    if case in ("empty_expert", "tile_128"):
         fe = np.where(fe == 1, 0, fe).astype(np.int32)
     elif case == "skewed":
         # three quarters of the copies on expert 2, expert 3 empty: the
@@ -121,7 +122,7 @@ def ffn_cases():
     routing case), computed once for the module."""
     out = {}
     for dtype in ("float32", "bfloat16"):
-        for case in ("random", "empty_expert", "skewed"):
+        for case in ("random", "empty_expert", "skewed", "tile_128"):
             (x, w_gu, w_down, dy), fe, e, k = _ffn_inputs(case, dtype)
             m = fe.shape[0]
             tm = jax_md.default_tile_m(m)
@@ -158,6 +159,35 @@ def test_grouped_ffn_forward_and_vjp_match_jax(ffn_cases, dtype, case):
         # expert 1 has no rows: an exactly zero weight gradient
         assert not twgu.grad[1].any() and not twd.grad[1].any()
         assert twgu.grad[0].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["empty_expert", "tile_128"])
+def test_plain_ffn_matches_pallas_at_kernel_tile_edges(ffn_cases, dtype,
+                                                       case):
+    """B7 and B8 dx's plain versions (the wrappers on CPU tensors) against
+    the Pallas grouped FFN in interpret mode where the card kernels' units
+    end: at tile_m 16 and 128, each layout holding an all-padding tile
+    (the gate|up launch writes its zero ``a`` rows, the down launch
+    nothing) and an expert without rows. y per copy, and dx summed over
+    the copies from the wrappers' dx_c."""
+    (x, w_gu, w_down, dy), fe, e, k, tm, want = ffn_cases[(dtype, case)]
+    assert tm == (128 if case == "tile_128" else 16)
+    m = fe.shape[0]
+    tx, twgu, twd, tdy = (convert.params_from_numpy(a, "cpu")
+                          for a in (x, w_gu, w_down, dy))
+    ri, di, te = md.build_dispatch_layout(torch.from_numpy(fe), e, tm, k)
+    tiles = ri.view(-1, tm)
+    assert (tiles < 0).all(dim=1).any()       # an all-padding tile
+    assert not (torch.from_numpy(fe) == 1).any()  # expert 1 has no rows
+    y = md.grouped_ffn_forward(tx, twgu, twd, ri, di, te, m, tm)
+    dx_c, dh, a = md.grouped_ffn_backward_dx(tx, tdy, twgu, twd, ri, di, te,
+                                             tm)
+    _close(convert.params_to_numpy(y), want[0], dtype, "y")
+    dx = dx_c.float().reshape(-1, k, dx_c.shape[-1]).sum(dim=1)
+    _close(dx.numpy(), want[1], dtype, "dx")
+    pad = ri < 0
+    assert not a[pad].any() and not dh[pad].any()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
