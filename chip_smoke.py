@@ -36,8 +36,8 @@ phases that each print JSON lines:
    versions at the CE A/B shape (n=16384, d=1024, V=32000, bf16), a
    ragged one (n=4100, V=32003) and a masked one (30% of the rows with
    weight 0), elementwise, each with a planted fault the same bounds must
-   reject; B4 dx and dw give the same bits on a second call; times,
-   bounds and the dense route's time;
+   reject; B3, B4 dx and B4 dw give the same bits on a second call;
+   times, bounds and the dense route's time;
 8. CE A/B (the JAX package's ``bench.py`` ``ce_ab_phase``): loss, dx and
    dw at n=16384, d=1024, V=32000 through the dense logits, the chunked
    fused CE and the B3/B4 kernels: ms and peak memory of each;
@@ -78,7 +78,8 @@ phases that each print JSON lines:
     expert, one expert empty) and a decode step (8 tokens), elementwise
     as B4, each with a planted fault the same bound must reject; B7, B8
     dx, dw_gu and dw_down give the same bits on a second call; times,
-    bounds, and the per-expert matmul loop as the library yardstick;
+    bounds, and the per-expert matmul loop as the library yardstick, B8
+    dx's two launches also apart;
 13. MoE ``generate()`` on ``moe_config()`` (bench.py's moe_phase model:
     the flagship's attention, 8 experts of mlp 1024, top-2, dropless,
     535M params, 233M active): b=8, prompt 128, 256 new tokens, fp
@@ -106,10 +107,10 @@ went through them. Any failure raises (exit code 1) before the last
 line, which is ``{"ok": true, "device": {...}}``; before it come the
 ptxas lines of the redesigned sources (registers, spills and the C75xx
 performance notes of each entry function: B1 and B2's four flash
-kernels, B5/B6, B4 and B7/B8 with the rest of their files) with the
-dynamic shared memory, tile and cluster size of the B4 dx, B4 dw, B7
-and B8 dw launches, the card's name and power limit, and the
-``kernels`` line.
+kernels, B5/B6, B3/B4 and B7/B8 with the rest of their files) with the
+dynamic shared memory, tile and cluster size of the B3, B4 dx, B4 dw,
+B7, B8 dx (first launch) and B8 dw launches, the card's name and power
+limit, and the ``kernels`` line.
 """
 
 import functools
@@ -1498,8 +1499,9 @@ def phase_ce_kernels():
     an element may round one bf16 ulp the other way) and dw pass
     elementwise (see _ce_ratio). Each shape also plants a fault and
     checks that the same bounds reject it: B3 and dx without their last
-    vocab tile (128 and 64 columns), dw without its last 64-row tile;
-    row 0's target sits in the last vocab column."""
+    vocab tile (256 and 64 columns), dw without its last 64-row tile;
+    row 0's target sits in the last vocab column. B3, B4 dx and B4 dw
+    give the same bits on a second call."""
     from dlrover_tpu_torch.ops import fused_ce as fc
 
     gen = torch.Generator("cuda").manual_seed(SEED + 4)
@@ -1531,8 +1533,11 @@ def phase_ce_kernels():
                    (dx.float() - ref_dx.float()).abs().max()),
                "fused_ce_backward_dw": float((dw - ref_dw).abs().max())}
         del dx, dw
-        # B4 dx and dw (redesigned): the same bits on a second call.
+        # B3, B4 dx and dw (redesigned): the same bits on a second call.
         bitwise = {
+            "fwd": _check_rerun(
+                f"fused_ce_forward/{label}",
+                lambda: fc.fused_ce_forward(x, w, tgt, CE_Z)),
             "dx": _check_rerun(
                 f"fused_ce_backward_dx/{label}",
                 lambda: fc.fused_ce_backward_dx(x, w, tgt, ref_logz, a, b)),
@@ -1540,7 +1545,7 @@ def phase_ce_kernels():
                 f"fused_ce_backward_dw/{label}",
                 lambda: fc.fused_ce_backward_dw(x, w, tgt, ref_logz, a, b)),
         }
-        f_pt, f_logz = fc._xla_forward(x, w[:, :128 * ((v - 1) // 128)],
+        f_pt, f_logz = fc._xla_forward(x, w[:, :256 * ((v - 1) // 256)],
                                        tgt, CE_Z)
         f_dx, _ = fc._xla_backward(x, w[:, :64 * ((v - 1) // 64)], tgt,
                                    ref_logz, a, b, want_dw=False)
@@ -1553,7 +1558,10 @@ def phase_ce_kernels():
                  "dw": _ce_ratio(f_dw, ref_dw, 0)}
         del f_pt, f_logz, f_dx, f_dw, ref_dx, ref_dw
         emit({"phase": "ce_bounds", "shape": label, "ratio": ratio,
-              "planted_fault_ratio": fault, "bitwise_rerun": bitwise})
+              "planted_fault_ratio": fault, "bitwise_rerun": bitwise,
+              "fwd_plan": dict(zip(("splits", "cluster"), fc.forward_plan(
+                  n, v, torch.cuda.get_device_properties(
+                      0).multi_processor_count)))})
         for out in ratio:
             check(ratio[out] <= 1.0,
                   f"fused_ce/{label}: {out} at {ratio[out]} of its bound")
@@ -1900,7 +1908,9 @@ def _moe_bound(name, n, m, m_pad, T, d, f, e, e_routed):
     the ids; each output once, the sorted a and dh at m_pad rows) over
     the HBM rate, against 2 flops a multiply-add on the m real copies
     over the bf16 peak (B7 6 m d f, dx 10 m d f, dw_gu 4 m d f, dw_down
-    2 m d f)."""
+    2 m d f). dx's two launches apart: the first (h, da and the
+    silu-gate backward, writing a and dh) 6 m d f, the second (dh @
+    w_gu^T scattered) 4 m d f."""
     weights = e_routed * 3 * d * f * 2
     ids = 2 * m_pad * 4 + T * 4
     x_b, rows = n * d * 2, m * d * 2
@@ -1909,6 +1919,11 @@ def _moe_bound(name, n, m, m_pad, T, d, f, e, e_routed):
         "grouped_ffn_backward_dx": (
             x_b + rows + weights + ids + rows + m_pad * 3 * f * 2,
             10 * m * d * f),
+        "grouped_ffn_backward_dx_first": (
+            x_b + rows + weights + ids + m_pad * 3 * f * 2, 6 * m * d * f),
+        "grouped_ffn_backward_dx_second": (
+            m_pad * 2 * f * 2 + e_routed * 2 * d * f * 2 + m_pad * 4 + T * 4
+            + rows, 4 * m * d * f),
         "grouped_ffn_backward_dw_gu": (
             x_b + m_pad * 2 * f * 2 + m_pad * 4 + T * 4 + e * d * 2 * f * 4,
             4 * m * d * f),
@@ -1967,6 +1982,24 @@ def _moe_library_calls(x, w_gu, w_down, dy, dh, a, ids, tm):
         dx[dst] = torch.cat(outs)
         return dx
 
+    def backward_dx_first():
+        xs, dys = x[src], dy[dst]
+        dhs, outs = [], []
+        for s0, s1, g in ranges:
+            h = (xs[s0:s1] @ w_gu[g]).float()
+            da = (dys[s0:s1] @ w_down[g].t()).float()
+            dhg, dhu = md._silu_bwd(h[:, :f], h[:, f:], da)
+            dhs.append(torch.cat([dhg, dhu], dim=1).bfloat16())
+            outs.append((F.silu(h[:, :f]) * h[:, f:]).bfloat16())
+        return torch.cat(dhs), torch.cat(outs)
+
+    def backward_dx_second():
+        dhs = dh[slots]
+        outs = [dhs[s0:s1] @ w_gu[g].t() for s0, s1, g in ranges]
+        dx = torch.empty((m, d), dtype=x.dtype, device=x.device)
+        dx[dst] = torch.cat(outs)
+        return dx
+
     def backward_dw(lhs, rhs, out_shape):
         def call():
             dw = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
@@ -1979,6 +2012,8 @@ def _moe_library_calls(x, w_gu, w_down, dy, dh, a, ids, tm):
     return {
         "grouped_ffn_forward": forward,
         "grouped_ffn_backward_dx": backward_dx,
+        "grouped_ffn_backward_dx_first": backward_dx_first,
+        "grouped_ffn_backward_dx_second": backward_dx_second,
         "grouped_ffn_backward_dw_gu": backward_dw(
             lambda: x[src], lambda: dh[slots], (e, d, two_f)),
         "grouped_ffn_backward_dw_down": backward_dw(
@@ -1998,7 +2033,10 @@ def phase_moe_kernels():
     kernels get the plain dx kernel's dh and a, so each is held alone.
     One planted fault per kernel must fail the same bound: B7 and dx with
     the last routed tile run on the next expert's weights, dw_gu and
-    dw_down without that tile's rows. Times: CUDA events, cold L2."""
+    dw_down without that tile's rows. Times: CUDA events, cold L2; B8
+    dx also has its two launches timed apart (``launches_apart``: µs,
+    bound and library yardstick of each, launched through
+    ``backward_dx_launch``, which counts no launch)."""
     from dlrover_tpu_torch.ops import moe_dispatch as md
 
     gen = torch.Generator("cuda").manual_seed(SEED + 7)
@@ -2097,6 +2135,25 @@ def phase_moe_kernels():
 
         library = _moe_library_calls(x, w_gu, w_down, dy, ref_dh, ref_a, ids,
                                      tm)
+        # B8 dx's two launches apart: the first writes a and dh, the
+        # second reads dh.
+        apart = {}
+        for part, which in (("first", 1), ("second", 2)):
+            def one():
+                return md.backward_dx_launch(
+                    x, dy, w_gu, w_down, ri, di, te, tm, which,
+                    dh=ref_dh if which == 2 else None)
+            ms = _time_ms(one, iters=10)
+            name = f"grouped_ffn_backward_dx_{part}"
+            bound_ms, bound_by, moved, flops = _moe_bound(
+                name, n, m, T * tm, T, d, f, e, e_routed)
+            apart[part] = {
+                "ms": ms, "library_ms": _time_ms(library[name], iters=5),
+                "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved,
+                "flops": flops, "bound_share": bound_ms / ms}
+        apart["first"]["library"] = ("per-expert x @ w_gu and dy @ w_down^T "
+                                     "with the silu-gate backward")
+        apart["second"]["library"] = "per-expert dh @ w_gu^T with scatter"
         calls = {
             "grouped_ffn_forward": (
                 lambda: md.grouped_ffn_forward(x, w_gu, w_down, ri, di, te,
@@ -2136,6 +2193,8 @@ def phase_moe_kernels():
                 "flops": flops, "bound_share": bound_ms / ms,
                 "tflops": flops / ms / 1e9,
             }
+            if name == "grouped_ffn_backward_dx":
+                row["launches_apart"] = apart
             emit(row)
             rows[(name, label)] = row
         del library, calls, x, w_gu, w_down, dy, ref_dh, ref_a
@@ -2593,16 +2652,19 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     # The sources whose kernels were redesigned for Hopper (B1 and B2; B5
-    # and B6; B4 dx and dw; B7, B8 dx's second launch and B8 dw), and the
-    # launch shapes ptxas does not print.
+    # and B6; B3, B4 dx and dw; B7, B8 dx and B8 dw), and the launch
+    # shapes ptxas does not print.
     emit({"ptxas": {src: ptxas.get(src, []) for src in
                     ("flash_attention.cu", "decode_attention.cu",
                      "fused_ce.cu", "moe_dispatch.cu")},
           "flash_dynamic_smem_bytes": fa.dynamic_smem_bytes(),
+          "ce_fwd_launch": fc.fwd_kernel_config(),
           "ce_dx_launch": {d: fc.dx_kernel_config(d)
                            for d in (128, 384, 1024)},
           "ce_dw_launch": {d: fc.dw_kernel_config(d) for d in (128, 1024)},
           "moe_ffn_launch": {tm: md.ffn_kernel_config(tm) for tm in (16, 128)},
+          "moe_dx_gate_up_launch": {
+              tm: md.dx_gate_up_kernel_config(tm) for tm in (16, 128)},
           "moe_dw_launch": {
               "dw_gu": md.dw_kernel_config(1024, 2048, True),
               "dw_down": md.dw_kernel_config(1024, 1024, False)}})

@@ -16,33 +16,31 @@
 //
 // Bound on the H100: tensor-core operations. At the flagship shape
 // (n = 16384, d = 1024, V = 32000) B3 runs one logits-sized product
-// (2 n d V flops), dx and dw two each, against ~99 MB of inputs. B3
-// (the first design):
-//   - mma.sync.m16n8k16 bf16 -> f32 with ldmatrix (.trans for the
-//     operand that is contiguous along the product's output), 8 warps;
-//     tiles staged through shared memory with cp.async, rows padded by 16
-//     bytes so ldmatrix reads are free of bank conflicts;
-//   - a block owns 64 rows and keeps their x tile in shared memory; w
-//     streams through a 5-stage ring of [64 d x 128 V] slices (the
-//     contraction over d = 1024 is a K loop over them). Each warp owns 16
-//     rows x 64 columns of a vocab tile and keeps its own online
-//     (m, l, tl); the two column halves merge once at the end;
+// (2 n d V flops), dx and dw two each, against ~99 MB of inputs. All
+// three run on Hopper's own path: TMA loads into a ring of stages in
+// shared memory, wgmma products, a producer thread and consumer
+// warpgroups (see "B3", "B4: dw" and "B4: dx" below):
+//   - B3 computes the logits of a 128-row tile 256 vocab columns at a
+//     time and keeps an online (m, l, tl) per row in registers; the
+//     vocab tiles are split across blocks where the row tiles are too
+//     few to fill the card, and the last split of a row tile combines
+//     the splits' partials in split order;
 //   - the backward accumulators are larger than a block's registers
-//     ([128, 1024] f32 is 512 KB), so dx and dw run on Hopper's own path
-//     (TMA, wgmma, a thread-block cluster over d; see "B4: dw" and "B4:
-//     dx" below). Each logits tile is computed once per (row tile, vocab
-//     tile): recompute factor 1, so the backward pair runs four
+//     ([128, 1024] f32 is 512 KB), so dx and dw run over a thread-block
+//     cluster over d. Each logits tile is computed once per (row tile,
+//     vocab tile): recompute factor 1, so the backward pair runs four
 //     logits-sized products beyond B3's one (the TPU kernels run the
 //     same five);
 //   - one owner per output element and a fixed order of sums: no
-//     atomics, and reruns are bitwise identical;
+//     atomics on data, and reruns are bitwise identical;
 //   - the TPU ran its grid cell after cell and carried (m, l, tl) or the
 //     accumulator in scratch; here the sequential axis is a loop inside
 //     the block and the cells run as concurrent blocks;
-//   - ragged edges: rows >= n are zero-filled (cp.async or TMA), carry
-//     zero coefficients and are never stored; columns >= V are masked to
-//     NEG_INF (exp gives 0) and never stored; the wrapper pads w's row
-//     stride to a multiple of 8 elements so every row is 16-byte aligned.
+//   - ragged edges: rows >= n are zero-filled by TMA, carry zero
+//     coefficients and are never stored; columns >= V are zero-filled,
+//     masked to NEG_INF (exp gives 0) and never stored; the wrapper pads
+//     w's row stride to a multiple of 8 elements so every row is 16-byte
+//     aligned.
 //
 // Plain C interface, bound with ctypes (ops/_ext.py): no PyTorch
 // headers, so nvcc builds this file in seconds.
@@ -56,13 +54,9 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarpD = 128;    // d is a multiple of this ...
 constexpr int kMaxD = 8 * kWarpD;  // ... up to this
-constexpr int kBK = 64;        // d-slice of one staged load
 constexpr float kNegInf = -1e30f;  // ops/fused_ce.py NEG_INF
-
-constexpr int kFwdRows = 64, kFwdCols = 128, kFwdStages = 5;
 
 struct Params {
   const bf16* x;        // [n, d]
@@ -75,7 +69,10 @@ struct Params {
   float* logz;          // [n]
   bf16* dx;             // [n, d]
   float* dw;            // [d, v]
+  float* part;          // B3 with splits: [splits, n, 3] (m, l, tl)
+  int* tickets;         // B3 with splits: [row tiles], zero between launches
   int n, d, v, ldw;
+  int splits;           // B3: vocab splits a row tile
   float z_weight;
 };
 
@@ -83,49 +80,6 @@ struct Params {
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with valid == false the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -149,173 +103,6 @@ __device__ __forceinline__ void zero(float (&a)[NT][4]) {
   for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
-}
-
-// ---- staging and warp-level products -------------------------------------
-//
-// Fragment layout of an m16n8 f32 accumulator c[4] (lane = 4 g + t):
-// c[0], c[1] at row g, columns 2t, 2t + 1; c[2], c[3] at row g + 8.
-
-// dst[r][c] = src[row0 + r][col0 + c] for r < kRows, c < cols (a multiple
-// of 8); rows >= n_rows and columns >= n_cols are zero-filled.
-template <int kRows>
-__device__ __forceinline__ void load_rows(bf16* dst, int lds, const bf16* src,
-                                          long long ld, int row0, int n_rows,
-                                          int col0, int cols, int n_cols) {
-  const int chunks = cols / 8;
-  for (int i = threadIdx.x; i < kRows * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    const bool valid = row0 + r < n_rows && col0 + c < n_cols;
-    const bf16* p =
-        valid ? src + static_cast<long long>(row0 + r) * ld + col0 + c : src;
-    cp_async16(dst + r * lds + c, p, valid);
-  }
-}
-
-// Addresses of 8-element chunks of a bf16 tile in shared memory.
-// Padded: row-major with row stride ld (ld = width + 8 keeps ldmatrix
-// free of bank conflicts).
-struct Padded {
-  const bf16* base;
-  int ld;
-  __device__ __forceinline__ const bf16* operator()(int row, int col) const {
-    return base + row * ld + col;
-  }
-};
-
-// acc[16 x 8 NT] += A[16 x 16 KC] . B[k0 .., n0 ..]; A row-major (lda) in
-// shared memory, B a row-major [K x N] tile addressed by `b`.
-template <int KC, int NT, typename BTile>
-__device__ __forceinline__ void mma_rr(float (&acc)[NT][4], const bf16* a,
-                                       int lda, const BTile& b, int k0,
-                                       int n0, int lane) {
-  const int i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    uint32_t af[4];
-    ldmatrix_x4(af, a + (lane % 16) * lda + kc * 16 + (lane / 16) * 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4_trans(bf, b(k0 + kc * 16 + r + (i % 2) * 8,
-                              n0 + nt * 8 + (i / 2) * 8));
-      mma_bf16(acc[nt], af, bf[0], bf[1]);
-      mma_bf16(acc[nt + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// ---- B3: forward --------------------------------------------------------
-//
-// Grid: 64-row tiles. Shared: the x tile [64][d + 8], a 5-stage ring of w
-// slices [64][128 + 8], and [64][3] floats to merge the column halves.
-
-__global__ void __launch_bounds__(kThreads, 1) ce_fwd_kernel(Params p) {
-  constexpr int ldw = kFwdCols + 8;
-  constexpr int kStage = kBK * ldw;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldx = p.d + 8;
-  bf16* x_s = reinterpret_cast<bf16*>(smem);
-  bf16* w_s = x_s + kFwdRows * ldx;
-  float* merge = reinterpret_cast<float*>(w_s + kFwdStages * kStage);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp % 4, wc = warp / 4;  // 16-row group, 64-column half
-  const int row0 = blockIdx.x * kFwdRows;
-  const int n_ks = p.d / kBK;
-  const int n_vt = (p.v + kFwdCols - 1) / kFwdCols;
-  const int total = n_vt * n_ks;
-
-  // Iteration `it` is d-slice it % n_ks of vocab tile it / n_ks; one
-  // commit group per iteration (empty past the end).
-  auto load_w = [&](int it) {
-    if (it < total) {
-      const int vt = it / n_ks, ks = it % n_ks;
-      load_rows<kBK>(w_s + (it % kFwdStages) * kStage, ldw, p.w, p.ldw,
-                     ks * kBK, p.d, vt * kFwdCols, kFwdCols, p.ldw);
-    }
-    cp_async_commit();
-  };
-  load_rows<kFwdRows>(x_s, ldx, p.x, p.d, row0, p.n, 0, p.d, p.d);
-  for (int it = 0; it < kFwdStages - 1; ++it) load_w(it);  // group 0: x too
-
-  const int row = row0 + wr * 16 + g;  // rows row, row + 8
-  int tg[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    tg[h] = row + 8 * h < p.n ? p.tgt[row + 8 * h] : -1;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, tl[2] = {0.f, 0.f};
-  float acc[8][4];
-  zero(acc);
-
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<kFwdStages - 2>();  // iteration it's group has landed
-    __syncthreads();  // and every warp is done with the stage refilled next
-    load_w(it + kFwdStages - 1);
-    const int ks = it % n_ks;
-    mma_rr<kBK / 16, 8>(acc, x_s + wr * 16 * ldx + ks * kBK, ldx,
-                        Padded{w_s + (it % kFwdStages) * kStage, ldw}, 0,
-                        wc * 64, lane);
-    if (ks != n_ks - 1) continue;
-
-    // The vocab tile is complete: online logsumexp over its 64 columns.
-    const int col0 = (it / n_ks) * kFwdCols + wc * 64;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + nt * 8 + 2 * t + (e & 1);
-        const float x = col < p.v ? acc[nt][e] : kNegInf;
-        acc[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        if (col == tg[e >> 1]) tl[e >> 1] += x;
-      }
-    }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = quad_max(mx[h]);
-      corr[h] = expf(m[h] - mx[h]);
-      m[h] = mx[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) rs[e >> 1] += expf(acc[nt][e] - m[e >> 1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + quad_sum(rs[h]);
-    zero(acc);
-  }
-  cp_async_wait<0>();
-
-  // Merge the two column halves of each row (m, l, tl), then write.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) tl[h] = quad_sum(tl[h]);
-  if (wc == 1 && t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* slot = merge + (wr * 16 + g + 8 * h) * 3;
-      slot[0] = m[h];
-      slot[1] = l[h];
-      slot[2] = tl[h];
-    }
-  }
-  __syncthreads();
-  if (wc == 0 && t == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row + 8 * h;
-      if (r >= p.n) continue;
-      const float* slot = merge + (wr * 16 + g + 8 * h) * 3;
-      const float mm = fmaxf(m[h], slot[0]);
-      const float ll = l[h] * expf(m[h] - mm) + slot[1] * expf(slot[0] - mm);
-      const float lz = mm + logf(fmaxf(ll, 1e-30f));
-      p.logz[r] = lz;
-      p.per_tok[r] = lz - (tl[h] + slot[2]) + p.z_weight * (lz * lz);
-    }
-  }
 }
 
 // ---- B4: dw, a cluster over d, TMA + wgmma ----------------------------------
@@ -1366,18 +1153,325 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   if constexpr (kC > 1) cluster_sync();
 }
 
-// ---- launch ---------------------------------------------------------------
+// ---- B3: forward, TMA + wgmma, warp-specialised ---------------------------
+//
+// per_tok and logz of a 128-row tile over a range of vocab tiles (its
+// split): the logits tile S = x w_vt [128 x 256] by wgmma, then an
+// online logsumexp (m, l) and the target logit tl per row in registers.
+//   - 384 threads: two consumer warpgroups (setmaxnreg.inc) of 64 rows
+//     each hold S [64 x 256] f32 as two m64n128 accumulators; a producer
+//     thread (warpgroup 2, setmaxnreg.dec) streams, per 64-deep slice of
+//     d, x's [128 rows x 64] box (K-major) and w's [64 x 256] as four
+//     [64 x 64] boxes (MN-major), 48 KB a stage, through a ring of 4:
+//     B7's gate|up operand layout (moe_dispatch.cu).
+//   - a tile's epilogue runs once its products are done, branch-free
+//     (a branch around accumulator reads makes ptxas serialise the
+//     products): columns >= V at NEG_INF, the row max over the quad, l =
+//     l exp(m - m_new) + sum exp(S - m_new) with expf (B4 recomputes g
+//     from this logz with expf), l and tl kept per thread and summed over
+//     the quad once at the end.
+//   - L2: a block reads x's rows (256 KB) and w's [1024 x 256] (512 KB)
+//     per tile, so w is most of the traffic. In clusters of two blocks on
+//     neighbouring row tiles (kC = 2) each block loads two of the four
+//     w boxes and multicasts them to both, which halves w's share. A
+//     stage is refilled once the consumers of both blocks have released
+//     it: its `empty` counts the cluster's consumer warps.
+//   - the grid is (row tiles, rounded up to the cluster) x splits of the
+//     vocab tiles, the splits and the cluster chosen by the wrapper
+//     (ops/fused_ce.py forward_plan) to fill the card in as few waves as
+//     the tiles allow. With one split a block writes its rows' logz and
+//     per_tok; with more, each writes its (m, l, tl) partials and takes a
+//     ticket, and the last split of a row tile to arrive combines the
+//     partials in split order (B5's scheme, decode_attention.cu) and
+//     resets the ticket to 0.
+// One owner per output element and a fixed order of sums: the only
+// atomic elects the combining block, and reruns are bitwise equal. The
+// consumers' waits carry no trap (see B2 in flash_attention.cu); the
+// producer's trap. Ragged edges: rows >= n are zero-filled by TMA and
+// never stored; columns >= V are zero-filled and masked.
 
-template <typename Kernel>
-int launch(Kernel kernel, int blocks, size_t smem, const Params& p,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+constexpr int kFwdRows = 128;  // rows of a block's tile
+constexpr int kFwdVt = 256;    // vocab columns of a tile
+constexpr int kFwdStages = 4;
+constexpr int kFwdX = kFwdRows * 128;         // x [128 rows x 64 d]
+constexpr int kFwdStage = kFwdX + 4 * kWBox;  // and w [64 d x 256 v]
+// full and empty per stage, then the combining flag.
+constexpr int kFwdSmem = 1024 + kFwdStages * kFwdStage + 16 * kFwdStages + 16;
+
+// One box at (col, row), multicast to the cluster's blocks in `mask`:
+// the same shared-memory offset in each, completing its bytes on each
+// one's barrier at offset bar.
+__device__ __forceinline__ void tma_load_2d_mc(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int col, int row,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "h"(mask)
+      : "memory");
 }
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A K-major and B MN-major in
+// shared memory (descriptors da, db); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_kn_n128(float (&d)[16][4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The two consumer warpgroups' barrier (id 1, 256 threads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// logz = m + log(max(l, 1e-30)) and per_tok = logz - tl + z logz^2 of one
+// row.
+__device__ __forceinline__ void store_row(const Params& p, int row, float m,
+                                          float l, float tl) {
+  const float lz = m + logf(fmaxf(l, 1e-30f));
+  p.logz[row] = lz;
+  p.per_tok[row] = lz - tl + p.z_weight * (lz * lz);
+}
+
+template <int kC>
+__global__ void __launch_bounds__(kDwThreads, 1)
+    ce_fwd_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  auto x_s = [&](int st) { return base + st * kFwdStage; };
+  auto w_s = [&](int st) { return x_s(st) + kFwdX; };
+  const uint32_t bars = base + kFwdStages * kFwdStage;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kFwdStages + st); };
+  volatile int* combine =
+      reinterpret_cast<int*>(gbase + kFwdStages * kFwdStage + 16 * kFwdStages);
+
+  // Block (split, row tile); a cluster's blocks share the split.
+  const int n_rt = (p.n + kFwdRows - 1) / kFwdRows;
+  const int n_rt_pad = (n_rt + kC - 1) / kC * kC;
+  const int split = blockIdx.x / n_rt_pad, rt = blockIdx.x % n_rt_pad;
+  const int row0 = rt * kFwdRows;
+  const int n_vt = (p.v + kFwdVt - 1) / kFwdVt;
+  const int vt0 = static_cast<int>(1LL * split * n_vt / p.splits);
+  const int vt1 = static_cast<int>(1LL * (split + 1) * n_vt / p.splits);
+  const int n_ks = p.d / 64;
+  const int steps = (vt1 - vt0) * n_ks;
+  const int rank = kC > 1 ? cluster_rank() : 0;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(full(st), 1);        // the producer's expect_tx; then bytes
+      mbar_init(empty(st), 8 * kC);  // every consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Every block's barriers exist before any block arrives on them.
+  if constexpr (kC > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      for (int g = 0; g < steps; ++g) {
+        const int st = g % kFwdStages;
+        if (g >= kFwdStages) mbar_wait(empty(st), (g / kFwdStages - 1) & 1);
+        const int col = (vt0 + g / n_ks) * kFwdVt, k0 = (g % n_ks) * 64;
+        // The whole stage: this block's x and all four w boxes (the
+        // peer's two arrive by its multicast).
+        mbar_expect_tx(full(st), kFwdStage);
+        tma_load_2d(x_s(st), &map_x, full(st), k0, row0);
+        for (int bx = rank * (4 / kC); bx < (rank + 1) * (4 / kC); ++bx) {
+          if constexpr (kC > 1)
+            tma_load_2d_mc(w_s(st) + bx * kWBox, &map_w, full(st),
+                           col + 64 * bx, k0, (1 << kC) - 1);
+          else
+            tma_load_2d(w_s(st) + bx * kWBox, &map_w, full(st),
+                        col + 64 * bx, k0);
+        }
+      }
+      // The watch: every stage released before the block leaves.
+      for (int g = max(0, steps - kFwdStages); g < steps; ++g)
+        mbar_wait(empty(g % kFwdStages), (g / kFwdStages) & 1);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g8 = lane / 4, t = lane % 4;
+    // This thread's rows (+ 0, + 8) and their targets.
+    const int r_base = row0 + 64 * c + 16 * warp + g8;
+    int tg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      tg[r] = r_base + 8 * r < p.n ? p.tgt[r_base + 8 * r] : -1;
+    // Online (m, l, tl); l and tl per thread, summed over the quad at
+    // the end (m is the quad's).
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, tl[2] = {0.f, 0.f};
+    float acc[2][16][4];
+    bool live = true;
+    auto release = [&](int st) {
+      if (lane == 0) {
+        mbar_arrive(empty(st));
+        if constexpr (kC > 1)
+          for (int r = 0; r < kC; ++r)
+            if (r != rank) mbar_arrive_cluster_relaxed(empty(st), r);
+      }
+    };
+    int g = 0;
+    for (int vt = vt0; vt < vt1; ++vt) {
+      for (int k = 0; k < n_ks; ++k, ++g) {
+        const int st = g % kFwdStages;
+        mbar_spin<false>(full(st), (g / kFwdStages) & 1, live);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da =
+              smem_desc(x_s(st) + c * 64 * 128 + kk * 32, 16, 1024);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            wgmma_kn_n128(acc[h], da,
+                          smem_desc(w_s(st) + 2 * h * kWBox + kk * 2048,
+                                    kWBox, 1024),
+                          k > 0 || kk > 0);
+        }
+        wgmma_commit();
+        // The previous slice's products are done: release its stage.
+        wgmma_wait<1>();
+        if (k > 0) release((g - 1) % kFwdStages);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) fence_operands(acc[h]);
+      release((g - 1) % kFwdStages);
+
+      // The tile's epilogue. Column 128 h + 8 nt + (e & 1) of the thread
+      // is vocab column col0 + that; it is real below lim.
+      const int col0 = vt * kFwdVt + 2 * t;
+      const int lim = p.v - col0;
+      const int rel[2] = {tg[0] - col0, tg[1] - col0};
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int o = 128 * h + 8 * nt + (e & 1);
+            const float s = o < lim ? acc[h][nt][e] : kNegInf;
+            acc[h][nt][e] = s;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s);
+            if (o == rel[e >> 1]) tl[e >> 1] += s;
+          }
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        corr[r] = expf(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            rs[e >> 1] += expf(acc[h][nt][e] - m[e >> 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = quad_sum(l[r]);
+      tl[r] = quad_sum(tl[r]);
+    }
+    if (p.splits == 1) {
+      if (t == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (r_base + 8 * r < p.n) store_row(p, r_base + 8 * r, m[r], l[r], tl[r]);
+    } else {
+      // This split's partials, then a ticket: the last split of the row
+      // tile to arrive combines them in split order.
+      if (t == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r_base + 8 * r;
+          if (row >= p.n) continue;
+          float* part = p.part + (1LL * split * p.n + row) * 3;
+          part[0] = m[r];
+          part[1] = l[r];
+          part[2] = tl[r];
+        }
+      __threadfence();
+      consumers_sync();
+      if (threadIdx.x == 0)
+        *combine = rt < n_rt && atomicAdd(p.tickets + rt, 1) == p.splits - 1;
+      consumers_sync();
+      if (*combine) {
+        if (threadIdx.x == 0) p.tickets[rt] = 0;
+        __threadfence();
+        if (t == 0)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r_base + 8 * r;
+            if (row >= p.n) continue;
+            const float* part = p.part + 3LL * row;
+            const long long step = 3LL * p.n;
+            float mm = kNegInf;
+            for (int s = 0; s < p.splits; ++s)
+              mm = fmaxf(mm, __ldcg(part + s * step));
+            float ll = 0.f, tt = 0.f;
+            for (int s = 0; s < p.splits; ++s) {
+              ll += __ldcg(part + s * step + 1) *
+                    expf(__ldcg(part + s * step) - mm);
+              tt += __ldcg(part + s * step + 2);
+            }
+            store_row(p, row, mm, ll, tt);
+          }
+      }
+    }
+  }
+  // No block leaves while its peer may still multicast into it or arrive
+  // on its barriers.
+  if constexpr (kC > 1) cluster_sync();
+}
+
+// ---- launch ---------------------------------------------------------------
 
 // dims: n, d, v, ldw.
 int fill(Params* p, const long long* dims) {
@@ -1390,10 +1484,6 @@ int fill(Params* p, const long long* dims) {
       dims[0] > (1LL << 30) || dims[3] > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
-}
-
-size_t bf16_bytes(long long elems) {
-  return static_cast<size_t>(elems) * sizeof(bf16);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1577,12 +1667,48 @@ struct DxClusterSize {
   }
 };
 
+// B3: x's map in [128 rows x 64] boxes, w's in [64 x 64]; clusters of
+// kC blocks on neighbouring row tiles, (row tiles rounded up to kC) x
+// splits blocks.
+template <int kC>
+int launch_fwd(const Params& p, cudaStream_t stream) {
+  CUtensorMap maps[2];
+  int rc = tensor_map_2d(&maps[0], p.x, p.d, p.n, p.d, kFwdRows);
+  if (!rc) rc = tensor_map_2d(&maps[1], p.w, p.v, p.d, p.ldw, 64);
+  if (rc) return rc;
+  auto kernel = ce_fwd_kernel<kC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_rt = (p.n + kFwdRows - 1) / kFwdRows;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_rt + kC - 1) / kC * kC * p.splits);
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = kFwdSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Each entry point returns a cudaError_t code; 0 on a clean launch.
 
+// dims: n, d, v, ldw, then B3's launch plan (ops/fused_ce.py
+// forward_plan): splits, cluster (1 or 2), and the device addresses of
+// the split partials (f32 [splits, n, 3]) and of the tickets (int32,
+// one a row tile, zero, and left zero by the launch); both 0 with one
+// split.
 int dlr_ce_forward(const void* x, const void* w, const void* tgt,
                    void* per_tok, void* logz, const long long* dims,
                    float z_weight, void* stream) {
@@ -1595,11 +1721,18 @@ int dlr_ce_forward(const void* x, const void* w, const void* tgt,
   p.per_tok = static_cast<float*>(per_tok);
   p.logz = static_cast<float*>(logz);
   p.z_weight = z_weight;
-  const size_t smem = bf16_bytes(kFwdRows * (p.d + 8)) +
-                      bf16_bytes(kFwdStages * kBK * (kFwdCols + 8)) +
-                      kFwdRows * 3 * sizeof(float);
-  return launch(ce_fwd_kernel, (p.n + kFwdRows - 1) / kFwdRows, smem, p,
-                static_cast<cudaStream_t>(stream));
+  p.splits = static_cast<int>(dims[4]);
+  const long long cluster = dims[5];
+  p.part = reinterpret_cast<float*>(static_cast<uintptr_t>(dims[6]));
+  p.tickets = reinterpret_cast<int*>(static_cast<uintptr_t>(dims[7]));
+  const int n_vt = (p.v + kFwdVt - 1) / kFwdVt;
+  // TMA reads x and w: 16-byte aligned rows.
+  if (p.splits < 1 || p.splits > n_vt || (cluster != 1 && cluster != 2) ||
+      (p.splits > 1 && (p.part == nullptr || p.tickets == nullptr)) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return cluster == 2 ? launch_fwd<2>(p, s) : launch_fwd<1>(p, s);
 }
 
 int dlr_ce_backward_dx(const void* x, const void* w, const void* tgt,
@@ -1659,6 +1792,14 @@ int dlr_ce_dw_config(int d, int* smem, int* cluster) {
     return static_cast<int>(cudaErrorInvalidValue);
   *smem = with_dw_config(d, SmemBytes{});
   *cluster = with_dw_config(d, ClusterSize{});
+  return 0;
+}
+
+// B3's dynamic shared memory, and its row and vocab tiles.
+int dlr_ce_fwd_config(int* smem, int* rows, int* cols) {
+  *smem = kFwdSmem;
+  *rows = kFwdRows;
+  *cols = kFwdVt;
   return 0;
 }
 

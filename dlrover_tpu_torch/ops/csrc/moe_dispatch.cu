@@ -5,7 +5,7 @@
 // Replaces the TPU kernels of dlrover_tpu/ops/moe_dispatch.py:
 //   - B7 <- _grouped_ffn_fwd / _fwd_kernel: moe_ffn_kernel<.., kFfnGateUp>
 //     then moe_ffn_kernel<.., kFfnDown>;
-//   - B8 dx <- _grouped_ffn_bwd / _dx_kernel: moe_dx_gate_up_kernel then
+//   - B8 dx <- _grouped_ffn_bwd / _dx_kernel: moe_dx_gu_kernel then
 //     moe_ffn_kernel<.., kFfnDownNK>;
 //   - B8 dw_gu <- _dw_accum_kernel and dw_down <- _dw_sorted_lhs_kernel:
 //     moe_dw_kernel.
@@ -34,12 +34,11 @@
 //     sorted a in x's dtype, then a @ w_down scattered to dest_ids. The
 //     sorted a makes one extra round trip through memory (2 x 69 MB at
 //     the training shape), which the backward needs anyway;
-//   - dx: the first launch (the first design: cp.async K-slices of 32
-//     through a 3-stage ring, mma.sync m16n8k16 with ldmatrix, 8 warps)
-//     computes the gathered x @ w_gu and dy @ w_down^T for the same 64
-//     columns of f and applies the silu-gate backward in registers; the
-//     second is the forward's second launch on the same body with w_gu
-//     read transposed;
+//   - dx: the first launch (see "B8 dx, launch 1" below; the same
+//     warp-specialised TMA + wgmma pieces) computes the gathered x @ w_gu
+//     and dy @ w_down^T for the same 64 columns of f in one K loop and
+//     applies the silu-gate backward in registers; the second is the
+//     forward's second launch on B7's body with w_gu read transposed;
 //   - the weight gradients run on Hopper's own path (TMA, wgmma,
 //     warp specialisation; see "B8 dw" below): persistent blocks take
 //     (expert, output tile) units, experts with the most rows first
@@ -64,14 +63,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kBK = 32;         // contraction slice of one stage
-constexpr int kStages = 3;
-constexpr int kBN = 128;        // output columns of a block
-constexpr int kBF = 64;         // f columns of a gate|up block (x2: gate, up)
-constexpr int kLd = kBK + 8;    // row stride of a [rows][kBK] smem tile
-constexpr int kLdN = kBN + 8;   // row stride of a [kBK][kBN] smem tile
-constexpr int kMaxTile = 128;
+constexpr int kAlign = 128;  // d and f are multiples of this
 
 // ---- PTX helpers ----------------------------------------------------------
 
@@ -79,194 +71,14 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; with valid == false the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&a)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[i][j][e] = 0.f;
-}
-
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
-
-// Warps of a block over a [BM x kBN] output tile: 4 x 2 for 128-row
-// tiles, 1 x 8 for 16-row ones; each warp holds MT 16-row mma tiles.
-template <int BM>
-struct Warps {
-  static constexpr int M = BM == 128 ? 4 : 1;
-  static constexpr int N = 8 / M;
-  static constexpr int MT = BM / M / 16;
-  static constexpr int NT = kBN / N / 8;  // 8-column mma tiles of kBN
-};
-
-// ---- staging --------------------------------------------------------------
-//
-// Fragment layout of an m16n8 f32 accumulator c[4] (lane = 4 g + t):
-// c[0], c[1] at row g, columns 2t, 2t + 1; c[2], c[3] at row g + 8.
-
-// dst[r][c] = src[ids[r]][k0 + c] for r < BM, c < kBK (ids in shared
-// memory; -1 zero-fills).
-template <int BM>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long ld, const int* ids,
-                                          int k0) {
-  constexpr int chunks = kBK / 8;
-  for (int i = threadIdx.x; i < BM * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    const long long row = ids[r];
-    const bool valid = row >= 0;
-    const bf16* p = valid ? src + row * ld + k0 + c : src;
-    cp_async16(dst + r * kLd + c, p, valid);
-  }
-}
-
-// A [kBK][kBN] tile of w's rows k0 .. (row stride ldw): chunk j (8
-// columns) holds w's columns (j odd ? f : 0) + c0 + 8 (j / 2), so gate
-// and up columns alternate 8 by 8.
-__device__ __forceinline__ void load_kn(bf16* dst, const bf16* w,
-                                        long long ldw, int k0, int c0,
-                                        int f) {
-  constexpr int chunks = kBN / 8;
-  for (int i = threadIdx.x; i < kBK * chunks; i += kThreads) {
-    const int r = i / chunks, j = i % chunks;
-    const int col = ((j & 1) ? f : 0) + c0 + (j >> 1) * 8;
-    cp_async16(dst + r * kLdN + j * 8, w + (k0 + r) * ldw + col, true);
-  }
-}
-
-// A [ROWS][kBK] tile: w's rows n0 .. n0 + ROWS, columns k0 .. k0 + kBK.
-template <int ROWS>
-__device__ __forceinline__ void load_nk(bf16* dst, const bf16* w,
-                                        long long ldw, int n0, int k0) {
-  constexpr int chunks = kBK / 8;
-  for (int i = threadIdx.x; i < ROWS * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    cp_async16(dst + r * kLd + c, w + (n0 + r) * ldw + k0 + c, true);
-  }
-}
-
-// ---- warp-level products over one kBK slice -------------------------------
-
-// acc[16 MT x 8 NT] += A . B; A row-major [rows][kLd] from the warp's
-// first row, B a [kBK][kLdN] tile from the warp's first column.
-template <int MT, int NT>
-__device__ __forceinline__ void mma_kn(float (&acc)[MT][NT][4], const bf16* a,
-                                       const bf16* b, int lane) {
-  const int i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < kBK / 16; ++kc) {
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      ldmatrix_x4(af[mt], a + (mt * 16 + lane % 16) * kLd + kc * 16 +
-                              (lane / 16) * 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      uint32_t bfr[4];
-      ldmatrix_x4_trans(bfr, b + (kc * 16 + r + (i % 2) * 8) * kLdN +
-                                 nt * 8 + (i / 2) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(acc[mt][nt], af[mt], bfr[0], bfr[1]);
-        mma_bf16(acc[mt][nt + 1], af[mt], bfr[2], bfr[3]);
-      }
-    }
-  }
-}
-
-// acc[16 MT x 8 NT] += A . B^T; A as in mma_kn, B^T a [n rows][kLd] tile
-// from the warp's first output column (row).
-template <int MT, int NT>
-__device__ __forceinline__ void mma_nk(float (&acc)[MT][NT][4], const bf16* a,
-                                       const bf16* b, int lane) {
-  const int i = lane / 8, r = lane % 8;
-#pragma unroll
-  for (int kc = 0; kc < kBK / 16; ++kc) {
-    uint32_t af[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      ldmatrix_x4(af[mt], a + (mt * 16 + lane % 16) * kLd + kc * 16 +
-                              (lane / 16) * 8);
-#pragma unroll
-    for (int nt = 0; nt + 1 < NT; nt += 2) {
-      uint32_t bfr[4];
-      ldmatrix_x4(bfr, b + (nt * 8 + r + (i / 2) * 8) * kLd + kc * 16 +
-                           (i % 2) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(acc[mt][nt], af[mt], bfr[0], bfr[1]);
-        mma_bf16(acc[mt][nt + 1], af[mt], bfr[2], bfr[3]);
-      }
-    }
-    if (NT % 2) {
-      uint32_t bfr[2];
-      ldmatrix_x2(bfr, b + ((NT - 1) * 8 + r) * kLd + kc * 16 + (i % 2) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        mma_bf16(acc[mt][NT - 1], af[mt], bfr[0], bfr[1]);
-    }
-  }
-}
-
-// ---- kernels --------------------------------------------------------------
 
 struct Params {
   const bf16* x;          // [n_src, d]
@@ -281,125 +93,6 @@ struct Params {
   bf16* out;              // [n_out, d]: y or dx_c
   int n_src, n_out, d, f, T, tile_m, e;
 };
-
-// Loads the tile's ids (and, with dy_ids, the dest ids of its valid rows)
-// into shared memory; true if any row of the tile is valid.
-template <int BM>
-__device__ __forceinline__ bool tile_ids(const Params& p, int tile, int* ids,
-                                         int* dy_ids) {
-  const int tid = threadIdx.x;
-  int id = -1;
-  if (tid < BM) {
-    id = p.row_ids[tile * BM + tid];
-    ids[tid] = id;
-    if (dy_ids) dy_ids[tid] = id >= 0 ? p.dest_ids[tile * BM + tid] : -1;
-  }
-  return __syncthreads_or(id >= 0) != 0;
-}
-
-// Zeros in rows of a [m_pad, ld] bf16 matrix: the tile's BM rows,
-// columns c0 .. c0 + kBF.
-template <int BM>
-__device__ __forceinline__ void zero_rows(bf16* dst, long long ld, int tile,
-                                          int c0) {
-  constexpr int chunks = kBF / 8;
-  for (int i = threadIdx.x; i < BM * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    *reinterpret_cast<uint4*>(dst + (static_cast<long long>(tile) * BM + r) *
-                                        ld + c0 + c) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// B8 dx, launch 1. Grid (f / kBF, T). Over the same 64 columns of f:
-// h = x[row_ids] @ w_gu[e] (gate and up), da = dy[dest_ids] @
-// w_down[e]^T; writes a = bf16(silu(h_g) h_u) and dh = bf16 of the
-// silu-gate backward (gate half at c, up half at f + c).
-template <int BM>
-__global__ void __launch_bounds__(kThreads, 1)
-    moe_dx_gate_up_kernel(Params p) {
-  using W = Warps<BM>;
-  constexpr int MT = W::MT, NT = W::NT, ND = NT / 2;
-  constexpr int kA = BM * kLd, kB = kBK * kLdN, kD = kBF * kLd;
-  constexpr int kStage = 2 * kA + kB + kD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int ids[kMaxTile], dy_ids[kMaxTile];
-  bf16* base = reinterpret_cast<bf16*>(smem);
-
-  const int tile = blockIdx.y, c0 = blockIdx.x * kBF;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % W::M, wn = warp / W::M;
-  if (!tile_ids<BM>(p, tile, ids, dy_ids)) {
-    zero_rows<BM>(p.a, p.f, tile, c0);
-    zero_rows<BM>(p.dh, 2LL * p.f, tile, c0);
-    zero_rows<BM>(p.dh, 2LL * p.f, tile, p.f + c0);
-    return;
-  }
-  const int e = p.tile_expert[tile];
-  const long long ldw = 2LL * p.f;
-  const bf16* wgu = p.w_gu + static_cast<long long>(e) * p.d * ldw;
-  const bf16* wdn = p.w_down + static_cast<long long>(e) * p.f * p.d;
-  const int n_k = p.d / kBK;
-  auto load = [&](int it) {
-    if (it < n_k) {
-      bf16* st = base + (it % kStages) * kStage;
-      load_rows<BM>(st, p.x, p.d, ids, it * kBK);
-      load_rows<BM>(st + kA, p.dy, p.d, dy_ids, it * kBK);
-      load_kn(st + 2 * kA, wgu, ldw, it * kBK, c0, p.f);
-      load_nk<kBF>(st + 2 * kA + kB, wdn, p.d, c0, it * kBK);
-    }
-    cp_async_commit();
-  };
-  for (int s = 0; s < kStages - 1; ++s) load(s);
-
-  float acc[MT][NT][4], dacc[MT][ND][4];
-  zero(acc);
-  zero(dacc);
-  for (int it = 0; it < n_k; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    load(it + kStages - 1);
-    const bf16* st = base + (it % kStages) * kStage;
-    mma_kn<MT, NT>(acc, st + wm * MT * 16 * kLd, st + 2 * kA + wn * NT * 8,
-                   lane);
-    mma_nk<MT, ND>(dacc, st + kA + wm * MT * 16 * kLd,
-                   st + 2 * kA + kB + wn * ND * 8 * kLd, lane);
-  }
-  cp_async_wait<0>();
-
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long slot =
-          static_cast<long long>(tile) * BM + wm * MT * 16 + mt * 16 + g +
-          8 * h;
-      const int col = c0 + wn * ND * 8 + 2 * t;
-      bf16* a_out = p.a + slot * p.f + col;
-      bf16* dh_out = p.dh + slot * 2LL * p.f + col;
-#pragma unroll
-      for (int i = 0; i < ND; ++i) {
-        float av[2], dg[2], du[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float hg = acc[mt][2 * i][2 * h + j];
-          const float hu = acc[mt][2 * i + 1][2 * h + j];
-          const float da = dacc[mt][i][2 * h + j];
-          const float sg = sigmoid(hg);
-          const float silu = hg * sg;
-          av[j] = silu * hu;
-          du[j] = da * silu;
-          dg[j] = da * hu * (sg * (1.f + hg * (1.f - sg)));
-        }
-        *reinterpret_cast<uint32_t*>(a_out + i * 8) = pack_bf16(av[0], av[1]);
-        *reinterpret_cast<uint32_t*>(dh_out + i * 8) =
-            pack_bf16(dg[0], dg[1]);
-        *reinterpret_cast<uint32_t*>(dh_out + p.f + i * 8) =
-            pack_bf16(du[0], du[1]);
-      }
-    }
-  }
-}
 
 // ---- B8 dw: TMA + wgmma, warp-specialised, persistent ----------------------
 //
@@ -1208,22 +901,423 @@ __global__ void __launch_bounds__(FfnCfg<BM>::kThreads,
   }
 }
 
+// ---- B8 dx, launch 1: TMA + wgmma grouped GEMM ------------------------------
+//
+// Each unit is [BM slots x 64 columns c0 .. of f] of one row tile (expert
+// e) and runs three products that all contract d, so they share one K
+// loop:
+//   h_g = x[row_ids] @ w_gu[e][:, c0 ..], h_u = x[row_ids] @
+//   w_gu[e][:, f + c0 ..], da = dy[dest_ids] @ w_down[e][c0 .., :]^T;
+// then in registers a = bf16(silu(h_g) h_u) and dh = bf16 of the
+// silu-gate backward (gate half at c0, up half at f + c0), written to the
+// sorted a and dh. A stage (64 of d) holds x's and dy's rows, gathered by
+// coalesced 16-byte cp.async (GatherRows; an id of -1 zero-fills) and
+// read K-major; w_gu[e]'s gate and up boxes [64 x 64] by TMA, read
+// MN-major as B7's gate|up reads them; w_down[e]'s rows c0 .. as one
+// [64 x 64] box, read K-major as B8 dx's second launch reads w_gu.
+//
+// Why 64 columns: a consumer thread holds h_g | h_u (one m64n128 product
+// over the adjacent gate and up boxes) and da (m64n64) for its rows, 96
+// registers; 128 columns would take 192, with four operands a stage only
+// two stages of 80 KB would fit, and the epilogue needs all three at
+// once. So each gathered row is needed f / 64 times (16 at f = 1024): a
+// unit reads 512 KB of gathered rows and 384 KB of weights, and the
+// loads, not the products, set its pace (PERF.md). What the design does
+// about that:
+//   - BM 128 runs in clusters of 2 blocks on neighbouring column blocks
+//     of the same row tile. Each gathers half of a stage's x and dy rows
+//     and the copy engine pushes that half into its peer (cp.async.bulk
+//     between shared memories, completing on the peer's `full`) once it
+//     has landed, one stage later, so each gathered row crosses L2 once
+//     a pair. A stage is refilled once the consumers of both blocks have
+//     released it: `empty` counts the cluster's consumer warps.
+//   - the gathers are coalesced (GatherRows: a warp instruction reads
+//     four whole 128-byte rows) and each producer thread reads its rows'
+//     ids once a unit, holding them in registers: the producer runs at
+//     96 registers (it spills below), the consumers at 200.
+//   - the epilogue stores 16 bytes a thread: a 4 x 4 transpose within
+//     each quad (quad_transpose) turns the accumulator's 4-byte pieces
+//     into whole 8-column chunks of a row.
+//
+// BM 128 (training): 384 threads, two consumer warpgroups of 64 rows
+// (setmaxnreg.inc kDxGuConsumerRegs), a producer warpgroup
+// (setmaxnreg.dec kDxGuProducerRegs) and 4 stages of 56 KB. BM 16 (a
+// decode step): 256 threads, one consumer warpgroup whose m64 products
+// carry the tile's 16 rows (rows 16-63 of its A windows are never
+// stored), one block an SM and no cluster (96 accumulator registers and
+// the epilogue do not fit the 128 a thread of two blocks), 4 stages of
+// 40 KB. Blocks (clusters) are persistent and walk the units in order
+// (the column blocks of a row tile, then the next tile), so the rows and
+// the expert's weights in flight stay in L2. A tile without a valid row
+// is one stage flagged empty: no loads, no products, and its zero a and
+// dh rows are written (the weight gradients read them). One owner per
+// output element, K summed in order: reruns are bitwise equal.
+// Consumers' waits carry no trap; the producer's trap.
+
+// The gathered rows of a unit by 16-byte cp.async alone, coalesced:
+// producer thread pt copies chunk pt % 8 of rows pt / 8 + 16 q, so a
+// warp instruction reads four whole 128-byte rows (gather_stage's
+// segments, one row a thread, read half a 32-byte sector an
+// instruction). The thread's ids are read once a unit (`load`), then
+// each stage copies 64 columns of those rows (`copy`): chunk j of row r
+// lands at chunk j ^ (r % 8) of the 128-byte swizzle; an id of -1
+// zero-fills.
+template <int kRows>
+struct GatherRows {
+  int id[kRows / 16];
+
+  __device__ __forceinline__ void load(const int* ids, long long s, int pt) {
+#pragma unroll
+    for (int q = 0; q < kRows / 16; ++q) id[q] = ids[s + pt / 8 + 16 * q];
+  }
+
+  __device__ __forceinline__ void copy(uint32_t dst, const bf16* src, int ld,
+                                       int col0, int pt) const {
+    const int j = pt % 8;
+#pragma unroll
+    for (int q = 0; q < kRows / 16; ++q) {
+      const int r = pt / 8 + 16 * q, row = id[q];
+      const bf16* from =
+          src + (row >= 0 ? static_cast<long long>(row) * ld + col0 + 8 * j
+                          : 0);
+      cp_async16_to(dst + r * 128 + ((j ^ (r % 8)) << 4), from, row >= 0);
+    }
+  }
+};
+
+// A quad's 4 x 4 transpose of 32-bit words: thread t of the quad holds
+// word t of chunks q = 0 .. 3 (v[q], 4 bytes of a 16-byte chunk each) and
+// gets the four words of chunk t, in order. Two rounds of two shuffles
+// (xor 1, then xor 2), each thread keeping the chunks whose bit matches
+// its own.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4],
+                                                int t) {
+  const bool o1 = t & 1, o2 = t & 2;
+  // Round 1: chunks 2 i + (t & 1) stay; a[i] is this thread's word of
+  // chunk 2 i + (t & 1), b[i] the partner's (word t ^ 1).
+  uint32_t a[2], b[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    a[i] = o1 ? v[2 * i + 1] : v[2 * i];
+    b[i] = __shfl_xor_sync(0xffffffffu, o1 ? v[2 * i] : v[2 * i + 1], 1);
+  }
+  // Round 2: chunk t stays (i = t >> 1); words t ^ 2 and t ^ 3 of it
+  // come from the partner.
+  const uint32_t w0 = o2 ? a[1] : a[0], w1 = o2 ? b[1] : b[0];
+  const uint32_t w2 = __shfl_xor_sync(0xffffffffu, o2 ? a[0] : a[1], 2);
+  const uint32_t w3 = __shfl_xor_sync(0xffffffffu, o2 ? b[0] : b[1], 2);
+  // Word s of the chunk is w[s ^ t].
+  auto word = [&](int k) {
+    return (k & 2) ? ((k & 1) ? w3 : w2) : ((k & 1) ? w1 : w0);
+  };
+  return make_uint4(word(t), word(1 ^ t), word(2 ^ t), word(3 ^ t));
+}
+
+// Stores 16 bytes at dst if keep: a predicated st.global, no branch.
+__device__ __forceinline__ void store16_if(bf16* dst, uint4 v, bool keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %5, 0;\n"
+      "@p st.global.v4.b32 [%0], {%1, %2, %3, %4};\n}\n" ::"l"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w),
+      "r"(static_cast<uint32_t>(keep))
+      : "memory");
+}
+
+// The producer holds its rows' ids for a unit and spills below 96
+// registers (B7's producer runs at 56); 2 x 128 x 200 + 128 x 96 fit the
+// SM's 65536.
+constexpr int kDxGuProducerRegs = 96, kDxGuConsumerRegs = 200;
+
+template <int BM>
+struct DxGuCfg {
+  static constexpr int kConsumers = BM == 128 ? 2 : 1;
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kCluster = BM == 128 ? 2 : 1;
+  static constexpr int kCols = 64;                             // of f
+  static constexpr int kRowBytes = (BM < 64 ? 64 : BM) * 128;  // x or dy
+  static constexpr int kPart = BM / kCluster * 128;  // a block's rows
+  static constexpr int kStageBytes = 2 * kRowBytes + 3 * kBox;
+  static constexpr int kStages = 4;
+  static constexpr int kBars = kStages * kStageBytes;
+  // Barriers (full, empty, gathered) and the stages' unit and flags.
+  static constexpr int kSmem = 1024 + kBars + 24 * kStages + 8 * kStages;
+};
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// Arrive on the barrier at the same offset in block `rank` of the
+// cluster, relaxed: a reader telling the writer that it is done.
+__device__ __forceinline__ void mbar_arrive_cluster_relaxed(uint32_t bar,
+                                                            int rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          bar),
+      "r"(rank)
+      : "memory");
+}
+
+// The copy engine copies `bytes` of this block's shared memory at addr
+// to the same offset in block `rank`, completing them on that block's
+// barrier at offset bar.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t addr, int rank,
+                                                  int bytes, uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b32 rd, rb;\n"
+      "mapa.shared::cluster.u32 rd, %0, %1;\n"
+      "mapa.shared::cluster.u32 rb, %2, %1;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [rd], [%0], %3, [rb];\n}\n" ::"r"(addr),
+      "r"(rank), "r"(bar), "r"(bytes)
+      : "memory");
+}
+
+template <int BM>
+__global__ void __launch_bounds__(DxGuCfg<BM>::kThreads, 1)
+    moe_dx_gu_kernel(const __grid_constant__ CUtensorMap map_wgu,
+                     const __grid_constant__ CUtensorMap map_wdn,
+                     const Params p) {
+  using Cfg = DxGuCfg<BM>;
+  constexpr int kStages = Cfg::kStages, kCols = Cfg::kCols;
+  constexpr int kC = Cfg::kCluster;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  auto x_s = [&](int st) { return base + st * Cfg::kStageBytes; };
+  auto dy_s = [&](int st) { return x_s(st) + Cfg::kRowBytes; };
+  auto wgu_s = [&](int st) { return dy_s(st) + Cfg::kRowBytes; };  // gate, up
+  auto wdn_s = [&](int st) { return wgu_s(st) + 2 * kBox; };
+  const uint32_t bars = base + Cfg::kBars;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
+  // This block's own gathered rows of a stage have landed.
+  auto gathered = [&](int st) { return bars + 8 * (2 * kStages + st); };
+  int2* meta = reinterpret_cast<int2*>(gbase + Cfg::kBars + 24 * kStages);
+
+  const int n_k = p.d / 64;
+  const int n_n = p.f / kCols;
+  // A cluster takes kC neighbouring column blocks of a row tile.
+  const int n_units = p.T * (n_n / kC);
+  const int rank = kC > 1 ? cluster_rank() : 0;
+  const int part_row = rank * (BM / kC);  // this block's rows of a stage
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(full(st), 128);  // the producer's threads, with the bytes
+      mbar_init(empty(st), 4 * Cfg::kConsumers * kC);  // the cluster's
+      mbar_init(gathered(st), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Every block's barriers exist before any block arrives on them.
+  if constexpr (kC > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == Cfg::kConsumers) {
+    if constexpr (Cfg::kConsumers == 2) setmaxnreg_dec<kDxGuProducerRegs>();
+    const int pt = threadIdx.x - 128 * Cfg::kConsumers;
+    int g = 0;         // stages issued
+    int pending = -1;  // a stage whose rows are still to be pushed
+    // This block's rows of stage gp into its peers, once they landed.
+    auto push = [&](int gp) {
+      const int st = gp % kStages;
+      mbar_wait(gathered(st), (gp / kStages) & 1);
+      fence_proxy_async();
+      for (int r = 0; r < kC; ++r)
+        if (r != rank) {
+          bulk_copy_cluster(x_s(st) + part_row * 128, r, Cfg::kPart, full(st));
+          bulk_copy_cluster(dy_s(st) + part_row * 128, r, Cfg::kPart,
+                            full(st));
+        }
+    };
+    for (int u = blockIdx.x / kC;; u += gridDim.x / kC) {
+      const bool done = u >= n_units;
+      const int tile = done ? 0 : u / (n_n / kC);
+      const int nb = done ? 0 : (u % (n_n / kC)) * kC + rank;
+      const long long s0 = static_cast<long long>(tile) * BM;
+      const bool has =
+          producer_any(!done && pt < BM && p.row_ids[s0 + pt] >= 0);
+      const int e = has ? p.tile_expert[tile] : 0;
+      const int steps = has ? n_k : 1;
+      GatherRows<BM / kC> xr, dyr;  // this block's rows of the unit
+      if (has) {
+        xr.load(p.row_ids, s0 + part_row, pt);
+        dyr.load(p.dest_ids, s0 + part_row, pt);
+      }
+      // done: one stage of unit -1 tells the consumers to stop.
+      for (int k = 0; k < steps; ++k, ++g) {
+        const int st = g % kStages;
+        if (g >= kStages) mbar_wait(empty(st), (g / kStages - 1) & 1);
+        const int k0 = 64 * k;
+        if (pt == 0) {
+          meta[st] = make_int2(done ? -1 : u * kC + rank,
+                               (k == 0) | ((k == steps - 1) << 1) |
+                                   (!has << 2));
+          if (has) {
+            const int c0 = nb * kCols;
+            // The weights, and the peers' rows by their pushes.
+            mbar_expect_tx_only(full(st),
+                                3 * kBox + 2 * (kC - 1) * Cfg::kPart);
+            tma_load_2d(wgu_s(st), &map_wgu, full(st), c0, e * p.d + k0);
+            tma_load_2d(wgu_s(st) + kBox, &map_wgu, full(st), p.f + c0,
+                        e * p.d + k0);
+            tma_load_2d(wdn_s(st), &map_wdn, full(st), k0, e * p.f + c0);
+          }
+        }
+        if (has) {
+          xr.copy(x_s(st) + part_row * 128, p.x, p.d, k0, pt);
+          dyr.copy(dy_s(st) + part_row * 128, p.dy, p.d, k0, pt);
+        }
+        // This thread's arrivals, once its cp.async copies have landed.
+        asm volatile(
+            "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                full(st))
+            : "memory");
+        if constexpr (kC > 1) {
+          asm volatile(
+              "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                  gathered(st))
+              : "memory");
+          // The previous stage's rows go to the peers while this one's
+          // load.
+          if (pt == 0) {
+            if (pending >= 0) push(pending);
+            pending = has ? g : -1;
+          }
+        }
+      }
+      if (done) break;
+    }
+    if constexpr (kC > 1)
+      if (pt == 0 && pending >= 0) push(pending);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (pt == 0)  // the watch
+      for (int j = max(0, g - kStages); j < g; ++j)
+        mbar_wait(empty(j % kStages), (j / kStages) & 1);
+  } else {
+    if constexpr (Cfg::kConsumers == 2) setmaxnreg_inc<kDxGuConsumerRegs>();
+    const int c = wg;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const uint32_t a_row = BM == 128 ? c * 64 * 128 : 0;  // the WG's rows
+    // h_g and h_u as one m64n128 product (gate columns, then up), da.
+    float h[16][4], da[8][4];
+    bool live = true;
+    int held = -1;  // the stage whose products may still be running
+    // A stage is free once every consumer warp of the cluster is done.
+    auto release = [&](int st) {
+      if (lane == 0) {
+        mbar_arrive(empty(st));
+        if constexpr (kC > 1)
+          for (int r = 0; r < kC; ++r)
+            if (r != rank) mbar_arrive_cluster_relaxed(empty(st), r);
+      }
+    };
+    for (int g = 0;; ++g) {
+      const int st = g % kStages;
+      mbar_spin(full(st), (g / kStages) & 1, live);
+      const int2 mt = meta[st];
+      if (mt.x < 0 || !live) {
+        release(st);
+        break;
+      }
+      const bool first = mt.y & 1, last = mt.y & 2, none = mt.y & 4;
+      if (!none) {
+        // This block's gathered rows came through the generic proxy
+        // (cp.async); wgmma reads through the async proxy.
+        fence_proxy_async();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dxs = smem_desc(x_s(st) + a_row + kk * 32, 16, 1024);
+          const uint64_t dys =
+              smem_desc(dy_s(st) + a_row + kk * 32, 16, 1024);
+          const int acc = !(first && kk == 0);
+          wgmma_ss<1>(h, dxs, smem_desc(wgu_s(st) + kk * 2048, kBox, 1024),
+                      acc);
+          wgmma_ss<0>(da, dys, smem_desc(wdn_s(st) + kk * 32, 16, 1024), acc);
+        }
+        wgmma_commit();
+        // The previous stage's products are done: release its stage.
+        wgmma_wait<1>();
+        if (held >= 0) release(held);
+        held = st;
+      } else {
+        release(st);
+      }
+      if (!last) continue;
+      wgmma_wait<0>();
+      fence_operands(h);
+      fence_operands(da);
+      if (held >= 0) release(held);
+      held = -1;
+      // Unit u * kC + rank: column block nb of row tile `tile`.
+      const int cu = mt.x / kC;
+      const int tile = cu / (n_n / kC), nb = (cu % (n_n / kC)) * kC + rank;
+      const int g8 = lane / 4, t = lane % 4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = (BM == 128 ? 64 * c : 0) + 16 * warp + g8 + 8 * r;
+        // Stores under a predicate, not a branch around the accumulator
+        // reads: at BM 16 only the first warp's rows are the tile's.
+        const bool keep = row < BM;
+        const long long slot = keep ? static_cast<long long>(tile) * BM + row
+                                    : 0;
+        const int col = nb * kCols + 8 * t;
+        bf16* a_out = p.a + slot * p.f + col;
+        bf16* dh_out = p.dh + slot * 2LL * p.f + col;
+        // Chunks 4 b .. 4 b + 3 (8 columns each) of the row: each thread
+        // holds 4 bytes of each, and after quad_transpose 16 bytes of
+        // chunk 4 b + t, stored as one vector.
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          uint32_t av[4], dg[4], du[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int nt = 4 * b + q;
+            float va[2], vg[2], vu[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float hgv = h[nt][2 * r + j], huv = h[8 + nt][2 * r + j];
+              const float dav = da[nt][2 * r + j];
+              const float sg = sigmoid(hgv);
+              const float silu = hgv * sg;
+              va[j] = silu * huv;
+              vu[j] = dav * silu;
+              vg[j] = dav * huv * (sg * (1.f + hgv * (1.f - sg)));
+            }
+            av[q] = none ? 0u : pack_bf16(va[0], va[1]);
+            dg[q] = none ? 0u : pack_bf16(vg[0], vg[1]);
+            du[q] = none ? 0u : pack_bf16(vu[0], vu[1]);
+          }
+          store16_if(a_out + 32 * b, quad_transpose(av, t), keep);
+          store16_if(dh_out + 32 * b, quad_transpose(dg, t), keep);
+          store16_if(dh_out + p.f + 32 * b, quad_transpose(du, t), keep);
+        }
+      }
+    }
+  }
+  // No block leaves while its peer may still push into it or arrive on
+  // its barriers.
+  if constexpr (kC > 1) cluster_sync();
+}
+
 // ---- launch ---------------------------------------------------------------
-
-template <typename Kernel, typename P>
-int launch(Kernel kernel, dim3 grid, size_t smem, const P& p,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-size_t bf16_bytes(long long elems) {
-  return static_cast<size_t>(elems) * sizeof(bf16);
-}
 
 // dims: n_src, n_out, d, f, T, tile_m, e.
 int fill(Params* p, const long long* dims) {
@@ -1237,15 +1331,9 @@ int fill(Params* p, const long long* dims) {
   p->T = static_cast<int>(dims[4]);
   p->tile_m = static_cast<int>(dims[5]);
   p->e = static_cast<int>(dims[6]);
-  if (p->d % kBN || p->f % kBN || (p->tile_m != 16 && p->tile_m != 128) ||
-      p->T > 65535)
+  if (p->d % kAlign || p->f % kAlign || (p->tile_m != 16 && p->tile_m != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
-}
-
-template <int BM>
-size_t dx_gate_up_smem() {
-  return bf16_bytes(kStages * (2 * BM * kLd + kBK * kLdN + kBF * kLd));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1337,11 +1425,49 @@ int forward(const Params& p, cudaStream_t stream) {
   return rc ? rc : launch_ffn<BM, kFfnDown>(p, stream);
 }
 
+// B8 dx's first launch: w_gu's and w_down's maps ([64 x 64] boxes), then
+// persistent clusters, one block an SM, at most one cluster a kC units.
 template <int BM>
-int backward_dx(const Params& p, cudaStream_t stream) {
-  const int rc = launch(moe_dx_gate_up_kernel<BM>, dim3(p.f / kBF, p.T),
-                        dx_gate_up_smem<BM>(), p, stream);
-  return rc ? rc : launch_ffn<BM, kFfnDownNK>(p, stream);
+int launch_dx_gu(const Params& p, cudaStream_t stream) {
+  using Cfg = DxGuCfg<BM>;
+  CUtensorMap maps[2];
+  int rc = tensor_map_2d(&maps[0], p.w_gu, 2LL * p.f, 1LL * p.e * p.d, 64);
+  if (!rc) rc = tensor_map_2d(&maps[1], p.w_down, p.d, 1LL * p.e * p.f, 64);
+  if (rc) return rc;
+  auto kernel = moe_dx_gu_kernel<BM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kC = Cfg::kCluster;
+  const int clusters = p.T * (p.f / Cfg::kCols / kC);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kC;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((clusters < sms / kC ? clusters : sms / kC) * kC);
+  cfg.blockDim = dim3(Cfg::kThreads);
+  cfg.dynamicSmemBytes = Cfg::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps[0], maps[1], p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B8 dx: launch 1 (h, da, the silu-gate backward; writes a and dh), then
+// launch 2 (dh @ w_gu^T scattered); `which` 1 or 2 runs only that one.
+template <int BM>
+int backward_dx(const Params& p, int which, cudaStream_t stream) {
+  const int rc = which == 2 ? 0 : launch_dx_gu<BM>(p, stream);
+  return rc || which == 1 ? rc : launch_ffn<BM, kFfnDownNK>(p, stream);
 }
 
 // The unit tile that fetches each gathered row the fewest times (see
@@ -1385,6 +1511,40 @@ int launch_dw(const void* sorted, long long m_pad, long long gathered_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// B8 dx's launches; which: 0 both, 1 the first only (h, da and the
+// silu-gate backward into a and dh), 2 the second only (dh @ w_gu^T).
+int backward_dx_launches(const void* x, const void* dy, const void* w_gu,
+                         const void* w_down, const void* row_ids,
+                         const void* dest_ids, const void* tile_expert,
+                         void* dx_c, void* dh, void* a, const long long* dims,
+                         int which, void* stream) {
+  Params p = {};
+  int rc = fill(&p, dims);
+  if (rc) return rc;
+  p.x = static_cast<const bf16*>(x);
+  p.dy = static_cast<const bf16*>(dy);
+  p.w_gu = static_cast<const bf16*>(w_gu);
+  p.w_down = static_cast<const bf16*>(w_down);
+  p.row_ids = static_cast<const int*>(row_ids);
+  p.dest_ids = static_cast<const int*>(dest_ids);
+  p.tile_expert = static_cast<const int*>(tile_expert);
+  p.out = static_cast<bf16*>(dx_c);
+  p.dh = static_cast<bf16*>(dh);
+  p.a = static_cast<bf16*>(a);
+  // TMA and 16-byte cp.async read x's and dy's rows, the weights and the
+  // sorted dh: 16-byte aligned.
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+       reinterpret_cast<uintptr_t>(w_gu) |
+       reinterpret_cast<uintptr_t>(w_down) |
+       reinterpret_cast<uintptr_t>(dh)) %
+          16 ||
+      which < 0 || which > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p.tile_m == 128 ? backward_dx<128>(p, which, s)
+                         : backward_dx<16>(p, which, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1421,24 +1581,20 @@ int dlr_moe_backward_dx(const void* x, const void* dy, const void* w_gu,
                         const void* dest_ids, const void* tile_expert,
                         void* dx_c, void* dh, void* a, const long long* dims,
                         void* stream) {
-  Params p = {};
-  int rc = fill(&p, dims);
-  if (rc) return rc;
-  p.x = static_cast<const bf16*>(x);
-  p.dy = static_cast<const bf16*>(dy);
-  p.w_gu = static_cast<const bf16*>(w_gu);
-  p.w_down = static_cast<const bf16*>(w_down);
-  p.row_ids = static_cast<const int*>(row_ids);
-  p.dest_ids = static_cast<const int*>(dest_ids);
-  p.tile_expert = static_cast<const int*>(tile_expert);
-  p.out = static_cast<bf16*>(dx_c);
-  p.dh = static_cast<bf16*>(dh);
-  p.a = static_cast<bf16*>(a);
-  if ((reinterpret_cast<uintptr_t>(w_gu) | reinterpret_cast<uintptr_t>(dh)) %
-      16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p.tile_m == 128 ? backward_dx<128>(p, s) : backward_dx<16>(p, s);
+  return backward_dx_launches(x, dy, w_gu, w_down, row_ids, dest_ids,
+                              tile_expert, dx_c, dh, a, dims, 0, stream);
+}
+
+// One of B8 dx's two launches alone (which 1 or 2), for timing them apart.
+int dlr_moe_backward_dx_launch(const void* x, const void* dy,
+                               const void* w_gu, const void* w_down,
+                               const void* row_ids, const void* dest_ids,
+                               const void* tile_expert, void* dx_c, void* dh,
+                               void* a, const long long* dims, int which,
+                               void* stream) {
+  if (which != 1 && which != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return backward_dx_launches(x, dy, w_gu, w_down, row_ids, dest_ids,
+                              tile_expert, dx_c, dh, a, dims, which, stream);
 }
 
 // dims: M, N, m_pad, tile_m, E, lhs_rows, rhs_rows. Exactly one of
@@ -1503,6 +1659,19 @@ int dlr_moe_ffn_config(int tile_m, int* smem, int* threads, int* blocks,
   *threads = tile_m == 128 ? FfnCfg<128>::kThreads : FfnCfg<16>::kThreads;
   *blocks = tile_m == 128 ? FfnCfg<128>::kMinBlocks : FfnCfg<16>::kMinBlocks;
   *tile_n = tile_m == 128 ? FfnCfg<128>::kBN : FfnCfg<16>::kBN;
+  return 0;
+}
+
+// B8 dx's first launch at tile_m (one block an SM): dynamic shared
+// memory, threads, cluster size, and the columns of f a unit.
+int dlr_moe_dx_gu_config(int tile_m, int* smem, int* threads, int* cluster,
+                         int* cols) {
+  if (tile_m != 16 && tile_m != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem = tile_m == 128 ? DxGuCfg<128>::kSmem : DxGuCfg<16>::kSmem;
+  *threads = tile_m == 128 ? DxGuCfg<128>::kThreads : DxGuCfg<16>::kThreads;
+  *cluster = tile_m == 128 ? DxGuCfg<128>::kCluster : DxGuCfg<16>::kCluster;
+  *cols = DxGuCfg<128>::kCols;
   return 0;
 }
 

@@ -27,7 +27,7 @@ plain version; on a CUDA tensor it launches the kernel or raises.
 """
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +40,10 @@ AUTO_FUSED_MIN_NV = 2 * 1024**3 // 4
 
 _SOURCE = "fused_ce.cu"
 _KERNEL_D = 128       # the kernels take d a multiple of this ...
-_KERNEL_MAX_D = 1024  # ... up to this (B3 keeps a [64, d] x tile)
+_KERNEL_MAX_D = 1024  # ... up to this (B4's clusters hold d in <= 8 blocks)
+# B3's tiles: a block's rows, and the vocab columns of one logits tile.
+_FWD_ROWS, _FWD_VT = 128, 256
+_MAX_SPLITS = 64
 
 # Kernel launches per kernel, counted where the wrapper launches it.
 launch_counts: Dict[str, int] = {
@@ -50,6 +53,9 @@ launch_counts: Dict[str, int] = {
 }
 
 _lib = None
+# Per (device, stream): B3's int32 ticket counters, zero between launches.
+_ticket_buffers: Dict[Tuple[str, int], torch.Tensor] = {}
+_sm_counts: Dict[int, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -254,6 +260,8 @@ def _library():
         for fn in (lib.dlr_ce_dx_config, lib.dlr_ce_dw_config):
             fn.argtypes = [ctypes.c_int, ptr, ptr]
             fn.restype = ctypes.c_int
+        lib.dlr_ce_fwd_config.argtypes = [ptr] * 3
+        lib.dlr_ce_fwd_config.restype = ctypes.c_int
         lib.dlr_ce_error_string.argtypes = [ctypes.c_int]
         lib.dlr_ce_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -278,6 +286,59 @@ def dw_kernel_config(d: int) -> Dict[str, int]:
     """B4 dw's launch at hidden size d: its dynamic shared memory and
     its cluster size (ptxas reports neither)."""
     return _launch_config("dw", d)
+
+
+def forward_plan(n: int, v: int, sms: int) -> Tuple[int, int]:
+    """B3's launch at n rows and V vocab columns on a card of ``sms``
+    SMs: (splits, cluster). A block owns a 128-row tile (in clusters of
+    ``cluster`` blocks on neighbouring row tiles, which share w's loads)
+    and one of ``splits`` ranges of the 256-column vocab tiles. The plan
+    takes the least waves x (tiles a block + 1, the ring's fill and the
+    block's end), then clusters of 2 (half of w's L2 traffic), then the
+    fewest splits: one split and clusters of 2 at 16384 rows, four
+    splits of single blocks at 4100."""
+    n_rt = -(-n // _FWD_ROWS)
+    n_vt = -(-v // _FWD_VT)
+    best = None
+    for cluster in (2, 1):
+        blocks_a_split = -(-n_rt // cluster) * cluster
+        for splits in range(1, min(n_vt, _MAX_SPLITS) + 1):
+            waves = -(-(blocks_a_split * splits) // sms)
+            key = (waves * (-(-n_vt // splits) + 1), -cluster, splits)
+            if best is None or key < best:
+                best = key
+    return best[2], -best[1]
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """B3's ticket counters on ``stream``: at least ``n`` int32 zeros.
+    The last split of each row tile resets its counter, so the buffer
+    stays zero between launches; launches on one stream run in order,
+    and each stream has its own buffer."""
+    key = (str(device), stream)
+    buf = _ticket_buffers.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ticket_buffers[key] = buf
+    return buf
+
+
+def fwd_kernel_config() -> Dict[str, int]:
+    """B3's launch: its dynamic shared memory and its row and vocab
+    tiles (ptxas reports none of these)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _library().dlr_ce_fwd_config(*map(ctypes.byref, out))
+    return {"dynamic_smem_bytes": out[0].value, "rows": out[1].value,
+            "vocab_cols": out[2].value}
 
 
 def _on_card(x, name) -> bool:
@@ -337,14 +398,23 @@ def fused_ce_forward(x, w, tgt, z_weight: float, block_v: int = 1024):
     if not _on_card(x, "fused_ce_forward"):
         return _xla_forward(x, w, tgt, z_weight, block_v)
     x, w, tgt, _, dims = _kernel_args(x, w, tgt)
-    n = x.shape[0]
+    n, v = x.shape[0], dims[2]
     per_tok = torch.empty(n, dtype=torch.float32, device=x.device)
     logz = torch.empty(n, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    splits, cluster = forward_plan(n, v, _sm_count(x.device))
+    part = tickets = None
+    if splits > 1:
+        part = torch.empty(splits * n * 3, dtype=torch.float32,
+                           device=x.device)
+        tickets = _tickets(x.device, stream, -(-n // _FWD_ROWS))
+    plan = (ctypes.c_longlong * 8)(
+        *dims, splits, cluster, 0 if part is None else part.data_ptr(),
+        0 if tickets is None else tickets.data_ptr())
     with torch.cuda.device(x.device):
         rc = _library().dlr_ce_forward(
             x.data_ptr(), w.data_ptr(), tgt.data_ptr(), per_tok.data_ptr(),
-            logz.data_ptr(), dims, float(z_weight),
-            torch.cuda.current_stream(x.device).cuda_stream,
+            logz.data_ptr(), plan, float(z_weight), stream,
         )
     _raise_on(rc, "fused_ce_forward")
     launch_counts["fused_ce_forward"] += 1

@@ -231,14 +231,17 @@ def _library():
         ptr = ctypes.c_void_p
         lib.dlr_moe_forward.argtypes = [ptr] * 10
         lib.dlr_moe_backward_dx.argtypes = [ptr] * 12
+        lib.dlr_moe_backward_dx_launch.argtypes = (
+            [ptr] * 11 + [ctypes.c_int, ptr])
         lib.dlr_moe_backward_dw.argtypes = [ptr] * 9
         for fn in (lib.dlr_moe_forward, lib.dlr_moe_backward_dx,
-                   lib.dlr_moe_backward_dw):
+                   lib.dlr_moe_backward_dx_launch, lib.dlr_moe_backward_dw):
             fn.restype = ctypes.c_int
         lib.dlr_moe_dw_config.argtypes = [ctypes.c_int] * 3 + [ptr] * 3
         lib.dlr_moe_dw_config.restype = ctypes.c_int
-        lib.dlr_moe_ffn_config.argtypes = [ctypes.c_int] + [ptr] * 4
-        lib.dlr_moe_ffn_config.restype = ctypes.c_int
+        for fn in (lib.dlr_moe_ffn_config, lib.dlr_moe_dx_gu_config):
+            fn.argtypes = [ctypes.c_int] + [ptr] * 4
+            fn.restype = ctypes.c_int
         lib.dlr_moe_error_string.argtypes = [ctypes.c_int]
         lib.dlr_moe_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -265,6 +268,17 @@ def ffn_kernel_config(tile_m: int) -> Dict[str, int]:
     _raise_on(rc, "grouped_ffn_forward")
     return {"dynamic_smem_bytes": out[0].value, "threads": out[1].value,
             "blocks_per_sm": out[2].value, "tile_n": out[3].value}
+
+
+def dx_gate_up_kernel_config(tile_m: int) -> Dict[str, int]:
+    """The launch of B8 dx's first kernel at ``tile_m`` (one block an
+    SM): dynamic shared memory, threads, cluster size, and the columns
+    of f a unit (ptxas reports none of these)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = _library().dlr_moe_dx_gu_config(tile_m, *map(ctypes.byref, out))
+    _raise_on(rc, "grouped_ffn_backward_dx")
+    return {"dynamic_smem_bytes": out[0].value, "threads": out[1].value,
+            "cluster": out[2].value, "f_cols": out[3].value}
 
 
 def _on_card(x, name) -> bool:
@@ -379,9 +393,32 @@ def grouped_ffn_backward_dx(x, g, w_gu, w_down, row_ids, dest_ids,
     if not _on_card(x, "grouped_ffn_backward_dx"):
         return _backward_dx_reference(x, g, w_gu, w_down, row_ids, dest_ids,
                                       tile_expert, tile_m)
+    out = _backward_dx_kernel(x, g, w_gu, w_down, row_ids, dest_ids,
+                              tile_expert, tile_m, 0)
+    launch_counts["grouped_ffn_backward_dx"] += 1
+    return out
+
+
+def backward_dx_launch(x, g, w_gu, w_down, row_ids, dest_ids, tile_expert,
+                       tile_m: int, which: int, dh=None):
+    """One of B8 dx's two CUDA launches alone, for timing them apart (not
+    counted in ``launch_counts``): ``which`` 1 writes the sorted a and dh
+    (returned as (dh, a)), 2 reads ``dh`` and returns dx_c."""
+    if which not in (1, 2):
+        raise ValueError(f"which {which} is not 1 or 2")
+    if which == 2 and dh is None:
+        raise ValueError("the second launch reads dh")
+    out = _backward_dx_kernel(x, g, w_gu, w_down, row_ids, dest_ids,
+                              tile_expert, tile_m, which, dh)
+    return out[1:] if which == 1 else out[0]
+
+
+def _backward_dx_kernel(x, g, w_gu, w_down, row_ids, dest_ids, tile_expert,
+                        tile_m, which, dh=None):
     e, d, f = _ffn_dims("grouped_ffn_backward_dx", w_gu)
     two_f = 2 * f
-    _check("grouped_ffn_backward_dx", tile_m, (x, g, w_gu, w_down),
+    _check("grouped_ffn_backward_dx", tile_m,
+           (x, g, w_gu, w_down) + (() if dh is None else (dh,)),
            (row_ids, dest_ids, tile_expert), d, f)
     T = tile_expert.numel()
     m_pad = T * tile_m
@@ -391,16 +428,21 @@ def grouped_ffn_backward_dx(x, g, w_gu, w_down, row_ids, dest_ids,
                   tile_expert=(tile_expert, (T,)))
     n_out = g.shape[0]
     dx_c = torch.empty((n_out, d), dtype=x.dtype, device=x.device)
-    dh = torch.empty((m_pad, two_f), dtype=x.dtype, device=x.device)
+    if dh is None:
+        dh = torch.empty((m_pad, two_f), dtype=x.dtype, device=x.device)
+    _check_shapes("grouped_ffn_backward_dx", dh=(dh, (m_pad, two_f)))
     a = torch.empty((m_pad, f), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _library().dlr_moe_backward_dx(
-            x.data_ptr(), g.data_ptr(), w_gu.data_ptr(), w_down.data_ptr(),
+    args = (x.data_ptr(), g.data_ptr(), w_gu.data_ptr(), w_down.data_ptr(),
             row_ids.data_ptr(), dest_ids.data_ptr(), tile_expert.data_ptr(),
             dx_c.data_ptr(), dh.data_ptr(), a.data_ptr(),
-            _dims(x.shape[0], n_out, d, f, T, tile_m, e), _stream(x))
+            _dims(x.shape[0], n_out, d, f, T, tile_m, e))
+    with torch.cuda.device(x.device):
+        if which:
+            rc = _library().dlr_moe_backward_dx_launch(*args, which,
+                                                       _stream(x))
+        else:
+            rc = _library().dlr_moe_backward_dx(*args, _stream(x))
     _raise_on(rc, "grouped_ffn_backward_dx")
-    launch_counts["grouped_ffn_backward_dx"] += 1
     return dx_c, dh, a
 
 

@@ -149,6 +149,46 @@ def test_plain_kernels_match_pallas_interpret(n, d, v):
     assert not dx.numpy()[::3].any()  # a = b = 0 rows get no gradient
 
 
+@pytest.mark.parametrize("n,v", [(127, 255), (129, 257), (255, 769)])
+def test_plain_forward_matches_pallas_at_kernel_tile_edges(n, v):
+    """B3's plain version (the wrapper on CPU tensors) against
+    ``_pallas_forward`` in interpret mode where the card kernel's tiles
+    and splits end: its blocks own 128 rows and step over 256 vocab
+    columns, its splits end on vocab tiles (three here at 255 x 769), so
+    n and V one short of, and one past, a multiple of each. per_tok and
+    logz within rtol 1e-5 (f32 sums in another order)."""
+    x, w, tgt, _, _ = _stats_inputs(7, n, 32, v)
+    j_ptok, j_logz = jax_ce._pallas_forward(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(tgt), 1e-4, 8, 128,
+        interpret=True)
+    tx, tw, tt = map(torch.from_numpy, (x, w, tgt))
+    ptok, logz = fused_ce.fused_ce_forward(tx, tw, tt, 1e-4, block_v=256)
+    assert tuple(ptok.shape) == tuple(logz.shape) == (n,)
+    np.testing.assert_allclose(ptok.numpy(), np.asarray(j_ptok), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(logz.numpy(), np.asarray(j_logz), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n,v,sms,want", [
+    (16384, 32000, 132, (1, 2)),   # the CE A/B shape: one wave of pairs
+    (4100, 32003, 132, (4, 1)),    # 33 row tiles: four splits fill 132
+    (129, 257, 132, (2, 2)),       # two vocab tiles, one split each
+    (20000, 32000, 132, (5, 2)),   # 790 blocks: 6 waves of 25 tiles
+    (127, 255, 8, (1, 2)),         # one tile
+])
+def test_forward_plan_fills_the_card(n, v, sms, want):
+    """B3's launch plan: the fewest waves x (tiles a block + 1), then
+    clusters of 2, then the fewest splits; every split holds at least
+    one vocab tile."""
+    splits, cluster = fused_ce.forward_plan(n, v, sms)
+    assert (splits, cluster) == want
+    n_vt = -(-v // 256)
+    assert 1 <= splits <= n_vt and cluster in (1, 2)
+    ends = [s * n_vt // splits for s in range(splits + 1)]
+    assert all(b > a for a, b in zip(ends, ends[1:]))
+
+
 @pytest.mark.parametrize("n,v", [(31, 63), (33, 65), (65, 129)])
 def test_plain_dw_matches_pallas_at_kernel_tile_edges(n, v):
     """B4 dw's plain version against ``_pallas_backward`` in interpret

@@ -707,12 +707,17 @@ def test_fused_ce_kernels_match_plain_versions(cuda, n, d, v, masked):
     assert _ce_ratio(fault_dw, want_dw, 0) > 1.0
 
 
-def test_fused_ce_kernels_rerun_bitwise(cuda):
-    """One owner per output element and a fixed order of sums: a second
-    launch gives the same bits."""
+@pytest.mark.parametrize("n,d,v,masked", [
+    (200, 256, 999, True),     # B3: one row tile, four vocab splits
+    (300, 1024, 2000, False),  # B3: pairs of blocks, eight splits combined
+])
+def test_fused_ce_kernels_rerun_bitwise(cuda, n, d, v, masked):
+    """One owner per output element and a fixed order of sums (B3's
+    splits combined in split order): a second launch gives the same
+    bits."""
     from dlrover_tpu_torch.ops import fused_ce as fc
 
-    x, w, tgt, logz, a, b = _ce_inputs(cuda, 200, 256, 999, True, 3)
+    x, w, tgt, logz, a, b = _ce_inputs(cuda, n, d, v, masked, 3)
     first = (fc.fused_ce_forward(x, w, tgt, 1e-4)
              + (fc.fused_ce_backward_dx(x, w, tgt, logz, a, b),
                 fc.fused_ce_backward_dw(x, w, tgt, logz, a, b)))
@@ -738,6 +743,36 @@ def test_fused_ce_wrappers_reject_what_the_kernels_do_not_take(cuda):
                             1e-4)
     with pytest.raises(ValueError, match="tensor on"):
         fc.fused_ce_forward(x.bfloat16(), w.bfloat16().cpu(), tgt, 1e-4)
+
+
+@pytest.mark.parametrize("n,d,v,masked", [
+    (127, 1024, 255, True),      # one short of a row tile and a vocab tile
+    (129, 1024, 257, False),     # one past each: a pair, two splits
+    (257, 512, 769, True),       # three row tiles (a pair's pad), four splits
+    (4100, 1024, 32003, True),   # ragged: four splits of single blocks
+    (1000, 128, 4099, False),    # the narrowest d, nine splits of pairs
+    (300, 1024, 2000, True),     # eight splits of pairs, a padded row tile
+])
+def test_fused_ce_forward_at_its_tile_and_split_edges(cuda, n, d, v,
+                                                      masked):
+    """B3 (128-row tiles alone or in pairs that share w, 256-column vocab
+    tiles split across blocks, the last split of a row tile combining
+    the partials) against its plain version where its tiles and splits
+    end: per_tok and logz within rtol 1e-5; a second launch gives the
+    same bits, and the plain version without the last vocab tile fails
+    the bound."""
+    from dlrover_tpu_torch.ops import fused_ce as fc
+
+    x, w, tgt, _, _, _ = _ce_inputs(cuda, n, d, v, masked, n + d + v)
+    per_tok, logz = fc.fused_ce_forward(x, w, tgt, 1e-4)
+    again = fc.fused_ce_forward(x, w, tgt, 1e-4)
+    torch.cuda.synchronize()
+    want_pt, want_logz = fc._xla_forward(x, w, tgt, 1e-4)
+    torch.testing.assert_close(per_tok, want_pt, rtol=1e-5, atol=0)
+    torch.testing.assert_close(logz, want_logz, rtol=1e-5, atol=0)
+    assert torch.equal(per_tok, again[0]) and torch.equal(logz, again[1])
+    fault, _ = fc._xla_forward(x, w[:, :256 * ((v - 1) // 256)], tgt, 1e-4)
+    assert not torch.allclose(fault, want_pt, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("n,d,v,masked", [
@@ -1010,6 +1045,44 @@ def test_moe_ffn_kernels_at_their_edges(cuda, n, d, f, e, k, routing):
         assert torch.equal(g, a2), name
     pad = ri < 0
     assert not got[2][pad].any() and not got[3][pad].any()
+
+
+@pytest.mark.parametrize("n,d,f,e,k,routing", [
+    (8, 1024, 1024, 8, 2, "random"),      # a decode step, tile 16
+    (40, 128, 128, 4, 2, "one"),          # tile 16, two units, empty experts
+    (1100, 1024, 128, 8, 1, "random"),    # tile 128, one pair of units
+    (700, 384, 384, 4, 2, "skewed"),      # tile 128, three pairs, an empty expert
+    (600, 256, 640, 6, 2, "random"),      # tile 128, five pairs
+])
+def test_moe_dx_gate_up_at_its_unit_edges(cuda, n, d, f, e, k, routing):
+    """B8 dx's first launch (64-column units of f, tile 128 in pairs of
+    blocks that share the gathered rows) and the whole B8 dx against the
+    plain version within _ce_ratio's bound where the units end: tile_m
+    16 and 128, all-padding tiles (zero a and dh rows written), experts
+    without rows. The two launches run apart give the whole call's bits
+    and count no launch; a second call gives the same bits."""
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x, w_gu, w_down, dy, (ri, di, te), tm = _moe_inputs(
+        cuda, n, d, f, e, k, routing, n + 2 * f)
+    assert (ri.view(-1, tm) < 0).all(dim=1).any()
+    before = dict(md.launch_counts)
+    dh1, a1 = md.backward_dx_launch(x, dy, w_gu, w_down, ri, di, te, tm, 1)
+    dx2 = md.backward_dx_launch(x, dy, w_gu, w_down, ri, di, te, tm, 2,
+                                dh=dh1)
+    torch.cuda.synchronize()
+    assert md.launch_counts == before
+    got = md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri, di, te, tm)
+    again = md.grouped_ffn_backward_dx(x, dy, w_gu, w_down, ri, di, te, tm)
+    torch.cuda.synchronize()
+    want = md._backward_dx_reference(x, dy, w_gu, w_down, ri, di, te, tm)
+    for name, g, a2, w_ in zip(("dx_c", "dh", "a"), got, again, want):
+        assert _ce_ratio(g, w_, -1) <= 1.0, name
+        assert torch.equal(g, a2), name
+    assert torch.equal(got[1], dh1) and torch.equal(got[2], a1)
+    assert torch.equal(got[0], dx2)
+    pad = ri < 0
+    assert not got[1][pad].any() and not got[2][pad].any()
 
 
 def test_dx_ffn_wrappers_reject_misaligned_operands(cuda):

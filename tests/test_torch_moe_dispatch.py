@@ -84,15 +84,19 @@ def test_silu_bwd_matches_jax():
 def _ffn_inputs(case, dtype, seed=0):
     """x [n, d], w_gu [e, d, 2f], w_down [e, f, d], dy [m, d] as numpy in
     ``dtype`` (bf16 as ml_dtypes), and the routing. ``tile_128``: enough
-    copies for 128-row tiles (1200), expert 1 without rows."""
+    copies for 128-row tiles (1200), expert 1 without rows. ``unit_16``
+    and ``unit_128``: the same at tile 16 and 128 with f in B8 dx's
+    64-column units of f, three (one past a cluster's two) and two."""
     rs = np.random.RandomState(seed)
-    n, d, f, e, k = (600 if case == "tile_128" else 20), 16, 32, 4, 2
+    n = 600 if case in ("tile_128", "unit_128") else 20
+    f = {"unit_16": 192, "unit_128": 128}.get(case, 32)
+    d, e, k = 16, 4, 2
     x = rs.randn(n, d)
     w_gu = rs.randn(e, d, 2 * f) / np.sqrt(d)
     w_down = rs.randn(e, f, d) / np.sqrt(f)
     dy = rs.randn(n * k, d)
     fe = rs.randint(0, e, n * k).astype(np.int32)
-    if case in ("empty_expert", "tile_128"):
+    if case in ("empty_expert", "tile_128", "unit_16", "unit_128"):
         fe = np.where(fe == 1, 0, fe).astype(np.int32)
     elif case == "skewed":
         # three quarters of the copies on expert 2, expert 3 empty: the
@@ -122,7 +126,8 @@ def ffn_cases():
     routing case), computed once for the module."""
     out = {}
     for dtype in ("float32", "bfloat16"):
-        for case in ("random", "empty_expert", "skewed", "tile_128"):
+        for case in ("random", "empty_expert", "skewed", "tile_128",
+                     "unit_16", "unit_128"):
             (x, w_gu, w_down, dy), fe, e, k = _ffn_inputs(case, dtype)
             m = fe.shape[0]
             tm = jax_md.default_tile_m(m)
@@ -162,17 +167,19 @@ def test_grouped_ffn_forward_and_vjp_match_jax(ffn_cases, dtype, case):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["empty_expert", "tile_128"])
+@pytest.mark.parametrize("case", ["empty_expert", "tile_128", "unit_16",
+                                  "unit_128"])
 def test_plain_ffn_matches_pallas_at_kernel_tile_edges(ffn_cases, dtype,
                                                        case):
     """B7 and B8 dx's plain versions (the wrappers on CPU tensors) against
     the Pallas grouped FFN in interpret mode where the card kernels' units
-    end: at tile_m 16 and 128, each layout holding an all-padding tile
-    (the gate|up launch writes its zero ``a`` rows, the down launch
-    nothing) and an expert without rows. y per copy, and dx summed over
-    the copies from the wrappers' dx_c."""
+    end: at tile_m 16 and 128, f in B8 dx's 64-column units (``unit_*``),
+    each layout holding an all-padding tile (the gate|up launches write
+    their zero ``a`` and ``dh`` rows, the down launches nothing) and an
+    expert without rows. y per copy, and dx summed over the copies from
+    the wrappers' dx_c."""
     (x, w_gu, w_down, dy), fe, e, k, tm, want = ffn_cases[(dtype, case)]
-    assert tm == (128 if case == "tile_128" else 16)
+    assert tm == (128 if case.endswith("128") else 16)
     m = fe.shape[0]
     tx, twgu, twd, tdy = (convert.params_from_numpy(a, "cpu")
                           for a in (x, w_gu, w_down, dy))
