@@ -35,8 +35,10 @@ phases that each print JSON lines:
 7. fused CE kernels: B3 (forward) and B4 (dx, dw) against their plain
    versions at the CE A/B shape (n=16384, d=1024, V=32000, bf16), a
    ragged one (n=4100, V=32003) and a masked one (30% of the rows with
-   weight 0), elementwise, each with a planted fault the same bounds must
-   reject; B3, B4 dx and B4 dw give the same bits on a second call;
+   weight 0), elementwise, each with planted faults the same bounds must
+   reject (B3 also without the last 128 vocab columns, inside its
+   256-column tile); B3, B4 dx and B4 dw give the same bits on a second
+   call;
    times, bounds and the dense route's time;
 8. CE A/B (the JAX package's ``bench.py`` ``ce_ab_phase``): loss, dx and
    dw at n=16384, d=1024, V=32000 through the dense logits, the chunked
@@ -71,6 +73,18 @@ phases that each print JSON lines:
     gap, prefix hits that skip prefill, block conservation with no block
     left in use, and B6 launched exactly n_layers times per decode step.
     Then 20 steps of an fp and an int8 engine under the profiler.
+11a. speculative decoding on the flat engine (phase 5's settings) over
+    phase 5's 16 requests with prompts ``p + greedy(p) + p`` from phase
+    5's own output: spec off, n-gram K = 3, early exit K = 3 over 4
+    layers. Every request complete, no step error, the teacher-forced
+    gap within ARGMAX_GAP, more than one token a verify step, and exact
+    B5 launches from the engine's step counts (n_layers a decode step,
+    4 x 3 a draft call, warmup included: a spec engine decodes only in
+    its warmup); decode tokens/s against spec off, accept rate, the
+    draft/verify split and the share of tokens equal to spec off's;
+11b. the same on the paged engine at phase 11's settings: fp spec off,
+    n-gram and early exit; int8 spec off and n-gram (B6 exact, block
+    conservation);
 12. MoE kernels: the grouped FFN forward (B7) and its dx, dw_gu and
     dw_down kernels (B8) against their plain versions at the MoE
     training shape (8 x 2048 tokens, d = f = 1024, 8 experts, top-2,
@@ -92,6 +106,11 @@ phases that each print JSON lines:
     every flip at the first layer must be a near-tie (MOE_TIE);
 14. MoE ``ServingEngine``: phase 5's 16 requests, every one complete;
     tokens/s and TTFT;
+14a. MoE ``PagedServingEngine`` at phase 11's fp settings over phase
+    14's requests with prompts ``p + greedy(p) + p``: spec off and
+    n-gram K = 3, the gates of 11a (the gap reported, as phase 14) with
+    exact B6 and B7 launches (n_layers B7 launches a prefill, decode or
+    verify step);
 15. MoE training: ``make_train_step``, remat ``mlp_only``, micro-batch 8
     x 2048, grad_accum 1. One step through the kernels against the same
     step through the plain grouped FFN (TRAIN_GATES) with a planted
@@ -100,10 +119,10 @@ phases that each print JSON lines:
     share of the bf16 peak on 6 x active params a token, peak memory
     and a profiled step.
 
-Phases 4, 5 and 11 check the tokens against the argmax of the port's own
-teacher-forced forward over prompt + output, check that repeated runs
-agree, and read the kernels' launch counters to show the decode path
-went through them. Any failure raises (exit code 1) before the last
+Phases 4, 5, 11 and 11a-b check the tokens against the argmax of the
+port's own teacher-forced forward over prompt + output, check that
+repeated runs agree, and read the kernels' launch counters to show the
+decode path went through them. Any failure raises (exit code 1) before the last
 line, which is ``{"ok": true, "device": {...}}``; before it come the
 ptxas lines of the redesigned sources (registers, spills and the C75xx
 performance notes of each entry function: B1 and B2's four flash
@@ -942,7 +961,8 @@ def phase_engine(cfg, params, phase="engine", gated=True):
     complete; the teacher-forced gap is held to ARGMAX_GAP when
     ``gated``, else reported. Returns the decode-attention and grouped
     FFN launches counted up to the engine's last step, before the
-    teacher-forced checks (whose forward launches B7 on a MoE model)."""
+    teacher-forced checks (whose forward launches B7 on a MoE model),
+    and each request's (prompt, tokens, max_new_tokens)."""
     from dlrover_tpu_torch.observability.registry import MetricsRegistry
     from dlrover_tpu_torch.ops import decode_attention as da
     from dlrover_tpu_torch.ops import moe_dispatch as md
@@ -1000,7 +1020,7 @@ def phase_engine(cfg, params, phase="engine", gated=True):
         "launches": launches,
     }
     emit(row)
-    return launches
+    return launches, [(p, r.tokens, n) for p, r, n in zip(prompts, reqs, news)]
 
 
 def _paged_workload(cfg, n_requests=32, prefix_share=0.6, prefix_len=48):
@@ -1024,30 +1044,24 @@ def _paged_workload(cfg, n_requests=32, prefix_share=0.6, prefix_len=48):
     return work
 
 
+PAGED_KW = dict(max_len=1024, prefill_chunk=32, block_size=16)
+
+
 def _paged_engine(cfg, params, kv, slots, num_blocks):
-    """A warmed-up PagedServingEngine at the paged phase's settings, its
-    registry, and a one-element count of its ``_decode`` calls (the
-    warmup's included): each makes one B6 launch per layer."""
+    """A warmed-up PagedServingEngine at the paged phase's settings and
+    its registry. ``eng.call_counts["decode"]`` counts its decode steps
+    (the warmup's included): each makes one B6 launch per layer."""
     from dlrover_tpu_torch.observability.registry import MetricsRegistry
     from dlrover_tpu_torch.serving import PagedServingEngine
 
     reg = MetricsRegistry()
     eng = PagedServingEngine(
-        cfg, params, slots=slots, max_len=1024, prefill_chunk=32,
-        block_size=16, num_blocks=num_blocks, kv_cache_dtype=kv,
-        registry=reg,
+        cfg, params, slots=slots, num_blocks=num_blocks, kv_cache_dtype=kv,
+        registry=reg, **PAGED_KW,
     )
-    decode_calls = [0]
-    real_decode = eng._decode
-
-    def counted(active):
-        decode_calls[0] += 1
-        return real_decode(active)
-
-    eng._decode = counted
     eng.warmup()
     torch.cuda.synchronize()
-    return eng, reg, decode_calls
+    return eng, reg
 
 
 def _profile_paged(cfg, params, work, kv, num_blocks, skip=60, window=20):
@@ -1056,12 +1070,12 @@ def _profile_paged(cfg, params, work, kv, num_blocks, skip=60, window=20):
     running a prefill chunk and a decode step; profiling adds host time
     per op, so the busy share is a lower bound). Returns the B6 launches
     the engine must have made."""
-    eng, _, decode_calls = _paged_engine(cfg, params, kv, 16, num_blocks)
+    eng, _ = _paged_engine(cfg, params, kv, 16, num_blocks)
     for p, n, _ in work:
         eng.submit(p, n)
     for _ in range(skip):
         eng.step()
-    before = decode_calls[0]
+    before = eng.call_counts["decode"]
 
     def steps():
         for _ in range(window):
@@ -1069,16 +1083,15 @@ def _profile_paged(cfg, params, work, kv, num_blocks, skip=60, window=20):
 
     wall, device = _device_profile(steps)
     row = _profile_row(f"paged_engine/{kv}/{window} steps", wall, device)
-    row["decode_steps"] = decode_calls[0] - before
+    row["decode_steps"] = eng.call_counts["decode"] - before
     emit(row)
-    return cfg.n_layers * decode_calls[0]
+    return cfg.n_layers * eng.call_counts["decode"]
 
 
 def _run_paged(cfg, params, work, label, kv, slots, num_blocks):
     """One PagedServingEngine over ``work``; checks what every run must
     show and returns (row, tokens per request, B6 launches wanted)."""
-    eng, reg, decode_calls = _paged_engine(cfg, params, kv, slots,
-                                           num_blocks)
+    eng, reg = _paged_engine(cfg, params, kv, slots, num_blocks)
     used = reg.get("serving_kv_blocks")
     peak_used = 0
     t0 = time.monotonic()
@@ -1159,11 +1172,12 @@ def _run_paged(cfg, params, work, label, kv, slots, num_blocks):
         "evicted_blocks": stats["prefix_evicted_blocks"],
         "peak_blocks_used": peak_used,
         "iterations": reg.get("serving_iterations_total").value(),
-        "decode_steps": decode_calls[0], "step_errors": errors,
+        "decode_steps": eng.call_counts["decode"], "step_errors": errors,
         "argmax_gap_max": worst, "argmax_agree": float(np.mean(agree)),
     }
     emit(row)
-    return row, [r.tokens for r in reqs], cfg.n_layers * decode_calls[0]
+    return (row, [r.tokens for r in reqs],
+            cfg.n_layers * eng.call_counts["decode"])
 
 
 def phase_paged_engine(cfg, params):
@@ -1207,6 +1221,191 @@ def phase_paged_engine(cfg, params):
     want["fp"] += _profile_paged(cfg, params, work, "fp", fp_blocks)
     want["int8"] += _profile_paged(cfg, params, work, "int8", int8_blocks)
     return {f"paged_decode_attention_{kv}": n for kv, n in want.items()}
+
+
+# ---- speculative decoding and MoE over the paged pool ----------------------
+
+
+def _spec_work(served):
+    """Greedy requests with repetitive prompts built from an engine
+    phase's own output: ``p + greedy(p) + p`` and the same token budget.
+    After the second ``p`` the n-gram drafter proposes ``greedy(p)``."""
+    return [(np.concatenate([p, np.asarray(toks, np.int32), p]), n)
+            for p, toks, n in served]
+
+
+def _run_spec(cfg, params, work, phase, label, kv, gated, engine_kw,
+              base=None):
+    """One engine (flat, or paged with ``num_blocks`` in ``engine_kw``)
+    over ``work``: every request complete, no step error, the
+    teacher-forced gap (held to ARGMAX_GAP[kv] when ``gated``), block
+    conservation (paged), more than one token a verify step (spec on),
+    and exact decode-attention and grouped-FFN launches from the
+    engine's own step counts: n_layers a decode step, draft layers x K
+    a draft call (warmup included), and for MoE n_layers B7 launches a
+    prefill, decode or verify step. Returns (row, tokens, launches)."""
+    from dlrover_tpu_torch.observability.registry import MetricsRegistry
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+    from dlrover_tpu_torch.serving import PagedServingEngine, ServingEngine
+
+    paged = "num_blocks" in engine_kw
+    reg = MetricsRegistry()
+    da.reset_launch_counts()
+    md.reset_launch_counts()
+    if paged:
+        eng = PagedServingEngine(cfg, params, kv_cache_dtype=kv,
+                                 registry=reg, **engine_kw)
+    else:
+        eng = ServingEngine(cfg, params, registry=reg, **engine_kw)
+    eng.warmup()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, n) for p, n in work]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {**da.launch_counts, **md.launch_counts}
+    for r, (_, n) in zip(reqs, work):
+        check(r.state == "done" and not r.failed and not r.truncated,
+              f"{label}: request {r.rid} ended {r.state} "
+              f"failed={r.failed} truncated={r.truncated}")
+        check(len(r.tokens) == n,
+              f"{label}: request {r.rid} got {len(r.tokens)} of {n}")
+        check(r.requeues == 0, f"{label}: request {r.rid} was requeued")
+    errors = reg.get("serving_step_errors_total").value()
+    check(errors == 0, f"{label}: {errors} step errors")
+    if paged:
+        eng.check_block_invariants()
+        stats = eng.kv_stats()
+        check(stats["used"] == 0,
+              f"{label}: blocks left in use at the end: {stats}")
+    # Exact launches.
+    counts = dict(eng.call_counts)
+    K, d = eng.spec_k, eng.spec_draft_layers
+    attn = (f"paged_decode_attention_{kv}" if paged
+            else f"decode_attention_{kv}")
+    want = {name: 0 for name in launches}
+    want[attn] = cfg.n_layers * counts["decode"] + d * K * counts["draft"]
+    if cfg.n_experts:
+        want["grouped_ffn_forward"] = cfg.n_layers * (
+            counts["prefill"] + counts["decode"] + counts["verify"]
+        ) + d * K * counts["draft"]
+    check(launches == want,
+          f"{label}: launches {launches}, want {want} from {counts}")
+    if K:
+        check(counts["decode"] == 1,
+              f"{label}: {counts['decode']} decode steps beside warmup's")
+    worst, agree = 0.0, []
+    for r, (p, _) in zip(reqs, work):
+        seq = torch.from_numpy(
+            np.concatenate([p, np.asarray(r.tokens, np.int32)])
+        ).cuda()[None]
+        w, a = _argmax_gap(cfg, params, seq, len(p), kv,
+                           f"{label}/request {r.rid}", gated)
+        worst = max(worst, w)
+        agree.append(a)
+    gen_tokens = sum(len(r.tokens) for r in reqs)
+    row = {
+        "phase": phase, "run": label, "kv": kv,
+        "engine": "paged" if paged else "flat", "requests": len(reqs),
+        **{k: v for k, v in engine_kw.items()},
+        "prompt_tokens": int(sum(len(p) for p, _ in work)),
+        "new_tokens": gen_tokens, "wall_s": wall,
+        "decode_tok_s": gen_tokens / wall,
+        "iterations": reg.get("serving_iterations_total").value(),
+        "step_calls": counts, "step_errors": errors,
+        "argmax_gap_max": worst, "argmax_gap_gated": gated,
+        "argmax_agree": float(np.mean(agree)), "launches": launches,
+    }
+    if K:
+        drafted = sum(r.spec_drafted for r in reqs)
+        accepted = sum(r.spec_accepted for r in reqs)
+        per_step = eng._spec_emitted / eng._spec_slot_steps
+        check(per_step > 1.0,
+              f"{label}: {per_step} tokens a verify step, not above 1")
+        draft_s = sum(r.draft_s for r in reqs)
+        verify_s = sum(r.verify_s for r in reqs)
+        row.update({
+            "spec_drafted": drafted, "spec_accepted": accepted,
+            "accept_rate": accepted / drafted if drafted else None,
+            "tokens_per_verify_step": per_step,
+            "verify_slot_steps": eng._spec_slot_steps,
+            "draft_s": draft_s, "verify_s": verify_s,
+            "draft_share": draft_s / (draft_s + verify_s),
+        })
+    if base is not None:
+        same = [float(np.mean(np.asarray(t) == np.asarray(b)))
+                for t, b in zip([r.tokens for r in reqs], base[1])]
+        row["agree_with_spec_off"] = float(np.mean(same))
+        row["speedup_vs_spec_off"] = row["decode_tok_s"] / base[0][
+            "decode_tok_s"]
+    emit(row)
+    del eng
+    torch.cuda.empty_cache()
+    return row, [r.tokens for r in reqs], launches
+
+
+def _spec_runs(cfg, params, work, phase, kv, gated, engine_kw, runs):
+    """``runs`` [(label, spec kwargs)], the spec-off one first; returns
+    the launches of all, summed by kernel."""
+    total, base = {}, None
+    for label, spec in runs:
+        row, tokens, launches = _run_spec(
+            cfg, params, work, phase, f"{kv}/{label}", kv, gated,
+            {**engine_kw, **spec}, base)
+        if base is None:
+            base = (row, tokens)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+SPEC_K, SPEC_DRAFT_LAYERS = 3, 4
+_NGRAM = dict(spec_k=SPEC_K)
+_EARLY_EXIT = dict(spec_k=SPEC_K, spec_drafter="early_exit",
+                   spec_draft_layers=SPEC_DRAFT_LAYERS)
+
+
+def phase_spec_engine(cfg, params, served):
+    """Speculative decoding on the flat engine (phase 5's settings: 8
+    slots, max_len 1024, chunk 64) over phase 5's 16 requests with
+    prompts ``p + greedy(p) + p``: spec off, n-gram K = 3, early exit
+    K = 3 over 4 layers. Returns the launches by kernel."""
+    return _spec_runs(
+        cfg, params, _spec_work(served), "spec_engine", "fp", True,
+        dict(slots=8, max_len=1024, prefill_chunk=64),
+        [("off", {}), ("ngram", _NGRAM), ("early_exit", _EARLY_EXIT)])
+
+
+def phase_paged_spec_engine(cfg, params, served):
+    """Speculative decoding on the paged engine at phase 11's settings
+    (16 slots, chunk 32, blocks of 16; 513 fp blocks, 993 int8 at equal
+    bytes) over the same requests: fp spec off, n-gram and early exit;
+    int8 spec off and n-gram. Returns the launches by kernel."""
+    work = _spec_work(served)
+    total = {}
+    for kv, blocks, runs in (
+            ("fp", 513, [("off", {}), ("ngram", _NGRAM),
+                         ("early_exit", _EARLY_EXIT)]),
+            ("int8", 993, [("off", {}), ("ngram", _NGRAM)])):
+        launches = _spec_runs(
+            cfg, params, work, "paged_spec_engine", kv, True,
+            dict(slots=16, num_blocks=blocks, **PAGED_KW), runs)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def phase_moe_paged_engine(cfg, params, served):
+    """MoE over the paged pool: ``moe_config`` at phase 11's fp settings,
+    the MoE engine phase's 16 requests with prompts ``p + greedy(p) +
+    p``, spec off and n-gram K = 3; the teacher-forced gap is reported,
+    as the MoE engine phase's. Returns the launches by kernel."""
+    return _spec_runs(
+        cfg, params, _spec_work(served), "moe_paged_engine", "fp", False,
+        dict(slots=16, num_blocks=513, **PAGED_KW),
+        [("off", {}), ("ngram", _NGRAM)])
 
 
 def _leaf_names(tree, prefix=""):
@@ -1497,11 +1696,12 @@ def phase_ce_kernels():
     coefficients of a token-mean loss: a = wgt (1 + 2 z logz), b = wgt.
     per_tok and logz pass within CE_STAT_REL; dx (bf16 on both sides:
     an element may round one bf16 ulp the other way) and dw pass
-    elementwise (see _ce_ratio). Each shape also plants a fault and
-    checks that the same bounds reject it: B3 and dx without their last
-    vocab tile (256 and 64 columns), dw without its last 64-row tile;
-    row 0's target sits in the last vocab column. B3, B4 dx and B4 dw
-    give the same bits on a second call."""
+    elementwise (see _ce_ratio). Each shape also plants faults and
+    checks that the same bounds reject them: B3 and dx without their
+    last vocab tile (256 and 64 columns), B3 also without its last 128
+    columns (inside a tile: the column mask), dw without its last
+    64-row tile; row 0's target sits in the last vocab column. B3, B4
+    dx and B4 dw give the same bits on a second call."""
     from dlrover_tpu_torch.ops import fused_ce as fc
 
     gen = torch.Generator("cuda").manual_seed(SEED + 4)
@@ -1547,6 +1747,10 @@ def phase_ce_kernels():
         }
         f_pt, f_logz = fc._xla_forward(x, w[:, :256 * ((v - 1) // 256)],
                                        tgt, CE_Z)
+        # A sub-tile drop (the last 128 columns, or the ragged vocab's
+        # last partial 128): B3's in-tile column mask.
+        f_pt128, f_logz128 = fc._xla_forward(
+            x, w[:, :128 * ((v - 1) // 128)], tgt, CE_Z)
         f_dx, _ = fc._xla_backward(x, w[:, :64 * ((v - 1) // 64)], tgt,
                                    ref_logz, a, b, want_dw=False)
         cut = 64 * ((n - 1) // 64)
@@ -1554,9 +1758,11 @@ def phase_ce_kernels():
                                    a[:cut], b[:cut], want_dx=False)
         fault = {"per_tok": _stat_ratio(f_pt, ref_pt),
                  "logz": _stat_ratio(f_logz, ref_logz),
+                 "per_tok_128": _stat_ratio(f_pt128, ref_pt),
+                 "logz_128": _stat_ratio(f_logz128, ref_logz),
                  "dx": _ce_ratio(f_dx.bfloat16(), ref_dx, -1),
                  "dw": _ce_ratio(f_dw, ref_dw, 0)}
-        del f_pt, f_logz, f_dx, f_dw, ref_dx, ref_dw
+        del f_pt, f_logz, f_pt128, f_logz128, f_dx, f_dw, ref_dx, ref_dw
         emit({"phase": "ce_bounds", "shape": label, "ratio": ratio,
               "planted_fault_ratio": fault, "bitwise_rerun": bitwise,
               "fwd_plan": dict(zip(("splits", "cluster"), fc.forward_plan(
@@ -1568,8 +1774,9 @@ def phase_ce_kernels():
         # Each kernel's fault must fail its outputs' bounds (B3's last
         # tile may hold only a few columns: row 0's per_tok loses its
         # target logit, while logz moves by their small share).
-        for kernel, outs in (("B3", ("per_tok", "logz")), ("dx", ("dx",)),
-                             ("dw", ("dw",))):
+        for kernel, outs in (("B3", ("per_tok", "logz")),
+                             ("B3 (128 columns)", ("per_tok_128", "logz_128")),
+                             ("dx", ("dx",)), ("dw", ("dw",))):
             worst = max(fault[o] for o in outs)
             check(worst > 1.0,
                   f"fused_ce/{label}: the {kernel} bounds pass a kernel "
@@ -2539,17 +2746,22 @@ def main():
     gen_launches = dict(da.launch_counts)
     da.reset_launch_counts()
     md.reset_launch_counts()
-    eng_launches = phase_engine(cfg, params)
+    eng_launches, served = phase_engine(cfg, params)
     da.reset_launch_counts()
     paged_want = phase_paged_engine(cfg, params)
     paged_launches = dict(da.launch_counts)
+    # Each spec run checks its own launches exactly.
+    spec_launches = phase_spec_engine(cfg, params, served)
+    paged_spec_launches = phase_paged_spec_engine(cfg, params, served)
     launches = {
         name: gen_launches[name] + eng_launches[name] + paged_launches[name]
+        + spec_launches[name] + paged_spec_launches[name]
         for name in da.launch_counts
     }
     emit({"phase": "launches", "generate": gen_launches,
           "engine": eng_launches, "paged_engine": paged_launches,
-          "paged_engine_want": paged_want,
+          "paged_engine_want": paged_want, "spec_engine": spec_launches,
+          "paged_spec_engine": paged_spec_launches,
           "per_decoded_token_generate": cfg.n_layers})
     # generate(): one launch per layer per single-token step, in two
     # full runs and one profiled run of 32 tokens.
@@ -2584,11 +2796,13 @@ def main():
     moe_launches = {"generate": phase_moe_generate(moe_cfg, moe_params)}
     da.reset_launch_counts()
     md.reset_launch_counts()
-    moe_launches["engine"] = phase_engine(moe_cfg, moe_params,
-                                          phase="moe_engine", gated=False)
+    moe_launches["engine"], moe_served = phase_engine(
+        moe_cfg, moe_params, phase="moe_engine", gated=False)
     for name in ("decode_attention_fp", "grouped_ffn_forward"):
         check(moe_launches["engine"][name] >= moe_cfg.n_layers,
               f"moe_engine: {name} never launched")
+    moe_launches["paged_engine"] = phase_moe_paged_engine(
+        moe_cfg, moe_params, moe_served)
     del moe_params
     torch.cuda.empty_cache()
     moe_launches["train"] = phase_moe_train(moe_cfg)

@@ -18,7 +18,9 @@ layer:
 This is the math of the reference's ``_layer_decode`` with its Pallas
 branch taken (``DLROVER_TPU_DECODE_ATTN=pallas``), the port's one decode
 route on the card. Decoding is an eager Python loop; nothing is
-compiled.
+compiled. The serving engines' speculative verify step runs
+:func:`_layer_verify` instead: T new tokens over a read-only cache, their
+rows appended by the caller.
 """
 
 import dataclasses
@@ -34,6 +36,7 @@ from dlrover_tpu_torch.ops.attention import dot_product_attention
 from dlrover_tpu_torch.ops.decode_attention import (
     decode_attention,
     paged_decode_attention,
+    spec_verify_attention,
 )
 from dlrover_tpu_torch.ops.kv_quant import dequantize_kv, quantize_kv
 from dlrover_tpu_torch.ops.norms import rms_norm
@@ -165,13 +168,19 @@ def _append(cache: torch.Tensor, new: torch.Tensor,
     """Write ``new`` [b, sq, ...] into ``cache`` in place. A flat
     [b, max_len, ...] cache takes one shared cursor (an int) or one row
     per batch row at a per-row [b] cursor (ragged slots; sq must be 1).
-    A paged [num_blocks, block_size, ...] pool takes a ``(block, offset)``
-    pair of [b] vectors, one pool row per batch row (sq must be 1; rows
-    sharing a target may land in any order)."""
+    A tuple names the target of each of the b * sq new rows in order:
+    ``(i0, i1)`` two [b * sq] index vectors into the cache's first two
+    dims (a paged [num_blocks, block_size, ...] pool's ``(block,
+    offset)``; rows sharing a target may land in any order), or ``(i0,
+    i1, src)`` to write only the new rows ``src`` of the flattened
+    [b * sq] (the others are dropped)."""
     if isinstance(cursor, int):
         cache[:, cursor:cursor + new.shape[1]] = new
     elif isinstance(cursor, tuple):
-        cache[cursor] = new[:, 0]
+        rows = new.flatten(0, 1)
+        if len(cursor) == 3:
+            rows = rows[cursor[2]]
+        cache[cursor[0], cursor[1]] = rows
     else:
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache[rows, cursor] = new[:, 0]
@@ -237,6 +246,54 @@ def _layer_decode(
     return llama.mlp_block(config, p, x)[0]
 
 
+def _layer_verify(config, p, x, positions, k_cache, v_cache, cache_len,
+                  k_scale=None, v_scale=None):
+    """One decoder block over [b, T] tokens (the speculative-decoding
+    verify step: the fed token plus K drafts); the cache is read-only
+    (after the reference's ``_layer_verify_read_only``). Attention runs
+    :func:`spec_verify_attention` over ``cache_len`` [b] visible rows,
+    the drafts causal among themselves. Returns ``(x, k_rows, v_rows,
+    k_rows_scale, v_rows_scale)``: the T new rows as the cache stores
+    them, for the caller to append (the scales are None for an fp
+    cache).
+
+    One difference from the reference, on purpose: the port's decode
+    step appends a token's row first and reads it back, so an int8
+    cache's token sees its OWN row quantized (the reference keeps it at
+    full precision). The verify step follows the port's decode step, so
+    that spec-on gives the port's spec-off tokens: with ``k_scale``
+    given, the new rows are quantized in the layer and every new key,
+    the self key too, is read quantized. With an fp cache in the compute
+    dtype the storage round trip is the identity and both conventions
+    are one."""
+    residual = x
+    if "wqkv" in p:
+        q, k, v = _fused_qkv(config, p, x, positions)
+    else:
+        q, k, v = llama.attention_qkv(config, p, x, positions)
+    if k_scale is not None:
+        kq, ks_rows = quantize_kv(k)
+        vq, vs_rows = quantize_kv(v)
+        attn = spec_verify_attention(
+            q, k_cache, v_cache, dequantize_kv(kq, ks_rows),
+            dequantize_kv(vq, vs_rows), cache_len,
+            k_scale=k_scale, v_scale=v_scale,
+            k_new_q=kq, k_new_scale=ks_rows,
+            v_new_q=vq, v_new_scale=vs_rows,
+        )
+        rows = (kq, vq, ks_rows, vs_rows)
+    else:
+        k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
+        attn = spec_verify_attention(q, k_cache, v_cache, k, v, cache_len)
+        rows = (k, v, None, None)
+    x = llama.attention_out(config, p, attn, residual)
+    if "w_gu" in p:
+        x = _fused_mlp(config, p, x)
+    else:
+        x = llama.mlp_block(config, p, x)[0]
+    return (x, *rows)
+
+
 def _forward_with_cache(config, params, tokens, cache: DecodeCache,
                         cursor: Optional[int] = None):
     """Run [b, sq] tokens through all layers, appending to the cache at
@@ -289,6 +346,36 @@ def sample_token(logits: torch.Tensor, temperature,
     gumbel = -torch.empty_like(z).exponential_(generator=generator).log()
     z = torch.where(t_rows > 0.0, z + gumbel, logits)
     return z.argmax(dim=-1).to(torch.int32)
+
+
+def sample_token_logprobs(logits: torch.Tensor, temperature,
+                          generator: Optional[torch.Generator] = None,
+                          top_k: int = 0):
+    """:func:`sample_token` that also returns the chosen token's
+    log-probability under the (temperature-scaled) sampling
+    distribution and, with ``top_k > 0``, the top-k alternatives. The
+    token is :func:`sample_token`'s for the same generator state (the
+    same call); only the log_softmax pass is new. Rows with t <= 0
+    report the argmax token's logprob under the unscaled softmax; host
+    temperatures that are all <= 0 copy nothing to the device.
+
+    Returns ``(token, logprob)``, or with ``top_k``:
+    ``(token, logprob, topk_tokens, topk_logprobs)``."""
+    tok = sample_token(logits, temperature, generator)
+    base = logits
+    if isinstance(temperature, torch.Tensor) or (
+            np.asarray(temperature, np.float32) > 0.0).any():
+        t = torch.as_tensor(temperature, dtype=torch.float32,
+                            device=logits.device)
+        t_rows = t[..., None] if t.ndim else t
+        base = torch.where(t_rows > 0.0,
+                           logits / torch.clamp(t_rows, min=1e-6), logits)
+    logp = torch.log_softmax(base.float(), dim=-1)
+    lp = logp.gather(-1, tok.long()[..., None])[..., 0]
+    if top_k:
+        tk_lp, tk_idx = logp.topk(top_k, dim=-1)
+        return tok, lp, tk_idx.to(torch.int32), tk_lp
+    return tok, lp
 
 
 class GenerateResult(NamedTuple):

@@ -23,6 +23,10 @@ split order. One CUDA launch per call either way.
 
 The fill lengths are per row (a scalar is broadcast), so the serving
 engines' ragged slots each read only their own filled rows.
+
+:func:`spec_verify_attention` is the speculative-decoding verify step's
+T-query attention. The reference's is plain JAX with no Pallas call, so
+its port is plain PyTorch, on every device.
 """
 
 import ctypes
@@ -221,6 +225,85 @@ def decode_attention_reference(
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     out = out / torch.clamp(denom, min=1e-30)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def spec_verify_attention(
+    q: torch.Tensor,        # [b, T, h, d] — the fed token + K drafts
+    k_cache: torch.Tensor,  # [b, S, kh, d] read-only; rows >= cache_len unread
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,    # [b, T, kh, d] K/V of the T new tokens
+    v_new: torch.Tensor,
+    cache_len: Union[int, torch.Tensor],   # [] or [b] — visible cache rows
+    k_scale: Optional[torch.Tensor] = None,      # [b, S, kh] f32 (int8)
+    v_scale: Optional[torch.Tensor] = None,
+    k_new_q: Optional[torch.Tensor] = None,      # [b, T, kh, d] int8
+    k_new_scale: Optional[torch.Tensor] = None,  # [b, T, kh] f32
+    v_new_q: Optional[torch.Tensor] = None,
+    v_new_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """T-query attention of the speculative-decoding verify step, plain
+    PyTorch (the reference's is plain JAX: no kernel to port). Scores
+    all T = K+1 new tokens against a READ-ONLY ragged cache, as K+1
+    sequential one-token steps would if each drafted token's K/V had
+    been appended before the next. Three key groups in one softmax:
+
+    - the cache ([b, S]): rows visible iff ``< cache_len``, per row;
+    - the intra-draft keys ([b, T]): query t sees new key u iff u < t.
+      With int8 rows (``k_new_q``) these are the quantized values, the
+      per-(row, head) scales folded after the reduction as in the cache
+      part: what a sequential step would read back from the cache;
+    - the self key: each query sees its own ``k_new``/``v_new`` as given.
+
+    T = 1 is one-token decode with the new row kept apart. Returns
+    [b, T, h, d] in q's dtype."""
+    b, T, h, d = q.shape
+    _, skv, kh, _ = k_cache.shape
+    g = h // kh
+    dev = q.device
+    q32 = (q * d ** -0.5).float().reshape(b, T, kh, g, d)
+    # Cache part: [b, kh, g, T, S], masked per row.
+    logits = torch.einsum("btkgd,bskd->bkgts", q32, k_cache.float())
+    if k_scale is not None:
+        logits = logits * k_scale.float().permute(0, 2, 1)[:, :, None, None]
+    lens = _row_lengths(cache_len, b, dev)
+    visible = (
+        torch.arange(skv, device=dev)[None, :] < lens[:, None]
+    )[:, None, None, None, :]                            # [b, 1, 1, 1, S]
+    logits = torch.where(visible, logits, _NEG_INF)
+    # Intra-draft part: [b, kh, g, T, T], key u visible to query t iff
+    # u < t (fp: the storage round trip is the identity).
+    intra_k = (k_new_q if k_new_q is not None else k_new).float()
+    l_intra = torch.einsum("btkgd,bukd->bkgtu", q32, intra_k)
+    if k_new_scale is not None:
+        l_intra = l_intra * k_new_scale.float().permute(0, 2, 1)[
+            :, :, None, None]
+    tq = torch.arange(T, device=dev)
+    intra_mask = tq[None, :] < tq[:, None]                # [T, T] u < t
+    l_intra = torch.where(intra_mask, l_intra, _NEG_INF)
+    # Self part.
+    l_self = torch.einsum("btkgd,btkd->bkgt", q32, k_new.float())
+    m = torch.maximum(
+        torch.maximum(logits.amax(dim=-1), l_intra.amax(dim=-1)), l_self
+    )                                                     # [b, kh, g, T]
+    p = torch.where(visible, torch.exp(logits - m[..., None]), 0.0)
+    p_intra = torch.where(intra_mask, torch.exp(l_intra - m[..., None]),
+                          0.0)
+    p_self = torch.exp(l_self - m)
+    denom = p.sum(dim=-1) + p_intra.sum(dim=-1) + p_self   # >= p_self
+    if v_scale is not None:
+        p = p * v_scale.float().permute(0, 2, 1)[:, :, None, None]
+    intra_v = (v_new_q if v_new_q is not None else v_new).float()
+    if v_new_scale is not None:
+        p_intra = p_intra * v_new_scale.float().permute(0, 2, 1)[
+            :, :, None, None]
+    out = (
+        torch.einsum("bkgts,bskd->bkgtd", p, v_cache.float())
+        + torch.einsum("bkgtu,bukd->bkgtd", p_intra, intra_v)
+        + p_self[..., None]
+        * v_new.float().permute(0, 2, 1, 3)[:, :, None]
+    ) / denom[..., None]
+    # [b, kh, g, T, d] -> [b, T, h, d]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, T, h, d).to(q.dtype)
 
 
 def _check(q, k_cache, v_cache, k_scale, v_scale,

@@ -16,10 +16,21 @@ per-slot fills, iteration-level scheduling (port of
   with a positional causal mask, so a long prompt interleaves with
   decode iterations instead of stalling them.
 
+- **Speculative decoding** (``spec_k > 0``, ``serving/spec_decode.py``).
+  Each iteration drafts up to ``spec_k`` tokens per decoding slot (the
+  host n-gram drafter, or the early-exit drafter: the first
+  ``spec_draft_layers`` blocks through the decode kernel), then ONE
+  verify step runs the fed token and the drafts, [slots, spec_k + 1]
+  tokens, through the whole model with the cache read-only, appends
+  their rows and applies the accept law; the fill advances by the
+  accepted drafts plus one. The verify step replaces the decode step
+  entirely (draft_len 0 is one-token decode through it). Rows a step
+  would write at or past ``max_len``, and every row of an inactive
+  slot, are dropped, never clamped onto a row that can become visible.
+
 The paged engine (``serving/kvpool``) subclasses this one and overrides
-the pool hooks and the two device steps. Not ported yet: speculative
-decoding (``spec_k > 0`` raises), the fleet, tracing spans and fault
-points.
+the pool hooks and the device steps. Not ported yet: the fleet, tracing
+spans and fault points.
 
 Typical use::
 
@@ -40,8 +51,14 @@ from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.models import generate as gen_lib
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.serving import scheduler as sched_lib
+from dlrover_tpu_torch.serving import spec_decode as spec_lib
 from dlrover_tpu_torch.serving.metrics import serving_metrics
 from dlrover_tpu_torch.serving.scheduler import DECODE, Request, Scheduler
+
+# Lookback horizon of the host n-gram drafter: the rightmost suffix
+# match decides the proposal, so only recent history can win, and the
+# per-step host cost stays flat as sequences grow.
+_NGRAM_WINDOW = 128
 
 
 class ServingEngine:
@@ -49,7 +66,11 @@ class ServingEngine:
 
     Host bookkeeping (the Scheduler) is torch-free; each ``step()`` runs
     at most one prefill chunk and one ragged decode iteration. The
-    engine is not thread-safe — drive it from one serving loop."""
+    engine is not thread-safe — drive it from one serving loop.
+    ``call_counts`` counts the device steps run (``prefill``,
+    ``decode``, ``draft``, ``verify``; warmup's included): each decode
+    step launches the decode kernel once a layer, each early-exit draft
+    call ``spec_k`` times a draft layer, the verify step not at all."""
 
     def __init__(
         self,
@@ -65,6 +86,8 @@ class ServingEngine:
         max_requeues: int = 3,
         slo_classes=None,
         spec_k: int = 0,
+        spec_drafter: str = "ngram",
+        spec_draft_layers: int = 2,
         device="cuda",
     ):
         llama.require_flat_stack(config)
@@ -81,13 +104,28 @@ class ServingEngine:
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0")
         if spec_k:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet"
-            )
+            if spec_drafter not in spec_lib.SPEC_DRAFTERS:
+                raise ValueError(
+                    f"spec_drafter must be one of "
+                    f"{spec_lib.SPEC_DRAFTERS}, got {spec_drafter!r}"
+                )
+            if spec_drafter == "early_exit" and not (
+                0 < spec_draft_layers <= config.n_layers
+            ):
+                raise ValueError(
+                    f"spec_draft_layers must be in 1..{config.n_layers}"
+                )
         self.config = config
         self.slots = slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        self.spec_k = spec_k
+        self.spec_drafter = spec_drafter
+        # 0 = no device drafter (the n-gram drafter is host code).
+        self.spec_draft_layers = (
+            spec_draft_layers
+            if spec_k and spec_drafter == "early_exit" else 0
+        )
         self.device = gen_lib.resolve_device(device)
         # How many step-error restarts a request gets before it is
         # EXPLICITLY failed — a persistent device error must not
@@ -95,7 +133,7 @@ class ServingEngine:
         self.max_requeues = max_requeues
         self.scheduler = Scheduler(
             slots, max_len, prefill_chunk, token_budget, drain_mode,
-            slo_classes=slo_classes,
+            slo_classes=slo_classes, decode_tokens_per_slot=1 + spec_k,
         )
         self.metrics = serving_metrics(registry)
         self.metrics.slots_total.set(slots)
@@ -107,6 +145,12 @@ class ServingEngine:
         self._generator = generator
         # Tokens decoded in the current iteration (per-token latency).
         self._iter_decoded = 0
+        # Running accepted-tokens-per-step mean (one decoding slot
+        # through one verify step is one slot-step).
+        self._spec_emitted = 0
+        self._spec_slot_steps = 0
+        self.call_counts = {"prefill": 0, "decode": 0, "draft": 0,
+                            "verify": 0}
         self._k, self._v = self._fresh_pool()
         # Host mirrors of the per-slot state, passed into every step.
         self._lengths = np.zeros(slots, np.int32)
@@ -157,15 +201,28 @@ class ServingEngine:
         return len(self.scheduler.queue) + len(self.scheduler.active())
 
     def warmup(self) -> None:
-        """Run one prefill chunk and one decode step on throwaway state
-        (building the kernels at first use), then reset the pool — so
-        the first real request pays no build."""
+        """Run one prefill chunk, one decode step and, with spec on, one
+        draft and one verify step on throwaway state (building the
+        kernels at first use), then reset the pool — so the first real
+        request pays no build."""
         chunk = np.zeros((1, self.prefill_chunk), np.int32)
         self._prefill(chunk, 0, 0, 1, 0.0)
         self._decode(np.zeros(self.slots, bool))
+        self._warmup_spec()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._reset_pool()
+
+    def _warmup_spec(self) -> None:
+        """The spec steps on throwaway state, every slot inactive."""
+        if not self.spec_k:
+            return
+        inactive = np.zeros(self.slots, bool)
+        drafts = np.zeros((self.slots, self.spec_k), np.int32)
+        if self.spec_drafter == "early_exit":
+            drafts = self._spec_draft_device(inactive)
+        self._spec_verify_device(inactive, drafts,
+                                 np.zeros(self.slots, np.int32))
 
     def step(self) -> List[Request]:
         """One scheduler iteration: admissions, at most one prefill
@@ -308,6 +365,7 @@ class ServingEngine:
         [start, start + chunk); returns the token sampled at the last
         real prompt position ``n_valid - 1`` (meaningful on the final
         chunk only; pad rows past it hold K/V that stays invisible)."""
+        self.call_counts["prefill"] += 1
         cfg = self.config
         tokens = torch.from_numpy(chunk).to(self.device)
         c = chunk.shape[1]
@@ -331,6 +389,7 @@ class ServingEngine:
     def _decode(self, active: np.ndarray) -> np.ndarray:
         """[slots] fed tokens -> one sampled token per slot, ragged
         fills. Inactive slots keep their fed token."""
+        self.call_counts["decode"] += 1
         cfg = self.config
         host = np.stack([
             self._lengths,
@@ -382,6 +441,9 @@ class ServingEngine:
 
     def _run_decode(self, decoding: List[Request],
                     finished: List[Request]):
+        if self.spec_k:
+            self._run_decode_spec(decoding, finished)
+            return
         active = np.zeros(self.slots, bool)
         for r in decoding:
             active[r.slot] = True
@@ -399,6 +461,213 @@ class ServingEngine:
                 # No room to feed the token just sampled.
                 r.truncated = True
                 self._finish(r, finished)
+
+    # ---- speculative decode ------------------------------------------------
+
+    def _run_decode_spec(self, decoding: List[Request],
+                         finished: List[Request]):
+        """One draft -> verify -> commit iteration for every decoding
+        slot. Variable per-slot acceptance is a ragged fill advance;
+        rejected drafts stay beyond the fill. The emitted tokens and the
+        accept lengths reach the host in one copy."""
+        decoding = self._spec_prepare_rows(decoding)
+        if not decoding:
+            return
+        active = np.zeros(self.slots, bool)
+        for r in decoding:
+            active[r.slot] = True
+        T = self.spec_k + 1
+        t_d = time.monotonic()
+        drafts, draft_len = self._spec_draft(decoding, active)
+        t_v = time.monotonic()
+        out = self._spec_verify_device(active, drafts, draft_len)
+        out = out.cpu().numpy()
+        emitted, acc = out[:, :T], out[:, T]
+        t_e = time.monotonic()
+        n_dec = len(decoding)
+        d_dt = (t_v - t_d) / n_dec
+        v_dt = (t_e - t_v) / n_dec
+        for r in decoding:
+            r.draft_s += d_dt
+            r.verify_s += v_dt
+        for r in decoding:
+            s = r.slot
+            n_acc = int(acc[s])
+            dl = int(draft_len[s])
+            toks = [int(t) for t in emitted[s, : n_acc + 1]]
+            # All T rows landed; only the accepted prefix plus the final
+            # token become visible (free rollback).
+            self._lengths[s] += n_acc + 1
+            r.tokens.extend(toks)
+            self._tokens[s] = toks[-1]
+            r.spec_drafted += dl
+            r.spec_accepted += n_acc
+            self.metrics.tokens.inc(n_acc + 1, kind="decode")
+            if dl:
+                self.metrics.spec_tokens.inc(dl, kind="drafted")
+                if n_acc:
+                    self.metrics.spec_tokens.inc(n_acc, kind="accepted")
+                if dl - n_acc:
+                    self.metrics.spec_tokens.inc(dl - n_acc,
+                                                 kind="rejected")
+                self.metrics.spec_accept_rate.observe(n_acc / dl)
+            self._spec_emitted += n_acc + 1
+            self._spec_slot_steps += 1
+            self._iter_decoded += n_acc + 1
+            if len(r.tokens) >= r.max_new_tokens:
+                self._finish(r, finished)
+            elif self._lengths[s] + 1 > self.max_len:
+                # No room to feed the final token back.
+                r.truncated = True
+                self._finish(r, finished)
+        self.metrics.spec_tokens_per_step.set(
+            self._spec_emitted / self._spec_slot_steps
+        )
+
+    def _spec_prepare_rows(self, decoding: List[Request]):
+        """Make rows fill..fill+spec_k writable for every decoding slot.
+        The flat slab always has them; the paged engine allocates and
+        privatizes blocks here and may preempt."""
+        return decoding
+
+    def _spec_draft(self, decoding: List[Request], active: np.ndarray):
+        """Propose up to spec_k tokens per slot. Returns ``(drafts
+        [slots, K], draft_len np [slots])``; the drafts are a device
+        tensor (early exit) or a host array (n-gram)."""
+        K = self.spec_k
+        draft_len = np.zeros(self.slots, np.int32)
+        caps = {
+            r.slot: spec_lib.clamp_draft_len(
+                K, len(r.tokens), r.max_new_tokens,
+                int(self._lengths[r.slot]), self.max_len,
+            )
+            for r in decoding
+        }
+        if self.spec_drafter == "early_exit":
+            drafts = self._spec_draft_device(active)
+            if self.device.type == "cuda":
+                # An honest draft/verify split of the iteration's time.
+                torch.cuda.synchronize(self.device)
+            # The device drafter always proposes K tokens; the clamp
+            # rides in draft_len (acceptance never crosses it).
+            for s, cap in caps.items():
+                draft_len[s] = cap
+            return drafts, draft_len
+        drafts_np = np.zeros((self.slots, K), np.int32)
+        for r in decoding:
+            s = r.slot
+            cap = caps[s]
+            if cap <= 0:
+                continue
+            # Bounded lookback: the motifs worth speculating on recur
+            # within a short horizon.
+            toks = r.tokens
+            if len(toks) >= _NGRAM_WINDOW:
+                hist = np.asarray(toks[-_NGRAM_WINDOW:], np.int32)
+            else:
+                hist = np.concatenate([
+                    np.asarray(
+                        r.prompt[-(_NGRAM_WINDOW - len(toks)):], np.int32
+                    ),
+                    np.asarray(toks, np.int32),
+                ])
+            prop = spec_lib.propose_ngram(hist, cap)
+            n = min(len(prop), cap)
+            drafts_np[s, :n] = prop[:n]
+            draft_len[s] = n
+        return drafts_np, draft_len
+
+    def _host_to_device(self, parts):
+        """Int32 host arrays -> device views of one copy, in order."""
+        flat = [np.asarray(p, np.int32).ravel() for p in parts]
+        dev = torch.from_numpy(np.concatenate(flat)).to(self.device)
+        out, at = [], 0
+        for p, f in zip(parts, flat):
+            out.append(dev[at:at + f.size].view(np.shape(p)))
+            at += f.size
+        return out
+
+    @torch.inference_mode()
+    def _spec_draft_device(self, active: np.ndarray) -> torch.Tensor:
+        """Early-exit drafter: K single-token steps through the first
+        ``spec_draft_layers`` blocks (the decode kernel reads each
+        slot's rows), greedy through the shared head. Draft i's rows
+        land at fill + i of the draft layers, beyond the fill; a row at
+        or past max_len, and every row of an inactive slot, is dropped.
+        Returns the drafts [slots, K] int32 on the device."""
+        self.call_counts["draft"] += 1
+        cfg = self.config
+        K, slots = self.spec_k, self.slots
+        lens = self._lengths[:, None] + np.arange(K)[None, :]  # [slots, K]
+        valid = active[:, None] & (lens < self.max_len)
+        src = [np.flatnonzero(valid[:, i]) for i in range(K)]
+        dev = self._host_to_device(
+            [self._lengths, self._tokens, active,
+             np.where(valid, lens + 1, 0).T]
+            + [a for i in range(K) for a in (src[i], lens[src[i], i])]
+        )
+        lengths, cur, act, fill = dev[:4]
+        act = act.bool()
+        drafts = []
+        for i in range(K):
+            sel, rows = dev[4 + 2 * i].long(), dev[5 + 2 * i].long()
+            positions = (lengths + i)[:, None]
+            x = llama.embed_tokens(cfg, self._params, cur[:, None])
+            for j in range(self.spec_draft_layers):
+                x = gen_lib._layer_decode(
+                    cfg, llama.layer_params(self._params, j), x, positions,
+                    self._k[j], self._v[j], (sel, rows, sel), fill[i],
+                )
+            logits = llama.unembed(cfg, self._params, x)[:, 0]
+            cur = torch.where(act, logits.argmax(dim=-1).to(torch.int32),
+                              cur)
+            drafts.append(cur)
+        return torch.stack(drafts, dim=1)
+
+    @torch.inference_mode()
+    def _spec_verify_device(self, active: np.ndarray, drafts,
+                            draft_len: np.ndarray) -> torch.Tensor:
+        """The verify step: the fed token and the K drafts of every slot,
+        [slots, K + 1] tokens, through every layer with the cache
+        read-only (``gen_lib._layer_verify``), their rows appended at
+        fill..fill+K (dropped at or past max_len and for inactive
+        slots), then the accept law. Returns [slots, K + 2] int32 on the
+        device: the emitted tokens, then the accept length."""
+        self.call_counts["verify"] += 1
+        cfg = self.config
+        T = self.spec_k + 1
+        writes = self._lengths[:, None] + np.arange(T)[None, :]
+        valid = active[:, None] & (writes < self.max_len)
+        src = np.flatnonzero(valid)
+        parts = [self._lengths, self._tokens, draft_len, active,
+                 src // T, writes.ravel()[src], src]
+        host_drafts = isinstance(drafts, np.ndarray)
+        if host_drafts:
+            parts.append(drafts)
+        dev = self._host_to_device(parts)
+        lengths, tokens, dlen, act = dev[:4]
+        cursor = tuple(t.long() for t in dev[4:7])
+        if host_drafts:
+            drafts = dev[7]
+        # The cache rows any active slot can see.
+        rows = max(1, int(self._lengths[active].max(initial=0)))
+        toks = torch.cat([tokens[:, None], drafts], dim=1)
+        positions = lengths[:, None] + torch.arange(
+            T, dtype=torch.int32, device=self.device)[None, :]
+        x = llama.embed_tokens(cfg, self._params, toks)
+        for i in range(cfg.n_layers):
+            x, k_rows, v_rows, _, _ = gen_lib._layer_verify(
+                cfg, llama.layer_params(self._params, i), x, positions,
+                self._k[i, :, :rows], self._v[i, :, :rows], lengths,
+            )
+            gen_lib._append(self._k[i], k_rows, cursor)
+            gen_lib._append(self._v[i], v_rows, cursor)
+        logits = llama.unembed(cfg, self._params, x)     # [slots, T, V]
+        emitted, acc = spec_lib.spec_accept(
+            logits, drafts, dlen, self._temps, act.bool(), tokens,
+            self._generator,
+        )
+        return torch.cat([emitted, acc[:, None]], dim=1)
 
     def _finish(self, req: Request, finished: List[Request]):
         slot = req.slot

@@ -37,6 +37,18 @@ BLOCK TABLE names:
   engine is constructed with room for at least one full-length slot,
   so relief always terminates.
 
+- **Speculative decoding** (``spec_k > 0``): before the draft and
+  verify steps every decoding slot gets its rows fill..fill+spec_k
+  allocated and privately owned (``_spec_prepare_rows``; this may
+  preempt). The early-exit draft runs the first ``spec_draft_layers``
+  blocks through the paged kernel; the verify step gathers each slot's
+  visible rows through its table and runs the reference's verify math
+  over them. Every write that must not land (an inactive slot, a row at
+  or past ``max_len``) goes to the sentinel block.
+- **MoE configs** serve as dense ones: every step reaches the expert
+  layer through ``llama.mlp_block`` (the grouped FFN kernel on the
+  card).
+
 The pools are updated in place (the reference's donated jit programs
 return new ones). One difference from the reference's decode step is
 deliberate: the reference attends over the gathered view with the new
@@ -44,10 +56,13 @@ token's own K/V kept apart at full precision and appends afterwards;
 the port appends first and reads the row back through the kernel, as
 its flat engine and ``generate()`` do. With an fp pool in the compute
 dtype the two agree to rounding; with an int8 pool the port reads the
-new token's row quantized.
+new token's row quantized. The verify step keeps the port's convention
+(``gen_lib._layer_verify``): with an int8 pool every new row, the
+token's own too, is read quantized, so spec-on gives the port's
+spec-off tokens; the reference reads each token's own row at full
+precision there as well.
 
-Not ported yet: speculative decoding over the pool (``spec_k > 0``
-raises) and the migration import/export of blocks.
+Not ported yet: the migration import/export of blocks.
 """
 
 from typing import Dict, List, Optional
@@ -68,6 +83,7 @@ from dlrover_tpu_torch.serving.kvpool.allocator import (
     BlockAllocator,
     BlockPoolExhausted,
 )
+from dlrover_tpu_torch.serving import spec_decode as spec_lib
 from dlrover_tpu_torch.serving.kvpool.prefix_cache import PrefixCache
 from dlrover_tpu_torch.serving.scheduler import DECODE, PREFILL, Request
 
@@ -108,13 +124,10 @@ class PagedServingEngine(ServingEngine):
         slo_classes=None,
         kv_cache_dtype: str = "fp",
         spec_k: int = 0,
+        spec_drafter: str = "ngram",
+        spec_draft_layers: int = 2,
         device="cuda",
     ):
-        if config.n_experts > 0:
-            raise NotImplementedError(
-                "the paged engine does not serve MoE configs yet; the flat "
-                "ServingEngine does"
-            )
         if kv_cache_dtype not in ("fp", "int8"):
             raise ValueError(
                 f"kv_cache_dtype {kv_cache_dtype!r} not in "
@@ -170,7 +183,8 @@ class PagedServingEngine(ServingEngine):
             prefill_chunk=prefill_chunk, token_budget=token_budget,
             drain_mode=drain_mode, generator=generator, registry=registry,
             max_requeues=max_requeues, slo_classes=slo_classes,
-            spec_k=spec_k, device=device,
+            spec_k=spec_k, spec_drafter=spec_drafter,
+            spec_draft_layers=spec_draft_layers, device=device,
         )
         self._kscale, self._vscale = self._fresh_scales()
         # Block watermark: only admit a request the pool can hold
@@ -223,12 +237,14 @@ class PagedServingEngine(ServingEngine):
         )
 
     def warmup(self) -> None:
-        """Run one prefill chunk, one decode step and one block copy on
-        throwaway state (building the kernel at first use), then rebuild
-        the pools — so the first real request pays no build."""
+        """Run one prefill chunk, one decode step, the spec steps (with
+        spec on) and one block copy on throwaway state (building the
+        kernel at first use), then rebuild the pools — so the first real
+        request pays no build."""
         chunk = np.zeros((1, self.prefill_chunk), np.int32)
         self._prefill(chunk, 0, 0, 1, 0.0)
         self._decode(np.zeros(self.slots, bool))
+        self._warmup_spec()
         self._cow_copy(SENTINEL_BLOCK, SENTINEL_BLOCK)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -454,6 +470,7 @@ class PagedServingEngine(ServingEngine):
         always maps to +-127), so rows below the chunk inside a touched
         block keep their exact stored values and scales. Returns the
         token sampled at the last real prompt position."""
+        self.call_counts["prefill"] += 1
         cfg = self.config
         bs, c = self.block_size, chunk.shape[1]
         kh, hd = cfg.n_kv_heads, cfg.head_dim
@@ -509,6 +526,7 @@ class PagedServingEngine(ServingEngine):
         of them in one scatter; any winner is fine, the row is never
         read — and attend over 0 rows; their fed token is kept. The
         per-slot vectors and the tables reach the device in one copy."""
+        self.call_counts["decode"] += 1
         cfg = self.config
         bs, slots = self.block_size, self.slots
         write = np.minimum(self._lengths, self.max_len - 1)
@@ -560,6 +578,9 @@ class PagedServingEngine(ServingEngine):
 
     def _run_decode(self, decoding: List[Request],
                     finished: List[Request]):
+        if self.spec_k:
+            self._run_decode_spec(decoding, finished)
+            return
         # Block-budget pass FIRST: growing a cursor past a block edge
         # may preempt the youngest peer, which must then sit this
         # iteration out.
@@ -572,6 +593,132 @@ class PagedServingEngine(ServingEngine):
         decoding = [r for r in decoding if r.state == DECODE]
         if decoding:
             super()._run_decode(decoding, finished)
+
+    # ---- speculative decode hooks ------------------------------------------
+
+    def _spec_prepare_rows(self, decoding: List[Request]):
+        """Every decoding slot needs rows fill..fill+spec_k writable
+        BEFORE the device steps: allocate the covering blocks (the
+        relief ladder may preempt the youngest peer, which then sits
+        this iteration out) and privatize every touched block — drafted-
+        then-rejected rows must never land in a block another slot or
+        the prefix cache shares."""
+        T = self.spec_k + 1
+        for r in list(decoding):
+            if r.state != DECODE:
+                continue  # preempted by an earlier peer's allocation
+            fill = int(self._lengths[r.slot])
+            upto = min(fill + T, self.max_len)
+            self._ensure_blocks(r, upto)
+            first_blk = min(fill, self.max_len - 1) // self.block_size
+            last_blk = min(
+                (upto - 1) // self.block_size,
+                len(self._slot_blocks[r.slot]) - 1,
+            )
+            for idx in range(first_blk, last_blk + 1):
+                self._privatize(r, idx)
+        return [r for r in decoding if r.state == DECODE]
+
+    def _coords(self, active: np.ndarray, rows: np.ndarray):
+        """Pool coordinates (block, offset) of logical ``rows`` [slots,
+        n] through the tables, and which of them are valid; an inactive
+        slot's rows and rows at or past max_len go to the sentinel
+        block."""
+        valid = active[:, None] & (rows < self.max_len)
+        w = np.minimum(rows, self.max_len - 1)
+        blk = self._tables[np.arange(self.slots)[:, None],
+                           w // self.block_size]
+        return (np.where(valid, blk, SENTINEL_BLOCK),
+                np.where(valid, w % self.block_size, 0), valid)
+
+    @torch.inference_mode()
+    def _spec_draft_device(self, active: np.ndarray) -> torch.Tensor:
+        """Paged early-exit drafter: K single-token steps through the
+        first ``spec_draft_layers`` blocks, each attending through the
+        paged kernel; draft i's rows land at fill + i of the draft
+        layers (sentinel-redirected when invalid). Returns the drafts
+        [slots, K] int32 on the device."""
+        self.call_counts["draft"] += 1
+        cfg = self.config
+        K = self.spec_k
+        lens = self._lengths[:, None] + np.arange(K)[None, :]  # [slots, K]
+        blk, off, valid = self._coords(active, lens)
+        lengths, cur, act, blk, off, fill, tables = self._host_to_device([
+            self._lengths, self._tokens, active, blk.T, off.T,
+            np.where(valid, lens + 1, 0).T, self._tables,
+        ])
+        act = act.bool()
+        drafts = []
+        for i in range(K):
+            cursor = (blk[i].long(), off[i].long())
+            positions = (lengths + i)[:, None]
+            x = llama.embed_tokens(cfg, self._params, cur[:, None])
+            for j in range(self.spec_draft_layers):
+                k_pool, v_pool, ks_pool, vs_pool = self._pools(j)
+                x = gen_lib._layer_decode(
+                    cfg, llama.layer_params(self._params, j), x, positions,
+                    k_pool, v_pool, cursor, fill[i],
+                    k_scale=ks_pool, v_scale=vs_pool, block_tables=tables,
+                )
+            logits = llama.unembed(cfg, self._params, x)[:, 0]
+            cur = torch.where(act, logits.argmax(dim=-1).to(torch.int32),
+                              cur)
+            drafts.append(cur)
+        return torch.stack(drafts, dim=1)
+
+    @torch.inference_mode()
+    def _spec_verify_device(self, active: np.ndarray, drafts,
+                            draft_len: np.ndarray) -> torch.Tensor:
+        """Paged verify step: per layer, gather each slot's visible rows
+        through its table (a copy, as the prefill's), run
+        ``gen_lib._layer_verify`` over them, and write the T new rows at
+        their block coordinates (sentinel-redirected when invalid; an
+        int8 pool stores the rows the layer quantized). Returns [slots,
+        K + 2] int32 on the device: the emitted tokens, then the accept
+        length."""
+        self.call_counts["verify"] += 1
+        cfg = self.config
+        T, bs, slots = self.spec_k + 1, self.block_size, self.slots
+        writes = self._lengths[:, None] + np.arange(T)[None, :]
+        blk, off, _ = self._coords(active, writes)
+        # The blocks any active slot can see.
+        n_blk = max(1, -(-int(self._lengths[active].max(initial=0)) // bs))
+        parts = [self._lengths, self._tokens, draft_len, active,
+                 blk.ravel(), off.ravel(), self._tables[:, :n_blk]]
+        host_drafts = isinstance(drafts, np.ndarray)
+        if host_drafts:
+            parts.append(drafts)
+        dev = self._host_to_device(parts)
+        lengths, tokens, dlen, act, blk, off, tables = dev[:7]
+        if host_drafts:
+            drafts = dev[7]
+        cursor = (blk.long(), off.long())
+        tables = tables.long()
+
+        def view(pool):
+            return pool[tables].reshape(slots, n_blk * bs, *pool.shape[2:])
+
+        toks = torch.cat([tokens[:, None], drafts], dim=1)
+        positions = lengths[:, None] + torch.arange(
+            T, dtype=torch.int32, device=self.device)[None, :]
+        x = llama.embed_tokens(cfg, self._params, toks)
+        for i in range(cfg.n_layers):
+            pools = self._pools(i)
+            views = [None if pool is None else view(pool) for pool in pools]
+            x, *rows = gen_lib._layer_verify(
+                cfg, llama.layer_params(self._params, i), x, positions,
+                views[0], views[1], lengths,
+                k_scale=views[2], v_scale=views[3],
+            )
+            for pool, new in zip(pools, rows):
+                if pool is not None:
+                    gen_lib._append(pool, new, cursor)
+        logits = llama.unembed(cfg, self._params, x)     # [slots, T, V]
+        emitted, acc = spec_lib.spec_accept(
+            logits, drafts, dlen, self._temps, act.bool(), tokens,
+            self._generator,
+        )
+        return torch.cat([emitted, acc[:, None]], dim=1)
 
     # ---- observability -----------------------------------------------------
 

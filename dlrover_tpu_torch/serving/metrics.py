@@ -3,8 +3,8 @@ of ``dlrover_tpu/serving/metrics.py``).
 
 Registration is idempotent (the registry returns existing families), so
 several engines in one process share counters; gauges describe the last
-engine to update them. The speculative-decoding families and the
-flight-recorder annotations arrive with those parts.
+engine to update them. The flight-recorder annotations arrive with the
+fleet.
 """
 
 from dlrover_tpu_torch.observability.registry import default_registry
@@ -122,6 +122,26 @@ class ServingMetrics:
             "serving_kv_preemptions_total",
             "requests preempted (re-queued, progress reset) to free "
             "blocks for an older request under pool pressure",
+        )
+        # ---- speculative decoding (serving/spec_decode) ----------------
+        self.spec_tokens = reg.counter(
+            "serving_spec_tokens_total",
+            "speculative-decoding tokens by fate (drafted: proposed by "
+            "the drafter and verified; accepted: survived verification "
+            "and committed; rejected: rolled back by the fill rewind)",
+            labelnames=("kind",),
+        )
+        self.spec_tokens_per_step = reg.gauge(
+            "serving_spec_accepted_tokens_per_step",
+            "running mean of tokens committed per verify step across "
+            "decoding slots (accepted drafts + the correction/bonus "
+            "token; 1.0 = no speculation win, K+1 = every draft lands)",
+        )
+        self.spec_accept_rate = reg.histogram(
+            "serving_spec_accept_rate",
+            "per-slot fraction of drafted tokens accepted by one "
+            "verify step (observed only for slots that drafted)",
+            buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
         )
 
 

@@ -1,8 +1,8 @@
 """Request state machine + iteration-level scheduler for the engine
 (the port's own copy of ``dlrover_tpu/serving/scheduler.py``, with the
 paged pool's hooks — the admission gate and pool-pressure preemption —
-and without the migration and speculative-decoding fields, which arrive
-with those engines).
+and the speculative-decoding fields; without the migration fields,
+which arrive with that engine).
 
 Orca-style continuous batching, host side: requests move QUEUED →
 PREFILL → DECODE → DONE; a slot is the unit of admission (one request
@@ -12,10 +12,13 @@ harmless: rows >= the fill length are never read, and every row is
 rewritten before the fill passes it.
 
 Per-iteration token budget: one tick runs at most one prefill CHUNK
-(``prefill_chunk`` prompt tokens) beside the decode step's one token
-per active slot, and the chunk only runs when
-``decoding + prefill_chunk <= token_budget`` (or nothing is decoding).
-The default budget (prefill_chunk + slots) never blocks a chunk.
+(``prefill_chunk`` prompt tokens) beside the decode step's
+``decode_tokens_per_slot`` tokens per active slot (1, or 1 + spec_k
+under speculative decoding: every drafted token is verified through the
+model whether or not it is accepted), and the chunk only runs when
+``decoding * decode_tokens_per_slot + prefill_chunk <= token_budget``
+(or nothing is decoding). The default budget (prefill_chunk + slots *
+decode_tokens_per_slot) never blocks a chunk.
 
 SLO classes: free slots are granted by weighted-fair deficit
 round-robin over the classes with queued work, FCFS within a class (one
@@ -94,6 +97,14 @@ class Request:
     # Paged engines (serving/kvpool): warm prefix-cache blocks this
     # request's block table started from — 0 on a miss or a flat engine.
     prefix_hit_blocks: int = 0
+    # Speculative decoding (serving/spec_decode): drafted / accepted
+    # token counts and the wall time attributed to the draft and verify
+    # phases (the engine splits each iteration's cost evenly across its
+    # decoding slots).
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    draft_s: float = 0.0
+    verify_s: float = 0.0
 
     @property
     def prompt_len(self) -> int:
@@ -117,15 +128,21 @@ class Scheduler:
         token_budget: Optional[int] = None,
         drain_mode: bool = False,
         slo_classes: Optional[Sequence[SloClass]] = None,
+        decode_tokens_per_slot: int = 1,
     ):
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        if decode_tokens_per_slot < 1:
+            raise ValueError("decode_tokens_per_slot must be >= 1")
         self.slots = slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        # Worst-case tokens one decoding slot runs per iteration: 1 for
+        # plain decode, 1 + spec_k under speculative decoding.
+        self.decode_tokens_per_slot = decode_tokens_per_slot
         self.token_budget = (
             token_budget if token_budget is not None
-            else prefill_chunk + slots
+            else prefill_chunk + slots * decode_tokens_per_slot
         )
         # drain_mode is the naive static baseline: admit a full batch, run it to completion, only then
         # refill — no slot is recycled while any peer still decodes.
@@ -371,7 +388,7 @@ class Scheduler:
         ]
         if not cands:
             return None
-        n_decoding = len(self.decoding())
+        n_decoding = len(self.decoding()) * self.decode_tokens_per_slot
         if n_decoding and n_decoding + self.prefill_chunk > self.token_budget:
             return None
         return min(cands, key=lambda r: r.rid)
@@ -412,8 +429,19 @@ class Scheduler:
         req.first_token_ts = None
         req.admit_ts = None
         req.prefix_hit_blocks = 0
+        self._reset_spec_progress(req)
         req.preemptions += 1
         self.queue.appendleft(req)
+
+    @staticmethod
+    def _reset_spec_progress(req: Request) -> None:
+        """Progress resets (preemption, step-error requeue) restart a
+        request from scratch; its speculative accounting restarts with
+        it, or replayed drafts would count twice."""
+        req.spec_drafted = 0
+        req.spec_accepted = 0
+        req.draft_s = 0.0
+        req.verify_s = 0.0
 
     # ---- failure recovery --------------------------------------------------
 
@@ -438,6 +466,7 @@ class Scheduler:
             req.first_token_ts = None
             req.admit_ts = None
             req.prefix_hit_blocks = 0
+            self._reset_spec_progress(req)
             req.requeues += 1
             self.queue.appendleft(req)
         return victims

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of the
 JAX package. Checked in a fresh interpreter that serves (flat and
-paged engines), takes a training step, and generates and trains one
+paged engines, speculative decoding on both, MoE on the paged one),
+takes a training step, and generates and trains one
 step with a dropless MoE config on the CPU (this test process
 has JAX loaded by ``tests/conftest.py``) and by a scan of every import
 statement in the port's sources and in ``chip_smoke.py``."""
@@ -59,6 +60,18 @@ moe_params = llama.init_params(moe_cfg, torch.Generator().manual_seed(1),
                                device="cpu")
 moe_out = generate.generate(moe_cfg, moe_params,
                             np.ones((2, 3), np.int32), 2, device="cpu")
+spec_tokens = 0
+for cls, c, p, kw in (
+        (ServingEngine, cfg, params, {}),
+        (PagedServingEngine, cfg, params,
+         dict(block_size=8, kv_cache_dtype="int8",
+              spec_drafter="early_exit")),
+        (PagedServingEngine, moe_cfg, moe_params, dict(block_size=8))):
+    seng = cls(c, p, slots=2, max_len=16, prefill_chunk=8, spec_k=2,
+               device="cpu", **kw)
+    sreq = seng.submit(np.arange(4), 3)
+    seng.run_until_idle()
+    spec_tokens += len(sreq.tokens)
 moe_tc = ts.TrainConfig()
 moe_opt = ts.make_optimizer(moe_tc)
 moe_state = ts.init_train_state(moe_cfg, moe_opt, moe_params)
@@ -67,7 +80,7 @@ moe_state, moe_m = ts.make_train_step(moe_cfg, moe_tc, moe_opt,
     moe_state, {"tokens": np.arange(18, dtype=np.int32).reshape(2, 9)})
 print(json.dumps({
     "tokens": out.tokens.shape[1] + len(req.tokens),
-    "paged_tokens": paged_tokens,
+    "paged_tokens": paged_tokens, "spec_tokens": spec_tokens,
     "train_step": state["step"], "loss": float(m["loss"]),
     "moe_tokens": list(moe_out.tokens.shape),
     "moe_train_step": moe_state["step"], "moe_loss": float(moe_m["loss"]),
@@ -90,6 +103,7 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["tokens"] == 5
     assert result["paged_tokens"] == 8
+    assert result["spec_tokens"] == 9
     assert result["train_step"] == 1 and result["loss"] > 0
     assert result["moe_tokens"] == [2, 2]
     assert result["moe_train_step"] == 1 and result["moe_loss"] > 0

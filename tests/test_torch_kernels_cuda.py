@@ -342,6 +342,52 @@ def test_paged_engine_on_card_matches_cpu(cuda, kv_dtype):
     assert da.launch_counts[f"paged_decode_attention_{kv_dtype}"] > before
 
 
+@pytest.mark.parametrize("engine,kv,drafter", [
+    ("flat", "fp", "ngram"), ("flat", "fp", "early_exit"),
+    ("paged", "fp", "early_exit"), ("paged", "int8", "ngram"),
+    ("paged", "int8", "early_exit"),
+])
+def test_spec_engines_on_card_match_cpu(cuda, engine, kv, drafter):
+    """tiny f32 config, speculative decoding (K = 3) over prompts ``p +
+    greedy(p) + p``: greedy tokens through the kernels equal those
+    through their plain versions on the CPU; the early-exit drafter
+    launches the decode kernel 2 x 3 times a draft call, and nothing
+    else launches it after warmup."""
+    cfg = llama.tiny_config()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    rs = np.random.RandomState(2)
+    prompts = []
+    for n in (6, 9):
+        p = rs.randint(0, 256, n).astype(np.int32)
+        g = gen.generate(cfg, params, p[None], 8, device="cpu").tokens[0]
+        prompts.append(np.concatenate([p, g.numpy(), p]))
+    kw = dict(slots=2, max_len=64, prefill_chunk=8, spec_k=3,
+              spec_drafter=drafter, spec_draft_layers=2)
+    if engine == "paged":
+        kw.update(block_size=8, kv_cache_dtype=kv)
+    make = PagedServingEngine if engine == "paged" else ServingEngine
+    name = ("paged_" if engine == "paged" else "") + f"decode_attention_{kv}"
+
+    def serve(device):
+        eng = make(cfg, params, device=device, **kw)
+        eng.warmup()
+        before = da.launch_counts[name]
+        reqs = [eng.submit(p, 12) for p in prompts]
+        eng.run_until_idle()
+        if engine == "paged":
+            eng.check_block_invariants()
+        launches = da.launch_counts[name] - before
+        return [r.tokens for r in reqs], eng.call_counts, launches
+
+    got, counts, launches = serve(cuda)
+    want, _, _ = serve("cpu")
+    assert got == want
+    assert counts["decode"] == 1
+    drafts_after_warmup = counts["draft"] - (drafter == "early_exit")
+    assert launches == 2 * 3 * drafts_after_warmup
+
+
 def _flash_inputs(device, b, sq, skv, h, kh, d, seed):
     g = torch.Generator(device).manual_seed(seed)
     q = torch.randn(b, sq, h, d, generator=g, device=device).bfloat16()

@@ -455,9 +455,16 @@ def test_engine_argument_checks(tiny):
     with pytest.raises(ValueError, match="cannot hold one full slot"):
         paged(cfg, params, slots=2, max_len=32, prefill_chunk=8,
               block_size=8, num_blocks=4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spec_k"):
         paged(cfg, params, slots=1, max_len=32, prefill_chunk=8,
-              block_size=8, spec_k=2)
+              block_size=8, spec_k=-1)
+    with pytest.raises(ValueError, match="spec_drafter"):
+        paged(cfg, params, slots=1, max_len=32, prefill_chunk=8,
+              block_size=8, spec_k=2, spec_drafter="lookup")
+    with pytest.raises(ValueError, match="spec_draft_layers"):
+        paged(cfg, params, slots=1, max_len=32, prefill_chunk=8,
+              block_size=8, spec_k=2, spec_drafter="early_exit",
+              spec_draft_layers=0)
 
 
 @pytest.mark.parametrize("kv_dtype,per_row", [("fp", 4 * 16), ("int8", 20)])

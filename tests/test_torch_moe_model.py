@@ -12,7 +12,10 @@ all but 0.1% of elements within 2e-5 and the rest within one step's lr
 (Adam moves an element whose gradient is rounding noise by up to lr).
 Greedy tokens, from ``generate()`` and from the flat serving engines,
 must be equal: dropless routing is per token, and at these widths no
-router near-tie sits inside f32 rounding.
+router near-tie sits inside f32 rounding. The paged engine (dropless)
+gives the JAX paged engine's tokens and block accounting with an fp
+pool, and with an int8 pool tokens within the 0.2 logit distance
+``tests/test_torch_kvpool.py`` pins; spec on gives spec off's tokens.
 """
 
 import dataclasses
@@ -28,6 +31,9 @@ from dlrover_tpu.models import generate as jax_gen
 from dlrover_tpu.models import llama as jax_llama
 from dlrover_tpu.parallel.mesh import MeshConfig, build_mesh
 from dlrover_tpu.serving.engine import ServingEngine as JaxServingEngine
+from dlrover_tpu.serving.kvpool import (
+    PagedServingEngine as JaxPagedServingEngine,
+)
 from dlrover_tpu.trainer import train_step as jax_ts
 from dlrover_tpu_torch.models import convert, generate, llama
 from dlrover_tpu_torch.serving import PagedServingEngine, ServingEngine
@@ -188,11 +194,97 @@ def test_flat_engine_tokens_match_jax_engine(moe):
         assert g.tokens == w.tokens
 
 
-def test_paged_engine_refuses_moe(moe):
-    _, _, _, cfg, params = moe
-    with pytest.raises(NotImplementedError, match="MoE"):
-        PagedServingEngine(cfg, params, slots=1, max_len=32, prefill_chunk=8,
-                           block_size=8, device="cpu")
+@pytest.fixture(scope="module")
+def dropless():
+    """The dropless config alone (gshard's capacity depends on the batch,
+    so a [slots, K + 1] verify step may drop other tokens than a
+    [slots, 1] decode step: spec-on and spec-off differ by design)."""
+    jcfg = jax_llama.tiny_config(**_kw("dropless"))
+    jparams, _ = jax_llama.init_params(jcfg, jax.random.key(0))
+    jparams = jax.device_get(jparams)
+    cfg = llama.TpuLMConfig(**dataclasses.asdict(jcfg))
+    return jcfg, jparams, cfg, convert.params_from_numpy(jparams, "cpu")
+
+
+def _paged_work():
+    """Prompts that miss, hit a shared 16-token prefix (two blocks of 8)
+    and repeat in full, over two slots."""
+    rs = np.random.RandomState(8)
+    head = rs.randint(0, 256, 16)
+    tails = [rs.randint(0, 256, n) for n in (5, 9, 7)]
+    prompts = [np.concatenate([head, tails[0]]), tails[1],
+               np.concatenate([head, tails[2]]), head]
+    return [p.astype(np.int32) for p in prompts], (6, 5, 7, 4)
+
+
+_PAGED_KW = dict(slots=2, max_len=48, prefill_chunk=4, block_size=8)
+_STAT_KEYS = ("total", "free", "used", "cached", "cow_copies",
+              "prefix_hits", "prefix_misses", "prefix_hit_blocks")
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_paged_engine_matches_jax_paged_engine(dropless, kv):
+    """MoE through the paged engine: the port against the JAX
+    PagedServingEngine on the same prompts, all submitted at once. fp:
+    equal tokens; int8: every token either engine chose lies within
+    0.2 of the teacher-forced f32 max (the port reads a new row
+    quantized, the reference at full precision; the bound
+    ``tests/test_torch_kvpool.py`` pins). The block accounting, which
+    sees no values, is equal."""
+    jcfg, jparams, cfg, params = dropless
+    kw = dict(_PAGED_KW, kv_cache_dtype=kv)
+    jeng = JaxPagedServingEngine(jcfg, jparams, **kw)
+    eng = PagedServingEngine(cfg, params, device="cpu", **kw)
+    prompts, news = _paged_work()
+    want = [jeng.submit(p, n) for p, n in zip(prompts, news)]
+    got = [eng.submit(p, n) for p, n in zip(prompts, news)]
+    jeng.run_until_idle()
+    eng.run_until_idle()
+    for g, w in zip(got, want):
+        assert len(g.tokens) == len(w.tokens) == g.max_new_tokens
+        assert g.prefix_hit_blocks == w.prefix_hit_blocks
+        if kv == "fp":
+            assert g.tokens == w.tokens
+            continue
+        for r in (g, w):
+            seq = torch.from_numpy(np.concatenate(
+                [r.prompt, np.asarray(r.tokens, np.int32)]).astype(np.int64))
+            with torch.no_grad():
+                logits, _ = llama.forward(cfg, params, seq[None])
+            pred = logits[0, r.prompt_len - 1:-1]
+            chosen = pred[torch.arange(len(r.tokens)), r.tokens]
+            assert float((pred.max(-1).values - chosen).max()) <= 0.2
+    stats, jstats = eng.kv_stats(), jeng.kv_stats()
+    assert {k: stats[k] for k in _STAT_KEYS} == {
+        k: jstats[k] for k in _STAT_KEYS}
+    assert stats["prefix_hits"] >= 1
+    eng.check_block_invariants()
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_paged_spec_on_equals_spec_off(dropless, kv):
+    """Speculative decoding over the MoE paged engine (the n-gram drafter
+    and a one-layer early exit): the spec-off tokens, drafts proposed,
+    block invariants held."""
+    _, _, cfg, params = dropless
+    prompts, news = _paged_work()
+
+    def run(**spec):
+        eng = PagedServingEngine(cfg, params, device="cpu",
+                                 kv_cache_dtype=kv, **_PAGED_KW, **spec)
+        eng.warmup()
+        reqs = [eng.submit(p, n) for p, n in zip(prompts, news)]
+        eng.run_until_idle()
+        eng.check_block_invariants()
+        return [r.tokens for r in reqs], sum(r.spec_drafted for r in reqs)
+
+    off, _ = run()
+    for spec in (dict(spec_k=3),
+                 dict(spec_k=3, spec_drafter="early_exit",
+                      spec_draft_layers=1)):
+        tokens, drafted = run(**spec)
+        assert tokens == off, spec
+        assert drafted > 0, spec
 
 
 def _flip_share(gen_ids, fwd_ids, n_layers, b, prompt_len, new):

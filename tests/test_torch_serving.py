@@ -105,13 +105,6 @@ def test_engine_rejects_non_chunk_divisible_max_len(tiny):
         engine(cfg, params, slots=1, max_len=40, prefill_chunk=16)
 
 
-def test_engine_spec_decode_raises_until_ported(tiny):
-    cfg, params = tiny
-    with pytest.raises(NotImplementedError):
-        engine(cfg, params, slots=1, max_len=32, prefill_chunk=8,
-               spec_k=2)
-
-
 def test_truncation_at_cache_capacity(tiny):
     cfg, params = tiny
     eng = engine(cfg, params, slots=1, max_len=16, prefill_chunk=8)
