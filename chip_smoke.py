@@ -85,6 +85,30 @@ phases that each print JSON lines:
 11b. the same on the paged engine at phase 11's settings: fp spec off,
     n-gram and early exit; int8 spec off and n-gram (B6 exact, block
     conservation);
+11c. migrate: phase 11's 32 requests through two paged engines at its
+    settings, fp and int8: each request exported from the first right
+    after prefill (a quarter after 3 decode steps), imported into the
+    second, released by the first. Every request complete, tokens within
+    ARGMAX_GAP (the share equal to phase 11's unmigrated tokens
+    reported), block conservation on both, the card's wire equal byte
+    for byte to ``kv_to_wire`` on the CPU of the same rows, exact B6
+    launches and export/import counts; export and import ms and wire MB
+    a request. Then int8 one request at a time: the migrated tokens
+    equal the unmigrated ones;
+11d. fleet_disagg: ``FleetRouter`` over two ``ThreadReplica``s (paged,
+    phase 11's fp settings), one prefill and one decode replica, over
+    the reference's bimodal schedule (32 requests, Poisson arrivals 0.125
+    s apart, 35% of prompts 64-96 tokens, the rest 8-16, 32-64 new
+    tokens), tracing armed; then two mixed replicas. Every request
+    exactly once, migrations plus fallbacks equal the requests, each
+    request's spans tile its time to 1 ms, block conservation, the gap,
+    exact B6 launches; TTFT, inter-token latency, tokens/s, migration
+    pause;
+11e. fleet_subprocess: three ``SubprocessReplica`` workers on this card
+    (flagship, paged; one prefill, two decode), migrations over the JSONL
+    pipe; a fault schedule SIGKILLs decode replica d1 at its first
+    import. Every request exactly once, d1's the only death, block
+    conservation on every heartbeat; each child's start seconds;
 12. MoE kernels: the grouped FFN forward (B7) and its dx, dw_gu and
     dw_down kernels (B8) against their plain versions at the MoE
     training shape (8 x 2048 tokens, d = f = 1024, 8 experts, top-2,
@@ -119,7 +143,7 @@ phases that each print JSON lines:
     share of the bf16 peak on 6 x active params a token, peak memory
     and a profiled step.
 
-Phases 4, 5, 11 and 11a-b check the tokens against the argmax of the
+Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
 repeated runs agree, and read the kernels' launch counters to show the
 decode path went through them. Any failure raises (exit code 1) before the last
@@ -190,6 +214,17 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+# Host seconds each phase of main() took, printed before the last lines.
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args, **kwargs):
+    t0 = time.monotonic()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.monotonic() - t0
+    return out
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
@@ -198,10 +233,7 @@ def check(cond, msg):
 def flagship_config():
     from dlrover_tpu_torch.models import llama
 
-    return llama.TpuLMConfig(
-        vocab_size=32000, embed_dim=1024, n_layers=16, n_heads=8,
-        n_kv_heads=8, head_dim=128, mlp_dim=4096, dtype="bfloat16",
-    )
+    return llama.flagship_config()
 
 
 def phase_device():
@@ -1184,7 +1216,8 @@ def phase_paged_engine(cfg, params):
     """The paged main path: submit -> step -> admission through the
     prefix cache -> chunked paged prefill -> ragged paged decode with
     every single-token attention through B6. Returns the B6 launches the
-    runs must have made, by kernel."""
+    runs must have made, by kernel, and the tokens of the fp (513
+    blocks) and int8 runs."""
     from dlrover_tpu_torch.ops.kv_quant import bytes_per_head_row
 
     work = _paged_workload(cfg)
@@ -1216,11 +1249,13 @@ def phase_paged_engine(cfg, params):
     fp_row = bytes_per_head_row(cfg.head_dim, "fp", 2)
     int8_blocks = ((fp_blocks - 1) * fp_row
                    // bytes_per_head_row(cfg.head_dim, "int8") + 1)
-    _, _, n = _run_paged(cfg, params, work, "int8", "int8", 16, int8_blocks)
+    _, int8_tokens, n = _run_paged(cfg, params, work, "int8", "int8", 16,
+                                   int8_blocks)
     want["int8"] += n
     want["fp"] += _profile_paged(cfg, params, work, "fp", fp_blocks)
     want["int8"] += _profile_paged(cfg, params, work, "int8", int8_blocks)
-    return {f"paged_decode_attention_{kv}": n for kv, n in want.items()}
+    return ({f"paged_decode_attention_{kv}": n for kv, n in want.items()},
+            {"fp": tokens, "int8": int8_tokens})
 
 
 # ---- speculative decoding and MoE over the paged pool ----------------------
@@ -1406,6 +1441,458 @@ def phase_moe_paged_engine(cfg, params, served):
         cfg, params, _spec_work(served), "moe_paged_engine", "fp", False,
         dict(slots=16, num_blocks=513, **PAGED_KW),
         [("off", {}), ("ngram", _NGRAM)])
+
+
+# ---- migration and the serving fleet ------------------------------------
+
+
+FP_BLOCKS, INT8_BLOCKS = 513, 993   # phase 11's pools (equal bytes)
+MIGRATE_LATE_STEPS = 3              # a quarter exported after 3 decode steps
+
+
+def _migrate_wire_check(eng, req, payload):
+    """The KV wire the card made for ``req`` (quantized on the card for
+    an fp pool) against ``kv_to_wire`` on the CPU of the same rows
+    copied to the host: byte for byte."""
+    import struct
+
+    from dlrover_tpu_torch.ops.kv_quant import kv_to_wire
+
+    (hlen,) = struct.unpack_from("<I", payload, 4)
+    ids = torch.tensor(eng._slot_blocks[req.slot], device="cuda")
+    rows = [pool.index_select(1, ids).cpu()
+            for pool in (eng._k, eng._v, eng._kscale, eng._vscale)
+            if pool is not None]
+    return kv_to_wire(*rows) == payload[8 + hlen:]
+
+
+def _migrate_run(cfg, params, work, kv, unmigrated):
+    """Phase 11's 32 requests through two paged engines: each request is
+    exported from the first right after its prefill (a quarter after
+    MIGRATE_LATE_STEPS decode steps, the live-drain case), imported into
+    the second, and released by the first. Returns the row and the B6
+    launches of the run."""
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.serving import kvpool
+
+    blocks = FP_BLOCKS if kv == "fp" else INT8_BLOCKS
+    da.reset_launch_counts()
+    src, src_reg = _paged_engine(cfg, params, kv, 16, blocks)
+    dst, dst_reg = _paged_engine(cfg, params, kv, 16, blocks)
+    reqs = [src.submit(p, n) for p, n, _ in work]
+    late = {r.rid for i, r in enumerate(reqs) if i % 4 == 3}
+    moved, export_ms, import_ms, wire_mb, wire_same = {}, [], [], [], []
+    t0 = time.monotonic()
+    blocked = False
+    while src.pending() or dst.pending():
+        # While a ready request waits for room on the destination, the
+        # source stands still (it would decode the request itself).
+        if src.pending() and not blocked:
+            src.step()
+        blocked = False
+        for r in list(src.scheduler.active()):
+            if r.state != "decode" or len(r.tokens) < (
+                    1 + MIGRATE_LATE_STEPS if r.rid in late else 1):
+                continue
+            if not kvpool.can_import(
+                    dst, len(src._slot_blocks[r.slot])):
+                blocked = True
+                continue
+            torch.cuda.synchronize()
+            t_e = time.monotonic()
+            payload = kvpool.export_request(src, r)
+            t_i = time.monotonic()
+            moved[r.rid] = kvpool.import_request(dst, payload)
+            torch.cuda.synchronize()
+            t_d = time.monotonic()
+            export_ms.append(1e3 * (t_i - t_e))
+            import_ms.append(1e3 * (t_d - t_i))
+            wire_mb.append(len(payload) / 1e6)
+            wire_same.append(_migrate_wire_check(src, r, payload))
+            kvpool.release_exported(src, r)
+        if dst.pending():
+            dst.step()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = da.launch_counts[f"paged_decode_attention_{kv}"]
+    want = cfg.n_layers * (src.call_counts["decode"]
+                           + dst.call_counts["decode"])
+    check(launches == want, f"migrate/{kv}: {launches} B6 launches, "
+                            f"want {want}")
+    check(da.launch_counts["decode_attention_fp"]
+          + da.launch_counts["decode_attention_int8"] == 0,
+          f"migrate/{kv}: the flat kernel launched")
+    check(len(moved) == len(reqs),
+          f"migrate/{kv}: {len(moved)} of {len(reqs)} requests moved")
+    check(src.call_counts["export"] == len(reqs)
+          and dst.call_counts["export"] == 0
+          and dst.call_counts["import"] == len(reqs)
+          and src.call_counts["import"] == 0,
+          f"migrate/{kv}: call counts src {src.call_counts} dst "
+          f"{dst.call_counts}")
+    check(all(wire_same), f"migrate/{kv}: the card's wire differs from "
+                          f"kv_to_wire on the CPU: {wire_same}")
+    out, worst, agree, same = [], 0.0, [], []
+    for r, (p, n, _) in zip(reqs, work):
+        m = moved[r.rid]
+        check(m.state == "done" and not m.failed and not m.truncated
+              and len(m.tokens) == n,
+              f"migrate/{kv}: request {r.rid} ended {m.state} with "
+              f"{len(m.tokens)} of {n} tokens")
+        seq = torch.from_numpy(
+            np.concatenate([p, np.asarray(m.tokens, np.int32)])).cuda()[None]
+        w, a = _argmax_gap(cfg, params, seq, len(p), kv,
+                           f"migrate/{kv}/request {r.rid}")
+        worst = max(worst, w)
+        agree.append(a)
+        out.append(m.tokens)
+    for eng, reg, name in ((src, src_reg, "source"),
+                           (dst, dst_reg, "destination")):
+        eng.check_block_invariants()
+        check(eng.kv_stats()["used"] == 0,
+              f"migrate/{kv}: blocks in use on the {name}: "
+              f"{eng.kv_stats()}")
+        check(reg.get("serving_step_errors_total").value() == 0,
+              f"migrate/{kv}: step errors on the {name}")
+    same = [a == b for a, b in zip(out, unmigrated)]
+    row = {
+        "phase": "migrate", "kv": kv, "requests": len(reqs),
+        "late_exports": len(late), "late_after_decode_steps":
+        MIGRATE_LATE_STEPS, "num_blocks": blocks, "wall_s": wall,
+        "export_ms_mean": float(np.mean(export_ms)),
+        "export_ms_p50": float(np.median(export_ms)),
+        "export_ms_max": max(export_ms),
+        "import_ms_mean": float(np.mean(import_ms)),
+        "import_ms_p50": float(np.median(import_ms)),
+        "import_ms_max": max(import_ms),
+        "wire_mb_mean": float(np.mean(wire_mb)),
+        "wire_mb_max": max(wire_mb),
+        "wire_equal_cpu": sum(wire_same),
+        "argmax_gap_max": worst, "argmax_agree": float(np.mean(agree)),
+        "share_equal_unmigrated": float(np.mean(same)),
+        "b6_launches": launches, "call_counts": {
+            "source": dict(src.call_counts),
+            "destination": dict(dst.call_counts)},
+    }
+    emit(row)
+    del src, dst
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def _migrate_one_at_a_time(cfg, params, work):
+    """The int8 pool, one request at a time, so the migrated and the
+    unmigrated run decode in the same batch composition: the tokens must
+    be equal (the int8 rows cross bit for bit). Returns (requests, B6
+    launches)."""
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.serving import kvpool
+
+    da.reset_launch_counts()
+    ref_eng, src, dst = (_paged_engine(cfg, params, "int8", 16,
+                                       INT8_BLOCKS)[0] for _ in range(3))
+    picked = work[:4]
+    for i, (p, n, _) in enumerate(picked):
+        n = min(n, 48)
+        ref = ref_eng.submit(p, n)
+        ref_eng.run_until_idle()
+        r = src.submit(p, n)
+        steps = MIGRATE_LATE_STEPS if i % 2 else 0
+        while r.state != "decode" or len(r.tokens) < 1 + steps:
+            src.step()
+        m = kvpool.import_request(dst, kvpool.export_request(src, r))
+        kvpool.release_exported(src, r)
+        dst.run_until_idle()
+        check(m.tokens == ref.tokens,
+              f"migrate/int8 one at a time: request {i} (exported after "
+              f"{len(r.tokens)} tokens) differs from its unmigrated run")
+    want = cfg.n_layers * sum(e.call_counts["decode"]
+                              for e in (ref_eng, src, dst))
+    got = da.launch_counts["paged_decode_attention_int8"]
+    check(got == want, f"migrate/int8 one at a time: {got} B6 launches, "
+                       f"want {want}")
+    emit({"phase": "migrate", "kv": "int8", "run": "one_at_a_time",
+          "requests": len(picked), "tokens_equal_unmigrated": True,
+          "b6_launches": got})
+    del ref_eng, src, dst
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_migrate(cfg, params, unmigrated):
+    """Block migration between two paged engines at phase 11's settings
+    (16 slots, block 16, 513 fp blocks, 993 int8 at equal bytes) over
+    phase 11's 32 requests (see ``_migrate_run``), then the int8
+    one-at-a-time equality. ``unmigrated`` {kv: tokens} are phase 11's
+    runs of the same requests. Returns the B6 launches by kernel."""
+    work = _paged_workload(cfg)
+    out = {"paged_decode_attention_fp": 0, "paged_decode_attention_int8": 0}
+    for kv in ("fp", "int8"):
+        _, n = _migrate_run(cfg, params, work, kv, unmigrated[kv])
+        out[f"paged_decode_attention_{kv}"] += n
+    out["paged_decode_attention_int8"] += _migrate_one_at_a_time(
+        cfg, params, work)
+    return out
+
+
+def fleet_workload(n_requests=32, seed=SEED, vocab=32000):
+    """The reference's bimodal disaggregation schedule
+    (``tools/bench_disagg.py`` ``make_workload``): Poisson arrivals with
+    a mean gap of 0.125 s; 35% of prompts 64-96 tokens, the rest 8-16;
+    32-64 new tokens each. [(arrival_s, prompt, max_new)]."""
+    rs = np.random.RandomState(seed)
+    arrivals = np.cumsum(rs.exponential(scale=0.125, size=n_requests))
+    work = []
+    for i in range(n_requests):
+        plen = int(rs.randint(64, 97)) if rs.rand() < 0.35 else int(
+            rs.randint(8, 17))
+        prompt = rs.randint(1, min(100, vocab), size=plen).tolist()
+        work.append((float(arrivals[i]), prompt, int(rs.randint(32, 65))))
+    return work
+
+
+def _drive_fleet(router, work, timeout_s=300.0):
+    """Submit ``work`` on its arrival schedule and pump the router until
+    every request is terminal. Returns (fleet requests, wall seconds)."""
+    submitted, pending = [], list(work)
+    t0 = time.monotonic()
+    while pending or router.pending():
+        check(time.monotonic() - t0 < timeout_s,
+              f"fleet did not drain in {timeout_s} s")
+        now = time.monotonic() - t0
+        while pending and pending[0][0] <= now:
+            _, prompt, max_new = pending.pop(0)
+            submitted.append(router.submit(prompt, max_new))
+        if not router.step():
+            time.sleep(0.001)
+    return submitted, time.monotonic() - t0
+
+
+def _fleet_row(label, router, submitted, wall):
+    """TTFT, inter-token latency (decode seconds per generated token of
+    a request, as the reference's bench), tokens/s and the migration
+    pause of one fleet run."""
+    done = [r.result for r in submitted]
+    ttfts = [r.ttft_s for r in done]
+    itls = [(r.latency_s - r.ttft_s) / (len(r.tokens) - 1) for r in done]
+    m = router.metrics
+    pause_n, pause_sum = m.migration_pause._hist[()][-2:]
+    fails = {k[0]: v for k, v in m.migration_failures._children.items()}
+    return {
+        "run": label, "requests": len(done), "wall_s": wall,
+        "new_tokens": sum(len(r.tokens) for r in done),
+        "tokens_per_s": sum(len(r.tokens) for r in done) / wall,
+        "ttft_p50_s": float(np.percentile(ttfts, 50)),
+        "ttft_p99_s": float(np.percentile(ttfts, 99)),
+        "itl_p50_s": float(np.percentile(itls, 50)),
+        "itl_p99_s": float(np.percentile(itls, 99)),
+        "migrations": int(m.migrations.value()),
+        "migration_failures": fails,
+        "migration_pause_mean_s": pause_sum / pause_n if pause_n else None,
+        "retries": int(m.retries.value()),
+        "duplicates": int(m.duplicates.value()),
+        "reroutes": int(m.reroutes.value()),
+        "restarts": int(m.restarts.value()),
+    }
+
+
+def _check_exactly_once(label, submitted):
+    ids = [r.request_id for r in submitted]
+    check(len(set(ids)) == len(ids), f"{label}: duplicate request ids")
+    for r in submitted:
+        check(r.result is not None and r.result.ok,
+              f"{label}: {r.request_id} ended {r.result}")
+        check(len(r.result.tokens) == r.max_new_tokens,
+              f"{label}: {r.request_id} got {len(r.result.tokens)} of "
+              f"{r.max_new_tokens} tokens")
+
+
+def _span_tiling(tracer):
+    """Worst gap (s) between a serving.request span and the sum of its
+    children (queue wait, prefill, migrate, decode), and the number of
+    request trees and migrate spans."""
+    spans = tracer.finished()
+    kids = {}
+    for s in spans:
+        kids.setdefault(s["parent_id"], []).append(s)
+    roots = [s for s in spans if s["name"] == "serving.request"]
+    worst = max(abs(sum(c["dur_s"] for c in kids.get(s["span_id"], []))
+                    - s["dur_s"]) for s in roots)
+    return worst, len(roots), sum(
+        1 for s in spans if s["name"] == "serving.migrate")
+
+
+def phase_fleet_disagg(cfg, params):
+    """``FleetRouter`` over two ``ThreadReplica``s in this process, each
+    a paged engine at phase 11's fp settings: one ``prefill`` and one
+    ``decode`` replica (two-phase dispatch through migration), then the
+    same schedule over two ``mixed`` replicas. Tracing armed. Returns
+    the B6 launches."""
+    from dlrover_tpu_torch.observability import tracing
+    from dlrover_tpu_torch.observability.registry import MetricsRegistry
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.serving import fleet
+
+    work = fleet_workload(vocab=cfg.vocab_size)
+    total = 0
+    for label, roles in (("disagg", ("prefill", "decode")),
+                         ("mixed", ("mixed", "mixed"))):
+        engines = {}
+
+        def factory(name):
+            def build():
+                eng, reg = _paged_engine(cfg, params, "fp", 16, FP_BLOCKS)
+                engines[name] = (eng, reg)
+                return eng
+            return build
+
+        da.reset_launch_counts()
+        replicas = [fleet.ThreadReplica(f"{role[0]}{i}", factory(
+            f"{role[0]}{i}"), role=role) for i, role in enumerate(roles)]
+        router = fleet.FleetRouter(
+            replicas, fleet.RouterConfig(
+                health=fleet.HealthPolicy(heartbeat_timeout_s=30.0)),
+            registry=MetricsRegistry())
+        tracer = tracing.arm(tracing.Tracer(service=f"fleet_{label}"))
+        try:
+            router.start(timeout_s=300.0)
+            submitted, wall = _drive_fleet(router, work)
+        finally:
+            tracing.disarm()
+            router.stop()
+        label = f"fleet_{label}"
+        _check_exactly_once(label, submitted)
+        row = _fleet_row(label, router, submitted, wall)
+        fails = sum(row["migration_failures"].values())
+        if roles[0] == "prefill":
+            check(row["migrations"] + fails == len(work),
+                  f"{label}: {row['migrations']} migrations + {fails} "
+                  f"fallbacks for {len(work)} requests")
+        else:
+            check(row["migrations"] == 0 and fails == 0,
+                  f"{label}: migrations on a co-located fleet")
+        check(row["retries"] == 0 and row["reroutes"] == 0
+              and row["restarts"] == 0,
+              f"{label}: an attempt failed or a replica died: {row}")
+        for name, (eng, reg) in engines.items():
+            eng.check_block_invariants()
+            check(eng.kv_stats()["used"] == 0,
+                  f"{label}/{name}: blocks in use: {eng.kv_stats()}")
+            check(reg.get("serving_step_errors_total").value() == 0,
+                  f"{label}/{name}: step errors")
+        decode_steps = {n: e.call_counts["decode"]
+                        for n, (e, _) in engines.items()}
+        got = da.launch_counts["paged_decode_attention_fp"]
+        want = cfg.n_layers * sum(decode_steps.values())
+        check(got == want, f"{label}: {got} B6 launches, want {want} "
+                           f"from {decode_steps}")
+        total += got
+        worst_tile, n_trees, n_mig = _span_tiling(tracer)
+        check(n_trees == len(work), f"{label}: {n_trees} request trees")
+        check(worst_tile <= 1e-3,
+              f"{label}: spans leave {worst_tile} s of a request untiled")
+        if roles[0] == "prefill":
+            check(n_mig == row["migrations"],
+                  f"{label}: {n_mig} migrate spans")
+        worst, agree = 0.0, []
+        for r in submitted:
+            seq = torch.tensor(r.prompt + r.result.tokens,
+                               device="cuda")[None]
+            w, a = _argmax_gap(cfg, params, seq, len(r.prompt), "fp",
+                               f"{label}/{r.request_id}")
+            worst = max(worst, w)
+            agree.append(a)
+        emit({"phase": "fleet_disagg", **row, "roles": list(roles),
+              "b6_launches": got, "decode_steps": decode_steps,
+              "span_tiling_worst_s": worst_tile,
+              "migrate_spans": n_mig, "argmax_gap_max": worst,
+              "argmax_agree": float(np.mean(agree))})
+        del engines, replicas, router
+        torch.cuda.empty_cache()
+    return {"paged_decode_attention_fp": total}
+
+
+def phase_fleet_subprocess(cfg, params):
+    """``SubprocessReplica``s on this card (``--config flagship --device
+    cuda``, paged at phase 11's fp settings): one ``prefill`` and two
+    ``decode`` replicas over the bimodal schedule; migrations cross the
+    JSONL pipe as base64. A fault schedule SIGKILLs decode replica d1,
+    the first import destination, at its first ``fleet.replica.import``
+    (an import received, no ack sent). Every request completes exactly
+    once, the planned kill is the only death, and block conservation
+    holds on every replica's heartbeats."""
+    import tempfile
+
+    from dlrover_tpu_torch.fault import FaultRule, FaultSchedule
+    from dlrover_tpu_torch.observability.registry import MetricsRegistry
+    from dlrover_tpu_torch.serving import fleet
+
+    work = fleet_workload(vocab=cfg.vocab_size)
+    work_dir = tempfile.mkdtemp(prefix="fleet_subprocess_")
+    sched = os.path.join(work_dir, "kill_d1.json")
+    with open(sched, "w") as f:
+        f.write(FaultSchedule([FaultRule(
+            "fleet.replica.import", action="crash", nth=1)],
+            label="kill_during_migration").to_json())
+    replicas = [
+        fleet.SubprocessReplica(
+            name, work_dir, slots=16, max_len=PAGED_KW["max_len"],
+            prefill_chunk=PAGED_KW["prefill_chunk"], heartbeat_s=0.2,
+            paged=True, block_size=PAGED_KW["block_size"],
+            num_blocks=FP_BLOCKS, role=role,
+            schedule_path=[sched] if name == "d1" else "",
+            device="cuda", config="flagship")
+        for name, role in (("p0", "prefill"), ("d1", "decode"),
+                           ("d2", "decode"))]
+    router = fleet.FleetRouter(
+        replicas, fleet.RouterConfig(
+            auto_restart=False,
+            health=fleet.HealthPolicy(heartbeat_timeout_s=30.0)),
+        registry=MetricsRegistry())
+    t0 = time.monotonic()
+    start_s = {}
+    try:
+        for r in replicas:
+            r.start()
+        while len(start_s) < len(replicas):
+            check(time.monotonic() - t0 < 300, "replicas did not start")
+            for r in replicas:
+                if r.replica_id not in start_s and r.wait_ready(0.05):
+                    start_s[r.replica_id] = time.monotonic() - t0
+                check(r.alive(), f"replica {r.replica_id} died booting")
+        router.start(timeout_s=1.0)
+        submitted, wall = _drive_fleet(router, work)
+        alive = {r.replica_id: r.alive() for r in replicas}
+    finally:
+        router.stop()
+    label = "fleet_subprocess"
+    _check_exactly_once(label, submitted)
+    row = _fleet_row(label, router, submitted, wall)
+    check(alive == {"p0": True, "d1": False, "d2": True},
+          f"{label}: replicas alive at the end {alive}")
+    with open(os.path.join(work_dir, "trace_replicad1.jsonl")) as f:
+        fired = [json.loads(ln) for ln in f if ln.strip()]
+    check([(e["point"], e["action"]) for e in fired]
+          == [("fleet.replica.import", "crash")],
+          f"{label}: faults fired {fired}")
+    for r in replicas:
+        if r.replica_id != "d1":
+            check(not os.path.exists(os.path.join(
+                work_dir, f"trace_replica{r.replica_id}.jsonl")),
+                f"{label}: a fault fired on {r.replica_id}")
+        check(r.kv_violation is None, f"{label}: {r.kv_violation}")
+        check(bool(r.last_kv), f"{label}: no kv stats from {r.replica_id}")
+    check(row["restarts"] == 0, f"{label}: restarts {row['restarts']}")
+    check(row["migrations"] > 0, f"{label}: nothing migrated")
+    check(row["migration_failures"].get("timeout", 0)
+          + row["migration_failures"].get("no_destination", 0) <= 1,
+          f"{label}: migration failures {row['migration_failures']}")
+    emit({"phase": "fleet_subprocess", **row,
+          "roles": {"p0": "prefill", "d1": "decode", "d2": "decode"},
+          "start_s": start_s, "killed": "d1",
+          "faults": [(e["point"], e["action"], e["hit"]) for e in fired],
+          "last_kv": {r.replica_id: r.last_kv for r in replicas}})
+    return row
 
 
 def _leaf_names(tree, prefix=""):
@@ -2731,37 +3218,46 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_device()
-    ptxas = phase_build()
-    kernel_rows = phase_kernels()
-    paged_rows = phase_paged_kernels()
-    flash_rows = phase_flash_kernels()
+    smi = timed("device", phase_device)
+    ptxas = timed("build", phase_build)
+    kernel_rows = timed("kernels", phase_kernels)
+    paged_rows = timed("paged_kernels", phase_paged_kernels)
+    flash_rows = timed("flash_kernels", phase_flash_kernels)
 
     cfg = flagship_config()
     params = llama.init_params(
         cfg, torch.Generator("cuda").manual_seed(SEED), device="cuda"
     )
     da.reset_launch_counts()
-    gen_rows = phase_generate(cfg, params)
+    gen_rows = timed("generate", phase_generate, cfg, params)
     gen_launches = dict(da.launch_counts)
     da.reset_launch_counts()
     md.reset_launch_counts()
-    eng_launches, served = phase_engine(cfg, params)
+    eng_launches, served = timed("engine", phase_engine, cfg, params)
     da.reset_launch_counts()
-    paged_want = phase_paged_engine(cfg, params)
+    paged_want, paged_tokens = timed("paged_engine", phase_paged_engine,
+                                     cfg, params)
     paged_launches = dict(da.launch_counts)
-    # Each spec run checks its own launches exactly.
-    spec_launches = phase_spec_engine(cfg, params, served)
-    paged_spec_launches = phase_paged_spec_engine(cfg, params, served)
+    # Each spec, migration and fleet run checks its own launches exactly.
+    spec_launches = timed("spec_engine", phase_spec_engine, cfg, params,
+                          served)
+    paged_spec_launches = timed("paged_spec_engine", phase_paged_spec_engine,
+                                cfg, params, served)
+    migrate_launches = timed("migrate", phase_migrate, cfg, params,
+                             paged_tokens)
+    fleet_launches = timed("fleet_disagg", phase_fleet_disagg, cfg, params)
+    timed("fleet_subprocess", phase_fleet_subprocess, cfg, params)
     launches = {
         name: gen_launches[name] + eng_launches[name] + paged_launches[name]
         + spec_launches[name] + paged_spec_launches[name]
+        + migrate_launches.get(name, 0) + fleet_launches.get(name, 0)
         for name in da.launch_counts
     }
     emit({"phase": "launches", "generate": gen_launches,
           "engine": eng_launches, "paged_engine": paged_launches,
           "paged_engine_want": paged_want, "spec_engine": spec_launches,
           "paged_spec_engine": paged_spec_launches,
+          "migrate": migrate_launches, "fleet_disagg": fleet_launches,
           "per_decoded_token_generate": cfg.n_layers})
     # generate(): one launch per layer per single-token step, in two
     # full runs and one profiled run of 32 tokens.
@@ -2783,29 +3279,32 @@ def main():
 
     del params
     torch.cuda.empty_cache()
-    launches.update(phase_train(cfg))
-    ce_rows = phase_ce_kernels()
-    phase_ce_ab()
-    launches.update(phase_train_ce(cfg))
+    launches.update(timed("train", phase_train, cfg))
+    ce_rows = timed("ce_kernels", phase_ce_kernels)
+    timed("ce_ab", phase_ce_ab)
+    launches.update(timed("train_ce", phase_train_ce, cfg))
 
-    moe_rows = phase_moe_kernels()
+    moe_rows = timed("moe_kernels", phase_moe_kernels)
     moe_cfg = moe_config()
     moe_params = llama.init_params(
         moe_cfg, torch.Generator("cuda").manual_seed(SEED), device="cuda"
     )
-    moe_launches = {"generate": phase_moe_generate(moe_cfg, moe_params)}
+    moe_launches = {"generate": timed("moe_generate", phase_moe_generate,
+                                      moe_cfg, moe_params)}
     da.reset_launch_counts()
     md.reset_launch_counts()
-    moe_launches["engine"], moe_served = phase_engine(
-        moe_cfg, moe_params, phase="moe_engine", gated=False)
+    moe_launches["engine"], moe_served = timed(
+        "moe_engine", phase_engine, moe_cfg, moe_params,
+        phase="moe_engine", gated=False)
     for name in ("decode_attention_fp", "grouped_ffn_forward"):
         check(moe_launches["engine"][name] >= moe_cfg.n_layers,
               f"moe_engine: {name} never launched")
-    moe_launches["paged_engine"] = phase_moe_paged_engine(
-        moe_cfg, moe_params, moe_served)
+    moe_launches["paged_engine"] = timed(
+        "moe_paged_engine", phase_moe_paged_engine, moe_cfg, moe_params,
+        moe_served)
     del moe_params
     torch.cuda.empty_cache()
-    moe_launches["train"] = phase_moe_train(moe_cfg)
+    moe_launches["train"] = timed("moe_train", phase_moe_train, moe_cfg)
     emit({"phase": "moe_launches", **moe_launches})
     for counts in moe_launches.values():
         for name, n in counts.items():
@@ -2882,6 +3381,8 @@ def main():
           "moe_dw_launch": {
               "dw_gu": md.dw_kernel_config(1024, 2048, True),
               "dw_down": md.dw_kernel_config(1024, 1024, False)}})
+    emit({"phase": "seconds", **PHASE_SECONDS,
+          "total": sum(PHASE_SECONDS.values())})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -141,6 +141,23 @@ def tiny_config(**overrides) -> TpuLMConfig:
     return TpuLMConfig(**defaults)
 
 
+def flagship_config(**overrides) -> TpuLMConfig:
+    """The flagship TpuLM (334M params): vocab 32000, embed 1024, 16
+    layers, 8 heads of 128, mlp 4096, bf16 compute."""
+    defaults = dict(
+        vocab_size=32000,
+        embed_dim=1024,
+        n_layers=16,
+        n_heads=8,
+        n_kv_heads=8,
+        head_dim=128,
+        mlp_dim=4096,
+        dtype="bfloat16",
+    )
+    defaults.update(overrides)
+    return TpuLMConfig(**defaults)
+
+
 def require_flat_stack(config: TpuLMConfig) -> None:
     """The port runs the flat layer stack: pipeline stages raise."""
     if config.pp_stages > 1:

@@ -30,6 +30,7 @@ its port is plain PyTorch, on every device.
 """
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -43,7 +44,9 @@ _NEG_INF = -1e30
 # query heads per block, and the blocks per SM the plan aims for.
 _SPLIT_ALIGN, _SPLIT_MAX, _MAX_GROUP, _WAVES = 64, 256, 8, 8
 
-# Kernel launches per body, counted where the wrapper launches it.
+# Kernel launches per body, counted where the wrapper launches it
+# (under a lock: a fleet's replica threads launch concurrently).
+_count_lock = threading.Lock()
 launch_counts: Dict[str, int] = {
     "decode_attention_fp": 0,
     "decode_attention_int8": 0,
@@ -58,8 +61,14 @@ _ticket_buffers: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _library():
@@ -406,9 +415,7 @@ def decode_attention(
             b, h, kh, max_len, d, rows, n_splits, d ** -0.5, stream,
         )
     _raise_on(rc, lib, "decode_attention")
-    launch_counts[
-        "decode_attention_int8" if quantized else "decode_attention_fp"
-    ] += 1
+    _count("decode_attention_int8" if quantized else "decode_attention_fp")
     return out
 
 
@@ -512,8 +519,6 @@ def paged_decode_attention(
             stream,
         )
     _raise_on(rc, lib, what)
-    launch_counts[
-        "paged_decode_attention_int8" if quantized
-        else "paged_decode_attention_fp"
-    ] += 1
+    _count("paged_decode_attention_int8" if quantized
+           else "paged_decode_attention_fp")
     return out

@@ -29,8 +29,16 @@ per-slot fills, iteration-level scheduling (port of
   slot, are dropped, never clamped onto a row that can become visible.
 
 The paged engine (``serving/kvpool``) subclasses this one and overrides
-the pool hooks and the device steps. Not ported yet: the fleet, tracing
-spans and fault points.
+the pool hooks and the device steps.
+
+- **Observability and faults.** Each iteration passes the
+  ``serving.step.error`` fault point before its device steps (a raise
+  there takes the step-error recovery path); admissions, sheds,
+  finishes and errors drop flight-recorder markers
+  (``ServingMetrics.annotate``); a terminal request emits its phase
+  spans (queue wait, prefill, migrate, decode, with spec draft/verify
+  sub-spans) retrospectively, parented to the carrier ``submit(...,
+  trace=)`` brought, when tracing is armed.
 
 Typical use::
 
@@ -48,8 +56,10 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.fault import fault_point
 from dlrover_tpu_torch.models import generate as gen_lib
 from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.serving import scheduler as sched_lib
 from dlrover_tpu_torch.serving import spec_decode as spec_lib
 from dlrover_tpu_torch.serving.metrics import serving_metrics
@@ -145,6 +155,7 @@ class ServingEngine:
         self._generator = generator
         # Tokens decoded in the current iteration (per-token latency).
         self._iter_decoded = 0
+        self._step_idx = 0
         # Running accepted-tokens-per-step mean (one decoding slot
         # through one verify step is one slot-step).
         self._spec_emitted = 0
@@ -173,11 +184,16 @@ class ServingEngine:
     def submit(self, prompt, max_new_tokens: int,
                temperature: float = 0.0,
                deadline_s: Optional[float] = None,
+               trace: Optional[dict] = None,
                slo_class: Optional[str] = None) -> Request:
         req = self.scheduler.submit(
             prompt, max_new_tokens, temperature, deadline_s=deadline_s,
             slo_class=slo_class,
         )
+        # Upstream trace carrier (fleet attempt span): the phase spans
+        # are emitted retrospectively at completion, so the step loop
+        # never touches the tracer.
+        req.trace = trace
         self.metrics.queue_depth.set(len(self.scheduler.queue))
         return req
 
@@ -195,6 +211,7 @@ class ServingEngine:
         if slot >= 0:
             self._release_slot(req, slot)
         self.metrics.requests.inc(outcome="cancelled")
+        self.metrics.annotate("serving_evict", rid=req.rid)
 
     def pending(self) -> int:
         """Requests not yet DONE (queued + in a slot)."""
@@ -240,9 +257,14 @@ class ServingEngine:
                 # Re-admission after a step-error requeue is not a new
                 # request.
                 self.metrics.requests.inc(outcome="admitted")
+            self.metrics.annotate(
+                "serving_admit", rid=req.rid, slot=req.slot,
+                prompt_len=req.prompt_len, requeues=req.requeues,
+            )
         for req in sch.drain_admission_shed():
             self._report_shed(req, finished)
         try:
+            fault_point("serving.step.error", step_idx=self._step_idx)
             pf = sch.pick_prefill()
             if pf is not None:
                 self._run_prefill_chunk(pf, finished)
@@ -252,6 +274,7 @@ class ServingEngine:
         except Exception as e:  # noqa: BLE001 — device errors vary
             self._recover_from_step_error(e, finished)
             self._iter_decoded = 0
+        self._step_idx += 1
         self.metrics.iterations.inc()
         self.metrics.queue_depth.set(len(sch.queue))
         for name, depth in sch.queue_depth_by_class().items():
@@ -312,6 +335,11 @@ class ServingEngine:
         self.metrics.shed.inc(reason="deadline", slo_class=req.slo_class)
         self.metrics.requests.inc(outcome="shed")
         self.metrics.failures.inc(reason="deadline")
+        self.metrics.annotate(
+            "serving_shed", rid=req.rid, reason="deadline",
+            slo_class=req.slo_class,
+        )
+        self._emit_request_spans(req, status="error")
 
     def _recover_from_step_error(self, err: BaseException,
                                  finished: List[Request]):
@@ -347,11 +375,17 @@ class ServingEngine:
                 req.failure_reason = "requeue_budget"
                 self.scheduler.finish(req)
                 finished.append(req)
+                self._emit_request_spans(req, status="error")
                 failed += 1
                 self.metrics.requests.inc(outcome="failed")
                 self.metrics.failures.inc(reason="requeue_budget")
             else:
                 self.metrics.requests.inc(outcome="requeued")
+        self.metrics.annotate(
+            "serving_step_error",
+            error=f"{type(err).__name__}: {err}"[:200],
+            requeued=len(requeued) - failed, failed=failed,
+        )
         logger.warning(
             "serving step raised; pool rebuilt, %d in-flight request(s) "
             "re-queued, %d explicitly failed",
@@ -678,3 +712,102 @@ class ServingEngine:
         self.metrics.requests.inc(
             outcome="truncated" if req.truncated else "finished"
         )
+        self.metrics.annotate(
+            "serving_finish", rid=req.rid, slot=slot,
+            new_tokens=len(req.tokens), truncated=req.truncated,
+        )
+        self._emit_request_spans(req)
+
+    def _emit_request_spans(self, req: Request, status: str = "ok"):
+        """Retrospective phase tree for one terminal request: queue-wait
+        / prefill / decode cut at the timestamps the scheduler already
+        records, contiguous by construction so their durations sum to
+        the request's end-to-end latency. Disarmed: one global check —
+        zero per-iteration cost in the step loop."""
+        tracer = tracing.active_tracer()
+        if tracer is None:
+            return
+        finish = (
+            req.finish_ts if req.finish_ts is not None
+            else time.monotonic()
+        )
+        root = tracer.record_span(
+            "serving.request", req.submit_ts, finish,
+            kind="server", parent=req.trace,
+            attrs={
+                "rid": req.rid,
+                "prompt_len": req.prompt_len,
+                "new_tokens": len(req.tokens),
+                "truncated": req.truncated,
+                "requeues": req.requeues,
+                "failure_reason": req.failure_reason,
+                "slo_class": req.slo_class,
+                "prefix_hit_blocks": req.prefix_hit_blocks,
+            },
+            status=status,
+        )
+        if req.admit_ts is None:
+            # Never reached a slot (shed / failed while queued): the
+            # whole life was queue wait.
+            tracer.record_span(
+                "serving.queue_wait", req.submit_ts, finish,
+                parent=root, status=status,
+            )
+            return
+        tracer.record_span(
+            "serving.queue_wait", req.submit_ts, req.admit_ts,
+            parent=root,
+        )
+        if req.first_token_ts is None:
+            tracer.record_span(
+                "serving.prefill", req.admit_ts, finish,
+                parent=root, status=status,
+            )
+            return
+        tracer.record_span(
+            "serving.prefill", req.admit_ts, req.first_token_ts,
+            parent=root, attrs={"prompt_len": req.prompt_len},
+        )
+        decode_start = req.first_token_ts
+        if req.migrate_end_ts is not None:
+            # Migrated request (kvpool/migrate): the migrate window sits
+            # between the source-side prefill and the local decode.
+            # Decode the SOURCE ran before a live-drain export gets its
+            # own contiguous segment so the children still tile the
+            # request end to end.
+            m_end = min(req.migrate_end_ts, finish)
+            m_start = req.migrate_start_ts
+            if m_start is None or m_start < req.first_token_ts:
+                m_start = req.first_token_ts
+            m_start = min(m_start, m_end)
+            if m_start - req.first_token_ts > 1e-6:
+                tracer.record_span(
+                    "serving.decode", req.first_token_ts, m_start,
+                    parent=root, attrs={"segment": "pre_migrate"},
+                )
+            tracer.record_span(
+                "serving.migrate", m_start, m_end, parent=root,
+                attrs={"pause_s": round(m_end - m_start, 6)},
+            )
+            decode_start = m_end
+        decode_span = tracer.record_span(
+            "serving.decode", decode_start, finish,
+            parent=root, attrs={"new_tokens": len(req.tokens)},
+        )
+        if req.verify_s > 0.0:
+            # Spec decode splits the decode phase into draft / verify
+            # sub-spans (per-slot shares of the iteration wall time,
+            # laid contiguously — durations are the signal, not the
+            # absolute placement).
+            td = min(decode_start + req.draft_s, finish)
+            tv = min(td + req.verify_s, finish)
+            tracer.record_span(
+                "serving.decode.draft", decode_start, td,
+                parent=decode_span,
+                attrs={"spec_drafted": req.spec_drafted},
+            )
+            tracer.record_span(
+                "serving.decode.verify", td, tv,
+                parent=decode_span,
+                attrs={"spec_accepted": req.spec_accepted},
+            )

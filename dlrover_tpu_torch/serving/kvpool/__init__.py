@@ -8,9 +8,10 @@ prefix reuse, admission riding the serving scheduler.
 - :class:`PagedServingEngine` — the flat engine's step loop over block
   tables, decode attention through the paged kernel, prefix-hit prefill
   skipping, pool-pressure relief (cache eviction → youngest-request
-  preemption).
-
-The migration of a request's blocks between engines is not ported yet.
+  preemption);
+- :mod:`migrate` — a request's blocks and scheduler state as bytes
+  (the reference's payload), exported from one engine and admitted
+  mid-stream into another.
 """
 
 from dlrover_tpu_torch.serving.kvpool.allocator import (
@@ -21,6 +22,15 @@ from dlrover_tpu_torch.serving.kvpool.engine import (
     SENTINEL_BLOCK,
     PagedServingEngine,
 )
+from dlrover_tpu_torch.serving.kvpool.migrate import (
+    MigrationError,
+    MigrationRefused,
+    can_import,
+    export_request,
+    import_request,
+    peek_header,
+    release_exported,
+)
 from dlrover_tpu_torch.serving.kvpool.prefix_cache import PrefixCache
 
 __all__ = [
@@ -29,4 +39,11 @@ __all__ = [
     "PrefixCache",
     "PagedServingEngine",
     "SENTINEL_BLOCK",
+    "MigrationError",
+    "MigrationRefused",
+    "export_request",
+    "import_request",
+    "release_exported",
+    "can_import",
+    "peek_header",
 ]

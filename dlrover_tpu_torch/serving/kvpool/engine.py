@@ -62,7 +62,14 @@ token's own too, is read quantized, so spec-on gives the port's
 spec-off tokens; the reference reads each token's own row at full
 precision there as well.
 
-Not ported yet: the migration import/export of blocks.
+- **Block migration** (``kvpool/migrate.py``). Export gathers a
+  request's blocks with one ``index_select`` per pool — the pools are
+  ``[L, num_blocks, bs, kh, hd]``, so the gather is already the wire's
+  ``[L, n, bs, kh, hd]`` — quantizes an fp pool to int8 where it lives,
+  and copies the int8 rows and their scales to the host in one copy.
+  Import copies the wire's body to the device in one copy, dequantizes
+  it for an fp pool, and lands it with one ``index_copy_`` per pool.
+  ``call_counts`` counts both (``export``, ``import``).
 """
 
 from typing import Dict, List, Optional
@@ -76,7 +83,11 @@ from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.kv_quant import (
     bytes_per_head_row,
     dequantize_kv,
+    kv_from_wire_tensors,
     quantize_kv,
+    wire_body,
+    wire_dtype_name,
+    wire_header,
 )
 from dlrover_tpu_torch.serving.engine import ServingEngine
 from dlrover_tpu_torch.serving.kvpool.allocator import (
@@ -187,6 +198,7 @@ class PagedServingEngine(ServingEngine):
             spec_draft_layers=spec_draft_layers, device=device,
         )
         self._kscale, self._vscale = self._fresh_scales()
+        self.call_counts.update({"export": 0, "import": 0})
         # Block watermark: only admit a request the pool can hold
         # (prompt + first decode block) counting evictable cache as
         # free — otherwise bursty arrivals thrash preemptions, each
@@ -324,6 +336,9 @@ class PagedServingEngine(ServingEngine):
         self._temps[slot] = 0.0
         self.metrics.kv_preemptions.inc()
         self.metrics.requests.inc(outcome="preempted")
+        self.metrics.annotate(
+            "serving_preempt", rid=victim.rid, slot=slot,
+        )
         logger.info(
             "kvpool pressure: preempted rid %d (slot %d) to free "
             "blocks", victim.rid, slot,
@@ -396,6 +411,10 @@ class PagedServingEngine(ServingEngine):
         self._tables[slot, :len(hit)] = hit
         req.prefill_pos = start
         self._lengths[slot] = start
+        self.metrics.annotate(
+            "serving_prefix_hit", rid=req.rid, blocks=len(hit),
+            resumed_at=start,
+        )
 
     def _release_slot(self, req: Request, slot: int) -> None:
         for block in self._slot_blocks[slot]:
@@ -455,6 +474,47 @@ class PagedServingEngine(ServingEngine):
             pools += [self._kscale, self._vscale]
         for pool in pools:
             pool[:, dst] = pool[:, src]
+
+    @torch.inference_mode()
+    def _export_blocks(self, blocks: List[int]) -> bytes:
+        """Migration export: ``blocks``' rows as the KV wire
+        (``ops.kv_quant``). One ``index_select`` per pool gathers the
+        rows; an fp pool is quantized to int8 where it lives; the int8
+        rows and their scales reach the host in one copy."""
+        self.call_counts["export"] += 1
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        k = self._k.index_select(1, ids)
+        v = self._v.index_select(1, ids)
+        if self._quantized:
+            ks = self._kscale.index_select(1, ids)
+            vs = self._vscale.index_select(1, ids)
+            src_dtype = "int8"
+        else:
+            src_dtype = wire_dtype_name(k.dtype)
+            k, ks = quantize_kv(k)
+            v, vs = quantize_kv(v)
+        return wire_header(k.shape, ks.shape, src_dtype) + wire_body(
+            k, v, ks, vs)
+
+    @torch.inference_mode()
+    def _import_blocks(self, wire: bytes, blocks: List[int]) -> None:
+        """Migration import: the wire's rows (already validated against
+        this engine) into pool blocks ``blocks``, in order. The body
+        reaches the device in one copy; an fp pool gets the rows
+        dequantized (``q * scale`` in f32, exact, then its dtype); one
+        ``index_copy_`` per pool lands them."""
+        self.call_counts["import"] += 1
+        kq, vq, ks, vs, _ = kv_from_wire_tensors(wire, self.device)
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        if self._quantized:
+            rows = ((self._k, kq), (self._v, vq),
+                    (self._kscale, ks), (self._vscale, vs))
+        else:
+            dtype = self._k.dtype
+            rows = ((self._k, dequantize_kv(kq, ks, dtype)),
+                    (self._v, dequantize_kv(vq, vs, dtype)))
+        for pool, new in rows:
+            pool.index_copy_(1, ids, new)
 
     @torch.inference_mode()
     def _prefill(self, chunk: np.ndarray, slot: int, start: int,

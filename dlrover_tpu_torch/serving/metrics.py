@@ -3,8 +3,8 @@ of ``dlrover_tpu/serving/metrics.py``).
 
 Registration is idempotent (the registry returns existing families), so
 several engines in one process share counters; gauges describe the last
-engine to update them. The flight-recorder annotations arrive with the
-fleet.
+engine to update them. :meth:`ServingMetrics.annotate` drops markers in
+the flight recorder's ring when one is installed.
 """
 
 from dlrover_tpu_torch.observability.registry import default_registry
@@ -143,6 +143,17 @@ class ServingMetrics:
             "verify step (observed only for slots that drafted)",
             buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
         )
+
+    def annotate(self, event: str, **fields):
+        """Drop a marker in the flight-recorder ring IF one is armed.
+        Never creates a recorder."""
+        from dlrover_tpu_torch.observability.flight_recorder import (
+            active_recorder,
+        )
+
+        rec = active_recorder()
+        if rec is not None:
+            rec.annotate(event, **fields)
 
 
 def serving_metrics(registry=None) -> ServingMetrics:

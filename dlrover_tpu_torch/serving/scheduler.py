@@ -1,8 +1,8 @@
 """Request state machine + iteration-level scheduler for the engine
 (the port's own copy of ``dlrover_tpu/serving/scheduler.py``, with the
 paged pool's hooks — the admission gate and pool-pressure preemption —
-and the speculative-decoding fields; without the migration fields,
-which arrive with that engine).
+the speculative-decoding fields, and the block-migration surface: the
+migrate stamps, the trace carrier and DECODE-entry admission).
 
 Orca-style continuous batching, host side: requests move QUEUED →
 PREFILL → DECODE → DONE; a slot is the unit of admission (one request
@@ -32,7 +32,7 @@ import itertools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Sequence
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,6 +63,40 @@ class SloClass:
             )
 
 
+# The conventional two-class split: TTFT-bound interactive traffic gets
+# 4x the admission share of throughput-bound batch work.
+DEFAULT_SLO_CLASSES: Tuple[SloClass, ...] = (
+    SloClass("interactive", weight=4.0),
+    SloClass("batch", weight=1.0),
+)
+
+# What a fleet replica worker serves unless told otherwise: untagged
+# traffic lands in "default" (the first class), and the conventional
+# interactive/batch split is understood on the wire — a router's
+# tagged request must not be REJECTED by a stock replica.
+FLEET_SLO_CLASSES: Tuple[SloClass, ...] = (
+    SloClass("default", weight=1.0),
+) + DEFAULT_SLO_CLASSES
+
+
+def parse_slo_classes(spec: str) -> Tuple[SloClass, ...]:
+    """``"name:weight,name:weight"`` -> SloClass tuple (CLI surface).
+    The first named class is the default for untagged submissions."""
+    classes = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" in part:
+            name, weight = part.split(":", 1)
+            classes.append(SloClass(name.strip(), float(weight)))
+        else:
+            classes.append(SloClass(part))
+    if not classes:
+        raise ValueError(f"no SLO classes in spec {spec!r}")
+    return tuple(classes)
+
+
 @dataclass
 class Request:
     """One generation request and its accumulated result."""
@@ -91,6 +125,10 @@ class Request:
     first_token_ts: Optional[float] = None
     finish_ts: Optional[float] = None
     admit_ts: Optional[float] = None   # slot-admission time (monotonic)
+    # Upstream trace carrier ({"trace_id","span_id"} from the fleet
+    # router's attempt span, or None): the emitted phase spans parent
+    # to it so one request is one tree across processes.
+    trace: Optional[dict] = None
     # Named SLO class this request was admitted under; "default" on
     # single-class schedulers.
     slo_class: str = "default"
@@ -105,6 +143,13 @@ class Request:
     spec_accepted: int = 0
     draft_s: float = 0.0
     verify_s: float = 0.0
+    # Block migration (serving/kvpool/migrate): set on the DESTINATION
+    # engine at import. The migrate window sits between the
+    # (source-side) prefill and the local decode in the retrospective
+    # span tree; all four stamps live on the local monotonic clock
+    # (import reconstructs the source phases from carried durations).
+    migrate_start_ts: Optional[float] = None
+    migrate_end_ts: Optional[float] = None
 
     @property
     def prompt_len(self) -> int:
@@ -253,6 +298,75 @@ class Scheduler:
         if shed:
             self.queue = kept
         return shed
+
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def admit_decode(
+        self,
+        prompt,
+        tokens: Sequence[int],
+        max_new_tokens: int,
+        temperature: float = 0.0,
+        slo_class: Optional[str] = None,
+        now: Optional[float] = None,
+    ) -> Request:
+        """DECODE-entry admission: bind a FREE slot directly in DECODE
+        state for a request whose prefill already ran elsewhere (block
+        migration). No queue, no prefill — the caller installs
+        blocks/table/fill and owns the timeline stamps; this method
+        seeds them with ``now`` so an un-adjusted request still has a
+        consistent (zero-width) phase history. Raises when no slot is
+        free — the import path must check :meth:`free_slots` first."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.shape[0] < 1:
+            raise ValueError("empty prompt")
+        if prompt.shape[0] >= self.max_len:
+            raise ValueError(
+                f"prompt_len {prompt.shape[0]} leaves no decode room "
+                f"in max_len {self.max_len}"
+            )
+        tokens = list(tokens)
+        if not tokens:
+            raise ValueError(
+                "decode-entry admission needs >= 1 sampled token "
+                "(prefill must have completed at the source)"
+            )
+        if len(tokens) >= max_new_tokens:
+            raise ValueError(
+                f"request already complete ({len(tokens)} of "
+                f"{max_new_tokens} tokens) — nothing to migrate"
+            )
+        cls_name = slo_class if slo_class is not None else (
+            self._default_class
+        )
+        if cls_name not in self.slo_classes:
+            raise ValueError(
+                f"unknown SLO class {cls_name!r}; configured: "
+                f"{sorted(self.slo_classes)}"
+            )
+        if not self._free:
+            raise RuntimeError(
+                "no free slot for decode-entry admission"
+            )
+        if now is None:
+            now = time.monotonic()
+        req = Request(
+            rid=next(self._rid),
+            prompt=prompt,
+            max_new_tokens=max_new_tokens,
+            temperature=float(temperature),
+            state=DECODE,
+            slo_class=cls_name,
+            submit_ts=now,
+        )
+        req.admit_ts = now
+        req.first_token_ts = now
+        req.prefill_pos = int(prompt.shape[0])
+        req.tokens = tokens
+        req.slot = self._free.popleft()
+        self.by_slot[req.slot] = req
+        return req
 
     def admit(self, now: Optional[float] = None) -> List[Request]:
         """Bind queued requests to free slots — weighted-fair deficit
@@ -429,6 +543,8 @@ class Scheduler:
         req.first_token_ts = None
         req.admit_ts = None
         req.prefix_hit_blocks = 0
+        req.migrate_start_ts = None
+        req.migrate_end_ts = None
         self._reset_spec_progress(req)
         req.preemptions += 1
         self.queue.appendleft(req)
@@ -466,6 +582,8 @@ class Scheduler:
             req.first_token_ts = None
             req.admit_ts = None
             req.prefix_hit_blocks = 0
+            req.migrate_start_ts = None
+            req.migrate_end_ts = None
             self._reset_spec_progress(req)
             req.requeues += 1
             self.queue.appendleft(req)

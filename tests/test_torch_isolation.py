@@ -1,10 +1,12 @@
 """The port stands alone: it imports neither JAX nor anything of the
 JAX package. Checked in a fresh interpreter that serves (flat and
 paged engines, speculative decoding on both, MoE on the paged one),
-takes a training step, and generates and trains one
-step with a dropless MoE config on the CPU (this test process
-has JAX loaded by ``tests/conftest.py``) and by a scan of every import
-statement in the port's sources and in ``chip_smoke.py``."""
+migrates a request between paged engines under tracing, routes one
+through a thread-replica fleet, takes a training step, and generates
+and trains one step with a dropless MoE config on the CPU (this test
+process has JAX loaded by ``tests/conftest.py``); in a fleet's
+subprocess worker; and by a scan of every import statement in the
+port's sources and in ``chip_smoke.py``."""
 
 import ast
 import json
@@ -78,12 +80,42 @@ moe_state = ts.init_train_state(moe_cfg, moe_opt, moe_params)
 moe_state, moe_m = ts.make_train_step(moe_cfg, moe_tc, moe_opt,
                                       device="cpu")(
     moe_state, {"tokens": np.arange(18, dtype=np.int32).reshape(2, 9)})
+from dlrover_tpu_torch import fault
+from dlrover_tpu_torch.observability import flight_recorder, tracing
+from dlrover_tpu_torch.serving import fleet
+from dlrover_tpu_torch.serving.kvpool import (
+    export_request, import_request, release_exported)
+def paged_engine():
+    return PagedServingEngine(cfg, params, slots=2, max_len=16,
+                              prefill_chunk=8, block_size=8, device="cpu")
+src, dst = paged_engine(), paged_engine()
+mreq = src.submit(np.arange(9), 4)
+while mreq.state != "decode":
+    src.step()
+tracer = tracing.arm(tracing.Tracer(service="isolation"))
+rec = flight_recorder.install_recorder()
+fault.arm(fault.FaultSchedule([fault.FaultRule("serving.step.error",
+                                               action="delay")]))
+moved = import_request(dst, export_request(src, mreq))
+release_exported(src, mreq)
+dst.run_until_idle()
+fault.disarm()
+tracing.disarm()
+router = fleet.FleetRouter([fleet.ThreadReplica("t0", paged_engine)])
+router.start()
+freq = router.submit(np.arange(5), 3)
+router.run_until_idle(timeout_s=120.0)
+router.stop()
 print(json.dumps({
     "tokens": out.tokens.shape[1] + len(req.tokens),
     "paged_tokens": paged_tokens, "spec_tokens": spec_tokens,
     "train_step": state["step"], "loss": float(m["loss"]),
     "moe_tokens": list(moe_out.tokens.shape),
     "moe_train_step": moe_state["step"], "moe_loss": float(moe_m["loss"]),
+    "migrated_tokens": len(moved.tokens),
+    "spans": sorted({s["name"] for s in tracer.finished()}),
+    "annotations": len(rec.records()),
+    "fleet_tokens": len(freq.result.tokens),
     "leaked": sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -107,6 +139,10 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     assert result["train_step"] == 1 and result["loss"] > 0
     assert result["moe_tokens"] == [2, 2]
     assert result["moe_train_step"] == 1 and result["moe_loss"] > 0
+    assert result["migrated_tokens"] == 4
+    assert "serving.migrate" in result["spans"]
+    assert result["annotations"] > 0
+    assert result["fleet_tokens"] == 3
     assert result["leaked"] == []
 
 
@@ -121,6 +157,61 @@ def _imports(path: Path):
 
 
 _SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_scan_covers_the_fleet_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    assert {"fault/__init__.py", "fault/registry.py",
+            "observability/tracing.py",
+            "observability/flight_recorder.py",
+            "serving/kvpool/migrate.py", "serving/fleet/__init__.py",
+            "serving/fleet/health.py", "serving/fleet/metrics.py",
+            "serving/fleet/replica.py", "serving/fleet/replica_worker.py",
+            "serving/fleet/router.py"} <= scanned
+
+
+# Loaded first by the worker's interpreter (through PYTHONPATH): at exit
+# it writes which JAX or JAX-package modules that process imported.
+_SITECUSTOMIZE = r"""
+import atexit, json, os, sys
+
+def _report():
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu"))
+    with open(os.environ["ISOLATION_REPORT"], "w") as f:
+        json.dump({"leaked": leaked, "port": "dlrover_tpu_torch"
+                   in sys.modules}, f)
+
+atexit.register(_report)
+"""
+
+
+def test_subprocess_replica_worker_loads_no_jax(tmp_path, monkeypatch):
+    """A fleet's subprocess worker (the port's, on the CPU) serves a
+    request and stops; its interpreter never loaded JAX or the JAX
+    package."""
+    from dlrover_tpu_torch.observability.registry import MetricsRegistry
+    from dlrover_tpu_torch.serving import fleet
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    report = tmp_path / "report.json"
+    monkeypatch.setenv("PYTHONPATH", str(site))
+    monkeypatch.setenv("ISOLATION_REPORT", str(report))
+    replica = fleet.SubprocessReplica(
+        "w0", str(tmp_path / "work"), paged=True, device="cpu",
+        config="tiny")
+    router = fleet.FleetRouter([replica], registry=MetricsRegistry())
+    router.start(timeout_s=120.0)
+    try:
+        req = router.submit(list(range(5)), 3)
+        router.run_until_idle(timeout_s=120.0)
+    finally:
+        router.stop()
+    assert req.result.ok and len(req.result.tokens) == 3
+    result = json.loads(report.read_text())
+    assert result == {"leaked": [], "port": True}
 
 
 def test_scan_covers_the_paged_engine_modules():

@@ -342,6 +342,61 @@ def test_paged_engine_on_card_matches_cpu(cuda, kv_dtype):
     assert da.launch_counts[f"paged_decode_attention_{kv_dtype}"] > before
 
 
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_migration_on_card_matches_cpu(cuda, kv_dtype):
+    """tiny f32 config: the wire a CUDA engine exports (gathered and, for
+    an fp pool, quantized on the card) is byte for byte ``kv_to_wire``
+    on the CPU of the same rows; imported into a CUDA and a CPU engine,
+    it lands the same rows and the request continues to the same
+    tokens."""
+    import struct
+
+    from dlrover_tpu_torch.ops.kv_quant import kv_to_wire
+    from dlrover_tpu_torch.serving import kvpool
+
+    cfg = llama.tiny_config()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    prompt = np.random.RandomState(2).randint(0, 256, 19)
+
+    def engine(device):
+        eng = PagedServingEngine(cfg, params, slots=2, max_len=48,
+                                 prefill_chunk=8, block_size=8,
+                                 kv_cache_dtype=kv_dtype, device=device)
+        eng.warmup()
+        return eng
+
+    src = engine(cuda)
+    req = src.submit(prompt, 12)
+    while req.state != "decode" or len(req.tokens) < 3:
+        src.step()
+    payload = kvpool.export_request(src, req)
+    (hlen,) = struct.unpack_from("<I", payload, 4)
+    ids = torch.tensor(src._slot_blocks[req.slot], device=cuda)
+    rows = [pool.index_select(1, ids).cpu()
+            for pool in (src._k, src._v, src._kscale, src._vscale)
+            if pool is not None]
+    assert payload[8 + hlen:] == kv_to_wire(*rows)
+    out = {}
+    for device in (cuda, "cpu"):
+        dst = engine(device)
+        moved = kvpool.import_request(dst, payload)
+        blocks = dst._slot_blocks[moved.slot]
+        landed = [pool[:, blocks].cpu()
+                  for pool in (dst._k, dst._v, dst._kscale, dst._vscale)
+                  if pool is not None]
+        dst.run_until_idle()
+        dst.check_block_invariants()
+        assert dst.call_counts["import"] == 1
+        out[str(device)] = (landed, moved.tokens)
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert torch.equal(a, b)
+    assert out["cuda"][1] == out["cpu"][1] and len(out["cpu"][1]) == 12
+    kvpool.release_exported(src, req)
+    src.check_block_invariants()
+    assert src.kv_stats()["used"] == 0 and src.call_counts["export"] == 1
+
+
 @pytest.mark.parametrize("engine,kv,drafter", [
     ("flat", "fp", "ngram"), ("flat", "fp", "early_exit"),
     ("paged", "fp", "early_exit"), ("paged", "int8", "ngram"),
