@@ -164,15 +164,19 @@ def kv_from_wire(buf):
 
 
 def kv_from_wire_tensors(buf, device):
-    """:func:`kv_from_wire` onto ``device`` through ONE host-to-device
-    copy of the body: ``(kq, vq, ks, vs, header)`` as tensors viewing
-    that one buffer."""
+    """:func:`kv_from_wire` onto ``device``: ``(kq, vq, ks, vs,
+    header)`` as tensors viewing one buffer. The body takes one host
+    copy, into pinned memory when ``device`` is a card, and one
+    host-to-device copy from there."""
     header, off = _parse_header(buf)
     shape = tuple(header["shape"])
     scale_shape = tuple(header["scale_shape"])
     n_q, n_s = _wire_sizes(buf, off, shape, scale_shape)
-    body = torch.frombuffer(bytearray(buf[off:]), dtype=torch.uint8)
-    body = body.to(device)
+    n = len(buf) - off
+    body = torch.empty(n, dtype=torch.uint8,
+                       pin_memory=torch.device(device).type == "cuda")
+    body.numpy()[:] = np.frombuffer(buf, np.uint8, n, off)
+    body = body.to(device, non_blocking=True)
     kq = body[:n_q].view(torch.int8).view(shape)
     vq = body[n_q:2 * n_q].view(torch.int8).view(shape)
     ks = body[2 * n_q:2 * n_q + 4 * n_s].view(torch.float32).view(

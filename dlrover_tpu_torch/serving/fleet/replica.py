@@ -487,8 +487,6 @@ class SubprocessReplica:
         max_len: int = 64,
         prefill_chunk: int = 8,
         heartbeat_s: float = 0.2,
-        step_delay_ms: float = 0.0,
-        token_delay_us: float = 0.0,
         schedule_path="",
         clock: Callable[[], float] = time.monotonic,
         paged: bool = False,
@@ -510,8 +508,6 @@ class SubprocessReplica:
         self._max_len = max_len
         self._prefill_chunk = prefill_chunk
         self._heartbeat_s = heartbeat_s
-        self._step_delay_ms = step_delay_ms
-        self._token_delay_us = token_delay_us
         self._schedule_path = schedule_path
         self._clock = clock
         self._paged = paged
@@ -585,12 +581,9 @@ class SubprocessReplica:
             "--max-len", str(self._max_len),
             "--prefill-chunk", str(self._prefill_chunk),
             "--heartbeat-s", str(self._heartbeat_s),
-            "--step-delay-ms", str(self._step_delay_ms),
             "--device", self._device,
             "--config", self._config,
         ]
-        if self._token_delay_us > 0:
-            args += ["--token-delay-us", str(self._token_delay_us)]
         if self._paged:
             args += ["--paged", "--block-size", str(self._block_size)]
             if self._num_blocks is not None:

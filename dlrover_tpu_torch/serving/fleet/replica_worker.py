@@ -45,25 +45,6 @@ def _emit(obj: dict) -> None:
     sys.stdout.flush()
 
 
-def _chunk_tokens(engine, prefill_chunk: int) -> int:
-    """Prompt tokens the next engine iteration will prefill: the
-    FCFS-picked PREFILL slot's next chunk (0 when nothing is
-    prefilling), including the short FINAL chunk of a prompt. Drives
-    the --token-delay-us service-time simulation; the decode batch is
-    deliberately not counted."""
-    sched = getattr(engine, "scheduler", None)
-    by_slot = getattr(sched, "by_slot", None) if sched else None
-    if not by_slot:
-        return 0
-    prefilling = [
-        r for r in by_slot if r is not None and r.state == "prefill"
-    ]
-    if not prefilling:
-        return 0
-    nxt = min(prefilling, key=lambda r: r.rid)
-    return max(min(prefill_chunk, nxt.prompt_len - nxt.prefill_pos), 0)
-
-
 def _read_commands(q: "queue.Queue[dict]") -> None:
     for line in sys.stdin:
         line = line.strip()
@@ -91,17 +72,6 @@ def main(argv=None) -> int:
     parser.add_argument("--max-len", type=int, default=64)
     parser.add_argument("--prefill-chunk", type=int, default=8)
     parser.add_argument("--heartbeat-s", type=float, default=0.2)
-    parser.add_argument(
-        "--step-delay-ms", type=float, default=0.0,
-        help="simulated device milliseconds per engine iteration "
-        "(sleeping releases the host CPU): the memory-bound term of a "
-        "roofline service-time model, paid once per iteration",
-    )
-    parser.add_argument(
-        "--token-delay-us", type=float, default=0.0,
-        help="simulated device microseconds per PREFILL token in the "
-        "iteration's prompt chunk: the compute-bound roofline term",
-    )
     parser.add_argument(
         "--paged", action="store_true",
         help="serve from the paged block-table engine "
@@ -257,15 +227,9 @@ def main(argv=None) -> int:
                 serve_control(engine, by_rid, _emit, migrate_rids, cmd)
         if engine.pending():
             # A ``crash`` rule on fleet.replica.step fires between two
-            # engine iterations with requests live in slots.
+            # engine iterations with requests live in slots; a ``delay``
+            # rule slows the replica down.
             fault_point("fleet.replica.step", replica=args.replica_id)
-            delay = args.step_delay_ms / 1000.0
-            if args.token_delay_us > 0:
-                delay += args.token_delay_us * _chunk_tokens(
-                    engine, args.prefill_chunk
-                ) / 1e6
-            if delay > 0:
-                time.sleep(delay)
             serve_step(engine, by_rid, _emit)
         serve_exports(engine, by_rid, _emit, migrate_rids)
 

@@ -170,7 +170,7 @@ def import_request(engine, payload: bytes,
     t_in = time.monotonic()
     header = peek_header(payload)
     (hlen,) = struct.unpack_from("<I", payload, 4)
-    wire = payload[8 + hlen:]
+    wire = memoryview(payload)[8 + hlen:]
     kq, _, _, _, _ = kv_from_wire(wire)  # validates; views, no copy
     L, n, bs, kh, hd = kq.shape
     cfg = engine.config

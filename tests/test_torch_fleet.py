@@ -631,11 +631,18 @@ def test_subprocess_fleet_kill_mid_decode_completes_once(tmp_path):
                                device="cpu")
     expected = _reference_tokens((cfg, params), prompts, 24)
 
+    # Every engine iteration of both workers sleeps 20 ms, so the kill
+    # lands mid-decode.
+    slow = tmp_path / "slow.json"
+    slow.write_text(port_fault.FaultSchedule([port_fault.FaultRule(
+        "fleet.replica.step", action="delay", delay_s=0.02, every=1,
+    )]).to_json())
+
     def replica(name):
         return port_fleet.SubprocessReplica(
             name, str(tmp_path), slots=2, max_len=64, prefill_chunk=4,
             paged=True, block_size=8, heartbeat_s=0.1,
-            step_delay_ms=20.0, device="cpu", config="tiny")
+            schedule_path=str(slow), device="cpu", config="tiny")
 
     reps = [replica("s0"), replica("s1")]
     router = port_fleet.FleetRouter(

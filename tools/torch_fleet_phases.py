@@ -43,7 +43,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.phase_device()
     cs.phase_build()
-    cfg = cs.flagship_config()
+    cfg = llama.flagship_config()
     params = llama.init_params(
         cfg, torch.Generator("cuda").manual_seed(cs.SEED), device="cuda")
     for rep in range(args.repeat):

@@ -39,7 +39,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = cs.phase_device()
     cs.phase_build()
-    for name, make in (("flagship", cs.flagship_config),
+    for name, make in (("flagship", llama.flagship_config),
                        ("moe", cs.moe_config)):
         cfg = make()
         params = llama.init_params(
