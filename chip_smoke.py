@@ -141,7 +141,22 @@ phases that each print JSON lines:
     fault the gates must reject; 6 steps with falling loss, a bitwise
     rerun, exact B1, B2, B7 and B8 launches; step time, tokens/s, the
     share of the bf16 peak on 6 x active params a token, peak memory
-    and a profiled step.
+    and a profiled step;
+16. elastic_ckpt: the port's elastic worker
+    (``dlrover_tpu_torch.examples.train_llama``) on the flagship at phase
+    6's shape (8 x 2048, ga 2), seed 0, under an agent this script
+    plays (it hosts the ``AsyncCheckpointSaver`` and sets each worker's
+    env). Run A trains 16 steps; run B saves to shm after every step
+    and persists every 5, is SIGKILLed once step 9 is in shm (restored
+    from memory), then once step 13 is in shm and step 10 committed,
+    with its segment unlinked (a lost host; restored from storage), and
+    replays to 16. Gates: run B's replayed losses and final params,
+    moments and step equal run A's bit for bit (a flipped moment
+    element is rejected), the restores are the ones stated, each
+    worker's B1/B2 launches are exact, no segment or socket is left.
+    Image GB, save block and drain ms, snapshots dropped, persist and
+    restore seconds and GB/s, worker start seconds, SIGKILL to first
+    replayed step, steps redone and goodput (A's wall over B's).
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -3226,6 +3241,367 @@ def phase_moe_train(cfg):
     return launches
 
 
+# ---- elastic training: flash checkpoints, kills, restores -----------------
+
+# The worker's run: steps, persist cadence; run B's first SIGKILL once a
+# step >= ELASTIC_KILL1 is in shm, its second (with the segment unlinked:
+# a lost host) once step ELASTIC_KILL2 is in shm and the tracker shows
+# ELASTIC_STORAGE_STEP.
+ELASTIC_STEPS, ELASTIC_PERSIST = 16, 5
+ELASTIC_KILL1, ELASTIC_KILL2, ELASTIC_STORAGE_STEP = 9, 13, 10
+ELASTIC_TIMEOUT_S = 300.0
+
+
+class _Worker:
+    """One ``dlrover_tpu_torch.examples.train_llama`` process; a thread
+    reads its stdout's JSON lines into ``events``."""
+
+    def __init__(self, args, env, log_path):
+        import threading
+
+        self.spawned = time.monotonic()
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dlrover_tpu_torch.examples.train_llama",
+             *args], env=env, stdout=subprocess.PIPE, stderr=self._log,
+            text=True)
+        self.events = []
+        self._cond = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                event = json.loads(line)
+                event["t"] = time.monotonic()
+                with self._cond:
+                    self.events.append(event)
+                    self._cond.notify_all()
+        with self._cond:
+            self.events.append({"event": "exit", "t": time.monotonic()})
+            self._cond.notify_all()
+
+    def wait_event(self, pred, what, timeout=ELASTIC_TIMEOUT_S):
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                for event in self.events:
+                    if pred(event):
+                        return event
+                exited = any(e["event"] == "exit" for e in self.events)
+                check(not exited, f"elastic_ckpt: the worker exited (rc "
+                      f"{self.proc.poll()}) before {what}; see "
+                      f"{self._log.name}")
+                left = deadline - time.monotonic()
+                check(left > 0, f"elastic_ckpt: no {what} in {timeout} s")
+                self._cond.wait(min(left, 1.0))
+
+    def steps(self):
+        return [e for e in self.events if e["event"] == "step"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+        self._reader.join(timeout=10)
+        self._log.close()
+
+
+def _elastic_compare(a, b):
+    """Keys of the shm payloads' arrays whose bytes differ."""
+    def raw(x):
+        return x.reshape(-1).view(np.uint8)
+
+    return sorted(k for k in a.keys() & b.keys()
+                  if not np.array_equal(raw(a[k]), raw(b[k]))) + sorted(
+        a.keys() ^ b.keys())
+
+
+def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
+                       seq=TRAIN_SEQ):
+    """The port's elastic worker (``examples/train_llama``) at
+    micro-batch ``micro`` x ``seq``, global batch 2 x micro (ga 2),
+    seed 0, under an agent played here: this process hosts the
+    ``AsyncCheckpointSaver`` and sets each worker's ``WorkerEnv``. Run A
+    trains ELASTIC_STEPS steps. Run B is SIGKILLed once step
+    ELASTIC_KILL1 is in shm and relaunched: it must restore that step
+    from memory. Once step ELASTIC_KILL2 is in shm and the tracker shows
+    ELASTIC_STORAGE_STEP it is SIGKILLed again and its segment unlinked
+    (a lost host): the relaunch must restore that step from storage and
+    replay to the end. A fault schedule holds each doomed worker at the
+    step after its kill step (a ``delay`` at ``agent.worker.crash``) so
+    the kill lands there, and this process holds the shm lock over each
+    kill, so no write is in flight. Gates: run B's final params,
+    moments and step (its last shm image) equal run A's bit for bit,
+    and a moment with one element flipped does not; every loss of run B
+    equals run A's at its step; each worker launched B1, B2 dq and B2
+    dk/dv n_layers x ga times a step it ran (none on the CPU); no
+    segment or socket is left."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common.constants import NodeEnv, WorkerEnv
+    from dlrover_tpu_torch.fault import SCHEDULE_ENV, FaultRule, FaultSchedule
+    from dlrover_tpu_torch.flash_ckpt import storage as ckpt_storage
+    from dlrover_tpu_torch.flash_ckpt.engine import (
+        CKPT_LOCK_PREFIX,
+        shm_segment_name,
+    )
+    from dlrover_tpu_torch.flash_ckpt.saver import (
+        AsyncCheckpointSaver,
+        read_shm_payload,
+    )
+    from dlrover_tpu_torch.flash_ckpt.shared_obj import SharedLockClient
+    from dlrover_tpu_torch.flash_ckpt.shm_handler import SharedMemoryHandler
+    from dlrover_tpu_torch.models import llama
+
+    cfg = (llama.flagship_config() if config == "flagship"
+           else llama.tiny_config(n_layers=4))
+    ga = 2
+    free_gib = None
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    root = tempfile.mkdtemp(prefix="elastic_ckpt_")
+    disk_free_gb = shutil.disk_usage(root).free / 1e9
+    repo = os.path.dirname(os.path.abspath(__file__))
+    args = ["--steps", str(ELASTIC_STEPS), "--global-batch", str(ga * micro),
+            "--micro-batch", str(micro), "--seq", str(seq),
+            "--persist-every", str(ELASTIC_PERSIST), "--config", config,
+            "--device", device, "--seed", str(SEED)]
+    saved_env = {k: os.environ.get(k) for k in (
+        NodeEnv.JOB_NAME, NodeEnv.NODE_RANK, NodeEnv.SHARED_DIR)}
+    workers, shm_used, kills = [], [], []
+
+    def run(label, plan):
+        """One run under a fresh saver. ``plan``: (the step a worker is
+        held after, how it is killed) per kill. Returns the run's
+        workers, wall seconds, final shm image, the saver's persists,
+        seconds from each SIGKILL to the next worker's first step, and
+        the segment's bytes."""
+        job = f"chipsmoke{os.getpid()}{label}"
+        ckpt_dir = os.path.join(root, label, "ckpt")
+        sock_dir = os.path.join(root, label, "sock")
+        os.makedirs(sock_dir)
+        os.environ.update({NodeEnv.JOB_NAME: job, NodeEnv.NODE_RANK: "0",
+                           NodeEnv.SHARED_DIR: sock_dir})
+        env = dict(os.environ, PYTHONPATH=repo)
+        env.update({WorkerEnv.NUM_PROCESSES: "1", WorkerEnv.PROCESS_ID: "0",
+                    WorkerEnv.LOCAL_RANK: "0",
+                    WorkerEnv.LOCAL_WORLD_SIZE: "1"})
+        saver = AsyncCheckpointSaver(local_world_size=1)
+        lock = SharedLockClient(f"{CKPT_LOCK_PREFIX}_0")
+        segment = SharedMemoryHandler(shm_segment_name(0))
+        run_workers, kill_to_step = [], []
+        t0 = time.monotonic()
+
+        def spawn(hold_after=None):
+            n = len(run_workers)
+            env[WorkerEnv.RESTART_COUNT] = str(n)
+            env.pop(SCHEDULE_ENV, None)
+            if hold_after is not None:
+                path = os.path.join(root, f"{label}_hold{n}.json")
+                with open(path, "w") as f:
+                    f.write(FaultSchedule([FaultRule(
+                        "agent.worker.crash", action="delay",
+                        delay_s=ELASTIC_TIMEOUT_S,
+                        match={"step": hold_after})]).to_json())
+                env[SCHEDULE_ENV] = path
+            w = _Worker(args + ["--ckpt-dir", ckpt_dir], env,
+                        os.path.join(root, f"{label}_worker{n}.log"))
+            run_workers.append(w)
+            workers.append(w)
+            return w
+
+        try:
+            w = spawn(plan[0][0] if plan else None)
+            for i, (_, kill) in enumerate(plan):
+                settle = kill(w, lock, segment, saver, ckpt_dir)
+                t_kill = time.monotonic()
+                shm_used.append(shutil.disk_usage("/dev/shm").used)
+                w = spawn(plan[i + 1][0] if i + 1 < len(plan) else None)
+                if settle is not None:
+                    settle(w, saver)
+                first = w.wait_event(lambda e: e["event"] == "step",
+                                     "a replayed step")
+                kill_to_step.append(first["t"] - t_kill)
+            w.wait_event(lambda e: e["event"] == "done", "the end")
+            check(w.proc.wait(timeout=60) == 0, f"{label}: worker rc "
+                  f"{w.proc.returncode}")
+            wall = time.monotonic() - t0
+            shm_used.append(shutil.disk_usage("/dev/shm").used)
+            image_bytes = segment.size if segment.attach() else 0
+            segment.close()
+            final = read_shm_payload(0, lock)
+            check(final is not None and final[0] == ELASTIC_STEPS,
+                  f"{label}: final shm image {final and final[0]}")
+            persists = list(saver.persist_records)
+        finally:
+            for w in run_workers:
+                w.stop()
+            saver.stop(timeout=ELASTIC_TIMEOUT_S)
+            saver.unlink_all(1)
+            socks = os.listdir(sock_dir)
+            shutil.rmtree(os.path.join(root, label), ignore_errors=True)
+        left = [n for n in os.listdir("/dev/shm") if job in n]
+        check(left == [] and socks == [],
+              f"{label}: segments {left} and sockets {socks} left")
+        return (run_workers, wall, final[1]["arrays"], persists,
+                kill_to_step, image_bytes)
+
+    def kill_in_memory(w, lock, segment, saver, ckpt_dir):
+        """SIGKILL once step ELASTIC_KILL1 is in shm."""
+        w.wait_event(lambda e: e["event"] == "shm"
+                     and e["step"] >= ELASTIC_KILL1, "the first kill's step")
+        lock.acquire()
+        try:
+            w.proc.kill()
+            w.proc.wait(timeout=60)
+            kills.append(segment.get_step())
+        finally:
+            lock.release()
+            segment.close()
+        return settle_persist
+
+    def settle_persist(w, saver):
+        """The persist of step ELASTIC_PERSIST lands (while the relaunch
+        boots) before the relaunch queues its own, so that one reads the
+        image it asked for, not a later step's."""
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        while saver.last_persisted_step < ELASTIC_PERSIST:
+            check(time.monotonic() < deadline, "elastic_ckpt: the persist "
+                  f"of step {ELASTIC_PERSIST} did not land")
+            time.sleep(0.05)
+        check(not any(e["event"] == "step" and e["step"] > ELASTIC_KILL1
+                      for e in w.events),
+              "elastic_ckpt: the relaunch ran past its restore step "
+              f"before the persist of step {ELASTIC_PERSIST} landed")
+
+    def kill_host(w, lock, segment, saver, ckpt_dir):
+        """SIGKILL once step ELASTIC_KILL2 is in shm and the tracker
+        shows ELASTIC_STORAGE_STEP; unlink the segment."""
+        w.wait_event(lambda e: e["event"] == "shm"
+                     and e["step"] >= ELASTIC_KILL2, "the second kill's step")
+        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+        while ckpt_storage.read_tracker(ckpt_dir) < ELASTIC_STORAGE_STEP:
+            check(time.monotonic() < deadline, "elastic_ckpt: step "
+                  f"{ELASTIC_STORAGE_STEP} never committed")
+            time.sleep(0.05)
+        lock.acquire()
+        try:
+            w.proc.kill()
+            w.proc.wait(timeout=60)
+        finally:
+            lock.release()
+        kills.append(ckpt_storage.read_tracker(ckpt_dir))
+        segment.unlink()
+
+    try:
+        a_workers, wall_a, final_a, persists_a, _, image_bytes = run("A", [])
+        b_workers, wall_b, final_b, persists_b, kill_to_step, _ = run(
+            "B", [(ELASTIC_KILL1 + 1, kill_in_memory),
+                  (ELASTIC_KILL2 + 1, kill_host)])
+    finally:
+        for w in workers:
+            w.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+    label = "elastic_ckpt"
+
+    def first(w, kind):
+        return next((e for e in w.events if e["event"] == kind), None)
+
+    readies = [first(w, "ready") for w in a_workers + b_workers]
+    got = [(r["restored_from"], r["restored_step"]) for r in readies]
+    check(got == [(None, 0), (None, 0), ("memory", ELASTIC_KILL1),
+                  ("storage", ELASTIC_STORAGE_STEP)]
+          and kills == [ELASTIC_KILL1, ELASTIC_STORAGE_STEP],
+          f"{label}: restores {got}, kills at shm step and tracker {kills}")
+    done_a, done_b = first(a_workers[0], "done"), first(b_workers[-1], "done")
+    losses_a = {int(k): v for k, v in done_a["losses"].items()}
+    replayed = [(e["step"], e["loss"]) for w in b_workers for e in w.steps()]
+    differ = [(st, loss, losses_a[st]) for st, loss in replayed
+              if loss != losses_a[st]]
+    check(not differ, f"{label}: run B's losses differ from run A's at "
+                      f"(step, B, A) {differ}")
+    differ = _elastic_compare(final_a, final_b)
+    check(not differ and done_a["digest"] == done_b["digest"],
+          f"{label}: final state differs in {differ[:8]} (digests "
+          f"{done_a['digest']}, {done_b['digest']})")
+    # The planted fault: one element of the first moment leaf (leaf 0,
+    # opt_state.exp_avg's first param in sorted order) flipped.
+    planted = dict(final_b)
+    planted["leaf0_shard0"] = final_b["leaf0_shard0"].copy()
+    planted["leaf0_shard0"].reshape(-1).view(np.uint8)[0] ^= 1
+    check(_elastic_compare(final_a, planted) == ["leaf0_shard0"],
+          f"{label}: the bitwise gate passes a flipped moment element")
+    launches = {}
+    for w in a_workers + b_workers:
+        n = len(w.steps())
+        counts = w.steps()[-1]["launches"] if n else {}
+        want = cfg.n_layers * ga * n if device == "cuda" else 0
+        check(n > 0 and all(v == want for v in counts.values()),
+              f"{label}: a worker ran {n} steps with launches {counts}, "
+              f"want {want} each")
+        for name, v in counts.items():
+            launches[name] = launches.get(name, 0) + v
+    gaps = sorted(b["t"] - a["t"] for w in a_workers + b_workers
+                  for a, b in zip(w.steps(), w.steps()[1:]))
+    compute = sorted(e["compute_s"] for w in a_workers + b_workers
+                     for e in w.steps()[1:])
+    saves = [e for w in a_workers + b_workers for e in w.events
+             if e["event"] == "shm"]
+    block = sorted(e["block_s"] * 1e3 for e in saves)
+    drain = sorted(e["drain_s"] * 1e3 for e in saves)
+    persists = [dict(p, gb_per_s=p["bytes"] / 1e9 / p["seconds"])
+                for p in persists_a + persists_b if p["committed"]]
+    state_gb = readies[0]["state_bytes"] / 1e9
+    steps_b = sum(len(w.steps()) for w in b_workers)
+    row = {
+        "phase": label, "config": config, "n_layers": cfg.n_layers,
+        "micro_batch": micro, "seq": seq, "grad_accum": ga,
+        "steps": ELASTIC_STEPS, "persist_every": ELASTIC_PERSIST,
+        "state_gb": state_gb, "image_gb": image_bytes / 1e9,
+        "free_gib_before": free_gib, "kills": kills,
+        "restores": [{k: r[k] for k in ("restored_from", "restored_step",
+                                        "restore_s", "start_s")}
+                     for r in readies],
+        "restore_gb_per_s": {r["restored_from"]: state_gb / r["restore_s"]
+                             for r in readies[2:]},
+        "spawn_to_ready_s": [r["t"] - w.spawned for r, w in
+                             zip(readies, a_workers + b_workers)],
+        "kill_to_first_step_s": kill_to_step,
+        "step_gap_s": {"p50": gaps[len(gaps) // 2], "max": gaps[-1]},
+        "step_compute_s": {"p50": compute[len(compute) // 2],
+                           "max": compute[-1]},
+        "save_block_ms": {"p50": block[len(block) // 2], "max": block[-1]},
+        "save_drain_ms": {"p50": drain[len(drain) // 2], "max": drain[-1]},
+        "saves_committed": len(saves),
+        "snapshots_dropped": [max([e["dropped"] for e in w.events
+                                   if "dropped" in e], default=0)
+                              for w in a_workers + b_workers],
+        "persists": persists,
+        "wall_s": {"A": wall_a, "B": wall_b},
+        "steps_run_b": steps_b, "steps_redone": steps_b - ELASTIC_STEPS,
+        "goodput": wall_a / wall_b,
+        "shm_used_gb_max": max(shm_used) / 1e9,
+        "ckpt_disk_free_gb_before": disk_free_gb,
+        "df_dev_shm": subprocess.run(
+            ["df", "-h", "/dev/shm"], capture_output=True,
+            text=True).stdout.strip().splitlines()[-1],
+        "losses_equal": True, "final_state_bitwise_equal": True,
+        "planted_fault_rejected": True, "launches": launches,
+    }
+    emit(row)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3331,6 +3707,10 @@ def main():
     for counts in moe_launches.values():
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+    # The elastic worker's processes: their B1/B2 launches, each checked
+    # exactly per worker inside the phase.
+    for name, n in timed("elastic_ckpt", phase_elastic_ckpt).items():
+        launches[name] += n
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 

@@ -22,3 +22,11 @@ def resolve_env_choice(name: str, allowed, default: str) -> str:
             name, raw, tuple(allowed), default,
         )
     return default
+
+
+def get_env_int(name: str, default: int) -> int:
+    """Integer env knob; an unparseable value falls back to ``default``."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default

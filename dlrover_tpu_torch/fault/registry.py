@@ -60,6 +60,25 @@ class FaultAction:
 # The instrumented sites of the port, greppable in one place (the
 # reference's names for the same sites).
 KNOWN_POINTS: Dict[str, str] = {
+    "ckpt.persist.torn_write": (
+        "checkpoint storage: a proc shard file just landed — truncate "
+        "tears its tail (torn write at crash), the reader must reject "
+        "it (ctx: path)"
+    ),
+    "ckpt.persist.proc_file": (
+        "checkpoint storage: before a proc shard file is written — "
+        "crash kills the persister mid-step-dir (uncommitted dir), "
+        "raise fails the persist"
+    ),
+    "ckpt.restore.memory": (
+        "checkpoint engine: about to read the shm image — raise "
+        "simulates the host (and its shm) being replaced, forcing the "
+        "storage restore path"
+    ),
+    "agent.worker.crash": (
+        "elastic trainer: a training step just completed — crash is a "
+        "worker SIGKILL mid-step (ctx: step)"
+    ),
     "serving.step.error": (
         "serving engine: an iteration is about to run its device steps "
         "— raise simulates a device error mid-decode"

@@ -1,0 +1,9 @@
+"""Flash checkpoint of the port: a tree of tensors to host shared memory
+without blocking the step, persisted to storage by the agent's saver,
+restored memory first and storage second (``dlrover_tpu/flash_ckpt/``
+for PyTorch; the same shm layout and raw shard files)."""
+
+from dlrover_tpu_torch.flash_ckpt.checkpointer import (  # noqa: F401
+    Checkpointer,
+    StorageType,
+)

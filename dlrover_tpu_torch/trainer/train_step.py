@@ -8,6 +8,11 @@ gradients average in f32, the global grad norm is taken on the averaged
 warmup-cosine schedule update the f32 master params. PyTorch updates
 the params and the optimizer moments in place (the reference returns
 new arrays); the returned state is the same dict with ``step`` advanced.
+Before those in-place writes the step waits on the CUDA events in the
+state's ``"fences"`` (a flash checkpoint's device-to-host copy of the
+previous state, see ``flash_ckpt/engine.py``). ``state_tree`` views the
+state as a tree of tensors for the checkpoint engine, and
+``load_state_tree_`` restores one into it in place.
 
 The reference's mesh, sharding and ring-attention arguments are not
 ported yet: this is the one-GPU path.
@@ -132,7 +137,57 @@ def init_train_state(config: llama.TpuLMConfig, optimizer: Optimizer,
             raise TypeError(f"master params must be f32, got {p.dtype}")
         p.requires_grad_(True)
     return {"params": params, "opt_state": optimizer.init(params),
-            "step": 0}
+            "step": 0, "fences": []}
+
+
+def params_like(params, fn):
+    """A tree of ``params``' structure with ``fn(p)`` at each leaf."""
+    return {k: params_like(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in params.items()}
+
+
+def state_tree(state) -> Dict[str, Any]:
+    """The train state as a tree of tensors: the params, AdamW's
+    ``exp_avg``, ``exp_avg_sq`` and ``step`` per leaf (each a tree of
+    the params' structure) and ``state["step"]``. The tensors are the
+    live ones, so a checkpoint restored into this tree lands in place.
+    AdamW's state is created as its first update would (zeros, count 0)
+    where no update has run yet."""
+    params, opt = state["params"], state["opt_state"]
+    for p in param_leaves(params):
+        if not opt.state[p]:
+            opt.state[p] = {
+                "step": torch.tensor(0.0, dtype=torch.float32),
+                "exp_avg": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(
+                    p, memory_format=torch.preserve_format),
+            }
+    return {
+        "params": params,
+        "opt_state": {name: params_like(params, lambda p: opt.state[p][name])
+                      for name in ("exp_avg", "exp_avg_sq", "step")},
+        "step": state["step"],
+    }
+
+
+def load_state_tree_(state, tree) -> Dict[str, Any]:
+    """Adopt a restored tree: its tensors are copied into the state's
+    own (nothing is copied where the engine already restored in place,
+    ``load(target=state_tree(state))``), so the optimizer keeps its
+    parameter identity; ``state["step"]`` takes the tree's."""
+    from dlrover_tpu_torch.flash_ckpt.shm_handler import tree_flatten
+
+    dst, dst_spec = tree_flatten(state_tree(state))
+    src, src_spec = tree_flatten(tree)
+    if dst_spec != src_spec:
+        raise ValueError("restored tree differs from the train state's")
+    with torch.no_grad():
+        for d, s in zip(dst, src):
+            if isinstance(d, torch.Tensor) and d is not s:
+                d.copy_(s)
+    state["step"] = int(tree["step"])
+    return state
 
 
 def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
@@ -180,6 +235,13 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
             grads = list(g_1)
 
         grad_norm = global_norm(grads)
+        fences = state.get("fences")
+        if fences:
+            # A snapshot's copy still reads the tensors about to change.
+            stream = torch.cuda.current_stream(device)
+            for event in fences:
+                stream.wait_event(event)
+            fences.clear()
         optimizer.update(state["opt_state"], params, grads, grad_norm,
                          state["step"])
         new_state = dict(state, step=state["step"] + 1)

@@ -5,8 +5,9 @@ migrates a request between paged engines under tracing, routes one
 through a thread-replica fleet, takes a training step, and generates
 and trains one step with a dropless MoE config on the CPU (this test
 process has JAX loaded by ``tests/conftest.py``); in a fleet's
-subprocess worker; and by a scan of every import statement in the
-port's sources and in ``chip_smoke.py``."""
+subprocess worker; in the elastic training worker, which also loads no
+``ml_dtypes`` on its checkpoint path; and by a scan of every import
+statement in the port's sources and in ``chip_smoke.py``."""
 
 import ast
 import json
@@ -263,3 +264,61 @@ def test_library_name_follows_the_source_bytes(tmp_path, monkeypatch):
     src.write_text("// two\n")
     assert _ext.library_path("k.cu") != first
     assert first.parent == _ext.BUILD_DIR and first.suffix == ".so"
+
+
+def test_scan_covers_the_elastic_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    assert {"common/constants.py", "common/serialize.py",
+            "trainer/runtime.py", "flash_ckpt/raw_format.py",
+            "flash_ckpt/storage.py", "flash_ckpt/shm_handler.py",
+            "flash_ckpt/shared_obj.py", "flash_ckpt/autotune.py",
+            "flash_ckpt/engine.py", "flash_ckpt/saver.py",
+            "flash_ckpt/checkpointer.py", "trainer/elastic/sampler.py",
+            "trainer/elastic/dataloader.py", "trainer/elastic/trainer.py",
+            "examples/train_llama.py"} <= scanned
+
+
+def test_elastic_worker_loads_no_jax_and_no_ml_dtypes(tmp_path):
+    """The elastic worker trains, checkpoints to shm and disk, and a
+    relaunch restores from memory; neither interpreter loaded JAX, the
+    JAX package or ``ml_dtypes``."""
+    import uuid
+
+    site = tmp_path / "site"
+    site.mkdir()
+    # One report per interpreter: the worker also starts the shm
+    # resource tracker's.
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE.replace(
+        '("jax", "jaxlib", "dlrover_tpu")',
+        '("jax", "jaxlib", "dlrover_tpu", "ml_dtypes")').replace(
+        'os.environ["ISOLATION_REPORT"]',
+        'os.environ["ISOLATION_REPORT"] + str(os.getpid())'))
+    job = f"iso{uuid.uuid4().hex[:10]}"
+    env = dict(os.environ, PYTHONPATH=f"{site}{os.pathsep}{REPO}",
+               ISOLATION_REPORT=str(tmp_path / "report.json"),
+               DLROVER_TPU_JOB_NAME=job,
+               DLROVER_TPU_SHARED_DIR=str(tmp_path / "uds"))
+    args = [sys.executable, "-m", "dlrover_tpu_torch.examples.train_llama",
+            "--device", "cpu", "--global-batch", "4", "--micro-batch", "2",
+            "--seq", "16", "--persist-every", "3",
+            "--ckpt-dir", str(tmp_path / "ckpt")]
+    try:
+        for steps, restored in ((4, 0), (5, 4)):
+            proc = subprocess.run(args + ["--steps", str(steps)], env=env,
+                                  cwd=REPO, capture_output=True, text=True,
+                                  timeout=300)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            events = [json.loads(ln) for ln in proc.stdout.splitlines()]
+            ready = next(e for e in events if e["event"] == "ready")
+            assert ready["restored_step"] == restored
+            assert events[-1]["event"] == "done"
+            reports = [json.loads(p.read_text())
+                       for p in tmp_path.glob("report.json*")]
+            assert all(r["leaked"] == [] for r in reports), reports
+            assert any(r["port"] for r in reports)
+            for p in tmp_path.glob("report.json*"):
+                p.unlink()
+    finally:
+        for seg in os.listdir("/dev/shm"):
+            if job in seg:
+                os.unlink(os.path.join("/dev/shm", seg))

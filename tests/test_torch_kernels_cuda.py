@@ -1336,3 +1336,59 @@ def test_moe_generate_on_card_launches_b7(cuda):
     assert out.tokens.shape == (2, 4)
     # one launch per layer per forward: the prefill and 3 decode steps
     assert md.launch_counts["grouped_ffn_forward"] == 2 * 4
+
+
+@pytest.mark.parametrize("fenced", [True, False])
+def test_async_snapshot_before_inplace_step_equals_sync_snapshot(
+        cuda, tmp_path, monkeypatch, fenced):
+    """A flash checkpoint launched right before an in-place optimizer
+    step lands in shm with the bits of a blocking snapshot of the same
+    step: the step waits on the copy's event (through the state's
+    ``fences``, or at once without them)."""
+    import uuid
+
+    from dlrover_tpu_torch.flash_ckpt.engine import CheckpointEngine
+    from dlrover_tpu_torch.ops.attention import dot_product_attention
+    from dlrover_tpu_torch.trainer import runtime
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    monkeypatch.setattr(runtime, "_context", None)
+    cfg = llama.tiny_config(n_layers=2, vocab_size=32000, embed_dim=512,
+                            mlp_dim=2048)
+    tc = ts.TrainConfig(learning_rate=1e-2, warmup_steps=1)
+    opt = ts.make_optimizer(tc)
+    state = ts.init_train_state(cfg, opt, llama.init_params(
+        cfg, torch.Generator(cuda).manual_seed(0), device=cuda))
+    step = ts.make_train_step(cfg, tc, opt, device=cuda, loss_fn=(
+        lambda p, b: llama.loss_fn(cfg, p, b,
+                                   attention_fn=dot_product_attention)))
+    toks = torch.randint(0, cfg.vocab_size, (4, 257),
+                         generator=torch.Generator(cuda).manual_seed(1),
+                         device=cuda)
+    for _ in range(2):
+        state, _ = step(state, {"tokens": toks})
+    job = f"cardsnap{uuid.uuid4().hex[:10]}"
+    engines = {}
+    for kind in ("sync", "async"):
+        monkeypatch.setenv("DLROVER_TPU_JOB_NAME", f"{job}{kind}")
+        engines[kind] = CheckpointEngine(str(tmp_path / kind),
+                                         standalone=True)
+    try:
+        engines["sync"].save_to_memory(2, ts.state_tree(state))
+        engines["async"].save_to_memory_async(
+            2, ts.state_tree(state),
+            fences=state["fences"] if fenced else None)
+        state, _ = step(state, {"tokens": toks})  # in place, at once
+        assert engines["async"].wait_async_save(60)
+        regions = []
+        for engine in engines.values():
+            meta = engine._shm.load_meta()  # noqa: SLF001
+            regions.append(engine._shm.data_region(meta).clone())  # noqa: SLF001
+        assert torch.equal(regions[0], regions[1])
+        _, snap, _ = engines["sync"].load()
+        assert not torch.equal(ts.param_leaves(snap["params"])[0],
+                               ts.param_leaves(state["params"])[0].cpu())
+    finally:
+        for engine in engines.values():
+            engine._shm.unlink()  # noqa: SLF001
+            engine.close()
