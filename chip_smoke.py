@@ -156,7 +156,25 @@ phases that each print JSON lines:
     worker's B1/B2 launches are exact, no segment or socket is left.
     Image GB, save block and drain ms, snapshots dropped, persist and
     restore seconds and GB/s, worker start seconds, SIGKILL to first
-    replayed step, steps redone and goodput (A's wall over B's).
+    replayed step, steps redone and goodput (A's wall over B's);
+17. mesh_train: the sharded train step (``make_train_step(...,
+    mesh=build_mesh(MeshConfig()))``, the state as DTensors) on a world
+    of one over nccl at phase 6's shape, 1 + 3 steps, against the
+    mesh-less step from the same seed: losses, grad norms and final
+    params bitwise equal, exact B1/B2 launches (the CE stays dense);
+    step time and peak memory of both;
+18. reshard_restore: the card saves that train state (params and both
+    Adam moments) to storage; a 4-process gloo CPU world at dp=2, tp=2
+    restores it (each rank reads only its regions, and each shard's
+    bytes equal their slice of the card's file), saves its own shards
+    (a proc file a rank), and the card restores those into whole leaves,
+    bitwise equal to what it saved; a shard moved by one row in one
+    rank's meta is refused. Bytes read per rank, restore seconds;
+19. node_check: the port's ``agent/node_check_worker`` on the card as
+    the reference agent runs it (matmul 1024, 30 rounds, a 64 MB
+    all_reduce over a world of one): it writes its result file; under
+    ``DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS=0`` it writes none and exits
+    non-zero.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -3602,6 +3620,440 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     return launches
 
 
+# ---- the mesh, the resharding restore and the node check -------------------
+
+MESH_STEPS = 1 + 3                  # one warm step, three timed
+RESHARD_MESH = {"dp": 2, "tp": 2}   # the CPU world the card's state moves to
+RESHARD_TIMEOUT_S = 600.0
+
+
+def _mesh_state(cfg, tc, mesh, device):
+    """Fresh f32 params from the seed (on a mesh when ``mesh``)."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    params = llama.init_params(
+        cfg, torch.Generator(device).manual_seed(SEED), device=device)
+    opt = ts.make_optimizer(tc)
+    return opt, ts.init_train_state(cfg, opt, params, mesh=mesh)
+
+
+def phase_mesh_train(cfg, device="cuda", micro=TRAIN_MICRO, seq=TRAIN_SEQ):
+    """The sharded train step on a world of one: ``make_train_step(...,
+    mesh=build_mesh(MeshConfig()))`` over nccl at phase 6's shape (micro
+    8 x 2048, ga 2, remat mlp_only), MESH_STEPS steps, against the
+    mesh-less step from the same seed and batch. Every collective of a
+    world of one is an identity and the local shards are the whole
+    leaves, so losses, grad norms and final params must be bitwise
+    equal; B1/B2 launch exactly n_layers x ga times a step (the CE stays
+    dense at this N·V, so B3/B4 do not run). The mesh-less run's final
+    params are kept (as copies) and the rest of its state freed before
+    the mesh run; each run's peak memory is its peak above what was
+    allocated when it began. Returns (the mesh run's state, its
+    launches). ``device="cpu"`` (gloo, no launches) rehearses
+    it at a small ``cfg``."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import fused_ce as fc
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    on_card = device == "cuda"
+    rs = np.random.RandomState(SEED + 1)
+    tokens = torch.from_numpy(rs.randint(
+        0, cfg.vocab_size, (TRAIN_GA * micro, seq + 1)
+    ).astype(np.int32)).to(device)
+    tc = ts.TrainConfig(warmup_steps=2, grad_accum=TRAIN_GA)
+    mesh = build_mesh(MeshConfig(), device)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    runs = {}
+    for label, m in (("meshless", None), ("mesh", mesh)):
+        sync()
+        held = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        opt, state = _mesh_state(cfg, tc, m, device)
+        step = ts.make_train_step(cfg, tc, opt, device=device, mesh=m)
+        fa.reset_launch_counts()
+        fc.reset_launch_counts()
+        losses, norms, times = [], [], []
+        for _ in range(MESH_STEPS):
+            t0 = time.monotonic()
+            state, metrics = step(state, {"tokens": tokens})
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            sync()
+            times.append(time.monotonic() - t0)
+        runs[label] = {
+            "losses": losses, "grad_norms": norms, "step_s": times,
+            "step_s_mean_after_first": float(np.mean(times[1:])),
+            "peak_memory_gib": (torch.cuda.max_memory_allocated() - held)
+            / 2**30 if on_card else None,
+            "launches": {**fa.launch_counts, **fc.launch_counts},
+            "params": [ts.local_shard(p).detach().clone()
+                       for p in ts.param_leaves(state["params"])]
+            if m is None else None,
+            "state": state if m is not None else None,
+        }
+        del opt, step, state
+        if on_card:
+            torch.cuda.empty_cache()
+    a, b = runs["meshless"], runs["mesh"]
+    leaves_b = [ts.local_shard(p) for p in
+                ts.param_leaves(b["state"]["params"])]
+    differ = [name for name, x, y in zip(
+        _leaf_names(b["state"]["params"]), a["params"], leaves_b)
+        if not torch.equal(x, y)]
+    want = cfg.n_layers * TRAIN_GA * MESH_STEPS if on_card else 0
+    row = {"phase": "mesh_train", "mesh": MeshConfig().describe(),
+           "backend": torch.distributed.get_backend(),
+           "micro_batch": micro, "seq": seq,
+           "grad_accum": TRAIN_GA, "steps": MESH_STEPS,
+           **{f"{k}_{lab}": runs[lab][k] for lab in runs for k in (
+               "losses", "grad_norms", "step_s", "step_s_mean_after_first",
+               "peak_memory_gib", "launches")},
+           "losses_bitwise_equal": a["losses"] == b["losses"],
+           "grad_norms_bitwise_equal": a["grad_norms"] == b["grad_norms"],
+           "params_differ": differ}
+    emit(row)
+    check(a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"],
+          f"mesh_train: the world-one mesh step gave {b['losses']} "
+          f"{b['grad_norms']}, the mesh-less {a['losses']} "
+          f"{a['grad_norms']}")
+    check(not differ, f"mesh_train: final params differ: {differ}")
+    check(b["losses"][-1] < b["losses"][0],
+          f"mesh_train: loss did not fall {b['losses']}")
+    launches = b["launches"]
+    for name in fa.launch_counts:
+        check(launches[name] == want,
+              f"mesh_train: {name} launched {launches[name]}, want {want}")
+    for name in fc.launch_counts:
+        check(launches[name] == 0,
+              f"mesh_train: {name} launched on the dense CE route")
+    del runs["meshless"], a
+    if on_card:
+        torch.cuda.empty_cache()
+    return b["state"], {k: launches[k] for k in fa.launch_counts}
+
+
+def zero_state_tree(cfg, mesh, device):
+    """A zeroed tree of ``train_step.state_tree``'s structure on ``mesh``
+    (this rank's shards allocated, as DTensors), the resharding
+    restore's target."""
+    from torch.distributed.tensor import DTensor
+
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.parallel import sharding
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    shapes = ts.params_like(llama.init_params(cfg, device="meta"),
+                            lambda p: tuple(p.shape))
+    specs = ts.state_specs(cfg)["params"]
+
+    def leaf(shape, spec):
+        places = sharding.placements(spec, mesh)
+        bounds = sharding.shard_bounds(shape, mesh, places)
+        local = torch.zeros([hi - lo for lo, hi in bounds],
+                            dtype=torch.float32, device=device)
+        return DTensor.from_local(local, mesh, places, run_check=False)
+
+    def tree():
+        return ts._zip_like(shapes, specs, leaf)
+
+    return {"params": tree(),
+            "opt_state": {"exp_avg": tree(), "exp_avg_sq": tree(),
+                          "step": ts.params_like(
+                              shapes, lambda _: torch.tensor(0.0))},
+            "step": 0}
+
+
+def reshard_rank_main(card_dir, step, own_dir, out_path, config):
+    """One rank of the CPU world of ``phase_reshard_restore`` (run by
+    ``tools/torch_mesh_phases.py --reshard-rank``): restore the card's
+    step into this rank's shards at RESHARD_MESH reading only its
+    regions, hold each shard's bytes to its slice of the card's file,
+    then save this rank's shards to ``own_dir``."""
+    from dlrover_tpu_torch.flash_ckpt import engine as ckpt_engine
+    from dlrover_tpu_torch.flash_ckpt import storage as ckpt_storage
+    from dlrover_tpu_torch.flash_ckpt.shm_handler import (
+        leaf_bytes,
+        tree_flatten,
+    )
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.parallel import sharding
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.trainer import runtime
+
+    torch.set_num_threads(2)
+    ctx = runtime.init_distributed(timeout_secs=300, device="cpu")
+    mesh = build_mesh(MeshConfig(**RESHARD_MESH), "cpu")
+    target = zero_state_tree(_config(config), mesh, "cpu")
+    metas = ckpt_storage.load_step_meta(card_dir, step)
+    stats = {}
+    t0 = time.monotonic()
+    result = ckpt_engine.load_global_state(card_dir, step, metas, target,
+                                           stats)
+    restore_s = time.monotonic() - t0
+    out = {"rank": ctx.process_id, "coord": mesh.get_coordinate(),
+           "restored": result is not None, "restore_s": restore_s,
+           "bytes_read": stats.get("bytes_read"), "mismatched": []}
+    local_bytes = 0
+    if result is not None:
+        leaves, _ = tree_flatten(result[1])
+        with ckpt_storage.load_proc_arrays(card_dir, step, 0) as reader:
+            for i, leaf in enumerate(leaves):
+                got = leaf_bytes(leaf).numpy()
+                local_bytes += got.size
+                bounds = sharding.shard_bounds(
+                    leaf.shape, mesh, leaf.placements) if hasattr(
+                    leaf, "placements") else tuple(
+                    (0, n) for n in np.shape(leaf))
+                want = np.ascontiguousarray(reader.view(f"leaf{i}_shard0")[
+                    tuple(slice(lo, hi) for lo, hi in bounds)])
+                if not np.array_equal(got, want.reshape(-1).view(np.uint8)):
+                    out["mismatched"].append(i)
+    out["local_bytes"] = local_bytes
+    engine = ckpt_engine.CheckpointEngine(own_dir, standalone=True)
+    t0 = time.monotonic()
+    engine.save_to_storage(step, result[1] if result else target)
+    torch.distributed.barrier()
+    out["save_s"] = time.monotonic() - t0
+    engine._shm.unlink()  # noqa: SLF001
+    engine.close()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    runtime.shutdown_distributed()
+    return 0
+
+
+def _move_one_row(ckpt_dir, step, pid, leaf_id):
+    """Plant a fault: move one shard's bounds in ``pid``'s meta by one
+    row. Returns the meta file's bytes, to put back."""
+    import pickle
+
+    from dlrover_tpu_torch.flash_ckpt import storage as ckpt_storage
+
+    path = os.path.join(ckpt_storage.step_dir(ckpt_dir, step),
+                        f"proc-{pid}.meta")
+    with open(path, "rb") as f:
+        saved = f.read()
+    meta = ckpt_storage.load_step_meta(ckpt_dir, step)[pid]
+    shard = meta["leaves"][leaf_id].shards[0]
+    (lo, hi), *rest = shard.index
+    shard.index = ((lo + 1, hi + 1), *rest)
+    with open(path, "wb") as f:
+        pickle.dump(meta, f)
+    return path, saved
+
+
+def _config(name):
+    from dlrover_tpu_torch.models import llama
+
+    return {"flagship": llama.flagship_config,
+            "tiny": llama.tiny_config}[name]()
+
+
+def phase_reshard_restore(cfg, state, device="cuda", config="flagship"):
+    """A real change of layout across the card and a CPU world: the card
+    (a world of one) saves ``state`` (params and both Adam moments) to
+    storage; a 4-process gloo world at RESHARD_MESH restores it, each
+    rank reading only its regions and holding each shard's bytes to the
+    card's file; that world saves its own shards (a proc file a rank)
+    and the card restores them into whole leaves, which must equal what
+    it saved bit for bit. A shard whose bounds moved by one row in one
+    rank's meta must be refused. ``device="cpu"`` with ``config``
+    naming ``cfg`` ("tiny") rehearses it."""
+    import shutil
+    import tempfile
+    import uuid
+
+    from dlrover_tpu_torch.flash_ckpt import engine as ckpt_engine
+    from dlrover_tpu_torch.flash_ckpt import storage as ckpt_storage
+    from dlrover_tpu_torch.flash_ckpt.shm_handler import (
+        leaf_bytes,
+        tree_flatten,
+    )
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.trainer import runtime
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    root = tempfile.mkdtemp(prefix="reshard_")
+    job = f"reshard{uuid.uuid4().hex[:8]}"
+    saved_env = {k: os.environ.get(k) for k in (
+        "DLROVER_TPU_JOB_NAME", "DLROVER_TPU_SHARED_DIR")}
+    os.environ["DLROVER_TPU_JOB_NAME"] = job
+    os.environ["DLROVER_TPU_SHARED_DIR"] = os.path.join(root, "uds")
+    runtime._context = None  # noqa: SLF001 (this process: a world of one)
+    procs = []
+    try:
+        card_dir, world_dir = (os.path.join(root, n)
+                               for n in ("card", "world"))
+        tree = ts.state_tree(state)
+        step = state["step"]
+        engine = ckpt_engine.CheckpointEngine(card_dir, standalone=True)
+        t0 = time.monotonic()
+        engine.save_to_storage(step, tree)
+        card_save_s = time.monotonic() - t0
+        engine._shm.unlink()  # noqa: SLF001
+        engine.close()
+        check(ckpt_storage.read_tracker(card_dir) == step,
+              "reshard_restore: the card's save was not committed")
+        state_bytes = sum(leaf_bytes(x).numel()
+                          for x in tree_flatten(tree)[0]
+                          if isinstance(x, torch.Tensor))
+
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        world = MeshConfig(**RESHARD_MESH).num_devices
+        tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tools", "torch_mesh_phases.py")
+        t0 = time.monotonic()
+        for rank in range(world):
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                       OMP_NUM_THREADS="2",
+                       DLROVER_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                       DLROVER_TPU_NUM_PROCESSES=str(world),
+                       DLROVER_TPU_PROCESS_ID=str(rank),
+                       DLROVER_TPU_LOCAL_RANK=str(rank),
+                       DLROVER_TPU_LOCAL_WORLD_SIZE=str(world),
+                       DLROVER_TPU_NODE_RANK="0")
+            log = open(os.path.join(root, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, tool, "--reshard-rank", card_dir,
+                 str(step), world_dir, os.path.join(root, f"rank{rank}.json"),
+                 config],
+                env=env, stdout=log, stderr=subprocess.STDOUT), log))
+        for proc, log in procs:
+            rc = proc.wait(timeout=RESHARD_TIMEOUT_S)
+            log.close()
+            check(rc == 0, f"reshard_restore: a rank exited {rc}: "
+                  + open(log.name).read()[-3000:])
+        world_s = time.monotonic() - t0
+        ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+                 for r in range(world)]
+        for r in ranks:
+            check(r["restored"] and not r["mismatched"],
+                  f"reshard_restore: rank {r['rank']} restored "
+                  f"{r['restored']}, leaves differing {r['mismatched']}")
+            check(r["bytes_read"] == r["local_bytes"],
+                  f"reshard_restore: rank {r['rank']} read "
+                  f"{r['bytes_read']} bytes for {r['local_bytes']} of "
+                  f"shards")
+
+        # The world's shards back onto the card, whole.
+        mesh = build_mesh(MeshConfig(), device)
+        back = zero_state_tree(cfg, mesh, device)
+        metas = ckpt_storage.load_step_meta(world_dir, step)
+        check(sorted(metas) == list(range(world)),
+              f"reshard_restore: proc files {sorted(metas)}")
+        stats = {}
+        t0 = time.monotonic()
+        result = ckpt_engine.load_global_state(world_dir, step, metas, back,
+                                               stats)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        card_restore_s = time.monotonic() - t0
+        check(result is not None, "reshard_restore: the card refused the "
+                                  "world's checkpoint")
+        differ = [i for i, (x, y) in enumerate(zip(
+            tree_flatten(tree)[0], tree_flatten(result[1])[0]))
+            if isinstance(x, torch.Tensor) and not torch.equal(
+                ts.local_shard(x), ts.local_shard(y).to(x.device))]
+        check(not differ and result[1]["step"] == step,
+              f"reshard_restore: leaves {differ} differ after the round "
+              f"trip")
+        # The planted fault: layers.wq's exp_avg shard of rank 1 (held by
+        # that rank alone at dp=2, tp=2) moved by one row.
+        names = _leaf_names(tree)
+        leaf_id = names.index("opt_state.exp_avg.layers.wq")
+        path, meta_bytes = _move_one_row(world_dir, step, 1, leaf_id)
+        faulty = ckpt_engine.load_global_state(
+            world_dir, step, ckpt_storage.load_step_meta(world_dir, step),
+            back)
+        with open(path, "wb") as f:
+            f.write(meta_bytes)
+        check(faulty is None, "reshard_restore: a shard moved by one row "
+                              "was restored")
+        row = {"phase": "reshard_restore", "from": "card (world 1)",
+               "to": MeshConfig(**RESHARD_MESH).describe() + " gloo CPU",
+               "state_gb": state_bytes / 1e9, "card_save_s": card_save_s,
+               "world_s": world_s,
+               "rank_bytes_read": [r["bytes_read"] for r in ranks],
+               "rank_restore_s": [r["restore_s"] for r in ranks],
+               "rank_save_s": [r["save_s"] for r in ranks],
+               "card_restore_bytes_read": stats["bytes_read"],
+               "card_restore_s": card_restore_s,
+               "card_restore_gb_per_s": stats["bytes_read"] / 1e9
+               / card_restore_s,
+               "round_trip_bitwise_equal": True,
+               "planted_fault_rejected": True}
+        emit(row)
+        return row
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        for seg in os.listdir("/dev/shm"):
+            if job in seg:
+                os.unlink(os.path.join("/dev/shm", seg))
+        shutil.rmtree(root, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        runtime._context = None  # noqa: SLF001
+
+
+def phase_node_check(device="cuda", size=1024, comm_mb=64):
+    """The port's ``node_check_worker`` on the card as the reference agent
+    runs it (a subprocess with the agent's env: a world of one, matmul
+    1024, 30 rounds, a 64 MB all_reduce): it writes its result file.
+    Under ``DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS=0`` it leaves no file and
+    exits non-zero. ``device="cpu"`` rehearses it (smaller sizes)."""
+    import tempfile
+
+    out = {"phase": "node_check"}
+    with tempfile.TemporaryDirectory() as d:
+        for label, extra in (("ok", {}),
+                             ("fail", {"DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS":
+                                       "0"})):
+            result = os.path.join(d, f"r_{label}")
+            env = dict(os.environ, DLROVER_TPU_COORDINATOR="",
+                       DLROVER_TPU_NUM_PROCESSES="1",
+                       DLROVER_TPU_PROCESS_ID="0",
+                       DLROVER_TPU_LOCAL_RANK="0",
+                       DLROVER_TPU_LOCAL_WORLD_SIZE="1",
+                       DLROVER_TPU_CHECK_NODE_RANK="0",
+                       DLROVER_TPU_CHECK_DEVICE=device, **extra)
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "dlrover_tpu_torch.agent.node_check_worker", result,
+                 str(size), "30", str(comm_mb)], env=env, capture_output=True,
+                text=True, timeout=300,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            wall = time.monotonic() - t0
+            has_file = os.path.exists(result)
+            out[label] = {"rc": proc.returncode, "result_file": has_file,
+                          "wall_s": wall}
+            if has_file:
+                out[label]["elapsed_s"] = float(open(result).read())
+            if label == "ok":
+                check(proc.returncode == 0 and has_file,
+                      f"node_check: rc {proc.returncode}, result file "
+                      f"{has_file}: {proc.stderr[-2000:]}")
+            else:
+                check(proc.returncode != 0 and not has_file,
+                      f"node_check: the fail variable gave rc "
+                      f"{proc.returncode}, result file {has_file}")
+    emit(out)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3711,6 +4163,16 @@ def main():
     # exactly per worker inside the phase.
     for name, n in timed("elastic_ckpt", phase_elastic_ckpt).items():
         launches[name] += n
+    # The mesh: the sharded step on a world of one (B1/B2 exact inside),
+    # the resharding restore across the card and a CPU world, the node
+    # check.
+    mesh_state, mesh_launches = timed("mesh_train", phase_mesh_train, cfg)
+    for name, n in mesh_launches.items():
+        launches[name] += n
+    timed("reshard_restore", phase_reshard_restore, cfg, mesh_state)
+    del mesh_state
+    torch.cuda.empty_cache()
+    timed("node_check", phase_node_check)
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 
@@ -3787,6 +4249,7 @@ def main():
           "total": sum(PHASE_SECONDS.values())})
     print(smi, flush=True)
     emit({"kernels": kernels})
+    torch.distributed.destroy_process_group()  # the mesh phases' group
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

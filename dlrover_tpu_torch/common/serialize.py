@@ -6,7 +6,10 @@ pickles, and a pickle can name any callable. The loader here admits
 value constructors of ``builtins`` and the classes of the port's own
 modules (``ShardMeta``, ``LeafMeta``, ``SaveEvent``), nothing else: no
 function, and no JAX ``PyTreeDef`` (the port's tree spec is made of
-builtins, see ``flash_ckpt/shm_handler.py``).
+builtins, see ``flash_ckpt/shm_handler.py``). The JAX package's
+``ShardMeta`` and ``LeafMeta`` (the same fields) load as the port's, so
+the port reads that package's ``proc-<pid>.meta`` files; the tree
+definition they carry stays pickled bytes, never loaded.
 """
 
 import importlib
@@ -27,10 +30,17 @@ _ALLOWED_BUILTINS = frozenset(
 )
 
 
+# The reference's checkpoint metadata classes, read as the port's.
+_REFERENCE_META = ("dlrover_tpu.flash_ckpt.shm_handler",
+                   frozenset({"ShardMeta", "LeafMeta"}))
+
+
 class _RestrictedUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if module == "builtins" and name in _ALLOWED_BUILTINS:
             return getattr(importlib.import_module(module), name)
+        if module == _REFERENCE_META[0] and name in _REFERENCE_META[1]:
+            module = "dlrover_tpu_torch.flash_ckpt.shm_handler"
         if module.startswith(_PORT_PREFIX):
             obj = getattr(importlib.import_module(module), name, None)
             # Classes only: REDUCE on an arbitrary callable of the port

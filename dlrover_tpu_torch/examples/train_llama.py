@@ -5,13 +5,17 @@
         --ckpt-dir /tmp/llama_ckpt [--config flagship] [--device cpu]
 
 What it does:
-- joins the world from the agent's env (``init_distributed``);
+- joins the world from the agent's env (``init_distributed``) and lays
+  it out as a mesh (``--mesh``, by default ``dp=<world>`` as the
+  reference's worker); the train state lives as DTensors on it, so each
+  rank's checkpoint holds its own shards;
 - restores memory first (the agent's shm segment survives a worker
   restart on this host), storage second, in place into its own tensors,
   and resumes from the restored step and data cursor;
 - trains with a fixed global batch (``ElasticBatchConfig``) on records
   ``synthetic_record(index)`` dealt by an ``ElasticDistributedSampler``
-  whose cursor rides in the checkpoint's ``user_meta``, through a
+  whose cursor rides in the checkpoint's ``user_meta`` (one replica per
+  rank of the batch axes; tp ranks read the same rows), through a
   prefetching loader and double-buffered host-to-device copies;
 - after each step launches an async flash checkpoint to shm, and every
   ``--persist-every`` steps asks the agent's saver to persist it.
@@ -42,6 +46,7 @@ from dlrover_tpu_torch.flash_ckpt.engine import CheckpointEngine
 from dlrover_tpu_torch.flash_ckpt.shm_handler import leaf_bytes, tree_flatten
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.parallel.sharding import batch_index
 from dlrover_tpu_torch.trainer import train_step as ts
 from dlrover_tpu_torch.trainer.elastic.dataloader import PrefetchingDataLoader
 from dlrover_tpu_torch.trainer.elastic.sampler import (
@@ -51,7 +56,7 @@ from dlrover_tpu_torch.trainer.elastic.trainer import (
     ElasticBatchConfig,
     ElasticTrainer,
 )
-from dlrover_tpu_torch.trainer.runtime import init_distributed
+from dlrover_tpu_torch.trainer.runtime import init_distributed, world_mesh
 
 
 def parse_args(argv=None):
@@ -71,6 +76,8 @@ def parse_args(argv=None):
                    help="tiny: the reference's 4-layer tiny_config; "
                    "flagship: the 334M TpuLM")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh", default="",
+                   help='mesh axes, e.g. "dp=2,tp=2" (default dp=<world>)')
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the params and the sampler's shuffle")
     return p.parse_args(argv)
@@ -122,6 +129,8 @@ def main(argv=None):
     t_start = time.monotonic()
     fault.arm_from_env()
     ctx = init_distributed(device=args.device)
+    mesh = world_mesh(args.mesh, args.device)
+    b_idx, b_count = batch_index(mesh)
     emit = _Emitter()
     device = torch.device(args.device)
     if args.config == "flagship":
@@ -129,19 +138,19 @@ def main(argv=None):
     else:
         cfg = llama.tiny_config(n_layers=4, remat_policy=args.remat_policy)
     batch_cfg = ElasticBatchConfig(args.global_batch, args.micro_batch)
-    elastic = ElasticTrainer(batch_cfg, dp_size=ctx.num_processes)
+    elastic = ElasticTrainer(batch_cfg, dp_size=b_count)
     tc = ts.TrainConfig(warmup_steps=20, grad_accum=elastic.grad_accum)
     opt = ts.make_optimizer(tc)
     gen = torch.Generator(device).manual_seed(args.seed)
     state = ts.init_train_state(cfg, opt,
-                                llama.init_params(cfg, gen, device=device))
-    step_fn = ts.make_train_step(cfg, tc, opt, device=device)
+                                llama.init_params(cfg, gen, device=device),
+                                mesh=mesh)
+    step_fn = ts.make_train_step(cfg, tc, opt, mesh=mesh, local_batch=True)
 
     # Resume: memory first, storage second, into this state's tensors.
     engine = CheckpointEngine(args.ckpt_dir, standalone=not agent_present())
     sampler = ElasticDistributedSampler(
-        args.dataset_size, ctx.process_id, ctx.num_processes, shuffle=True,
-        seed=args.seed)
+        args.dataset_size, b_idx, b_count, shuffle=True, seed=args.seed)
     t0 = time.monotonic()
     restored = engine.load(target=ts.state_tree(state))
     if device.type == "cuda":
@@ -160,7 +169,7 @@ def main(argv=None):
           "state_bytes": sum(leaf_bytes(x).numel() for x in tree_flatten(
               ts.state_tree(state))[0])})
 
-    per_host = args.global_batch // max(ctx.num_processes, 1)
+    per_host = args.global_batch // b_count
     loader = PrefetchingDataLoader(
         lambda i: {"tokens": synthetic_record(i, args.seq, cfg.vocab_size)},
         sampler, per_host, sampler=sampler)

@@ -29,9 +29,16 @@ instead:
 
 ``save_records()`` gives each save's blocking seconds (the launch) and
 its drain (copy done, then the shm write).
+
+**Sharded state.** A DTensor leaf is saved as this rank's local shard
+with its global bounds, so each rank's image and proc file hold its
+shards, as each reference process holds its addressable shards. The
+storage restore (:func:`load_global_state`) reads only the regions a
+target's DTensors need on this rank from whichever proc files hold
+them, under any layout, and :func:`load_state_regions` reads explicit
+regions.
 """
 
-import dataclasses
 import os
 import threading
 import time
@@ -54,14 +61,18 @@ from dlrover_tpu_torch.flash_ckpt.shared_obj import (
     SharedQueueClient,
 )
 from dlrover_tpu_torch.flash_ckpt.shm_handler import (
+    LeafMeta,
     SharedMemoryHandler,
-    fill_tree,
-    host_leaf,
+    check_target_leaf,
+    dtensor_bounds,
     layout,
     leaf_bytes,
     leaves_filler,
+    local_tensor,
     storage_dtype,
+    torch_dtype,
     tree_flatten,
+    tree_unflatten,
 )
 from dlrover_tpu_torch.observability.registry import default_registry
 from dlrover_tpu_torch.trainer.runtime import get_context
@@ -265,6 +276,7 @@ class CheckpointEngine:
         start = time.monotonic()
         leaves, spec = tree_flatten(state)
         metas, data_bytes = layout(leaves)
+        leaves = [local_tensor(leaf) for leaf in leaves]
         on_card = [isinstance(leaf, torch.Tensor) and leaf.is_cuda
                    for leaf in leaves]
         devices = {leaf.device for leaf, c in zip(leaves, on_card) if c}
@@ -508,6 +520,10 @@ class CheckpointEngine:
         if user_meta.get("num_processes") != self._ctx.num_processes:
             # World changed: storage has the complete picture.
             return None
+        if not _image_fits(meta["leaves"], target):
+            # Another layout (or no target for sharded leaves): the
+            # resharding restore reads storage.
+            return None
         loaded = self._shm.load_state_dict(target)
         if loaded is None:
             return None
@@ -588,59 +604,321 @@ class CheckpointEngine:
         self._shm.close()
 
 
+def _image_fits(leaf_metas, target) -> bool:
+    """True when each image leaf's one shard is what ``target`` needs on
+    this rank (the whole leaf where the target is not a DTensor)."""
+    if target is None:
+        return all(lm.replicated for lm in leaf_metas)
+    targets, _ = tree_flatten(target)
+    if len(targets) != len(leaf_metas):
+        return True  # fill_tree reports the mismatch
+    for dst, lm in zip(targets, leaf_metas):
+        if not isinstance(dst, torch.Tensor):
+            continue
+        want = dtensor_bounds(dst) or tuple((0, n) for n in lm.global_shape)
+        if tuple(lm.shards[0].index) != tuple(want):
+            return False
+    return True
+
+
 def state_nbytes(state) -> int:
+    """Bytes of the tensors this rank holds (local shards of DTensors)."""
     leaves, _ = tree_flatten(state)
-    return sum(leaf.numel() * leaf.element_size() for leaf in leaves
-               if isinstance(leaf, torch.Tensor))
+    return sum(local_tensor(leaf).numel() * leaf.element_size()
+               for leaf in leaves if isinstance(leaf, torch.Tensor))
+
+
+# ---- the resharding restore ------------------------------------------------
+
+
+def _norm_bounds(bounds, global_shape):
+    """Close open slice ends: ((0,None),) over (8,) -> ((0,8),)."""
+    return tuple(
+        (lo if lo is not None else 0, hi if hi is not None else dim)
+        for (lo, hi), dim in zip(bounds, global_shape)
+    )
+
+
+def _intersect_bounds(a, b):
+    """Intersection of two closed bounds tuples, or None if empty."""
+    out = []
+    for (a0, a1), (b0, b1) in zip(a, b):
+        lo, hi = max(a0, b0), min(a1, b1)
+        if lo >= hi:
+            return None
+        out.append((lo, hi))
+    return tuple(out)
+
+
+def _bounds_volume(b) -> int:
+    vol = 1
+    for lo, hi in b:
+        vol *= hi - lo
+    return vol
+
+
+def _tiles_exactly(region, inters) -> bool:
+    """True if ``inters`` (intersections already clipped to ``region``)
+    are pairwise disjoint and their volumes sum to the region's: a proof
+    of full coverage without a per-element mask."""
+    if sum(_bounds_volume(b) for b in inters) != _bounds_volume(region):
+        return False
+    for i in range(len(inters)):
+        for j in range(i + 1, len(inters)):
+            if _intersect_bounds(inters[i], inters[j]) is not None:
+                return False
+    return True
+
+
+def _needed_region_bounds(leaf, global_shape):
+    """The index bounds this rank must materialize for a target leaf: a
+    DTensor's local shard (from its placements), the whole leaf
+    otherwise."""
+    return [dtensor_bounds(leaf) or tuple((0, d) for d in global_shape)]
+
+
+class _LazyReaders:
+    """Opens a process's shard file on first use, not up front: after a
+    re-mesh a partial restore may need bytes from a handful of the proc
+    files, and opening all of them puts O(world size) metadata I/O on
+    the restore. Counts the bytes read."""
+
+    def __init__(self, checkpoint_dir: str, step: int, pids):
+        self._dir = checkpoint_dir
+        self._step = step
+        self._pids = set(pids)
+        self._lock = threading.Lock()
+        self._open: Dict[int, Any] = {}
+        self._missing = set()
+        self.bytes_read = 0
+
+    def get(self, pid: int):
+        if pid not in self._pids or pid in self._missing:
+            return None
+        with self._lock:
+            reader = self._open.get(pid)
+            if reader is None and pid not in self._missing:
+                reader = ckpt_storage.open_proc_shards(
+                    self._dir, self._step, pid)
+                if reader is None:
+                    self._missing.add(pid)
+                else:
+                    self._open[pid] = reader
+            return reader
+
+    def count(self, nbytes: int):
+        with self._lock:
+            self.bytes_read += nbytes
+
+    def close_all(self):
+        with self._lock:
+            for reader in self._open.values():
+                reader.close()
+            self._open.clear()
+
+
+def _index_shard_locations(metas: Dict[int, dict]):
+    """(leaf_info, locations) from per-process metas: leaf_info[i] =
+    (global_shape, dtype_name); locations[i] = [(pid, key, closed shard
+    bounds), ...]."""
+    first = metas[min(metas)]
+    num_leaves = len(first["leaves"])
+    leaf_info = [None] * num_leaves
+    locations = [[] for _ in range(num_leaves)]
+    for pid, meta in sorted(metas.items()):
+        for leaf_meta in meta["leaves"]:
+            i = leaf_meta.leaf_id
+            gshape = tuple(leaf_meta.global_shape)
+            leaf_info[i] = (gshape, leaf_meta.dtype)
+            for j, shard in enumerate(leaf_meta.shards):
+                locations[i].append(
+                    (pid, f"leaf{i}_shard{j}",
+                     _norm_bounds(shard.index, gshape)))
+    return leaf_info, locations
+
+
+def _assemble_leaf_regions(info, shard_locs, readers, region_bounds_list):
+    """Read exactly the byte ranges covering ``region_bounds_list`` for
+    one leaf (host memory O(region bytes), never the global shape).
+    Returns {bounds: array of the stored dtype}, or None if a region is
+    not fully covered by the stored shards. Raises
+    ``ShardCorruptionError`` when a proc file's bounds disagree with its
+    meta's, or two stored copies of one element disagree."""
+    gshape, dtype_name = info
+    dtype = storage_dtype(dtype_name)
+    regions = {}
+    for rb in region_bounds_list:
+        shape = tuple(hi - lo for lo, hi in rb)
+        if 0 in shape:
+            regions[rb] = np.empty(shape, dtype=dtype)
+            continue
+        # The stored shards that intersect this region; identical
+        # intersections (a replicated shard in every proc file) are read
+        # once.
+        hits = []
+        seen_inter = set()
+        for pid, key, sb in shard_locs:
+            inter = _intersect_bounds(rb, sb) if shape else ()
+            if inter is None or inter in seen_inter:
+                continue
+            reader = readers.get(pid)
+            if reader is None or key not in reader:
+                continue
+            stored = reader.bounds(key)
+            if stored is not None and _norm_bounds(stored, gshape) != sb:
+                raise ShardCorruptionError(
+                    f"proc {pid} {key}: file bounds {stored} differ from "
+                    f"its meta's {sb}")
+            seen_inter.add(inter)
+            hits.append((reader, key, inter, sb))
+        if not hits:
+            return None
+        out = np.empty(shape, dtype=dtype)
+        if not shape:
+            hits[0][0].read_slice_into(hits[0][1], (), out, verify=True)
+            readers.count(out.nbytes)
+            regions[rb] = out
+            continue
+        exact = _tiles_exactly(rb, [h[2] for h in hits])
+        covered = None if exact else np.zeros(shape, dtype=bool)
+        for reader, key, inter, sb in hits:
+            src = tuple(slice(lo - s0, hi - s0)
+                        for (lo, hi), (s0, _) in zip(inter, sb))
+            dst = tuple(slice(lo - r0, hi - r0)
+                        for (lo, hi), (r0, _) in zip(inter, rb))
+            if covered is None:
+                # Full-shard reads checksum the copied bytes.
+                reader.read_slice_into(key, src, out[dst],
+                                       verify=(inter == sb))
+            else:
+                part = np.empty(tuple(hi - lo for lo, hi in inter), dtype)
+                reader.read_slice_into(key, src, part, verify=(inter == sb))
+                seen = covered[dst]
+                if not np.array_equal(out[dst][seen], part[seen]):
+                    raise ShardCorruptionError(
+                        f"{key}: stored copies of region {inter} disagree")
+                out[dst] = part
+                covered[dst] = True
+            readers.count(_bounds_volume(inter) * dtype.itemsize)
+        if covered is not None and not covered.all():
+            return None
+        regions[rb] = out
+    return regions
+
+
+def _host_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
+    """A host tensor of dtype ``name`` over a stored-dtype array."""
+    flat = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return torch.from_numpy(flat).view(torch_dtype(name)).reshape(arr.shape)
 
 
 def load_global_state(checkpoint_dir: str, step: int, metas: Dict[int, dict],
-                      target=None):
-    """The state of ``step`` from its shard files, for the one-process
-    layout (every leaf whole in one file); each full-shard read is
-    checked against its sum64. Returns (step, state, user_meta), or None
-    when a file is missing, torn or corrupt, or the leaves are sharded
-    (the resharding restore is not ported)."""
-    pid = min(metas)
-    meta = metas[pid]
-    leaf_metas = meta["leaves"]
-    if any(not lm.replicated or len(lm.shards) != 1 for lm in leaf_metas):
-        logger.error("step %d holds sharded leaves; only whole leaves "
-                     "restore here", step)
+                      target=None, stats: Optional[dict] = None):
+    """The state of ``step`` from its shard files, under any layout.
+
+    Without ``target``: whole host leaves (every byte is read). With
+    ``target`` (a tree of the checkpoint's structure): each DTensor
+    leaf's local shard is filled in place from only the byte ranges its
+    bounds intersect, read from whichever proc files hold them; other
+    tensor leaves are filled whole. A step the JAX package wrote (its
+    metas carry a JAX tree definition, not the port's tree spec)
+    restores into a ``target``. Full-shard reads are checked against
+    their sum64. ``stats["bytes_read"]`` receives the bytes read.
+    Returns (step, state, user_meta), or None when a file is missing,
+    torn or corrupt, or a needed region is not covered."""
+    first = metas[min(metas)]
+    spec = first.get("treespec")
+    leaf_info, locations = _index_shard_locations(metas)
+    targets = None
+    if target is not None:
+        targets, target_spec = tree_flatten(target)
+        if (spec is not None and target_spec != spec) or len(
+                targets) != len(leaf_info):
+            raise ValueError("restore target's tree differs from the "
+                             "checkpoint's")
+        spec = target_spec
+    if spec is None:
+        logger.error("step %d holds another package's tree; restore it "
+                     "into a target", step)
         return None
-    try:
-        reader = ckpt_storage.open_proc_shards(checkpoint_dir, step, pid)
-    except ShardCorruptionError as e:
-        logger.error("refusing corrupt checkpoint step %d: %s", step, e)
-        return None
-    if reader is None:
+    if any(info is None for info in leaf_info):
         return None
 
-    def read_leaf(lm):
-        out = np.empty(lm.global_shape, dtype=storage_dtype(lm.dtype))
-        reader.read_slice_into(f"leaf{lm.leaf_id}_shard0", (), out,
-                               verify=True)
-        return out
+    def regions_for(i):
+        gshape = leaf_info[i][0]
+        if targets is None or not isinstance(targets[i], torch.Tensor):
+            return [tuple((0, d) for d in gshape)]
+        return _needed_region_bounds(targets[i], gshape)
 
+    readers = _LazyReaders(checkpoint_dir, step, metas)
     try:
         with ThreadPoolExecutor(
-                max_workers=ckpt_storage.io_threads(max(len(leaf_metas), 1)),
+                max_workers=ckpt_storage.io_threads(max(len(leaf_info), 1)),
                 thread_name_prefix="ckpt-restore") as pool:
-            arrays = list(pool.map(read_leaf, leaf_metas))
+            futures = [pool.submit(_assemble_leaf_regions, leaf_info[i],
+                                   locations[i], readers, regions_for(i))
+                       for i in range(len(leaf_info))]
+            regions = [fut.result() for fut in futures]
     except (ShardCorruptionError, KeyError) as e:
         logger.error("refusing corrupt checkpoint step %d: %s", step, e)
         return None
     finally:
-        reader.close()
-    hosts = {lm.leaf_id: torch.from_numpy(arr.reshape(-1)).view(torch.uint8)
-             for lm, arr in zip(leaf_metas, arrays)}
-    layout_meta = [_whole(lm) for lm in leaf_metas]
-    state = fill_tree(meta["treespec"], layout_meta,
-                      lambda lm: host_leaf(hosts[lm.leaf_id], lm), target)
-    return step, state, meta.get("user_meta", {})
+        readers.close_all()
+    if stats is not None:
+        stats["bytes_read"] = readers.bytes_read
+    if any(r is None for r in regions):
+        logger.error("step %d: a needed region is not covered by the "
+                     "stored shards", step)
+        return None
+    leaves = []
+    for i, region in enumerate(regions):
+        (arr,) = region.values()
+        host = _host_tensor(arr, leaf_info[i][1])
+        dst = None if targets is None else targets[i]
+        if isinstance(dst, torch.Tensor):
+            check_target_leaf(dst, LeafMeta(i, *leaf_info[i]))
+            with torch.no_grad():
+                local_tensor(dst).copy_(host)
+            leaves.append(dst)
+        else:
+            leaves.append(host)
+    return step, tree_unflatten(spec, leaves), first.get("user_meta", {})
 
 
-def _whole(lm):
-    """The leaf's meta with its bytes at offset 0 of their own buffer."""
-    shard = dataclasses.replace(lm.shards[0], offset=0)
-    return dataclasses.replace(lm, shards=[shard])
+def load_state_regions(checkpoint_dir: str, step: int,
+                       regions_by_leaf: Optional[Dict[int, list]] = None):
+    """Explicit-region partial restore (the reference's): leaf_id -> a
+    list of closed bounds tuples; leaves absent from the map are read in
+    full. Reads only the intersecting byte ranges. Returns ``(step,
+    leaves, user_meta)`` with ``leaves[leaf_id] = {bounds: array}`` (bf16
+    as its uint16 bits), or None when the step is missing, torn or does
+    not cover a requested region."""
+    metas = ckpt_storage.load_step_meta(checkpoint_dir, step)
+    if not metas:
+        return None
+    first = metas[min(metas)]
+    leaf_info, locations = _index_shard_locations(metas)
+    regions_by_leaf = regions_by_leaf or {}
+    readers = _LazyReaders(checkpoint_dir, step, metas)
+    leaves: Dict[int, dict] = {}
+    try:
+        for i, info in enumerate(leaf_info):
+            if info is None:
+                return None
+            bounds_list = regions_by_leaf.get(i) or [
+                tuple((0, d) for d in info[0])]
+            bounds_list = [tuple(tuple(b) for b in bounds)
+                           for bounds in bounds_list]
+            regions = _assemble_leaf_regions(info, locations[i], readers,
+                                             bounds_list)
+            if regions is None:
+                logger.error("step %d leaf %d: requested regions not "
+                             "covered by stored shards", step, i)
+                return None
+            leaves[i] = regions
+    except ShardCorruptionError as e:
+        logger.error("refusing corrupt checkpoint step %d: %s", step, e)
+        return None
+    finally:
+        readers.close_all()
+    return step, leaves, first.get("user_meta", {})

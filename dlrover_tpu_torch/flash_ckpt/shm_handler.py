@@ -8,7 +8,11 @@ reference's:
     [leaf data, each leaf at a 128-byte aligned offset]
 
 The tree is nested dicts, lists and tuples whose leaves are torch
-tensors (on the card or the host), numpy arrays or Python scalars. It
+tensors (on the card or the host), DTensors, numpy arrays or Python
+scalars. A DTensor leaf is stored as this rank's shard: its
+``ShardMeta.index`` holds the shard's global bounds, as the reference
+stores a JAX array's addressable shard, and the leaf is ``replicated``
+only when the shard is the whole leaf. It
 flattens as ``jax.tree_util`` flattens a tree of arrays: dict keys in
 sorted order, sequences in order, ``None`` an empty subtree. So the same
 nested dict of arrays gets the same leaf ids, offsets and data region,
@@ -90,9 +94,34 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def local_tensor(leaf):
+    """The tensor holding a leaf's stored bytes: a DTensor's local
+    shard, any other leaf itself."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        with torch.no_grad():
+            return leaf.to_local()
+    return leaf
+
+
+def dtensor_bounds(leaf):
+    """A DTensor's shard bounds on this rank, or None for another
+    leaf."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(leaf, DTensor):
+        return None
+    from dlrover_tpu_torch.parallel.sharding import shard_bounds
+
+    return shard_bounds(leaf.shape, leaf.device_mesh, leaf.placements)
+
+
 def leaf_bytes(leaf) -> torch.Tensor:
     """A flat uint8 view (or, for a non-contiguous tensor, copy) of a
-    leaf's bytes, on the leaf's device."""
+    leaf's bytes (a DTensor's: its local shard's), on the leaf's
+    device."""
+    leaf = local_tensor(leaf)
     if not isinstance(leaf, torch.Tensor):
         leaf = torch.from_numpy(np.ascontiguousarray(np.asarray(leaf)))
     return leaf.contiguous().reshape(-1).view(torch.uint8)
@@ -150,7 +179,8 @@ def tree_unflatten(spec, leaves) -> Any:
 
 @dataclass
 class ShardMeta:
-    """One shard of one leaf (the port's images hold whole leaves)."""
+    """One shard of one leaf: a whole leaf, or a DTensor's local
+    shard."""
 
     index: Tuple[Tuple[Optional[int], Optional[int]], ...]  # slice bounds
     local_shape: Tuple[int, ...]
@@ -173,11 +203,14 @@ def layout(leaves) -> Tuple[List[LeafMeta], int]:
     for i, leaf in enumerate(leaves):
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
         name = dtype_name(leaf)
-        nbytes = int(np.prod(shape, dtype=np.int64)) * storage_dtype(
+        whole = tuple((0, s) for s in shape)
+        bounds = dtensor_bounds(leaf) or whole
+        local_shape = tuple(hi - lo for lo, hi in bounds)
+        nbytes = int(np.prod(local_shape, dtype=np.int64)) * storage_dtype(
             name).itemsize
-        shard = ShardMeta(tuple((0, s) for s in shape), shape, offset,
-                          nbytes)
-        metas.append(LeafMeta(i, shape, name, [shard], replicated=True))
+        shard = ShardMeta(bounds, local_shape, offset, nbytes)
+        metas.append(LeafMeta(i, shape, name, [shard],
+                              replicated=bounds == whole))
         offset = (offset + nbytes + _ALIGN - 1) // _ALIGN * _ALIGN
     return metas, offset
 
@@ -357,7 +390,7 @@ class SharedMemoryHandler:
             return None
         data = self.data_region(meta)
         on_card = target is not None and any(
-            isinstance(t, torch.Tensor) and t.is_cuda
+            isinstance(t, torch.Tensor) and local_tensor(t).is_cuda
             for t in tree_flatten(target)[0])
         # Registered (page-locked) for the copy, the segment feeds the
         # card by DMA; pageable, every page goes through a bounce buffer.
@@ -413,9 +446,11 @@ def _unlink_name(name: str):
 
 def fill_tree(spec, leaf_metas: List[LeafMeta], read, target=None):
     """Rebuild a checkpoint tree from ``read(leaf_meta) -> host tensor``
-    (a view of the stored bytes). Without ``target`` each tensor leaf
-    is a host copy; with one, its tensors are filled in place after the
-    structure, shapes and dtypes are checked against the image."""
+    (a view of the stored bytes of the leaf's one shard). Without
+    ``target`` each tensor leaf is a host copy; with one, its tensors
+    are filled in place after the structure, shapes, dtypes and (for a
+    DTensor, whose local shard is filled) shard bounds are checked
+    against the image."""
     if target is None:
         leaves = [read(lm).clone() for lm in leaf_metas]
         return tree_unflatten(spec, leaves)
@@ -424,16 +459,27 @@ def fill_tree(spec, leaf_metas: List[LeafMeta], read, target=None):
         raise ValueError("restore target's tree differs from the image's")
     leaves = []
     for dst, lm in zip(targets, leaf_metas):
-        src = read(lm)
         if isinstance(dst, torch.Tensor):
-            if (tuple(dst.shape) != tuple(lm.global_shape)
-                    or dtype_name(dst) != lm.dtype):
+            check_target_leaf(dst, lm)
+            bounds = dtensor_bounds(dst) or tuple(
+                (0, s) for s in lm.global_shape)
+            if tuple(lm.shards[0].index) != bounds:
                 raise ValueError(
-                    f"leaf {lm.leaf_id}: target {tuple(dst.shape)} "
-                    f"{dtype_name(dst)}, image {lm.global_shape} {lm.dtype}")
+                    f"leaf {lm.leaf_id}: target shard {bounds}, image "
+                    f"shard {lm.shards[0].index}")
             with torch.no_grad():  # params are autograd leaves
-                dst.copy_(src)
+                local_tensor(dst).copy_(read(lm))
             leaves.append(dst)
         else:
-            leaves.append(src.clone())
+            leaves.append(read(lm).clone())
     return tree_unflatten(spec, leaves)
+
+
+def check_target_leaf(dst, lm: LeafMeta) -> None:
+    """A restore target's tensor must have the stored leaf's global
+    shape and dtype."""
+    if (tuple(dst.shape) != tuple(lm.global_shape)
+            or dtype_name(dst) != lm.dtype):
+        raise ValueError(
+            f"leaf {lm.leaf_id}: target {tuple(dst.shape)} "
+            f"{dtype_name(dst)}, image {lm.global_shape} {lm.dtype}")

@@ -13,6 +13,9 @@ clip-by-global-norm and AdamW (the clip's empty state, then
 schedule's ``ScaleByScheduleState(count)``), maps to the port's
 ``{"params", "opt_state": torch.optim.AdamW, "step"}``. The optax
 states are found by their fields, so this module needs no optax.
+Under a mesh each rank takes only its own slices of the numpy arrays,
+as ``train_step.state_specs`` lays them out, and the way back gathers
+every DTensor whole (a collective: every rank calls it).
 """
 
 from typing import Any
@@ -35,6 +38,10 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes
@@ -74,25 +81,47 @@ def _adam_state(opt_state):
     return None
 
 
-def train_state_from_numpy(config, tree: Any, optimizer, device="cuda"):
+def params_from_numpy_sharded(config, tree: Any, mesh) -> Any:
+    """A param-structured tree of numpy arrays as DTensors on ``mesh``
+    laid out by ``llama.param_axes``: each rank keeps its own slice of
+    each array."""
+    from dlrover_tpu_torch.trainer.train_step import (
+        _mesh_device,
+        shard_params,
+    )
+
+    return shard_params(config, params_from_numpy(tree, _mesh_device(mesh)),
+                        mesh)
+
+
+def train_state_from_numpy(config, tree: Any, optimizer, device="cuda",
+                           mesh=None):
     """The reference's train state (after ``jax.device_get``) as the
     port's: f32 params on ``device`` under ``train_step.init_train_state
     (config, optimizer, ...)``, AdamW's per-leaf ``exp_avg``,
     ``exp_avg_sq`` and ``step`` from optax's ``mu``, ``nu`` and
-    ``count``, and ``step``."""
+    ``count``, and ``step``. With ``mesh`` (whose device replaces
+    ``device``) params and moments are this rank's slices, as
+    DTensors."""
     from dlrover_tpu_torch.trainer import train_step as ts
 
     adam = _adam_state(tree["opt_state"])
     if adam is None:
         raise ValueError("opt_state holds no Adam state (mu, nu)")
-    params = params_from_numpy(tree["params"], device)
-    state = ts.init_train_state(config, optimizer, params)
+    if mesh is None:
+        def leaves(t):
+            return params_from_numpy(t, device)
+    else:
+        def leaves(t):
+            return params_from_numpy_sharded(config, t, mesh)
+    params = leaves(tree["params"])
+    state = ts.init_train_state(config, optimizer, params, mesh=mesh)
     count = float(np.asarray(adam.count))
     ts.load_state_tree_(state, {
         "params": params,
         "opt_state": {
-            "exp_avg": params_from_numpy(adam.mu, device),
-            "exp_avg_sq": params_from_numpy(adam.nu, device),
+            "exp_avg": leaves(adam.mu),
+            "exp_avg_sq": leaves(adam.nu),
             "step": ts.params_like(params, lambda p: torch.tensor(count)),
         },
         "step": int(np.asarray(tree["step"])),

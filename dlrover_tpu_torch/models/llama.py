@@ -6,8 +6,19 @@ and its stacked ``[L, ...]`` layer layout, so a JAX param tree maps
 leaf for leaf (``models/convert.py``). Functions over tensors, no
 ``nn.Module`` state. MoE layers (``n_experts > 0``) run
 ``models/moe.py``: gshard or dropless as ``_moe_resolve_impl`` picks.
-Pipeline stages raise ``NotImplementedError`` until their slice is
-ported.
+
+Under a mesh (``parallel.sharding.use_mesh``; the train step makes one
+current) the params are DTensors laid out by ``param_axes`` and the
+rule table, and every layer computes on local tensors: FSDP's
+dp-sharded embed dim is gathered per layer (``sharding.local_param``),
+``wq``/``wk``/``wv``/``w_gate``/``w_up`` are column-parallel over tp and
+``wo``/``w_down`` row-parallel (their outputs summed over tp), the
+embedding lookup and the unembedding are vocab-parallel, and the dense
+CE reduces its log-sum-exp and target logit over tp. The batch arrives
+already split over the batch axes. Not ported on a mesh: pipeline
+stages (``pp_stages > 1`` raises everywhere, ROADMAP item 11), an sp
+axis (ring attention, item 9) and MoE layers on more than one rank
+(item 7); each raises ``NotImplementedError``.
 
 Training runs ``loss_fn`` -> ``forward_hidden`` -> ``run_layer_stack``,
 a loop over the stacked layers with the reference's remat policies as
@@ -39,6 +50,13 @@ from dlrover_tpu_torch.ops.fused_ce import (
 )
 from dlrover_tpu_torch.ops.norms import rms_norm
 from dlrover_tpu_torch.ops.rope import apply_rope
+from dlrover_tpu_torch.parallel import sharding
+from dlrover_tpu_torch.parallel.sharding import (
+    copy_to_tp,
+    local_param,
+    reduce_from_tp,
+    with_logical_constraint,
+)
 
 _DTYPES = {
     "float32": torch.float32,
@@ -162,9 +180,51 @@ def require_flat_stack(config: TpuLMConfig) -> None:
     """The port runs the flat layer stack: pipeline stages raise."""
     if config.pp_stages > 1:
         raise NotImplementedError(
-            "pipeline stages are not ported; the port runs the flat "
-            "layer stack"
+            "pipeline stages are not ported (ROADMAP item 11); the port "
+            "runs the flat layer stack"
         )
+
+
+def _layer_leading(config: TpuLMConfig):
+    """Leading dims/axes of stacked layer params."""
+    if config.pp_stages > 1:
+        return (
+            (config.pp_stages, config.n_layers // config.pp_stages),
+            ("stage", "layer"),
+        )
+    return ((config.n_layers,), ("layer",))
+
+
+def param_axes(config: TpuLMConfig) -> Dict[str, Any]:
+    """Logical-axis names per param leaf (the reference's)."""
+    lead_ax = _layer_leading(config)[1]
+    layer_axes = {
+        "attn_norm": lead_ax + ("norm",),
+        "wq": lead_ax + ("embed", "heads", "head_dim"),
+        "wk": lead_ax + ("embed", "kv_heads", "head_dim"),
+        "wv": lead_ax + ("embed", "kv_heads", "head_dim"),
+        "wo": lead_ax + ("heads", "head_dim", "embed"),
+        "mlp_norm": lead_ax + ("norm",),
+    }
+    if config.n_experts > 0:
+        layer_axes.update(
+            router=lead_ax + ("embed", "expert"),
+            w_gate=lead_ax + ("expert", "embed", "mlp"),
+            w_up=lead_ax + ("expert", "embed", "mlp"),
+            w_down=lead_ax + ("expert", "mlp", "embed"),
+        )
+    else:
+        layer_axes.update(
+            w_gate=lead_ax + ("embed", "mlp"),
+            w_up=lead_ax + ("embed", "mlp"),
+            w_down=lead_ax + ("mlp", "embed"),
+        )
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": layer_axes,
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def init_params(
@@ -234,23 +294,28 @@ def _project_heads(hx, w):
 
 
 def attention_qkv(config: TpuLMConfig, p, x, positions):
-    """Pre-attention block: norm + QKV projections + RoPE."""
+    """Pre-attention block: norm + QKV projections + RoPE. Under tp the
+    projections are column-parallel: q, k, v hold this rank's heads."""
     cdt = config.compute_dtype
-    hx = rms_norm(x, p["attn_norm"]).to(cdt)
+    hx = copy_to_tp(rms_norm(x, p["attn_norm"]).to(cdt))
     q = _project_heads(hx, p["wq"].to(cdt))
     k = _project_heads(hx, p["wk"].to(cdt))
     v = _project_heads(hx, p["wv"].to(cdt))
+    q = with_logical_constraint(q, ("batch", "seq", "heads", "head_dim"))
+    k = with_logical_constraint(k, ("batch", "seq", "kv_heads", "head_dim"))
     q = apply_rope(q, positions, config.rope_theta)
     k = apply_rope(k, positions, config.rope_theta)
     return q, k, v
 
 
 def attention_out(config: TpuLMConfig, p, attn, residual):
-    """Post-attention projection + residual add."""
+    """Post-attention projection + residual add. Under tp the projection
+    is row-parallel: the local heads' partial sums are summed over tp."""
     cdt = config.compute_dtype
     wo = p["wo"].to(cdt)
-    out = attn.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
-    return residual + out.to(residual.dtype)
+    out = reduce_from_tp(attn.flatten(-2) @ wo.reshape(-1, wo.shape[-1]))
+    x = residual + out.to(residual.dtype)
+    return with_logical_constraint(x, ("batch", "seq", "embed"))
 
 
 def _moe_resolve_impl(config: TpuLMConfig) -> str:
@@ -271,6 +336,12 @@ def mlp_block(config: TpuLMConfig, p, x):
     cdt = config.compute_dtype
     hx = rms_norm(x, p["mlp_norm"]).to(cdt)
     if config.n_experts > 0:
+        mesh = sharding.current_mesh()
+        if mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(
+                "MoE layers on a mesh of more than one rank (the sharded "
+                "and expert-parallel dropless MoE) are not ported yet "
+                "(ROADMAP item 7)")
         experts = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
         if _moe_resolve_impl(config) == "dropless":
             out, metrics = moe_lib.moe_mlp_dropless(
@@ -281,27 +352,52 @@ def mlp_block(config: TpuLMConfig, p, x):
                 capacity_factor=config.capacity_factor)
         aux = metrics.aux_loss + 0.001 * metrics.router_z_loss
     else:
+        hx = copy_to_tp(hx)
         g = hx @ p["w_gate"].to(cdt)
         u = hx @ p["w_up"].to(cdt)
-        out = (F.silu(g) * u) @ p["w_down"].to(cdt)
+        g = with_logical_constraint(g, ("batch", "seq", "mlp"))
+        out = reduce_from_tp((F.silu(g) * u) @ p["w_down"].to(cdt))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + out.to(x.dtype), aux
+    x = x + out.to(x.dtype)
+    return with_logical_constraint(x, ("batch", "seq", "embed")), aux
 
 
 def embed_tokens(config: TpuLMConfig, params, tokens):
-    return params["embed"][tokens.long()].to(config.compute_dtype)
+    """Embedding lookup. Under tp the table holds this rank's vocab rows:
+    tokens outside them look up zeros, and the rows sum over tp."""
+    table = with_logical_constraint(local_param(params["embed"]),
+                                    ("vocab", None))
+    tokens = tokens.long()
+    if sharding.axis_size("tp") == 1:
+        x = table[tokens]
+    else:
+        rows = table.shape[0]
+        ids = tokens - sharding.tp_rank() * rows
+        hit = (ids >= 0) & (ids < rows)
+        x = reduce_from_tp(table[ids.clamp(0, rows - 1)]
+                           * hit[..., None].to(table.dtype))
+    x = x.to(config.compute_dtype)
+    return with_logical_constraint(x, ("batch", "seq", "embed"))
 
 
 def final_hidden(config: TpuLMConfig, params, x):
     """Final norm + compute-dtype cast."""
-    return rms_norm(x, params["final_norm"]).to(config.compute_dtype)
+    return rms_norm(x, local_param(params["final_norm"])).to(
+        config.compute_dtype)
+
+
+def lm_head(config: TpuLMConfig, params):
+    """The unembedding in the compute dtype, as this rank computes with
+    it (``[d, V / tp]`` under tp)."""
+    return local_param(params["lm_head"].to(config.compute_dtype))
 
 
 def unembed(config: TpuLMConfig, params, x):
-    """Logits in f32 from a compute-dtype matmul."""
-    x = final_hidden(config, params, x)
-    logits = x @ params["lm_head"].to(config.compute_dtype)
-    return logits.float()
+    """Logits in f32 from a compute-dtype matmul (under tp, this rank's
+    vocab columns)."""
+    x = copy_to_tp(final_hidden(config, params, x))
+    logits = x @ lm_head(config, params)
+    return with_logical_constraint(logits.float(), ("batch", "seq", "vocab"))
 
 
 def default_attention_fn(device):
@@ -416,7 +512,8 @@ def run_layer_stack(config: TpuLMConfig, layer_params, x, positions,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_layers):
-        x, aux = body(x, {k: w[i] for k, w in layer_params.items()})
+        x, aux = body(x, {k: local_param(w, i)
+                          for k, w in layer_params.items()})
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -458,9 +555,22 @@ def forward(
 
 def cross_entropy(logits, targets, mask=None, z_weight: float = 1e-4):
     """Token-mean CE + z-loss. logits f32 [b, s, v]; targets int [b, s];
-    mask [b, s] (any dtype; nonzero = counted)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    target_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    mask [b, s] (any dtype; nonzero = counted). Under tp the logits are
+    this rank's vocab columns: the log-sum-exp and the target logit are
+    reduced over tp."""
+    if sharding.axis_size("tp") == 1:
+        logz = torch.logsumexp(logits, dim=-1)
+        target_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+    else:
+        m = sharding.max_over_tp(logits.amax(dim=-1))
+        logz = m + torch.log(reduce_from_tp(
+            torch.exp(logits - m[..., None]).sum(dim=-1)))
+        cols = logits.shape[-1]
+        ids = targets.long() - sharding.tp_rank() * cols
+        hit = (ids >= 0) & (ids < cols)
+        target_logit = reduce_from_tp(torch.where(
+            hit, logits.gather(-1, ids.clamp(0, cols - 1)[..., None])[..., 0],
+            0.0))
     per_tok = logz - target_logit + z_weight * logz.square()
     if mask is None:
         return per_tok.mean()
@@ -486,9 +596,19 @@ def _fused_ce_mode() -> str:
 
 
 def _fused_ce_applicable(config: TpuLMConfig) -> bool:
-    """The fused CE handles one pipeline stage. (The reference also
-    refuses a vocab-sharded mesh; the port has no mesh yet.)"""
-    return config.pp_stages <= 1
+    """The fused CE handles one pipeline stage and a vocab-unsharded
+    mesh, as the reference: under tp the dense path shards the logits
+    product and reduces its log-sum-exp over tp."""
+    if config.pp_stages > 1:
+        return False
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return True
+    vocab_spec = sharding.logical_to_spec(("embed", "vocab"))[1]
+    if vocab_spec is None:
+        return True
+    axes = (vocab_spec,) if isinstance(vocab_spec, str) else vocab_spec
+    return all(sharding.axis_size(a, mesh) == 1 for a in axes)
 
 
 def resolve_ce_path(config: TpuLMConfig, n_tokens: int) -> str:
@@ -519,7 +639,7 @@ def loss_fn(config: TpuLMConfig, params, batch, attention_fn=None):
         # does for its whole-program compile at 32k tokens.
         ce = fused_cross_entropy(
             final_hidden(config, params, x),
-            params["lm_head"].to(config.compute_dtype),
+            lm_head(config, params),
             targets,
             batch.get("mask"),
             block_rows=4096 if tokens.shape[1] >= 32768 else None,

@@ -103,6 +103,20 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
+def require_local(name: str, *tensors) -> None:
+    """The kernels take plain local tensors: a DTensor raises
+    ``TypeError`` (its storage is one shard of a global tensor; the
+    caller hands the kernel ``to_local()``). ``None`` entries are
+    skipped."""
+    from torch.distributed.tensor import DTensor
+
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"{name} takes plain local tensors, got a DTensor "
+                f"{tuple(t.shape)} {t.placements}")
+
+
 def library(source: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed."""
     with _lock:

@@ -35,6 +35,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from dlrover_tpu_torch.ops import _ext
+
 _SOURCE = "decode_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -74,8 +76,6 @@ def _count(name: str) -> None:
 def _library():
     global _lib
     if _lib is None:
-        from dlrover_tpu_torch.ops import _ext
-
         lib = _ext.library(_SOURCE)
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.dlr_decode_attention.argtypes = [
@@ -383,6 +383,8 @@ def decode_attention(
     (``ops/kv_quant.py``) and the kernel dequantizes inside its math.
     A fill above ``max_len`` reads ``max_len`` rows. CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise."""
+    _ext.require_local("decode_attention", q, k_cache, v_cache, length,
+                       k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_reference(
             q, k_cache, v_cache, length, k_scale, v_scale
@@ -474,6 +476,8 @@ def paged_decode_attention(
     multiple of 16 or above 128, a pool that is not contiguous and
     16-byte aligned, a table that is not int32) raises. CPU tensors run
     the plain version; CUDA tensors launch the kernel or raise."""
+    _ext.require_local("paged_decode_attention", q, k_pool, v_pool,
+                       block_tables, length, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_pool, v_pool, block_tables, length, k_scale, v_scale

@@ -216,7 +216,12 @@ def _check(q, k, v, extra=()):
             )
 
 
-def _device(q, name):
+def _device(name, q, *others):
+    """True for CUDA tensors (launch the kernel), False for CPU ones
+    (the plain version); a DTensor or another device raises."""
+    from dlrover_tpu_torch.ops import _ext
+
+    _ext.require_local(name, q, *others)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     return q.device.type == "cuda"
@@ -257,7 +262,7 @@ def flash_forward(
     """Kernel B1: (out ``[b, sq, h, d]``, lse ``[b, h, sq]`` f32). CPU
     tensors run :func:`flash_attention_reference`; CUDA tensors launch
     the kernel or raise."""
-    if not _device(q, "flash_forward"):
+    if not _device("flash_forward", q, k, v):
         return flash_attention_reference(q, k, v, causal, softmax_scale)
     _check(q, k, v)
     q, k, v = _strided(q), _strided(k), _strided(v)
@@ -281,7 +286,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, causal=True,
                       softmax_scale=None) -> torch.Tensor:
     """Kernel B2, dq half: one block per (b, head, 128-row q tile) loops
     over 64-row kv tiles. CPU tensors run the plain version."""
-    if not _device(q, "flash_backward_dq"):
+    if not _device("flash_backward_dq", q, k, v, do, lse, delta):
         return _plain_backward(q, k, v, lse, do, delta, causal,
                                softmax_scale, want_dkv=False)[0]
     _check(q, k, v, (do, lse, delta))
@@ -312,7 +317,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, causal=True,
     tile) loops over the query heads of its group and the 64-row q
     tiles at or past the diagonal. Returns (dk, dv). CPU tensors run the
     plain version."""
-    if not _device(q, "flash_backward_dkv"):
+    if not _device("flash_backward_dkv", q, k, v, do, lse, delta):
         return _plain_backward(q, k, v, lse, do, delta, causal,
                                softmax_scale, want_dq=False)[1:]
     _check(q, k, v, (do, lse, delta))

@@ -105,6 +105,13 @@ def _vocab_blocks(x, w, block_v):
 def _xla_forward(x, w, tgt, z_weight: float, block_v: int = 1024):
     """Plain version of kernel B3: online logsumexp over vocab blocks.
     Returns (per_tok, logz), both ``[n]`` f32."""
+    logz, tl = _xla_stats(x, w, tgt, block_v)
+    return logz - tl + z_weight * logz.square(), logz
+
+
+def _xla_stats(x, w, tgt, block_v: int):
+    """(logz, target logit), both ``[n]`` f32, over w's columns (the
+    target logit is 0 where the target is not among them)."""
     n = x.shape[0]
     m = torch.full((n,), NEG_INF, dtype=torch.float32, device=x.device)
     l = torch.zeros((n,), dtype=torch.float32, device=x.device)
@@ -118,8 +125,7 @@ def _xla_forward(x, w, tgt, z_weight: float, block_v: int = 1024):
         tl = tl + torch.where(hit, logits, 0.0).sum(dim=-1)
         m = m_new
     logz = m + torch.log(torch.clamp(l, min=1e-30))
-    per_tok = logz - tl + z_weight * logz.square()
-    return per_tok, logz
+    return logz, tl
 
 
 def _xla_backward(x, w, tgt, logz, coef_a, coef_b, block_v: int = 1024,
@@ -341,7 +347,12 @@ def fwd_kernel_config() -> Dict[str, int]:
             "vocab_cols": out[2].value}
 
 
-def _on_card(x, name) -> bool:
+def _on_card(name, x, *others) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU ones
+    (the plain version); a DTensor or another device raises."""
+    from dlrover_tpu_torch.ops import _ext
+
+    _ext.require_local(name, x, *others)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
     return x.device.type == "cuda"
@@ -395,7 +406,7 @@ def fused_ce_forward(x, w, tgt, z_weight: float, block_v: int = 1024):
     ``[d, V]`` and int targets ``[n]``. CPU tensors run
     :func:`_xla_forward` (``block_v`` is its block); CUDA tensors launch
     the kernel or raise."""
-    if not _on_card(x, "fused_ce_forward"):
+    if not _on_card("fused_ce_forward", x, w, tgt):
         return _xla_forward(x, w, tgt, z_weight, block_v)
     x, w, tgt, _, dims = _kernel_args(x, w, tgt)
     n, v = x.shape[0], dims[2]
@@ -439,7 +450,8 @@ def fused_ce_backward_dx(x, w, tgt, logz, coef_a, coef_b,
     """Kernel B4, dx: ``sum_v g @ w^T`` in x's dtype, with
     ``g = a * softmax - b * onehot`` from the recomputed logits. CPU
     tensors run the plain version."""
-    if not _on_card(x, "fused_ce_backward_dx"):
+    if not _on_card("fused_ce_backward_dx", x, w, tgt, logz, coef_a,
+                    coef_b):
         dx, _ = _xla_backward(x, w, tgt, logz, coef_a, coef_b, block_v,
                               want_dw=False)
         return dx.to(x.dtype)
@@ -452,7 +464,8 @@ def fused_ce_backward_dw(x, w, tgt, logz, coef_a, coef_b,
                          block_v: int = 1024):
     """Kernel B4, dw: ``x^T @ g`` as ``[d, V]`` f32. CPU tensors run the
     plain version."""
-    if not _on_card(x, "fused_ce_backward_dw"):
+    if not _on_card("fused_ce_backward_dw", x, w, tgt, logz, coef_a,
+                    coef_b):
         return _xla_backward(x, w, tgt, logz, coef_a, coef_b, block_v,
                              want_dx=False)[1]
     out = torch.empty(w.shape, dtype=torch.float32, device=x.device)
@@ -468,23 +481,41 @@ def fused_ce_backward_dw(x, w, tgt, logz, coef_a, coef_b,
 class _FusedCE(torch.autograd.Function):
     """The reference's ``_fused_ce_core`` over the vocab-scan loops
     (``use_kernels`` False) or kernels B3/B4. Residuals: (x, w in x's
-    dtype, targets, weights, logz [n] f32)."""
+    dtype, targets, weights, logz [n] f32).
+
+    With a ``vocab_group`` (a tp group over which w's columns are split,
+    this rank's block starting at column ``tgt``'s offset already
+    subtracted) the vocab scan covers this rank's columns: logz and the
+    target logit are reduced over the group, and dx's partial sums are
+    summed over it."""
 
     @staticmethod
-    def forward(ctx, x, w, tgt, wgt, z_weight, block_v, use_kernels):
+    def forward(ctx, x, w, tgt, wgt, z_weight, block_v, use_kernels,
+                vocab_group=None):
         wc = w.to(x.dtype)
         if use_kernels:
             per_tok, logz = fused_ce_forward(x, wc, tgt, z_weight, block_v)
-        else:
+        elif vocab_group is None:
             per_tok, logz = _xla_forward(x, wc, tgt, z_weight, block_v)
+        else:
+            import torch.distributed as dist
+
+            logz, tl = _xla_stats(x, wc, tgt, block_v)
+            m = logz.clone()
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=vocab_group)
+            se = torch.exp(logz - m)
+            dist.all_reduce(se, group=vocab_group)
+            dist.all_reduce(tl, group=vocab_group)
+            logz = m + torch.log(se)
+            per_tok = logz - tl + z_weight * logz.square()
         ctx.save_for_backward(x, wc, tgt, wgt, logz)
-        ctx.cfg = (z_weight, block_v, use_kernels, w.dtype)
+        ctx.cfg = (z_weight, block_v, use_kernels, w.dtype, vocab_group)
         return (per_tok * wgt).sum()
 
     @staticmethod
     def backward(ctx, gbar):
         x, wc, tgt, wgt, logz = ctx.saved_tensors
-        z_weight, block_v, use_kernels, w_dtype = ctx.cfg
+        z_weight, block_v, use_kernels, w_dtype, vocab_group = ctx.cfg
         scaled = gbar * wgt                                  # [n] f32
         coef_a = scaled * (1.0 + 2.0 * z_weight * logz)
         coef_b = scaled
@@ -496,14 +527,24 @@ class _FusedCE(torch.autograd.Function):
         else:
             dx, dw = _xla_backward(x, wc, tgt, logz, coef_a, coef_b,
                                    block_v)
-        return dx.to(x.dtype), dw.to(w_dtype), None, None, None, None, None
+            if vocab_group is not None:
+                import torch.distributed as dist
+
+                dist.all_reduce(dx, group=vocab_group)
+        return (dx.to(x.dtype), dw.to(w_dtype), None, None, None, None,
+                None, None)
 
 
 def resolve_impl(impl: Optional[str] = None) -> str:
-    """The fused-CE sub-impl: ``impl`` if given, else "chunked" (the
-    reference's single-device choice; its multi-device-mesh case, which
-    picks "xla", waits for the port's mesh)."""
-    return impl if impl is not None else "chunked"
+    """The fused-CE sub-impl: ``impl`` if given, else "chunked" on one
+    device and the vocab-scan "xla" under a mesh of more than one rank
+    (``parallel.sharding.use_mesh``), as the reference picks."""
+    if impl is not None:
+        return impl
+    from dlrover_tpu_torch.parallel.sharding import current_mesh
+
+    mesh = current_mesh()
+    return "xla" if mesh is not None and mesh.size() > 1 else "chunked"
 
 
 def fused_cross_entropy(
@@ -522,11 +563,16 @@ def fused_cross_entropy(
     x: [..., d] hidden states (post final-norm, compute dtype); w: [d, V]
     unembedding; targets int [...]; mask optional [...] -- tokens with
     mask 0 contribute nothing. impl: "chunked" | "xla" | "pallas" | None
-    (see :func:`resolve_impl`). ``block_v`` is the vocab block of the
-    "xla" loops; ``block_rows`` caps the "chunked" row chunk. The
+    (see :func:`resolve_impl`). Under a mesh whose tp axis is above 1, w
+    is this rank's vocab columns ``[d, V / tp]`` (the model's local
+    ``lm_head``), and only "xla" runs: it reduces over tp. ``block_v``
+    is the vocab block of the "xla" loops; ``block_rows`` caps the
+    "chunked" row chunk. The
     kernels pick their own tiles (the reference's ``block_n`` exists for
     TPU VMEM budgets and is not kept).
     """
+    from dlrover_tpu_torch.parallel import sharding
+
     impl = resolve_impl(impl)
     if impl not in ("chunked", "xla", "pallas"):
         raise ValueError(f"impl {impl!r} not in ('chunked', 'xla', 'pallas')")
@@ -534,6 +580,16 @@ def fused_cross_entropy(
     n = x.numel() // d
     x2 = x.reshape(n, d)
     tgt = targets.reshape(n).long()
+    vocab_group = None
+    if sharding.axis_size("tp") > 1:
+        if impl != "xla":
+            raise NotImplementedError(
+                f"fused CE impl {impl!r} over a tp-sharded vocab: only "
+                "the vocab scan (\"xla\") reduces over tp")
+        vocab_group = sharding.current_mesh().get_group("tp")
+        # This rank's columns start at tp_rank * V_local; a target
+        # outside them matches no column.
+        tgt = tgt - sharding.tp_rank() * w.shape[1]
     if mask is None:
         wgt = torch.full((n,), 1.0 / n, dtype=torch.float32, device=x.device)
     else:
@@ -556,4 +612,4 @@ def fused_cross_entropy(
             return _ChunkedCE.apply(x2, w, tgt, wgt, z_weight, chunk)
         return _chunked_loss_only(x2, w, tgt, wgt, z_weight, chunk)
     return _FusedCE.apply(x2, w, tgt, wgt, z_weight, block_v,
-                          impl == "pallas")
+                          impl == "pallas", vocab_group)

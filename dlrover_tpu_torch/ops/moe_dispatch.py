@@ -281,7 +281,12 @@ def dx_gate_up_kernel_config(tile_m: int) -> Dict[str, int]:
             "cluster": out[2].value, "f_cols": out[3].value}
 
 
-def _on_card(x, name) -> bool:
+def _on_card(name, x, *others) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU ones
+    (the plain version); a DTensor or another device raises."""
+    from dlrover_tpu_torch.ops import _ext
+
+    _ext.require_local(name, x, *others)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
     return x.device.type == "cuda"
@@ -358,7 +363,8 @@ def grouped_ffn_forward(x, w_gu, w_down, row_ids, dest_ids, tile_expert,
     [m_pad, f] scratch, then ``a @ w_down`` scattered. Rows of y that no
     dest id names are left unwritten, as in the reference. CPU tensors
     run the plain version."""
-    if not _on_card(x, "grouped_ffn_forward"):
+    if not _on_card("grouped_ffn_forward", x, w_gu, w_down, row_ids,
+                    dest_ids, tile_expert):
         return _forward_reference(x, w_gu, w_down, row_ids, dest_ids,
                                   tile_expert, n_out, tile_m)
     e, d, f = _ffn_dims("grouped_ffn_forward", w_gu)
@@ -390,7 +396,8 @@ def grouped_ffn_backward_dx(x, g, w_gu, w_down, row_ids, dest_ids,
     gathered ``x @ w_gu`` and ``dy @ w_down^T`` with the silu-gate
     backward, writing dh and a; then ``dh @ w_gu^T`` scattered. CPU
     tensors run the plain version."""
-    if not _on_card(x, "grouped_ffn_backward_dx"):
+    if not _on_card("grouped_ffn_backward_dx", x, g, w_gu, w_down, row_ids,
+                    dest_ids, tile_expert):
         return _backward_dx_reference(x, g, w_gu, w_down, row_ids, dest_ids,
                                       tile_expert, tile_m)
     out = _backward_dx_kernel(x, g, w_gu, w_down, row_ids, dest_ids,
@@ -502,7 +509,8 @@ def grouped_ffn_backward_dw_gu(x, dh_sorted, row_ids, tile_expert,
     """Kernel B8 dw_gu: ``dw_gu[e] = sum over e's tiles of x[row_ids]^T
     @ dh_sorted`` as [E, d, 2f] f32; an expert without rows gets zeros.
     CPU tensors run the plain version."""
-    if not _on_card(x, "grouped_ffn_backward_dw_gu"):
+    if not _on_card("grouped_ffn_backward_dw_gu", x, dh_sorted, row_ids,
+                    tile_expert):
         return _backward_dw_gu_reference(x, dh_sorted, row_ids, tile_expert,
                                          n_groups, tile_m)
     return _dw_kernel("grouped_ffn_backward_dw_gu", x, dh_sorted, row_ids,
@@ -514,7 +522,8 @@ def grouped_ffn_backward_dw_down(a_sorted, g, dest_ids, tile_expert,
     """Kernel B8 dw_down: ``dw_down[e] = sum over e's tiles of
     a_sorted^T @ g[dest_ids]`` as [E, f, d] f32. CPU tensors run the
     plain version."""
-    if not _on_card(a_sorted, "grouped_ffn_backward_dw_down"):
+    if not _on_card("grouped_ffn_backward_dw_down", a_sorted, g, dest_ids,
+                    tile_expert):
         return _backward_dw_down_reference(a_sorted, g, dest_ids,
                                            tile_expert, n_groups, tile_m)
     return _dw_kernel("grouped_ffn_backward_dw_down", a_sorted, g, None,

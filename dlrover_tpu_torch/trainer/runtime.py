@@ -7,6 +7,8 @@ training script calls ``init_distributed()`` first thing. A world of one
 skips ``torch.distributed``, as the reference skips
 ``jax.distributed``. A larger world joins the process group at
 ``tcp://<coordinator>`` over nccl on the card and gloo on the CPU.
+``world_mesh`` lays the live world out as a mesh, as the reference's
+worker builds ``MeshConfig(dp=n_devices)``.
 
 Tracing (``DLROVER_TPU_TRACE_FILE``) and the flight recorder are armed
 from the port's own copies. The reference's hang watchdog, stack-dump
@@ -122,6 +124,17 @@ def _setup_flight_recorder(ctx: DistributedContext):
         "restart_count": ctx.restart_count,
         "rdzv_round": ctx.rdzv_round,
     })
+
+
+def world_mesh(mesh: str = "", device: str = "cuda"):
+    """The worker's ``DeviceMesh`` over the live world: ``mesh`` as
+    ``"dp=2,tp=2"``, or ``MeshConfig(dp=world)`` when empty. A world of
+    one gets a one-rank group (``parallel.mesh.build_mesh``)."""
+    from dlrover_tpu_torch.parallel.mesh import build_mesh, parse_mesh
+
+    ctx = get_context()
+    device_type = "cuda" if str(device).startswith("cuda") else "cpu"
+    return build_mesh(parse_mesh(mesh, ctx.num_processes), device_type)
 
 
 def get_context() -> DistributedContext:

@@ -1,5 +1,6 @@
-"""Training step on one device (port of
-``dlrover_tpu/trainer/train_step.py``).
+"""Training step factory (port of
+``dlrover_tpu/trainer/train_step.py``), on one device or sharded over a
+mesh.
 
 ``step(state, batch) -> (state, metrics)`` as in the reference: the
 batch's leading dim splits into ``grad_accum`` micro-batches whose
@@ -14,8 +15,18 @@ previous state, see ``flash_ckpt/engine.py``). ``state_tree`` views the
 state as a tree of tensors for the checkpoint engine, and
 ``load_state_tree_`` restores one into it in place.
 
-The reference's mesh, sharding and ring-attention arguments are not
-ported yet: this is the one-GPU path.
+Given a ``mesh`` (``parallel.mesh.build_mesh``) the state lives as
+DTensors laid out by ``state_specs`` (the reference's: params by
+``llama.param_axes`` and the rule table, FSDP over dp and TP over tp;
+Adam's moments inherit the param specs, counts replicated), and the
+step splits each micro-batch's rows over the batch axes ("dcn", "dp",
+"ep"). Each rank computes its rows on local tensors
+(``parallel.sharding``); the loss and the metrics are the global means,
+the grad norm counts each element once, and clipping and AdamW run on
+the local shards. A world of one runs the same code with every
+collective an identity. An sp axis above 1 (ring attention, ROADMAP
+item 9), pipeline stages (item 11) and MoE on more than one rank
+(item 7) raise ``NotImplementedError``.
 """
 
 import dataclasses
@@ -25,6 +36,15 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.parallel import sharding
+from dlrover_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    P,
+    ShardedParam,
+    local_shard,
+    logical_to_spec,
+    spec_tree,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +92,17 @@ def param_leaves(params: Dict[str, Any]) -> List[torch.Tensor]:
     return out
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the summed squares of every element, in f32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors, replication=None) -> torch.Tensor:
+    """sqrt of the summed squares of every element, in f32. With
+    ``replication`` (per tensor, how many ranks of the world hold each of
+    its elements) the tensors are local shards and the sum runs over the
+    world's, each element counted once."""
+    if replication is None:
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    total = sum(t.float().square().sum() / r
+                for t, r in zip(tensors, replication))
+    torch.distributed.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor):
@@ -94,7 +122,8 @@ class Optimizer:
     """Clip by global norm, then AdamW on every leaf (decay unmasked)
     with the warmup-cosine lr: the reference's optax chain. ``init``
     builds the moments over the given params; ``update`` applies one
-    step in place."""
+    step in place. DTensor params are updated through their local
+    shards, which AdamW's state is keyed by."""
 
     tc: TrainConfig
 
@@ -105,16 +134,17 @@ class Optimizer:
     def init(self, params) -> torch.optim.AdamW:
         tc = self.tc
         return torch.optim.AdamW(
-            param_leaves(params), lr=0.0, betas=(tc.beta1, tc.beta2),
-            eps=1e-8, weight_decay=tc.weight_decay, foreach=True,
+            [local_shard(p) for p in param_leaves(params)], lr=0.0,
+            betas=(tc.beta1, tc.beta2), eps=1e-8,
+            weight_decay=tc.weight_decay, foreach=True,
         )
 
     def update(self, opt_state: torch.optim.AdamW, params, grads,
                norm: torch.Tensor, count: int) -> None:
-        """``grads`` in ``param_leaves`` order; ``count`` updates so far
-        (the schedule's argument)."""
+        """``grads`` in ``param_leaves`` order (local shards for DTensor
+        params); ``count`` updates so far (the schedule's argument)."""
         clip_by_global_norm_(grads, self.tc.grad_clip, norm)
-        leaves = param_leaves(params)
+        leaves = [local_shard(p) for p in param_leaves(params)]
         for p, g in zip(leaves, grads):
             p.grad = g
         opt_state.param_groups[0]["lr"] = self.schedule(count)
@@ -127,15 +157,82 @@ def make_optimizer(tc: TrainConfig) -> Optimizer:
     return Optimizer(tc)
 
 
-def init_train_state(config: llama.TpuLMConfig, optimizer: Optimizer,
-                     params) -> Dict[str, Any]:
-    """{"params", "opt_state", "step"} over ``params`` (f32 master
-    params on one device; they become autograd leaves in place)."""
+# ---------------------------------------------------------------------------
+# State & sharding layout
+# ---------------------------------------------------------------------------
+
+
+def state_specs(config: llama.TpuLMConfig, optimizer: Optimizer = None,
+                rules=DEFAULT_RULES) -> Dict[str, Any]:
+    """Spec tree of ``state_tree``'s structure: the params' from
+    ``llama.param_axes``, Adam's moments inheriting them (ZeRO), the
+    per-leaf counts and the step replicated. (``optimizer`` is the
+    reference's argument; AdamW's state has one layout.)"""
+    param_specs = spec_tree(llama.param_axes(config), rules)
+    return {
+        "params": param_specs,
+        "opt_state": {
+            "exp_avg": param_specs,
+            "exp_avg_sq": param_specs,
+            "step": params_like(param_specs, lambda _: P()),
+        },
+        "step": P(),
+    }
+
+
+def state_shardings(specs, mesh):
+    """Spec tree -> DTensor placements tree on ``mesh``."""
+    return params_like(specs, lambda s: sharding.placements(s, mesh))
+
+
+def batch_spec(rules=DEFAULT_RULES):
+    # tokens [batch, seq+1]: batch over the batch axes; seq unsharded.
+    return logical_to_spec(("batch", None), rules)
+
+
+def _require_mesh_path(config: llama.TpuLMConfig, mesh) -> None:
     llama.require_flat_stack(config)
+    sharding.require_dense_mesh(mesh, "the sharded train step")
+    if config.n_experts > 0 and mesh.size() > 1:
+        raise NotImplementedError(
+            "MoE on a mesh of more than one rank (the sharded and "
+            "expert-parallel dropless MoE) is not ported yet (ROADMAP "
+            "item 7)")
+
+
+def shard_params(config: llama.TpuLMConfig, params, mesh,
+                 rules=DEFAULT_RULES):
+    """A tree of full tensors (the same on every rank) as DTensors laid
+    out by ``state_specs``: each rank keeps its slices."""
+    specs = spec_tree(llama.param_axes(config), rules)
+    return _zip_like(params, specs, lambda p, spec: sharding.shard_tensor(
+        p, mesh, spec))
+
+
+def _zip_like(tree, other, fn):
+    return {k: _zip_like(v, other[k], fn) if isinstance(v, dict)
+            else fn(v, other[k]) for k, v in tree.items()}
+
+
+def init_train_state(config: llama.TpuLMConfig, optimizer: Optimizer,
+                     params, mesh=None, rules=DEFAULT_RULES
+                     ) -> Dict[str, Any]:
+    """{"params", "opt_state", "step"} over ``params`` (f32 master
+    params; they become autograd leaves in place). With ``mesh`` the
+    params are full tensors, the same on every rank (from one seed),
+    or DTensors already laid out by ``state_specs``; each rank keeps its
+    slices as DTensors on ``mesh``."""
+    llama.require_flat_stack(config)
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor
+
+        _require_mesh_path(config, mesh)
+        if not isinstance(param_leaves(params)[0], DTensor):
+            params = shard_params(config, params, mesh, rules)
     for p in param_leaves(params):
         if p.dtype != torch.float32:
             raise TypeError(f"master params must be f32, got {p.dtype}")
-        p.requires_grad_(True)
+        local_shard(p).requires_grad_(True)
     return {"params": params, "opt_state": optimizer.init(params),
             "step": 0, "fences": []}
 
@@ -152,20 +249,34 @@ def state_tree(state) -> Dict[str, Any]:
     the params' structure) and ``state["step"]``. The tensors are the
     live ones, so a checkpoint restored into this tree lands in place.
     AdamW's state is created as its first update would (zeros, count 0)
-    where no update has run yet."""
+    where no update has run yet. For DTensor params the moments are
+    DTensors of the params' layout over AdamW's local tensors."""
+    from torch.distributed.tensor import DTensor
+
     params, opt = state["params"], state["opt_state"]
     for p in param_leaves(params):
-        if not opt.state[p]:
-            opt.state[p] = {
+        key = local_shard(p)
+        if not opt.state[key]:
+            opt.state[key] = {
                 "step": torch.tensor(0.0, dtype=torch.float32),
                 "exp_avg": torch.zeros_like(
-                    p, memory_format=torch.preserve_format),
+                    key, memory_format=torch.preserve_format),
                 "exp_avg_sq": torch.zeros_like(
-                    p, memory_format=torch.preserve_format),
+                    key, memory_format=torch.preserve_format),
             }
+
+    def moment(p, name):
+        t = opt.state[local_shard(p)][name]
+        if isinstance(p, DTensor) and name != "step":
+            with torch.no_grad():
+                t = DTensor.from_local(t, p.device_mesh, p.placements,
+                                       run_check=False)
+        return t
+
     return {
         "params": params,
-        "opt_state": {name: params_like(params, lambda p: opt.state[p][name])
+        "opt_state": {name: params_like(params,
+                                        lambda p, n=name: moment(p, n))
                       for name in ("exp_avg", "exp_avg_sq", "step")},
         "step": state["step"],
     }
@@ -184,33 +295,87 @@ def load_state_tree_(state, tree) -> Dict[str, Any]:
         raise ValueError("restored tree differs from the train state's")
     with torch.no_grad():
         for d, s in zip(dst, src):
+            d, s = local_shard(d), local_shard(s)
             if isinstance(d, torch.Tensor) and d is not s:
                 d.copy_(s)
     state["step"] = int(tree["step"])
     return state
 
 
+def local_view(params):
+    """The model's view of DTensor params: each its local shard (the
+    autograd leaf) with its layout, never a DTensor."""
+    return params_like(params, lambda p: ShardedParam(
+        local_shard(p), p.device_mesh, p.placements))
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
                     optimizer: Optimizer, device="cuda",
-                    loss_fn: Optional[Callable] = None):
+                    loss_fn: Optional[Callable] = None, mesh=None,
+                    local_batch: bool = False):
     """Returns ``step(state, batch) -> (state, metrics)``.
 
     batch["tokens"]: [grad_accum * micro_batch, seq + 1] int. Metrics:
     loss (mean over micro-batches), grad_norm (before clipping), step.
-    The batch's "mask" is not used, as in the reference."""
+    The batch's "mask" is not used, as in the reference.
+
+    With ``mesh`` (the state from ``init_train_state(..., mesh=mesh)``;
+    the device is the mesh's) every rank passes the global batch and
+    takes its rows of each micro-batch, or with ``local_batch`` passes
+    only its own rows ``[grad_accum * micro_batch / batch ranks, seq +
+    1]``. The loss runs under ``use_mesh(mesh)``."""
+    if mesh is not None:
+        _require_mesh_path(config, mesh)
+        device = _mesh_device(mesh)
+        b_idx, b_count = sharding.batch_index(mesh)
     device = torch.device(device)
     _loss = loss_fn or (
         lambda params, batch: llama.loss_fn(config, params, batch)
     )
 
     def single_grad(params, leaves, micro):
-        loss, _ = _loss(params, micro)
-        grads = torch.autograd.grad(loss, leaves)
+        if mesh is None:
+            loss, _ = _loss(params, micro)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        params = local_view(params)
+        if not local_batch:
+            rows = micro["tokens"].shape[0]
+            if rows % b_count:
+                raise ValueError(f"micro-batch {rows} not divisible by the "
+                                 f"{b_count} batch ranks")
+            per = rows // b_count
+            micro = {"tokens": micro["tokens"][b_idx * per:
+                                               (b_idx + 1) * per]}
+        with sharding.use_mesh(mesh):
+            loss, _ = _loss(params, micro)
+            if b_count > 1:
+                # This rank's share of the global mean: the rows split
+                # evenly, so the mean of the ranks' means.
+                loss = loss / b_count
+            grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), grads
+
+    def mean_loss(loss):
+        """The global mean from this rank's share (world of one: as
+        is)."""
+        if mesh is None or mesh.size() == 1:
+            return loss
+        import torch.distributed as dist
+
+        loss = loss.clone()
+        dist.all_reduce(loss)
+        # Every rank off the batch axes (tp) holds the same share.
+        return loss / (mesh.size() // b_count)
 
     def step(state, batch):
         params = state["params"]
-        leaves = param_leaves(params)
+        leaves = [local_shard(p) for p in param_leaves(params)]
         tokens = torch.as_tensor(batch["tokens"]).to(device)
         ga = tc.grad_accum
         if ga > 1:
@@ -233,8 +398,11 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
         else:
             loss, g_1 = single_grad(params, leaves, {"tokens": tokens})
             grads = list(g_1)
+        loss = mean_loss(loss)
 
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(
+            grads, None if mesh is None or mesh.size() == 1 else [
+                sharding.replication(p) for p in param_leaves(params)])
         fences = state.get("fences")
         if fences:
             # A snapshot's copy still reads the tensors about to change.
@@ -252,14 +420,33 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
     return step
 
 
-def make_eval_step(config: llama.TpuLMConfig, device="cuda"):
-    """Returns ``ev(params, batch) -> ce`` (no gradients)."""
+def make_eval_step(config: llama.TpuLMConfig, device="cuda", mesh=None):
+    """Returns ``ev(params, batch) -> ce`` (no gradients). With ``mesh``
+    every rank passes the global batch and gets the global mean CE."""
+    if mesh is not None:
+        _require_mesh_path(config, mesh)
+        device = _mesh_device(mesh)
+        b_idx, b_count = sharding.batch_index(mesh)
     device = torch.device(device)
 
     def ev(params, batch):
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-        with torch.no_grad():
-            _, metrics = llama.loss_fn(config, params, batch)
-        return metrics["ce"]
+        if mesh is None:
+            with torch.no_grad():
+                _, metrics = llama.loss_fn(config, params, batch)
+            return metrics["ce"]
+        per = batch["tokens"].shape[0] // b_count
+        batch = {k: v[b_idx * per:(b_idx + 1) * per]
+                 for k, v in batch.items()}
+        with torch.no_grad(), sharding.use_mesh(mesh):
+            _, metrics = llama.loss_fn(config, local_view(params), batch)
+            ce = metrics["ce"]
+            if mesh.size() > 1:
+                import torch.distributed as dist
+
+                ce = ce / b_count
+                dist.all_reduce(ce)
+                ce = ce / (mesh.size() // b_count)
+        return ce
 
     return ev

@@ -322,3 +322,86 @@ def test_elastic_worker_loads_no_jax_and_no_ml_dtypes(tmp_path):
         for seg in os.listdir("/dev/shm"):
             if job in seg:
                 os.unlink(os.path.join("/dev/shm", seg))
+
+
+def test_scan_covers_the_mesh_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharding.py", "agent/__init__.py",
+            "agent/node_check_worker.py"} <= scanned
+
+
+_MESH_CHILD = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+from dlrover_tpu_torch.agent import node_check_worker
+from dlrover_tpu_torch.flash_ckpt import engine, storage
+from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from dlrover_tpu_torch.trainer import train_step as ts
+mesh = build_mesh(MeshConfig(), "cpu")
+cfg = llama.tiny_config(n_layers=2)
+tc = ts.TrainConfig()
+opt = ts.make_optimizer(tc)
+params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+state = ts.init_train_state(cfg, opt, params, mesh=mesh)
+state, m = ts.make_train_step(cfg, tc, opt, mesh=mesh)(
+    state, {"tokens": np.zeros((2, 9), np.int32)})
+d = tempfile.mkdtemp()
+eng = engine.CheckpointEngine(d, standalone=True)
+eng.save_to_storage(1, ts.state_tree(state))
+eng._shm.unlink()
+eng.close()
+restored = engine.load_global_state(d, 1, storage.load_step_meta(d, 1),
+                                    ts.state_tree(state))
+os.environ["DLROVER_TPU_CHECK_DEVICE"] = "cpu"
+rc = node_check_worker.main(["x", os.path.join(d, "probe"), "32", "8", "1"])
+# Every kernel wrapper refuses a DTensor before it picks a route.
+from torch.distributed.tensor import DTensor, Replicate
+from dlrover_tpu_torch.ops import decode_attention as da
+from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import fused_ce as fc
+from dlrover_tpu_torch.ops import moe_dispatch as md
+x = DTensor.from_local(torch.ones(2, 4), mesh, [Replicate()] * 6,
+                       run_check=False)
+wrappers = [fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+            da.decode_attention, da.paged_decode_attention,
+            fc.fused_ce_forward, fc.fused_ce_backward_dx,
+            fc.fused_ce_backward_dw, md.grouped_ffn_forward,
+            md.grouped_ffn_backward_dx, md.grouped_ffn_backward_dw_gu,
+            md.grouped_ffn_backward_dw_down]
+refused = 0
+for fn in wrappers:
+    n = fn.__code__.co_argcount
+    try:
+        fn(x, *[None] * (n - 1))
+    except TypeError as e:
+        refused += "DTensor" in str(e)
+print(json.dumps({
+    "loss": float(m["loss"]), "restored": restored is not None,
+    "probe": rc == 0 and os.path.exists(os.path.join(d, "probe")),
+    "refused": refused, "wrappers": len(wrappers),
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu")),
+}))
+"""
+
+
+def test_mesh_path_loads_no_jax(tmp_path):
+    """A world-of-one mesh step, its checkpoint and resharding restore,
+    and the node check probe, in an interpreter that never loads JAX or
+    the JAX package; and every kernel wrapper refuses a DTensor (a CPU
+    one here) with ``TypeError`` before it picks the plain version."""
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               DLROVER_TPU_JOB_NAME=f"isomesh{os.getpid()}",
+               DLROVER_TPU_SHARED_DIR=str(tmp_path / "uds"))
+    proc = subprocess.run([sys.executable, "-c", _MESH_CHILD], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["loss"] > 0 and result["restored"] and result["probe"]
+    assert result["refused"] == result["wrappers"] == 12
+    assert result["leaked"] == []

@@ -1392,3 +1392,64 @@ def test_async_snapshot_before_inplace_step_equals_sync_snapshot(
         for engine in engines.values():
             engine._shm.unlink()  # noqa: SLF001
             engine.close()
+
+
+def _card_mesh():
+    """A world-of-one mesh over nccl (a one-rank group in this
+    process)."""
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    return build_mesh(MeshConfig(), "cuda")
+
+
+def test_world_one_mesh_step_equals_meshless(cuda):
+    """A 2-layer config at the flagship's widths, 2 steps of ga 2 through
+    the kernels: on a world-of-one mesh the losses, grad norms and
+    params are the mesh-less step's bits (every collective of a world of
+    one is an identity, every local shard the whole leaf)."""
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    cfg = llama.flagship_config(n_layers=2)
+    tc = ts.TrainConfig(learning_rate=1e-3, warmup_steps=1, grad_accum=2)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (4, 257)).astype(np.int32)).to(cuda)
+    runs = []
+    for mesh in (None, _card_mesh()):
+        params = llama.init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                                   device=cuda)
+        opt = ts.make_optimizer(tc)
+        state = ts.init_train_state(cfg, opt, params, mesh=mesh)
+        step = ts.make_train_step(cfg, tc, opt, device=cuda, mesh=mesh)
+        fa.reset_launch_counts()
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, {"tokens": tokens})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        leaves = [ts.local_shard(p).detach().clone()
+                  for p in ts.param_leaves(state["params"])]
+        runs.append((metrics, leaves, dict(fa.launch_counts)))
+    (m0, p0, l0), (m1, p1, l1) = runs
+    assert m0 == m1
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+    assert l0 == l1 == {name: cfg.n_layers * 2 * 2 for name in l0}
+
+
+def test_kernel_wrappers_refuse_dtensors(cuda):
+    """Every kernel wrapper raises TypeError for a DTensor on the card:
+    its storage is one shard, and the kernels take plain local tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from dlrover_tpu_torch.ops import fused_ce as fc
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    x = DTensor.from_local(
+        torch.ones(2, 128, 2, 128, device=cuda, dtype=torch.bfloat16),
+        _card_mesh(), [Replicate()] * 6, run_check=False)
+    for fn in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv,
+               da.decode_attention, da.paged_decode_attention,
+               fc.fused_ce_forward, fc.fused_ce_backward_dx,
+               fc.fused_ce_backward_dw, md.grouped_ffn_forward,
+               md.grouped_ffn_backward_dx, md.grouped_ffn_backward_dw_gu,
+               md.grouped_ffn_backward_dw_down):
+        with pytest.raises(TypeError, match="DTensor"):
+            fn(x, *[None] * (fn.__code__.co_argcount - 1))
