@@ -143,16 +143,16 @@ phases that each print JSON lines:
     share of the bf16 peak on 6 x active params a token, peak memory
     and a profiled step;
 16. elastic_ckpt: the port's elastic worker
-    (``dlrover_tpu_torch.examples.train_llama``) on the flagship at phase
-    6's shape (8 x 2048, ga 2), seed 0, under an agent this script
-    plays (it hosts the ``AsyncCheckpointSaver`` and sets each worker's
-    env). Run A trains 16 steps; run B saves to shm after every step
-    and persists every 5, is SIGKILLed once step 9 is in shm (restored
-    from memory), then once step 13 is in shm and step 10 committed,
-    with its segment unlinked (a lost host; restored from storage), and
-    replays to 16. Gates: run B's replayed losses and final params,
-    moments and step equal run A's bit for bit (a flipped moment
-    element is rejected), the restores are the ones stated, each
+    (``dlrover_tpu_torch.examples.train_llama``) on the flagship cut to
+    8 layers at phase 6's shape (8 x 2048, ga 2), seed 0, under an agent
+    this script plays (it hosts the ``AsyncCheckpointSaver`` and sets
+    each worker's env). Run A trains 10 steps; run B saves to shm after
+    every step and persists every 3, is SIGKILLed once step 5 is in shm
+    (restored from memory), then once step 8 is in shm and step 6
+    committed, with its segment unlinked (a lost host; restored from
+    storage), and replays to 10. Gates: run B's replayed losses and
+    final params, moments and step equal run A's bit for bit (a flipped
+    moment element is rejected), the restores are the ones stated, each
     worker's B1/B2 launches are exact, no segment or socket is left.
     Image GB, save block and drain ms, snapshots dropped, persist and
     restore seconds and GB/s, worker start seconds, SIGKILL to first
@@ -174,7 +174,28 @@ phases that each print JSON lines:
     the reference agent runs it (matmul 1024, 30 rounds, a 64 MB
     all_reduce over a world of one): it writes its result file; under
     ``DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS=0`` it writes none and exits
-    non-zero.
+    non-zero;
+20. long_context: the flagship at batch 1 and 32768, then 65536 tokens,
+    remat ``attn_save``: a step through the lite attention block against
+    one through the escape (TRAIN_GATES at 32768), the peak memory the
+    lite block's forward and backward add below the escape's at both
+    lengths, exactly 16 B1 and 16 of each B2 launch a step; step s,
+    tokens/s, model-FLOP share;
+21. pipeline_train: the flagship at pp_stages 4, 4 micro-batches, all
+    stages on the card, 8 x 2048: a step against the flat step
+    (TRAIN_GATES), exactly 64 B1 and 64 of each B2 launch a step; step s
+    and peak memory of both;
+22. ring_hops: ring attention's hop loops at sp = 4 through the
+    one-process runner (every rank's 8192-token chunk of 32768 on the
+    card), causal and not: out, lse, dq/dk/dv within the flash gate of
+    the plain version and of B1/B2 on the whole sequence (B1/B2 also
+    held against the plain version at 32768 and 65536 tokens); exact hop
+    launches (causal 10, 6 hops skipped; non-causal 16); a hop fed a
+    wrong lse is rejected;
+23. moe_ep_body: the ep expert body for one rank of ep = 4 at
+    ``moe_config``'s widths, its received rows padded to ``cap_rows``
+    with sentinel rows: B7 and B8 forward and backward within B7/B8's
+    gate of their plain versions, bitwise on a rerun, one launch each.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -1973,44 +1994,94 @@ def _train_state(cfg, tc):
     return opt, ts.init_train_state(cfg, opt, params)
 
 
-def _one_step_rows(cfg, tokens, variants):
+def _kernel_launches():
+    """Every kernel wrapper's launch count so far (B1/B2 and B7/B8)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    return {**fa.launch_counts, **md.launch_counts}
+
+
+def _launches_since(before):
+    return {k: v - before.get(k, 0) for k, v in _kernel_launches().items()}
+
+
+def _one_step_rows(cfg, tokens, variants, timed_steps=0):
     """One grad_accum=1 step per variant, each from the seed's params:
     ``variants`` maps a label to (a ``loss_fn`` for ``make_train_step``
-    or None, a context manager factory the step runs under or None).
-    Returns {label: row}; every row after the first (the reference)
-    carries its relative loss and grad-norm gaps and, per leaf, the
-    relative L2 distance of Adam's first moment (0.1 x the clipped
-    gradient: the lr is 0 at the first update) to the reference's."""
+    or None, a context manager factory the step runs under or None[, the
+    variant's own config]). Returns {label: row}; every row after the
+    first (the reference) carries its relative loss and grad-norm gaps
+    and, per leaf, the relative L2 distance of Adam's first moment (0.1 x
+    the clipped gradient: the lr is 0 at the first update) to the
+    reference's (a stage-layout leaf compared in the flat layout). Each
+    row has the first step's B1/B2/B7/B8 launches, the peak memory the
+    step added above what was allocated when it began
+    (``step_peak_bytes``: activations, gradients and the optimizer's
+    moments, without what earlier phases still hold), the peak its
+    forward and backward added before the optimizer's update began
+    (``fwd_bwd_peak_bytes``: activations and gradients, what the remat
+    policy governs; the first update's moments and temporaries, the
+    same in every variant, are not in it) and, with ``timed_steps``,
+    the seconds of that many further steps."""
     import contextlib
+    import gc
 
     from dlrover_tpu_torch.trainer import train_step as ts
 
     tc1 = ts.TrainConfig(warmup_steps=2, grad_accum=1)
     one, ref_moments = {}, None
-    for label, (loss_fn, patch) in variants.items():
-        opt, state = _train_state(cfg, tc1)
-        step = ts.make_train_step(cfg, tc1, opt, device="cuda",
+    for label, (loss_fn, patch, *own) in variants.items():
+        vcfg = own[0] if own else cfg
+        opt, state = _train_state(vcfg, tc1)
+        step = ts.make_train_step(vcfg, tc1, opt, device="cuda",
                                   loss_fn=loss_fn)
+        # Garbage of earlier phases freed inside the step would be
+        # subtracted from its peak: collect it before the start mark.
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
+        # The allocator's peak when the optimizer's update begins: the
+        # forward's and backward's alone.
+        update_marks = []
+        hook = state["opt_state"].register_step_pre_hook(
+            lambda *_: update_marks.append(torch.cuda.max_memory_allocated()))
+        before = _kernel_launches()
         t0 = time.monotonic()
         with (patch or contextlib.nullcontext)():
             state, m = step(state, {"tokens": tokens})
+        hook.remove()
         # Peak memory of the step alone: the reference's moments, kept
         # for the comparison, are not counted.
         held = sum(t.numel() * 4 for t in ref_moments or ())
         row = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                "step_s": time.monotonic() - t0,
-               "peak_bytes": torch.cuda.max_memory_allocated() - held}
+               "peak_bytes": torch.cuda.max_memory_allocated() - held,
+               "step_peak_bytes": torch.cuda.max_memory_allocated()
+               - start_bytes,
+               "fwd_bwd_peak_bytes": update_marks[0] - start_bytes,
+               "launches": _launches_since(before)}
         moments = [state["opt_state"].state[p]["exp_avg"]
                    for p in ts.param_leaves(state["params"])]
+        if timed_steps:
+            # Later steps update the moments in place.
+            moments = [t.clone() for t in moments]
+            row["timed_step_s"] = []
+            for _ in range(timed_steps):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                with (patch or contextlib.nullcontext)():
+                    state, m = step(state, {"tokens": tokens})
+                    float(m["loss"])
+                row["timed_step_s"].append(time.monotonic() - t0)
         if ref_moments is None:
             ref, ref_moments = row, moments
         else:
             row["loss_rel"] = abs(row["loss"] - ref["loss"]) / ref["loss"]
             row["grad_norm_rel"] = abs(
                 row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
-            dist = [float((a - b).norm() / b.norm())
+            dist = [float((a.reshape(b.shape) - b).norm() / b.norm())
                     for a, b in zip(moments, ref_moments)]
             row["grads_rel_l2"] = dict(zip(_leaf_names(state["params"]),
                                            dist))
@@ -3264,9 +3335,12 @@ def phase_moe_train(cfg):
 # The worker's run: steps, persist cadence; run B's first SIGKILL once a
 # step >= ELASTIC_KILL1 is in shm, its second (with the segment unlinked:
 # a lost host) once step ELASTIC_KILL2 is in shm and the tracker shows
-# ELASTIC_STORAGE_STEP.
-ELASTIC_STEPS, ELASTIC_PERSIST = 16, 5
-ELASTIC_KILL1, ELASTIC_KILL2, ELASTIC_STORAGE_STEP = 9, 13, 10
+# ELASTIC_STORAGE_STEP. The flagship runs cut to ELASTIC_LAYERS layers
+# (cut with the steps from 16 layers and 16 steps, persist every 5 and
+# kills after 9 and 13, for the script's time limit).
+ELASTIC_STEPS, ELASTIC_PERSIST = 10, 3
+ELASTIC_KILL1, ELASTIC_KILL2, ELASTIC_STORAGE_STEP = 5, 8, 6
+ELASTIC_LAYERS = 8
 ELASTIC_TIMEOUT_S = 300.0
 
 
@@ -3374,8 +3448,8 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     from dlrover_tpu_torch.flash_ckpt.shm_handler import SharedMemoryHandler
     from dlrover_tpu_torch.models import llama
 
-    cfg = (llama.flagship_config() if config == "flagship"
-           else llama.tiny_config(n_layers=4))
+    cfg = (llama.flagship_config(n_layers=ELASTIC_LAYERS)
+           if config == "flagship" else llama.tiny_config(n_layers=4))
     ga = 2
     free_gib = None
     if device == "cuda":
@@ -3387,7 +3461,8 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     args = ["--steps", str(ELASTIC_STEPS), "--global-batch", str(ga * micro),
             "--micro-batch", str(micro), "--seq", str(seq),
             "--persist-every", str(ELASTIC_PERSIST), "--config", config,
-            "--device", device, "--seed", str(SEED)]
+            "--device", device, "--seed", str(SEED),
+            "--layers", str(cfg.n_layers)]
     saved_env = {k: os.environ.get(k) for k in (
         NodeEnv.JOB_NAME, NodeEnv.NODE_RANK, NodeEnv.SHARED_DIR)}
     workers, shm_used, kills = [], [], []
@@ -4054,6 +4129,436 @@ def phase_node_check(device="cuda", size=1024, comm_mb=64):
     return out
 
 
+# ---- long context, the ring's hops, the ep expert body, the pipeline ------
+
+LONG_SEQS = (32768, 65536)          # batch 1, the flagship under attn_save
+RING_SP, RING_SEQ = 4, 32768        # ring_hops: 4 chunks of 8192
+# The whole-sequence flash calls ring_hops also holds against the plain
+# version: label, s, causal.
+RING_WHOLE = (("whole_32768", 32768, True), ("whole_32768_full", 32768,
+                                              False),
+              ("whole_65536", 65536, True))
+EP_RANKS, EP_TOKENS = 4, 2 * MOE_SEQ  # moe_ep_body: one rank of ep = 4
+PP_STAGES, PP_MICRO = 4, 4          # pipeline_train
+
+
+def _escape_flash():
+    """The flash op without ``is_plain_flash``: under ``attn_save`` the
+    layer keeps the escape (q, k, v, out and lse saved, the flanks
+    recomputed) instead of the lite block."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    def attention_fn(q, k, v, causal=True, q_positions=None,
+                     kv_positions=None, softmax_scale=None):
+        return fa.flash_attention(q, k, v, causal, softmax_scale)
+
+    attention_fn.saveable_residuals = True
+    return attention_fn
+
+
+def _check_train_gates(phase, row):
+    for gate, key in (("loss", "loss_rel"), ("grad_norm", "grad_norm_rel"),
+                      ("grads", "grads")):
+        check(row[key] <= TRAIN_GATES[gate],
+              f"{phase}: {key} {row[key]} > {TRAIN_GATES[gate]}")
+
+
+def phase_long_context():
+    """``bench.py``'s long-context path (``longctx_phase`` :486-560): the
+    flagship at full width and depth, batch 1, 32768 and then 65536
+    tokens, remat ``attn_save``, seed 0, the CE route "auto" picks (the
+    chunked fused CE at these N x V). One step through the lite block
+    (the default flash op) against one through the escape from the same
+    state: within TRAIN_GATES at 32768, reported at 65536; the peak
+    memory the lite block's forward and backward add
+    (``fwd_bwd_peak_bytes``) below the escape's at both lengths (the
+    whole step's peak, ``step_peak_bytes``, is reported: at 32768 the
+    optimizer's first update sets it in both, four times the params'
+    f32 bytes, so it cannot tell the two apart); exactly
+    n_layers B1, B2 dq and B2 dk/dv launches a step in both (B1 is not
+    re-run in the backward). Then one more step each, timed: step s,
+    tokens/s and the model-FLOP share on the long-sequence basis ((6N +
+    causal attention) FLOPs a token over the bf16 peak). Returns the
+    launches."""
+    from dlrover_tpu_torch.models import llama
+
+    cfg = llama.flagship_config(remat_policy="attn_save")
+    escape = _escape_flash()
+    launches = {}
+    for seq in LONG_SEQS:
+        rs = np.random.RandomState(SEED + 11)
+        tokens = torch.from_numpy(rs.randint(
+            0, cfg.vocab_size, (1, seq + 1)).astype(np.int32)).cuda()
+        one = _one_step_rows(cfg, tokens, {
+            "escape": (lambda p, b: llama.loss_fn(cfg, p, b,
+                                                  attention_fn=escape),
+                       None),
+            "lite": (None, None),
+        }, timed_steps=1)
+        flops_token = (cfg.flops_per_token()
+                       + cfg.attention_flops_per_token(seq))
+        for label, row in one.items():
+            step_s = row["timed_step_s"][0]
+            row.update(tokens_per_s=seq / step_s,
+                       model_flops_share_of_peak=flops_token * seq / step_s
+                       / PEAK_OPS_PER_S["bfloat16"],
+                       step_peak_gib=row["step_peak_bytes"] / 2**30,
+                       fwd_bwd_peak_gib=row["fwd_bwd_peak_bytes"] / 2**30)
+            for name in ("flash_forward", "flash_backward_dq",
+                         "flash_backward_dkv"):
+                got = row["launches"][name]
+                check(got == cfg.n_layers,
+                      f"long_context/{seq}/{label}: {name} launched {got} "
+                      f"times in a step, want {cfg.n_layers}")
+                launches[name] = launches.get(name, 0) + got
+        emit({"phase": "long_context", "seq": seq, "batch": 1,
+              "remat_policy": cfg.remat_policy,
+              "ce_path": llama.resolve_ce_path(cfg, seq),
+              "gates": TRAIN_GATES if seq == LONG_SEQS[0] else None, **one})
+        if seq == LONG_SEQS[0]:
+            _check_train_gates(f"long_context/{seq}", one["lite"])
+        lite, esc = (one[k]["fwd_bwd_peak_bytes"]
+                     for k in ("lite", "escape"))
+        check(lite < esc, f"long_context/{seq}: the lite block's forward "
+                          f"and backward peak {lite} is not below the "
+                          f"escape's {esc}")
+        del tokens, one
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _plain_long_attention(q, k, v, do, causal, block):
+    """Plain attention over the whole sequence, ``block`` query rows at a
+    time against every key, with the causal mask at the rows' global
+    positions (h == kh): out, lse, dq, dk, dv with the plain B1/B2
+    versions' rounding (P to bf16 before P.V and dV, dS to bf16 before
+    dq and dk; f32 sums)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops.attention import NEG_INF
+
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    kf, vf = k.float(), v.float()
+    cols = torch.arange(s, device=q.device)
+
+    def scores(a):
+        sc = torch.einsum("bqhd,bkhd->bhqk", q[:, a:a + block].float(),
+                          kf) * scale
+        if causal:
+            rows = torch.arange(a, a + block, device=q.device)[:, None]
+            sc = torch.where(rows >= cols[None, :], sc, NEG_INF)
+        return sc
+
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for a in range(0, s, block):
+        sc = scores(a)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), vf)
+        out[:, a:a + block] = (o / l.permute(0, 2, 1, 3)).bfloat16()
+        lse[:, :, a:a + block] = (m + torch.log(l))[..., 0]
+        del sc, p
+    delta = fa.flash_backward_delta(do, out)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for a in range(0, s, block):
+        p = torch.exp(scores(a) - lse[:, :, a:a + block, None])
+        dob = do[:, a:a + block].float()
+        dp = torch.einsum("bqhd,bkhd->bhqk", dob, vf)
+        ds = (p * (dp - delta[:, :, a:a + block, None])
+              * scale).bfloat16().float()
+        del dp
+        dq[:, a:a + block] = torch.einsum("bhqk,bkhd->bqhd", ds,
+                                          kf).bfloat16()
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, q[:, a:a + block].float())
+        dv += torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), dob)
+        del p, ds
+    return out, lse, dq, dk.bfloat16(), dv.bfloat16()
+
+
+def _events_ms(fn):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_ring_hops():
+    """The ring's hop loops (``ops/ring_attention``) at sp = RING_SP on
+    this card through the one-process runner: every rank's chunk of b=1,
+    s=RING_SEQ, h=kh=8, d=128 bf16 held here, each rank receiving what
+    the previous one sent, causal and non-causal. The hops run B1 causal
+    on the diagonal chunk, B1 non-causal on a chunk of the past, nothing
+    on a chunk of the future; the backward feeds B2 the final lse and
+    the global delta. out, lse and dq/dk/dv over the whole sequence are
+    held at the flash gate (_flash_ratio; lse within 1e-3), on the
+    second of two runs (the one timed), against the plain version
+    (``_plain_long_attention``) and against B1/B2 called on the whole
+    sequence, which are held against the plain version too, also at
+    65536 tokens. Exact launches: causal RING_SP diagonal +
+    RING_SP (RING_SP - 1) / 2 past hops (the rest skipped), non-causal
+    RING_SP^2, of B1 and of each B2 kernel. A planted fault, one hop's B2
+    fed that hop's own lse instead of the final one, must fail the gate.
+    Returns the runner's launches (both runs)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import ring_attention as ra
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 13)
+    b, h, d, n = 1, 8, 128, RING_SP
+    sl = RING_SEQ // n
+    q, k, v, do = (torch.randn((b, RING_SEQ, h, d), generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+
+    def chunks(t):
+        return [t[:, r * sl:(r + 1) * sl].contiguous() for r in range(n)]
+
+    qs, ks, vs, dos = (chunks(t) for t in (q, k, v, do))
+    offsets = [r * sl for r in range(n)]
+    launches = {}
+    for causal in (True, False):
+        # Twice: the first run also warms the allocator; the second is
+        # timed and compared.
+        for _ in range(2):
+            before = _kernel_launches()
+            fwd, fwd_ms = _events_ms(lambda: ra.one_process_ring_forward(
+                qs, ks, vs, offsets, causal))
+            outs, lses = [o for o, _ in fwd], [lse for _, lse in fwd]
+            bwd, bwd_ms = _events_ms(lambda: ra.one_process_ring_backward(
+                qs, ks, vs, outs, lses, dos, offsets, causal))
+            got_launches = _launches_since(before)
+            hops = n * n if not causal else n + n * (n - 1) // 2
+            for name in ("flash_forward", "flash_backward_dq",
+                         "flash_backward_dkv"):
+                check(got_launches[name] == hops,
+                      f"ring_hops/causal={causal}: {name} launched "
+                      f"{got_launches[name]} times, want {hops}")
+                launches[name] = launches.get(name, 0) + hops
+        ring = {"out": torch.cat(outs, 1), "lse": torch.cat(lses, 2),
+                "dq": torch.cat([t[0] for t in bwd], 1),
+                "dk": torch.cat([t[1] for t in bwd], 1),
+                "dv": torch.cat([t[2] for t in bwd], 1)}
+        whole = {}
+        for _ in range(2):      # the second call timed, as the ring's
+            (whole["out"], whole["lse"]), w_fwd_ms = _events_ms(
+                lambda: fa.flash_forward(q, k, v, causal))
+            delta = fa.flash_backward_delta(do, whole["out"])
+            (whole["dq"], (whole["dk"], whole["dv"])), w_bwd_ms = \
+                _events_ms(lambda: (
+                    fa.flash_backward_dq(q, k, v, do, whole["lse"], delta,
+                                         causal),
+                    fa.flash_backward_dkv(q, k, v, do, whole["lse"], delta,
+                                          causal)))
+        plain = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                         _plain_long_attention(q, k, v, do, causal, 2048)))
+        names = ("out", "dq", "dk", "dv")
+        ratio = {"vs_plain": {x: _flash_ratio(ring[x], plain[x])
+                              for x in names},
+                 "vs_whole": {x: _flash_ratio(ring[x], whole[x])
+                              for x in names}}
+        lse_err = {"vs_plain": float((ring["lse"] - plain["lse"]).abs()
+                                     .max()),
+                   "vs_whole": float((ring["lse"] - whole["lse"]).abs()
+                                     .max())}
+
+        # The planted fault: one hop's B2 fed that hop's own lse (the
+        # causal ring's first past hop, rank 1's second; rank 1's first
+        # hop without the mask).
+        real_dq, real_dkv = fa.flash_backward_dq, fa.flash_backward_dkv
+        target = {"dq": 0, "dkv": 0}
+        hit = n if causal else 1    # the call index of that hop's B2
+
+        def wrong_lse(which, real):
+            def call(q_, k_, v_, do_, lse_, delta_, causal_=True,
+                     scale_=None):
+                target[which] += 1
+                if target[which] == hit + 1:
+                    lse_ = real_fwd(q_, k_, v_, causal_, scale_)[1]
+                return real(q_, k_, v_, do_, lse_, delta_, causal_, scale_)
+            return call
+
+        real_fwd = fa.flash_forward
+        try:
+            fa.flash_backward_dq = wrong_lse("dq", real_dq)
+            fa.flash_backward_dkv = wrong_lse("dkv", real_dkv)
+            faulty = ra.one_process_ring_backward(qs, ks, vs, outs, lses,
+                                                  dos, offsets, causal)
+        finally:
+            fa.flash_backward_dq, fa.flash_backward_dkv = real_dq, real_dkv
+        fault_ratio = max(
+            _flash_ratio(torch.cat([t[i] for t in faulty], 1), plain[x])
+            for i, x in enumerate(("dq", "dk", "dv")))
+        emit({"phase": "ring_hops", "sp": n, "seq": RING_SEQ, "chunk": sl,
+              "b": b, "h": h, "kh": h, "d": d, "causal": causal,
+              "hops_run": hops, "hops_skipped": n * n - hops,
+              "launches": got_launches, "ratio": ratio, "lse_err": lse_err,
+              "ring_ms": {"forward": fwd_ms, "backward": bwd_ms},
+              "whole_ms": {"forward": w_fwd_ms, "backward": w_bwd_ms},
+              "planted_fault_ratio": fault_ratio})
+        for against, r in ratio.items():
+            for x, val in r.items():
+                check(val <= 1.0, f"ring_hops/causal={causal}: {x} "
+                                  f"{against} at {val} of its bound")
+            check(lse_err[against] <= 1e-3,
+                  f"ring_hops/causal={causal}: lse {against} "
+                  f"{lse_err[against]}")
+        check(fault_ratio > 1.0, f"ring_hops/causal={causal}: the gate "
+              f"passes a hop fed a wrong lse ({fault_ratio})")
+        del ring, whole, plain, faulty, fwd, bwd, outs, lses
+        torch.cuda.empty_cache()
+
+    # B1/B2 on the whole sequence against the plain version, at the
+    # lengths long_context runs them.
+    for label, s, causal in RING_WHOLE:
+        gen = torch.Generator("cuda").manual_seed(SEED + 19)
+        wq, wk, wv, wdo = (torch.randn((b, s, h, d), generator=gen,
+                                       device="cuda").bfloat16()
+                           for _ in range(4))
+        out, lse = fa.flash_forward(wq, wk, wv, causal)
+        delta = fa.flash_backward_delta(wdo, out)
+        got = {"out": out,
+               "dq": fa.flash_backward_dq(wq, wk, wv, wdo, lse, delta,
+                                          causal)}
+        got["dk"], got["dv"] = fa.flash_backward_dkv(wq, wk, wv, wdo, lse,
+                                                     delta, causal)
+        plain = dict(zip(("out", "lse", "dq", "dk", "dv"),
+                         _plain_long_attention(wq, wk, wv, wdo, causal,
+                                               2048 * 32768 // s)))
+        ratio = {x: _flash_ratio(got[x], plain[x]) for x in got}
+        lse_err = float((lse - plain["lse"]).abs().max())
+        emit({"phase": "flash_bounds", "shape": label, "b": b, "s": s,
+              "h": h, "d": d, "causal": causal, "ratio": ratio,
+              "lse_err": lse_err})
+        for x, val in ratio.items():
+            check(val <= 1.0, f"flash/{label}: {x} at {val} of its bound")
+        check(lse_err <= 1e-3, f"flash/{label}: lse err {lse_err}")
+        del wq, wk, wv, wdo, got, plain, out, lse, delta
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_ep_body():
+    """The expert side of the ep exchange (``models/moe.ep_expert_body``)
+    for one rank of ep = EP_RANKS at ``moe_config``'s widths (d = f =
+    1024, 8 experts, so 2 on the rank, top-2): the rows four source
+    ranks send it, each routing its 2 x 2048-token share of the 8 x 2048
+    micro-batch with one router (source-major, by expert within a
+    source), padded to the reference's ``cap_rows`` with sentinel rows.
+    Forward and backward through B7 and B8 (dx, dw_gu, dw_down) against
+    the same body through their plain versions at B7/B8's gate
+    (_ce_ratio: rows over d, weight gradients over the rows of a
+    column), bitwise on a rerun (the run timed: the body's layout,
+    padding, kernels and autograd, forward and backward); one B7 and one
+    of each B8 launch a body. Returns the launches (first run and
+    rerun)."""
+    from dlrover_tpu_torch.models import moe
+
+    mcfg = moe_config()
+    d, f, e, k = mcfg.embed_dim, mcfg.mlp_dim, mcfg.n_experts, mcfg.moe_top_k
+    e_loc, me = e // EP_RANKS, 1
+    gen = torch.Generator("cuda").manual_seed(SEED + 17)
+    router = torch.randn(d, e, generator=gen, device="cuda") / 8
+    parts, counts = [], []
+    for _ in range(EP_RANKS):
+        x = torch.randn(EP_TOKENS, d, generator=gen, device="cuda").bfloat16()
+        experts = moe._top_k(torch.softmax(x.float() @ router, dim=-1),
+                             k)[1].reshape(-1)
+        order = torch.argsort(experts, stable=True)
+        xs = x[order // k]                      # the sorted dispatch rows
+        per = torch.bincount(experts, minlength=e).tolist()
+        start = sum(per[:me * e_loc])
+        mine = per[me * e_loc:(me + 1) * e_loc]
+        parts.append(xs[start:start + sum(mine)])
+        counts.append(mine)
+    recv = torch.cat(parts)
+    n_recv = recv.shape[0]
+    cap_rows = moe.ep_cap_rows(EP_TOKENS, EP_RANKS, k)
+    w_gu = (torch.randn(e_loc, d, 2 * f, generator=gen, device="cuda")
+            / d ** 0.5).bfloat16()
+    w_down = (torch.randn(e_loc, f, d, generator=gen, device="cuda")
+              / f ** 0.5).bfloat16()
+    dy = torch.randn(n_recv, d, generator=gen, device="cuda").bfloat16()
+
+    def body(plain):
+        leaves = [t.clone().requires_grad_(True) for t in (recv, w_gu,
+                                                            w_down)]
+        ys = moe.ep_expert_body(leaves[0], counts, e_loc, cap_rows,
+                                leaves[1], leaves[2], dispatch="fused",
+                                plain=plain)
+        grads = torch.autograd.grad(ys, leaves, dy)
+        torch.cuda.synchronize()
+        return [ys.detach()] + list(grads)
+
+    before = _kernel_launches()
+    got = body(False)
+    first = _launches_since(before)
+    rerun, ms = _events_ms(lambda: body(False))
+    launches = _launches_since(before)
+    body(True)
+    ref, plain_ms = _events_ms(lambda: body(True))
+    names = ("y", "dx", "dw_gu", "dw_down")
+    dims = (-1, -1, 1, 1)
+    ratio = {x: _ce_ratio(g, r, dim)
+             for x, g, r, dim in zip(names, got, ref, dims)}
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, rerun))
+    emit({"phase": "moe_ep_body", "ep": EP_RANKS, "rank": me,
+          "experts_on_rank": e_loc, "source_tokens": EP_TOKENS,
+          "rows_received": n_recv, "cap_rows": cap_rows,
+          "per_source_counts": counts, "ratio": ratio,
+          "bitwise_rerun": bitwise, "launches_a_body": first,
+          "ms_fwd_bwd": ms, "plain_ms_fwd_bwd": plain_ms})
+    for x, val in ratio.items():
+        check(val <= 1.0, f"moe_ep_body: {x} at {val} of its bound")
+    check(bitwise, "moe_ep_body: a rerun gave other bits")
+    for name in ("grouped_ffn_forward", "grouped_ffn_backward_dx",
+                 "grouped_ffn_backward_dw_gu",
+                 "grouped_ffn_backward_dw_down"):
+        check(first[name] == 1, f"moe_ep_body: {name} launched "
+                                f"{first[name]} times in a body, want 1")
+    return {name: n for name, n in launches.items() if n}
+
+
+def phase_pipeline_train():
+    """The GPipe pipeline (``trainer/pipeline``) on the flagship at
+    ``pp_stages`` = PP_STAGES and ``num_microbatches`` = PP_MICRO, all
+    stages on this card (a world of one), micro-batch 8 x 2048: one
+    step against the flat step on the same batch from the same seed
+    (the same draws in the stage layout) within TRAIN_GATES; exactly
+    n_layers x PP_MICRO B1, B2 dq and B2 dk/dv launches a step (each
+    layer once a micro-batch; bubble ticks compute nothing); then one
+    more step of each, timed, and the peak memory of each. Returns the
+    launches."""
+    from dlrover_tpu_torch.models import llama
+
+    flat = llama.flagship_config()
+    piped = llama.flagship_config(pp_stages=PP_STAGES,
+                                  num_microbatches=PP_MICRO)
+    rs = np.random.RandomState(SEED + 1)
+    tokens = torch.from_numpy(rs.randint(
+        0, flat.vocab_size, (TRAIN_MICRO, TRAIN_SEQ + 1)).astype(
+            np.int32)).cuda()
+    one = _one_step_rows(flat, tokens, {
+        "flat": (None, None), "pipeline": (None, None, piped)},
+        timed_steps=1)
+    want = flat.n_layers * PP_MICRO
+    emit({"phase": "pipeline_train", "pp_stages": PP_STAGES,
+          "num_microbatches": PP_MICRO, "micro_batch": TRAIN_MICRO,
+          "seq": TRAIN_SEQ, "launches_want": want, "gates": TRAIN_GATES,
+          **one})
+    _check_train_gates("pipeline_train", one["pipeline"])
+    launches = {}
+    for name in ("flash_forward", "flash_backward_dq", "flash_backward_dkv"):
+        got = one["pipeline"]["launches"][name]
+        check(got == want, f"pipeline_train: {name} launched {got} times "
+                           f"in a step, want {want}")
+        launches[name] = got
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4173,6 +4678,19 @@ def main():
     del mesh_state
     torch.cuda.empty_cache()
     timed("node_check", phase_node_check)
+    # The mesh's last axes: long context through the lite block, the
+    # pipeline, the ring's hops and the ep expert body (launches exact
+    # inside each phase).
+    axes_launches = {
+        "long_context": timed("long_context", phase_long_context),
+        "pipeline_train": timed("pipeline_train", phase_pipeline_train),
+        "ring_hops": timed("ring_hops", phase_ring_hops),
+        "moe_ep_body": timed("moe_ep_body", phase_moe_ep_body),
+    }
+    emit({"phase": "axes_launches", **axes_launches})
+    for counts in axes_launches.values():
+        for name, n in counts.items():
+            launches[name] += n
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 

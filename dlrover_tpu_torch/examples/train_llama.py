@@ -30,6 +30,7 @@ with the save's blocking and drain seconds) and a last ``done`` line
 """
 
 import argparse
+import dataclasses
 import json
 import sys
 import threading
@@ -75,6 +76,9 @@ def parse_args(argv=None):
     p.add_argument("--config", choices=["tiny", "flagship"], default="tiny",
                    help="tiny: the reference's 4-layer tiny_config; "
                    "flagship: the 334M TpuLM")
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the config's depth to this many layers (0: "
+                   "the config's own)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--mesh", default="",
                    help='mesh axes, e.g. "dp=2,tp=2" (default dp=<world>)')
@@ -137,6 +141,8 @@ def main(argv=None):
         cfg = llama.flagship_config(remat_policy=args.remat_policy)
     else:
         cfg = llama.tiny_config(n_layers=4, remat_policy=args.remat_policy)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     batch_cfg = ElasticBatchConfig(args.global_batch, args.micro_batch)
     elastic = ElasticTrainer(batch_cfg, dp_size=b_count)
     tc = ts.TrainConfig(warmup_steps=20, grad_accum=elastic.grad_accum)

@@ -16,6 +16,11 @@ states are found by their fields, so this module needs no optax.
 Under a mesh each rank takes only its own slices of the numpy arrays,
 as ``train_step.state_specs`` lays them out, and the way back gathers
 every DTensor whole (a collective: every rank calls it).
+
+Pipeline stages store the layer leaves ``[stages, layers_per_stage,
+...]`` in both packages; :func:`to_stage_layout` and
+:func:`to_flat_layout` move a param tree (numpy arrays or tensors)
+between that layout and the flat ``[L, ...]`` one.
 """
 
 from typing import Any
@@ -48,6 +53,28 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def to_stage_layout(params, stages: int):
+    """``params`` with each layer leaf ``[L, ...]`` reshaped to
+    ``[stages, L / stages, ...]`` (the reference's ``pp_stages > 1``
+    layout)."""
+    layers = {}
+    for k, w in params["layers"].items():
+        if w.shape[0] % stages:
+            raise ValueError(f"{w.shape[0]} layers not divisible by "
+                             f"{stages} stages")
+        layers[k] = w.reshape((stages, w.shape[0] // stages)
+                              + tuple(w.shape[1:]))
+    return dict(params, layers=layers)
+
+
+def to_flat_layout(params):
+    """Inverse of :func:`to_stage_layout`: layer leaves ``[stages,
+    layers_per_stage, ...]`` back to ``[L, ...]``."""
+    return dict(params, layers={
+        k: w.reshape((w.shape[0] * w.shape[1],) + tuple(w.shape[2:]))
+        for k, w in params["layers"].items()})
 
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:

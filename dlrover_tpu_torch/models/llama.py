@@ -2,10 +2,12 @@
 ``dlrover_tpu/models/llama.py``): RMSNorm + RoPE + GQA + SwiGLU.
 
 Parameters are a plain dict of tensors with the reference's leaf names
-and its stacked ``[L, ...]`` layer layout, so a JAX param tree maps
-leaf for leaf (``models/convert.py``). Functions over tensors, no
-``nn.Module`` state. MoE layers (``n_experts > 0``) run
-``models/moe.py``: gshard or dropless as ``_moe_resolve_impl`` picks.
+and its stacked ``[L, ...]`` layer layout (``[stages, layers_per_stage,
+...]`` under ``pp_stages > 1``), so a JAX param tree maps leaf for leaf
+(``models/convert.py``). Functions over tensors, no ``nn.Module``
+state. MoE layers (``n_experts > 0``) run ``models/moe.py``: gshard,
+dropless, or on a mesh the sharded or expert-parallel dropless MoE, as
+``_moe_resolve_impl`` picks.
 
 Under a mesh (``parallel.sharding.use_mesh``; the train step makes one
 current) the params are DTensors laid out by ``param_axes`` and the
@@ -15,15 +17,20 @@ dp-sharded embed dim is gathered per layer (``sharding.local_param``),
 ``wo``/``w_down`` row-parallel (their outputs summed over tp), the
 embedding lookup and the unembedding are vocab-parallel, and the dense
 CE reduces its log-sum-exp and target logit over tp. The batch arrives
-already split over the batch axes. Not ported on a mesh: pipeline
-stages (``pp_stages > 1`` raises everywhere, ROADMAP item 11), an sp
-axis (ring attention, item 9) and MoE layers on more than one rank
-(item 7); each raises ``NotImplementedError``.
+already split over the batch axes; under sp each rank holds a contiguous
+chunk of every sequence, at its global positions, and attends through
+ring attention (``ops/ring_attention.py``). MoE experts sharded over ep
+stay on their rank under the expert-parallel dropless MoE and are
+gathered otherwise; every tp rank runs the whole expert FFN. Pipeline
+stages (``pp_stages > 1``) run ``trainer/pipeline.py`` from
+:func:`forward`. Not run: gshard MoE under sp > 1 (its capacity is per
+sequence; ROADMAP §A "Cases the port refuses").
 
 Training runs ``loss_fn`` -> ``forward_hidden`` -> ``run_layer_stack``,
 a loop over the stacked layers with the reference's remat policies as
-``torch.utils.checkpoint``, then either the dense logits and
-``cross_entropy`` or the fused CE (``ops/fused_ce``), as
+``torch.utils.checkpoint`` (``attn_save`` through the lite attention
+block, :class:`_AttnBlockLite`, with the flash kernels), then either the
+dense logits and ``cross_entropy`` or the fused CE (``ops/fused_ce``), as
 ``DLROVER_TPU_FUSED_CE`` and ``resolve_ce_path`` pick. On a CUDA device
 the attention is the flash kernel pair (``ops/flash_attention``), as
 the reference picks its Pallas flash kernel on the TPU.
@@ -106,6 +113,14 @@ class TpuLMConfig:
             raise ValueError(f"dtype {self.dtype!r} not in {list(_DTYPES)}")
 
     @property
+    def layers_per_stage(self) -> int:
+        if self.n_layers % self.pp_stages:
+            raise ValueError(
+                f"n_layers {self.n_layers} % pp_stages {self.pp_stages} != 0"
+            )
+        return self.n_layers // self.pp_stages
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
@@ -176,12 +191,13 @@ def flagship_config(**overrides) -> TpuLMConfig:
     return TpuLMConfig(**defaults)
 
 
-def require_flat_stack(config: TpuLMConfig) -> None:
-    """The port runs the flat layer stack: pipeline stages raise."""
+def require_flat_stack(config: TpuLMConfig, what: str = "decode") -> None:
+    """Decode and serving run the flat layer stack, as the reference's:
+    pipeline stages raise there."""
     if config.pp_stages > 1:
         raise NotImplementedError(
-            "pipeline stages are not ported (ROADMAP item 11); the port "
-            "runs the flat layer stack"
+            f"{what} runs on the flat layer stack; merge pipeline stages "
+            "for inference"
         )
 
 
@@ -189,7 +205,7 @@ def _layer_leading(config: TpuLMConfig):
     """Leading dims/axes of stacked layer params."""
     if config.pp_stages > 1:
         return (
-            (config.pp_stages, config.n_layers // config.pp_stages),
+            (config.pp_stages, config.layers_per_stage),
             ("stage", "layer"),
         )
     return ((config.n_layers,), ("layer",))
@@ -234,8 +250,9 @@ def init_params(
 ) -> Dict[str, Any]:
     """f32 params: normal(0, 1/sqrt(fan_in)); norm scales zero (the
     (1 + scale) parameterization makes zero the identity). Draws from
-    ``generator``, which must live on ``device``."""
-    require_flat_stack(config)
+    ``generator``, which must live on ``device``. Layer leaves are
+    ``[L, ...]``, or ``[stages, layers_per_stage, ...]`` under
+    ``pp_stages > 1`` (the same draws, reshaped)."""
     d, hd = config.embed_dim, config.head_dim
     h, kv = config.n_heads, config.n_kv_heads
     f, v = config.mlp_dim, config.vocab_size
@@ -272,9 +289,11 @@ def init_params(
             w_up=dense((L, d, f), d),
             w_down=dense((L, f, d), f),
         )
+    lead = _layer_leading(config)[0]
     return {
         "embed": dense((v, d), 1.0),
-        "layers": layers,
+        "layers": {k: w.reshape(lead + w.shape[1:])
+                   for k, w in layers.items()},
         "final_norm": zeros((d,)),
         "lm_head": dense((d, v), d),
     }
@@ -319,15 +338,54 @@ def attention_out(config: TpuLMConfig, p, attn, residual):
 
 
 def _moe_resolve_impl(config: TpuLMConfig) -> str:
-    """"gshard" | "dropless" on one device (the reference's no-mesh
-    case): explicit ``moe_impl``, or for "auto" dropless once the
-    capacity factor reaches 2.0 (where it is also drop-free) and gshard
-    below."""
+    """Which MoE path runs: "gshard" | "dropless" | "dropless_sharded" |
+    "dropless_ep", as the reference picks under the current mesh.
+
+    Explicit ``moe_impl="dropless"`` maps to the mesh's dropless variant:
+    the one-device core, the per-rank form on a mesh of more than one rank
+    without ep, or the expert-parallel exchange when ep > 1. "auto" picks
+    dropless on one device once the capacity factor reaches 2.0 (where
+    it is also drop-free) and gshard below; on a mesh of more than one
+    rank "auto" stays on gshard."""
+    mesh = sharding.current_mesh()
+    multi = mesh is not None and mesh.size() > 1
+    has_ep = mesh is not None and sharding.axis_size("ep", mesh) > 1
     if config.moe_impl == "gshard":
         return "gshard"
-    if config.moe_impl == "dropless" or config.capacity_factor >= 2.0:
+    if config.moe_impl == "dropless":
+        if has_ep:
+            return "dropless_ep"
+        return "dropless_sharded" if multi else "dropless"
+    if not multi and config.capacity_factor >= 2.0:
         return "dropless"
     return "gshard"
+
+
+def require_run_moe(config: TpuLMConfig) -> None:
+    """Raise for the MoE case the port refuses under the current mesh:
+    gshard under sp > 1, whose expert capacity is per sequence while an
+    sp rank holds a chunk of each."""
+    if (config.n_experts > 0 and sharding.axis_size("sp") > 1
+            and _moe_resolve_impl(config) == "gshard"):
+        raise NotImplementedError(
+            "gshard MoE under sp > 1: its expert capacity is per sequence, "
+            "and a rank holds a chunk of each (ROADMAP §A, cases the port "
+            "refuses); use moe_impl='dropless'")
+
+
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def _expert_local_kw(config: TpuLMConfig) -> Dict[str, Any]:
+    """``local_param``'s arguments for the expert weights: their ep shard
+    stays on its rank under "dropless_ep" (the rank runs its own experts)
+    and is gathered otherwise; their tp shard is gathered (every tp rank
+    runs the whole expert FFN on the same tokens, as the reference's
+    expert computation replicates every dim but ep)."""
+    if config.n_experts == 0:
+        return {}
+    keep = ("ep",) if _moe_resolve_impl(config) == "dropless_ep" else ()
+    return {"keep": keep, "gather_tp": True}
 
 
 def mlp_block(config: TpuLMConfig, p, x):
@@ -336,17 +394,18 @@ def mlp_block(config: TpuLMConfig, p, x):
     cdt = config.compute_dtype
     hx = rms_norm(x, p["mlp_norm"]).to(cdt)
     if config.n_experts > 0:
-        mesh = sharding.current_mesh()
-        if mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(
-                "MoE layers on a mesh of more than one rank (the sharded "
-                "and expert-parallel dropless MoE) are not ported yet "
-                "(ROADMAP item 7)")
+        impl = _moe_resolve_impl(config)
         experts = (p["router"], p["w_gate"], p["w_up"], p["w_down"])
-        if _moe_resolve_impl(config) == "dropless":
+        if impl == "dropless":
             out, metrics = moe_lib.moe_mlp_dropless(
                 hx, *experts, top_k=config.moe_top_k)
+        elif impl in ("dropless_sharded", "dropless_ep"):
+            fn = (moe_lib.moe_mlp_dropless_ep if impl == "dropless_ep"
+                  else moe_lib.moe_mlp_dropless_sharded)
+            out, metrics = fn(hx, *experts, mesh=sharding.current_mesh(),
+                              top_k=config.moe_top_k)
         else:
+            require_run_moe(config)
             out, metrics = moe_lib.moe_mlp(
                 hx, *experts, top_k=config.moe_top_k,
                 capacity_factor=config.capacity_factor)
@@ -402,14 +461,69 @@ def unembed(config: TpuLMConfig, params, x):
 
 def default_attention_fn(device):
     """Attention for contiguous-position causal attention on ``device``:
-    the flash kernels (B1/B2) on a CUDA device; ``None`` elsewhere,
-    which ``transformer_layer`` reads as the plain
+    ring attention over the current mesh's sp axis when it is above one
+    rank; else the flash kernels (B1/B2) on a CUDA device and ``None``
+    elsewhere, which ``transformer_layer`` reads as the plain
     ``dot_product_attention``."""
+    mesh = sharding.current_mesh()
+    if mesh is not None and sharding.axis_size("sp", mesh) > 1:
+        from dlrover_tpu_torch.ops.ring_attention import make_ring_attention
+
+        return make_ring_attention(mesh)
     if torch.device(device).type != "cuda":
         return None
     from dlrover_tpu_torch.ops.flash_attention import make_flash_attention
 
     return make_flash_attention()
+
+
+_LITE_KEYS = ("attn_norm", "wq", "wk", "wv")
+
+
+class _AttnBlockLite(torch.autograd.Function):
+    """Norm + qkv projections + RoPE + flash attention (B1) as one
+    differentiable unit whose saved tensors are (p, x, out, lse), not
+    (q, k, v, out, lse): the backward re-derives q/k/v from x (the
+    projections' recompute the flanks already pay) and feeds B2 the
+    saved out and lse, so the flash forward never re-runs. This is what
+    keeps the ``attn_save`` policy's saved state small at 64k tokens."""
+
+    @staticmethod
+    def forward(ctx, config, positions, x, *ws):
+        from dlrover_tpu_torch.ops.flash_attention import flash_forward
+
+        q, k, v = attention_qkv(config, dict(zip(_LITE_KEYS, ws)), x,
+                                positions)
+        out, lse = flash_forward(q, k, v, causal=True)
+        ctx.config, ctx.positions = config, positions
+        ctx.save_for_backward(x, out, lse, *ws)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from dlrover_tpu_torch.ops import flash_attention as fa
+
+        x, out, lse, *ws = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in [x] + ws]
+            q, k, v = attention_qkv(
+                ctx.config, dict(zip(_LITE_KEYS, inputs[1:])), inputs[0],
+                ctx.positions)
+        g = g.contiguous()
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        delta = fa.flash_backward_delta(g, out)
+        dq = fa.flash_backward_dq(qd, kd, vd, g, lse, delta, True)
+        dk, dv = fa.flash_backward_dkv(qd, kd, vd, g, lse, delta, True)
+        grads = torch.autograd.grad((q, k, v), inputs, (dq, dk, dv),
+                                    allow_unused=True)
+        return (None, None) + tuple(grads)
+
+
+def attn_block_lite(config: TpuLMConfig, p, x, positions):
+    """The lite block's attention output ``[b, s, h, hd]`` (see
+    :class:`_AttnBlockLite`)."""
+    return _AttnBlockLite.apply(config, positions, x,
+                                *(p[k] for k in _LITE_KEYS))
 
 
 def transformer_layer(config: TpuLMConfig, p, x, positions,
@@ -459,7 +573,9 @@ def run_layer_stack(config: TpuLMConfig, layer_params, x, positions,
       flash op): the attention call stays outside checkpointing, so its
       forward kernel runs once per layer; the qkv and out+MLP flanks
       are checkpointed saving their matrix products;
-    - ``attn_save``: the same escape with fully recomputed flanks;
+    - ``attn_save``: the same escape with fully recomputed flanks; with
+      the plain flash op (``is_plain_flash``) the norm, projections,
+      RoPE and attention run as the lite block (:class:`_AttnBlockLite`);
     - ``dots``: the whole layer checkpointed, saving matrix products;
     - ``full``: the whole layer checkpointed, saving nothing.
     Other attention functions demote ``mlp_only``/``attn_save`` to
@@ -477,6 +593,7 @@ def run_layer_stack(config: TpuLMConfig, layer_params, x, positions,
             for k, v in layer_params.items()
         }
     n_layers = next(iter(layer_params.values())).shape[0]
+    expert_kw = _expert_local_kw(config)
 
     attn_escapes = (
         config.remat
@@ -491,11 +608,19 @@ def run_layer_stack(config: TpuLMConfig, layer_params, x, positions,
             return mlp_block(config, p, attention_out(config, p, attn,
                                                       residual))
 
-        def body(x, p):
-            q, k, v = _remat(qkv, flank_dots, p, x, positions)
-            attn = attention_fn(q, k, v, causal=True, q_positions=positions,
-                                kv_positions=positions)
-            return _remat(out_mlp, flank_dots, p, attn, x)
+        if config.remat_policy == "attn_save" and getattr(
+                attention_fn, "is_plain_flash", False):
+            def body(x, p):
+                attn = attn_block_lite(config, p, x, positions)
+                return _remat(out_mlp, False, p, attn, x)
+
+        else:
+            def body(x, p):
+                q, k, v = _remat(qkv, flank_dots, p, x, positions)
+                attn = attention_fn(q, k, v, causal=True,
+                                    q_positions=positions,
+                                    kv_positions=positions)
+                return _remat(out_mlp, flank_dots, p, attn, x)
 
     else:
         def layer(x, p):
@@ -512,29 +637,45 @@ def run_layer_stack(config: TpuLMConfig, layer_params, x, positions,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_layers):
-        x, aux = body(x, {k: local_param(w, i)
-                          for k, w in layer_params.items()})
+        x, aux = body(x, {
+            k: local_param(w, i, **(expert_kw if k in _EXPERT_KEYS else {}))
+            for k, w in layer_params.items()})
         aux_total = aux_total + aux
     return x, aux_total
 
 
 def forward_hidden(config: TpuLMConfig, params, tokens, positions=None,
                    attention_fn=None):
-    """Forward up to (but excluding) the final norm and unembedding.
-    Returns (hidden [b, s, d], aux scalar).
+    """Forward up to (but excluding) the final norm and unembedding, over
+    the flat layer stack (``pp_stages`` 1; :func:`forward` runs the
+    pipeline). Returns (hidden [b, s, d], aux scalar).
 
     With neither ``attention_fn`` nor ``positions`` given (contiguous
-    [0..s) positions), the attention is ``default_attention_fn`` of the
-    tokens' device: the flash kernels on the card."""
-    require_flat_stack(config)
+    positions), the attention is ``default_attention_fn`` of the tokens'
+    device: the flash kernels on the card, ring attention under an sp
+    mesh, whose ranks each hold a chunk at :func:`default_positions`."""
+    if config.pp_stages > 1:
+        raise ValueError("forward_hidden runs the flat layer stack; "
+                         "pp_stages > 1 runs through forward()")
     if attention_fn is None and positions is None:
         attention_fn = default_attention_fn(tokens.device)
-    b, s = tokens.shape
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        positions = default_positions(tokens)
     x = embed_tokens(config, params, tokens)
     return run_layer_stack(config, params["layers"], x, positions,
                            attention_fn)
+
+
+def default_positions(tokens: torch.Tensor) -> torch.Tensor:
+    """Global positions ``[b, s]`` of ``tokens``: ``[0..s)``, or under an
+    sp mesh this rank's contiguous chunk of the sequence (rank ``r`` of
+    sp holds ``[r * s, (r + 1) * s)``)."""
+    b, s = tokens.shape
+    offset = 0
+    mesh = sharding.current_mesh()
+    if mesh is not None and sharding.axis_size("sp", mesh) > 1:
+        offset = mesh.get_local_rank("sp") * s
+    return (torch.arange(s, device=tokens.device) + offset).expand(b, s)
 
 
 def forward(
@@ -545,7 +686,17 @@ def forward(
     attention_fn=None,
 ):
     """Teacher-forced forward. Returns (logits [b, s, vocab] f32,
-    aux_loss scalar). Attention as in :func:`forward_hidden`."""
+    aux_loss scalar). Attention as in :func:`forward_hidden`. Under
+    ``pp_stages > 1`` the pipeline runs (``trainer/pipeline.py``); on a
+    pp mesh only the rank of the last stage has logits, the others
+    return None."""
+    if config.pp_stages > 1:
+        if attention_fn is None and positions is None:
+            attention_fn = default_attention_fn(tokens.device)
+        from dlrover_tpu_torch.trainer.pipeline import pipelined_forward
+
+        return pipelined_forward(config, params, tokens, positions,
+                                 attention_fn)
     x, aux = forward_hidden(config, params, tokens, positions, attention_fn)
     return unembed(config, params, x), aux
 
@@ -647,6 +798,11 @@ def loss_fn(config: TpuLMConfig, params, batch, attention_fn=None):
     else:
         logits, aux = forward(config, params, tokens,
                               attention_fn=attention_fn)
-        ce = cross_entropy(logits, targets, batch.get("mask"))
+        if logits is None:
+            # A pipeline rank without the last stage: its share of the
+            # loss is its stages' aux (see trainer/pipeline.py).
+            ce = torch.zeros((), dtype=torch.float32, device=aux.device)
+        else:
+            ce = cross_entropy(logits, targets, batch.get("mask"))
     loss = ce + config.moe_aux_weight * aux
     return loss, {"ce": ce, "aux": aux}

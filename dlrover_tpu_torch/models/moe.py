@@ -1,5 +1,6 @@
 """Mixture-of-Experts MLP: GShard one-hot dispatch and a dropless
-sorted grouped path (port of ``dlrover_tpu/models/moe.py``, one device).
+sorted grouped path, on one device or a mesh (port of
+``dlrover_tpu/models/moe.py``).
 
 - **gshard** (:func:`moe_mlp`): one-hot einsum dispatch with per-expert
   capacity; over-capacity tokens are dropped (the residual carries
@@ -14,9 +15,27 @@ sorted grouped path (port of ``dlrover_tpu/models/moe.py``, one device).
 Routing follows the reference's ties: ``jax.lax.top_k`` puts the lower
 expert first on equal probabilities, which a stable descending sort
 gives (``torch.topk`` leaves the order of ties undefined), and
-``torch.argmax`` takes the first maximum as ``jnp.argmax`` does. The
-sharded and expert-parallel dropless variants wait for the multi-GPU
-slice.
+``torch.argmax`` takes the first maximum as ``jnp.argmax`` does.
+
+On a mesh (``parallel.sharding.use_mesh``) each rank holds its own
+tokens:
+
+- **dropless sharded** (:func:`moe_mlp_dropless_sharded`, ep == 1): every
+  rank holds every expert and runs :func:`_dropless_core` on its tokens;
+- **dropless under ep** (:func:`moe_mlp_dropless_ep`): each rank holds
+  ``e / ep`` experts. It routes its tokens, ships each copy to the rank
+  of its expert in one ``all_to_all_single`` over the ep group sized by
+  the actual routing (:func:`_exchange`, the ragged exchange of the
+  reference's TPU branch), runs :func:`ep_expert_body` (B7/B8 on the
+  exchange layout) on what it received, and ships the results home
+  through the mirrored exchange. The split sizes are host integers: one
+  device-to-host read of the counts a layer call.
+
+The router's load-balance and z losses are global over the ranks that
+hold distinct tokens (the batch axes and sp): ``aux = e * sum(frac_tokens
+* mean_probs)`` is a product of two global means, so both means are
+averaged over those ranks before the product, the gradient flowing back
+through the average (``sharding.mean_over_shares``).
 """
 
 from typing import NamedTuple
@@ -27,6 +46,7 @@ import torch.nn.functional as F
 from dlrover_tpu_torch.common.env_utils import resolve_env_choice
 from dlrover_tpu_torch.ops import moe_dispatch as md
 from dlrover_tpu_torch.ops.fused_ce import _mm_f32
+from dlrover_tpu_torch.parallel import sharding
 
 
 class MoEMetrics(NamedTuple):
@@ -82,6 +102,7 @@ def moe_mlp(x, router_w, w_gate, w_up, w_down, top_k: int = 2,
         combine = combine + (gate[..., None, None] * onehot[..., None]
                              * pos_onehot[:, :, None, :])
         used = used + (onehot * fits[..., None]).sum(dim=1).long()
+    dropped = sharding.mean_over_shares(dropped.detach())
 
     # Renormalize the kept gates so they sum to 1 per token (when any).
     denom = combine.sum(dim=(-2, -1), keepdim=True)
@@ -102,14 +123,18 @@ def moe_mlp(x, router_w, w_gate, w_up, w_down, top_k: int = 2,
 
 
 def _router_losses(router_logits, probs):
+    """(aux, z) over the whole batch: under a mesh the per-rank means
+    (top-1 fractions, mean probabilities, mean squared log-sum-exp) are
+    averaged over the ranks holding distinct tokens in one reduction."""
     e = probs.shape[-1]
     top1 = F.one_hot(torch.argmax(probs, dim=-1), e).float()
     lead = tuple(range(top1.ndim - 1))
-    frac_tokens = top1.mean(dim=lead)
-    mean_probs = probs.mean(dim=lead)
-    aux = e * (frac_tokens * mean_probs).sum()
     z = torch.logsumexp(router_logits, dim=-1).square().mean()
-    return aux, z
+    stats = sharding.mean_over_shares(torch.cat(
+        [top1.mean(dim=lead), probs.mean(dim=lead), z[None]]))
+    frac_tokens, mean_probs = stats[:e], stats[e:2 * e]
+    aux = e * (frac_tokens * mean_probs).sum()
+    return aux, stats[2 * e]
 
 
 def _top_k(probs, k: int):
@@ -234,5 +259,181 @@ def moe_mlp_dropless(x, router_w, w_gate, w_up, w_down, top_k: int = 2,
     b, s, d = x.shape
     out = _dropless_core(x.reshape(b * s, d), router_w, w_gate, w_up,
                          w_down, top_k, dispatch=dispatch)
+    return (out.to(x.dtype).reshape(b, s, d),
+            _global_router_metrics(x, router_w))
+
+
+def moe_mlp_dropless_sharded(x, router_w, w_gate, w_up, w_down, mesh,
+                             top_k: int = 2, dispatch=None):
+    """Dropless MoE on a mesh without expert parallelism: every rank holds
+    every expert (``w_*`` whole) and routes and computes its own tokens
+    ``x [b_local, s_local, d]`` with :func:`_dropless_core`; the router
+    losses are global. ``mesh`` is the reference's argument (the groups
+    come from the current mesh)."""
+    b, s, d = x.shape
+    out = _dropless_core(x.reshape(b * s, d), router_w, w_gate, w_up,
+                         w_down, top_k, dispatch=dispatch)
+    return (out.to(x.dtype).reshape(b, s, d),
+            _global_router_metrics(x, router_w))
+
+
+class _Exchange(torch.autograd.Function):
+    """``all_to_all_single`` of ``rows`` over ``group`` with host split
+    sizes; the backward runs the mirrored exchange."""
+
+    @staticmethod
+    def forward(ctx, rows, send, recv, group):
+        import torch.distributed as dist
+
+        ctx.send, ctx.recv, ctx.group = send, recv, group
+        out = rows.new_empty((sum(recv),) + tuple(rows.shape[1:]))
+        dist.all_to_all_single(out, rows.contiguous(), recv, send,
+                               group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        out = g.new_empty((sum(ctx.send),) + tuple(g.shape[1:]))
+        dist.all_to_all_single(out, g.contiguous(), ctx.send, ctx.recv,
+                               group=ctx.group)
+        return out, None, None, None
+
+
+def _exchange(rows, sizes_mat, me: int, group, reverse: bool = False):
+    """One ragged all-to-all hop of ``rows`` over the ep group.
+
+    ``sizes_mat[src][dst]`` (host ints, the same on every rank) counts
+    the rows ``src`` ships to ``dst``. Each rank sends its chunks in
+    destination order and receives them in source order (the reference's
+    source-major layout, without its capacity padding: the buffers are
+    sized by the routing). ``reverse=True`` runs the mirrored exchange
+    (processed rows travel home). A group of one rank is the identity."""
+    if reverse:
+        sizes_mat = [list(col) for col in zip(*sizes_mat)]
+    send = [int(n) for n in sizes_mat[me]]
+    recv = [int(row[me]) for row in sizes_mat]
+    if group is None:
+        return rows
+    return _Exchange.apply(rows, send, recv, group)
+
+
+def ep_cap_rows(n_local: int, ep: int, top_k: int) -> int:
+    """Rows of the expert body's buffer on one ep rank: every copy of the
+    ep row of ranks could land on it (``ep * n_local * top_k``), rounded
+    up to 128 as the reference sizes its receive buffer."""
+    cap = ep * n_local * top_k
+    return (cap + 127) // 128 * 128
+
+
+def ep_expert_body(recv, counts, e_loc: int, cap_rows: int, w_gu, w_down,
+                   dispatch=None, plain: bool = False):
+    """The expert side of the ep exchange on one rank: ``recv [n_recv,
+    d]`` holds the rows every source rank sent, source-major and within a
+    source by local expert, ``counts[src][j]`` (host ints) how many rows
+    source ``src`` sent to local expert ``j``. The rows are padded to
+    ``cap_rows`` with sentinel rows (expert ``e_loc``, which get no slot)
+    and run through the local experts ``w_gu [e_loc, d, 2f]`` (gate|up)
+    and ``w_down [e_loc, f, d]``: "fused" is ``grouped_ffn`` over
+    ``build_dispatch_layout(row_expert, e_loc, tile_m, 1)`` (B7 forward,
+    B8 backward on the card; ``plain`` runs their plain versions), "gmm"
+    the per-expert matmul loop over the rows sorted by expert. Returns
+    the ``[n_recv, d]`` results in ``recv``'s order."""
+    n_recv, d = recv.shape
+    cdt = recv.dtype
+    dispatch = dispatch or _dispatch_impl()
+    ep = len(counts)
+    flat_counts = [int(c) for row in counts for c in row]
+    if sum(flat_counts) != n_recv or n_recv > cap_rows:
+        raise ValueError(
+            f"{n_recv} received rows against counts {flat_counts} and "
+            f"cap_rows {cap_rows}")
+    rows = torch.cat([recv, recv.new_zeros((cap_rows - n_recv, d))])
+    seg = torch.arange(e_loc, device=recv.device).repeat(ep)
+    row_expert = torch.cat([
+        torch.repeat_interleave(
+            seg, torch.tensor(flat_counts, device=recv.device),
+            output_size=n_recv),
+        torch.full((cap_rows - n_recv,), e_loc, dtype=seg.dtype,
+                   device=recv.device)])
+    if dispatch == "fused":
+        tm = md.default_tile_m(cap_rows)
+        row_ids, dest_ids, tile_expert = md.build_dispatch_layout(
+            row_expert, e_loc, tm, 1)
+        ys = md.grouped_ffn(rows, w_gu, w_down, row_ids, dest_ids,
+                            tile_expert, cap_rows, 1, tm, plain=plain)
+        return ys.to(cdt)[:n_recv]
+    order = torch.argsort(row_expert, stable=True)
+    inv = torch.argsort(order)
+    xs = _PermuteRows.apply(rows, order, inv)
+    sizes = [sum(flat_counts[j::e_loc]) for j in range(e_loc)]
+    sizes[-1] += cap_rows - n_recv       # the zero pad rows, zero outputs
+    f = w_down.shape[1]
+    hu = _grouped_matmul(xs, w_gu, sizes)
+    a = (F.silu(hu[:, :f]) * hu[:, f:]).to(cdt)
+    ys = _grouped_matmul(a, w_down, sizes).to(cdt)
+    return _PermuteRows.apply(ys, inv, order)[:n_recv]
+
+
+def moe_mlp_dropless_ep(x, router_w, w_gate, w_up, w_down, mesh,
+                        top_k: int = 2, axis_name: str = "ep",
+                        dispatch=None):
+    """Dropless MoE under expert parallelism. ``x [b_local, s_local, d]``
+    are this rank's tokens, ``router_w`` whole, ``w_*`` this ep rank's
+    ``e / ep`` experts (their expert dim sharded over ``axis_name``,
+    every other dim whole).
+
+    Route the local tokens, sort the ``top_k`` copies by expert (which
+    groups them by destination rank), ship them with :func:`_exchange`
+    (split sizes from an all-gather of every rank's per-expert counts),
+    run :func:`ep_expert_body` on the received rows, ship the results
+    home through the mirrored exchange, unsort, and combine the copies
+    by their gates. Nothing is dropped."""
+    import torch.distributed as dist
+
+    b, s, d = x.shape
+    e = router_w.shape[-1]
+    ep = sharding.axis_size(axis_name, mesh)
+    if e % ep:
+        raise ValueError(f"{e} experts not divisible by ep={ep}")
+    e_loc = e // ep
+    if w_gate.shape[0] != e_loc:
+        raise ValueError(
+            f"expert weights hold {w_gate.shape[0]} experts; the ep shard "
+            f"of {e} over {ep} ranks is {e_loc}")
+    me = mesh.get_local_rank(axis_name) if ep > 1 else 0
+    group = mesh.get_group(axis_name) if ep > 1 else None
+    cdt = x.dtype
+    n_loc = b * s
+    m_loc = n_loc * top_k
+    xf = x.reshape(n_loc, d)
+
+    probs = torch.softmax(_router_logits(xf, router_w), dim=-1)
+    gates, experts = _top_k(probs, top_k)
+    gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    flat_expert = experts.reshape(m_loc)
+    order = torch.argsort(flat_expert, stable=True)
+    inv_order = torch.argsort(order)
+    xs = _GatherDispatch.apply(xf, order, inv_order, top_k)   # [m_loc, d]
+    counts = torch.zeros(e, dtype=torch.long, device=x.device)
+    counts.scatter_add_(0, flat_expert, torch.ones_like(flat_expert))
+    if group is not None:
+        gathered = counts.new_empty((ep * e,))
+        dist.all_gather_into_tensor(gathered, counts, group=group)
+        counts = gathered
+    # The one host read of the layer: the exchange's split sizes.
+    counts_all = counts.reshape(ep, ep, e_loc).tolist()   # [src][dst][j]
+    sizes_mat = [[sum(c) for c in row] for row in counts_all]
+
+    w_gu = torch.cat([w_gate.to(cdt), w_up.to(cdt)], dim=-1)
+    recv = _exchange(xs.to(cdt), sizes_mat, me, group)
+    ys = ep_expert_body(recv, [row[me] for row in counts_all], e_loc,
+                        ep_cap_rows(n_loc, ep, top_k), w_gu,
+                        w_down.to(cdt), dispatch)
+    back = _exchange(ys, sizes_mat, me, group, reverse=True)
+    out_tok = _PermuteRows.apply(back, inv_order, order)
+    out = (out_tok.reshape(n_loc, top_k, d).float()
+           * gates[:, :, None]).sum(dim=1)
     return (out.to(x.dtype).reshape(b, s, d),
             _global_router_metrics(x, router_w))

@@ -14,13 +14,25 @@ tensors (``jax.shard_map``'s view of the same layout):
 
 - :func:`local_param` turns a param (a :class:`ShardedParam`: a DTensor's
   local shard and its placements) into the local tensor a layer
-  computes with: its dp-sharded (FSDP) dims gathered, its tp shards
-  kept. Its backward reduce-scatters the gradient over dp and sums it
-  over the other batch axes.
+  computes with: its dims sharded off tp gathered (all-gather over dp,
+  and over ep where the experts are not kept local), its tp shards
+  kept. Its backward reduce-scatters the gradient over the gathered
+  axes and sums it over the batch axes and sp where the param is
+  replicated (each of those ranks holds a share of the loss). The
+  expert-parallel MoE keeps its experts' ep shard local
+  (``keep=("ep",)``) and gathers their tp shard
+  (``gather_tp=True``): every tp rank runs the whole expert FFN.
+- :func:`stage_param` takes one pipeline stage of a layer param whose
+  stage dim is sharded over pp: the stage is this rank's own, so no
+  collective runs over pp (the pipeline sums the gradients of the
+  params replicated over pp, embedding and unembedding, in the train
+  step).
 - :func:`copy_to_tp` and :func:`reduce_from_tp` are the two collectives
   of tensor parallelism: the input of a column-parallel product (its
   gradient summed over tp) and the output of a row-parallel one (summed
-  over tp in the forward).
+  over tp in the forward); :func:`mean_over_shares` averages a
+  statistic over the ranks that hold distinct tokens (the MoE router's
+  global means), its gradient summed back.
 
 ``use_mesh(mesh)`` takes the place of ``with mesh:``; outside it every
 helper here is an identity, so the one-device path is unchanged.
@@ -35,6 +47,13 @@ import torch
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
 BATCH_AXES = ("dcn", "dp", "ep")
+# Axes whose ranks hold distinct tokens of a micro-batch: the batch axes
+# and sp (a contiguous chunk of every sequence). A param replicated over
+# one of them has its gradient summed over it.
+SHARE_AXES = BATCH_AXES + ("sp",)
+# Placement of a mesh dim whose shard a layer keeps as it is: a pipeline
+# stage taken by stage_param (its own over pp, nothing to reduce).
+LOCAL = "local"
 
 # logical axis -> mesh axis (or tuple of mesh axes): the reference's.
 DEFAULT_RULES: Tuple[Tuple[str, MeshAxes], ...] = (
@@ -252,14 +271,18 @@ def local_shard(p):
         return p.to_local()
 
 
-def local_param(p, index: Optional[int] = None):
+def local_param(p, index: Optional[int] = None, keep: Sequence[str] = (),
+                gather_tp: bool = False):
     """The local tensor a layer computes with, from a param ``p``.
 
     A plain tensor is returned as it is (``p[index]``). A
     :class:`ShardedParam` is indexed on its leading (unsharded layer)
-    dim and its dims sharded off tp are gathered (all-gather over dp):
-    the gradient flows back reduce-scattered over dp and summed over the
-    other batch axes it is replicated on."""
+    dim; its dims sharded over a mesh axis other than tp and not in
+    ``keep`` are gathered (backward: the gradient reduce-scattered), and
+    over each of :data:`SHARE_AXES` it is replicated on its gradient is
+    summed. Its tp shards are kept, or with ``gather_tp`` gathered with a
+    backward that keeps this rank's slice (the tp ranks compute the same
+    gradient of the whole tensor)."""
     from torch.distributed.tensor import Shard
 
     if not isinstance(p, ShardedParam):
@@ -273,14 +296,37 @@ def local_param(p, index: Optional[int] = None):
                   for pl in places]
     for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, places)):
         n = mesh.size(i)
-        if n == 1 or name == "tp":
+        if n == 1 or pl is LOCAL or name in keep:
+            continue
+        if name == "tp":
+            if gather_tp and isinstance(pl, Shard):
+                local = _GatherReplicated.apply(
+                    local, mesh.get_group(name), pl.dim, n,
+                    mesh.get_local_rank(name))
             continue
         if isinstance(pl, Shard):
             local = _GatherShard.apply(local, mesh.get_group(name), pl.dim,
                                        n)
-        elif name in BATCH_AXES:
+        elif name in SHARE_AXES:
             local = _CopyToGroup.apply(local, mesh.get_group(name))
     return local
+
+
+def stage_param(p, stage: int):
+    """Stage ``stage`` (an index into this rank's own stages) of a layer
+    param stored ``[stages, layers_per_stage, ...]``: a plain tensor's
+    ``p[stage]``; a :class:`ShardedParam`'s local ``[stage]`` with its pp
+    placement :data:`LOCAL`, so :func:`local_param` leaves pp alone."""
+    from torch.distributed.tensor import Shard
+
+    if not isinstance(p, ShardedParam):
+        return p[stage]
+    places = []
+    for pl in p.placements:
+        if isinstance(pl, Shard):
+            pl = LOCAL if pl.dim == 0 else Shard(pl.dim - 1)
+        places.append(pl)
+    return ShardedParam(p.local[stage], p.mesh, places)
 
 
 class _GatherShard(torch.autograd.Function):
@@ -304,6 +350,21 @@ class _GatherShard(torch.autograd.Function):
         out = src.new_empty((src.shape[0] // ctx.n,) + src.shape[1:])
         dist.reduce_scatter_tensor(out, src, group=ctx.group)
         return out.movedim(0, ctx.dim), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """All-gather along ``dim`` forward; backward keeps this rank's slice
+    of the gradient, which every rank of the group computed whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, n, rank):
+        ctx.dim, ctx.n, ctx.rank = dim, n, rank
+        return _GatherShard.forward(ctx, x, group, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(ctx.n, dim=ctx.dim)[ctx.rank].contiguous(), None,
+                None, None, None)
 
 
 def _group(name: str):
@@ -372,24 +433,63 @@ def max_over_tp(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """Sum over the group forward and backward: the autograd-true
+    all-reduce of a partial sum whose consumers on every rank hold
+    shares of the loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def share_groups(mesh=None):
+    """Process groups of the current mesh's :data:`SHARE_AXES` above one
+    rank (an empty list without a mesh)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    if mesh is None:
+        return []
+    return [mesh.get_group(a) for a in SHARE_AXES if axis_size(a, mesh) > 1]
+
+
+def share_count(mesh=None) -> int:
+    """How many ranks hold distinct tokens of one micro-batch: the
+    product of the :data:`SHARE_AXES` sizes (1 without a mesh)."""
+    mesh = mesh if mesh is not None else current_mesh()
+    n = 1
+    for a in SHARE_AXES:
+        n *= axis_size(a, mesh)
+    return n
+
+
+def mean_over_shares(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a per-rank mean over the ranks of :func:`share_groups`
+    (each holds as many tokens), differentiable: the global mean of a
+    statistic the reference computes over the whole batch."""
+    groups = share_groups()
+    for group in groups:
+        x = _SumOverGroup.apply(x, group)
+    return x / share_count() if groups else x
+
+
 def tp_rank() -> int:
     mesh = current_mesh()
     if mesh is None:
         return 0
     return mesh.get_local_rank("tp")
-
-
-def require_dense_mesh(mesh, what: str = "this path") -> None:
-    """Raise for the mesh cases the port has not ported: sp > 1 (ring
-    attention, ROADMAP item 9) and pp > 1 (the pipeline, item 11)."""
-    if axis_size("sp", mesh) > 1:
-        raise NotImplementedError(
-            f"{what}: an sp axis > 1 needs ring attention, not ported yet "
-            "(ROADMAP item 9)")
-    if axis_size("pp", mesh) > 1:
-        raise NotImplementedError(
-            f"{what}: a pp axis > 1 needs the pipeline, not ported yet "
-            "(ROADMAP item 11)")
 
 
 def batch_index(mesh) -> Tuple[int, int]:

@@ -100,7 +100,7 @@ class ServingEngine:
         spec_draft_layers: int = 2,
         device="cuda",
     ):
-        llama.require_flat_stack(config)
+        llama.require_flat_stack(config, "serving")
         if max_len % 8:
             raise ValueError("max_len must be a multiple of 8")
         if max_len % prefill_chunk:

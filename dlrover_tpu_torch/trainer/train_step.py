@@ -20,13 +20,19 @@ DTensors laid out by ``state_specs`` (the reference's: params by
 ``llama.param_axes`` and the rule table, FSDP over dp and TP over tp;
 Adam's moments inherit the param specs, counts replicated), and the
 step splits each micro-batch's rows over the batch axes ("dcn", "dp",
-"ep"). Each rank computes its rows on local tensors
-(``parallel.sharding``); the loss and the metrics are the global means,
-the grad norm counts each element once, and clipping and AdamW run on
-the local shards. A world of one runs the same code with every
-collective an identity. An sp axis above 1 (ring attention, ROADMAP
-item 9), pipeline stages (item 11) and MoE on more than one rank
-(item 7) raise ``NotImplementedError``.
+"ep") and, under sp, each sequence into contiguous chunks over sp (the
+attention is then ring attention, as the reference's step picks it).
+Each rank computes its tokens on local tensors (``parallel.sharding``)
+and differentiates its share of the global loss: its tokens' mean over
+the number of ranks holding distinct tokens (batch axes times sp), and
+under a pp axis only the rank of the last stage holds the CE
+(``trainer/pipeline.py``). The gradients of params replicated over pp
+(embedding, unembedding, final norm) are summed over pp after the
+backward. The loss and the metrics are the global means, the grad norm
+counts each element once, and clipping and AdamW run on the local
+shards. A world of one runs the same code with every collective an
+identity. A pp axis above 1 without pipeline stages raises
+``NotImplementedError`` (ROADMAP §A, cases the port refuses).
 """
 
 import dataclasses
@@ -191,13 +197,14 @@ def batch_spec(rules=DEFAULT_RULES):
 
 
 def _require_mesh_path(config: llama.TpuLMConfig, mesh) -> None:
-    llama.require_flat_stack(config)
-    sharding.require_dense_mesh(mesh, "the sharded train step")
-    if config.n_experts > 0 and mesh.size() > 1:
+    """Raise for the mesh cases the port refuses (ROADMAP §A)."""
+    if sharding.axis_size("pp", mesh) > 1 and config.pp_stages == 1:
         raise NotImplementedError(
-            "MoE on a mesh of more than one rank (the sharded and "
-            "expert-parallel dropless MoE) is not ported yet (ROADMAP "
-            "item 7)")
+            "a pp axis above 1 with pp_stages 1: every pp rank would run "
+            "the whole stack as a replica (ROADMAP §A, cases the port "
+            "refuses); set pp_stages to a multiple of pp")
+    with sharding.use_mesh(mesh):
+        llama.require_run_moe(config)
 
 
 def shard_params(config: llama.TpuLMConfig, params, mesh,
@@ -222,7 +229,6 @@ def init_train_state(config: llama.TpuLMConfig, optimizer: Optimizer,
     params are full tensors, the same on every rank (from one seed),
     or DTensors already laid out by ``state_specs``; each rank keeps its
     slices as DTensors on ``mesh``."""
-    llama.require_flat_stack(config)
     if mesh is not None:
         from torch.distributed.tensor import DTensor
 
@@ -315,6 +321,72 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+class _MeshSplit:
+    """How a micro-batch's tokens split over a mesh: rows over the batch
+    axes, each sequence into contiguous chunks over sp. ``shares`` ranks
+    hold distinct tokens; each tp rank holds the same ones."""
+
+    def __init__(self, mesh, local_batch: bool):
+        self.b_idx, self.b_count = sharding.batch_index(mesh)
+        self.sp = sharding.axis_size("sp", mesh)
+        self.sp_idx = mesh.get_local_rank("sp") if self.sp > 1 else 0
+        self.shares = self.b_count * self.sp
+        self.tp = sharding.axis_size("tp", mesh)
+        self.local_batch = local_batch
+
+    def local(self, batch: Dict[str, torch.Tensor]):
+        """This rank's rows of ``batch`` (all of them with
+        ``local_batch``) and its chunk of each sequence: ``tokens [rows,
+        s + 1]`` gives ``[rows / batch ranks, s / sp + 1]``, the chunk's
+        inputs and its next-token targets."""
+        tokens = batch["tokens"]
+        out = dict(batch)
+        if not self.local_batch:
+            rows = tokens.shape[0]
+            if rows % self.b_count:
+                raise ValueError(f"micro-batch {rows} not divisible by the "
+                                 f"{self.b_count} batch ranks")
+            per = rows // self.b_count
+            out = {k: v[self.b_idx * per:(self.b_idx + 1) * per]
+                   for k, v in out.items()}
+        if self.sp > 1:
+            s = out["tokens"].shape[1] - 1
+            if s % self.sp:
+                raise ValueError(
+                    f"sequence {s} not divisible by sp={self.sp}")
+            sl = s // self.sp
+            lo = self.sp_idx * sl
+            out["tokens"] = out["tokens"][:, lo:lo + sl + 1]
+            if "mask" in out:
+                out["mask"] = out["mask"][:, lo:lo + sl]
+        return out
+
+    def global_mean(self, share: torch.Tensor) -> torch.Tensor:
+        """The global value from this rank's share of it: the sum over
+        the world, each tp rank holding the same share."""
+        import torch.distributed as dist
+
+        share = share.clone()
+        dist.all_reduce(share)
+        return share / self.tp
+
+
+def _sum_grads_over_pp(params, grads, mesh) -> None:
+    """Sum over pp the gradients of the params replicated over pp (each
+    pp rank holds the gradient of its own stages' use of them), in
+    place."""
+    from torch.distributed.tensor import Replicate
+    import torch.distributed as dist
+
+    if sharding.axis_size("pp", mesh) == 1:
+        return
+    group = mesh.get_group("pp")
+    dim = mesh.mesh_dim_names.index("pp")
+    for p, g in zip(param_leaves(params), grads):
+        if isinstance(p.placements[dim], Replicate):
+            dist.all_reduce(g, group=group)
+
+
 def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
                     optimizer: Optimizer, device="cuda",
                     loss_fn: Optional[Callable] = None, mesh=None,
@@ -327,16 +399,25 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
 
     With ``mesh`` (the state from ``init_train_state(..., mesh=mesh)``;
     the device is the mesh's) every rank passes the global batch and
-    takes its rows of each micro-batch, or with ``local_batch`` passes
-    only its own rows ``[grad_accum * micro_batch / batch ranks, seq +
-    1]``. The loss runs under ``use_mesh(mesh)``."""
+    takes its rows of each micro-batch and, under sp, its chunk of each
+    sequence; with ``local_batch`` it passes only its own rows
+    ``[grad_accum * micro_batch / batch ranks, seq + 1]``. The loss runs
+    under ``use_mesh(mesh)``, through ring attention when sp > 1."""
+    attention_fn = None
     if mesh is not None:
         _require_mesh_path(config, mesh)
         device = _mesh_device(mesh)
-        b_idx, b_count = sharding.batch_index(mesh)
+        split = _MeshSplit(mesh, local_batch)
+        if split.sp > 1:
+            from dlrover_tpu_torch.ops.ring_attention import (
+                make_ring_attention,
+            )
+
+            attention_fn = make_ring_attention(mesh)
     device = torch.device(device)
     _loss = loss_fn or (
-        lambda params, batch: llama.loss_fn(config, params, batch)
+        lambda params, batch: llama.loss_fn(config, params, batch,
+                                            attention_fn=attention_fn)
     )
 
     def single_grad(params, leaves, micro):
@@ -344,34 +425,25 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
             loss, _ = _loss(params, micro)
             return loss.detach(), torch.autograd.grad(loss, leaves)
         params = local_view(params)
-        if not local_batch:
-            rows = micro["tokens"].shape[0]
-            if rows % b_count:
-                raise ValueError(f"micro-batch {rows} not divisible by the "
-                                 f"{b_count} batch ranks")
-            per = rows // b_count
-            micro = {"tokens": micro["tokens"][b_idx * per:
-                                               (b_idx + 1) * per]}
+        micro = split.local(micro)
         with sharding.use_mesh(mesh):
             loss, _ = _loss(params, micro)
-            if b_count > 1:
-                # This rank's share of the global mean: the rows split
+            if split.shares > 1:
+                # This rank's share of the global mean: the tokens split
                 # evenly, so the mean of the ranks' means.
-                loss = loss / b_count
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), grads
+                loss = loss / split.shares
+            # A pp rank uses only its own stages' params (and the
+            # embedding or unembedding where its stages need them).
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
 
     def mean_loss(loss):
         """The global mean from this rank's share (world of one: as
         is)."""
         if mesh is None or mesh.size() == 1:
             return loss
-        import torch.distributed as dist
-
-        loss = loss.clone()
-        dist.all_reduce(loss)
-        # Every rank off the batch axes (tp) holds the same share.
-        return loss / (mesh.size() // b_count)
+        return split.global_mean(loss)
 
     def step(state, batch):
         params = state["params"]
@@ -399,6 +471,8 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
             loss, g_1 = single_grad(params, leaves, {"tokens": tokens})
             grads = list(g_1)
         loss = mean_loss(loss)
+        if mesh is not None:
+            _sum_grads_over_pp(params, grads, mesh)
 
         grad_norm = global_norm(
             grads, None if mesh is None or mesh.size() == 1 else [
@@ -426,7 +500,7 @@ def make_eval_step(config: llama.TpuLMConfig, device="cuda", mesh=None):
     if mesh is not None:
         _require_mesh_path(config, mesh)
         device = _mesh_device(mesh)
-        b_idx, b_count = sharding.batch_index(mesh)
+        split = _MeshSplit(mesh, local_batch=False)
     device = torch.device(device)
 
     def ev(params, batch):
@@ -435,18 +509,12 @@ def make_eval_step(config: llama.TpuLMConfig, device="cuda", mesh=None):
             with torch.no_grad():
                 _, metrics = llama.loss_fn(config, params, batch)
             return metrics["ce"]
-        per = batch["tokens"].shape[0] // b_count
-        batch = {k: v[b_idx * per:(b_idx + 1) * per]
-                 for k, v in batch.items()}
+        batch = split.local(batch)
         with torch.no_grad(), sharding.use_mesh(mesh):
             _, metrics = llama.loss_fn(config, local_view(params), batch)
             ce = metrics["ce"]
             if mesh.size() > 1:
-                import torch.distributed as dist
-
-                ce = ce / b_count
-                dist.all_reduce(ce)
-                ce = ce / (mesh.size() // b_count)
+                ce = split.global_mean(ce / split.shares)
         return ce
 
     return ev

@@ -2,8 +2,10 @@
 JAX package. Checked in a fresh interpreter that serves (flat and
 paged engines, speculative decoding on both, MoE on the paged one),
 migrates a request between paged engines under tracing, routes one
-through a thread-replica fleet, takes a training step, and generates
-and trains one step with a dropless MoE config on the CPU (this test
+through a thread-replica fleet, takes a training step, generates and
+trains one step with a dropless MoE config, and runs the pipeline, the
+lite attention block, the ring's hop loops and the ep expert body on
+the CPU (this test
 process has JAX loaded by ``tests/conftest.py``); in a fleet's
 subprocess worker; in the elastic training worker, which also loads no
 ``ml_dtypes`` on its checkpoint path; and by a scan of every import
@@ -107,6 +109,22 @@ router.start()
 freq = router.submit(np.arange(5), 3)
 router.run_until_idle(timeout_s=120.0)
 router.stop()
+from dlrover_tpu_torch.models import moe as moe_lib
+from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import ring_attention as ra
+pp_cfg = llama.tiny_config(pp_stages=2, num_microbatches=2)
+pp_logits, _ = llama.forward(pp_cfg, llama.init_params(
+    pp_cfg, torch.Generator().manual_seed(2), device="cpu"),
+    torch.zeros((2, 8), dtype=torch.long))
+lite_loss, _ = llama.loss_fn(
+    llama.tiny_config(remat_policy="attn_save"), params,
+    {"tokens": torch.zeros((2, 9), dtype=torch.long)},
+    fa.make_flash_attention())
+chunks = [torch.randn(1, 8, 2, 16) for _ in range(2)]
+ring = ra.one_process_ring_forward(chunks, chunks, chunks, [0, 8])
+ep_rows = moe_lib.ep_expert_body(
+    torch.randn(5, 64), [[2, 1], [0, 2]], 2, 16, torch.randn(2, 64, 256),
+    torch.randn(2, 128, 64))
 print(json.dumps({
     "tokens": out.tokens.shape[1] + len(req.tokens),
     "paged_tokens": paged_tokens, "spec_tokens": spec_tokens,
@@ -117,6 +135,8 @@ print(json.dumps({
     "spans": sorted({s["name"] for s in tracer.finished()}),
     "annotations": len(rec.records()),
     "fleet_tokens": len(freq.result.tokens),
+    "pp_logits": list(pp_logits.shape), "lite_loss": float(lite_loss),
+    "ring_chunks": len(ring), "ep_rows": ep_rows.shape[0],
     "leaked": sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -144,6 +164,8 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     assert "serving.migrate" in result["spans"]
     assert result["annotations"] > 0
     assert result["fleet_tokens"] == 3
+    assert result["pp_logits"] == [2, 8, 256] and result["lite_loss"] > 0
+    assert result["ring_chunks"] == 2 and result["ep_rows"] == 5
     assert result["leaked"] == []
 
 
@@ -169,6 +191,12 @@ def test_scan_covers_the_fleet_modules():
             "serving/fleet/health.py", "serving/fleet/metrics.py",
             "serving/fleet/replica.py", "serving/fleet/replica_worker.py",
             "serving/fleet/router.py"} <= scanned
+
+
+def test_scan_covers_the_axes_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    assert {"ops/ring_attention.py", "trainer/pipeline.py",
+            "models/moe.py", "parallel/sharding.py"} <= scanned
 
 
 # Loaded first by the worker's interpreter (through PYTHONPATH): at exit

@@ -1453,3 +1453,88 @@ def test_kernel_wrappers_refuse_dtensors(cuda):
                md.grouped_ffn_backward_dw_down):
         with pytest.raises(TypeError, match="DTensor"):
             fn(x, *[None] * (fn.__code__.co_argcount - 1))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_hops_on_card_match_cpu(cuda, causal):
+    """The ring's hop loops (``ops/ring_attention``, every rank's chunk
+    on the card) call B1 and B2 at chunk shapes with a position offset:
+    causal on the diagonal chunk, non-causal on a past one, B2 fed the
+    final lse and the global delta. Their outputs and gradients against
+    the same loops on the CPU (the plain versions) at the flash bound,
+    and the hops' exact launches."""
+    from dlrover_tpu_torch.ops import ring_attention as ra
+
+    n, sl, h, kh, d = 4, 192, 4, 2, 64
+    q, k, v, do = _flash_inputs(cuda, 1, n * sl, n * sl, h, kh, d, 17)
+    offsets = [r * sl for r in range(n)]
+
+    def run(device):
+        qs, ks, vs, dos = ([t[:, r * sl:(r + 1) * sl].to(device)
+                            .contiguous() for r in range(n)]
+                           for t in (q, k, v, do))
+        fwd = ra.one_process_ring_forward(qs, ks, vs, offsets, causal)
+        bwd = ra.one_process_ring_backward(
+            qs, ks, vs, [o for o, _ in fwd], [lse for _, lse in fwd], dos,
+            offsets, causal)
+        return [torch.cat([t[i].float().cpu() for t in parts], 1)
+                for i, parts in ((0, fwd), (1, fwd), (0, bwd), (1, bwd),
+                                 (2, bwd))]
+
+    before = dict(fa.launch_counts)
+    got = run(cuda)
+    torch.cuda.synchronize()
+    hops = n + n * (n - 1) // 2 if causal else n * n
+    for name in fa.launch_counts:
+        assert fa.launch_counts[name] == before[name] + hops, name
+    want = run("cpu")
+    for name, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        if name == "lse":
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-3)
+        else:
+            assert _flash_ratio(g, w) <= 1.0, name
+
+
+def test_ep_expert_body_with_a_sentinel_tail(cuda):
+    """B7 and B8 on the ep exchange layout (``models/moe.ep_expert_body``):
+    rows from four sources padded with sentinel rows to cap_rows, four
+    times the rows received; every tile past them is all padding. The
+    output and the gradients of the rows and weights against the plain
+    versions (_ce_ratio), bitwise on a rerun, one launch of each
+    kernel."""
+    from dlrover_tpu_torch.models import moe
+    from dlrover_tpu_torch.ops import moe_dispatch as md
+
+    g = torch.Generator(cuda).manual_seed(23)
+    d = f = 128
+    e_loc, ep = 2, 4
+    counts = [[37, 0], [5, 90], [64, 1], [0, 59]]
+    n_recv = sum(map(sum, counts))
+    cap_rows = 4 * 256
+    recv = torch.randn(n_recv, d, generator=g, device=cuda).bfloat16()
+    w_gu = (torch.randn(e_loc, d, 2 * f, generator=g, device=cuda)
+            / d ** 0.5).bfloat16()
+    w_down = (torch.randn(e_loc, f, d, generator=g, device=cuda)
+              / f ** 0.5).bfloat16()
+    dy = torch.randn(n_recv, d, generator=g, device=cuda).bfloat16()
+    assert cap_rows >= 4 * n_recv and len(counts) == ep
+
+    def body(plain):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (recv, w_gu, w_down)]
+        ys = moe.ep_expert_body(leaves[0], counts, e_loc, cap_rows,
+                                leaves[1], leaves[2], dispatch="fused",
+                                plain=plain)
+        return [ys.detach()] + list(torch.autograd.grad(ys, leaves, dy))
+
+    before = dict(md.launch_counts)
+    got = body(False)
+    torch.cuda.synchronize()
+    for name in md.launch_counts:
+        assert md.launch_counts[name] == before[name] + 1, name
+    rerun = body(False)
+    assert all(torch.equal(a, b) for a, b in zip(got, rerun))
+    want = body(True)
+    for name, a, b, dim in zip(("y", "dx", "dw_gu", "dw_down"), got, want,
+                               (-1, -1, 1, 1)):
+        assert _ce_ratio(a, b, dim) <= 1.0, name

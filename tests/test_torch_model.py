@@ -114,13 +114,18 @@ def test_port_init_params_layout_matches_reference(jax_params):
 @pytest.mark.parametrize("override", [dict(n_experts=4),
                                       dict(pp_stages=2)])
 def test_moe_and_pipeline_raise_until_ported(override):
-    """MoE layers are ported (their params build, router included);
-    pipeline stages still raise."""
+    """MoE layers and pipeline stages are both ported: their params build
+    (the router included) in JAX's shapes, pipeline stages in the
+    ``[stages, layers_per_stage, ...]`` layout."""
     cfg = llama.tiny_config(**override)
+    jparams, _ = jax_llama.init_params(
+        jax_llama.tiny_config(**override), jax.random.key(0))
+    layers = llama.init_params(cfg, device="cpu")["layers"]
+    assert set(layers) == set(jparams["layers"])
+    for name, ref in jparams["layers"].items():
+        assert tuple(layers[name].shape) == ref.shape, name
     if cfg.pp_stages > 1:
-        with pytest.raises(NotImplementedError):
-            llama.init_params(cfg, device="cpu")
+        assert layers["wq"].shape == (2, 2, 64, 4, 16)
     else:
-        layers = llama.init_params(cfg, device="cpu")["layers"]
         assert layers["router"].shape == (4, 64, 4)
         assert layers["w_gate"].shape == (4, 4, 64, 128)

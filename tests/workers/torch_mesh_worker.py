@@ -10,7 +10,17 @@ writes ``out<r>.pkl``. Cases:
 - ``train``: the tiny config's trajectory on ``in["mesh"]`` from the
   JAX package's state, then the eval step's CE on the first batch;
   with ``in["extra"]`` also grad accumulation 2 against 1, the CE
-  routes under tp, and the mesh cases that raise;
+  routes under tp, one step of each of sp, a pp axis, pipeline stages
+  and a dropless MoE on a mesh of the world (against the same step
+  without a mesh), and the mesh case that raises;
+- ``moe``: one dropless MoE layer (``in["impl"]`` "ep" or "sharded")
+  on this rank's rows, its params laid out by the model's rules and
+  gathered as the model gathers them; the output, the global router
+  losses, and the gradients of a weighted loss;
+- ``ring``: ring attention on this rank's rows, sequence chunk and
+  heads, both impls, causal and not: outputs and the gradients of a
+  weighted loss; packed positions through both impls; an unknown
+  impl;
 - ``restore``: ``load_global_state`` of ``in["ckpt_dir"]``'s step into
   DTensor targets laid out by ``in["leaves_meta"]`` on ``in["mesh"]``;
   each rank returns its local shards and the bytes it read;
@@ -18,6 +28,7 @@ writes ``out<r>.pkl``. Cases:
   storage through the standalone checkpoint engine.
 """
 
+import dataclasses
 import os
 import pickle
 import sys
@@ -64,6 +75,17 @@ def _raises(fn) -> str:
     return ""
 
 
+def _one_step(cfg, tc, params_np, mesh, tokens):
+    """(loss, grad norm) of one step from ``params_np`` with a fresh
+    optimizer, on ``mesh`` or without one."""
+    opt = ts.make_optimizer(tc)
+    params = convert.params_from_numpy(params_np, "cpu")
+    state = ts.init_train_state(cfg, opt, params, mesh=mesh)
+    step = ts.make_train_step(cfg, tc, opt, device="cpu", mesh=mesh)
+    _, m = step(state, {"tokens": tokens})
+    return float(m["loss"]), float(m["grad_norm"])
+
+
 def _extra(cfg, tc, crossed, mesh, batches, out):
     """Grad accumulation, the CE routes and the cases that raise."""
     ga2 = ts.TrainConfig(**{**tc.__dict__, "grad_accum": 2})
@@ -94,18 +116,130 @@ def _extra(cfg, tc, crossed, mesh, batches, out):
         "dx": float((dx_got - dx_want).abs().max()),
         "dw": float((dw_got - dw_want[:, lo:lo + cols]).abs().max()),
     }
-    opt = ts.make_optimizer(tc)
+    # The axes that used to raise now run on the world: one step each, against
+    # the same step without a mesh.
     n = mesh.size()
-    moe = llama.tiny_config(n_layers=1, n_experts=4)
-    out["raises"] = {
-        "sp": _raises(lambda: ts.make_train_step(
-            cfg, tc, opt, mesh=build_mesh(MeshConfig(sp=n), "cpu"))),
-        "pp_axis": _raises(lambda: ts.make_train_step(
-            cfg, tc, opt, mesh=build_mesh(MeshConfig(pp=n), "cpu"))),
-        "pp_stages": _raises(lambda: ts.make_train_step(
-            llama.tiny_config(pp_stages=2), tc, opt, mesh=mesh)),
-        "moe": _raises(lambda: ts.make_train_step(moe, tc, opt, mesh=mesh)),
+    tokens = batches[0]
+    flat = crossed["params"]
+    moe = llama.tiny_config(n_layers=1, n_experts=4, moe_impl="dropless")
+    moe_np = convert.params_to_numpy(llama.init_params(
+        moe, torch.Generator().manual_seed(5), device="cpu"))
+    pp_cfg = dataclasses.replace(cfg, pp_stages=2, num_microbatches=2)
+    staged = convert.to_stage_layout(flat, 2)
+    cases = {
+        "sp": (cfg, flat, MeshConfig(sp=n)),
+        "pp_axis": (pp_cfg, staged, MeshConfig(pp=2, dp=n // 2)),
+        "pp_stages": (pp_cfg, staged, None),
+        "moe": (moe, moe_np, None),
     }
+    out["runs"] = {}
+    for name, (c, p_np, mcfg) in cases.items():
+        m = mesh if mcfg is None else build_mesh(mcfg, "cpu")
+        out["runs"][name] = (_one_step(c, tc, p_np, m, tokens),
+                             _one_step(c, tc, p_np, None, tokens))
+    opt = ts.make_optimizer(tc)
+    out["raises"] = {"pp_replicas": _raises(lambda: ts.make_train_step(
+        cfg, tc, opt, mesh=build_mesh(MeshConfig(pp=n), "cpu")))}
+
+
+_MOE_AXES = {"router": ("embed", "expert"),
+             "w_gate": ("expert", "embed", "mlp"),
+             "w_up": ("expert", "embed", "mlp"),
+             "w_down": ("expert", "mlp", "embed")}
+
+
+def _rows(mesh, n_rows):
+    idx, count = sharding.batch_index(mesh)
+    per = n_rows // count
+    return idx * per, (idx + 1) * per
+
+
+def _moe_case(inp, mesh, out):
+    """One MoE layer on this rank's rows (see the module doc)."""
+    from dlrover_tpu_torch.models import moe as moe_lib
+
+    lo, hi = _rows(mesh, inp["x"].shape[0])
+    x = torch.from_numpy(inp["x"][lo:hi]).requires_grad_(True)
+    g = torch.from_numpy(inp["gout"][lo:hi])
+    keep = ("ep",) if inp["impl"] == "ep" else ()
+    fn = (moe_lib.moe_mlp_dropless_ep if inp["impl"] == "ep"
+          else moe_lib.moe_mlp_dropless_sharded)
+    for dispatch in ("fused", "gmm"):
+        leaves, bounds, local = {}, {}, {}
+        for name, axes in _MOE_AXES.items():
+            dt = sharding.shard_tensor(torch.from_numpy(inp[name]), mesh,
+                                       sharding.logical_to_spec(axes))
+            leaves[name] = dt.to_local().clone().requires_grad_(True)
+            bounds[name] = sharding.shard_bounds(dt.shape, mesh,
+                                                 dt.placements)
+            view = sharding.ShardedParam(leaves[name], mesh, dt.placements)
+            kw = {} if name == "router" else {"keep": keep,
+                                               "gather_tp": True}
+            local[name] = sharding.local_param(view, **kw)
+        with sharding.use_mesh(mesh):
+            y, metrics = fn(x, *(local[k] for k in _MOE_AXES), mesh=mesh,
+                            top_k=inp["top_k"], dispatch=dispatch)
+            aux = metrics.aux_loss + 0.001 * metrics.router_z_loss
+            loss = (y * g).sum() + inp["aux_weight"] * aux / (
+                sharding.share_count(mesh))
+            grads = torch.autograd.grad(loss, [x] + list(leaves.values()))
+        out[dispatch] = {
+            "rows": (lo, hi), "y": y.detach().numpy(),
+            "aux": float(metrics.aux_loss), "z": float(metrics.router_z_loss),
+            "dx": grads[0].numpy(),
+            "grads": {k: (bounds[k], gr.numpy())
+                      for k, gr in zip(leaves, grads[1:])}}
+
+
+def _ring_case(inp, mesh, out):
+    """Ring attention on this rank's slice (see the module doc)."""
+    from dlrover_tpu_torch.ops import ring_attention as ra
+
+    B, S, H, _ = inp["q"].shape
+    KH = inp["k"].shape[2]
+    rows = _rows(mesh, B)
+    sp, tp = (sharding.axis_size(a, mesh) for a in ("sp", "tp"))
+    sl = S // sp
+    r_sp = mesh.get_local_rank("sp") if sp > 1 else 0
+    r_tp = mesh.get_local_rank("tp") if tp > 1 else 0
+    seq = (r_sp * sl, (r_sp + 1) * sl)
+    heads = (r_tp * H // tp, (r_tp + 1) * H // tp)
+    kv_heads = (r_tp * KH // tp, (r_tp + 1) * KH // tp)
+
+    def part(name, hd):
+        a = inp[name][rows[0]:rows[1], seq[0]:seq[1], hd[0]:hd[1]]
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    out["slices"] = {"rows": rows, "seq": seq, "heads": heads,
+                     "kv_heads": kv_heads}
+    g = part("gout", heads)
+    res = {}
+    for impl in ("xla", "pallas"):
+        fn = ra.make_ring_attention(mesh, impl=impl)
+        assert fn.saveable_residuals == (impl == "pallas")
+        for causal in (True, False):
+            q, k, v = (part(n, h).requires_grad_(True) for n, h in (
+                ("q", heads), ("k", kv_heads), ("v", kv_heads)))
+            o = fn(q, k, v, causal=causal)
+            grads = torch.autograd.grad((o * g).sum(), (q, k, v))
+            res[(impl, causal)] = [o.detach().numpy()] + [
+                t.numpy() for t in grads]
+    out["ring"] = res
+    # Positions reset within each chunk break the "pallas" path's
+    # contiguity: NaN there, exact through "xla".
+    packed = torch.arange(S // (2 * sp)).repeat(2 * sp)[seq[0]:seq[1]]
+    q, k, v = (part(n, h) for n, h in (
+        ("q", heads), ("k", kv_heads), ("v", kv_heads)))
+    out["packed"] = {
+        impl: ra.make_ring_attention(mesh, impl=impl)(
+            q, k, v, causal=True, q_positions=packed,
+            kv_positions=packed).numpy()
+        for impl in ("pallas", "xla")}
+    try:
+        ra.make_ring_attention(mesh, impl="flash")
+        out["bad_impl"] = ""
+    except ValueError as e:
+        out["bad_impl"] = str(e)
 
 
 def _targets(inp, mesh):
@@ -132,6 +266,10 @@ def main():
             _trajectory(cfg, tc, inp["state"], mesh, inp["batches"])
         if inp.get("extra"):
             _extra(cfg, tc, inp["state"], mesh, inp["batches"], out)
+    elif case == "moe":
+        _moe_case(inp, mesh, out)
+    elif case == "ring":
+        _ring_case(inp, mesh, out)
     elif case == "restore":
         targets = _targets(inp, mesh)
         metas = ckpt_storage.load_step_meta(inp["ckpt_dir"], inp["step"])
