@@ -144,19 +144,29 @@ phases that each print JSON lines:
     and a profiled step;
 16. elastic_ckpt: the port's elastic worker
     (``dlrover_tpu_torch.examples.train_llama``) on the flagship cut to
-    8 layers at phase 6's shape (8 x 2048, ga 2), seed 0, under an agent
-    this script plays (it hosts the ``AsyncCheckpointSaver`` and sets
-    each worker's env). Run A trains 10 steps; run B saves to shm after
-    every step and persists every 3, is SIGKILLed once step 5 is in shm
-    (restored from memory), then once step 8 is in shm and step 6
-    committed, with its segment unlinked (a lost host; restored from
-    storage), and replays to 10. Gates: run B's replayed losses and
-    final params, moments and step equal run A's bit for bit (a flipped
-    moment element is rejected), the restores are the ones stated, each
-    worker's B1/B2 launches are exact, no segment or socket is left.
-    Image GB, save block and drain ms, snapshots dropped, persist and
-    restore seconds and GB/s, worker start seconds, SIGKILL to first
-    replayed step, steps redone and goodput (A's wall over B's);
+    4 layers at phase 6's shape (8 x 2048, ga 2), seed 0, under the
+    port's own launcher, master and agent: ``python -m
+    dlrover_tpu_torch.run --standalone --nproc_per_node 1
+    --max_restarts 2 -m dlrover_tpu_torch.examples.train_llama ...``
+    starts the local master over HTTP and the agent, whose saver holds
+    the shm image and whose restarts are the only relaunches (this
+    script sets the job's name and socket directory, and rewrites run
+    B's fault schedule file before each kill). Run A trains 10 steps;
+    run B saves to shm after every step and persists every 3, is
+    SIGKILLed once step 5 is in shm (restored from memory), then once
+    step 8 is in shm and step 6 or later committed, with its segment
+    unlinked (a lost host; restored from storage at the step the
+    tracker held when the relaunch read it), and replays to 10. Gates:
+    both launchers exit 0 and their masters have exited; run B's
+    incarnations show restart counts 0, 1, 2 and are the processes the
+    agent started; run B's replayed losses and final params, moments
+    and step equal run A's bit for bit (a flipped moment element is
+    rejected), the restores are the ones stated, each incarnation's
+    B1/B2 launches are exact, no segment or socket is left. Image GB,
+    master start and rendezvous seconds, save block and drain ms,
+    snapshots dropped, persist (the saver's ``ckpt_persist`` events)
+    and restore seconds and GB/s, worker start seconds, SIGKILL to
+    first replayed step, steps redone and goodput (A's wall over B's);
 17. mesh_train: the sharded train step (``make_train_step(...,
     mesh=build_mesh(MeshConfig()))``, the state as DTensors) on a world
     of one over nccl at phase 6's shape, 1 + 3 steps, against the
@@ -213,6 +223,7 @@ limit, and the ``kernels`` line.
 import functools
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -3334,39 +3345,62 @@ def phase_moe_train(cfg):
 
 # The worker's run: steps, persist cadence; run B's first SIGKILL once a
 # step >= ELASTIC_KILL1 is in shm, its second (with the segment unlinked:
-# a lost host) once step ELASTIC_KILL2 is in shm and the tracker shows
-# ELASTIC_STORAGE_STEP. The flagship runs cut to ELASTIC_LAYERS layers
-# (cut with the steps from 16 layers and 16 steps, persist every 5 and
-# kills after 9 and 13, for the script's time limit).
+# a lost host) once step ELASTIC_KILL2 is in shm and the tracker shows at
+# least ELASTIC_STORAGE_STEP. The flagship runs cut to ELASTIC_LAYERS
+# layers, for the script's time limit: from 16 layers and 16 steps
+# (persist every 5, kills after 9 and 13) to 8 layers and these steps,
+# then to 4 layers once the port's launcher, master and agent ran it
+# (their process starts and the agent's breakpoint saves took the phase
+# past 160 s at 8).
 ELASTIC_STEPS, ELASTIC_PERSIST = 10, 3
 ELASTIC_KILL1, ELASTIC_KILL2, ELASTIC_STORAGE_STEP = 5, 8, 6
-ELASTIC_LAYERS = 8
+ELASTIC_LAYERS = 4
 ELASTIC_TIMEOUT_S = 300.0
 
 
-class _Worker:
-    """One ``dlrover_tpu_torch.examples.train_llama`` process; a thread
-    reads its stdout's JSON lines into ``events``."""
+def _proc_gone(pid):
+    """True once ``pid`` has exited (no such process, or a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+class _Launcher:
+    """One ``python -m dlrover_tpu_torch.run --standalone`` job running
+    the elastic worker (``dlrover_tpu_torch.examples.train_llama``)
+    under the port's local master and agent. A thread reads the workers'
+    JSON lines off the launcher's stdout (the agent's workers inherit
+    it) into ``events``; the launcher's, master's and workers' logs go
+    to ``log_path``."""
 
     def __init__(self, args, env, log_path):
         import threading
 
         self.spawned = time.monotonic()
+        self.log_path = log_path
         self._log = open(log_path, "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "dlrover_tpu_torch.examples.train_llama",
-             *args], env=env, stdout=subprocess.PIPE, stderr=self._log,
-            text=True)
+            [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+             "--nnodes", "1", "--nproc_per_node", "1", "--max_restarts", "2",
+             "--monitor_interval", "0.2",
+             "-m", "dlrover_tpu_torch.examples.train_llama", *args],
+            env=env, stdout=subprocess.PIPE, stderr=self._log, text=True)
         self.events = []
         self._cond = threading.Condition()
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
 
     def _read(self):
+        inc = -1
         for line in self.proc.stdout:
             if line.startswith("{"):
                 event = json.loads(line)
                 event["t"] = time.monotonic()
+                # The incarnation: each opens with its ready line.
+                inc += event["event"] == "ready"
+                event["inc"] = inc
                 with self._cond:
                     self.events.append(event)
                     self._cond.notify_all()
@@ -3382,21 +3416,62 @@ class _Worker:
                     if pred(event):
                         return event
                 exited = any(e["event"] == "exit" for e in self.events)
-                check(not exited, f"elastic_ckpt: the worker exited (rc "
+                check(not exited, f"elastic_ckpt: the launcher exited (rc "
                       f"{self.proc.poll()}) before {what}; see "
-                      f"{self._log.name}")
+                      f"{self.log_path}")
                 left = deadline - time.monotonic()
                 check(left > 0, f"elastic_ckpt: no {what} in {timeout} s")
                 self._cond.wait(min(left, 1.0))
 
-    def steps(self):
-        return [e for e in self.events if e["event"] == "step"]
+    def incarnations(self):
+        """The workers' events, one list per incarnation."""
+        out = []
+        with self._cond:
+            for e in self.events:
+                if e["event"] != "exit" and e["inc"] >= 0:
+                    while len(out) <= e["inc"]:
+                        out.append([])
+                    out[e["inc"]].append(e)
+        return out
+
+    def log(self):
+        """The log's text (kept once the job is stopped)."""
+        if self._log.closed:
+            return self._text
+        self._log.flush()
+        with open(self.log_path) as f:
+            return f.read()
+
+    def pids(self):
+        """(the master's pid, the workers' pids in the order the agent
+        started them), from the launcher's and agent's log lines."""
+        import re
+
+        text = self.log()
+        master = re.findall(r"local master pid=(\d+)", text)
+        workers = re.findall(r"started worker local_rank=0 pid=(\d+)", text)
+        return (int(master[0]) if master else None,
+                [int(p) for p in workers])
 
     def stop(self):
+        """End the job if it is still running (SIGTERM: the launcher
+        stops its workers and its master), then SIGKILL what is left.
+        Idempotent."""
+        if self._log.closed:
+            return
         if self.proc.poll() is None:
-            self.proc.kill()
-        self.proc.wait(timeout=60)
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        master, workers = self.pids()
+        for pid in [p for p in [master, *workers] if p is not None]:
+            if not _proc_gone(pid):
+                os.kill(pid, signal.SIGKILL)
         self._reader.join(timeout=10)
+        self._text = self.log()
         self._log.close()
 
 
@@ -3414,36 +3489,45 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
                        seq=TRAIN_SEQ):
     """The port's elastic worker (``examples/train_llama``) at
     micro-batch ``micro`` x ``seq``, global batch 2 x micro (ga 2),
-    seed 0, under an agent played here: this process hosts the
-    ``AsyncCheckpointSaver`` and sets each worker's ``WorkerEnv``. Run A
-    trains ELASTIC_STEPS steps. Run B is SIGKILLed once step
-    ELASTIC_KILL1 is in shm and relaunched: it must restore that step
-    from memory. Once step ELASTIC_KILL2 is in shm and the tracker shows
-    ELASTIC_STORAGE_STEP it is SIGKILLed again and its segment unlinked
-    (a lost host): the relaunch must restore that step from storage and
-    replay to the end. A fault schedule holds each doomed worker at the
-    step after its kill step (a ``delay`` at ``agent.worker.crash``) so
-    the kill lands there, and this process holds the shm lock over each
-    kill, so no write is in flight. Gates: run B's final params,
-    moments and step (its last shm image) equal run A's bit for bit,
-    and a moment with one element flipped does not; every loss of run B
-    equals run A's at its step; each worker launched B1, B2 dq and B2
-    dk/dv n_layers x ga times a step it ran (none on the CPU); no
-    segment or socket is left."""
+    seed 0, under the port's launcher: ``python -m dlrover_tpu_torch.run
+    --standalone --nproc_per_node 1 --max_restarts 2 -m
+    dlrover_tpu_torch.examples.train_llama ...`` starts the local master
+    (HTTP), the agent and its ``AsyncCheckpointSaver``, and the agent
+    starts and restarts the worker. This process sets only the job's
+    name and socket directory (and run B's fault schedule file). Run A
+    trains ELASTIC_STEPS steps. Run B's worker is SIGKILLed once step
+    ELASTIC_KILL1 is in shm: the agent restarts it, and it must restore
+    that step from memory. Once step ELASTIC_KILL2 is in shm and the
+    tracker shows ELASTIC_STORAGE_STEP or later, it is SIGKILLed again
+    and its segment unlinked (a lost host): the agent's relaunch must
+    restore from storage the step the tracker held when it read it,
+    which is the tracker's step at the kill or, when the agent's
+    breakpoint save of the segment won the race with the unlink, the
+    segment's step ELASTIC_KILL2; then it replays to the end. The fault
+    schedule holds each doomed worker at the step after its kill step
+    (a ``delay`` at ``agent.worker.crash``; the file is rewritten before
+    each kill, since every incarnation gets the same env), and this
+    process holds the agent's shm lock over each kill, so no write is in
+    flight. Gates: both launchers exit 0 and their masters have exited;
+    run B's incarnations show restart counts 0, 1, 2 and are the
+    processes the agent started; run B's final params, moments and step
+    (the last shm image, read after the launcher exits and then
+    unlinked) equal run A's bit for bit, and a moment with one element
+    flipped does not; every loss of run B equals run A's at its step;
+    each incarnation launched B1, B2 dq and B2 dk/dv n_layers x ga
+    times a step it ran (none on the CPU); no segment or socket is
+    left."""
     import shutil
     import tempfile
 
-    from dlrover_tpu_torch.common.constants import NodeEnv, WorkerEnv
+    from dlrover_tpu_torch.common.constants import NodeEnv
     from dlrover_tpu_torch.fault import SCHEDULE_ENV, FaultRule, FaultSchedule
     from dlrover_tpu_torch.flash_ckpt import storage as ckpt_storage
     from dlrover_tpu_torch.flash_ckpt.engine import (
         CKPT_LOCK_PREFIX,
         shm_segment_name,
     )
-    from dlrover_tpu_torch.flash_ckpt.saver import (
-        AsyncCheckpointSaver,
-        read_shm_payload,
-    )
+    from dlrover_tpu_torch.flash_ckpt.saver import read_shm_payload
     from dlrover_tpu_torch.flash_ckpt.shared_obj import SharedLockClient
     from dlrover_tpu_torch.flash_ckpt.shm_handler import SharedMemoryHandler
     from dlrover_tpu_torch.models import llama
@@ -3465,139 +3549,155 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
             "--layers", str(cfg.n_layers)]
     saved_env = {k: os.environ.get(k) for k in (
         NodeEnv.JOB_NAME, NodeEnv.NODE_RANK, NodeEnv.SHARED_DIR)}
-    workers, shm_used, kills = [], [], []
+    launchers, shm_used, kills = [], [], []
+
+    def hold(path, step):
+        """The schedule file every incarnation reads: hold at ``step``
+        (None: no rule)."""
+        rules = [] if step is None else [FaultRule(
+            "agent.worker.crash", action="delay", delay_s=ELASTIC_TIMEOUT_S,
+            match={"step": step})]
+        with open(path, "w") as f:
+            f.write(FaultSchedule(rules).to_json())
 
     def run(label, plan):
-        """One run under a fresh saver. ``plan``: (the step a worker is
-        held after, how it is killed) per kill. Returns the run's
-        workers, wall seconds, final shm image, the saver's persists,
-        seconds from each SIGKILL to the next worker's first step, and
-        the segment's bytes."""
+        """One launcher job. ``plan``: (the step the next incarnation is
+        held after, or None; how the current one is killed) per kill.
+        Returns the launcher, its wall seconds, the final shm image,
+        seconds from each SIGKILL to the next incarnation's first step,
+        the segment's bytes and the tracker's step at each kill."""
         job = f"chipsmoke{os.getpid()}{label}"
         ckpt_dir = os.path.join(root, label, "ckpt")
         sock_dir = os.path.join(root, label, "sock")
+        events_dir = os.path.join(root, label, "events")
         os.makedirs(sock_dir)
+        # This process's own view of the job (the agent's shm lock and
+        # segment); the launcher gets the same two names.
         os.environ.update({NodeEnv.JOB_NAME: job, NodeEnv.NODE_RANK: "0",
                            NodeEnv.SHARED_DIR: sock_dir})
-        env = dict(os.environ, PYTHONPATH=repo)
-        env.update({WorkerEnv.NUM_PROCESSES: "1", WorkerEnv.PROCESS_ID: "0",
-                    WorkerEnv.LOCAL_RANK: "0",
-                    WorkerEnv.LOCAL_WORLD_SIZE: "1"})
-        saver = AsyncCheckpointSaver(local_world_size=1)
+        env = dict(os.environ, PYTHONPATH=repo,
+                   DLROVER_TPU_EVENT_DIR=events_dir)
+        env.pop(SCHEDULE_ENV, None)
+        if plan:
+            schedule = os.path.join(root, f"{label}_hold.json")
+            hold(schedule, ELASTIC_KILL1 + 1)
+            env[SCHEDULE_ENV] = schedule
         lock = SharedLockClient(f"{CKPT_LOCK_PREFIX}_0")
         segment = SharedMemoryHandler(shm_segment_name(0))
-        run_workers, kill_to_step = [], []
+        kill_to_step = []
         t0 = time.monotonic()
-
-        def spawn(hold_after=None):
-            n = len(run_workers)
-            env[WorkerEnv.RESTART_COUNT] = str(n)
-            env.pop(SCHEDULE_ENV, None)
-            if hold_after is not None:
-                path = os.path.join(root, f"{label}_hold{n}.json")
-                with open(path, "w") as f:
-                    f.write(FaultSchedule([FaultRule(
-                        "agent.worker.crash", action="delay",
-                        delay_s=ELASTIC_TIMEOUT_S,
-                        match={"step": hold_after})]).to_json())
-                env[SCHEDULE_ENV] = path
-            w = _Worker(args + ["--ckpt-dir", ckpt_dir], env,
-                        os.path.join(root, f"{label}_worker{n}.log"))
-            run_workers.append(w)
-            workers.append(w)
-            return w
-
+        launcher = _Launcher(args + ["--ckpt-dir", ckpt_dir], env,
+                             os.path.join(root, f"{label}_launcher.log"))
+        launchers.append(launcher)
         try:
-            w = spawn(plan[0][0] if plan else None)
-            for i, (_, kill) in enumerate(plan):
-                settle = kill(w, lock, segment, saver, ckpt_dir)
+            for i, (next_hold, kill) in enumerate(plan):
+                # Incarnation i read the file when it started; the next
+                # one reads what is there after the kill.
+                kill(launcher, i, lock, segment, ckpt_dir,
+                     lambda step=next_hold: hold(schedule, step))
                 t_kill = time.monotonic()
                 shm_used.append(shutil.disk_usage("/dev/shm").used)
-                w = spawn(plan[i + 1][0] if i + 1 < len(plan) else None)
-                if settle is not None:
-                    settle(w, saver)
-                first = w.wait_event(lambda e: e["event"] == "step",
-                                     "a replayed step")
+                first = launcher.wait_event(
+                    lambda e, n=i + 1: e["event"] == "step"
+                    and e["inc"] == n, "a replayed step")
                 kill_to_step.append(first["t"] - t_kill)
-            w.wait_event(lambda e: e["event"] == "done", "the end")
-            check(w.proc.wait(timeout=60) == 0, f"{label}: worker rc "
-                  f"{w.proc.returncode}")
+            launcher.wait_event(lambda e: e["event"] == "done", "the end")
+            rc = launcher.proc.wait(timeout=ELASTIC_TIMEOUT_S)
+            check(rc == 0, f"{label}: launcher rc {rc}; see "
+                  f"{launcher.log_path}")
             wall = time.monotonic() - t0
+            master_pid, _ = launcher.pids()
+            check(master_pid is not None and _proc_gone(master_pid),
+                  f"{label}: the master (pid {master_pid}) has not exited")
             shm_used.append(shutil.disk_usage("/dev/shm").used)
+            # The launcher leaves the saver's segment, as the
+            # reference's does: read the final image, then unlink it.
             image_bytes = segment.size if segment.attach() else 0
             segment.close()
-            final = read_shm_payload(0, lock)
+            final = read_shm_payload(0)
             check(final is not None and final[0] == ELASTIC_STEPS,
                   f"{label}: final shm image {final and final[0]}")
-            persists = list(saver.persist_records)
+            # The agent's training events: its rendezvous rounds, and
+            # its saver's persists.
+            rdzv_s, persists = [], []
+            for name in sorted(os.listdir(events_dir)):
+                with open(os.path.join(events_dir, name)) as f:
+                    for line in f:
+                        e = json.loads(line)
+                        c = e["content"]
+                        if e["type"] != "end":
+                            continue
+                        if e["name"] == "rendezvous":
+                            rdzv_s.append(c["duration_s"])
+                        elif e["name"] == "ckpt_persist" and c["committed"]:
+                            persists.append({
+                                "step": c["committed_step"],
+                                "seconds": c["duration_s"],
+                                "bytes": c["bytes"],
+                                "gb_per_s": c["bytes"] / 1e9 / max(
+                                    c["duration_s"], 1e-9)})
         finally:
-            for w in run_workers:
-                w.stop()
-            saver.stop(timeout=ELASTIC_TIMEOUT_S)
-            saver.unlink_all(1)
+            launcher.stop()
+            SharedMemoryHandler(shm_segment_name(0)).unlink()
             socks = os.listdir(sock_dir)
             shutil.rmtree(os.path.join(root, label), ignore_errors=True)
         left = [n for n in os.listdir("/dev/shm") if job in n]
         check(left == [] and socks == [],
               f"{label}: segments {left} and sockets {socks} left")
-        return (run_workers, wall, final[1]["arrays"], persists,
-                kill_to_step, image_bytes)
+        return (launcher, wall, final[1]["arrays"], kill_to_step,
+                image_bytes, rdzv_s, persists)
 
-    def kill_in_memory(w, lock, segment, saver, ckpt_dir):
-        """SIGKILL once step ELASTIC_KILL1 is in shm."""
-        w.wait_event(lambda e: e["event"] == "shm"
-                     and e["step"] >= ELASTIC_KILL1, "the first kill's step")
+    def kill_worker(launcher, i, lock):
+        """SIGKILL incarnation ``i`` under the shm lock; hold the lock
+        until the process is gone."""
+        pid = launcher.wait_event(lambda e: e["event"] == "ready"
+                                  and e["inc"] == i, "a ready line")["pid"]
         lock.acquire()
         try:
-            w.proc.kill()
-            w.proc.wait(timeout=60)
-            kills.append(segment.get_step())
+            os.kill(pid, signal.SIGKILL)
+            deadline = time.monotonic() + 60
+            while not _proc_gone(pid):
+                check(time.monotonic() < deadline,
+                      f"elastic_ckpt: pid {pid} outlived its SIGKILL")
+                time.sleep(0.01)
         finally:
             lock.release()
-            segment.close()
-        return settle_persist
 
-    def settle_persist(w, saver):
-        """The persist of step ELASTIC_PERSIST lands (while the relaunch
-        boots) before the relaunch queues its own, so that one reads the
-        image it asked for, not a later step's."""
-        deadline = time.monotonic() + ELASTIC_TIMEOUT_S
-        while saver.last_persisted_step < ELASTIC_PERSIST:
-            check(time.monotonic() < deadline, "elastic_ckpt: the persist "
-                  f"of step {ELASTIC_PERSIST} did not land")
-            time.sleep(0.05)
-        check(not any(e["event"] == "step" and e["step"] > ELASTIC_KILL1
-                      for e in w.events),
-              "elastic_ckpt: the relaunch ran past its restore step "
-              f"before the persist of step {ELASTIC_PERSIST} landed")
+    def in_shm(i, step):
+        return lambda e: (e["event"] == "shm" and e["step"] >= step
+                          and e["inc"] == i)
 
-    def kill_host(w, lock, segment, saver, ckpt_dir):
+    def kill_in_memory(launcher, i, lock, segment, ckpt_dir, rearm):
+        """SIGKILL once step ELASTIC_KILL1 is in shm."""
+        launcher.wait_event(in_shm(i, ELASTIC_KILL1), "the first kill's step")
+        rearm()
+        kill_worker(launcher, i, lock)
+        kills.append(segment.get_step())
+        segment.close()
+
+    def kill_host(launcher, i, lock, segment, ckpt_dir, rearm):
         """SIGKILL once step ELASTIC_KILL2 is in shm and the tracker
-        shows ELASTIC_STORAGE_STEP; unlink the segment."""
-        w.wait_event(lambda e: e["event"] == "shm"
-                     and e["step"] >= ELASTIC_KILL2, "the second kill's step")
+        shows ELASTIC_STORAGE_STEP or later; unlink the segment."""
+        launcher.wait_event(in_shm(i, ELASTIC_KILL2),
+                            "the second kill's step")
         deadline = time.monotonic() + ELASTIC_TIMEOUT_S
         while ckpt_storage.read_tracker(ckpt_dir) < ELASTIC_STORAGE_STEP:
             check(time.monotonic() < deadline, "elastic_ckpt: step "
                   f"{ELASTIC_STORAGE_STEP} never committed")
             time.sleep(0.05)
-        lock.acquire()
-        try:
-            w.proc.kill()
-            w.proc.wait(timeout=60)
-        finally:
-            lock.release()
+        rearm()
+        kill_worker(launcher, i, lock)
         kills.append(ckpt_storage.read_tracker(ckpt_dir))
         segment.unlink()
 
     try:
-        a_workers, wall_a, final_a, persists_a, _, image_bytes = run("A", [])
-        b_workers, wall_b, final_b, persists_b, kill_to_step, _ = run(
-            "B", [(ELASTIC_KILL1 + 1, kill_in_memory),
-                  (ELASTIC_KILL2 + 1, kill_host)])
+        a, wall_a, final_a, _, image_bytes, rdzv_a, persists_a = run("A", [])
+        b, wall_b, final_b, kill_to_step, _, rdzv_b, persists_b = run(
+            "B", [(ELASTIC_KILL2 + 1, kill_in_memory),
+                  (None, kill_host)])
     finally:
-        for w in workers:
-            w.stop()
+        for launcher in launchers:
+            launcher.stop()
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -3606,19 +3706,34 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
         shutil.rmtree(root, ignore_errors=True)
 
     label = "elastic_ckpt"
-
-    def first(w, kind):
-        return next((e for e in w.events if e["event"] == kind), None)
-
-    readies = [first(w, "ready") for w in a_workers + b_workers]
+    incs = a.incarnations() + b.incarnations()
+    readies = [inc[0] for inc in incs]
+    check([r["restart_count"] for r in readies] == [0, 0, 1, 2],
+          f"{label}: restart counts {[r['restart_count'] for r in readies]}")
+    for launcher in (a, b):
+        _, started = launcher.pids()
+        pids = [inc[0]["pid"] for inc in launcher.incarnations()]
+        check(pids == started and len(set(pids)) == len(pids),
+              f"{label}: incarnations {pids}, the agent started {started}")
     got = [(r["restored_from"], r["restored_step"]) for r in readies]
+    # The storage restore reads the step the tracker held when the
+    # relaunch read it: the tracker's step at the kill, or the segment's
+    # ELASTIC_KILL2 when the agent's breakpoint save committed it first.
+    storage_step = readies[3]["restore_read"]["tracker_step"]
     check(got == [(None, 0), (None, 0), ("memory", ELASTIC_KILL1),
-                  ("storage", ELASTIC_STORAGE_STEP)]
-          and kills == [ELASTIC_KILL1, ELASTIC_STORAGE_STEP],
-          f"{label}: restores {got}, kills at shm step and tracker {kills}")
-    done_a, done_b = first(a_workers[0], "done"), first(b_workers[-1], "done")
+                  ("storage", storage_step)]
+          and readies[2]["restore_read"]["shm_step"] == ELASTIC_KILL1
+          and readies[3]["restore_read"]["shm_step"] == -1
+          and kills[0] == ELASTIC_KILL1
+          and ELASTIC_STORAGE_STEP <= kills[1] <= ELASTIC_KILL2
+          and storage_step in (kills[1], ELASTIC_KILL2),
+          f"{label}: restores {got} (read {[r['restore_read'] for r in readies]}), "
+          f"kills at shm step and tracker {kills}")
+    done_a = next(e for e in incs[0] if e["event"] == "done")
+    done_b = next(e for e in incs[-1] if e["event"] == "done")
     losses_a = {int(k): v for k, v in done_a["losses"].items()}
-    replayed = [(e["step"], e["loss"]) for w in b_workers for e in w.steps()]
+    steps = [[e for e in inc if e["event"] == "step"] for inc in incs]
+    replayed = [(e["step"], e["loss"]) for inc in steps[1:] for e in inc]
     differ = [(st, loss, losses_a[st]) for st, loss in replayed
               if loss != losses_a[st]]
     check(not differ, f"{label}: run B's losses differ from run A's at "
@@ -3635,40 +3750,50 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     check(_elastic_compare(final_a, planted) == ["leaf0_shard0"],
           f"{label}: the bitwise gate passes a flipped moment element")
     launches = {}
-    for w in a_workers + b_workers:
-        n = len(w.steps())
-        counts = w.steps()[-1]["launches"] if n else {}
+    for inc_steps in steps:
+        n = len(inc_steps)
+        counts = inc_steps[-1]["launches"] if n else {}
         want = cfg.n_layers * ga * n if device == "cuda" else 0
         check(n > 0 and all(v == want for v in counts.values()),
-              f"{label}: a worker ran {n} steps with launches {counts}, "
-              f"want {want} each")
+              f"{label}: an incarnation ran {n} steps with launches "
+              f"{counts}, want {want} each")
         for name, v in counts.items():
             launches[name] = launches.get(name, 0) + v
-    gaps = sorted(b["t"] - a["t"] for w in a_workers + b_workers
-                  for a, b in zip(w.steps(), w.steps()[1:]))
-    compute = sorted(e["compute_s"] for w in a_workers + b_workers
-                     for e in w.steps()[1:])
-    saves = [e for w in a_workers + b_workers for e in w.events
-             if e["event"] == "shm"]
+    gaps = sorted(y["t"] - x["t"] for inc in steps
+                  for x, y in zip(inc, inc[1:]))
+    compute = sorted(e["compute_s"] for inc in steps for e in inc[1:])
+    saves = [e for inc in incs for e in inc if e["event"] == "shm"]
     block = sorted(e["block_s"] * 1e3 for e in saves)
     drain = sorted(e["drain_s"] * 1e3 for e in saves)
-    persists = [dict(p, gb_per_s=p["bytes"] / 1e9 / p["seconds"])
-                for p in persists_a + persists_b if p["committed"]]
     state_gb = readies[0]["state_bytes"] / 1e9
-    steps_b = sum(len(w.steps()) for w in b_workers)
+    steps_b = sum(len(inc) for inc in steps[1:])
+
+    def master_start_s(launcher):
+        import re
+
+        found = re.findall(r"local master pid=\d+ serving at \S+ after "
+                           r"([0-9.]+) s", launcher.log())
+        return float(found[0]) if found else None
+
     row = {
         "phase": label, "config": config, "n_layers": cfg.n_layers,
         "micro_batch": micro, "seq": seq, "grad_accum": ga,
         "steps": ELASTIC_STEPS, "persist_every": ELASTIC_PERSIST,
+        "launcher": "python -m dlrover_tpu_torch.run --standalone "
+                    "--nproc_per_node 1 --max_restarts 2",
         "state_gb": state_gb, "image_gb": image_bytes / 1e9,
         "free_gib_before": free_gib, "kills": kills,
         "restores": [{k: r[k] for k in ("restored_from", "restored_step",
-                                        "restore_s", "start_s")}
+                                        "restore_read", "restore_s",
+                                        "start_s", "restart_count")}
                      for r in readies],
         "restore_gb_per_s": {r["restored_from"]: state_gb / r["restore_s"]
                              for r in readies[2:]},
-        "spawn_to_ready_s": [r["t"] - w.spawned for r, w in
-                             zip(readies, a_workers + b_workers)],
+        "master_start_s": {"A": master_start_s(a), "B": master_start_s(b)},
+        "rdzv_s": {"A": rdzv_a, "B": rdzv_b},
+        "launch_to_first_ready_s": {
+            "A": incs[0][0]["t"] - a.spawned,
+            "B": b.incarnations()[0][0]["t"] - b.spawned},
         "kill_to_first_step_s": kill_to_step,
         "step_gap_s": {"p50": gaps[len(gaps) // 2], "max": gaps[-1]},
         "step_compute_s": {"p50": compute[len(compute) // 2],
@@ -3676,10 +3801,10 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
         "save_block_ms": {"p50": block[len(block) // 2], "max": block[-1]},
         "save_drain_ms": {"p50": drain[len(drain) // 2], "max": drain[-1]},
         "saves_committed": len(saves),
-        "snapshots_dropped": [max([e["dropped"] for e in w.events
+        "snapshots_dropped": [max([e["dropped"] for e in inc
                                    if "dropped" in e], default=0)
-                              for w in a_workers + b_workers],
-        "persists": persists,
+                              for inc in incs],
+        "persists": {"A": persists_a, "B": persists_b},
         "wall_s": {"A": wall_a, "B": wall_b},
         "steps_run_b": steps_b, "steps_redone": steps_b - ELASTIC_STEPS,
         "goodput": wall_a / wall_b,
@@ -3688,6 +3813,8 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
         "df_dev_shm": subprocess.run(
             ["df", "-h", "/dev/shm"], capture_output=True,
             text=True).stdout.strip().splitlines()[-1],
+        "launcher_rc": [0, 0], "masters_exited": True,
+        "restarted_by_agent": True,
         "losses_equal": True, "final_state_bitwise_equal": True,
         "planted_fault_rejected": True, "launches": launches,
     }

@@ -1,1 +1,2 @@
-"""The agent side of the port: so far the node check's probe worker."""
+"""The agent side of the port: the elastic agent, its master client and
+rendezvous, its monitors, and the node check's probe worker."""

@@ -22,7 +22,9 @@ What it does:
 
 Without an agent (no saver socket for this job) the checkpoint engine
 runs standalone and persists in this process. Stdout carries one JSON
-line per event: ``ready`` (after the restore), ``step`` (loss, the
+line per event: ``ready`` (after the restore: this process's pid, the
+restart count, the restored step and its source, and what the restore
+read, the segment's step and the storage tracker's), ``step`` (loss, the
 step's and the save's seconds, the flash kernels' launch counts so
 far), ``shm`` (a step committed to shm,
 with the save's blocking and drain seconds) and a last ``done`` line
@@ -32,6 +34,7 @@ with the save's blocking and drain seconds) and a last ``done`` line
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import threading
 import time
@@ -101,14 +104,17 @@ def state_digest(tree) -> str:
 
 
 class _Emitter:
-    """One JSON object a line on stdout, whole lines from any thread."""
+    """One JSON object a line on stdout, whole lines from any thread,
+    each stamped with this process's rank (the ranks of a world share
+    the agent's stdout)."""
 
-    def __init__(self):
+    def __init__(self, rank: int = 0):
         self._lock = threading.Lock()
+        self._rank = rank
 
     def __call__(self, obj):
         with self._lock:
-            sys.stdout.write(json.dumps(obj) + "\n")
+            sys.stdout.write(json.dumps(dict(obj, rank=self._rank)) + "\n")
             sys.stdout.flush()
 
 
@@ -135,7 +141,7 @@ def main(argv=None):
     ctx = init_distributed(device=args.device)
     mesh = world_mesh(args.mesh, args.device)
     b_idx, b_count = batch_index(mesh)
-    emit = _Emitter()
+    emit = _Emitter(ctx.process_id)
     device = torch.device(args.device)
     if args.config == "flagship":
         cfg = llama.flagship_config(remat_policy=args.remat_policy)
@@ -168,8 +174,10 @@ def main(argv=None):
         ts.load_state_tree_(state, tree)
         sampler.load_state_dict(user_meta["sampler"])
         elastic.global_step = start_step
-    emit({"event": "ready", "restored_step": start_step,
+    emit({"event": "ready", "pid": os.getpid(),
+          "restored_step": start_step,
           "restored_from": engine.last_restore_source,
+          "restore_read": engine.last_restore_read,
           "restore_s": restore_s, "restart_count": ctx.restart_count,
           "start_s": time.monotonic() - t_start,
           "state_bytes": sum(leaf_bytes(x).numel() for x in tree_flatten(

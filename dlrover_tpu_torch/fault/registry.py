@@ -58,8 +58,40 @@ class FaultAction:
 
 
 # The instrumented sites of the port, greppable in one place (the
-# reference's names for the same sites).
+# reference's names for the same sites; the control plane's points
+# are its master, client, task manager and sync service).
 KNOWN_POINTS: Dict[str, str] = {
+    "rpc.get.drop_reply": (
+        "master servicer: after a get handler ran (state mutated), drop "
+        "the reply — the client sees a transport error, leases/values "
+        "already moved master-side (ctx: request=<request class name>)"
+    ),
+    "rpc.report.drop_reply": (
+        "master servicer: after a report handler ran, drop the reply — "
+        "exercises at-most-once re-apply of done-reports etc."
+    ),
+    "rpc.client.get": (
+        "master client: before a get RPC leaves the worker "
+        "(ctx: request) — delay simulates a slow master, raise a "
+        "dead one"
+    ),
+    "rpc.client.report": (
+        "master client: before a report RPC leaves the worker"
+    ),
+    "shard.dispatch": (
+        "task manager: entry of the batched lease dispatch — delay "
+        "starves the prefetch pipeline"
+    ),
+    "sync.wait": (
+        "sync service: a bounded barrier wait is starting — delay "
+        "pushes it into its timeout path"
+    ),
+    "master.restart": (
+        "master journal: a recovered journal is being replayed into a "
+        "fresh master (ctx: epoch). The journal is not ported yet "
+        "(ROADMAP §A): the point is named so one schedule file arms "
+        "either package"
+    ),
     "ckpt.persist.torn_write": (
         "checkpoint storage: a proc shard file just landed — truncate "
         "tears its tail (torn write at crash), the reader must reject "

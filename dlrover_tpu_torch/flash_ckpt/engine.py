@@ -148,6 +148,9 @@ class CheckpointEngine:
         self._last_disk_step = -1
         # "memory" or "storage" after a successful load(), else None.
         self.last_restore_source: Optional[str] = None
+        # What the last load() read: the segment's step (-1: no image)
+        # and the storage tracker's (None: storage not consulted).
+        self.last_restore_read: Dict[str, Optional[int]] = {}
         self._snap_cond = threading.Condition()
         # Serializes every shm write of this process (a direct save vs
         # the writer thread); the UDS lock guards against the agent only.
@@ -487,6 +490,7 @@ class CheckpointEngine:
         of the checkpoint's structure whose tensors are filled in place
         (see ``shm_handler.fill_tree``); without it the leaves come back
         as host tensors."""
+        self.last_restore_read = {"shm_step": -1, "tracker_step": None}
         result = self._load_from_memory(step, target)
         if result is not None:
             logger.info("restored step %d from host memory", result[0])
@@ -507,6 +511,7 @@ class CheckpointEngine:
             logger.warning("chaos: shm image treated as lost")
             return None
         mem_step = self._shm.get_step()
+        self.last_restore_read["shm_step"] = mem_step
         if mem_step < 0 or (step is not None and mem_step != step):
             return None
         meta = self._shm.load_meta()
@@ -536,6 +541,7 @@ class CheckpointEngine:
         want = step
         if want is None:
             want = ckpt_storage.read_tracker(self.checkpoint_dir)
+            self.last_restore_read["tracker_step"] = want
         if want < 0:
             return None
         candidates = [want]

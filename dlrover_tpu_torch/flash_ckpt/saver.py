@@ -259,6 +259,9 @@ class AsyncCheckpointSaver:
         self._latest_mem_event: Optional[SaveEvent] = None
         self._last_persisted_step = -1
         self._read_cache = ShmReadCache()
+        # The saver loop and the agent's breakpoint save both persist;
+        # they share the read cache's buffers, so one persist at a time.
+        self._persist_lock = threading.Lock()
         # One record per persist this saver ran: step, seconds, bytes.
         self.persist_records: List[dict] = []
         self._stopped = threading.Event()
@@ -299,6 +302,19 @@ class AsyncCheckpointSaver:
                 self._handle_event(event)
             except Exception:
                 logger.exception("checkpoint event handling failed")
+            finally:
+                self._event_queue.task_done()
+
+    def wait_idle(self, timeout: float = 600.0) -> bool:
+        """Block until every event the workers queued has been handled
+        (the last persist they asked for has landed); False on
+        timeout."""
+        deadline = time.monotonic() + timeout
+        while self._event_queue.unfinished() > 0:
+            if time.monotonic() > deadline or not self._thread.is_alive():
+                return False
+            time.sleep(0.05)
+        return True
 
     @property
     def last_persisted_step(self) -> int:
@@ -307,12 +323,48 @@ class AsyncCheckpointSaver:
     def _handle_event(self, event: SaveEvent):
         self._latest_mem_event = event
         if event.kind == SaveEvent.SAVE_DISK:
-            if self._persist(event.checkpoint_dir, event.step,
-                             event.local_world_size, commit_timeout=600.0):
-                self._last_persisted_step = event.step
+            self._persist(event.checkpoint_dir, event.step,
+                          event.local_world_size, commit_timeout=600.0)
+
+    @staticmethod
+    def _image_step(local_world_size: int) -> int:
+        """The newest step the local ranks' shm images hold (-1: none)."""
+        newest = -1
+        for r in range(local_world_size):
+            h = SharedMemoryHandler(shm_segment_name(r))
+            newest = max(newest, h.get_step())
+            h.close()
+        return newest
 
     def _persist(self, checkpoint_dir, step, local_world_size,
                  commit_timeout) -> bool:
+        """Persist and commit the image the local ranks' segments hold
+        (one persist at a time: the saver loop and the agent's
+        breakpoint save share the read cache's buffers). A
+        ``ckpt_persist`` training event spans it, as in the reference's
+        saver, with the step committed and its bytes."""
+        from dlrover_tpu_torch.training_event import TrainerEvents
+
+        with self._persist_lock:
+            # The image moves on while a persist runs, and a persist
+            # commits the image it finds: one queued behind it may find
+            # that image committed already.
+            if 0 <= self._image_step(local_world_size) <= (
+                    self._last_persisted_step):
+                return True
+            with TrainerEvents.ckpt_persist(step) as span:
+                ok = self._persist_locked(checkpoint_dir, step,
+                                          local_world_size, commit_timeout)
+                record = self.persist_records[-1]
+                span.content.update(committed=ok,
+                                    committed_step=record["step"],
+                                    bytes=record["bytes"])
+            if ok:
+                self._last_persisted_step = record["step"]
+            return ok
+
+    def _persist_locked(self, checkpoint_dir, step, local_world_size,
+                        commit_timeout) -> bool:
         t0 = time.monotonic()
         ok = persist_shm_to_storage(
             checkpoint_dir,
@@ -347,11 +399,7 @@ class AsyncCheckpointSaver:
         event = self._latest_mem_event
         if event is None:
             return
-        newest = -1
-        for r in range(event.local_world_size):
-            h = SharedMemoryHandler(shm_segment_name(r))
-            newest = max(newest, h.get_step())
-            h.close()
+        newest = self._image_step(event.local_world_size)
         if newest <= self._last_persisted_step or newest < 0:
             return
         tracker = ckpt_storage.read_tracker(event.checkpoint_dir)
@@ -360,10 +408,8 @@ class AsyncCheckpointSaver:
         logger.info("breakpoint-saving shm step %d to storage", newest)
         # A failure save must not block on dead peers: the tracker only
         # advances if all expected markers appear.
-        ok = self._persist(event.checkpoint_dir, newest,
-                           event.local_world_size, commit_timeout=60.0)
-        if ok:
-            self._last_persisted_step = newest
+        self._persist(event.checkpoint_dir, newest, event.local_world_size,
+                      commit_timeout=60.0)
 
     # ---- cleanup -----------------------------------------------------------
 

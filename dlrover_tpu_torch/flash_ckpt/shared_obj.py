@@ -197,6 +197,15 @@ class SharedQueueServer:
     def qsize(self) -> int:
         return self._queue.qsize()
 
+    def task_done(self):
+        """The hosting agent finished the item it last got."""
+        self._queue.task_done()
+
+    def unfinished(self) -> int:
+        """Items put and not yet marked done (queued or in hand)."""
+        with self._queue.all_tasks_done:
+            return self._queue.unfinished_tasks
+
     def stop(self):
         self._server.stop()
 

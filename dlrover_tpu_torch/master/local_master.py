@@ -1,0 +1,219 @@
+"""Standalone (single-host) job master.
+
+Parity: reference dlrover/python/master/local_master.py:41 (LocalJobMaster)
+— spawned by the run CLI in standalone mode so the full master protocol
+(rendezvous, KV store, data sharding, diagnosis) is available without a
+cluster.
+
+The port's copy of ``dlrover_tpu/master/local_master.py``. It builds
+what the reference's builds by default, serves over HTTP by default,
+and gives the servicer no rescale coordinator (the servicer answers the
+rescale verbs as "no plan"). The journal, the autoscale loop and a
+batch config raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+import threading
+import time
+
+from dlrover_tpu_torch.common.constants import JobConstant
+from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.master.elastic_training.rdzv_manager import (
+    create_rdzv_managers,
+)
+from dlrover_tpu_torch.master.monitor.perf_monitor import PerfMonitor
+from dlrover_tpu_torch.master.node.job_context import get_job_context
+from dlrover_tpu_torch.master.node.local_job_manager import LocalJobManager
+from dlrover_tpu_torch.master.servicer import MasterServicer
+from dlrover_tpu_torch.master.shard.task_manager import TaskManager
+from dlrover_tpu_torch.rpc.transport import create_master_server
+
+JOURNAL_PATH_ENV = "DLROVER_TPU_MASTER_JOURNAL"
+
+
+def journal_path_from_env() -> str:
+    """The journal path the reference reads (``master/journal.py``'s
+    ``journal_path_from_env``): set, it asks for the durable journal
+    the port has not ported."""
+    import os
+
+    return os.getenv(JOURNAL_PATH_ENV, "")
+
+
+class LocalJobMaster:
+    def __init__(
+        self,
+        port: int = 0,
+        job_name: str = "local-job",
+        node_num: int = 1,
+        max_relaunch_count: int = 3,
+        transport: str = "http",
+        batch_config=None,
+        autoscale_loop: bool = False,
+        journal_path: str = "",
+    ):
+        # Not ported yet, refused rather than ignored (ROADMAP §A): the
+        # rescale coordinator (item 1), the durable journal (item 4) and
+        # the closed-loop autoscaler (item 7). A batch config needs the
+        # coordinator to legalise rescale plans.
+        if journal_path or journal_path_from_env():
+            raise NotImplementedError(
+                "the master journal (master/journal.py) is not ported "
+                "yet: ROADMAP §A item 4"
+            )
+        if batch_config is not None:
+            raise NotImplementedError(
+                "batch_config needs the rescale coordinator "
+                "(master/elastic_training/rescale_coordinator.py), not "
+                "ported yet: ROADMAP §A item 1"
+            )
+        if autoscale_loop:
+            raise NotImplementedError(
+                "the autoscale loop (autoscaler/) is not ported yet: "
+                "ROADMAP §A item 7"
+            )
+        self.job_name = job_name
+        self._job_context = get_job_context()
+        self.job_manager = LocalJobManager(job_name, max_relaunch_count)
+        self.rdzv_managers = create_rdzv_managers()
+        self.perf_monitor = PerfMonitor()
+        self.task_manager = TaskManager(perf_monitor=self.perf_monitor)
+        self.diagnosis_master = self._build_diagnosis_master()
+        from dlrover_tpu_torch.master.elastic_training.kv_store import (
+            KVStoreService,
+        )
+        from dlrover_tpu_torch.master.elastic_training.sync_service import (
+            SyncService,
+        )
+
+        self.rescale_coordinator = None
+        self.kv_store = KVStoreService()
+        self.sync_service = SyncService()
+        self.journal = None
+        from dlrover_tpu_torch.observability import tracing as tracing_lib
+
+        self.trace_aggregator = tracing_lib.TraceAggregator()
+        _tracer = (
+            tracing_lib.active_tracer()
+            or tracing_lib.arm_from_env(service="master")
+        )
+        if _tracer is not None:
+            # Master's own server spans feed /api/traces directly.
+            _tracer.set_on_finish(self.trace_aggregator.ingest_one)
+        self.servicer = MasterServicer(
+            rdzv_managers=self.rdzv_managers,
+            task_manager=self.task_manager,
+            job_manager=self.job_manager,
+            diagnosis_master=self.diagnosis_master,
+            perf_monitor=self.perf_monitor,
+            sync_service=self.sync_service,
+            kv_store=self.kv_store,
+            rescale_coordinator=self.rescale_coordinator,
+            trace_aggregator=self.trace_aggregator,
+            journal=self.journal,
+        )
+        self._server = create_master_server(port, self.servicer, transport)
+        self.port = self._server.port
+        self._node_num = node_num
+        self._stopped = threading.Event()
+        self.autoscaler = None
+        self.fault_history = None
+        self.ckpt_cadence = None
+
+    def _build_diagnosis_master(self):
+        from dlrover_tpu_torch.diagnosis.diagnosis_manager import DiagnosisManager
+        from dlrover_tpu_torch.diagnosis.diagnosticians.training_hang import (
+            TrainingHangDiagnostician,
+        )
+        from dlrover_tpu_torch.master.diagnosis.diagnosis_master import (
+            DiagnosisMaster,
+        )
+
+        from dlrover_tpu_torch.diagnosis.diagnosticians.node_failure import (
+            NodeFailureDiagnostician,
+        )
+
+        manager = DiagnosisManager()
+        dm = DiagnosisMaster(manager=manager)
+        from dlrover_tpu_torch.diagnosis.diagnosis_data import DiagnosisDataType
+
+        manager.register(TrainingHangDiagnostician(
+            self.perf_monitor,
+            # Late-bound: workers' relayed stack dumps let the hang
+            # escalation name the blocked frame.
+            stack_dump_provider=lambda: dm.recent_data(
+                DiagnosisDataType.STACK_DUMP
+            ),
+        ))
+        manager.register(NodeFailureDiagnostician())
+        return dm
+
+    def prepare(self):
+        for mgr in self.rdzv_managers.values():
+            mgr.update_rdzv_params(
+                min_nodes=self._node_num,
+                max_nodes=self._node_num,
+                waiting_timeout=5.0,
+            )
+        self._server.start()
+        self.job_manager.start()
+        self.task_manager.start()
+        if self.autoscaler is not None:
+            self.autoscaler.start()
+        self.diagnosis_master.start_observing()
+        logger.info(
+            "local master [%s] serving on port %d", self.job_name, self.port
+        )
+
+    def run(self) -> int:
+        """Supervision loop; returns exit code."""
+        try:
+            while not self._stopped.is_set():
+                time.sleep(JobConstant.MASTER_RUN_LOOP_INTERVAL)
+                if self.job_manager.all_workers_exited():
+                    if self.job_manager.all_workers_succeeded():
+                        logger.info("all workers succeeded; master exiting")
+                        return 0
+                    logger.error("workers failed; master exiting")
+                    return 1
+                rc = self._execute_master_actions()
+                if rc is not None:
+                    return rc
+            return 0
+        finally:
+            self.stop()
+
+    def _execute_master_actions(self):
+        """Consume job-level diagnosis actions (hang -> restart/abort),
+        mirroring DistributedJobMaster._diagnose_loop for standalone."""
+        from dlrover_tpu_torch.common.constants import DiagnosisActionType
+
+        while True:
+            action = self._job_context.next_master_action()
+            if action is None:
+                return None
+            if action.action_type == DiagnosisActionType.JOB_RESTART:
+                logger.warning(
+                    "diagnosis: restarting workers (%s)", action.reason
+                )
+                self.job_manager.restart_worker_processes(action.reason)
+            elif action.action_type == DiagnosisActionType.JOB_ABORT:
+                logger.error("diagnosis: aborting job (%s)", action.reason)
+                return 1
+
+    def stop(self):
+        self._stopped.set()
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        self.diagnosis_master.stop_observing()
+        self.task_manager.stop()
+        self.job_manager.stop()
+        # Prefer the draining stop: finish in-flight RPCs, run shutdown
+        # hooks (journal flush+fsync+close record), sever keep-alives.
+        graceful = getattr(self._server, "graceful_stop", None)
+        if graceful is not None:
+            graceful()
+        else:
+            self._server.stop()
+
+    def request_stop(self):
+        self._stopped.set()

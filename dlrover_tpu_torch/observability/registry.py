@@ -1,10 +1,12 @@
 """Process-wide, thread-safe metrics registry (the port's own copy of
 ``dlrover_tpu/observability/registry.py``).
 
-Counter, gauge and histogram families with labels. Registration is
-idempotent: asking for an existing family name returns the existing
-collector, but re-registering under a different metric type, label set
-or bucket layout is a programming error and raises.
+Counter, gauge and histogram families with labels, with the samples and
+quantiles the master's RPC telemetry reads. Registration is idempotent:
+asking for an existing family name returns the existing collector
+(modules register independently without import order mattering), but
+re-registering under a different metric type, label set or bucket
+layout is a programming error and raises.
 """
 
 import threading
@@ -41,6 +43,14 @@ class _Family:
             )
         return tuple(str(labels[k]) for k in self.labelnames)
 
+    def samples(self) -> List[Tuple[str, Dict[str, str], float]]:
+        """[(suffix-less name, labels, value)] for exposition."""
+        with self._lock:
+            return [
+                (self.name, dict(zip(self.labelnames, key)), value)
+                for key, value in sorted(self._children.items())
+            ]
+
 
 class Counter(_Family):
     """Monotonically increasing counter."""
@@ -69,6 +79,14 @@ class Gauge(_Family):
         key = self._key(labels)
         with self._lock:
             self._children[key] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels):
+        key = self._key(labels)
+        with self._lock:
+            self._children[key] = self._children.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels):
+        self.inc(-amount, **labels)
 
     def value(self, **labels) -> float:
         key = self._key(labels)
@@ -113,6 +131,69 @@ class Histogram(_Family):
         with self._lock:
             state = self._hist.get(key)
             return state[len(self.buckets)] if state else 0.0
+
+    def quantile(self, q: float, **labels) -> Optional[float]:
+        """Estimated q-quantile (0..1) from the cumulative buckets —
+        Prometheus ``histogram_quantile`` semantics (linear
+        interpolation inside the target bucket), precomputed server-
+        side so scrapers need no quantile math. None with no samples;
+        observations beyond the last finite bucket clamp to it."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError("quantile must be in [0, 1]")
+        key = self._key(labels)
+        with self._lock:
+            state = self._hist.get(key)
+            if state is None:
+                return None
+            counts = list(state[: len(self.buckets)])
+            total = state[len(self.buckets)]
+        if total <= 0:
+            return None
+        target = q * total
+        prev_bound = 0.0
+        prev_count = 0.0
+        for bound, cum in zip(self.buckets, counts):
+            if cum >= target:
+                in_bucket = cum - prev_count
+                if in_bucket <= 0:
+                    return bound
+                frac = (target - prev_count) / in_bucket
+                return prev_bound + frac * (bound - prev_bound)
+            prev_bound = bound
+            prev_count = cum
+        return self.buckets[-1] if self.buckets else None
+
+    def sum(self, **labels) -> float:
+        key = self._key(labels)
+        with self._lock:
+            state = self._hist.get(key)
+            return state[len(self.buckets) + 1] if state else 0.0
+
+    def samples(self) -> List[Tuple[str, Dict[str, str], float]]:
+        out: List[Tuple[str, Dict[str, str], float]] = []
+        with self._lock:
+            for key, state in sorted(self._hist.items()):
+                base = dict(zip(self.labelnames, key))
+                for i, bound in enumerate(self.buckets):
+                    labels = dict(base)
+                    labels["le"] = repr(bound)
+                    out.append((f"{self.name}_bucket", labels, state[i]))
+                labels = dict(base)
+                labels["le"] = "+Inf"
+                out.append(
+                    (f"{self.name}_bucket", labels, state[len(self.buckets)])
+                )
+                out.append(
+                    (f"{self.name}_count", base, state[len(self.buckets)])
+                )
+                out.append(
+                    (
+                        f"{self.name}_sum",
+                        dict(base),
+                        state[len(self.buckets) + 1],
+                    )
+                )
+        return out
 
 
 class MetricsRegistry:
@@ -180,6 +261,10 @@ class MetricsRegistry:
             Histogram, name, help_text, labelnames, buckets=buckets
         )
 
+    def families(self) -> List[_Family]:
+        with self._lock:
+            return list(self._families.values())
+
     def get(self, name: str) -> Optional[_Family]:
         with self._lock:
             return self._families.get(name)
@@ -195,3 +280,10 @@ def default_registry() -> MetricsRegistry:
         if _default is None:
             _default = MetricsRegistry()
         return _default
+
+
+def reset_default_registry():
+    """Tests only: drop every family registered so far."""
+    global _default
+    with _default_lock:
+        _default = None

@@ -1,30 +1,34 @@
 """Cross-process distributed tracing: spans, context propagation, sinks
-(the port's own copy of the span layer of
-``dlrover_tpu/observability/tracing.py``: explicit and retrospective
-spans, carriers, the ring and the JSONL sink).
+(the port's copy of ``dlrover_tpu/observability/tracing.py``).
 
 A stdlib-only span layer — ``trace_id``/``span_id``/``parent_id``,
 monotonic + wall timestamps, free-form attrs — whose carrier rides the
-fleet's work items so one serving request yields ONE tree across
-processes:
+fleet's work items and the control plane's RPC envelopes
+(``common.comm.Message.trace``), so one serving request or one
+control-plane call yields ONE tree across processes:
 
     fleet.request → fleet.attempt (retry/hedge siblings)
       → serving.request → serving.queue_wait / prefill / migrate / decode
+    rpc.<Request> (client, retries as attrs) → master.<Request> (server)
 
 - **Disarmed is free.** Every span site starts with one read of the
   module-level ``_tracer`` global (:func:`active_tracer`); when None
-  (the default) the site does nothing else.
+  (the default) the site returns the shared :data:`NOOP_SPAN`.
 - **Armed is cheap.** A finished span is one dict append into a bounded
   ring plus (when a sink is configured) one buffered JSONL line.
 - **Hot loops emit retrospectively.** The engine never opens spans
   inside its step loop — it records the timestamps it needs
   (submit/admit/first-token/finish) and emits the whole phase tree in
   one :meth:`Tracer.record_span` burst at completion.
+- **Nested ``with span(...)`` blocks form a tree** through the
+  per-thread active-span stack; the master's :class:`TraceAggregator`
+  keeps recent trees of its own server spans and the spans workers
+  push.
 
 Cross-process arming mirrors the fault plane: ``DLROVER_TPU_TRACE_FILE``
 names the JSONL sink; a subprocess calls :func:`arm_from_env` early in
-main (fleet replica workers do). Records have the reference's schema,
-so span files from either package merge.
+main (fleet replica workers and the master do). Records have the
+reference's schema, so span files from either package merge.
 """
 
 import json
@@ -32,7 +36,9 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
+
+from dlrover_tpu_torch.common.log import logger
 
 TRACE_FILE_ENV = "DLROVER_TPU_TRACE_FILE"
 SCHEMA_VERSION = 1
@@ -53,19 +59,25 @@ def _new_span_id() -> str:
 
 
 class Span:
-    """One timed operation: started by :meth:`Tracer.start_span`,
-    finished by :meth:`end` (idempotent), or recorded whole by
-    :meth:`Tracer.record_span`."""
+    """One timed operation. Context-manager friendly::
+
+        with tracing.span("rpc.get", request="TaskRequest") as sp:
+            sp.set_attr("bytes", n)
+
+    ``end()`` is idempotent; an exception inside the ``with`` marks the
+    span ``status="error"`` and records the exception type.
+    """
 
     __slots__ = (
         "trace_id", "span_id", "parent_id", "name", "kind",
         "start_wall", "start_mono", "end_mono", "attrs", "status",
-        "_tracer",
+        "_tracer", "_token",
     )
 
     def __init__(self, tracer, name, kind, trace_id, parent_id,
                  attrs=None, start_mono=None, start_wall=None):
         self._tracer = tracer
+        self._token = None
         self.name = str(name)
         self.kind = str(kind)
         self.trace_id = trace_id
@@ -82,9 +94,21 @@ class Span:
         self.attrs: Dict = dict(attrs) if attrs else {}
         self.status = "ok"
 
+    # ---- mutation ----------------------------------------------------------
+
     def set_attr(self, key: str, value) -> "Span":
         self.attrs[str(key)] = value
         return self
+
+    def inc_attr(self, key: str, amount: int = 1) -> int:
+        """Counter-style attr: the retried-RPC contract (the SAME span
+        carries ``retry: n``, not n sibling spans — at-most-once stays
+        visible as one wire operation that was re-sent)."""
+        value = int(self.attrs.get(key, 0)) + amount
+        self.attrs[str(key)] = value
+        return value
+
+    # ---- lifecycle ---------------------------------------------------------
 
     def carrier(self) -> Dict[str, str]:
         """The propagation dict a child process/peer parents to."""
@@ -100,6 +124,18 @@ class Span:
             end_mono if end_mono is not None else time.monotonic()
         )
         self._tracer._finish(self)
+
+    def __enter__(self) -> "Span":
+        self._token = self._tracer._activate(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._tracer._deactivate(self._token)
+        if exc_type is not None and self.status == "ok":
+            self.status = "error"
+            self.attrs.setdefault("error", exc_type.__name__)
+        self.end()
+        return False
 
     def to_dict(self) -> Dict:
         dur = (
@@ -120,23 +156,83 @@ class Span:
         }
 
 
+class _NoopSpan:
+    """The disarmed return of every span site: same surface as
+    :class:`Span`, all no-ops. One shared instance — a disarmed span
+    site allocates nothing."""
+
+    __slots__ = ()
+    trace_id = span_id = parent_id = None
+    status = "noop"
+
+    def set_attr(self, key, value):
+        return self
+
+    def inc_attr(self, key, amount=1):
+        return 0
+
+    def carrier(self):
+        return None
+
+    def end(self, status=None, end_mono=None):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+NOOP_SPAN = _NoopSpan()
+
+
 class Tracer:
-    """Process-wide span factory, ring, and JSONL sink. Span objects
-    belong to their creating thread; the ring and the sink file are
-    shared and locked."""
+    """Process-wide span factory, ring, and JSONL sink.
+
+    Thread model: span *objects* belong to their creating thread (no
+    internal locking — the owning site starts and ends them); the ring,
+    the export buffer, and the sink file are shared and locked. The
+    per-thread *active* span stack drives implicit parenting so nested
+    ``with span(...)`` blocks form a tree without plumbing."""
 
     def __init__(
         self,
         service: str = "",
         sink_path: Optional[str] = None,
         ring_capacity: int = 4096,
+        export_capacity: int = 1024,
+        on_finish: Optional[Callable[[Dict], None]] = None,
     ):
         self.service = str(service)
         self._sink_path = sink_path
         self._sink_file = None
         self._lock = threading.Lock()
-        # Finished spans, newest last.
+        self._local = threading.local()
+        # Finished spans, newest last: the master serves /api/traces
+        # from its own ring; workers drain ``exports`` to piggyback
+        # span summaries on report RPCs.
         self._ring: "deque[Dict]" = deque(maxlen=ring_capacity)
+        self._exports: "deque[Dict]" = deque(maxlen=export_capacity)
+        self._dropped = 0
+        self._on_finish = on_finish
+
+    # ---- span creation -----------------------------------------------------
+
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = []
+            self._local.stack = stack
+        return stack
+
+    def current(self) -> Optional[Span]:
+        stack = getattr(self._local, "stack", None)
+        return stack[-1] if stack else None
+
+    def current_carrier(self) -> Optional[Dict[str, str]]:
+        sp = self.current()
+        return sp.carrier() if sp is not None else None
 
     def start_span(
         self,
@@ -144,11 +240,23 @@ class Tracer:
         kind: str = "internal",
         parent=None,
         attrs: Optional[Dict] = None,
+        start_mono: Optional[float] = None,
+        start_wall: Optional[float] = None,
     ) -> Span:
         """A live span. ``parent`` may be a :class:`Span`, a carrier
-        dict from another process, or None (a fresh trace)."""
-        trace_id, parent_id = _resolve_parent(parent)
-        return Span(self, name, kind, trace_id, parent_id, attrs)
+        dict from another process, or None — None parents to this
+        thread's active span, or starts a fresh trace.
+
+        ``start_mono``/``start_wall`` back-date the span to timestamps
+        taken before it could be named (the servicer clocks dispatch
+        BEFORE deserializing the request that names the span — §32's
+        metric-vs-span agreement depends on both covering the same
+        window)."""
+        trace_id, parent_id = self._resolve_parent(parent)
+        return Span(
+            self, name, kind, trace_id, parent_id, attrs,
+            start_mono=start_mono, start_wall=start_wall,
+        )
 
     def record_span(
         self,
@@ -161,11 +269,11 @@ class Tracer:
         status: str = "ok",
     ) -> Span:
         """Retrospective span from already-recorded monotonic
-        timestamps — the hot-loop pattern: the engine keeps plain
-        floats during the loop and emits the whole phase tree in one
-        burst at completion. Returns the finished span so children can
-        parent to it."""
-        trace_id, parent_id = _resolve_parent(parent)
+        timestamps — the hot-loop pattern: the engine/trainer keeps
+        plain floats during the loop and emits the whole phase tree in
+        one burst at completion. Returns the finished span so children
+        can parent to it."""
+        trace_id, parent_id = self._resolve_parent(parent)
         now_mono = time.monotonic()
         start_wall = time.time() - (now_mono - start_mono)
         sp = Span(
@@ -176,14 +284,50 @@ class Tracer:
         sp.end(end_mono=max(end_mono, start_mono))
         return sp
 
+    def _resolve_parent(self, parent):
+        if parent is None:
+            parent = self.current()
+        if isinstance(parent, Span):
+            return parent.trace_id, parent.span_id
+        if isinstance(parent, dict) and parent.get(_CARRIER_TRACE):
+            span_id = parent.get(_CARRIER_SPAN)
+            return (
+                str(parent[_CARRIER_TRACE]),
+                str(span_id) if span_id else None,
+            )
+        return _new_trace_id(), None
+
+    # ---- activation (implicit parenting) -----------------------------------
+
+    def _activate(self, span: Span) -> int:
+        stack = self._stack()
+        stack.append(span)
+        return len(stack) - 1
+
+    def _deactivate(self, token: int):
+        stack = self._stack()
+        # Defensive truncation, not pop: an abandoned child (site that
+        # never exited its ``with``) must not leave the stack lying.
+        del stack[token:]
+
+    # ---- finish path -------------------------------------------------------
+
     def _finish(self, span: Span):
         record = span.to_dict()
         if self.service:
             record["service"] = self.service
         record["pid"] = os.getpid()
         with self._lock:
+            if len(self._exports) == self._exports.maxlen:
+                self._dropped += 1
             self._ring.append(record)
+            self._exports.append(record)
             self._write_locked(record)
+        if self._on_finish is not None:
+            try:
+                self._on_finish(record)
+            except Exception:  # noqa: BLE001 — observer must not break sites
+                logger.debug("trace on_finish hook failed", exc_info=True)
 
     def _write_locked(self, record: Dict):
         if not self._sink_path:
@@ -201,10 +345,28 @@ class Tracer:
             self._sink_path = None
             self._sink_file = None
 
+    # ---- consumption -------------------------------------------------------
+
     def finished(self, last_n: Optional[int] = None) -> List[Dict]:
         with self._lock:
             out = list(self._ring)
         return out[-last_n:] if last_n is not None else out
+
+    def set_on_finish(self, callback: Optional[Callable[[Dict], None]]):
+        """Install (or clear) the finished-span observer — the master
+        hooks its TraceAggregator here so its own server spans reach
+        /api/traces without a sink round-trip."""
+        self._on_finish = callback
+
+    def drain_exports(self, max_n: int = 256) -> List[Dict]:
+        """Pop up to ``max_n`` finished spans for piggybacking on a
+        report RPC (worker -> master push). Dropped-by-overflow count
+        rides along as telemetry honesty."""
+        out: List[Dict] = []
+        with self._lock:
+            while self._exports and len(out) < max_n:
+                out.append(self._exports.popleft())
+        return out
 
     def close(self):
         with self._lock:
@@ -214,18 +376,6 @@ class Tracer:
                 except OSError:
                     pass
                 self._sink_file = None
-
-
-def _resolve_parent(parent):
-    if isinstance(parent, Span):
-        return parent.trace_id, parent.span_id
-    if isinstance(parent, dict) and parent.get(_CARRIER_TRACE):
-        span_id = parent.get(_CARRIER_SPAN)
-        return (
-            str(parent[_CARRIER_TRACE]),
-            str(span_id) if span_id else None,
-        )
-    return _new_trace_id(), None
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +403,7 @@ def disarm():
 
 def active_tracer() -> Optional[Tracer]:
     """THE armed-check every span site performs first. None = disarmed
-    (the default): the site must do nothing else."""
+    (the production default): the site must do nothing else."""
     return _tracer
 
 
@@ -264,3 +414,213 @@ def arm_from_env(service: str = "") -> Optional[Tracer]:
     if not path:
         return None
     return arm(Tracer(service=service, sink_path=path))
+
+
+def span(name: str, kind: str = "internal", parent=None, **attrs):
+    """Context-managed span site. Disarmed: one global check, returns
+    the shared no-op span."""
+    tracer = _tracer
+    if tracer is None:
+        return NOOP_SPAN
+    return tracer.start_span(name, kind=kind, parent=parent,
+                             attrs=attrs or None)
+
+
+def server_span(name: str, carrier, start_mono=None, start_wall=None,
+                **attrs):
+    """A server-side span parented to a remote carrier (or a fresh
+    trace when the caller sent none). ``start_mono``/``start_wall``
+    optionally back-date it to pre-deserialize dispatch clocks."""
+    tracer = _tracer
+    if tracer is None:
+        return NOOP_SPAN
+    parent = carrier if isinstance(carrier, dict) else None
+    return tracer.start_span(name, kind="server", parent=parent,
+                             attrs=attrs or None,
+                             start_mono=start_mono, start_wall=start_wall)
+
+
+def current_carrier() -> Optional[Dict[str, str]]:
+    """The active span's propagation dict, for stamping onto outbound
+    RPC envelopes. Disarmed (or no active span): None."""
+    tracer = _tracer
+    if tracer is None:
+        return None
+    return tracer.current_carrier()
+
+
+def bump_current(key: str, amount: int = 1):
+    """Increment a counter attr on the active span (transport retry
+    accounting deep inside the stub, where the span object is not in
+    scope). Disarmed or spanless: no-op."""
+    tracer = _tracer
+    if tracer is None:
+        return
+    sp = tracer.current()
+    if sp is not None:
+        sp.inc_attr(key, amount)
+
+
+def record_span(name, start_mono, end_mono, kind="internal", parent=None,
+                attrs=None, status="ok"):
+    """Module-level retrospective emission; disarmed: one check, None."""
+    tracer = _tracer
+    if tracer is None:
+        return None
+    return tracer.record_span(
+        name, start_mono, end_mono, kind=kind, parent=parent,
+        attrs=attrs, status=status,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Master-side aggregation: recent trace trees + file loading
+# ---------------------------------------------------------------------------
+
+
+class TraceAggregator:
+    """Bounded store of finished span records keyed by trace, fed by
+    the master's own tracer (``on_finish`` hook) and by workers pushing
+    drained spans over the existing DiagnosisDataReport verb. Serves
+    ``/api/traces``."""
+
+    def __init__(self, max_traces: int = 256, max_spans_per_trace: int = 512):
+        self._lock = threading.Lock()
+        self._max_traces = max_traces
+        self._max_spans = max_spans_per_trace
+        # trace_id -> list of span records, insertion-ordered dict as an
+        # LRU-by-arrival of traces.
+        self._traces: "Dict[str, List[Dict]]" = {}
+        # Cap overflows are BOUNDED behavior, not silent behavior: every
+        # span lost to trace eviction or a full per-trace bucket is
+        # counted, locally and on /metrics (§32 buffer-accounting law).
+        self._dropped = {"trace_cap": 0, "span_cap": 0}
+        from dlrover_tpu_torch.observability.registry import default_registry
+
+        self._dropped_counter = default_registry().counter(
+            "trace_ingest_dropped_total",
+            "spans lost at the master's trace aggregator caps",
+            labelnames=("reason",),
+        )
+
+    def ingest(self, spans: Iterable[Dict]):
+        with self._lock:
+            for record in spans or ():
+                if not isinstance(record, dict):
+                    continue
+                trace_id = record.get("trace_id")
+                if not trace_id:
+                    continue
+                bucket = self._traces.get(trace_id)
+                if bucket is None:
+                    bucket = self._traces[trace_id] = []
+                    while len(self._traces) > self._max_traces:
+                        evicted = self._traces.pop(
+                            next(iter(self._traces))
+                        )
+                        if evicted:
+                            self._dropped["trace_cap"] += len(evicted)
+                            self._dropped_counter.inc(
+                                len(evicted), reason="trace_cap"
+                            )
+                if len(bucket) < self._max_spans:
+                    bucket.append(dict(record))
+                else:
+                    self._dropped["span_cap"] += 1
+                    self._dropped_counter.inc(reason="span_cap")
+
+    def ingest_one(self, record: Dict):
+        self.ingest((record,))
+
+    def stats(self) -> Dict:
+        """Occupancy + drop accounting for /api/traces and
+        /api/control_plane: a bounded buffer that cannot report its
+        occupancy and drops is indistinguishable from a lossless one."""
+        with self._lock:
+            spans = sum(len(b) for b in self._traces.values())
+            return {
+                # Normalized occupancy/drops keys: every bounded
+                # buffer on /api/control_plane speaks the same schema.
+                "occupancy": spans,
+                "drops": sum(self._dropped.values()),
+                "traces": len(self._traces),
+                "spans": spans,
+                "max_traces": self._max_traces,
+                "max_spans_per_trace": self._max_spans,
+                "dropped": dict(self._dropped),
+            }
+
+    def trace_ids(self) -> List[str]:
+        with self._lock:
+            return list(self._traces)
+
+    def spans(self, trace_id: str) -> List[Dict]:
+        with self._lock:
+            return [dict(r) for r in self._traces.get(trace_id, ())]
+
+    def tree(self, trace_id: str) -> List[Dict]:
+        """Root-level spans of a trace with nested ``children`` lists
+        (a span whose parent never arrived is promoted to root — trees
+        must render even when one process's spans were lost)."""
+        return build_trees(self.spans(trace_id))
+
+    def recent(self, limit: int = 20) -> List[Dict]:
+        """Newest-trace-first summaries for the dashboard list view."""
+        with self._lock:
+            items = list(self._traces.items())[-limit:]
+        out = []
+        for trace_id, spans in reversed(items):
+            roots = [s for s in spans if not s.get("parent_id")]
+            root = roots[0] if roots else (spans[0] if spans else {})
+            out.append({
+                "trace_id": trace_id,
+                "root": root.get("name", ""),
+                "service": root.get("service", ""),
+                "status": root.get("status", ""),
+                "dur_s": root.get("dur_s"),
+                "spans": len(spans),
+            })
+        return out
+
+
+def build_trees(spans: List[Dict]) -> List[Dict]:
+    """Nest a flat span list into parent->children trees (shared by the
+    aggregator, the query CLI, and the soak's trace invariant)."""
+    by_id = {}
+    for record in spans:
+        node = dict(record)
+        node["children"] = []
+        by_id[node.get("span_id")] = node
+    roots = []
+    for node in by_id.values():
+        parent = by_id.get(node.get("parent_id"))
+        if parent is not None and parent is not node:
+            parent["children"].append(node)
+        else:
+            roots.append(node)
+    for node in by_id.values():
+        node["children"].sort(key=lambda c: c.get("mono") or 0.0)
+    roots.sort(key=lambda c: c.get("mono") or 0.0)
+    return roots
+
+
+def load_spans(paths: Iterable[str]) -> List[Dict]:
+    """Read span JSONL files (tolerant of torn tails — a SIGKILLed
+    process's last line may be partial)."""
+    out: List[Dict] = []
+    for path in paths:
+        try:
+            with open(path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        record = json.loads(line)
+                    except ValueError:
+                        continue
+                    if isinstance(record, dict):
+                        out.append(record)
+        except OSError:
+            continue
+    return out

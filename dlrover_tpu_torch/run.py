@@ -1,0 +1,345 @@
+"""``python -m dlrover_tpu_torch.run`` — the elastic launcher CLI.
+
+Parity: reference dlrover/trainer/torch/elastic_run.py (``dlrover-run``):
+a torchrun-superset that (a) bootstraps a local master in standalone mode,
+(b) merges master-pushed config, (c) gates on pre-check, then hands off to
+the elastic agent. The port's copy of ``dlrover_tpu/run.py``: the
+launched workers are PyTorch processes, the local master is the port's
+(``python -m dlrover_tpu_torch.master.main --platform local --transport
+http``), and ``-m`` runs the training script as a module, as torchrun's
+does.
+
+Usage:
+    python -m dlrover_tpu_torch.run --standalone --nproc_per_node 1 train.py ...
+    python -m dlrover_tpu_torch.run --standalone -m pkg.train --steps 10
+    python -m dlrover_tpu_torch.run --master host:port --nnodes 2:4 train.py ...
+
+Launcher switches whose paths are not ported yet raise
+``NotImplementedError`` naming their ROADMAP §A item: ``--network-check``
+(item 3), ``--ckpt_replica_group`` above 1 (item 5) and
+``DLROVER_TPU_TIMER`` (item 10). The launcher leaves the checkpoint
+saver's shared-memory segments behind when it exits, as the
+reference's does: whoever owns the job's name unlinks them.
+"""
+
+import argparse
+import atexit
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Optional, Tuple
+
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.agent.monitor import ResourceMonitor
+from dlrover_tpu_torch.agent.training_monitor import (
+    METRICS_FILE_ENV,
+    TrainingMonitor,
+)
+from dlrover_tpu_torch.agent.training import ElasticAgent, RunResult, WorkerSpec
+from dlrover_tpu_torch.common.constants import (
+    NodeEnv,
+    PreCheckStatus,
+)
+from dlrover_tpu_torch.common.env_utils import get_env_bool, get_env_int
+from dlrover_tpu_torch.common.log import logger
+
+
+def parse_nnodes(value: str) -> Tuple[int, int]:
+    if ":" in value:
+        lo, hi = value.split(":", 1)
+        return int(lo), int(hi)
+    n = int(value)
+    return n, n
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="dlrover-tpu-torch-run",
+        description="elastic PyTorch process launcher",
+    )
+    p.add_argument("--standalone", action="store_true", default=False)
+    p.add_argument("--master", type=str, default="", help="master addr host:port")
+    p.add_argument("--nnodes", type=str, default="1", help="N or MIN:MAX")
+    p.add_argument("--nproc_per_node", type=int, default=1)
+    p.add_argument("--node_rank", type=int, default=-1)
+    p.add_argument("--max_restarts", type=int, default=3)
+    p.add_argument("--node_unit", type=int, default=1)
+    p.add_argument("--rdzv_join_timeout", type=float, default=600.0)
+    p.add_argument("--monitor_interval", type=float, default=1.0)
+    p.add_argument(
+        "--network-check",
+        action="store_true",
+        default=False,
+        help="run node/ICI health probes before training",
+    )
+    p.add_argument("--log_dir", type=str, default="")
+    p.add_argument("--pre_check_timeout", type=float, default=600.0)
+    p.add_argument(
+        "--ckpt_replica_group",
+        type=int,
+        default=1,
+        help="nodes per in-memory checkpoint replica group (1 = off)",
+    )
+    p.add_argument(
+        "-m",
+        "--module",
+        action="store_true",
+        default=False,
+        help="run training_script as a python module (python -m)",
+    )
+    p.add_argument("training_script", type=str)
+    p.add_argument("training_script_args", nargs=argparse.REMAINDER)
+    return p
+
+
+def _launch_local_master(node_num: int) -> Tuple[subprocess.Popen, str]:
+    """Standalone bootstrap (reference elastic_run.py:326
+    _launch_dlrover_local_master)."""
+    port_dir = tempfile.mkdtemp(prefix="dlrover_tpu_")
+    port_file = os.path.join(port_dir, "master_port")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [
+            sys.executable,
+            "-m",
+            "dlrover_tpu_torch.master.main",
+            "--platform",
+            "local",
+            "--transport",
+            "http",
+            "--node_num",
+            str(node_num),
+            "--port_file",
+            port_file,
+        ],
+        start_new_session=True,
+    )
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        if os.path.exists(port_file):
+            with open(port_file) as f:
+                port = f.read().strip()
+            if port:
+                shutil.rmtree(port_dir, ignore_errors=True)
+                logger.info(
+                    "local master pid=%d serving at 127.0.0.1:%s after "
+                    "%.3f s",
+                    proc.pid,
+                    port,
+                    time.monotonic() - t0,
+                )
+                return proc, f"127.0.0.1:{port}"
+        if proc.poll() is not None:
+            raise RuntimeError("local master exited during startup")
+        time.sleep(0.2)
+    proc.kill()
+    raise RuntimeError("local master did not publish its port in 60s")
+
+
+def wait_pre_check(client: MasterClient, timeout: float):
+    """Gate on master pre-check (reference elastic_run.py:295)."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        try:
+            status = client.get_pre_check_result()
+        except Exception:
+            time.sleep(1)
+            continue
+        if status in (PreCheckStatus.PASS, PreCheckStatus.DISABLED):
+            return
+        if status == PreCheckStatus.FAIL:
+            raise SystemExit("master pre-check failed; aborting launch")
+        time.sleep(2)
+    raise SystemExit("timed out waiting for master pre-check")
+
+
+def _merge_master_config(client: MasterClient, args):
+    """Master-pushed config overrides CLI defaults (reference
+    elastic_run.py:438 _merge_elastic_config_from_master)."""
+    try:
+        config = client.get_elastic_run_config()
+    except Exception:
+        return
+    if "network_check" in config:
+        args.network_check = config["network_check"].lower() == "true"
+    if "max_restarts" in config:
+        args.max_restarts = int(config["max_restarts"])
+    if "monitor_interval" in config:
+        args.monitor_interval = float(config["monitor_interval"])
+
+
+def _refuse_unported(args):
+    """The launcher's switches whose paths are not ported yet fail
+    before anything starts, naming their ROADMAP §A item."""
+    if args.ckpt_replica_group > 1:
+        raise NotImplementedError(
+            "--ckpt_replica_group > 1 needs flash_ckpt/replica.py, not "
+            "ported yet: ROADMAP §A item 5"
+        )
+    if get_env_bool("DLROVER_TPU_TIMER"):
+        raise NotImplementedError(
+            "DLROVER_TPU_TIMER needs the tpu_timer daemons and their "
+            "collectors, not ported yet: ROADMAP §A item 10"
+        )
+    if args.network_check:
+        raise NotImplementedError(
+            "--network-check needs agent/node_check.py, not ported yet: "
+            "ROADMAP §A item 3"
+        )
+
+
+def run(args) -> int:
+    _refuse_unported(args)
+    min_nodes, max_nodes = parse_nnodes(args.nnodes)
+    master_proc: Optional[subprocess.Popen] = None
+
+    node_rank = args.node_rank
+    if node_rank < 0:
+        node_rank = get_env_int(NodeEnv.NODE_RANK, 0)
+
+    if args.standalone and not args.master:
+        master_proc, master_addr = _launch_local_master(max_nodes)
+
+        def _cleanup():
+            if master_proc.poll() is None:
+                master_proc.terminate()
+                try:
+                    master_proc.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    master_proc.kill()
+
+        atexit.register(_cleanup)
+    else:
+        master_addr = args.master or os.getenv(NodeEnv.MASTER_ADDR, "")
+        if not master_addr:
+            raise SystemExit(
+                "--master (or DLROVER_TPU_MASTER_ADDR) required unless "
+                "--standalone"
+            )
+
+    os.environ[NodeEnv.MASTER_ADDR] = master_addr
+    os.environ[NodeEnv.NODE_RANK] = str(node_rank)
+    client = MasterClient(master_addr, node_id=node_rank)
+    if not client.wait_master_ready(60):
+        raise SystemExit(f"master at {master_addr} not reachable")
+
+    _merge_master_config(client, args)
+    wait_pre_check(client, args.pre_check_timeout)
+    _refuse_unported(args)  # the master's config may turn a switch on
+
+    monitor = ResourceMonitor(client)
+    monitor.start()
+
+    # Metrics-file step reporting (reference TorchTrainingMonitor): a
+    # training loop that never talks RPC still feeds goodput accounting
+    # by appending JSON lines to DLROVER_TPU_METRICS_FILE.
+    training_monitor = None
+    metrics_path = os.getenv(METRICS_FILE_ENV, "")
+    if metrics_path:
+        training_monitor = TrainingMonitor(client, metrics_path)
+        training_monitor.start()
+
+    from dlrover_tpu_torch.agent.paral_config_tuner import ParalConfigTuner
+
+    paral_tuner = ParalConfigTuner(client)
+    paral_tuner.start()
+
+    # User-pluggable failover extension (reference
+    # trainer/torch/elastic_run.py:550 _setup_dynamic_failover_extension):
+    # DLROVER_TPU_FAILOVER_EXT="pkg.module:factory" -> factory(client,
+    # node_rank) returning a DiagnosisAgent-compatible object.
+    diagnosis_agent = None
+    ext_spec = os.getenv("DLROVER_TPU_FAILOVER_EXT", "")
+    if ext_spec:
+        try:
+            module_name, factory_name = ext_spec.split(":", 1)
+            import importlib
+
+            module = importlib.import_module(module_name)
+            diagnosis_agent = getattr(module, factory_name)(
+                client, node_rank
+            )
+            logger.info("loaded failover extension %s", ext_spec)
+        except Exception:
+            logger.exception(
+                "failover extension %r failed to load; using default",
+                ext_spec,
+            )
+
+    spec = WorkerSpec(
+        entrypoint=(
+            f"-m {args.training_script}" if args.module
+            else args.training_script
+        ),
+        args=list(args.training_script_args),
+        nproc_per_node=args.nproc_per_node,
+        max_restarts=args.max_restarts,
+        node_rank=node_rank,
+        node_unit=args.node_unit,
+        join_timeout=args.rdzv_join_timeout,
+        monitor_interval=args.monitor_interval,
+        redirect_output=args.log_dir or None,
+    )
+    from dlrover_tpu_torch.flash_ckpt.saver import AsyncCheckpointSaver
+
+    saver = AsyncCheckpointSaver.start_async_saving_ckpt(client=client)
+    agent = ElasticAgent(
+        spec, client, ckpt_saver=saver, diagnosis_agent=diagnosis_agent
+    )
+
+    def _signal_handler(signum, frame):
+        logger.info("launcher received signal %d; stopping workers", signum)
+        agent.stop()
+        if training_monitor is not None:
+            # Preemption is exactly when the final steps matter for
+            # goodput accounting: flush them before dying.
+            try:
+                training_monitor.poll_once()
+            except Exception:
+                pass
+        sys.exit(128 + signum)
+
+    signal.signal(signal.SIGTERM, _signal_handler)
+
+    result = agent.run()
+    # Unlike the reference's launcher, let a persist in flight (the
+    # last cadence save, a breakpoint save) land and take the saver's
+    # sockets down before exiting; its shm segments stay.
+    agent.wait_breakpoint_save()
+    saver.stop()
+    monitor.stop()
+    if training_monitor is not None:
+        training_monitor.poll_once()  # flush the final steps
+        training_monitor.stop()
+    paral_tuner.stop()
+    if result == RunResult.SUCCEEDED:
+        code = 0
+    elif result == RunResult.RELAUNCH:
+        code = 3  # cluster layer replaces this node
+    else:
+        code = 1
+    if master_proc is not None:
+        try:
+            master_proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            # Never return while the master lives.
+            master_proc.terminate()
+            try:
+                master_proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                master_proc.kill()
+                master_proc.wait()
+    return code
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return run(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,11 +11,17 @@ skips ``torch.distributed``, as the reference skips
 worker builds ``MeshConfig(dp=n_devices)``.
 
 Tracing (``DLROVER_TPU_TRACE_FILE``) and the flight recorder are armed
-from the port's own copies. The reference's hang watchdog, stack-dump
-handler and tpu_timer daemon have no counterpart in the port yet.
+from the port's own copies, and SIGUSR2 dumps every thread's Python
+stack to stderr (the agent's post-mortem stop sends it; without the
+handler its default action would kill the worker without a dump). The
+reference's hang watchdog and tpu_timer daemon have no counterpart in
+the port yet.
 """
 
+import faulthandler
 import os
+import signal
+import sys
 from dataclasses import dataclass
 from typing import Optional
 
@@ -88,10 +94,23 @@ def init_distributed(timeout_secs: int = 300,
             world_size=ctx.num_processes, rank=ctx.process_id,
             timeout=timedelta(seconds=timeout_secs))
         ctx.initialized_distributed = True
+    install_stack_dump_handler()
     _setup_flight_recorder(ctx)
     _setup_tracing(ctx)
     _context = ctx
     return ctx
+
+
+def install_stack_dump_handler(fileobj=None):
+    """Dump all-thread tracebacks on SIGUSR2, to stderr by default (the
+    agent redirects it into the worker log). The reference's
+    ``tpu_timer/py_tracing.install_stack_dump_handler``."""
+    try:
+        faulthandler.register(
+            signal.SIGUSR2, file=fileobj or sys.stderr, all_threads=True
+        )
+    except (AttributeError, ValueError, OSError):
+        logger.warning("stack dump handler not installed", exc_info=True)
 
 
 def _setup_tracing(ctx: DistributedContext):

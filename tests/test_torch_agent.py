@@ -1,0 +1,429 @@
+"""The port's elastic agent end to end: real worker subprocesses under an
+in-process port master, the scenarios of the reference's
+``tests/test_elastic_agent.py`` with the reference's assertions.
+
+The workers are ``tests/workers/torch_simple_train.py``, the torch twin
+of the reference's ``simple_train.py`` (the same argv and progress-file
+format) on the port's ``Checkpointer``: runs to success; a self-crash at
+step 3 resumes at step 4 from memory; an external SIGKILL resumes from
+memory; ``max_restarts 0`` gives up; and two agents of a two-node world
+leave together through the exit barrier. The crash scenario also runs
+through the JAX package's master, saver, agent and worker, and gives the
+same run result and progress lines. The switches of the reference's
+agent the port does not carry yet raise.
+"""
+
+import os
+import signal
+import threading
+import time
+
+import pytest
+
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.agent.training import (
+    ElasticAgent,
+    RunResult,
+    WorkerSpec,
+)
+from dlrover_tpu_torch.flash_ckpt.saver import AsyncCheckpointSaver
+from dlrover_tpu_torch.master.local_master import LocalJobMaster
+from tests.torch_event_guard import events_off
+
+WORKER = os.path.join(os.path.dirname(__file__), "workers",
+                      "torch_simple_train.py")
+
+
+@pytest.fixture(autouse=True)
+def _no_event_files(monkeypatch):
+    events_off(monkeypatch)
+
+
+@pytest.fixture()
+def env_isolation(monkeypatch, tmp_path):
+    job = f"tagent_t{time.time_ns() % 1000000}"
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME", job)
+    monkeypatch.setenv("DLROVER_TPU_SHARED_DIR", str(tmp_path / "uds"))
+    monkeypatch.setenv("DLROVER_TPU_NODE_RANK", "0")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    yield tmp_path
+    for seg in os.listdir("/dev/shm"):
+        if job in seg:
+            os.unlink(os.path.join("/dev/shm", seg))
+
+
+def _master(node_num):
+    from dlrover_tpu_torch.master.node.job_context import JobContext
+
+    JobContext.reset_singleton()
+    m = LocalJobMaster(port=0, node_num=node_num)
+    m.prepare()
+    return m
+
+
+@pytest.fixture()
+def master(env_isolation):
+    m = _master(1)
+    yield m
+    m.stop()
+
+
+@pytest.fixture()
+def saver_client(master):
+    client = MasterClient(f"localhost:{master.port}", node_id=0)
+    AsyncCheckpointSaver.reset()
+    saver = AsyncCheckpointSaver.start_async_saving_ckpt(client=client)
+    yield client, saver
+    saver.unlink_all(2)
+    AsyncCheckpointSaver.reset()
+    client.close()
+
+
+def _spec(tmp_path, total=10, crash_at=-1, max_restarts=2, **kw):
+    out = str(tmp_path / "progress.txt")
+    ckpt_dir = str(tmp_path / "ckpt")
+    return (
+        WorkerSpec(
+            entrypoint=WORKER,
+            args=[str(total), out, ckpt_dir, str(crash_at)],
+            nproc_per_node=1,
+            max_restarts=max_restarts,
+            node_rank=0,
+            monitor_interval=0.2,
+            **kw,
+        ),
+        out,
+    )
+
+
+def _read_progress(out):
+    if not os.path.exists(out):
+        return []
+    lines = []
+    for line in open(out):
+        pid, step, restart, w0 = line.split()
+        lines.append((int(pid), int(step), int(restart.split("=")[1]),
+                      float(w0.split("=")[1])))
+    return lines
+
+
+def _run_in_thread(agent):
+    box = {}
+
+    def run():
+        box["result"] = agent.run()
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t, box
+
+
+def _wait_progress(out, n, timeout=60.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if len(_read_progress(out)) >= n:
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"no {n} steps of progress in {timeout} s")
+
+
+def test_agent_runs_to_success(master, saver_client, tmp_path):
+    client, saver = saver_client
+    spec, out = _spec(tmp_path, total=5)
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    assert agent.run() == RunResult.SUCCEEDED
+    progress = _read_progress(out)
+    assert [p[1] for p in progress] == [1, 2, 3, 4, 5]
+
+
+def test_agent_restarts_crashed_worker_and_resumes(
+    master, saver_client, tmp_path
+):
+    """Worker self-crashes at step 3; agent restarts; training resumes
+    from the flash checkpoint (not from zero) and completes."""
+    client, saver = saver_client
+    spec, out = _spec(tmp_path, total=8, crash_at=3)
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    assert agent.run() == RunResult.SUCCEEDED
+    progress = _read_progress(out)
+    steps = [p[1] for p in progress]
+    assert steps[:3] == [1, 2, 3]
+    assert steps[3] == 4, f"resume did not continue from ckpt: {steps}"
+    assert steps[-1] == 8
+    for _, step, _, w0 in progress:
+        assert w0 == float(step)
+    assert any(r == 1 for _, _, r, _ in progress)
+
+
+def test_agent_sigkill_recovery(master, saver_client, tmp_path):
+    """External SIGKILL (preemption-style) mid-run; recovery via shm."""
+    client, saver = saver_client
+    spec, out = _spec(tmp_path, total=20)
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    t, box = _run_in_thread(agent)
+    _wait_progress(out, 3)
+    assert agent._workers, "worker never started"
+    os.kill(agent._workers[0].process.pid, signal.SIGKILL)
+    t.join(timeout=120)
+    assert box.get("result") == RunResult.SUCCEEDED
+    progress = _read_progress(out)
+    steps = [p[1] for p in progress]
+    assert steps[-1] == 20
+    restarted_steps = [s for _, s, r, _ in progress if r >= 1]
+    assert restarted_steps, f"no restarted incarnation in {progress}"
+    assert min(restarted_steps) > 1, "worker restarted from zero"
+    for _, step, _, w0 in progress:
+        assert w0 == float(step)
+
+
+def test_agent_gives_up_after_max_restarts(master, saver_client, tmp_path):
+    client, saver = saver_client
+    spec, out = _spec(tmp_path, total=3, crash_at=1, max_restarts=0)
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    assert agent.run() == RunResult.FAILED
+    detail = client.get_job_detail()
+    assert 0 in detail.nodes
+
+
+def test_exit_barrier_holds_the_early_node(env_isolation):
+    """Two agents of a two-node world (one worker each, a gloo world of
+    two): the node whose worker finishes first leaves its agent only
+    once the other node's worker is done, through the exit barrier's
+    keys in the master's KV store."""
+    tmp_path = env_isolation
+    m = _master(2)
+    try:
+        agents, outs = [], []
+        for rank, total in ((0, 2), (1, 12)):
+            client = MasterClient(f"localhost:{m.port}", node_id=rank)
+            out = str(tmp_path / f"progress{rank}.txt")
+            spec = WorkerSpec(
+                entrypoint=WORKER,
+                args=[str(total), out, str(tmp_path / f"ckpt{rank}")],
+                nproc_per_node=1, max_restarts=0, node_rank=rank,
+                monitor_interval=0.2,
+                env={"DLROVER_TPU_NODE_RANK": str(rank)})
+            agents.append(ElasticAgent(spec, client))
+            outs.append(out)
+        runs = [_run_in_thread(a) for a in agents]
+        done = []
+        for t, box in runs:
+            t.join(timeout=180)
+            done.append(time.time())
+        assert [box.get("result") for _, box in runs] == [
+            RunResult.SUCCEEDED] * 2
+        progress = [_read_progress(o) for o in outs]
+        assert [p[1] for p in progress[0]] == [1, 2]
+        assert [p[1] for p in progress[1]] == list(range(1, 13))
+        assert {p[0] for p in progress[0]} == {0}
+        assert {p[0] for p in progress[1]} == {1}
+        # Node 0's agent left no earlier than node 1's last step.
+        last1 = os.path.getmtime(outs[1])
+        assert done[0] >= last1
+        rnd = agents[0]._current_outcome.round
+        keys = [f"exit-barrier/{rnd}/{r}" for r in (0, 1)]
+        client = MasterClient(f"localhost:{m.port}", node_id=9)
+        assert client.kv_store_multi_get(keys) == {k: b"1" for k in keys}
+        client.close()
+    finally:
+        m.stop()
+
+
+def test_warm_standby_is_refused(master, saver_client, tmp_path):
+    client, saver = saver_client
+    spec, _ = _spec(tmp_path, total=2, warm_standby=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 2"):
+        ElasticAgent(spec, client, ckpt_saver=saver)
+
+
+def test_xla_capture_switch_is_refused(master, saver_client, tmp_path):
+    client, saver = saver_client
+    spec, out = _spec(tmp_path, total=2)
+    spec.env["DLROVER_TPU_TIMER_XLA"] = "1"
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
+        agent.run()
+    assert _read_progress(out) == []
+
+
+@pytest.mark.parametrize("kwargs, env, item", [
+    ({"journal_path": "j.log"}, {}, "item 4"),
+    ({}, {"DLROVER_TPU_MASTER_JOURNAL": "j.log"}, "item 4"),
+    ({"autoscale_loop": True}, {}, "item 7"),
+    ({"batch_config": object()}, {}, "item 1"),
+])
+def test_local_master_refuses_unported_switches(monkeypatch, kwargs, env,
+                                                item):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
+        LocalJobMaster(port=0, **kwargs)
+
+
+def test_training_hang_refuses_a_metric_context():
+    from dlrover_tpu_torch.diagnosis.diagnosticians.training_hang import (
+        TrainingHangDiagnostician,
+    )
+    from dlrover_tpu_torch.master.monitor.perf_monitor import PerfMonitor
+
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 11"):
+        TrainingHangDiagnostician(PerfMonitor(), metric_context=object())
+
+
+def test_worker_dumps_stacks_on_sigusr2(tmp_path):
+    """The agent's post-mortem stop sends SIGUSR2 before SIGTERM: the
+    port's worker runtime dumps its Python stacks and lives on."""
+    import subprocess
+    import sys
+
+    code = (
+        "import time\n"
+        "from dlrover_tpu_torch.trainer.runtime import init_distributed\n"
+        "init_distributed(device='cpu')\n"
+        "print('up', flush=True)\n"
+        "time.sleep(60)\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=repo,
+                            env=dict(os.environ, PYTHONPATH=repo),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        import select
+
+        ready, _, _ = select.select([proc.stdout], [], [], 120)
+        assert ready, "the worker never came up"
+        assert proc.stdout.readline().strip() == "up"
+        proc.send_signal(signal.SIGUSR2)
+        time.sleep(1.0)
+        assert proc.poll() is None, "SIGUSR2 killed the worker"
+    finally:
+        proc.kill()
+        _, err = proc.communicate(timeout=30)
+    assert "Current thread" in err or "Thread 0x" in err
+
+
+def test_breakpoint_save_and_saver_loop_persist_one_at_a_time(
+        env_isolation, monkeypatch):
+    """The agent's breakpoint save runs in its own thread while the
+    saver loop may be persisting a worker's request: both read the shm
+    image through one kept buffer, so the saver runs one persist at a
+    time, and a request whose image a persist already committed is not
+    persisted again."""
+    import numpy as np
+
+    from dlrover_tpu_torch.flash_ckpt import saver as saver_mod
+    from dlrover_tpu_torch.flash_ckpt.engine import SaveEvent
+
+    inside, most, calls = [0], [0], []
+    image = {"step": 7}
+    lock = threading.Lock()
+
+    def fake_persist(ckpt_dir, step, *a, **kw):
+        with lock:
+            inside[0] += 1
+            most[0] = max(most[0], inside[0])
+        time.sleep(0.2)
+        calls.append(image["step"])
+        with lock:
+            inside[0] -= 1
+        return True
+
+    monkeypatch.setattr(saver_mod, "persist_shm_to_storage", fake_persist)
+    monkeypatch.setattr(saver_mod.AsyncCheckpointSaver, "_image_step",
+                        staticmethod(lambda n: image["step"]))
+    monkeypatch.setattr(saver_mod.ckpt_storage, "read_tracker",
+                        lambda d: -1 if not calls else image["step"])
+    monkeypatch.setattr(saver_mod.ckpt_storage, "step_dir",
+                        lambda d, s: str(env_isolation))
+    AsyncCheckpointSaver.reset()
+    saver = AsyncCheckpointSaver(local_world_size=1)
+    try:
+        event = SaveEvent(kind=SaveEvent.SAVE_DISK, step=6,
+                          checkpoint_dir=str(env_isolation),
+                          local_world_size=1)
+        saver._latest_mem_event = event
+        t = threading.Thread(target=saver.save_shm_on_failure)
+        t.start()
+        saver._handle_event(event)
+        t.join(timeout=30)
+        assert not t.is_alive()
+        assert most[0] == 1, "two persists ran at once"
+        # The image (step 7) was committed by whichever ran first.
+        assert calls == [7] and saver.last_persisted_step == 7
+        np.testing.assert_equal(len(saver.persist_records), 1)
+    finally:
+        saver.stop(timeout=30)
+
+
+def test_resource_monitor_samples_what_psutil_reports():
+    """The port's monitor reads ``/proc`` where the reference's calls
+    psutil: memory in use (total less available) agrees with psutil's
+    within 5% of total (the host keeps allocating between the reads),
+    and the CPU share between two samples lies in [0, 100]."""
+    import psutil
+    from dlrover_tpu_torch.agent import monitor
+
+    vm = psutil.virtual_memory()
+    used = monitor._memory_used_mb()
+    ref = (vm.total - vm.available) / (1024 * 1024)
+    assert abs(used - ref) <= 0.05 * vm.total / (1024 * 1024)
+    sampler = monitor.CpuSampler()
+    assert sampler.sample() == 0.0
+    sum(i * i for i in range(200000))
+    share = sampler.sample()
+    assert 0.0 <= share <= 100.0
+
+
+def _agent_transcript(pkg, worker, tmp_path, monkeypatch, total, crash_at):
+    """One agent of ``pkg`` under its own local master and saver, over
+    ``worker``'s crash scenario: the progress lines, pids dropped."""
+    import importlib
+
+    mods = {m: importlib.import_module(f"{pkg}.{m}") for m in (
+        "agent.master_client", "agent.training", "flash_ckpt.saver",
+        "master.local_master", "master.node.job_context")}
+    job = f"{pkg[-5:]}x{time.time_ns() % 1000000}"
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME", job)
+    monkeypatch.setenv("DLROVER_TPU_SHARED_DIR", str(tmp_path / job))
+    mods["master.node.job_context"].JobContext.reset_singleton()
+    master = mods["master.local_master"].LocalJobMaster(
+        port=0, node_num=1, transport="http")
+    master.prepare()
+    saver_cls = mods["flash_ckpt.saver"].AsyncCheckpointSaver
+    saver_cls.reset()
+    client = mods["agent.master_client"].MasterClient(
+        f"localhost:{master.port}", node_id=0, kind="http")
+    saver = saver_cls.start_async_saving_ckpt(client=client)
+    out = tmp_path / f"{job}.txt"
+    training = mods["agent.training"]
+    try:
+        spec = training.WorkerSpec(
+            entrypoint=worker,
+            args=[str(total), str(out), str(tmp_path / f"{job}_ckpt"),
+                  str(crash_at)],
+            nproc_per_node=1, max_restarts=2, node_rank=0,
+            monitor_interval=0.2)
+        result = training.ElasticAgent(spec, client, ckpt_saver=saver).run()
+    finally:
+        saver.unlink_all(1)
+        saver_cls.reset()
+        client.close()
+        master.stop()
+    return result.value, [p[1:] for p in _read_progress(str(out))]
+
+
+def test_crash_and_resume_as_the_jax_agent(env_isolation, monkeypatch):
+    """The crash-at-step-3 scenario through both packages' launch stack
+    (master, saver, agent, their simple worker): the same run result and
+    the same progress lines (step, restart count, restored state)."""
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    ref_worker = os.path.join(os.path.dirname(__file__), "workers",
+                              "simple_train.py")
+    ref = _agent_transcript("dlrover_tpu", ref_worker, env_isolation,
+                            monkeypatch, total=6, crash_at=3)
+    port = _agent_transcript("dlrover_tpu_torch", WORKER, env_isolation,
+                             monkeypatch, total=6, crash_at=3)
+    assert ref == ("succeeded", [(1, 0, 1.0), (2, 0, 2.0), (3, 0, 3.0),
+                                 (4, 1, 4.0), (5, 1, 5.0), (6, 1, 6.0)])
+    assert port == ref

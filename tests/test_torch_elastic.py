@@ -11,11 +11,12 @@
   ``convert.train_state_from_numpy`` and continues 3 steps on the port,
   within ``test_train_trajectory_matches_jax``'s tolerances of JAX's own
   3 more steps; converted back it has the reference's structure.
-- The port's worker, as subprocesses on the CPU at a tiny config, run
-  by ``chip_smoke.phase_elastic_ckpt`` as on the card: SIGKILLed and
-  relaunched from memory, then from storage after its segment is
-  unlinked; every loss and the final state equal an uninterrupted
-  run's bit for bit.
+- The port's worker at a tiny config, run on the CPU by
+  ``chip_smoke.phase_elastic_ckpt`` as on the card: under the port's
+  launcher (``python -m dlrover_tpu_torch.run --standalone``), whose
+  agent restarts it after a SIGKILL from memory, then from storage
+  after its segment is unlinked; every loss and the final state equal
+  an uninterrupted run's bit for bit.
 """
 
 import dataclasses
@@ -299,8 +300,9 @@ def test_state_tree_restores_in_place_keeping_identity():
 
 def test_killed_worker_replays_bitwise(monkeypatch):
     """chip_smoke's elastic phase on the CPU: the worker at a tiny
-    config, killed after step 9 (restored from memory) and after step 13
-    (restored from storage at step 10), ends bitwise equal to an
+    config under the port's launcher, killed after step 5 (the agent's
+    restart restores it from memory) and after step 8 with its segment
+    unlinked (restored from storage), ends bitwise equal to an
     uninterrupted run; the phase's gates raise otherwise."""
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke

@@ -8,8 +8,10 @@ lite attention block, the ring's hop loops and the ep expert body on
 the CPU (this test
 process has JAX loaded by ``tests/conftest.py``); in a fleet's
 subprocess worker; in the elastic training worker, which also loads no
-``ml_dtypes`` on its checkpoint path; and by a scan of every import
-statement in the port's sources and in ``chip_smoke.py``."""
+``ml_dtypes`` on its checkpoint path; in every interpreter of the
+standalone launcher's path (launcher and agent, master, worker), which
+also loads neither ``grpc`` nor ``psutil``; and by a scan of every
+import statement in the port's sources and in ``chip_smoke.py``."""
 
 import ast
 import json
@@ -141,6 +143,7 @@ print(json.dumps({
         m for m in sys.modules
         if m == "jax" or m.startswith(("jax.", "jaxlib"))
         or m == "dlrover_tpu" or m.startswith("dlrover_tpu.")
+        or m.split(".")[0] in ("grpc", "psutil")
     ),
 }))
 """
@@ -433,3 +436,79 @@ def test_mesh_path_loads_no_jax(tmp_path):
     assert result["loss"] > 0 and result["restored"] and result["probe"]
     assert result["refused"] == result["wrappers"] == 12
     assert result["leaked"] == []
+
+
+def test_scan_covers_the_control_plane_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    assert {"run.py", "common/comm.py", "common/node.py",
+            "common/env_utils.py", "rpc/transport.py",
+            "training_event/emitter.py", "training_event/exporter.py",
+            "training_event/predefined.py",
+            "master/main.py", "master/args.py", "master/local_master.py",
+            "master/servicer.py", "master/overload.py",
+            "master/rpc_metrics.py",
+            "master/elastic_training/rdzv_manager.py",
+            "master/elastic_training/kv_store.py",
+            "master/elastic_training/sync_service.py",
+            "master/elastic_training/elastic_ps.py",
+            "master/shard/task_manager.py",
+            "master/shard/dataset_splitter.py",
+            "master/monitor/perf_monitor.py",
+            "master/node/job_context.py",
+            "master/node/local_job_manager.py",
+            "master/node/status_flow.py",
+            "master/diagnosis/diagnosis_master.py",
+            "diagnosis/actions.py", "diagnosis/diagnosis_data.py",
+            "diagnosis/diagnostician.py", "diagnosis/diagnosis_manager.py",
+            "diagnosis/precheck.py",
+            "diagnosis/diagnosticians/training_hang.py",
+            "diagnosis/diagnosticians/node_failure.py",
+            "agent/master_client.py", "agent/rendezvous.py",
+            "agent/monitor.py", "agent/training_monitor.py",
+            "agent/paral_config_tuner.py", "agent/diagnosis_agent.py",
+            "agent/training.py"} <= scanned
+
+
+def test_standalone_launcher_path_loads_no_jax_grpc_or_psutil(tmp_path):
+    """``python -m dlrover_tpu_torch.run --standalone`` on the CPU over
+    HTTP: the launcher (the agent's process), the local master and the
+    elastic worker it runs each leave a report; none loaded JAX, the JAX
+    package, ``grpc`` or ``psutil``."""
+    import uuid
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE.replace(
+        '("jax", "jaxlib", "dlrover_tpu")',
+        '("jax", "jaxlib", "dlrover_tpu", "grpc", "psutil")').replace(
+        'os.environ["ISOLATION_REPORT"]',
+        'os.environ["ISOLATION_REPORT"] + str(os.getpid())'))
+    job = f"isorun{uuid.uuid4().hex[:10]}"
+    env = dict(os.environ, PYTHONPATH=f"{site}{os.pathsep}{REPO}",
+               ISOLATION_REPORT=str(tmp_path / "report.json"),
+               DLROVER_TPU_JOB_NAME=job, OMP_NUM_THREADS="1",
+               DLROVER_TPU_SHARED_DIR=str(tmp_path / "uds"),
+               DLROVER_TPU_EVENT_DIR=str(tmp_path / "events"))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+             "--nproc_per_node", "1", "--monitor_interval", "0.2", "-m",
+             "dlrover_tpu_torch.examples.train_llama", "--device", "cpu",
+             "--layers", "1", "--steps", "2", "--global-batch", "2",
+             "--micro-batch", "2", "--seq", "8", "--persist-every", "2",
+             "--ckpt-dir", str(tmp_path / "ckpt")],
+            env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        events = [json.loads(ln) for ln in proc.stdout.splitlines()
+                  if ln.startswith("{")]
+        assert events[-1]["event"] == "done"
+        assert "'transport': 'http'" in proc.stderr
+        reports = [json.loads(p.read_text())
+                   for p in tmp_path.glob("report.json*")]
+        # The launcher, the master and the worker at least.
+        assert sum(r["port"] for r in reports) >= 3, reports
+        assert all(r["leaked"] == [] for r in reports), reports
+    finally:
+        for seg in os.listdir("/dev/shm"):
+            if job in seg:
+                os.unlink(os.path.join("/dev/shm", seg))

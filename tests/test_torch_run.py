@@ -1,0 +1,274 @@
+"""The port's launcher end to end on the CPU:
+
+    python -m dlrover_tpu_torch.run --standalone --nproc_per_node 2 \\
+        -m dlrover_tpu_torch.examples.train_llama --device cpu --config tiny
+
+starts the port's local master over HTTP, its agent and a gloo world of
+two elastic workers. An unkilled run and a run whose rank 1 is SIGKILLed
+mid-training (both ranks held one step past the kill step by a fault
+schedule, so the kill lands there) both exit 0: the agent restarts both
+ranks, each restores the kill step from memory, and every replayed loss
+equals the unkilled run's bit for bit, as do the final digests. Also:
+the agent's env reads back through the worker's ``read_worker_env``,
+and the launcher switches whose paths are not ported raise.
+"""
+
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import threading
+import time
+import uuid
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+STEPS, KILL_STEP = 6, 3
+TIMEOUT_S = 240.0
+
+
+class _Launcher:
+    """One ``python -m dlrover_tpu_torch.run`` process; a thread reads the
+    workers' JSON lines off its stdout."""
+
+    def __init__(self, tmp_path, label, schedule=None, extra_env=None):
+        self.job = f"trun{uuid.uuid4().hex[:8]}{label}"
+        root = tmp_path / label
+        root.mkdir()
+        self.err_path = root / "launcher.err"
+        env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+                   DLROVER_TPU_JOB_NAME=self.job,
+                   DLROVER_TPU_SHARED_DIR=str(root / "sock"),
+                   DLROVER_TPU_EVENT_DIR=str(root / "events"))
+        env.pop("DLROVER_TPU_FAULT_SCHEDULE", None)
+        if schedule is not None:
+            env["DLROVER_TPU_FAULT_SCHEDULE"] = str(schedule)
+        env.update(extra_env or {})
+        self.sock_dir = root / "sock"
+        self.events = []
+        self._cond = threading.Condition()
+        with open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.run",
+                 "--standalone", "--nnodes", "1", "--nproc_per_node", "2",
+                 "--max_restarts", "2", "--monitor_interval", "0.2",
+                 "-m", "dlrover_tpu_torch.examples.train_llama",
+                 "--device", "cpu", "--config", "tiny", "--layers", "2",
+                 "--steps", str(STEPS), "--global-batch", "4",
+                 "--micro-batch", "2", "--seq", "16",
+                 "--persist-every", "2", "--ckpt-dir", str(root / "ckpt")],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith("{"):
+                with self._cond:
+                    self.events.append(json.loads(line))
+                    self._cond.notify_all()
+
+    def wait_for(self, pred, what):
+        deadline = time.monotonic() + TIMEOUT_S
+        with self._cond:
+            while not pred(self.events):
+                left = deadline - time.monotonic()
+                assert left > 0 and self.proc.poll() is None, (
+                    f"no {what}: rc {self.proc.poll()}, "
+                    f"{self.err_path.read_text()[-3000:]}")
+                self._cond.wait(min(left, 1.0))
+
+    def finish(self):
+        try:
+            rc = self.proc.wait(timeout=TIMEOUT_S)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self._reader.join(timeout=30)
+            for seg in os.listdir("/dev/shm"):
+                if self.job in seg:
+                    os.unlink(os.path.join("/dev/shm", seg))
+        return rc
+
+    def by_rank(self, kind):
+        out = {}
+        for e in self.events:
+            if e["event"] == kind:
+                out.setdefault(e["rank"], []).append(e)
+        return out
+
+
+def _losses(launcher):
+    """{rank: {step: loss}} over every incarnation's step lines."""
+    out = {}
+    for rank, steps in launcher.by_rank("step").items():
+        for e in steps:
+            out.setdefault(rank, []).append((e["step"], e["loss"]))
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    tmp_path = tmp_path_factory.mktemp("run")
+    from dlrover_tpu_torch.fault import FaultRule, FaultSchedule
+
+    schedule = tmp_path / "hold.json"
+    schedule.write_text(FaultSchedule([FaultRule(
+        "agent.worker.crash", action="delay", delay_s=TIMEOUT_S,
+        match={"step": KILL_STEP + 1})]).to_json())
+    a = _Launcher(tmp_path, "A", extra_env={
+        "DLROVER_TPU_FAILOVER_EXT":
+            "dlrover_tpu_torch.agent.diagnosis_agent:DiagnosisAgent"})
+    b = _Launcher(tmp_path, "B", schedule=schedule)
+    # Both ranks of B hold at KILL_STEP + 1, their KILL_STEP in shm.
+    b.wait_for(lambda ev: {e["rank"] for e in ev if e["event"] == "shm"
+                           and e["step"] == KILL_STEP} == {0, 1},
+               "step in shm on both ranks")
+    # The relaunch must not hold: the agent gives it the same env.
+    schedule.write_text(FaultSchedule([]).to_json())
+    victim = b.by_rank("ready")[1][0]["pid"]
+    os.kill(victim, signal.SIGKILL)
+    rc_a, rc_b = a.finish(), b.finish()
+    return {"A": a, "B": b, "rc": (rc_a, rc_b), "victim": victim}
+
+
+def test_standalone_launcher_runs_a_two_rank_world(runs):
+    a = runs["A"]
+    assert runs["rc"][0] == 0, a.err_path.read_text()[-3000:]
+    readies = a.by_rank("ready")
+    assert sorted(readies) == [0, 1]
+    assert all(r[0]["restart_count"] == 0 and r[0]["restored_step"] == 0
+               for r in readies.values())
+    done = a.by_rank("done")
+    assert sorted(done) == [0, 1]
+    assert {int(k) for k in done[0][0]["losses"]} == set(range(1, STEPS + 1))
+    err = a.err_path.read_text()
+    assert "serving at 127.0.0.1:" in err
+    assert "loaded failover extension" in err
+    assert "all workers succeeded" in err
+    # The launcher took its saver's sockets down on the way out.
+    assert not a.sock_dir.exists() or os.listdir(a.sock_dir) == []
+
+
+def test_killed_rank_restarts_both_ranks_from_memory(runs):
+    b = runs["B"]
+    assert runs["rc"][1] == 0, b.err_path.read_text()[-3000:]
+    readies = b.by_rank("ready")
+    for rank in (0, 1):
+        got = [(r["restart_count"], r["restored_from"], r["restored_step"])
+               for r in readies[rank]]
+        assert got == [(0, None, 0), (1, "memory", KILL_STEP)], got
+        assert readies[rank][1]["restore_read"]["shm_step"] == KILL_STEP
+    # The agent, not the test, started every incarnation.
+    err = b.err_path.read_text()
+    started = {int(p) for p in re.findall(
+        r"started worker local_rank=\d pid=(\d+)", err)}
+    assert {r["pid"] for rs in readies.values() for r in rs} == started
+    assert runs["victim"] in started and len(started) == 4
+
+
+def test_replayed_losses_equal_the_unkilled_run_bitwise(runs):
+    losses_a, losses_b = _losses(runs["A"]), _losses(runs["B"])
+    for rank in (0, 1):
+        ref = dict(losses_a[rank])
+        replayed = losses_b[rank]
+        assert [s for s, _ in replayed if s > KILL_STEP] == list(
+            range(KILL_STEP + 1, STEPS + 1))
+        assert all(loss == ref[step] for step, loss in replayed), (
+            rank, replayed, ref)
+    digests = {k: {r: d[0]["digest"] for r, d in runs[k].by_rank(
+        "done").items()} for k in ("A", "B")}
+    assert digests["A"] == digests["B"]
+
+
+def test_worker_env_round_trips_through_read_worker_env(monkeypatch):
+    from dlrover_tpu_torch.common.constants import WorkerEnv
+    from dlrover_tpu_torch.common.env_utils import worker_env
+    from dlrover_tpu_torch.trainer import runtime
+
+    env = worker_env("10.0.0.1:1234", 8, 5, local_rank=1,
+                     local_world_size=4, restart_count=2, rdzv_round=3,
+                     node_ranks=[0, 1], num_slices=2)
+    assert set(env) == {v for k, v in vars(WorkerEnv).items()
+                        if not k.startswith("_")}
+    for k in list(os.environ):
+        if k.startswith("DLROVER_TPU_"):
+            monkeypatch.delenv(k)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ctx = runtime.read_worker_env()
+    assert (ctx.coordinator_address, ctx.num_processes, ctx.process_id,
+            ctx.local_rank, ctx.local_world_size, ctx.restart_count,
+            ctx.rdzv_round, ctx.node_ranks, ctx.num_slices) == (
+        "10.0.0.1:1234", 8, 5, 1, 4, 2, 3, (0, 1), 2)
+
+
+@pytest.mark.parametrize("argv, env, item", [
+    (["--network-check"], {}, "item 3"),
+    (["--ckpt_replica_group", "2"], {}, "item 5"),
+    ([], {"DLROVER_TPU_TIMER": "1"}, "item 10"),
+])
+def test_launcher_refuses_unported_switches(monkeypatch, argv, env, item):
+    from dlrover_tpu_torch import run
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
+        run.main(["--standalone", *argv, "train.py"])
+
+
+def test_launcher_parses_module_entrypoints():
+    from dlrover_tpu_torch import run
+
+    args = run.build_parser().parse_args(
+        ["--standalone", "-m", "pkg.train", "--steps", "3"])
+    assert args.module and args.training_script == "pkg.train"
+    assert args.training_script_args == ["--steps", "3"]
+    args = run.build_parser().parse_args(["train.py", "-x"])
+    assert not args.module and args.training_script_args == ["-x"]
+
+
+def test_distributed_master_platform_is_refused():
+    from dlrover_tpu_torch.master import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 11"):
+        main.main(["--platform", "k8s"])
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["--autoscale_loop"], "item 7"),
+    (["--global_batch_size", "8", "--micro_batch_per_device", "1"],
+     "item 1"),
+])
+def test_master_cli_refuses_unported_switches(argv, item):
+    from dlrover_tpu_torch.master import main
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
+        main.main(["--platform", "local", *argv])
+
+
+@pytest.mark.parametrize("parser, flag", [
+    ("master", "--namespace"), ("master", "--network_check"),
+    ("master", "--dashboard_port"), ("master", "--brain_addr"),
+    ("master", "--metric_endpoints"), ("master", "--topology_aware"),
+    ("master", "--node_unit"), ("master", "--auto_scale"),
+    ("master", "--autoscale_max_world"),
+    ("master", "--autoscale_ckpt_interval_s"),
+    ("master", "--legal_worker_counts"), ("launcher", "--comm-perf-test"),
+])
+def test_distributed_master_flags_are_not_taken(parser, flag):
+    """Flags only the distributed master or the node check reads are
+    not parsed and then ignored: argparse refuses them."""
+    from dlrover_tpu_torch import run
+    from dlrover_tpu_torch.master.args import parse_master_args
+
+    with pytest.raises(SystemExit):
+        if parser == "master":
+            parse_master_args([flag, "1"])
+        else:
+            run.build_parser().parse_args([flag, "train.py"])

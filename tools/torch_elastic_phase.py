@@ -4,9 +4,10 @@
 
 Builds the kernels (the worker processes load them from the build
 directory), then per repeat runs ``chip_smoke.phase_elastic_ckpt``: the
-port's elastic worker on the flagship, trained uninterrupted (run A) and
-killed twice and restored, from memory and from storage (run B), with
-its gates. A failed gate raises. Then the card's name and power limit.
+port's elastic worker on the flagship under the port's launcher, master
+and agent (``python -m dlrover_tpu_torch.run --standalone``), trained
+uninterrupted (run A) and killed twice and restarted by the agent, from
+memory and from storage (run B), with its gates. A failed gate raises. Then the card's name and power limit.
 """
 
 import argparse
