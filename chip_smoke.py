@@ -20,8 +20,9 @@ phases that each print JSON lines:
    non-causal one and a ragged s=1000, each held elementwise and with a
    planted fault its bound must reject; B1, B2 (dq and dk/dv, at all
    four flash shapes), B5 and B6 give the same bytes on a second call;
-4. generate(): b=8, prompt 128, 256 new tokens, fp and int8 KV caches;
-5. ServingEngine: 8 slots, max_len 1024, 16 greedy requests;
+4. generate(): b=8, prompt 128, 128 new tokens, fp and int8 KV caches;
+5. ServingEngine: 8 slots, max_len 1024, 16 greedy requests (prompts
+   16-300, 16-64 new tokens);
 6. train: ``make_train_step`` on the flagship, remat ``mlp_only``,
    micro-batch 8 x seq 2048 with ``grad_accum`` 2 (the JAX package's
    compute phase uses 16; cut for this script's time limit). One
@@ -120,7 +121,7 @@ phases that each print JSON lines:
     dx's two launches also apart;
 13. MoE ``generate()`` on ``moe_config()`` (bench.py's moe_phase model:
     the flagship's attention, 8 experts of mlp 1024, top-2, dropless,
-    535M params, 233M active): b=8, prompt 128, 256 new tokens, fp
+    535M params, 233M active): b=8, prompt 128, 128 new tokens, fp
     cache; a bitwise rerun and exact B5 and B7 launches. Routing flips
     (positions whose top-2 expert set differs between the cached path
     and the teacher-forced forward at some layer) are counted and
@@ -206,6 +207,20 @@ phases that each print JSON lines:
     ``moe_config``'s widths, its received rows padded to ``cap_rows``
     with sentinel rows: B7 and B8 forward and backward within B7/B8's
     gate of their plain versions, bitwise on a rerun, one launch each.
+24. live_rescale: the port's live rescale episode (the reference test's
+    settings: world 2, 960 records in shards of 16, a save every 2
+    steps, 80 ms steps), the master in this process and two
+    ``rescale_worker`` processes whose ``w`` and ``opt`` (8 MiB of
+    int64 each) live on the card: one SIGKILLed, the survivor rescaled
+    to a world of one in-process, a joiner back to two; the harness's
+    invariants (exactly once, replay bit-identity, restored CRCs, the
+    process tree) and a flipped CRC rejected. Plan-to-first-step and
+    barrier seconds per rescale, restore bytes and seconds;
+25. agent_paths: the launcher's ``--network-check`` (the probe on the
+    card, then 2 training steps; a rigged probe starts no worker) and
+    the agent's warm standby (a crash through the fault schedule, the
+    relaunch the adopted standby on the card), with the crash to first
+    step against a cold relaunch.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -971,11 +986,14 @@ def _device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    # The profiler's raw events: ``prof.events()`` would first build the
+    # tree of every host op (tens of seconds for a few hundred thousand
+    # events), which only the device rows below would read.
     device = {}
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            n, ms = device.get(evt.name, (0, 0.0))
-            device[evt.name] = (n + 1, ms + evt.time_range.elapsed_us() / 1e3)
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            n, ms = device.get(evt.name(), (0, 0.0))
+            device[evt.name()] = (n + 1, ms + evt.duration_ns() / 1e6)
     return wall, device
 
 
@@ -997,7 +1015,7 @@ def _profile_row(label, wall, device, kernel="decode_attention",
 def phase_generate(cfg, params):
     from dlrover_tpu_torch.models import generate as gen
 
-    b, prompt_len, new = 8, 128, 256
+    b, prompt_len, new = 8, 128, 128
     prompt = torch.randint(
         0, cfg.vocab_size, (b, prompt_len),
         generator=torch.Generator("cuda").manual_seed(SEED + 1),
@@ -1062,7 +1080,7 @@ def phase_engine(cfg, params, phase="engine", gated=True):
     rs = np.random.RandomState(SEED + 2)
     prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in rs.randint(16, 301, size=16)]
-    news = [int(n) for n in rs.randint(32, 129, size=16)]
+    news = [int(n) for n in rs.randint(16, 65, size=16)]
     reg = MetricsRegistry()
     eng = ServingEngine(cfg, params, slots=8, max_len=1024,
                         prefill_chunk=64, registry=reg)
@@ -3083,10 +3101,10 @@ def _pinned_routing(ids):
 
 
 def phase_moe_generate(cfg, params):
-    """MoE ``generate()``: b=8, prompt 128, 256 new greedy tokens, fp
+    """MoE ``generate()``: b=8, prompt 128, 128 new greedy tokens, fp
     cache, twice (the second timed), after a prefill-alone run. Checks:
     the two runs agree bit for bit; exact launches per run (B7 once a
-    layer per forward: the prefill and 255 single-token steps; B5 once a
+    layer per forward: the prefill and 127 single-token steps; B5 once a
     layer per single-token step; nothing else); the teacher-forced gap.
 
     The cached path and the teacher-forced forward round bf16 at other
@@ -3102,7 +3120,7 @@ def phase_moe_generate(cfg, params):
     from dlrover_tpu_torch.ops import decode_attention as da
     from dlrover_tpu_torch.ops import moe_dispatch as md
 
-    b, prompt_len, new = 8, 128, 256
+    b, prompt_len, new = 8, 128, 128
     L = cfg.n_layers
     prompt = torch.randint(
         0, cfg.vocab_size, (b, prompt_len),
@@ -4686,6 +4704,446 @@ def phase_pipeline_train():
     return launches
 
 
+# ---- the live rescale plane, the network check, the warm standby ----------
+
+# phase 24: the reference test's live episode, w and opt 8 MiB of int64
+# each on the card.
+RESCALE_EPISODE = dict(world=2, dataset_size=960, shard_size=16,
+                       ckpt_every=2, step_ms=80.0, watchdog_s=120.0)
+RESCALE_VEC_LEN = 1 << 20
+# phase 25: the worker the launcher and the agent run, and the steps its
+# first two incarnations crash at (through its fault schedule).
+AGENT_STEPS, AGENT_CRASH_STEPS = 6, (3, 5)
+AGENT_TIMEOUT_S = 300.0
+
+
+def _agent_worker_args(device, steps, ckpt_dir):
+    """The elastic worker's argv for phase 25: one flagship layer at
+    2 x 128 on the card (the flash kernels take bf16; the tiny config is
+    f32), the tiny config on the CPU."""
+    if device == "cuda":
+        model = ["--config", "flagship", "--layers", "1", "--seq", "128"]
+    else:
+        model = ["--config", "tiny", "--layers", "1", "--seq", "8"]
+    return model + ["--steps", str(steps), "--global-batch", "2",
+                    "--micro-batch", "2", "--persist-every", "2",
+                    "--device", device, "--seed", str(SEED),
+                    "--ckpt-dir", ckpt_dir]
+
+
+def _unlink_job_segments(job):
+    for seg in os.listdir("/dev/shm"):
+        if job in seg:
+            os.unlink(os.path.join("/dev/shm", seg))
+
+
+def phase_live_rescale(device="cuda", vec_len=RESCALE_VEC_LEN):
+    """The port's live rescale (``testing/rescale_soak.run_rescale_episode``,
+    scenario ``live``, seed 0) at the reference test's settings: the
+    master (coordinator, task manager, KV store, servicer over HTTP) in
+    this process, two ``rescale_worker`` processes whose int64 state
+    (``w`` and ``opt`` of ``vec_len``) lives on ``device``. Rank 1 is
+    SIGKILLed once both reached step 5; rank 0 rescales to a world of one
+    in-process (plan, barrier, its byte ranges of ``w`` and ``opt``
+    restored through ``load_state_regions`` into its device tensors, the
+    peers' over the KV store); a fresh rank 1 (the episode's warm
+    standby, adopted) joins and the world goes back to two. Gates: the
+    harness's invariants (exactly once, every save bit-identical to the
+    single-host replay of its consumed shards, every restore's CRC its
+    save's, the survivor never restarted); deaths 1, generations
+    {0: 0, 1: 1}, at least 3 plans, worlds 1 and 2, reasons ``node_lost``
+    and ``scale_up*``, a plan-to-first-step time; every worker started
+    on ``device``; a copy of the ledger with one save's CRC flipped is
+    rejected. Prints each rescale's plan-to-first-step and barrier
+    seconds, each plan's phase barrier waits, each restore's bytes and
+    seconds, the episode's wall."""
+    import copy
+    import glob
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.testing.rescale_soak import (
+        RescaleSoakConfig,
+        check_rescale_invariants,
+        run_rescale_episode,
+    )
+    from dlrover_tpu_torch.testing.soak import SoakInvariantError
+
+    cfg = RescaleSoakConfig(vec_len=vec_len, device=device,
+                            **RESCALE_EPISODE)
+    work = tempfile.mkdtemp(prefix="live_rescale_")
+    t0 = time.monotonic()
+    try:
+        report = run_rescale_episode(seed=SEED, cfg=cfg, scenario="live",
+                                     work_dir=work)
+    except Exception:
+        for path in sorted(glob.glob(os.path.join(
+                work, "**", "*.log"), recursive=True)):
+            with open(path, errors="replace") as f:
+                print(f"--- {path}\n{f.read()[-3000:]}", file=sys.stderr)
+        raise
+    shutil.rmtree(work, ignore_errors=True)
+    wall = time.monotonic() - t0
+    events = report.pop("events")
+    rescales = report["rescales"]
+    check(report["deaths"] == 1, f"live_rescale: deaths {report['deaths']}")
+    check(report["generations"] == {0: 0, 1: 1},
+          f"live_rescale: generations {report['generations']}")
+    check(report["plans"] >= 3, f"live_rescale: {report['plans']} plans")
+    worlds = {t["world"] for t in rescales}
+    check({1, 2} <= worlds, f"live_rescale: worlds {worlds}")
+    reasons = {t["reason"] for t in rescales}
+    check("node_lost" in reasons
+          and any(r.startswith("scale_up") for r in reasons),
+          f"live_rescale: reasons {reasons}")
+    check(any(t.get("plan_to_first_step_s") is not None for t in rescales),
+          "live_rescale: no plan-to-first-step time")
+    starts = [e for e in events if e["kind"] == "worker_start"]
+    check(len(starts) == 3 and all(e["device"].startswith(device)
+                                   for e in starts),
+          f"live_rescale: worker devices {[e['device'] for e in starts]}")
+    flipped = copy.deepcopy(events)
+    saves = [e for e in flipped if e["kind"] == "save" and e["step"] > 0]
+    saves[len(saves) // 2]["crc"] ^= 1 << 7
+    try:
+        check_rescale_invariants(flipped, cfg)
+        rejected = False
+    except SoakInvariantError:
+        rejected = True
+    check(rejected, "live_rescale: a flipped save CRC passed the invariants")
+    restores = [{k: e.get(k) for k in ("rank", "plan", "step", "bytes_read",
+                                       "read_s", "seconds")}
+                for e in events if e["kind"] == "restore"]
+    row = {"phase": "live_rescale", "vec_len": vec_len, "device": device,
+           "device_names": sorted({e.get("device_name") for e in starts}),
+           "wall_s": wall, "episode_wall_s": report["wall_s"],
+           "rescales": rescales, "plans_cut": report["plans_cut"],
+           "restores": restores, "adopted": report["adopted"],
+           "goodput_frac": report["goodput_frac"],
+           "recovery_s": report["recovery_s"],
+           "steps_executed": report["steps_executed"],
+           "steps_unique": report["steps_unique"],
+           "flipped_crc_rejected": rejected}
+    emit(row)
+    return row
+
+
+class _LogTail:
+    """Stamps each line appended to the watched files with the monotonic
+    time this process read it (polled every 10 ms)."""
+
+    def __init__(self, paths):
+        import threading
+
+        self._paths = list(paths)
+        self._offsets = {p: 0 for p in self._paths}
+        self._partial = {p: "" for p in self._paths}
+        self.lines = []  # (t, path, line)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _poll(self):
+        for path in self._paths:
+            try:
+                with open(path, errors="replace") as f:
+                    f.seek(self._offsets[path])
+                    chunk = f.read()
+                    self._offsets[path] = f.tell()
+            except OSError:
+                continue
+            if not chunk:
+                continue
+            now = time.monotonic()
+            text = self._partial[path] + chunk
+            *whole, self._partial[path] = text.split("\n")
+            self.lines += [(now, path, ln) for ln in whole]
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self._poll()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self._poll()
+
+    def json_lines(self, path):
+        out = []
+        for t, p, ln in list(self.lines):
+            if p == path and ln.startswith("{"):
+                try:
+                    out.append((t, json.loads(ln)))
+                except ValueError:
+                    pass
+        return out
+
+
+def _network_check_runs(device):
+    """``python -m dlrover_tpu_torch.run --standalone --network-check``
+    twice: healthy, then with the probe rigged to fail."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.fault import SCHEDULE_ENV
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="network_check_")
+    out = {}
+    try:
+        for label, extra in (("pass", {}), ("fail", {
+                "DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS": "0"})):
+            job = f"chipsmoke{os.getpid()}nc{label}"
+            env = dict(os.environ, PYTHONPATH=repo,
+                       DLROVER_TPU_JOB_NAME=job,
+                       DLROVER_TPU_SHARED_DIR=os.path.join(root, label,
+                                                           "sock"),
+                       DLROVER_TPU_EVENT_DIR=os.path.join(root, label,
+                                                          "events"),
+                       DLROVER_TPU_CHECK_DEVICE=device, **extra)
+            env.pop(SCHEDULE_ENV, None)
+            t0 = time.monotonic()
+            try:
+                proc = subprocess.run(
+                    [sys.executable, "-m", "dlrover_tpu_torch.run",
+                     "--standalone", "--network-check", "--nproc_per_node",
+                     "1", "--monitor_interval", "0.2", "-m",
+                     "dlrover_tpu_torch.examples.train_llama",
+                     *_agent_worker_args(device, 2, os.path.join(
+                         root, label, "ckpt"))],
+                    env=env, cwd=repo, capture_output=True, text=True,
+                    timeout=AGENT_TIMEOUT_S)
+            finally:
+                _unlink_job_segments(job)
+            wall = time.monotonic() - t0
+            events = [json.loads(ln) for ln in proc.stdout.splitlines()
+                      if ln.startswith("{")]
+            probes = [json.loads(ln) for ln in proc.stderr.splitlines()
+                      if ln.startswith('{"event": "node_check_probe"')]
+            tail = proc.stderr[-3000:]
+            if label == "pass":
+                steps = [e for e in events if e["event"] == "step"]
+                check(proc.returncode == 0,
+                      f"network check run: rc {proc.returncode}: {tail}")
+                check(len(probes) == 1
+                      and probes[0]["device"].startswith(device)
+                      and probes[0]["elapsed"] > 0,
+                      f"network check run: probes {probes}")
+                check("the master's fault nodes [] after round"
+                      in proc.stderr,
+                      "network check run: the master did not record the "
+                      "node healthy")
+                check([e["step"] for e in steps] == [1, 2]
+                      and events[-1]["event"] == "done",
+                      f"network check run: steps {[e['step'] for e in steps]}")
+                if device == "cuda":
+                    check(steps[-1]["launches"].get("flash_forward", 0) > 0,
+                          "network check run: the worker launched no B1")
+                out[label] = {"rc": proc.returncode, "wall_s": wall,
+                              "probe": probes[0],
+                              "losses": [e["loss"] for e in steps]}
+            else:
+                check(proc.returncode != 0 and probes == [] and events == []
+                      and "started worker" not in proc.stderr,
+                      f"network check fail run: rc {proc.returncode}, "
+                      f"probes {probes}, {len(events)} worker lines")
+                out[label] = {"rc": proc.returncode, "wall_s": wall}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _standby_run(device, root, repo):
+    """The port's ``ElasticAgent`` with ``warm_standby=True``, under an
+    in-process local master and checkpoint saver, runs the elastic
+    worker for AGENT_STEPS steps. Its fault schedule (rewritten once
+    each incarnation has read it) crashes incarnation 0 at
+    AGENT_CRASH_STEPS[0]: the relaunch must be the adopted standby.
+    This process then kills the standby the agent spawned next, and
+    incarnation 1 crashes at AGENT_CRASH_STEPS[1]: the agent must fall
+    back to a cold spawn. Returns the row: each relaunch's seconds from
+    the crash (its fault trace line) to its ready line and first step."""
+    import threading
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.agent.training import (
+        ElasticAgent,
+        RunResult,
+        WorkerSpec,
+    )
+    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.fault import (
+        SCHEDULE_ENV,
+        TRACE_ENV,
+        FaultRule,
+        FaultSchedule,
+    )
+    from dlrover_tpu_torch.flash_ckpt.saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.master.local_master import LocalJobMaster
+    from dlrover_tpu_torch.master.node.job_context import JobContext
+
+    job = f"chipsmoke{os.getpid()}standby"
+    sock_dir, log_dir = os.path.join(root, "sock"), os.path.join(root, "logs")
+    os.makedirs(sock_dir)
+    os.makedirs(log_dir)
+    schedule = os.path.join(root, "schedule.json")
+    trace = os.path.join(root, "trace.jsonl")
+    labels = ("warm", "cold")
+
+    def crash_at(i):
+        """The schedule incarnation ``i`` reads: crash at its step."""
+        rules = [] if i >= len(labels) else [FaultRule(
+            "agent.worker.crash", action="crash",
+            match={"step": AGENT_CRASH_STEPS[i]}, rule_id=labels[i])]
+        with open(schedule, "w") as f:
+            f.write(FaultSchedule(rules).to_json())
+
+    crash_at(0)
+    os.environ.update({NodeEnv.JOB_NAME: job, NodeEnv.NODE_RANK: "0",
+                       NodeEnv.SHARED_DIR: sock_dir})
+    JobContext.reset_singleton()
+    master = LocalJobMaster(port=0, node_num=1)
+    master.prepare()
+    client = MasterClient(f"localhost:{master.port}", node_id=0)
+    AsyncCheckpointSaver.reset()
+    saver = AsyncCheckpointSaver.start_async_saving_ckpt(client=client)
+    log_path = os.path.join(log_dir, "worker-0-0.log")
+    tail = _LogTail([log_path, trace])
+    box, killed = {}, []
+    try:
+        spec = WorkerSpec(
+            entrypoint="-m dlrover_tpu_torch.examples.train_llama",
+            args=_agent_worker_args(device, AGENT_STEPS,
+                                    os.path.join(root, "ckpt")),
+            nproc_per_node=1, max_restarts=2, node_rank=0,
+            monitor_interval=0.2, redirect_output=log_dir,
+            env={SCHEDULE_ENV: schedule, TRACE_ENV: trace,
+                 "PYTHONPATH": repo},
+            warm_standby=True)
+        agent = ElasticAgent(spec, client, ckpt_saver=saver)
+        t0 = time.monotonic()
+        thread = threading.Thread(
+            target=lambda: box.setdefault("result", agent.run()),
+            daemon=True)
+        thread.start()
+        deadline = t0 + AGENT_TIMEOUT_S
+        for i in range(len(labels)):
+            # Incarnation i read the schedule once its ready line is out.
+            while sum(e.get("event") == "ready"
+                      for _, e in tail.json_lines(log_path)) <= i:
+                check(thread.is_alive() and time.monotonic() < deadline,
+                      f"agent_paths/standby: no ready line of "
+                      f"incarnation {i}")
+                time.sleep(0.02)
+            crash_at(i + 1)
+            if i == 1:
+                # The standby spawned after the adoption dies before the
+                # next crash: that relaunch must be a cold spawn.
+                standby = agent._standby
+                check(standby is not None and standby.poll() is None,
+                      "agent_paths/standby: no standby after adoption")
+                standby.kill()
+                standby.wait(timeout=10)
+                killed.append(standby.pid)
+        thread.join(timeout=max(deadline - time.monotonic(), 1.0))
+        check(not thread.is_alive(), f"agent_paths/standby: the agent "
+              f"did not finish in {AGENT_TIMEOUT_S} s")
+        wall = time.monotonic() - t0
+    finally:
+        tail.stop()
+        saver.unlink_all(1)
+        AsyncCheckpointSaver.reset()
+        client.close()
+        master.stop()
+        _unlink_job_segments(job)
+    check(box.get("result") == RunResult.SUCCEEDED,
+          f"agent_paths/standby: agent result {box.get('result')}")
+    lines = tail.json_lines(log_path)
+    readies = [(t, e) for t, e in lines if e.get("event") == "ready"]
+    standbys = [e for _, e in lines if e.get("event") == "standby_ready"]
+    crashes = {e.get("rule_id"): t for t, e in tail.json_lines(trace)}
+    check(len(readies) == 3 and set(crashes) == set(labels),
+          f"agent_paths/standby: {len(readies)} incarnations, crashes "
+          f"{sorted(crashes)}")
+    check(all(e["cuda_initialized"] is False for e in standbys),
+          f"agent_paths/standby: a waiting standby initialised CUDA: "
+          f"{standbys}")
+    standby_pids = {e["pid"] for e in standbys}
+    row = {"wall_s": wall, "standby_import_s": [e["import_s"]
+                                                for e in standbys]}
+    for i, label in enumerate(labels):
+        t_ready, relaunch = readies[i + 1]
+        end = AGENT_CRASH_STEPS[i + 1] if i + 1 < len(labels) else (
+            AGENT_STEPS)
+        after = [(t, e) for t, e in lines if e.get("event") == "step"
+                 and t_ready < t and (i + 2 == len(readies)
+                                      or t < readies[i + 2][0])]
+        check(relaunch["restart_count"] == i + 1 and after
+              and after[0][1]["step"] == relaunch["restored_step"] + 1
+              and after[-1][1]["step"] == end - (i + 1 < len(labels)),
+              f"agent_paths/{label}: relaunch {relaunch}, steps "
+              f"{[e['step'] for _, e in after]}")
+        if device == "cuda":
+            check(after[-1][1]["launches"].get("flash_forward", 0) > 0,
+                  f"agent_paths/{label}: the relaunch launched no B1")
+        adopted = relaunch["pid"] in standby_pids
+        check(adopted == (label == "warm")
+              and relaunch["pid"] not in killed,
+              f"agent_paths/{label}: relaunch pid {relaunch['pid']}, "
+              f"standbys {sorted(standby_pids)}, killed {killed}")
+        t_crash = crashes[label]
+        row[label] = {"crash_to_ready_s": t_ready - t_crash,
+                      "crash_to_first_step_s": after[0][0] - t_crash,
+                      "relaunch_start_s": relaunch["start_s"],
+                      "relaunch_restored": [relaunch["restored_step"],
+                                            relaunch["restored_from"]],
+                      "relaunch_pid_is_standby": adopted}
+    return row
+
+
+def phase_agent_paths(device="cuda"):
+    """(a) ``python -m dlrover_tpu_torch.run --standalone --network-check
+    --nproc_per_node 1 -m dlrover_tpu_torch.examples.train_llama`` (one
+    flagship layer at 2 x 128, 2 steps, on ``device``): exit 0, the
+    port's probe (``agent/node_check_worker``) ran on ``device`` and
+    wrote its result, the master's fault nodes are empty, then the worker
+    trained 2 steps (launching B1 on the card); under
+    ``DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS=0`` the launcher exits non-zero
+    and no worker starts. (b) The port's ``ElasticAgent`` under an
+    in-process local master and saver runs the same worker for
+    AGENT_STEPS steps with ``WorkerSpec(warm_standby=True)``; its first
+    two incarnations crash at AGENT_CRASH_STEPS through their fault
+    schedule, and the standby spawned before the second crash is
+    killed. Gates: the agent exits 0; each relaunch (restart counts 1
+    and 2) resumes at its restored step + 1 and trains on ``device``;
+    the first is the adopted standby, the second a cold spawn (the dead
+    standby's fallback); no waiting standby initialised CUDA. Prints
+    the seconds from each crash (its fault trace line) to the
+    relaunch's ready line and first step: warm against cold."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common.constants import NodeEnv
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    row = {"phase": "agent_paths", "device": device}
+    row["network_check"] = _network_check_runs(device)
+    saved_env = {k: os.environ.get(k) for k in (
+        NodeEnv.JOB_NAME, NodeEnv.NODE_RANK, NodeEnv.SHARED_DIR)}
+    root = tempfile.mkdtemp(prefix="agent_standby_")
+    try:
+        row["standby"] = _standby_run(device, root, repo)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    emit(row)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4818,6 +5276,11 @@ def main():
     for counts in axes_launches.values():
         for name, n in counts.items():
             launches[name] += n
+    # The live rescale plane (the episode's workers hold their state on
+    # the card), the launcher's network check and the agent's warm
+    # standby: control planes on the host, each gated inside its phase.
+    timed("live_rescale", phase_live_rescale)
+    timed("agent_paths", phase_agent_paths)
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 

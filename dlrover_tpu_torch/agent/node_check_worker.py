@@ -12,10 +12,13 @@ then, with ``comm_mb`` > 0, an ``all_reduce`` of ``comm_mb`` MB over
 the world (a world of one reduces over a one-rank group). It writes the
 elapsed seconds to the result file; any exception, or a rank named in
 ``DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS``, leaves no file, which the agent
-reports as a failed probe. It runs on the card unless
+reports as a failed probe. A probe that passed writes one JSON line to
+stderr (``"event": "node_check_probe"``: its node rank, device and
+elapsed seconds). It runs on the card unless
 ``DLROVER_TPU_CHECK_DEVICE=cpu`` asks for the CPU (gloo).
 """
 
+import json
 import os
 import sys
 import time
@@ -92,6 +95,14 @@ def main(argv=None) -> int:
     with open(tmp, "w") as f:
         f.write(f"{elapsed:.6f}")
     os.replace(tmp, result_file)
+    sys.stderr.write(json.dumps({
+        "event": "node_check_probe", "node_rank": rank,
+        "device": str(x.device),
+        "device_name": (torch.cuda.get_device_name(x.device)
+                        if x.is_cuda else "cpu"),
+        "elapsed": elapsed,
+    }) + "\n")
+    sys.stderr.flush()
     return 0
 
 

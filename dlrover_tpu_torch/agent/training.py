@@ -14,17 +14,18 @@ Run states per monitor tick:
 - otherwise                -> heartbeat (executing piggy-backed diagnosis
                               actions), resource report
 
-The port's copy of ``dlrover_tpu/agent/training.py``. It leaves out the
-reference's hooks for JAX on a TPU, and refuses their switches with
-``NotImplementedError`` naming the ROADMAP item: the warm standby
-(``WorkerSpec.warm_standby``, ROADMAP §A item 2) and the XLA-capture
-injection (``DLROVER_TPU_TIMER_XLA``, item 10). The post-mortem stop
+The port's copy of ``dlrover_tpu/agent/training.py``, the warm standby
+(``WorkerSpec.warm_standby``, ``agent/standby.py``) included. It leaves
+out the reference's hooks for JAX on a TPU, and refuses their switch
+with ``NotImplementedError`` naming the ROADMAP item: the XLA-capture
+injection (``DLROVER_TPU_TIMER_XLA``, item 7). The post-mortem stop
 sends SIGUSR2 for the worker's Python stacks (the port's
 ``init_distributed`` registers the dump), without the reference's
-out-of-process native stacks (item 10) or its collection of flight
-recorder and hang dumps (item 8).
+out-of-process native stacks (item 7) or its collection of flight
+recorder and hang dumps (item 5).
 """
 
+import json
 import os
 import signal
 import subprocess
@@ -73,8 +74,8 @@ class WorkerSpec:
     env: Dict[str, str] = field(default_factory=dict)
     redirect_output: Optional[str] = None  # dir for per-worker logs
     # Keep a pre-spawned interpreter (python + framework imports
-    # already paid) and adopt it as the next incarnation on restart
-    # (reference agent/standby.py). Not ported yet: True raises.
+    # already paid) and adopt it as the next incarnation on restart:
+    # cuts restart latency by the import cost (agent/standby.py).
     warm_standby: bool = False
 
 
@@ -95,11 +96,6 @@ class ElasticAgent:
         ckpt_saver=None,
         diagnosis_agent=None,
     ):
-        if spec.warm_standby:
-            raise NotImplementedError(
-                "the warm standby (agent/standby.py) is not ported yet: "
-                "ROADMAP §A item 2"
-            )
         self._spec = spec
         self._client = client
         if diagnosis_agent is None:
@@ -125,6 +121,8 @@ class ElasticAgent:
             join_timeout=spec.join_timeout,
         )
         self._workers: List[_Worker] = []
+        self._standby: Optional[subprocess.Popen] = None
+        self._standby_log = None
         self._breakpoint_thread: Optional[threading.Thread] = None
         self._restart_count = 0
         self._ckpt_saver = ckpt_saver
@@ -171,8 +169,8 @@ class ElasticAgent:
             span.content["num_workers"] = len(self._workers)
 
     def _base_worker_env(self, spec) -> Dict[str, str]:
-        """Environment shared by every incarnation: everything except
-        the rendezvous-outcome values."""
+        """Environment shared by every incarnation (and by standbys):
+        everything except the rendezvous-outcome values."""
         # Workers must be able to import this framework even when the
         # launcher was started from a different cwd/PYTHONPATH.
         pkg_root = os.path.dirname(
@@ -192,7 +190,7 @@ class ElasticAgent:
         if env_bool(env, "DLROVER_TPU_TIMER_XLA"):
             raise NotImplementedError(
                 "DLROVER_TPU_TIMER_XLA: the XLA-capture injection "
-                "(tpu_timer/) is not ported yet: ROADMAP §A item 10"
+                "(tpu_timer/) is not ported yet: ROADMAP §A item 7"
             )
         return env
 
@@ -235,26 +233,105 @@ class ElasticAgent:
             env = self._base_worker_env(spec)
             env.update(self._outcome_env(outcome, local_rank, spec))
             argv, module = self._worker_argv(spec)
-            if module is not None:
-                cmd = [sys.executable, "-m", *argv]
-            else:
-                cmd = [sys.executable, *argv]
-            log_file = self._open_worker_log(spec, local_rank)
-            stdout = stderr = log_file
-            proc = subprocess.Popen(
-                cmd,
-                env=env,
-                stdout=stdout,
-                stderr=stderr,
-                start_new_session=True,
+            adopted = (
+                local_rank == 0
+                and self._adopt_standby(env, argv, module)
             )
+            if adopted:
+                proc, log_file = adopted
+            else:
+                if module is not None:
+                    cmd = [sys.executable, "-m", *argv]
+                else:
+                    cmd = [sys.executable, *argv]
+                log_file = self._open_worker_log(spec, local_rank)
+                stdout = stderr = log_file
+                proc = subprocess.Popen(
+                    cmd,
+                    env=env,
+                    stdout=stdout,
+                    stderr=stderr,
+                    start_new_session=True,
+                )
             self._workers.append(_Worker(local_rank, proc, log_file))
             logger.info(
-                "started worker local_rank=%d pid=%d process_id=%d",
+                "started worker local_rank=%d pid=%d process_id=%d%s",
                 local_rank,
                 proc.pid,
                 outcome.process_id_base + local_rank,
+                " (adopted warm standby)" if adopted else "",
             )
+        if spec.warm_standby and spec.nproc_per_node == 1:
+            self._spawn_standby(spec)
+
+    # ---- warm standby ------------------------------------------------------
+
+    def _spawn_standby(self, spec):
+        """Pre-spawn the NEXT incarnation's interpreter so a restart
+        skips the python + ``import torch`` cost (agent/standby.py).
+        The standby blocks on stdin; it never touches the card until
+        adopted."""
+        if self._standby is not None and self._standby.poll() is None:
+            return
+        self._standby_log = self._open_worker_log(spec, 0)
+        try:
+            self._standby = subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.agent.standby"],
+                env=self._base_worker_env(spec),
+                stdin=subprocess.PIPE,
+                stdout=self._standby_log,
+                stderr=self._standby_log,
+                start_new_session=True,
+            )
+            logger.info("warm standby spawned pid=%d", self._standby.pid)
+        except OSError:
+            logger.warning("standby spawn failed", exc_info=True)
+            self._standby = None
+
+    def _adopt_standby(self, env, argv, module):
+        """Hand the final env/argv to a live standby; returns
+        (process, log_file) or None (no/dead standby -> cold spawn)."""
+        standby, log_file = self._standby, self._standby_log
+        self._standby = self._standby_log = None
+        if standby is None:
+            if log_file:  # spawn-failed leftovers must not leak the fd
+                log_file.close()
+            return None
+        if standby.poll() is not None:
+            if log_file:
+                log_file.close()
+            return None
+        try:
+            line = json.dumps({"env": env, "argv": argv, "module": module})
+            standby.stdin.write(line.encode() + b"\n")
+            standby.stdin.flush()
+            standby.stdin.close()
+        except (OSError, ValueError):
+            logger.warning("standby adoption failed; cold spawn",
+                           exc_info=True)
+            try:
+                standby.kill()
+            except OSError:
+                pass
+            if log_file:
+                log_file.close()
+            return None
+        return standby, log_file
+
+    def _close_standby(self):
+        standby, log_file = self._standby, self._standby_log
+        self._standby = self._standby_log = None
+        if standby is not None and standby.poll() is None:
+            try:
+                standby.stdin.close()  # EOF -> clean exit
+                standby.wait(timeout=5.0)
+            except (OSError, subprocess.TimeoutExpired):
+                try:
+                    standby.kill()
+                except OSError:
+                    pass
+        if log_file:
+            log_file.close()
 
     def _stop_workers(self, timeout: float = 15.0, post_mortem: bool = False):
         if post_mortem:
@@ -464,6 +541,7 @@ class ElasticAgent:
             return RunResult.RELAUNCH
         finally:
             self._diagnosis_agent.stop()
+            self._close_standby()
 
     def _run(self) -> RunResult:
         spec = self._spec
@@ -536,4 +614,5 @@ class ElasticAgent:
         self._stopping = True
         self._diagnosis_agent.stop()
         self._stop_workers()
+        self._close_standby()
         self.wait_breakpoint_save()

@@ -62,7 +62,7 @@ class TrainingHangDiagnostician(Diagnostician):
             # ported yet; the local master never passes them.
             raise NotImplementedError(
                 "metric_context needs common/metric.py, not ported yet: "
-                "ROADMAP §A item 11"
+                "ROADMAP §A item 8"
             )
         self._metric_context = metric_context
 

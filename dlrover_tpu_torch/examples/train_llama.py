@@ -17,6 +17,12 @@ What it does:
   whose cursor rides in the checkpoint's ``user_meta`` (one replica per
   rank of the batch axes; tp ranks read the same rows), through a
   prefetching loader and double-buffered host-to-device copies;
+- under a master (``DLROVER_TPU_MASTER_ADDR``, set by the launcher)
+  reports its global steps to the master's perf monitor; its records
+  still come from the sampler, not from the master's shards (the
+  reference's worker reads ``IndexShardingClient`` shards of 4096
+  records there, whose snapshot would replay a whole shard after a
+  kill);
 - after each step launches an async flash checkpoint to shm, and every
   ``--persist-every`` steps asks the agent's saver to persist it.
 
@@ -45,6 +51,8 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch import fault
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.common.env_utils import get_master_addr
 from dlrover_tpu_torch.flash_ckpt.checkpointer import agent_present
 from dlrover_tpu_torch.flash_ckpt.engine import CheckpointEngine
 from dlrover_tpu_torch.flash_ckpt.shm_handler import leaf_bytes, tree_flatten
@@ -150,7 +158,16 @@ def main(argv=None):
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     batch_cfg = ElasticBatchConfig(args.global_batch, args.micro_batch)
-    elastic = ElasticTrainer(batch_cfg, dp_size=b_count)
+    # Under a master (the launcher sets its address) the trainer reports
+    # its global steps to the master's perf monitor.
+    master_addr = get_master_addr()
+    elastic = ElasticTrainer(
+        batch_cfg,
+        dp_size=b_count,
+        master_client=MasterClient(master_addr, ctx.process_id)
+        if master_addr
+        else None,
+    )
     tc = ts.TrainConfig(warmup_steps=20, grad_accum=elastic.grad_accum)
     opt = ts.make_optimizer(tc)
     gen = torch.Generator(device).manual_seed(args.seed)

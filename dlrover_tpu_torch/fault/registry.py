@@ -86,6 +86,26 @@ KNOWN_POINTS: Dict[str, str] = {
         "sync service: a bounded barrier wait is starting — delay "
         "pushes it into its timeout path"
     ),
+    "data.prefetch.fetch": (
+        "sharding client: prefetcher about to fetch leases — raise "
+        "drives the transport-failure retry/backoff path"
+    ),
+    "rescale.plan.broadcast": (
+        "master servicer: a rescale plan is about to be returned to a "
+        "polling worker — raise drops the broadcast on the wire; the "
+        "pull protocol must re-deliver it on the next poll "
+        "(ctx: plan_id, rank)"
+    ),
+    "rescale.barrier.wait": (
+        "rescale client: one poll of a plan's phase barrier — crash is "
+        "a worker SIGKILL mid-barrier; the coordinator's bounded wait "
+        "must expire and re-plan around it (ctx: plan_id, phase)"
+    ),
+    "rescale.resume.first_step": (
+        "rescale client: state restored, resume acked, first "
+        "post-rescale step about to run — crash kills the worker in "
+        "the restore-to-first-step window (ctx: plan_id)"
+    ),
     "master.restart": (
         "master journal: a recovered journal is being replayed into a "
         "fresh master (ctx: epoch). The journal is not ported yet "

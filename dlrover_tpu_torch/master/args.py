@@ -5,10 +5,8 @@ to HTTP).
 Only the flags the local master reads are here. The distributed
 master's flags (namespace, network check, dashboard, brain, metric
 endpoints, topology, node unit, auto-scaling, legal worker counts) come
-back with it (ROADMAP §A item 11). The flags whose paths are not ported
-raise ``NotImplementedError`` naming their ROADMAP §A item:
-``--autoscale_loop`` (item 7), and a batch config from
-``--global_batch_size`` with ``--micro_batch_per_device`` (item 1).
+back with it (ROADMAP §A item 8). ``--autoscale_loop``, whose path is not
+ported, raises ``NotImplementedError`` naming its ROADMAP §A item (4).
 """
 
 import argparse
@@ -41,21 +39,29 @@ def build_master_parser() -> argparse.ArgumentParser:
         "--global_batch_size",
         type=int,
         default=0,
-        help="job global batch; with --micro_batch_per_device it asks "
-        "for a batch config (not ported: ROADMAP §A item 1)",
+        help="job global batch (enables micro-batch/accum suggestions)",
     )
     parser.add_argument(
         "--micro_batch_per_device",
         type=int,
         default=0,
-        help="per-device micro batch (see --global_batch_size)",
+        help="per-device micro batch; with --global_batch_size, "
+        "restricts rendezvous/rescale worlds to dp sizes where "
+        "global_batch %% (micro * dp) == 0",
+    )
+    parser.add_argument(
+        "--devices_per_node",
+        type=int,
+        default=4,
+        help="devices per worker host: dp = nodes * devices_per_node "
+        "in the batch config's legality",
     )
     parser.add_argument(
         "--autoscale_loop",
         action="store_true",
         default=False,
         help="run the closed-loop autoscaler (not ported: ROADMAP §A "
-        "item 7)",
+        "item 4)",
     )
     return parser
 

@@ -6,10 +6,12 @@ Parity: reference dlrover/python/master/local_master.py:41 (LocalJobMaster)
 cluster.
 
 The port's copy of ``dlrover_tpu/master/local_master.py``. It builds
-what the reference's builds by default, serves over HTTP by default,
-and gives the servicer no rescale coordinator (the servicer answers the
-rescale verbs as "no plan"). The journal, the autoscale loop and a
-batch config raise ``NotImplementedError`` naming their ROADMAP item.
+what the reference's builds by default, the rescale coordinator
+included, and serves over HTTP by default. A batch config restricts the
+rendezvous and the rescale plans to the worlds it can train at
+(``wire_batch_legality``, dp = nodes x ``devices_per_node``). The
+journal and the autoscale loop raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 import threading
@@ -48,28 +50,21 @@ class LocalJobMaster:
         max_relaunch_count: int = 3,
         transport: str = "http",
         batch_config=None,
+        devices_per_node: int = 1,
         autoscale_loop: bool = False,
         journal_path: str = "",
     ):
         # Not ported yet, refused rather than ignored (ROADMAP §A): the
-        # rescale coordinator (item 1), the durable journal (item 4) and
-        # the closed-loop autoscaler (item 7). A batch config needs the
-        # coordinator to legalise rescale plans.
+        # durable journal (item 1) and the closed-loop autoscaler (item 4).
         if journal_path or journal_path_from_env():
             raise NotImplementedError(
                 "the master journal (master/journal.py) is not ported "
-                "yet: ROADMAP §A item 4"
-            )
-        if batch_config is not None:
-            raise NotImplementedError(
-                "batch_config needs the rescale coordinator "
-                "(master/elastic_training/rescale_coordinator.py), not "
-                "ported yet: ROADMAP §A item 1"
+                "yet: ROADMAP §A item 1"
             )
         if autoscale_loop:
             raise NotImplementedError(
                 "the autoscale loop (autoscaler/) is not ported yet: "
-                "ROADMAP §A item 7"
+                "ROADMAP §A item 4"
             )
         self.job_name = job_name
         self._job_context = get_job_context()
@@ -78,6 +73,14 @@ class LocalJobMaster:
         self.perf_monitor = PerfMonitor()
         self.task_manager = TaskManager(perf_monitor=self.perf_monitor)
         self.diagnosis_master = self._build_diagnosis_master()
+        from dlrover_tpu_torch.master.elastic_training.rescale_coordinator import (
+            RescaleCoordinator,
+            wire_batch_legality,
+        )
+
+        self.rescale_coordinator = RescaleCoordinator(
+            bootstrap_min=node_num
+        )
         from dlrover_tpu_torch.master.elastic_training.kv_store import (
             KVStoreService,
         )
@@ -85,10 +88,23 @@ class LocalJobMaster:
             SyncService,
         )
 
-        self.rescale_coordinator = None
         self.kv_store = KVStoreService()
         self.sync_service = SyncService()
         self.journal = None
+        if batch_config is not None:
+            # Rendezvous and rescale plans only form worlds the trainer's
+            # batch config can actually train at (global_batch divisible
+            # by micro * dp) — a 3-of-4-survivors world must be truncated,
+            # not crash grad_accum_for().
+            # Legality must use the REAL dp = nodes * devices_per_node;
+            # defaulting to 1 here would admit worlds whose actual dp
+            # fails grad_accum_for() on arrival.
+            wire_batch_legality(
+                self.rdzv_managers,
+                self.rescale_coordinator,
+                batch_config,
+                local_world_size=devices_per_node,
+            )
         from dlrover_tpu_torch.observability import tracing as tracing_lib
 
         self.trace_aggregator = tracing_lib.TraceAggregator()

@@ -51,6 +51,7 @@ def run(args) -> int:
             max_relaunch_count=args.max_relaunch_count,
             transport=args.transport,
             batch_config=batch_config,
+            devices_per_node=args.devices_per_node,
             autoscale_loop=args.autoscale_loop,
         )
     else:
@@ -58,7 +59,7 @@ def run(args) -> int:
         # not ported yet.
         raise NotImplementedError(
             f"platform {args.platform!r} needs the distributed master "
-            "(master/dist_master.py), not ported yet: ROADMAP §A item 11"
+            "(master/dist_master.py), not ported yet: ROADMAP §A item 8"
         )
     master.prepare()
     _install_sigterm(master)

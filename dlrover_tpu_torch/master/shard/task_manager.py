@@ -402,7 +402,7 @@ class TaskManager:
                 raise NotImplementedError(
                     "streaming datasets need "
                     "master/shard/streaming_dataset_manager.py, not "
-                    "ported yet: ROADMAP §A item 6"
+                    "ported yet: ROADMAP §A item 3"
                 )
             else:
                 manager = BatchDatasetManager(params.task_type, splitter)

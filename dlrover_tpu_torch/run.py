@@ -14,10 +14,12 @@ Usage:
     python -m dlrover_tpu_torch.run --standalone -m pkg.train --steps 10
     python -m dlrover_tpu_torch.run --master host:port --nnodes 2:4 train.py ...
 
-Launcher switches whose paths are not ported yet raise
-``NotImplementedError`` naming their ROADMAP §A item: ``--network-check``
-(item 3), ``--ckpt_replica_group`` above 1 (item 5) and
-``DLROVER_TPU_TIMER`` (item 10). The launcher leaves the checkpoint
+``--network-check`` runs the node check (``agent/node_check.py``, the
+port's probe on the card) before the workers start, and exits 3 without
+starting them if this node fails it. Launcher switches whose paths are
+not ported yet raise ``NotImplementedError`` naming their ROADMAP §A
+item: ``--ckpt_replica_group`` above 1 (item 2) and
+``DLROVER_TPU_TIMER`` (item 7). The launcher leaves the checkpoint
 saver's shared-memory segments behind when it exits, as the
 reference's does: whoever owns the job's name unlinks them.
 """
@@ -75,6 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
         action="store_true",
         default=False,
         help="run node/ICI health probes before training",
+    )
+    p.add_argument(
+        "--comm-perf-test",
+        action="store_true",
+        default=False,
+        help="include bandwidth benchmarks in the network check",
     )
     p.add_argument("--log_dir", type=str, default="")
     p.add_argument("--pre_check_timeout", type=float, default=600.0)
@@ -178,18 +186,29 @@ def _refuse_unported(args):
     if args.ckpt_replica_group > 1:
         raise NotImplementedError(
             "--ckpt_replica_group > 1 needs flash_ckpt/replica.py, not "
-            "ported yet: ROADMAP §A item 5"
+            "ported yet: ROADMAP §A item 2"
         )
     if get_env_bool("DLROVER_TPU_TIMER"):
         raise NotImplementedError(
             "DLROVER_TPU_TIMER needs the tpu_timer daemons and their "
-            "collectors, not ported yet: ROADMAP §A item 10"
+            "collectors, not ported yet: ROADMAP §A item 7"
         )
-    if args.network_check:
-        raise NotImplementedError(
-            "--network-check needs agent/node_check.py, not ported yet: "
-            "ROADMAP §A item 3"
-        )
+
+
+def _stop_master(master_proc: Optional[subprocess.Popen],
+                 timeout: float = 30.0):
+    """Never return while the master lives: wait for it, then stop it."""
+    if master_proc is None:
+        return
+    try:
+        master_proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        master_proc.terminate()
+        try:
+            master_proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            master_proc.kill()
+            master_proc.wait()
 
 
 def run(args) -> int:
@@ -230,6 +249,27 @@ def run(args) -> int:
     _merge_master_config(client, args)
     wait_pre_check(client, args.pre_check_timeout)
     _refuse_unported(args)  # the master's config may turn a switch on
+
+    if args.network_check:
+        from dlrover_tpu_torch.agent.node_check import run_network_check
+
+        ok = run_network_check(
+            client,
+            node_rank=node_rank,
+            nproc_per_node=args.nproc_per_node,
+            comm_perf=args.comm_perf_test,
+            node_unit=args.node_unit,
+        )
+        if not ok:
+            logger.error("node failed network check; exiting for relaunch")
+            _stop_master(master_proc, timeout=0)
+            return 3
+        faults, evaluated_round, _ = client.check_fault_node()
+        logger.info(
+            "network check passed: node %d, the master's fault nodes %s "
+            "after round %d, stragglers %s",
+            node_rank, faults, evaluated_round, client.check_straggler(),
+        )
 
     monitor = ResourceMonitor(client)
     monitor.start()
@@ -322,17 +362,7 @@ def run(args) -> int:
         code = 3  # cluster layer replaces this node
     else:
         code = 1
-    if master_proc is not None:
-        try:
-            master_proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            # Never return while the master lives.
-            master_proc.terminate()
-            try:
-                master_proc.wait(timeout=10)
-            except subprocess.TimeoutExpired:
-                master_proc.kill()
-                master_proc.wait()
+    _stop_master(master_proc)
     return code
 
 

@@ -9,10 +9,17 @@ step 3 resumes at step 4 from memory; an external SIGKILL resumes from
 memory; ``max_restarts 0`` gives up; and two agents of a two-node world
 leave together through the exit barrier. The crash scenario also runs
 through the JAX package's master, saver, agent and worker, and gives the
-same run result and progress lines. The switches of the reference's
-agent the port does not carry yet raise.
+same run result and progress lines. With ``warm_standby`` the relaunch
+is the pre-spawned standby (which imported torch and left CUDA alone),
+and a dead standby falls back to a cold spawn. The node check
+(``agent/node_check.run_network_check`` over the port's probe on gloo
+CPU worlds, the reference's ``tests/test_node_check.py``): two healthy
+nodes, a rigged node isolated and marked broken, a straggler flagged.
+The switches of the reference's agent the port does not carry yet
+raise.
 """
 
+import json
 import os
 import signal
 import threading
@@ -229,11 +236,82 @@ def test_exit_barrier_holds_the_early_node(env_isolation):
         m.stop()
 
 
-def test_warm_standby_is_refused(master, saver_client, tmp_path):
+def _standby_lines(log_dir):
+    """The ``standby_ready`` lines the standbys wrote to the worker log."""
+    path = log_dir / "worker-0-0.log"
+    if not path.exists():
+        return []
+    out = []
+    for line in path.read_text(errors="replace").splitlines():
+        if line.startswith('{"event": "standby_ready"'):
+            out.append(json.loads(line))
+    return out
+
+
+def _wait_standby_spawned(agent, out, timeout=60.0):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if len(_read_progress(out)) >= 3 and agent._standby is not None:
+            return agent._standby
+        time.sleep(0.05)
+    raise AssertionError("no warm standby spawned with 3 steps done")
+
+
+def test_warm_standby_adopted_on_restart(master, saver_client, tmp_path):
+    """With warm_standby, the restarted incarnation IS the pre-spawned
+    standby process (no cold python start on the restart path), and the
+    job still resumes from the checkpoint. The waiting standby has
+    imported torch and not initialised CUDA."""
     client, saver = saver_client
-    spec, _ = _spec(tmp_path, total=2, warm_standby=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 2"):
-        ElasticAgent(spec, client, ckpt_saver=saver)
+    spec, out = _spec(tmp_path, total=30)
+    spec.warm_standby = True
+    spec.redirect_output = str(tmp_path / "logs")
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    t, box = _run_in_thread(agent)
+    standby = _wait_standby_spawned(agent, out)
+    standby_pid = standby.pid
+    worker_pid = agent._workers[0].process.pid
+    assert standby_pid != worker_pid
+    os.kill(worker_pid, signal.SIGKILL)
+    t.join(timeout=120)
+    assert box.get("result") == RunResult.SUCCEEDED
+    progress = _read_progress(out)
+    steps = [p[1] for p in progress]
+    assert steps[-1] == 30
+    restarted_steps = [s for _, s, r, _ in progress if r >= 1]
+    assert restarted_steps and min(restarted_steps) > 1
+    # the new incarnation is the adopted standby, and a fresh standby
+    # replaced it (until run() closed it on success)
+    adopted = [w for w in agent._workers if w.process.pid == standby_pid]
+    assert adopted, "restart did not adopt the warm standby"
+    assert agent._standby is None, "standby not closed after run()"
+    ready = _standby_lines(tmp_path / "logs")
+    assert standby_pid in {r["pid"] for r in ready}
+    assert all(r["cuda_initialized"] is False for r in ready), ready
+
+
+def test_dead_standby_falls_back_to_cold_spawn(
+    master, saver_client, tmp_path
+):
+    """A standby that died before adoption must not break restarts —
+    the agent falls back to a cold spawn and respawns a standby."""
+    client, saver = saver_client
+    spec, out = _spec(tmp_path, total=30)
+    spec.warm_standby = True
+    spec.redirect_output = str(tmp_path / "logs")
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    t, box = _run_in_thread(agent)
+    standby = _wait_standby_spawned(agent, out)
+    # Kill the STANDBY first, then the worker: adoption must detect the
+    # dead standby and cold-spawn.
+    standby.kill()
+    standby.wait(timeout=10)
+    os.kill(agent._workers[0].process.pid, signal.SIGKILL)
+    t.join(timeout=180)  # generous: full-suite load slows subprocesses
+    assert box.get("result") == RunResult.SUCCEEDED
+    steps = [p[1] for p in _read_progress(out)]
+    assert steps[-1] == 30
+    assert all(w.process.pid != standby.pid for w in agent._workers)
 
 
 def test_xla_capture_switch_is_refused(master, saver_client, tmp_path):
@@ -241,16 +319,15 @@ def test_xla_capture_switch_is_refused(master, saver_client, tmp_path):
     spec, out = _spec(tmp_path, total=2)
     spec.env["DLROVER_TPU_TIMER_XLA"] = "1"
     agent = ElasticAgent(spec, client, ckpt_saver=saver)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 7"):
         agent.run()
     assert _read_progress(out) == []
 
 
 @pytest.mark.parametrize("kwargs, env, item", [
-    ({"journal_path": "j.log"}, {}, "item 4"),
-    ({}, {"DLROVER_TPU_MASTER_JOURNAL": "j.log"}, "item 4"),
-    ({"autoscale_loop": True}, {}, "item 7"),
-    ({"batch_config": object()}, {}, "item 1"),
+    ({"journal_path": "j.log"}, {}, "item 1"),
+    ({}, {"DLROVER_TPU_MASTER_JOURNAL": "j.log"}, "item 1"),
+    ({"autoscale_loop": True}, {}, "item 4"),
 ])
 def test_local_master_refuses_unported_switches(monkeypatch, kwargs, env,
                                                 item):
@@ -266,7 +343,7 @@ def test_training_hang_refuses_a_metric_context():
     )
     from dlrover_tpu_torch.master.monitor.perf_monitor import PerfMonitor
 
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
         TrainingHangDiagnostician(PerfMonitor(), metric_context=object())
 
 
@@ -427,3 +504,89 @@ def test_crash_and_resume_as_the_jax_agent(env_isolation, monkeypatch):
     assert ref == ("succeeded", [(1, 0, 1.0), (2, 0, 2.0), (3, 0, 3.0),
                                  (4, 1, 4.0), (5, 1, 5.0), (6, 1, 6.0)])
     assert port == ref
+
+
+# ---- the node check (the reference's tests/test_node_check.py) -------------
+
+
+@pytest.fixture()
+def check_master(env_isolation, monkeypatch):
+    """Masters of n nodes, and the port's probe on the CPU at small
+    sizes (a gloo world per probe group)."""
+    from dlrover_tpu_torch.common.constants import NetworkCheckConstant
+
+    monkeypatch.setattr(NetworkCheckConstant, "MATMUL_SIZE", 64)
+    monkeypatch.setattr(NetworkCheckConstant, "MATMUL_ROUNDS", 16)
+    monkeypatch.setenv("DLROVER_TPU_CHECK_DEVICE", "cpu")
+    created = []
+
+    def build(node_num):
+        created.append(_master(node_num))
+        return created[-1]
+
+    yield build
+    for m in created:
+        m.stop()
+
+
+def _run_check_agents(master, ranks, timeout=240):
+    from dlrover_tpu_torch.agent.node_check import run_network_check
+
+    results = {}
+
+    def check(rank):
+        client = MasterClient(f"localhost:{master.port}", node_id=rank)
+        results[rank] = run_network_check(
+            client, node_rank=rank, nproc_per_node=1, timeout=timeout
+        )
+
+    threads = [
+        threading.Thread(target=check, args=(r,), daemon=True)
+        for r in ranks
+    ]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout + 120)
+    return results
+
+
+def test_two_node_check_all_healthy(check_master):
+    master = check_master(2)
+    assert _run_check_agents(master, (0, 1)) == {0: True, 1: True}
+    client = MasterClient(f"localhost:{master.port}", node_id=0)
+    faults, evaluated_round, needs_more = client.check_fault_node()
+    assert faults == [] and evaluated_round >= 0 and not needs_more
+
+
+def test_rigged_node_isolated_and_evicted(check_master, monkeypatch):
+    """Four real agents; node 1's probe is rigged to fail every round.
+    Round 0 marks it suspect, the bisection round pairs it with a
+    healthy node, and the verdict isolates EXACTLY node 1 — which gets
+    marked broken (BREAKDOWN) for eviction+relaunch while its round-0
+    partner is cleared."""
+    from dlrover_tpu_torch.common.constants import NodeStatus, NodeType
+    from dlrover_tpu_torch.master.node.job_context import get_job_context
+
+    monkeypatch.setenv("DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS", "1")
+    master = check_master(4)
+    results = _run_check_agents(master, (0, 1, 2, 3))
+    assert results == {0: True, 1: False, 2: True, 3: True}
+    client = MasterClient(f"localhost:{master.port}", node_id=0)
+    faults, _, needs_more = client.check_fault_node()
+    assert faults == [1]
+    assert not needs_more
+    node = get_job_context().get_node(NodeType.WORKER, 1)
+    assert node is not None and node.status == NodeStatus.BREAKDOWN
+
+
+def test_straggler_detected_e2e(check_master, monkeypatch):
+    """Node 1 completes its probes but far slower than the median: the
+    check passes (no eviction) and the master flags it a straggler."""
+    monkeypatch.setenv("DLROVER_TPU_CHAOS_CHECK_SLOW_RANKS", "1")
+    monkeypatch.setenv("DLROVER_TPU_CHAOS_CHECK_SLOW_SECS", "8")
+    master = check_master(4)
+    results = _run_check_agents(master, (0, 1, 2, 3))
+    assert results == {0: True, 1: True, 2: True, 3: True}
+    client = MasterClient(f"localhost:{master.port}", node_id=0)
+    assert 1 in client.check_straggler()

@@ -10,8 +10,9 @@ process has JAX loaded by ``tests/conftest.py``); in a fleet's
 subprocess worker; in the elastic training worker, which also loads no
 ``ml_dtypes`` on its checkpoint path; in every interpreter of the
 standalone launcher's path (launcher and agent, master, worker), which
-also loads neither ``grpc`` nor ``psutil``; and by a scan of every
-import statement in the port's sources and in ``chip_smoke.py``."""
+also loads neither ``grpc`` nor ``psutil``; in a live-rescale worker
+and a warm standby; and by a scan of every import statement in the
+port's sources and in ``chip_smoke.py``."""
 
 import ast
 import json
@@ -512,3 +513,68 @@ def test_standalone_launcher_path_loads_no_jax_grpc_or_psutil(tmp_path):
         for seg in os.listdir("/dev/shm"):
             if job in seg:
                 os.unlink(os.path.join("/dev/shm", seg))
+
+
+def test_scan_covers_the_rescale_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    assert {"master/elastic_training/rescale_coordinator.py",
+            "trainer/elastic/rescale.py",
+            "trainer/elastic/sharding_client.py",
+            "testing/__init__.py", "testing/soak.py",
+            "testing/soak_worker.py", "testing/rescale_worker.py",
+            "testing/rescale_soak.py", "agent/standby.py",
+            "agent/node_check.py"} <= scanned
+
+
+def test_rescale_worker_and_standby_load_no_jax(tmp_path, monkeypatch):
+    """A live-rescale worker (world one, on the CPU) runs its bootstrap
+    plan, saves and trains to the end of its dataset under the port's
+    in-process master; a warm standby imports torch without touching
+    CUDA and, once adopted, runs a script. Neither interpreter loaded
+    JAX or the JAX package."""
+    from dlrover_tpu_torch.testing import rescale_soak as rs
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE.replace(
+        'os.environ["ISOLATION_REPORT"]',
+        'os.environ["ISOLATION_REPORT"] + str(os.getpid())'))
+    monkeypatch.setenv("PYTHONPATH", str(site))
+    monkeypatch.setenv("ISOLATION_REPORT", str(tmp_path / "report.json"))
+    ep_dir = tmp_path / f"iso{os.getpid()}"
+    (ep_dir / "ckpt").mkdir(parents=True)
+    cfg = rs.RescaleSoakConfig(world=1, dataset_size=64, shard_size=16,
+                               watchdog_s=120.0, device="cpu")
+    runner = rs._build_master(cfg, str(ep_dir))
+    try:
+        rs._spawn_worker(runner, 0)
+        assert runner.procs[0].wait(timeout=120) == 0
+    finally:
+        rs._cleanup(runner)
+    events = rs._all_events(runner)
+    assert [e["kind"] for e in events if e["kind"] in ("worker_start",
+                                                       "done")] == [
+        "worker_start", "done"]
+    rs.check_rescale_invariants(events, cfg)
+
+    script = tmp_path / "adopted.py"
+    script.write_text("import sys\nprint('adopted', sys.argv[1:])\n")
+    standby = subprocess.Popen(
+        [sys.executable, "-m", "dlrover_tpu_torch.agent.standby"],
+        env=dict(os.environ, PYTHONPATH=f"{site}{os.pathsep}{REPO}"),
+        cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    ready = json.loads(standby.stderr.readline())
+    assert ready["event"] == "standby_ready"
+    assert ready["pid"] == standby.pid
+    assert ready["cuda_initialized"] is False
+    out, _ = standby.communicate(json.dumps({
+        "env": {"ADOPTED": "1"}, "argv": [str(script), "x"],
+        "module": None}) + "\n", timeout=60)
+    assert standby.returncode == 0 and "adopted ['x']" in out
+    reports = [json.loads(p.read_text())
+               for p in tmp_path.glob("report.json*")]
+    # The worker and the standby (and helpers such as multiprocessing's
+    # resource tracker, which load no port).
+    assert sum(r["port"] for r in reports) == 2, reports
+    assert all(r["leaked"] == [] for r in reports), reports

@@ -9,8 +9,10 @@ mid-training (both ranks held one step past the kill step by a fault
 schedule, so the kill lands there) both exit 0: the agent restarts both
 ranks, each restores the kill step from memory, and every replayed loss
 equals the unkilled run's bit for bit, as do the final digests. Also:
-the agent's env reads back through the worker's ``read_worker_env``,
-and the launcher switches whose paths are not ported raise.
+the agent's env reads back through the worker's ``read_worker_env``;
+``--network-check`` probes the node before the worker trains, and a
+failed probe starts no worker; the master CLI wires a batch config; and
+the launcher switches whose paths are not ported raise.
 """
 
 import json
@@ -209,9 +211,8 @@ def test_worker_env_round_trips_through_read_worker_env(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, env, item", [
-    (["--network-check"], {}, "item 3"),
-    (["--ckpt_replica_group", "2"], {}, "item 5"),
-    ([], {"DLROVER_TPU_TIMER": "1"}, "item 10"),
+    (["--ckpt_replica_group", "2"], {}, "item 2"),
+    ([], {"DLROVER_TPU_TIMER": "1"}, "item 7"),
 ])
 def test_launcher_refuses_unported_switches(monkeypatch, argv, env, item):
     from dlrover_tpu_torch import run
@@ -236,14 +237,12 @@ def test_launcher_parses_module_entrypoints():
 def test_distributed_master_platform_is_refused():
     from dlrover_tpu_torch.master import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 11"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
         main.main(["--platform", "k8s"])
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--autoscale_loop"], "item 7"),
-    (["--global_batch_size", "8", "--micro_batch_per_device", "1"],
-     "item 1"),
+    (["--autoscale_loop"], "item 4"),
 ])
 def test_master_cli_refuses_unported_switches(argv, item):
     from dlrover_tpu_torch.master import main
@@ -259,10 +258,10 @@ def test_master_cli_refuses_unported_switches(argv, item):
     ("master", "--node_unit"), ("master", "--auto_scale"),
     ("master", "--autoscale_max_world"),
     ("master", "--autoscale_ckpt_interval_s"),
-    ("master", "--legal_worker_counts"), ("launcher", "--comm-perf-test"),
+    ("master", "--legal_worker_counts"), ("master", "--autoscale_dry_run"),
 ])
 def test_distributed_master_flags_are_not_taken(parser, flag):
-    """Flags only the distributed master or the node check reads are
+    """Flags only the distributed master or the autoscaler reads are
     not parsed and then ignored: argparse refuses them."""
     from dlrover_tpu_torch import run
     from dlrover_tpu_torch.master.args import parse_master_args
@@ -272,3 +271,84 @@ def test_distributed_master_flags_are_not_taken(parser, flag):
             parse_master_args([flag, "1"])
         else:
             run.build_parser().parse_args([flag, "train.py"])
+
+
+def test_master_cli_wires_a_batch_config(monkeypatch):
+    """``--global_batch_size`` with ``--micro_batch_per_device`` gives
+    the local master a batch config, and ``--devices_per_node`` its dp
+    per node, as the reference's CLI does."""
+    from dlrover_tpu_torch.master import local_master, main
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_master(**kwargs):
+        seen.update(kwargs)
+        raise Stop
+
+    monkeypatch.setattr(local_master, "LocalJobMaster", fake_master)
+    with pytest.raises(Stop):
+        main.main(["--platform", "local", "--global_batch_size", "8",
+                   "--micro_batch_per_device", "1",
+                   "--devices_per_node", "2"])
+    bc = seen["batch_config"]
+    assert (bc.global_batch_size, bc.micro_batch_per_device) == (8, 1)
+    assert seen["devices_per_node"] == 2
+    assert bc.legal_node_counts_fn(2)(4, 1) == [1, 2, 4]
+
+
+def _network_check_run(tmp_path, extra_env):
+    job = f"tnc{uuid.uuid4().hex[:8]}"
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               DLROVER_TPU_JOB_NAME=job,
+               DLROVER_TPU_SHARED_DIR=str(tmp_path / "sock"),
+               DLROVER_TPU_EVENT_DIR=str(tmp_path / "events"),
+               DLROVER_TPU_CHECK_DEVICE="cpu", **extra_env)
+    env.pop("DLROVER_TPU_FAULT_SCHEDULE", None)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+             "--network-check", "--nproc_per_node", "1",
+             "--monitor_interval", "0.2",
+             "-m", "dlrover_tpu_torch.examples.train_llama",
+             "--device", "cpu", "--config", "tiny", "--layers", "1",
+             "--steps", "2", "--global-batch", "2", "--micro-batch", "2",
+             "--seq", "8", "--persist-every", "2",
+             "--ckpt-dir", str(tmp_path / "ckpt")],
+            cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=TIMEOUT_S)
+    finally:
+        for seg in os.listdir("/dev/shm"):
+            if job in seg:
+                os.unlink(os.path.join("/dev/shm", seg))
+    events = [json.loads(ln) for ln in proc.stdout.splitlines()
+              if ln.startswith("{")]
+    probes = [json.loads(ln) for ln in proc.stderr.splitlines()
+              if ln.startswith('{"event": "node_check_probe"')]
+    return proc, events, probes
+
+
+def test_launcher_network_check_then_trains(tmp_path):
+    """``python -m dlrover_tpu_torch.run --standalone --network-check``
+    probes the node (the port's probe, here on the CPU), the master
+    records it healthy, then the worker trains."""
+    proc, events, probes = _network_check_run(tmp_path, {})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert [p["device"] for p in probes] == ["cpu"]
+    assert probes[0]["node_rank"] == 0 and probes[0]["elapsed"] > 0
+    assert "the master's fault nodes [] after round 0" in proc.stderr
+    assert [e["step"] for e in events if e["event"] == "step"] == [1, 2]
+    assert events[-1]["event"] == "done"
+
+
+def test_launcher_network_check_failure_starts_no_worker(tmp_path):
+    """A node that fails its probe exits non-zero before any training
+    worker starts, and takes its local master down with it."""
+    proc, events, probes = _network_check_run(
+        tmp_path, {"DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS": "0"})
+    assert proc.returncode == 3, proc.stderr[-3000:]
+    assert probes == [] and events == []
+    assert "node failed network check" in proc.stderr
+    assert "started worker" not in proc.stderr

@@ -194,7 +194,7 @@ def test_reference_assertions_hold_on_the_port():
 
 def test_streaming_dataset_is_refused():
     tm, _, comm, _ = _pkg("dlrover_tpu_torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 3"):
         tm.TaskManager().new_dataset(comm.DatasetShardParams(
             dataset_name="s", dataset_size=-1, shard_size=4,
             storage_type="stream"))
