@@ -75,7 +75,7 @@ phases that each print JSON lines:
     left in use, and B6 launched exactly n_layers times per decode step.
     Then 20 steps of an fp and an int8 engine under the profiler.
 11a. speculative decoding on the flat engine (phase 5's settings) over
-    phase 5's 16 requests with prompts ``p + greedy(p) + p`` from phase
+    the first 8 of phase 5's requests with prompts ``p + greedy(p) + p`` from phase
     5's own output: spec off, n-gram K = 3, early exit K = 3 over 4
     layers. Every request complete, no step error, the teacher-forced
     gap within ARGMAX_GAP, more than one token a verify step, and exact
@@ -98,7 +98,7 @@ phases that each print JSON lines:
     equal the unmigrated ones;
 11d. fleet_disagg: ``FleetRouter`` over two ``ThreadReplica``s (paged,
     phase 11's fp settings), one prefill and one decode replica, over
-    the reference's bimodal schedule (32 requests, Poisson arrivals 0.125
+    the reference's bimodal schedule (16 requests, Poisson arrivals 0.125
     s apart, 35% of prompts 64-96 tokens, the rest 8-16, 32-64 new
     tokens), tracing armed; then two mixed replicas. Every request
     exactly once, migrations plus fallbacks equal the requests, each
@@ -131,8 +131,8 @@ phases that each print JSON lines:
     every flip at the first layer must be a near-tie (MOE_TIE);
 14. MoE ``ServingEngine``: phase 5's 16 requests, every one complete;
     tokens/s and TTFT;
-14a. MoE ``PagedServingEngine`` at phase 11's fp settings over phase
-    14's requests with prompts ``p + greedy(p) + p``: spec off and
+14a. MoE ``PagedServingEngine`` at phase 11's fp settings over the
+    first 8 of phase 14's requests with prompts ``p + greedy(p) + p``: spec off and
     n-gram K = 3, the gates of 11a (the gap reported, as phase 14) with
     exact B6 and B7 launches (n_layers B7 launches a prefill, decode or
     verify step);
@@ -170,7 +170,8 @@ phases that each print JSON lines:
     first replayed step, steps redone and goodput (A's wall over B's);
 17. mesh_train: the sharded train step (``make_train_step(...,
     mesh=build_mesh(MeshConfig()))``, the state as DTensors) on a world
-    of one over nccl at phase 6's shape, 1 + 3 steps, against the
+    of one over nccl at phase 6's shape (the flagship cut to MESH_LAYERS
+    = 4 layers), 1 + 3 steps, against the
     mesh-less step from the same seed: losses, grad norms and final
     params bitwise equal, exact B1/B2 launches (the CE stays dense);
     step time and peak memory of both;
@@ -220,7 +221,25 @@ phases that each print JSON lines:
     card, then 2 training steps; a rigged probe starts no worker) and
     the agent's warm standby (a crash through the fault schedule, the
     relaunch the adopted standby on the card), with the crash to first
-    step against a cold relaunch.
+    step against a cold relaunch;
+26. chaos_soak: the seeded chaos soak (``testing/soak.run_soak``, seed 0,
+    episodes ``crash_drop``, ``torn_ckpt`` and ``serving_report``), the
+    master in this process and each worker generation's state (``sum``,
+    ``hist``, ``vec``) on the card; the serving scenario is the port's
+    ``ServingEngine`` at the flagship's width (d = 1024, bf16) cut to 2
+    layers, at the reference's slots, ``max_len``, prefill chunk and
+    request mix. The reference's four invariants, every restore's CRC
+    its save's, and B5 launched at least once a layer per decode step
+    (``call_counts``). Goodput, MTTR mean and max, faults fired;
+27. master_kill: the soak's ``master_kill`` episode (seed 0, episode 7):
+    the master a process of its own with a durable journal, SIGKILLed
+    at its planned journaled dispatch and restarted on the same journal
+    and port, the worker (state on the card) never restarted. The
+    reference's five invariants. Kill to first post-kill step, the
+    master's restart to ready, its epochs, the journal's stats and the
+    filesystem it sat on; then ``tools/torch_bench_master_recovery.py``
+    (host only): lease-path RPS with the journal off and on, and
+    ``master_recovery_s``.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -235,6 +254,7 @@ B7, B8 dx (first launch) and B8 dw launches, the card's name and power
 limit, and the ``kernels`` line.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -1338,12 +1358,18 @@ def phase_paged_engine(cfg, params):
 # ---- speculative decoding and MoE over the paged pool ----------------------
 
 
+# The spec phases' requests: the first SPEC_REQUESTS of an engine
+# phase's 16 (cut from 16 for the script's time limit).
+SPEC_REQUESTS = 8
+
+
 def _spec_work(served):
     """Greedy requests with repetitive prompts built from an engine
-    phase's own output: ``p + greedy(p) + p`` and the same token budget.
-    After the second ``p`` the n-gram drafter proposes ``greedy(p)``."""
+    phase's own output (its first SPEC_REQUESTS): ``p + greedy(p) + p``
+    and the same token budget. After the second ``p`` the n-gram drafter
+    proposes ``greedy(p)``."""
     return [(np.concatenate([p, np.asarray(toks, np.int32), p]), n)
-            for p, toks, n in served]
+            for p, toks, n in served[:SPEC_REQUESTS]]
 
 
 def _run_spec(cfg, params, work, phase, label, kv, gated, engine_kw,
@@ -1481,7 +1507,7 @@ _EARLY_EXIT = dict(spec_k=SPEC_K, spec_drafter="early_exit",
 
 def phase_spec_engine(cfg, params, served):
     """Speculative decoding on the flat engine (phase 5's settings: 8
-    slots, max_len 1024, chunk 64) over phase 5's 16 requests with
+    slots, max_len 1024, chunk 64) over the first 8 of phase 5's requests with
     prompts ``p + greedy(p) + p``: spec off, n-gram K = 3, early exit
     K = 3 over 4 layers. Returns the launches by kernel."""
     return _spec_runs(
@@ -1511,7 +1537,7 @@ def phase_paged_spec_engine(cfg, params, served):
 
 def phase_moe_paged_engine(cfg, params, served):
     """MoE over the paged pool: ``moe_config`` at phase 11's fp settings,
-    the MoE engine phase's 16 requests with prompts ``p + greedy(p) +
+    the first 8 of the MoE engine phase's requests with prompts ``p + greedy(p) +
     p``, spec off and n-gram K = 3; the teacher-forced gap is reported,
     as the MoE engine phase's. Returns the launches by kernel."""
     return _spec_runs(
@@ -1712,6 +1738,11 @@ def phase_migrate(cfg, params, unmigrated):
     return out
 
 
+# Phase 11d's requests (cut from the reference schedule's 32 for the
+# script's time limit; phase 11e keeps 32).
+FLEET_DISAGG_REQUESTS = 16
+
+
 def fleet_workload(n_requests=32, seed=SEED, vocab=32000):
     """The reference's bimodal disaggregation schedule
     (``tools/bench_disagg.py`` ``make_workload``): Poisson arrivals with
@@ -1810,7 +1841,8 @@ def phase_fleet_disagg(cfg, params):
     from dlrover_tpu_torch.ops import decode_attention as da
     from dlrover_tpu_torch.serving import fleet
 
-    work = fleet_workload(vocab=cfg.vocab_size)
+    work = fleet_workload(n_requests=FLEET_DISAGG_REQUESTS,
+                          vocab=cfg.vocab_size)
     total = 0
     for label, roles in (("disagg", ("prefill", "decode")),
                          ("mixed", ("mixed", "mixed"))):
@@ -4065,10 +4097,17 @@ def _move_one_row(ckpt_dir, step, pid, leaf_id):
     return path, saved
 
 
+# Phases 17-18's model: the flagship cut to MESH_LAYERS layers (from 16,
+# for the script's time limit: the round trip moves 4.01 GB at 16).
+MESH_LAYERS = 4
+
+
 def _config(name):
     from dlrover_tpu_torch.models import llama
 
     return {"flagship": llama.flagship_config,
+            "flagship_mesh": functools.partial(llama.flagship_config,
+                                               n_layers=MESH_LAYERS),
             "tiny": llama.tiny_config}[name]()
 
 
@@ -4881,15 +4920,16 @@ class _LogTail:
 
 def _network_check_runs(device):
     """``python -m dlrover_tpu_torch.run --standalone --network-check``
-    twice: healthy, then with the probe rigged to fail."""
+    twice at once: healthy, and with the probe rigged to fail."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from dlrover_tpu_torch.fault import SCHEDULE_ENV
 
     repo = os.path.dirname(os.path.abspath(__file__))
     root = tempfile.mkdtemp(prefix="network_check_")
-    out = {}
+    out, jobs = {}, []
     try:
         for label, extra in (("pass", {}), ("fail", {
                 "DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS": "0"})):
@@ -4902,6 +4942,9 @@ def _network_check_runs(device):
                                                           "events"),
                        DLROVER_TPU_CHECK_DEVICE=device, **extra)
             env.pop(SCHEDULE_ENV, None)
+            jobs.append((label, job, env))
+
+        def launch(label, job, env):
             t0 = time.monotonic()
             try:
                 proc = subprocess.run(
@@ -4915,7 +4958,13 @@ def _network_check_runs(device):
                     timeout=AGENT_TIMEOUT_S)
             finally:
                 _unlink_job_segments(job)
-            wall = time.monotonic() - t0
+            return proc, time.monotonic() - t0
+
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            runs = [(label, pool.submit(launch, label, job, env))
+                    for label, job, env in jobs]
+        for label, fut in runs:
+            proc, wall = fut.result()
             events = [json.loads(ln) for ln in proc.stdout.splitlines()
                       if ln.startswith("{")]
             probes = [json.loads(ln) for ln in proc.stderr.splitlines()
@@ -5109,7 +5158,7 @@ def phase_agent_paths(device="cuda"):
     wrote its result, the master's fault nodes are empty, then the worker
     trained 2 steps (launching B1 on the card); under
     ``DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS=0`` the launcher exits non-zero
-    and no worker starts. (b) The port's ``ElasticAgent`` under an
+    and no worker starts (the two launchers run at once). (b) The port's ``ElasticAgent`` under an
     in-process local master and saver runs the same worker for
     AGENT_STEPS steps with ``WorkerSpec(warm_standby=True)``; its first
     two incarnations crash at AGENT_CRASH_STEPS through their fault
@@ -5140,6 +5189,209 @@ def phase_agent_paths(device="cuda"):
             else:
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
+    emit(row)
+    return row
+
+
+# phase 26: the serving scenario's model (the flagship's width, cut in
+# depth), and the chaos soak's episodes.
+SOAK_SERVING_LAYERS = 2
+SOAK_EPISODES = 3
+# phase 27: the master_kill episode of seed SEED.
+MASTER_KILL_EPISODE = 7
+
+
+def _soak_events(work, seed, episode):
+    from dlrover_tpu_torch.testing.soak import _read_events
+
+    return _read_events(os.path.join(work, f"soak-s{seed}-e{episode}",
+                                     "events.jsonl"))
+
+
+def _soak_ledger_gates(phase, events, device):
+    """Every worker generation started on ``device``; every restore has
+    a save of its step with the same CRC. Returns the restores."""
+    starts = [e for e in events if e["kind"] == "worker_start"]
+    check(starts and all(e["device"].startswith(device) for e in starts),
+          f"{phase}: worker devices {[e.get('device') for e in starts]}")
+    saves = {}
+    restores = []
+    for e in events:
+        if e["kind"] == "save":
+            saves.setdefault(e["step"], []).append(e["crc"])
+        elif e["kind"] == "restore":
+            check(e["crc"] in saves.get(e["step"], []),
+                  f"{phase}: restore of step {e['step']} crc {e['crc']} "
+                  f"matches no save of that step")
+            restores.append({k: e[k] for k in ("step", "crc", "source",
+                                               "generation")})
+    return restores
+
+
+@contextlib.contextmanager
+def _soak_work_dir(prefix):
+    """A soak phase's work directory: on a failure the tail of every
+    worker and master log and ledger under it goes to stderr, and the
+    directory goes in any case."""
+    import glob
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix=prefix)
+    try:
+        yield work
+    except Exception:
+        for path in sorted(p for pattern in ("*.log", "events.jsonl")
+                           for p in glob.glob(os.path.join(
+                               work, "**", pattern), recursive=True)):
+            with open(path, errors="replace") as f:
+                print(f"--- {path}\n{f.read()[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_chaos_soak(device="cuda", layers=SOAK_SERVING_LAYERS):
+    """``run_soak(seed=SEED, episodes=SOAK_EPISODES)`` with the worker's
+    state and the serving engine on ``device``; the serving model is the
+    flagship's width cut to ``layers`` on the card, the tiny config cut
+    to ``layers`` on the CPU. Gates: the harness's invariants (it
+    raises), every worker generation on ``device``, every restore's CRC
+    its save's, one restore after each worker kill, every fault of the
+    plans fired, and B5 (``decode_attention_fp``) launched at least
+    ``layers`` times a decode step of the engines (``call_counts``,
+    warmup included). Returns this phase's decode-kernel launches."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import decode_attention as da
+    from dlrover_tpu_torch.testing.soak import SoakConfig, run_soak
+
+    model = (llama.flagship_config(n_layers=layers) if device == "cuda"
+             else llama.tiny_config(n_layers=layers))
+    cfg = SoakConfig(device=device, serving_model=model,
+                     keep_artifacts_on_success=True)
+    da.reset_launch_counts()
+    t0 = time.monotonic()
+    with _soak_work_dir("chaos_soak_") as work:
+        summary = run_soak(seed=SEED, episodes=SOAK_EPISODES, cfg=cfg,
+                           work_dir=work)
+        wall = time.monotonic() - t0
+        launches = dict(da.launch_counts)
+        episodes = []
+        for rep in summary["reports"]:
+            events = _soak_events(work, SEED, rep["episode"])
+            restores = _soak_ledger_gates("chaos_soak", events, device)
+            check(len(restores) == rep["deaths"],
+                  f"chaos_soak/{rep['kind']}: {len(restores)} restores "
+                  f"after {rep['deaths']} worker deaths")
+            episodes.append({
+                "kind": rep["kind"], "wall_s": rep["wall_s"],
+                "generations": rep["generations"], "deaths": rep["deaths"],
+                "recovery_s": rep["recovery_s"],
+                "goodput_frac": rep["goodput_frac"],
+                "faults": [f["rule_id"] for f in rep["faults"]],
+                "restores": restores, "serving": rep["serving"],
+                "steps_executed": rep["steps_executed"],
+            })
+    want_faults = {"crash_drop": {"worker-sigkill", "drop-get-task-reply"},
+                   "torn_ckpt": {"worker-sigkill", "torn-shard-write",
+                                 "shm-image-lost"},
+                   "serving_report": {"prefetch-fetch-fails",
+                                      "drop-done-report-reply",
+                                      "serving-step-raises"}}
+    for ep in episodes:
+        check(set(ep["faults"]) == want_faults[ep["kind"]],
+              f"chaos_soak/{ep['kind']}: faults fired {ep['faults']}")
+    decode_steps = sum(ep["serving"]["call_counts"]["decode"]
+                       for ep in episodes)
+    check(decode_steps > 0
+          and launches["decode_attention_fp"] >= layers * decode_steps,
+          f"chaos_soak: {launches['decode_attention_fp']} B5 launches for "
+          f"{decode_steps} decode steps of {layers} layers")
+    row = {"phase": "chaos_soak", "device": device,
+           "serving_model": {"embed_dim": model.embed_dim,
+                             "n_layers": model.n_layers,
+                             "dtype": model.dtype},
+           "wall_s": wall, "goodput_frac": summary["goodput_frac"],
+           "mttr_mean_s": summary["mttr_mean_s"],
+           "mttr_max_s": summary["mttr_max_s"],
+           "faults_injected": summary["faults_injected"],
+           "decode_steps": decode_steps, "launches": launches,
+           "episodes": episodes}
+    emit(row)
+    return launches
+
+
+def phase_master_kill(device="cuda"):
+    """The soak's ``master_kill`` episode (seed SEED, episode
+    MASTER_KILL_EPISODE) with the worker's state on ``device``: its five
+    invariants (the harness raises), the worker on ``device``, every
+    restore's CRC its save's, epochs [1, 2], one crash at the planned
+    hit, a clean-shutdown journal. Then the master recovery bench
+    (``tools/torch_bench_master_recovery.py``, host only), its journal in
+    a temp dir of its own: its exactly-once check raises; its RPS bound
+    is reported. Prints the kill to first post-kill step, the master's
+    restart to ready, the journal's records, bytes, commit groups and
+    torn lines, the filesystem under the journal, and the bench's
+    figures."""
+    import importlib.util
+
+    from dlrover_tpu_torch.testing.soak import (
+        SoakConfig,
+        build_episode_plan,
+        run_soak,
+    )
+
+    cfg = SoakConfig(device=device, keep_artifacts_on_success=True)
+    plan = build_episode_plan(SEED, MASTER_KILL_EPISODE, cfg)
+    t0 = time.monotonic()
+    with _soak_work_dir("master_kill_") as work:
+        summary = run_soak(seed=SEED, episode=MASTER_KILL_EPISODE, cfg=cfg,
+                           work_dir=work)
+        wall = time.monotonic() - t0
+        rep = summary["reports"][0]
+        events = _soak_events(work, SEED, MASTER_KILL_EPISODE)
+        _soak_ledger_gates("master_kill", events, device)
+        spec = importlib.util.spec_from_file_location(
+            "torch_bench_master_recovery",
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools", "torch_bench_master_recovery.py"))
+        bench = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(bench)
+    t1 = time.monotonic()
+    bench_row = bench.run_bench()
+    bench_row["wall_s"] = time.monotonic() - t1
+    check(rep["master_epochs"] == [1, 2],
+          f"master_kill: epochs {rep['master_epochs']}")
+    check(rep["deaths"] == 0 and rep["generations"] == 1,
+          f"master_kill: worker deaths {rep['deaths']}")
+    crash = [f for f in rep["faults"] if f["rule_id"] == "master-sigkill"]
+    check(len(crash) == 1 and crash[0]["hit"] == plan.master_kill_nth,
+          f"master_kill: crashes {crash}, planned hit "
+          f"{plan.master_kill_nth}")
+    journal = rep["journal"]
+    check(journal["clean_shutdown"],
+          "master_kill: the journal did not end clean_shutdown")
+    gen1 = journal["stats"][1] or {}
+    row = {"phase": "master_kill", "device": device, "wall_s": wall,
+           "kill_nth_dispatch": plan.master_kill_nth,
+           "kill_to_first_step_s": rep["recovery_s"][0],
+           "master_restart_to_ready_s": rep["master_restart_s"],
+           "master_epochs": rep["master_epochs"],
+           "goodput_frac": rep["goodput_frac"],
+           "steps_executed": rep["steps_executed"],
+           "journal": {"records": journal["records"],
+                       "kinds": journal["kinds"],
+                       "segment_bytes": journal["segment_bytes"],
+                       "torn_lines": journal["corrupt_lines"],
+                       "gen1_records_appended":
+                           gen1.get("records_appended"),
+                       "gen1_commit_groups": gen1.get("commit_groups"),
+                       "gen1_recovered_records":
+                           gen1.get("recovered_records"),
+                       "gen1_recovered_torn_lines":
+                           gen1.get("recovered_corrupt_lines"),
+                       "fs": journal["fs"]},
+           "recovery_bench": bench_row}
     emit(row)
     return row
 
@@ -5256,10 +5508,13 @@ def main():
     # The mesh: the sharded step on a world of one (B1/B2 exact inside),
     # the resharding restore across the card and a CPU world, the node
     # check.
-    mesh_state, mesh_launches = timed("mesh_train", phase_mesh_train, cfg)
+    mesh_cfg = _config("flagship_mesh")
+    mesh_state, mesh_launches = timed("mesh_train", phase_mesh_train,
+                                      mesh_cfg)
     for name, n in mesh_launches.items():
         launches[name] += n
-    timed("reshard_restore", phase_reshard_restore, cfg, mesh_state)
+    timed("reshard_restore", phase_reshard_restore, mesh_cfg, mesh_state,
+          config="flagship_mesh")
     del mesh_state
     torch.cuda.empty_cache()
     timed("node_check", phase_node_check)
@@ -5281,6 +5536,12 @@ def main():
     # standby: control planes on the host, each gated inside its phase.
     timed("live_rescale", phase_live_rescale)
     timed("agent_paths", phase_agent_paths)
+    # The chaos soak (worker state on the card, its serving scenario's
+    # B5 launches counted from a reset just before it) and the master
+    # killed and restarted from its journal.
+    for name, n in timed("chaos_soak", phase_chaos_soak).items():
+        launches[name] += n
+    timed("master_kill", phase_master_kill)
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 

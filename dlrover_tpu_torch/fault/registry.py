@@ -106,11 +106,18 @@ KNOWN_POINTS: Dict[str, str] = {
         "post-rescale step about to run — crash kills the worker in "
         "the restore-to-first-step window (ctx: plan_id)"
     ),
+    "master.journal.write": (
+        "master journal: a record group just became durable (fsynced) "
+        "but the RPC reply has NOT been sent (ctx: kind) — crash on "
+        "kind=dispatch is the canonical master_kill window: the lease "
+        "is journaled, the worker never saw it, and the restarted "
+        "master must requeue it exactly once"
+    ),
     "master.restart": (
-        "master journal: a recovered journal is being replayed into a "
-        "fresh master (ctx: epoch). The journal is not ported yet "
-        "(ROADMAP §A): the point is named so one schedule file arms "
-        "either package"
+        "master journal: restore_master_state is replaying a recovered "
+        "journal into a fresh master (ctx: epoch) — delay stretches the "
+        "recovery window workers must ride through, raise fails the "
+        "rehydration"
     ),
     "ckpt.persist.torn_write": (
         "checkpoint storage: a proc shard file just landed — truncate "

@@ -236,6 +236,22 @@ class SharedQueueClient:
 # --------------------------------------------------------------------------
 
 
+def _owner_gone(owner: str) -> bool:
+    """A client's owner id starts with its pid (``SharedLockClient``):
+    true when that process has exited. The agent reaps a dead worker
+    before it restarts one, so a SIGKILLed holder shows as gone."""
+    pid = owner.split("-", 1)[0]
+    if not pid.isdigit():
+        return False
+    try:
+        os.kill(int(pid), 0)
+    except ProcessLookupError:
+        return True
+    except PermissionError:
+        return False
+    return False
+
+
 class SharedLockServer:
     def __init__(self, name: str, sock_dir: str = ""):
         self._lock = threading.Lock()
@@ -253,6 +269,13 @@ class SharedLockServer:
             deadline = time.time() + (timeout if blocking else 0)
             with self._cond:
                 while self._owner is not None and self._owner != owner:
+                    if _owner_gone(self._owner):
+                        # A worker killed mid shm write never releases;
+                        # its image is checked by its CRC, not the lock.
+                        logger.warning("shared lock: holder %s exited "
+                                       "without releasing", self._owner)
+                        self._owner = None
+                        break
                     remaining = deadline - time.time()
                     if not blocking or remaining <= 0:
                         return {"ok": True, "acquired": False}

@@ -30,6 +30,7 @@ bf16 crosses as its uint16 bits under the dtype name ``"bfloat16"``
 
 import os
 import pickle
+import sys
 import threading
 from dataclasses import dataclass, field
 from multiprocessing import shared_memory
@@ -94,12 +95,18 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def _is_dtensor(leaf) -> bool:
+    """Whether ``leaf`` is a DTensor. A DTensor exists only once
+    ``torch.distributed.tensor`` is imported, so a process that never
+    imported it skips the import (it loads sympy) on its first save."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(leaf, mod.DTensor)
+
+
 def local_tensor(leaf):
     """The tensor holding a leaf's stored bytes: a DTensor's local
     shard, any other leaf itself."""
-    from torch.distributed.tensor import DTensor
-
-    if isinstance(leaf, DTensor):
+    if _is_dtensor(leaf):
         with torch.no_grad():
             return leaf.to_local()
     return leaf
@@ -108,9 +115,7 @@ def local_tensor(leaf):
 def dtensor_bounds(leaf):
     """A DTensor's shard bounds on this rank, or None for another
     leaf."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(leaf, DTensor):
+    if not _is_dtensor(leaf):
         return None
     from dlrover_tpu_torch.parallel.sharding import shard_bounds
 

@@ -9,9 +9,13 @@ The port's copy of ``dlrover_tpu/master/local_master.py``. It builds
 what the reference's builds by default, the rescale coordinator
 included, and serves over HTTP by default. A batch config restricts the
 rendezvous and the rescale plans to the worlds it can train at
-(``wire_batch_legality``, dp = nodes x ``devices_per_node``). The
-journal and the autoscale loop raise ``NotImplementedError`` naming
-their ROADMAP item.
+(``wire_batch_legality``, dp = nodes x ``devices_per_node``). With
+``journal_path`` or ``DLROVER_TPU_MASTER_JOURNAL`` set it keeps the
+durable journal (``master/journal.py``): it rehydrates the kv, sync,
+task, rendezvous, rescale and job state from the journal before the
+servicer exists, journals every plan cut, and closes the journal with a
+clean-shutdown record on stop. The autoscale loop raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 import threading
@@ -29,17 +33,6 @@ from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.shard.task_manager import TaskManager
 from dlrover_tpu_torch.rpc.transport import create_master_server
 
-JOURNAL_PATH_ENV = "DLROVER_TPU_MASTER_JOURNAL"
-
-
-def journal_path_from_env() -> str:
-    """The journal path the reference reads (``master/journal.py``'s
-    ``journal_path_from_env``): set, it asks for the durable journal
-    the port has not ported."""
-    import os
-
-    return os.getenv(JOURNAL_PATH_ENV, "")
-
 
 class LocalJobMaster:
     def __init__(
@@ -55,12 +48,7 @@ class LocalJobMaster:
         journal_path: str = "",
     ):
         # Not ported yet, refused rather than ignored (ROADMAP §A): the
-        # durable journal (item 1) and the closed-loop autoscaler (item 4).
-        if journal_path or journal_path_from_env():
-            raise NotImplementedError(
-                "the master journal (master/journal.py) is not ported "
-                "yet: ROADMAP §A item 1"
-            )
+        # closed-loop autoscaler.
         if autoscale_loop:
             raise NotImplementedError(
                 "the autoscale loop (autoscaler/) is not ported yet: "
@@ -88,9 +76,38 @@ class LocalJobMaster:
             SyncService,
         )
 
+        # Durable control-plane journal (DESIGN.md §37). Restore order
+        # matters: kv/sync/task state is rehydrated BEFORE the servicer
+        # is constructed so its replica-token seed check sees the
+        # restored token instead of journaling a fresh (wrong) one.
+        from dlrover_tpu_torch.master.journal import (
+            MasterJournal,
+            journal_path_from_env,
+            restore_master_state,
+        )
+
         self.kv_store = KVStoreService()
         self.sync_service = SyncService()
         self.journal = None
+        jpath = journal_path or journal_path_from_env()
+        if jpath:
+            self.journal = MasterJournal(jpath)
+            restore_master_state(
+                self.journal.recovered,
+                task_manager=self.task_manager,
+                kv_store=self.kv_store,
+                rescale_coordinator=self.rescale_coordinator,
+                sync_service=self.sync_service,
+                rdzv_managers=self.rdzv_managers,
+                job_manager=self.job_manager,
+            )
+            # Plan cuts are journaled as they happen so a restarted
+            # master never re-issues a stale plan_id.
+            self.rescale_coordinator.on_plan_cut = (
+                lambda plan: self.journal.append(
+                    "plan_cut", plan_id=plan.plan_id
+                )
+            )
         if batch_config is not None:
             # Rendezvous and rescale plans only form worlds the trainer's
             # batch config can actually train at (global_batch divisible
@@ -128,6 +145,10 @@ class LocalJobMaster:
             journal=self.journal,
         )
         self._server = create_master_server(port, self.servicer, transport)
+        if self.journal is not None and hasattr(
+            self._server, "add_shutdown_hook"
+        ):
+            self._server.add_shutdown_hook(self.journal.close)
         self.port = self._server.port
         self._node_num = node_num
         self._stopped = threading.Event()
@@ -230,6 +251,8 @@ class LocalJobMaster:
             graceful()
         else:
             self._server.stop()
+        if self.journal is not None and not self.journal.closed:
+            self.journal.close()
 
     def request_stop(self):
         self._stopped.set()

@@ -399,11 +399,11 @@ class TaskManager:
                 num_partitions=params.num_partitions,
             )
             if isinstance(splitter, StreamingDatasetSplitter):
-                raise NotImplementedError(
-                    "streaming datasets need "
-                    "master/shard/streaming_dataset_manager.py, not "
-                    "ported yet: ROADMAP §A item 3"
+                from dlrover_tpu_torch.master.shard.streaming_dataset_manager import (  # noqa: E501
+                    StreamingDatasetManager,
                 )
+
+                manager = StreamingDatasetManager(params.task_type, splitter)
             else:
                 manager = BatchDatasetManager(params.task_type, splitter)
             self._datasets[params.dataset_name] = manager

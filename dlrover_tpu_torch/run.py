@@ -16,7 +16,9 @@ Usage:
 
 ``--network-check`` runs the node check (``agent/node_check.py``, the
 port's probe on the card) before the workers start, and exits 3 without
-starting them if this node fails it. Launcher switches whose paths are
+starting them if this node fails it. With ``DLROVER_TPU_MASTER_JOURNAL``
+set, the local master keeps its durable journal there and a restarted
+master comes back from it. Launcher switches whose paths are
 not ported yet raise ``NotImplementedError`` naming their ROADMAP §A
 item: ``--ckpt_replica_group`` above 1 (item 2) and
 ``DLROVER_TPU_TIMER`` (item 7). The launcher leaves the checkpoint

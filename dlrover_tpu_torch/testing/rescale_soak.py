@@ -35,9 +35,10 @@ each plan the coordinator cut with its phase barriers' waits
 (``plans_cut``). A respawned worker is a pre-spawned warm standby
 (``agent/standby.py``) when one is alive (``adopted``): the reference
 respawns cold, which on a card host (seconds of ``import torch``) lets
-the scaled-down survivor finish the epoch before the joiner arrives. The kill-during-rescale schedules come from the caller
-(``rank_schedules``, ``runner_schedule``): the seeded soak that builds
-them is not ported yet (ROADMAP §A).
+the scaled-down survivor finish the epoch before the joiner arrives. The
+kill-during-rescale schedules come from the caller (``rank_schedules``,
+``runner_schedule``): the seeded soak (``testing/soak.py``, episode 3)
+builds them.
 """
 
 import glob
@@ -61,6 +62,8 @@ from dlrover_tpu_torch.testing.soak import (
     _read_events,
     _read_trace,
     _repo_root,
+    episode_job_name,
+    reclaim_shm_segments,
 )
 
 
@@ -119,7 +122,7 @@ def _worker_env(r: _Runner) -> Dict[str, str]:
         # A kill landing while this worker is the commit leader must
         # cost a short wait, not 30s of blindness to the rescale plan.
         "DLROVER_TPU_CKPT_COMMIT_TIMEOUT_S": "5",
-        "DLROVER_TPU_JOB_NAME": os.path.basename(r.ep_dir),
+        "DLROVER_TPU_JOB_NAME": episode_job_name(r.ep_dir),
         "DLROVER_TPU_FLIGHT_DIR": os.path.join(r.ep_dir, "flight"),
         "PYTHONPATH": _repo_root() + os.pathsep + env.get("PYTHONPATH", ""),
     })
@@ -461,18 +464,7 @@ def _cleanup(r: _Runner):
     disarm()
     r.server.stop()
     r.task_manager.stop()
-    job = os.path.basename(r.ep_dir)
-    for rank in r.generations:
-        try:
-            from multiprocessing import shared_memory
-
-            seg = shared_memory.SharedMemory(
-                name=f"dlrover_tpu_ckpt_{job}_n{rank}_0"
-            )
-            seg.close()
-            seg.unlink()
-        except Exception:  # noqa: BLE001 — cleanup is best-effort
-            pass
+    reclaim_shm_segments(r.ep_dir, r.generations)
 
 
 def _dump_artifacts(r: _Runner, artifact_dir: str, seed: int,

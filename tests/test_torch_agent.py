@@ -16,7 +16,7 @@ and a dead standby falls back to a cold spawn. The node check
 CPU worlds, the reference's ``tests/test_node_check.py``): two healthy
 nodes, a rigged node isolated and marked broken, a straggler flagged.
 The switches of the reference's agent the port does not carry yet
-raise.
+raise; a journaled local master comes back from its journal.
 """
 
 import json
@@ -325,8 +325,6 @@ def test_xla_capture_switch_is_refused(master, saver_client, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs, env, item", [
-    ({"journal_path": "j.log"}, {}, "item 1"),
-    ({}, {"DLROVER_TPU_MASTER_JOURNAL": "j.log"}, "item 1"),
     ({"autoscale_loop": True}, {}, "item 4"),
 ])
 def test_local_master_refuses_unported_switches(monkeypatch, kwargs, env,
@@ -335,6 +333,63 @@ def test_local_master_refuses_unported_switches(monkeypatch, kwargs, env,
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
         LocalJobMaster(port=0, **kwargs)
+
+
+@pytest.mark.parametrize("switch", ["journal_path",
+                                    "DLROVER_TPU_MASTER_JOURNAL"])
+def test_journaled_local_master_comes_back_with_its_leases(
+        monkeypatch, tmp_path, switch):
+    """A journaled ``LocalJobMaster`` (the keyword or the launcher's
+    env var) is stopped holding a lease; the next one on the same journal
+    has the next epoch, the lease under its task id, the done shard
+    counted, the kv write and the committed step, and takes the lease's
+    done-report."""
+    from dlrover_tpu_torch.common import comm
+    from dlrover_tpu_torch.master.journal import load_journal
+    from dlrover_tpu_torch.master.node.job_context import JobContext
+
+    path = str(tmp_path / "master.journal")
+    kwargs = {}
+    if switch == "journal_path":
+        kwargs["journal_path"] = path
+    else:
+        monkeypatch.setenv(switch, path)
+
+    def start():
+        JobContext.reset_singleton()
+        m = LocalJobMaster(port=0, **kwargs)
+        m.prepare()
+        return m, MasterClient(f"localhost:{m.port}", node_id=0)
+
+    m1, client = start()
+    try:
+        client.report_dataset_shard_params(comm.DatasetShardParams(
+            dataset_name="ds", dataset_size=64, shard_size=16,
+            num_epochs=1, shuffle=False, task_type="training"))
+        tasks, _ = client.get_tasks("ds", 2)
+        client.report_tasks_done_batch("ds", [tasks[0].task_id], [])
+        client.kv_store_set("k", b"v")
+        client.report_ckpt_step(40, committed=True)
+        assert client.master_epoch == 1
+    finally:
+        client.close()
+        m1.stop()
+    assert load_journal(path).clean_shutdown
+
+    m2, client = start()
+    try:
+        assert m2.journal.master_epoch == 2
+        mgr = m2.task_manager.get_dataset("ds")
+        assert sorted(mgr.doing) == [tasks[1].task_id]
+        assert mgr._completed_count == 1  # noqa: SLF001
+        assert m2.kv_store.get("k") == b"v"
+        assert client.get_ckpt_latest_step() == 40
+        client.report_tasks_done_batch("ds", [tasks[1].task_id], [])
+        assert not mgr.doing and mgr._completed_count == 2  # noqa: SLF001
+        assert client.master_epoch == 2
+    finally:
+        client.close()
+        m2.stop()
 
 
 def test_training_hang_refuses_a_metric_context():

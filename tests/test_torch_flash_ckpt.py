@@ -489,3 +489,80 @@ def test_restricted_unpickler_blocks_gadgets():
         serialize.loads_pytree(pickle.dumps(treedef))
     meta = LeafMeta(0, (2,), "float32")
     assert serialize.loads_pytree(pickle.dumps(meta)) == meta
+
+
+def test_first_save_of_a_process_skips_the_dtensor_import(tmp_path):
+    """A process that never imported ``torch.distributed.tensor`` holds
+    no DTensor, so its first save and restore do not import it (the
+    import loads sympy; on the card host a soak worker's first save held
+    its prefetched leases past the master's task timeout)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import os, sys, time, torch\n"
+        "from dlrover_tpu_torch.flash_ckpt.engine import CheckpointEngine\n"
+        "e = CheckpointEngine(sys.argv[1], standalone=True)\n"
+        "t = time.monotonic()\n"
+        "e.save_to_storage(0, {'w': torch.ones(3)}, user_meta={'a': 1})\n"
+        "step, state, meta = e._load_from_storage(None, None)\n"
+        "assert step == 0 and state['w'].tolist() == [1.0, 1.0, 1.0]\n"
+        "e.close()\n"
+        "print('torch.distributed.tensor' in sys.modules)\n")
+    job = f"tfirst{os.getpid()}"
+    env = dict(os.environ, DLROVER_TPU_JOB_NAME=job)
+    try:
+        out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+    finally:
+        for seg in os.listdir("/dev/shm"):
+            if job in seg:
+                os.unlink(os.path.join("/dev/shm", seg))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip() == "False"
+
+
+def test_shared_lock_held_by_a_killed_process_is_released(tmp_path):
+    """A worker SIGKILLed while it holds the shm lock never releases it:
+    the next acquire (the agent's breakpoint save, the restarted
+    worker's first save) takes it at once instead of waiting out its
+    60 s timeout on every save."""
+    import signal
+    import subprocess
+    import sys
+
+    from dlrover_tpu_torch.flash_ckpt.shared_obj import (
+        SharedLockClient,
+        SharedLockServer,
+    )
+
+    sock_dir = str(tmp_path)
+    server = SharedLockServer("ckpt_shm_0", sock_dir)
+    holder = subprocess.Popen([sys.executable, "-c", (
+        "import sys, time\n"
+        "from dlrover_tpu_torch.flash_ckpt.shared_obj import "
+        "SharedLockClient\n"
+        f"lock = SharedLockClient('ckpt_shm_0', {sock_dir!r})\n"
+        "assert lock.acquire(timeout=10)\n"
+        "print('held', flush=True)\n"
+        "time.sleep(60)\n")],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        stdout=subprocess.PIPE, text=True)
+    try:
+        assert holder.stdout.readline().strip() == "held"
+        live = SharedLockClient("ckpt_shm_0", sock_dir)
+        assert not live.acquire(blocking=False)
+        holder.send_signal(signal.SIGKILL)
+        holder.wait(timeout=10)
+        t0 = time.monotonic()
+        assert live.acquire(timeout=10)
+        assert time.monotonic() - t0 < 5
+        live.release()
+        assert server.acquire(timeout=1)
+        server.release()
+    finally:
+        if holder.poll() is None:
+            holder.kill()
+            holder.wait()
+        server.stop()

@@ -11,8 +11,10 @@ subprocess worker; in the elastic training worker, which also loads no
 ``ml_dtypes`` on its checkpoint path; in every interpreter of the
 standalone launcher's path (launcher and agent, master, worker), which
 also loads neither ``grpc`` nor ``psutil``; in a live-rescale worker
-and a warm standby; and by a scan of every import statement in the
-port's sources and in ``chip_smoke.py``."""
+and a warm standby; in the chaos soak's master, which also loads no
+``torch``, and its worker; and by a scan of every import statement in
+the port's sources, the ``tools/torch_*.py`` scripts and
+``chip_smoke.py``."""
 
 import ast
 import json
@@ -183,11 +185,13 @@ def _imports(path: Path):
             yield node.module or ""
 
 
-_SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+_PORT_SOURCES = sorted(PORT.rglob("*.py"))
+_TOOL_SOURCES = sorted((REPO / "tools").glob("torch_*.py"))
+_SOURCES = _PORT_SOURCES + _TOOL_SOURCES + [REPO / "chip_smoke.py"]
 
 
 def test_scan_covers_the_fleet_modules():
-    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
     assert {"fault/__init__.py", "fault/registry.py",
             "observability/tracing.py",
             "observability/flight_recorder.py",
@@ -198,7 +202,7 @@ def test_scan_covers_the_fleet_modules():
 
 
 def test_scan_covers_the_axes_modules():
-    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
     assert {"ops/ring_attention.py", "trainer/pipeline.py",
             "models/moe.py", "parallel/sharding.py"} <= scanned
 
@@ -248,7 +252,7 @@ def test_subprocess_replica_worker_loads_no_jax(tmp_path, monkeypatch):
 
 
 def test_scan_covers_the_paged_engine_modules():
-    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
     assert {"serving/kvpool/__init__.py", "serving/kvpool/allocator.py",
             "serving/kvpool/engine.py",
             "serving/kvpool/prefix_cache.py", "models/moe.py",
@@ -299,7 +303,7 @@ def test_library_name_follows_the_source_bytes(tmp_path, monkeypatch):
 
 
 def test_scan_covers_the_elastic_modules():
-    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
     assert {"common/constants.py", "common/serialize.py",
             "trainer/runtime.py", "flash_ckpt/raw_format.py",
             "flash_ckpt/storage.py", "flash_ckpt/shm_handler.py",
@@ -357,7 +361,7 @@ def test_elastic_worker_loads_no_jax_and_no_ml_dtypes(tmp_path):
 
 
 def test_scan_covers_the_mesh_modules():
-    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
     assert {"parallel/__init__.py", "parallel/mesh.py",
             "parallel/sharding.py", "agent/__init__.py",
             "agent/node_check_worker.py"} <= scanned
@@ -440,7 +444,7 @@ def test_mesh_path_loads_no_jax(tmp_path):
 
 
 def test_scan_covers_the_control_plane_modules():
-    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
     assert {"run.py", "common/comm.py", "common/node.py",
             "common/env_utils.py", "rpc/transport.py",
             "training_event/emitter.py", "training_event/exporter.py",
@@ -516,7 +520,7 @@ def test_standalone_launcher_path_loads_no_jax_grpc_or_psutil(tmp_path):
 
 
 def test_scan_covers_the_rescale_modules():
-    scanned = {str(p.relative_to(PORT)) for p in _SOURCES[:-1]}
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
     assert {"master/elastic_training/rescale_coordinator.py",
             "trainer/elastic/rescale.py",
             "trainer/elastic/sharding_client.py",
@@ -577,4 +581,51 @@ def test_rescale_worker_and_standby_load_no_jax(tmp_path, monkeypatch):
     # The worker and the standby (and helpers such as multiprocessing's
     # resource tracker, which load no port).
     assert sum(r["port"] for r in reports) == 2, reports
+    assert all(r["leaked"] == [] for r in reports), reports
+
+
+def test_scan_covers_the_journal_and_soak_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
+    assert {"master/journal.py",
+            "master/shard/streaming_dataset_manager.py",
+            "testing/soak.py", "testing/soak_worker.py",
+            "testing/soak_master.py", "testing/master_kill_soak.py",
+            "testing/chaos.py"} <= scanned
+    tools = {p.name for p in _TOOL_SOURCES}
+    assert {"torch_journal_dump.py", "torch_chaos_soak.py",
+            "torch_bench_master_recovery.py",
+            "torch_phases.py"} <= tools
+
+
+def test_master_kill_processes_load_no_jax_and_the_master_no_torch(
+        tmp_path, monkeypatch):
+    """The soak's master_kill episode on the CPU: the restarted master
+    (the killed one leaves no report) and the worker never loaded JAX or
+    the JAX package, and the master never loaded ``torch``."""
+    from dlrover_tpu_torch.testing import soak
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(_SITECUSTOMIZE.replace(
+        '"port": "dlrover_tpu_torch"\n                   in sys.modules}',
+        '"port": "dlrover_tpu_torch"\n                   in sys.modules, '
+        '"torch": "torch" in sys.modules, "argv": sys.argv}').replace(
+        'os.environ["ISOLATION_REPORT"]',
+        'os.environ["ISOLATION_REPORT"] + str(os.getpid())'))
+    monkeypatch.setenv("PYTHONPATH", str(site))
+    monkeypatch.setenv("ISOLATION_REPORT", str(tmp_path / "report.json"))
+    cfg = soak.SoakConfig(dataset_size=256, serve=False, watchdog_s=90.0,
+                          device="cpu")
+    report = soak.run_soak(seed=0, episode=7, cfg=cfg,
+                           work_dir=str(tmp_path / "work"))["reports"][0]
+    assert report["master_epochs"] == [1, 2]
+    reports = [json.loads(p.read_text())
+               for p in tmp_path.glob("report.json*")]
+    masters = [r for r in reports
+               if "dlrover_tpu_torch.testing.soak_master" in r["argv"]
+               or any(a.endswith("soak_master.py") for a in r["argv"])]
+    workers = [r for r in reports
+               if any(a.endswith("soak_worker.py") for a in r["argv"])]
+    assert len(masters) == 1 and len(workers) == 1, reports
+    assert masters[0]["torch"] is False
     assert all(r["leaked"] == [] for r in reports), reports

@@ -11,8 +11,9 @@ ranks, each restores the kill step from memory, and every replayed loss
 equals the unkilled run's bit for bit, as do the final digests. Also:
 the agent's env reads back through the worker's ``read_worker_env``;
 ``--network-check`` probes the node before the worker trains, and a
-failed probe starts no worker; the master CLI wires a batch config; and
-the launcher switches whose paths are not ported raise.
+failed probe starts no worker; the master CLI wires a batch config; with
+``DLROVER_TPU_MASTER_JOURNAL`` set the launcher's master journals the
+job; and the launcher switches whose paths are not ported raise.
 """
 
 import json
@@ -352,3 +353,44 @@ def test_launcher_network_check_failure_starts_no_worker(tmp_path):
     assert probes == [] and events == []
     assert "node failed network check" in proc.stderr
     assert "started worker" not in proc.stderr
+
+
+def test_launcher_runs_a_journaled_master(tmp_path):
+    """With ``DLROVER_TPU_MASTER_JOURNAL`` in its environment the
+    launcher's local master journals the job (its rendezvous commits and
+    the agent's kv writes) and closes the journal clean; a second job on
+    the same journal gets the next master epoch."""
+    from dlrover_tpu_torch.master.journal import load_journal
+
+    journal = tmp_path / "master.journal"
+    epochs = []
+    for run in range(2):
+        job = f"tjr{uuid.uuid4().hex[:8]}"
+        env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+                   DLROVER_TPU_JOB_NAME=job,
+                   DLROVER_TPU_SHARED_DIR=str(tmp_path / f"sock{run}"),
+                   DLROVER_TPU_EVENT_DIR=str(tmp_path / "events"),
+                   DLROVER_TPU_MASTER_JOURNAL=str(journal))
+        env.pop("DLROVER_TPU_FAULT_SCHEDULE", None)
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "dlrover_tpu_torch.run",
+                 "--standalone", "--nproc_per_node", "1",
+                 "--monitor_interval", "0.2",
+                 "-m", "dlrover_tpu_torch.examples.train_llama",
+                 "--device", "cpu", "--config", "tiny", "--layers", "1",
+                 "--steps", "2", "--global-batch", "2",
+                 "--micro-batch", "2", "--seq", "8", "--persist-every", "2",
+                 "--ckpt-dir", str(tmp_path / f"ckpt{run}")],
+                cwd=REPO, env=env, capture_output=True, text=True,
+                timeout=TIMEOUT_S)
+        finally:
+            for seg in os.listdir("/dev/shm"):
+                if job in seg:
+                    os.unlink(os.path.join("/dev/shm", seg))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        state = load_journal(str(journal))
+        assert state.clean_shutdown and state.corrupt_lines == 0
+        assert state.kinds["rdzv"] >= 1 and state.kinds["kv_set"] >= 1
+        epochs.append(state.master_epoch)
+    assert epochs == [1, 2]

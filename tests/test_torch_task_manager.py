@@ -192,9 +192,30 @@ def test_reference_assertions_hold_on_the_port():
     assert steps["starts"] == [0, 4]
 
 
-def test_streaming_dataset_is_refused():
-    tm, _, comm, _ = _pkg("dlrover_tpu_torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 3"):
-        tm.TaskManager().new_dataset(comm.DatasetShardParams(
+def test_streaming_dataset_is_routed():
+    """A ``stream`` dataset goes to the streaming manager in both
+    packages, and the two hand out the same tasks and shard checkpoint."""
+    out = {}
+    for pkg in PACKAGES:
+        tm, _, comm, _ = _pkg(pkg)
+        sdm = importlib.import_module(
+            f"{pkg}.master.shard.streaming_dataset_manager")
+        manager = tm.TaskManager()
+        manager.new_dataset(comm.DatasetShardParams(
             dataset_name="s", dataset_size=-1, shard_size=4,
-            storage_type="stream"))
+            storage_type="stream", num_partitions=2))
+        assert isinstance(manager.get_dataset("s"),
+                          sdm.StreamingDatasetManager)
+        tasks = [manager.get_task(0, "s") for _ in range(5)]
+        manager.report_task_done("s", tasks[0].task_id, 0, success=True)
+        manager.report_task_done("s", tasks[1].task_id, 0, success=False)
+        out[pkg] = ([_task(t) for t in tasks]
+                    + [_task(manager.get_task(1, "s"))],
+                    json.loads(manager.get_shard_checkpoint("s")))
+        manager.stop()
+    assert out["dlrover_tpu"] == out["dlrover_tpu_torch"]
+    tasks, ckpt = out["dlrover_tpu_torch"]
+    assert all(t[0] >= 0 and t[4] - t[3] == 4 for t in tasks)
+    # The failed shard is handed out again first.
+    assert tasks[-1][3:5] == tasks[1][3:5]
+    assert ckpt["streaming"] and ckpt["completed"] == 1
