@@ -152,9 +152,10 @@ phases that each print JSON lines:
     starts the local master over HTTP and the agent, whose saver holds
     the shm image and whose restarts are the only relaunches (this
     script sets the job's name and socket directory, and rewrites run
-    B's fault schedule file before each kill). Run A trains 10 steps;
-    run B saves to shm after every step and persists every 3, is
-    SIGKILLed once step 5 is in shm (restored from memory), then once
+    B's fault schedule file before each kill). Run A trains 10 steps,
+    beside run B (a cut for the time limit, PR 19); run B saves to shm
+    after every step and persists every 3, is SIGKILLed once step 5 is
+    in shm (restored from memory), then once
     step 8 is in shm and step 6 or later committed, with its segment
     unlinked (a lost host; restored from storage at the step the
     tracker held when the relaunch read it), and replays to 10. Gates:
@@ -167,7 +168,12 @@ phases that each print JSON lines:
     master start and rendezvous seconds, save block and drain ms,
     snapshots dropped, persist (the saver's ``ckpt_persist`` events)
     and restore seconds and GB/s, worker start seconds, SIGKILL to
-    first replayed step, steps redone and goodput (A's wall over B's);
+    first replayed step, steps redone and goodput (A's wall over B's).
+    The workers' hang watchdog runs with a 10 s floor: each held
+    incarnation of run B writes one hang dump naming the fault point's
+    frame and, on SIGUSR1, one on-demand flight-recorder dump whose last
+    step is its kill step; the master receives each hang dump through
+    the agent; run A writes none;
 17. mesh_train: the sharded train step (``make_train_step(...,
     mesh=build_mesh(MeshConfig()))``, the state as DTensors) on a world
     of one over nccl at phase 6's shape (the flagship cut to MESH_LAYERS
@@ -239,7 +245,21 @@ phases that each print JSON lines:
     master's restart to ready, its epochs, the journal's stats and the
     filesystem it sat on; then ``tools/torch_bench_master_recovery.py``
     (host only): lease-path RPS with the journal off and on, and
-    ``master_recovery_s``.
+    ``master_recovery_s``;
+28. replica_restore (run beside phase 16, on a thread of its own: both
+    wait on process starts): two nodes of one world, each under its own
+    launcher with ``--ckpt_replica_group 2`` and this process's local
+    master, their workers (``testing/replica_worker``) holding the
+    flagship's train state at ELASTIC_LAYERS layers on the card and
+    training the same batches without a process group. Node 1 is lost
+    with its host (launcher and worker SIGKILLed, segment unlinked)
+    once its step 4 is in shm and pushed to node 0 and storage holds
+    step 3; a fresh node-1 launcher pulls the segment from node 0 and
+    its worker restores step 4 from memory, bit for bit; with node 0's
+    replica port unreachable, the next relaunch falls back to storage
+    and says so. Image bytes, push and pull seconds and GB/s, relaunch
+    to first step, the memory and storage restores' seconds, and a
+    timeline of the phase.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -261,6 +281,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -310,8 +331,32 @@ MOE_MICRO, MOE_SEQ, MOE_STEPS = 8, 2048, 6
 MOE_TIE = 0.1
 
 
+_EMIT_LOCK = threading.Lock()
+# Phases that run at once take turns at the process env (the job's name,
+# node rank and socket directory name shm segments and sockets).
+_ENV_LOCK = threading.Lock()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    with _EMIT_LOCK:
+        print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def _process_env(values):
+    """Set ``values`` in the process env for the block, under the env
+    lock, then put back what was there."""
+    with _ENV_LOCK:
+        old = {k: os.environ.get(k) for k in values}
+        os.environ.update(values)
+        try:
+            yield
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
 
 
 # Host seconds each phase of main() took, printed before the last lines.
@@ -3406,6 +3451,10 @@ ELASTIC_STEPS, ELASTIC_PERSIST = 10, 3
 ELASTIC_KILL1, ELASTIC_KILL2, ELASTIC_STORAGE_STEP = 5, 8, 6
 ELASTIC_LAYERS = 4
 ELASTIC_TIMEOUT_S = 300.0
+# The workers' hang watchdog floor (DLROVER_TPU_HANG_DEADLINE_S): above
+# any step's wall there (1.15 s at most on the H100 with the phase alone,
+# 3.39 s beside phase 28), so only a held worker's silence passes it.
+ELASTIC_HANG_DEADLINE_S = 10.0
 
 
 def _proc_gone(pid):
@@ -3417,25 +3466,31 @@ def _proc_gone(pid):
         return True
 
 
-class _Launcher:
-    """One ``python -m dlrover_tpu_torch.run --standalone`` job running
-    the elastic worker (``dlrover_tpu_torch.examples.train_llama``)
-    under the port's local master and agent. A thread reads the workers'
-    JSON lines off the launcher's stdout (the agent's workers inherit
-    it) into ``events``; the launcher's, master's and workers' logs go
-    to ``log_path``."""
+_STANDALONE_LAUNCH = (
+    "--standalone", "--nnodes", "1", "--nproc_per_node", "1",
+    "--max_restarts", "2", "--monitor_interval", "0.2",
+    "-m", "dlrover_tpu_torch.examples.train_llama")
 
-    def __init__(self, args, env, log_path):
+
+class _Launcher:
+    """One ``python -m dlrover_tpu_torch.run`` launcher: by default a
+    ``--standalone`` job running the elastic worker
+    (``dlrover_tpu_torch.examples.train_llama``) under the port's local
+    master and agent; ``launch`` gives other launcher flags and worker
+    module. A thread reads the workers' JSON lines off the launcher's
+    stdout (the agent's workers inherit it) into ``events``; the
+    launcher's, master's and workers' logs go to ``log_path``."""
+
+    def __init__(self, args, env, log_path, launch=_STANDALONE_LAUNCH,
+                 phase="elastic_ckpt"):
         import threading
 
         self.spawned = time.monotonic()
         self.log_path = log_path
+        self.phase = phase
         self._log = open(log_path, "w")
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
-             "--nnodes", "1", "--nproc_per_node", "1", "--max_restarts", "2",
-             "--monitor_interval", "0.2",
-             "-m", "dlrover_tpu_torch.examples.train_llama", *args],
+            [sys.executable, "-m", "dlrover_tpu_torch.run", *launch, *args],
             env=env, stdout=subprocess.PIPE, stderr=self._log, text=True)
         self.events = []
         self._cond = threading.Condition()
@@ -3466,11 +3521,11 @@ class _Launcher:
                     if pred(event):
                         return event
                 exited = any(e["event"] == "exit" for e in self.events)
-                check(not exited, f"elastic_ckpt: the launcher exited (rc "
+                check(not exited, f"{self.phase}: the launcher exited (rc "
                       f"{self.proc.poll()}) before {what}; see "
                       f"{self.log_path}")
                 left = deadline - time.monotonic()
-                check(left > 0, f"elastic_ckpt: no {what} in {timeout} s")
+                check(left > 0, f"{self.phase}: no {what} in {timeout} s")
                 self._cond.wait(min(left, 1.0))
 
     def incarnations(self):
@@ -3545,7 +3600,8 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     (HTTP), the agent and its ``AsyncCheckpointSaver``, and the agent
     starts and restarts the worker. This process sets only the job's
     name and socket directory (and run B's fault schedule file). Run A
-    trains ELASTIC_STEPS steps. Run B's worker is SIGKILLed once step
+    trains ELASTIC_STEPS steps, beside run B (both at once: a cut for
+    the script's time limit). Run B's worker is SIGKILLed once step
     ELASTIC_KILL1 is in shm: the agent restarts it, and it must restore
     that step from memory. Once step ELASTIC_KILL2 is in shm and the
     tracker shows ELASTIC_STORAGE_STEP or later, it is SIGKILLed again
@@ -3566,7 +3622,14 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     flipped does not; every loss of run B equals run A's at its step;
     each incarnation launched B1, B2 dq and B2 dk/dv n_layers x ga
     times a step it ran (none on the CPU); no segment or socket is
-    left."""
+    left. The workers' hang watchdog runs with a floor of
+    ELASTIC_HANG_DEADLINE_S: each held incarnation of run B writes one
+    hang dump (the watchdog fires once in the hang) whose main thread's
+    stack names the fault point's frame, then, on this process's
+    SIGUSR1, one on-demand flight-recorder dump whose last step is its
+    kill step and whose meta carries its restart count; the master's log
+    shows each hang dump received through the agent's report; run A,
+    never held, writes no hang dump."""
     import shutil
     import tempfile
 
@@ -3597,9 +3660,62 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
             "--persist-every", str(ELASTIC_PERSIST), "--config", config,
             "--device", device, "--seed", str(SEED),
             "--layers", str(cfg.n_layers)]
-    saved_env = {k: os.environ.get(k) for k in (
-        NodeEnv.JOB_NAME, NodeEnv.NODE_RANK, NodeEnv.SHARED_DIR)}
     launchers, shm_used, kills = [], [], []
+    flight_dirs = {r: os.path.join(root, f"{r}_flight") for r in "AB"}
+    held = []  # per held incarnation: its hang and on-demand dumps
+
+    def read_dump(path, pid, after=0.0):
+        try:
+            with open(path) as f:
+                dump = json.load(f)
+        except (OSError, ValueError):
+            return None
+        if dump.get("pid") != pid or dump.get("dumped_at", 0.0) <= after:
+            return None
+        return dump
+
+    def post_mortem(launcher, i):
+        """The held incarnation ``i``: wait (bounded) for its hang
+        watchdog's stack dump, then SIGUSR1 it for its flight
+        recorder's on-demand dump."""
+        from dlrover_tpu_torch.observability import (
+            flight_recorder,
+            hang_watchdog,
+        )
+
+        pid = launcher.wait_event(lambda e: e["event"] == "ready"
+                                  and e["inc"] == i, "a ready line")["pid"]
+        with _process_env({flight_recorder.FLIGHT_DIR_ENV:
+                           flight_dirs["B"]}):
+            hang_path = hang_watchdog.hang_dump_path(0, 0)
+            demand_path = (os.path.splitext(flight_recorder.dump_path(
+                0, 0))[0] + ".ondemand.json")
+        t0 = time.monotonic()
+        # The watchdog's deadline is its floor or 8 x the mean step gap,
+        # whichever is larger, then up to a 5 s poll.
+        deadline = t0 + ELASTIC_TIMEOUT_S / 2
+        while (hang := read_dump(hang_path, pid)) is None:
+            check(time.monotonic() < deadline, f"elastic_ckpt: incarnation "
+                  f"{i} (pid {pid}) wrote no hang dump")
+            time.sleep(0.05)
+        t_hang = time.monotonic()
+        signalled = time.time()
+        os.kill(pid, signal.SIGUSR1)
+        while (demand := read_dump(demand_path, pid, signalled)) is None:
+            check(time.monotonic() < deadline, f"elastic_ckpt: incarnation "
+                  f"{i} (pid {pid}) wrote no on-demand dump")
+            time.sleep(0.02)
+        held.append({"inc": i, "pid": pid, "hang": hang, "on_demand": demand,
+                     "hang_wait_s": t_hang - t0,
+                     "on_demand_s": time.monotonic() - t_hang,
+                     "hang_path": hang_path})
+
+    def fired_once(entry):
+        """The killed incarnation's hang dump is still its first: the
+        watchdog fired once in the hang."""
+        again = read_dump(entry["hang_path"], entry["pid"])
+        entry["fired_once"] = (again is not None and again["dumped_at"]
+                               == entry["hang"]["dumped_at"])
 
     def hold(path, step):
         """The schedule file every incarnation reads: hold at ``step``
@@ -3623,17 +3739,21 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
         os.makedirs(sock_dir)
         # This process's own view of the job (the agent's shm lock and
         # segment); the launcher gets the same two names.
-        os.environ.update({NodeEnv.JOB_NAME: job, NodeEnv.NODE_RANK: "0",
-                           NodeEnv.SHARED_DIR: sock_dir})
-        env = dict(os.environ, PYTHONPATH=repo,
-                   DLROVER_TPU_EVENT_DIR=events_dir)
+        view = {NodeEnv.JOB_NAME: job, NodeEnv.NODE_RANK: "0",
+                NodeEnv.SHARED_DIR: sock_dir}
+        with _process_env(view):
+            env = dict(os.environ, PYTHONPATH=repo,
+                       DLROVER_TPU_EVENT_DIR=events_dir,
+                       DLROVER_TPU_FLIGHT_DIR=flight_dirs[label],
+                       DLROVER_TPU_HANG_DEADLINE_S=str(
+                           ELASTIC_HANG_DEADLINE_S))
+            lock = SharedLockClient(f"{CKPT_LOCK_PREFIX}_0")
+            segment = SharedMemoryHandler(shm_segment_name(0))
         env.pop(SCHEDULE_ENV, None)
         if plan:
             schedule = os.path.join(root, f"{label}_hold.json")
             hold(schedule, ELASTIC_KILL1 + 1)
             env[SCHEDULE_ENV] = schedule
-        lock = SharedLockClient(f"{CKPT_LOCK_PREFIX}_0")
-        segment = SharedMemoryHandler(shm_segment_name(0))
         kill_to_step = []
         t0 = time.monotonic()
         launcher = _Launcher(args + ["--ckpt-dir", ckpt_dir], env,
@@ -3664,7 +3784,8 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
             # reference's does: read the final image, then unlink it.
             image_bytes = segment.size if segment.attach() else 0
             segment.close()
-            final = read_shm_payload(0)
+            with _process_env(view):
+                final = read_shm_payload(0)
             check(final is not None and final[0] == ELASTIC_STEPS,
                   f"{label}: final shm image {final and final[0]}")
             # The agent's training events: its rendezvous rounds, and
@@ -3688,7 +3809,7 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
                                     c["duration_s"], 1e-9)})
         finally:
             launcher.stop()
-            SharedMemoryHandler(shm_segment_name(0)).unlink()
+            SharedMemoryHandler(segment.name).unlink()
             socks = os.listdir(sock_dir)
             shutil.rmtree(os.path.join(root, label), ignore_errors=True)
         left = [n for n in os.listdir("/dev/shm") if job in n]
@@ -3720,8 +3841,10 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     def kill_in_memory(launcher, i, lock, segment, ckpt_dir, rearm):
         """SIGKILL once step ELASTIC_KILL1 is in shm."""
         launcher.wait_event(in_shm(i, ELASTIC_KILL1), "the first kill's step")
+        post_mortem(launcher, i)
         rearm()
         kill_worker(launcher, i, lock)
+        fired_once(held[-1])
         kills.append(segment.get_step())
         segment.close()
 
@@ -3735,24 +3858,39 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
             check(time.monotonic() < deadline, "elastic_ckpt: step "
                   f"{ELASTIC_STORAGE_STEP} never committed")
             time.sleep(0.05)
+        post_mortem(launcher, i)
         rearm()
         kill_worker(launcher, i, lock)
+        fired_once(held[-1])
         kills.append(ckpt_storage.read_tracker(ckpt_dir))
         segment.unlink()
 
+    def run_a():
+        try:
+            box["A"] = run("A", [])
+        except BaseException as e:  # raised again by run B's thread
+            box["error"] = e
+
+    box = {}
+    thread_a = threading.Thread(target=run_a, daemon=True)
     try:
-        a, wall_a, final_a, _, image_bytes, rdzv_a, persists_a = run("A", [])
+        # Run A, never killed, is the reference: it runs beside run B.
+        thread_a.start()
         b, wall_b, final_b, kill_to_step, _, rdzv_b, persists_b = run(
             "B", [(ELASTIC_KILL2 + 1, kill_in_memory),
                   (None, kill_host)])
+        thread_a.join(timeout=2 * ELASTIC_TIMEOUT_S)
+        check(not thread_a.is_alive(), "elastic_ckpt: run A did not end")
+        if "error" in box:
+            raise box["error"]
+        a, wall_a, final_a, _, image_bytes, rdzv_a, persists_a = box["A"]
+        hang_files_a = [n for n in os.listdir(flight_dirs["A"])
+                        if n.startswith("hang_")]
     finally:
         for launcher in launchers:
             launcher.stop()
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        if thread_a.ident is not None:
+            thread_a.join(timeout=60)
         shutil.rmtree(root, ignore_errors=True)
 
     label = "elastic_ckpt"
@@ -3799,6 +3937,43 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     planted["leaf0_shard0"].reshape(-1).view(np.uint8)[0] ^= 1
     check(_elastic_compare(final_a, planted) == ["leaf0_shard0"],
           f"{label}: the bitwise gate passes a flipped moment element")
+    # The watchdog and the dumps: each held incarnation of run B wrote one
+    # hang dump naming the fault point's frame, and on SIGUSR1 one
+    # on-demand dump whose last step is its kill step; the agent
+    # reported each hang dump and the master received it; run A, never
+    # held, wrote none.
+    check(hang_files_a == [] and [h["inc"] for h in held] == [0, 1],
+          f"{label}: run A's hang dumps {hang_files_a}, run B's held "
+          f"incarnations {[h['inc'] for h in held]}")
+    b_log = b.log()
+    watchdog = []
+    for h, kill_step in zip(held, (ELASTIC_KILL1, ELASTIC_KILL2)):
+        hang, demand = h["hang"], h["on_demand"]
+        main_frames = [fr for name, stack in hang["stacks"].items()
+                       if name.startswith("MainThread") for fr in stack]
+        recorded = [r["step"] for r in demand["steps"] if "step_time_s" in r]
+        restart_count = readies[1 + h["inc"]]["restart_count"]
+        check(hang["kind"] == "stack_dump" and hang["reason"] == "hang:train"
+              and any(fr.endswith(" fault_point") for fr in main_frames)
+              and h["fired_once"],
+              f"{label}: incarnation {h['inc']}'s hang dump ("
+              f"{hang['reason']}, fired once {h['fired_once']}) main "
+              f"thread {main_frames[-4:]}")
+        check(demand.get("on_demand") is True and demand.get("stacks")
+              and recorded and recorded[-1] == kill_step
+              and demand["meta"]["restart_count"] == restart_count,
+              f"{label}: incarnation {h['inc']}'s on-demand dump: steps "
+              f"{recorded[-3:]}, meta {demand['meta']}")
+        received = (f"received stack_dump diagnosis data from node 0 (pid "
+                    f"{h['pid']}, dumped at {hang['dumped_at']},")
+        check(received in b_log, f"{label}: the master did not receive "
+                                  f"incarnation {h['inc']}'s hang dump")
+        watchdog.append({
+            "inc": h["inc"], "pid": h["pid"], "restart_count": restart_count,
+            "hang_for_s": hang["hang_for_s"], "deadline_s": hang["deadline_s"],
+            "beats": hang["beats"], "hang_wait_s": h["hang_wait_s"],
+            "on_demand_s": h["on_demand_s"], "last_step": recorded[-1],
+            "main_thread_top": main_frames[-3:]})
     launches = {}
     for inc_steps in steps:
         n = len(inc_steps)
@@ -3867,6 +4042,9 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
         "restarted_by_agent": True,
         "losses_equal": True, "final_state_bitwise_equal": True,
         "planted_fault_rejected": True, "launches": launches,
+        "hang_deadline_floor_s": ELASTIC_HANG_DEADLINE_S,
+        "watchdog": watchdog, "hang_dumps_run_a": len(hang_files_a),
+        "master_received_hang_dumps": True,
     }
     emit(row)
     return launches
@@ -4277,6 +4455,8 @@ def phase_node_check(device="cuda", size=1024, comm_mb=64):
 
     out = {"phase": "node_check"}
     with tempfile.TemporaryDirectory() as d:
+        procs = {}
+        # Both at once (a cut for the script's time limit, PR 19).
         for label, extra in (("ok", {}),
                              ("fail", {"DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS":
                                        "0"})):
@@ -4288,13 +4468,17 @@ def phase_node_check(device="cuda", size=1024, comm_mb=64):
                        DLROVER_TPU_LOCAL_WORLD_SIZE="1",
                        DLROVER_TPU_CHECK_NODE_RANK="0",
                        DLROVER_TPU_CHECK_DEVICE=device, **extra)
-            t0 = time.monotonic()
-            proc = subprocess.run(
+            procs[label] = (result, time.monotonic(), subprocess.Popen(
                 [sys.executable, "-m",
                  "dlrover_tpu_torch.agent.node_check_worker", result,
-                 str(size), "30", str(comm_mb)], env=env, capture_output=True,
-                text=True, timeout=300,
-                cwd=os.path.dirname(os.path.abspath(__file__)))
+                 str(size), "30", str(comm_mb)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        for label, (result, t0, proc) in procs.items():
+            try:
+                _, stderr = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
             wall = time.monotonic() - t0
             has_file = os.path.exists(result)
             out[label] = {"rc": proc.returncode, "result_file": has_file,
@@ -4304,7 +4488,7 @@ def phase_node_check(device="cuda", size=1024, comm_mb=64):
             if label == "ok":
                 check(proc.returncode == 0 and has_file,
                       f"node_check: rc {proc.returncode}, result file "
-                      f"{has_file}: {proc.stderr[-2000:]}")
+                      f"{has_file}: {stderr[-2000:]}")
             else:
                 check(proc.returncode != 0 and not has_file,
                       f"node_check: the fail variable gave rc "
@@ -5396,6 +5580,374 @@ def phase_master_kill(device="cuda"):
     return row
 
 
+# phase 28: a node lost with its host restores from its peer's memory.
+REPLICA_STEPS, REPLICA_PERSIST, REPLICA_KILL = 5, 3, 4
+REPLICA_TIMEOUT_S = 300.0
+_REPLICA_LAUNCH = ("--nnodes", "2", "--nproc_per_node", "1",
+                   "--max_restarts", "3", "--monitor_interval", "0.2",
+                   "--ckpt_replica_group", "2",
+                   "-m", "dlrover_tpu_torch.testing.replica_worker")
+
+
+def _replica_log_transfers(text, what):
+    """(step or None, bytes, seconds) of each replica push or pull a
+    launcher logged."""
+    import re
+
+    if what == "push":
+        found = re.findall(r"pushed \d+ shm segment replicas for step (\d+) "
+                           r"\((\d+) bytes in ([0-9.]+) s\)", text)
+        return [(int(s), int(b), float(t)) for s, b, t in found]
+    found = re.findall(r"restored \d+ shm checkpoint segments from peers "
+                       r"\((\d+) bytes in ([0-9.]+) s\)", text)
+    return [(None, int(b), float(t)) for b, t in found]
+
+
+def _log_walls(text, needle):
+    """Wall-clock seconds of the log lines that hold ``needle`` (the
+    port's log stamps each line ``[%Y-%m-%d %H:%M:%S,%f]``)."""
+    import datetime
+
+    return [datetime.datetime.strptime(line[1:24], "%Y-%m-%d %H:%M:%S,%f")
+            .timestamp() for line in text.splitlines()
+            if needle in line and line.startswith("[")]
+
+
+def _restore_events(events_dir):
+    """The ``ckpt_restore`` training events under ``events_dir``."""
+    out = []
+    for name in sorted(os.listdir(events_dir)) if os.path.isdir(
+            events_dir) else []:
+        with open(os.path.join(events_dir, name)) as f:
+            out += [e["content"] for e in map(json.loads, f)
+                    if e["name"] == "ckpt_restore"]
+    return out
+
+
+def _port_closed(addr):
+    import socket
+
+    host, port = addr.rsplit(":", 1)
+    try:
+        socket.create_connection((host, int(port)), timeout=2).close()
+    except OSError:
+        return True
+    return False
+
+
+def phase_replica_restore(device="cuda", config="flagship"):
+    """Two nodes of one world on ``device``, each under its own launcher
+    (``python -m dlrover_tpu_torch.run --master <this process's local
+    master> --nnodes 2 --node_rank {0,1} --nproc_per_node 1
+    --ckpt_replica_group 2 -m dlrover_tpu_torch.testing.replica_worker``),
+    their workers holding the flagship's train state (params and AdamW
+    moments, ELASTIC_LAYERS layers; the tiny config's on the CPU) on
+    the device and training the same batches without a process group.
+    Each step is saved to shm and every REPLICA_PERSIST steps persisted;
+    each agent's saver pushes its node's image to the other node. Once
+    node 1's step REPLICA_KILL is in shm and pushed, and storage holds
+    step REPLICA_PERSIST, node 1's launcher (its agent) and worker are
+    SIGKILLed and its segment unlinked (the host is lost). A fresh node-1
+    launcher pulls the segment from node 0 before its worker starts, and
+    the worker restores from memory; node 0's agent re-forms the world.
+    Control: once that worker has saved its last step, node 1 is lost
+    again, node 0's replica address in the master's KV store points at a
+    closed port, and the next node-1 launcher pulls nothing, says so, and
+    its worker restores from storage. Then both nodes are let go. Gates:
+    the pulled segment's bytes are the lost one's (crc32 and length taken
+    before the kill, read by the worker before its restore, and the pull
+    moved that many bytes); the relaunch restored step REPLICA_KILL from
+    memory (its worker's result and its ``ckpt_restore`` event), not the
+    storage step; every restored leaf's crc32 is the lost image's, and
+    an image with one element flipped does not match; the control
+    restored the storage step from storage and its launcher logged the
+    missing segment; node 0's restarts restored its own step from
+    memory; both nodes' last launchers exit 0; each worker on the card
+    launched B1; no segment, socket or replica port is left. Returns the
+    B1/B2 launches of the workers' steps."""
+    import shutil
+    import tempfile
+    import zlib
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.common.env_utils import find_free_port
+    from dlrover_tpu_torch.fault import SCHEDULE_ENV
+    from dlrover_tpu_torch.flash_ckpt import storage as ckpt_storage
+    from dlrover_tpu_torch.flash_ckpt.engine import shm_segment_name
+    from dlrover_tpu_torch.flash_ckpt.shm_handler import SharedMemoryHandler
+    from dlrover_tpu_torch.master.local_master import LocalJobMaster
+    from dlrover_tpu_torch.master.node.job_context import JobContext
+    from dlrover_tpu_torch.testing.replica_worker import image_digest
+
+    label = "replica_restore"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="replica_restore_")
+    job = f"chipsmoke{os.getpid()}replica"
+    ckpt_dir = os.path.join(root, "ckpt")
+    release = os.path.join(root, "release")
+    model = (["--config", "flagship", "--layers", str(ELASTIC_LAYERS),
+              "--seq", "128"] if config == "flagship"
+             else ["--config", "tiny", "--layers", "2", "--seq", "8"])
+
+    def node_env(rank):
+        return {NodeEnv.JOB_NAME: job, NodeEnv.NODE_RANK: str(rank)}
+
+    def segment(rank):
+        with _process_env(node_env(rank)):
+            return shm_segment_name(0)
+
+    JobContext.reset_singleton()
+    master = LocalJobMaster(port=0, node_num=2)
+    master.prepare()
+    client = MasterClient(f"localhost:{master.port}", node_id=0)
+    launchers = []
+
+    def launch(rank, tag, steps):
+        node_dir = os.path.join(root, tag)
+        os.makedirs(node_dir)
+        env = dict(os.environ, PYTHONPATH=repo, DLROVER_TPU_JOB_NAME=job,
+                   DLROVER_TPU_SHARED_DIR=os.path.join(root, f"sock{rank}"),
+                   DLROVER_TPU_EVENT_DIR=os.path.join(node_dir, "events"),
+                   DLROVER_TPU_FLIGHT_DIR=os.path.join(root, "flight"))
+        env.pop(SCHEDULE_ENV, None)
+        env.pop(NodeEnv.NODE_RANK, None)
+        launcher = _Launcher(
+            model + ["--device", device, "--seed", str(SEED),
+                     "--micro-batch", "1", "--steps", str(steps),
+                     "--persist-every", str(REPLICA_PERSIST),
+                     "--ckpt-dir", ckpt_dir, "--hold-file", release],
+            env, os.path.join(node_dir, "launcher.log"),
+            launch=("--master", f"localhost:{master.port}", "--node_rank",
+                    str(rank), *_REPLICA_LAUNCH), phase=label)
+        launchers.append((tag, launcher))
+        return launcher
+
+    def until(cond, what):
+        deadline = time.monotonic() + REPLICA_TIMEOUT_S
+        while not cond():
+            check(time.monotonic() < deadline,
+                  f"{label}: no {what} in {REPLICA_TIMEOUT_S} s")
+            time.sleep(0.05)
+
+    def lose_node_1(launcher):
+        """SIGKILL the launcher (its agent) and its workers at once, then
+        unlink the node's segment: the host is gone."""
+        _, workers = launcher.pids()
+        pids = [launcher.proc.pid, *workers]
+        for pid in pids:
+            if not _proc_gone(pid):
+                os.kill(pid, signal.SIGKILL)
+        until(lambda: all(_proc_gone(p) for p in pids), "exit of node 1")
+        SharedMemoryHandler(segment(1)).unlink()
+
+    def saved(launcher, inc, step=None):
+        """Incarnation ``inc``'s last save (of ``step`` or later) is in
+        shm."""
+        return launcher.wait_event(
+            lambda e: e["event"] == "saved" and e["inc"] == inc
+            and (step is None or e["step"] >= step),
+            f"incarnation {inc}'s last save", REPLICA_TIMEOUT_S)
+
+    t_phase, wall_phase = time.monotonic(), time.time()
+    marks = {}
+
+    def mark(name, t=None):
+        marks[name] = (time.monotonic() if t is None else t) - t_phase
+
+    try:
+        node0 = launch(0, "node0", REPLICA_STEPS)
+        lost = launch(1, "node1", REPLICA_KILL)
+        saved(node0, 0, REPLICA_STEPS)
+        mark("node1_first_step", lost.wait_event(
+            lambda e: e["event"] == "step", "node 1's first step")["t"])
+        mark("node1_saved", saved(lost, 0, REPLICA_KILL)["t"])
+        until(lambda: ckpt_storage.read_tracker(ckpt_dir) >= REPLICA_PERSIST,
+              f"the commit of step {REPLICA_PERSIST}")
+        until(lambda: any(s == REPLICA_KILL for s, _, _ in
+                          _replica_log_transfers(lost.log(), "push")),
+              f"node 1's push of step {REPLICA_KILL}")
+        push = [t for t in _replica_log_transfers(lost.log(), "push")
+                if t[0] == REPLICA_KILL][-1]
+        mark("push_logged")
+        lost_image = image_digest(segment(1))
+        lost_crc, lost_bytes = lost_image["crc32"], lost_image["bytes"]
+        image_crcs = lost_image["leaf_crc32"]
+        # The planted fault: the first leaf with one bit flipped.
+        seg = SharedMemoryHandler(segment(1))
+        meta = seg.load_meta()
+        shard = meta["leaves"][0].shards[0]
+        leaf0 = seg.data_region(meta)[
+            shard.offset:shard.offset + shard.nbytes].numpy().copy()
+        seg.close()
+        leaf0[0] ^= 1
+        planted_crcs = [zlib.crc32(leaf0), *image_crcs[1:]]
+        del leaf0
+        tracker_at_kill = ckpt_storage.read_tracker(ckpt_dir)
+        addr0 = client.kv_store_get("ckpt-replica-addr/0").decode()
+        check(lost_image["step"] == REPLICA_KILL
+              and tracker_at_kill == REPLICA_PERSIST,
+              f"{label}: node 1's image at step {lost_image['step']}, "
+              f"storage at {tracker_at_kill}")
+        mark("crc_taken")
+        lose_node_1(lost)
+        mark("lost")
+
+        relaunch = launch(1, "node1_memory", REPLICA_STEPS)
+        ready = relaunch.wait_event(lambda e: e["event"] == "ready",
+                                    "the relaunch's ready line")
+        first = relaunch.wait_event(lambda e: e["event"] == "step",
+                                    "the relaunch's first step")
+        saved(relaunch, 0, REPLICA_STEPS)
+        pulls = _replica_log_transfers(relaunch.log(), "pull")
+        for name, needle in (("relaunch_pulled", "from peers ("),
+                             ("relaunch_worker_started", "started worker")):
+            walls = _log_walls(relaunch.log(), needle)
+            if walls:
+                marks[name] = walls[0] - wall_phase
+        mark("relaunch_ready", ready["t"])
+        mark("relaunch_first_step", first["t"])
+
+        # Control: the peer's replica port is unreachable.
+        lose_node_1(relaunch)
+        client.kv_store_set("ckpt-replica-addr/0",
+                            f"127.0.0.1:{find_free_port()}".encode())
+        control = launch(1, "node1_storage", REPLICA_STEPS)
+        c_ready = control.wait_event(lambda e: e["event"] == "ready",
+                                     "the control's ready line")
+        mark("control_ready", c_ready["t"])
+        saved(control, 0, REPLICA_STEPS)
+        saved(node0, 2)
+        addr1 = client.kv_store_get("ckpt-replica-addr/1").decode()
+        mark("released")
+        with open(release, "w"):
+            pass
+        rcs = [launcher.proc.wait(timeout=REPLICA_TIMEOUT_S)
+               for launcher in (node0, control)]
+        wall = time.monotonic() - t_phase
+        mark("exited")
+        storage_bytes = os.path.getsize(os.path.join(
+            ckpt_storage.step_dir(ckpt_dir, REPLICA_PERSIST), "proc-1.raw"))
+    finally:
+        for _, launcher in launchers:
+            launcher.stop()
+        client.close()
+        master.stop()
+        socks = []
+        for r in (0, 1):
+            sock_dir = os.path.join(root, f"sock{r}")
+            if os.path.isdir(sock_dir):
+                socks += os.listdir(sock_dir)
+        _unlink_job_segments(job)
+    try:
+        events = {tag: _restore_events(os.path.join(root, tag, "events"))
+                  for tag, _ in launchers}
+        logs = {tag: launcher.log() for tag, launcher in launchers}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    check(rcs == [0, 0], f"{label}: node 0 and the last node-1 launcher "
+                         f"exited {rcs}")
+    check(ready["image"] == {"step": REPLICA_KILL, "bytes": lost_bytes,
+                             "crc32": lost_crc}
+          and len(pulls) == 1 and pulls[0][1] == lost_bytes,
+          f"{label}: the pulled segment {ready['image']} (pulls {pulls}) "
+          f"is not the lost one ({lost_bytes} bytes, crc32 {lost_crc})")
+    check(ready["restored_from"] == "memory"
+          and ready["restored_step"] == REPLICA_KILL
+          and events["node1_memory"] == [{"step": REPLICA_KILL,
+                                          "source": "memory"}],
+          f"{label}: the relaunch restored {ready['restored_step']} from "
+          f"{ready['restored_from']} (events {events['node1_memory']})")
+    differ = [i for i, (a, b) in enumerate(zip(ready["leaf_crc32"] or [],
+                                               image_crcs)) if a != b]
+    check(ready["leaf_crc32"] == image_crcs,
+          f"{label}: the restored state differs from the lost image in "
+          f"leaves {differ[:8]}")
+    check(ready["leaf_crc32"] != planted_crcs,
+          f"{label}: the bitwise gate passes a flipped element")
+    check(c_ready["restored_from"] == "storage"
+          and c_ready["restored_step"] == REPLICA_PERSIST
+          and events["node1_storage"] == [{"step": REPLICA_PERSIST,
+                                           "source": "storage"}]
+          and "missing and on no peer" in logs["node1_storage"]
+          and not _replica_log_transfers(logs["node1_storage"], "pull"),
+          f"{label}: the control restored {c_ready['restored_step']} from "
+          f"{c_ready['restored_from']} (events {events['node1_storage']})")
+    incs0 = node0.incarnations()
+    check([(i[0]["restored_from"], i[0]["restored_step"]) for i in incs0]
+          == [(None, 0), ("memory", REPLICA_STEPS), ("memory", REPLICA_STEPS)],
+          f"{label}: node 0's incarnations restored "
+          f"{[(i[0]['restored_from'], i[0]['restored_step']) for i in incs0]}")
+    left = [n for n in os.listdir("/dev/shm") if job in n]
+    ports = [a for a in (addr0, addr1) if not _port_closed(a)]
+    check(left == [] and socks == [] and ports == [],
+          f"{label}: segments {left}, sockets {socks}, replica ports {ports} "
+          f"left")
+    launches = {}
+    for _, launcher in launchers:
+        for inc in launcher.incarnations():
+            steps = [e for e in inc if e["event"] == "step"]
+            if not steps:
+                continue
+            counts = steps[-1]["launches"]
+            check(device != "cuda" or counts.get("flash_forward", 0) > 0,
+                  f"{label}: a worker on the card launched no B1: {counts}")
+            for name, v in counts.items():
+                launches[name] = launches.get(name, 0) + v
+    row = {
+        "phase": label, "config": config, "device": device,
+        "n_layers": ELASTIC_LAYERS if config == "flagship" else 2,
+        "steps": REPLICA_STEPS, "kill_step": REPLICA_KILL,
+        "storage_step": REPLICA_PERSIST,
+        "image_bytes": lost_bytes,
+        "push": {"step": push[0], "bytes": push[1], "s": push[2],
+                 "gb_per_s": push[1] / 1e9 / max(push[2], 1e-9)},
+        "pull": {"bytes": pulls[0][1], "s": pulls[0][2],
+                 "gb_per_s": pulls[0][1] / 1e9 / max(pulls[0][2], 1e-9)},
+        "relaunch_to_first_step_s": first["t"] - relaunch.spawned,
+        "relaunch_to_ready_s": ready["t"] - relaunch.spawned,
+        "memory_restore_s": ready["restore_s"],
+        "storage_restore": {"step": REPLICA_PERSIST, "s": c_ready["restore_s"],
+                            "bytes": storage_bytes},
+        "control_to_ready_s": c_ready["t"] - control.spawned,
+        "wall_s": wall, "timeline_s": marks,
+        "launcher_rc": rcs, "pulled_bytes_equal": True,
+        "restored_bitwise_equal": True, "planted_fault_rejected": True,
+        "launches": launches,
+    }
+    emit(row)
+    return launches
+
+
+def phase_elastic_paths():
+    """Phases 16 (``elastic_ckpt``) and 28 (``replica_restore``) at once,
+    28 on a thread of its own: both spend most of their wall in process
+    starts on the host, so together they take little more than the
+    longer one (a cut for the script's time limit, PR 19). Each keeps
+    its gates and prints its own row with its seconds. Returns their
+    workers' B1/B2 launches, summed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    seconds = {}
+
+    def run(name, fn):
+        t0 = time.monotonic()
+        out = fn()
+        seconds[name] = time.monotonic() - t0
+        return out
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(1) as pool:
+        replica = pool.submit(run, "replica_restore", phase_replica_restore)
+        elastic = run("elastic_ckpt", phase_elastic_ckpt)
+        replica_launches = replica.result()
+    emit({"phase": "elastic_paths", **seconds,
+          "wall_s": time.monotonic() - t0})
+    return {name: n + replica_launches.get(name, 0)
+            for name, n in elastic.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5502,8 +6054,10 @@ def main():
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     # The elastic worker's processes: their B1/B2 launches, each checked
-    # exactly per worker inside the phase.
-    for name, n in timed("elastic_ckpt", phase_elastic_ckpt).items():
+    # exactly per worker inside the phase; beside it, a node lost with
+    # its host restores from its peer's memory (two nodes' workers on the
+    # card, their launches counted from their step lines).
+    for name, n in timed("elastic_paths", phase_elastic_paths).items():
         launches[name] += n
     # The mesh: the sharded step on a world of one (B1/B2 exact inside),
     # the resharding restore across the card and a CPU world, the node

@@ -21,8 +21,9 @@ with ``NotImplementedError`` naming the ROADMAP item: the XLA-capture
 injection (``DLROVER_TPU_TIMER_XLA``, item 7). The post-mortem stop
 sends SIGUSR2 for the worker's Python stacks (the port's
 ``init_distributed`` registers the dump), without the reference's
-out-of-process native stacks (item 7) or its collection of flight
-recorder and hang dumps (item 5).
+out-of-process native stacks (item 7). On a worker failure the agent
+reports the failed workers' flight-recorder crash dumps and hang-watchdog
+stack dumps of the current incarnation to the master.
 """
 
 import json
@@ -430,10 +431,85 @@ class ElasticAgent:
 
     # ---- failure handling --------------------------------------------------
 
+    def collect_flight_records(
+        self, local_ranks=None, last_n: int = 64
+    ) -> Dict[int, Dict]:
+        """Fetch the flight-recorder crash dumps of this node's workers
+        (the last N steps each dead worker managed to record). Dumps
+        older than the current incarnation are skipped: a SIGKILLed
+        worker writes nothing, and reporting the PREVIOUS incarnation's
+        ring as this failure's postmortem would mislead diagnosis."""
+        from dlrover_tpu_torch.observability import flight_recorder
+
+        if local_ranks is None:
+            local_ranks = range(self._spec.nproc_per_node)
+        # Cutoff AT the incarnation start: the previous incarnation
+        # always dumps before _start_workers_inner stamps the new
+        # start time, so its file's mtime lands before the cutoff.
+        started = getattr(self, "_workers_started_at", 0.0)
+        max_age = max(time.time() - started, 0.0) if started else None
+        return flight_recorder.collect_dumps(
+            self._spec.node_rank,
+            local_ranks,
+            max_age_s=max_age,
+            last_n=last_n,
+        )
+
+    def _report_flight_records(self, codes: Dict[int, int]):
+        """Forward dead workers' last-steps rings to the master's
+        diagnosis store; best-effort — postmortem data must never delay
+        the restart path."""
+        try:
+            dumps = self.collect_flight_records(local_ranks=codes.keys())
+        except Exception:  # noqa: BLE001 - diagnosis best-effort
+            logger.warning("flight record collection failed", exc_info=True)
+            return
+        from dlrover_tpu_torch.diagnosis.diagnosis_data import DiagnosisDataType
+
+        for local_rank, dump in dumps.items():
+            steps = dump.get("steps", [])
+            if steps:
+                logger.info(
+                    "flight recorder (local_rank %d): last step %s",
+                    local_rank,
+                    steps[-1],
+                )
+            try:
+                self._client.report_diagnosis_data(
+                    DiagnosisDataType.FLIGHT_RECORDER,
+                    {
+                        "node_rank": self._spec.node_rank,
+                        "local_rank": local_rank,
+                        "steps": steps,
+                    },
+                )
+            except Exception:  # noqa: BLE001
+                logger.debug("flight record report failed", exc_info=True)
+        # Hang-watchdog / SIGUSR1 stack dumps ride the same postmortem
+        # path: a wedged-then-killed worker's blocked frames reach the
+        # master's hang diagnostician as evidence.
+        try:
+            from dlrover_tpu_torch.observability.hang_watchdog import (
+                collect_hang_dumps,
+            )
+
+            started = getattr(self, "_workers_started_at", 0.0)
+            max_age = max(time.time() - started, 0.0) if started else None
+            hang_dumps = collect_hang_dumps(
+                self._spec.node_rank, codes.keys(), max_age_s=max_age
+            )
+            for local_rank, dump in hang_dumps.items():
+                self._client.report_diagnosis_data(
+                    DiagnosisDataType.STACK_DUMP, dump
+                )
+        except Exception:  # noqa: BLE001 — postmortem best-effort
+            logger.debug("hang dump report failed", exc_info=True)
+
     def _on_workers_failed(self) -> Optional[RunResult]:
         codes = self._failed_exit_codes()
         logger.warning("worker failure, exit codes %s", codes)
         self._failures_counter.inc()
+        self._report_flight_records(codes)
         if self._ckpt_saver is not None:
             # Breakpoint save runs in the background: a same-host
             # restart restores MEMORY-FIRST from the shm image (owned

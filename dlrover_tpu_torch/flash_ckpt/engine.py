@@ -220,23 +220,29 @@ class CheckpointEngine:
 
     def _commit(self, step, spec, metas, data_bytes, fill, user_meta):
         """Write one image into shm under the agent's lock and tell the
-        agent. Returns the write's seconds."""
+        agent, inside a ``ckpt_save_memory`` training event. Returns the
+        write's seconds."""
+        from dlrover_tpu_torch.training_event import TrainerEvents
+
         t0 = time.monotonic()
-        if self._lock is not None:
-            self._lock.acquire()
-        try:
-            self._shm.write_image(step, spec, metas, data_bytes, fill,
-                                  self._stamp(user_meta))
-        finally:
+        with TrainerEvents.ckpt_save_memory(step) as span:
             if self._lock is not None:
-                self._lock.release()
-        if self._event_queue is not None and self._local_rank == 0:
-            self._event_queue.put(SaveEvent(
-                SaveEvent.SAVE_MEM, step, self.checkpoint_dir,
-                self._ctx.local_world_size))
+                self._lock.acquire()
+            try:
+                self._shm.write_image(step, spec, metas, data_bytes, fill,
+                                      self._stamp(user_meta))
+            finally:
+                if self._lock is not None:
+                    self._lock.release()
+            if self._event_queue is not None and self._local_rank == 0:
+                self._event_queue.put(SaveEvent(
+                    SaveEvent.SAVE_MEM, step, self.checkpoint_dir,
+                    self._ctx.local_world_size))
+            write_s = time.monotonic() - t0
+            span.content["write_s"] = write_s
         self._last_written_step = max(self._last_written_step, step)
         self._saves_counter.inc()
-        return time.monotonic() - t0
+        return write_s
 
     # ---- save --------------------------------------------------------------
 
@@ -490,16 +496,20 @@ class CheckpointEngine:
         of the checkpoint's structure whose tensors are filled in place
         (see ``shm_handler.fill_tree``); without it the leaves come back
         as host tensors."""
+        from dlrover_tpu_torch.training_event import TrainerEvents
+
         self.last_restore_read = {"shm_step": -1, "tracker_step": None}
         result = self._load_from_memory(step, target)
         if result is not None:
             logger.info("restored step %d from host memory", result[0])
             self.last_restore_source = "memory"
+            TrainerEvents.ckpt_restore(result[0], "memory")
             return result
         result = self._load_from_storage(step, target)
         if result is not None:
             logger.info("restored step %d from storage", result[0])
             self.last_restore_source = "storage"
+            TrainerEvents.ckpt_restore(result[0], "storage")
         return result
 
     def _load_from_memory(self, step=None, target=None):

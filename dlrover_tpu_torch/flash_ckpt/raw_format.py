@@ -53,8 +53,8 @@ open: the header records exactly how many bytes the data region must
 span.
 
 Compat policy: readers must keep accepting every on-disk version they
-ever shipped; ``VERSION`` only bumps on layout changes. The reference's
-legacy ``.npz`` step dirs are not read by the port.
+ever shipped; ``VERSION`` only bumps on layout changes. Legacy ``.npz``
+step dirs are read through ``storage.NpzShardReader``.
 """
 
 import json

@@ -1,8 +1,9 @@
 """Agent-resident async checkpoint saver (the port's copy of
 ``dlrover_tpu/flash_ckpt/saver.py``). The saver lives in the AGENT
 process so a dying worker cannot take the persistence thread with it;
-shm segments likewise outlive workers. The replica push to peer hosts
-is not ported.
+shm segments likewise outlive workers. With a replica manager
+(``flash_ckpt/replica.py``) the saver pushes each new shm image to the
+node's replica-group peers.
 
 Commit protocol (crash-safe):
 1. every node writes its proc files + a ``node-<rank>.done`` marker into
@@ -246,8 +247,14 @@ class AsyncCheckpointSaver:
         self,
         client=None,
         local_world_size: int = _MAX_LOCAL_WORKERS,
+        replica_manager=None,
     ):
         self._client = client
+        self._replica_manager = replica_manager
+        self._last_replica_step = -1
+        self._replica_lock = threading.Lock()
+        self._replica_inflight = False
+        self._replica_pending: Optional[SaveEvent] = None
         self._node_rank = int(os.getenv(NodeEnv.NODE_RANK, "0"))
         self._event_queue = SharedQueueServer(CKPT_EVENT_QUEUE)
         self._locks = [
@@ -273,10 +280,14 @@ class AsyncCheckpointSaver:
     # ---- agent wiring ------------------------------------------------------
 
     @classmethod
-    def start_async_saving_ckpt(cls, client=None) -> "AsyncCheckpointSaver":
+    def start_async_saving_ckpt(
+        cls, client=None, replica_manager=None
+    ) -> "AsyncCheckpointSaver":
         with cls._lock:
             if cls._instance is None:
-                cls._instance = cls(client=client)
+                cls._instance = cls(
+                    client=client, replica_manager=replica_manager
+                )
             return cls._instance
 
     @classmethod
@@ -325,6 +336,55 @@ class AsyncCheckpointSaver:
         if event.kind == SaveEvent.SAVE_DISK:
             self._persist(event.checkpoint_dir, event.step,
                           event.local_world_size, commit_timeout=600.0)
+        self._push_replicas(event)
+
+    def _push_replicas(self, event: SaveEvent):
+        """Replicate this node's shm image to its group peers on a thread
+        of its own: an upload of a multi-GB image must not stall the
+        saver loop (breakpoint-save freshness) or, worse, the workers.
+        One push runs at a time, and a step already pushed is skipped
+        (``save_to_storage`` queues SAVE_MEM then SAVE_DISK). Unlike the
+        reference, which drops a save that lands while a push is in
+        flight, the newest such save is pushed when that push ends: the
+        last image before a node is lost must reach its peers."""
+        if self._replica_manager is None:
+            return
+        with self._replica_lock:
+            if event.step <= self._last_replica_step:
+                return
+            if self._replica_inflight:
+                self._replica_pending = event
+                return
+            self._last_replica_step = event.step
+            self._replica_inflight = True
+        threading.Thread(target=self._push_loop, args=(event,),
+                         name="ckpt-replica-push", daemon=True).start()
+
+    def _push_loop(self, event: SaveEvent):
+        while event is not None:
+            t0 = time.monotonic()
+            try:
+                self._replica_manager.set_world(self._world_nodes)
+                n = self._replica_manager.push_node_image(
+                    event.local_world_size, locks=self._locks
+                )
+                if n:
+                    logger.info(
+                        "pushed %d shm segment replicas for step %d "
+                        "(%d bytes in %.3f s)", n, event.step,
+                        self._replica_manager.last_push_bytes,
+                        time.monotonic() - t0)
+            except Exception:
+                logger.exception("replica push failed")
+            with self._replica_lock:
+                event, self._replica_pending = self._replica_pending, None
+                if event is not None and (
+                        event.step <= self._last_replica_step):
+                    event = None
+                if event is None:
+                    self._replica_inflight = False
+                else:
+                    self._last_replica_step = event.step
 
     @staticmethod
     def _image_step(local_world_size: int) -> int:

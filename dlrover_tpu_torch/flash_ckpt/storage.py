@@ -10,8 +10,11 @@ Layout under ``checkpoint_dir``:
         .done/node-<rank>.done    # per-node completion markers
     latest_checkpointed_iteration.txt   # tracker, atomically replaced
 
-The reference's legacy ``proc-<pid>.npz`` writer and reader are not
-ported: the port writes and reads the raw format only.
+Read compat: step dirs written before the raw format carry
+``proc-<pid>.npz`` instead; :func:`open_proc_shards` falls back to a
+zip-backed reader for those, so old checkpoints (either package's) stay
+restorable. ``persist_node_shards(..., fmt=NPZ_FORMAT)`` still writes
+that legacy layout, for compat tests and A/B runs.
 """
 
 import contextlib
@@ -22,6 +25,8 @@ from abc import ABC, abstractmethod
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+import numpy as np
+
 from dlrover_tpu_torch.common.constants import CheckpointConstant
 from dlrover_tpu_torch.common.env_utils import get_env_int
 from dlrover_tpu_torch.common.log import logger
@@ -31,6 +36,9 @@ from dlrover_tpu_torch.flash_ckpt.raw_format import (
     RawShardReader,
     write_raw_shards,
 )
+
+RAW_FORMAT = "raw"
+NPZ_FORMAT = "npz"
 
 
 def io_threads(n_tasks: int) -> int:
@@ -174,23 +182,33 @@ def _tear_file(path: str, nbytes: int):
     )
 
 
-def _persist_one_proc(sdir: str, step: int, process_id: int, payload: dict):
+def _persist_one_proc(sdir: str, step: int, process_id: int, payload: dict,
+                      fmt: str = RAW_FORMAT):
     """Write one process's shard + meta files (tmp + rename, one fsync
     per file). Runs on a persist-pool thread."""
     fault_point("ckpt.persist.proc_file", step=step, process_id=process_id)
-    raw_tmp = os.path.join(sdir, f".proc-{process_id}{RAW_SUFFIX}.tmp")
     meta = payload.get("meta")
-    bounds = payload.get("shard_bounds") or _bounds_from_meta(meta)
-    write_raw_shards(raw_tmp, step, process_id, payload["arrays"], bounds,
-                     dtypes=_dtypes_from_meta(meta))
-    raw_final = os.path.join(sdir, f"proc-{process_id}{RAW_SUFFIX}")
-    os.replace(raw_tmp, raw_final)
-    directive = fault_point(
-        "ckpt.persist.torn_write",
-        step=step, process_id=process_id, path=raw_final,
-    )
-    if directive and directive.get("action") == FaultAction.TRUNCATE:
-        _tear_file(raw_final, directive.get("truncate_bytes", 64))
+    if fmt == NPZ_FORMAT:
+        # Legacy writer: kept for the A/B bench and compat tests only.
+        npz_tmp = os.path.join(sdir, f".proc-{process_id}.npz.tmp")
+        with open(npz_tmp, "wb") as f:
+            np.savez(f, **payload["arrays"])
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(npz_tmp, os.path.join(sdir, f"proc-{process_id}.npz"))
+    else:
+        raw_tmp = os.path.join(sdir, f".proc-{process_id}{RAW_SUFFIX}.tmp")
+        bounds = payload.get("shard_bounds") or _bounds_from_meta(meta)
+        write_raw_shards(raw_tmp, step, process_id, payload["arrays"],
+                         bounds, dtypes=_dtypes_from_meta(meta))
+        raw_final = os.path.join(sdir, f"proc-{process_id}{RAW_SUFFIX}")
+        os.replace(raw_tmp, raw_final)
+        directive = fault_point(
+            "ckpt.persist.torn_write",
+            step=step, process_id=process_id, path=raw_final,
+        )
+        if directive and directive.get("action") == FaultAction.TRUNCATE:
+            _tear_file(raw_final, directive.get("truncate_bytes", 64))
     meta_tmp = os.path.join(sdir, f".proc-{process_id}.meta.tmp")
     with open(meta_tmp, "wb") as f:
         pickle.dump(meta, f)
@@ -227,6 +245,7 @@ def persist_node_shards(
     step: int,
     node_rank: int,
     proc_payloads: Dict[int, dict],
+    fmt: str = RAW_FORMAT,
 ):
     """Write one node's processes' shard files + its done marker.
 
@@ -245,7 +264,9 @@ def persist_node_shards(
             thread_name_prefix="ckpt-persist",
         ) as pool:
             futures = [
-                pool.submit(_persist_one_proc, sdir, step, pid, payload)
+                pool.submit(
+                    _persist_one_proc, sdir, step, pid, payload, fmt
+                )
                 for pid, payload in proc_payloads.items()
             ]
             for fut in futures:
@@ -294,17 +315,99 @@ def load_step_meta(checkpoint_dir: str, step: int) -> Dict[int, dict]:
     return metas
 
 
-def open_proc_shards(checkpoint_dir: str, step: int, process_id: int):
-    """Open one process's raw shard file for ``step``; None if absent.
+class NpzShardReader:
+    """Read-compat adapter over a legacy ``proc-<pid>.npz`` step file,
+    presenting the same surface as :class:`RawShardReader`. The zip
+    container has no checksums and no sub-range reads: ``read_slice``
+    inflates the full shard and slices (correct, just not partial-I/O).
+    """
 
+    step = -1  # the zip carries no step stamp; the dir name does
+    process_id = -1
+
+    def __init__(self, path: str):
+        import threading
+
+        self.path = path
+        self._npz = np.load(path, allow_pickle=False)
+        # NpzFile shares one zip file handle; concurrent reads from the
+        # restore pool would interleave seeks.
+        self._read_lock = threading.Lock()
+        # Partial restore makes one read PER INTERSECTING REGION; the
+        # zip can only inflate whole members, so cache each inflated
+        # member or an N-region leaf costs N full decompressions (all
+        # serialized under the lock). Dropped on close.
+        self._cache: dict = {}
+        self.bytes_read = 0
+
+    def keys(self):
+        return self._npz.files
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._npz.files
+
+    def _member(self, key: str) -> np.ndarray:
+        with self._read_lock:
+            arr = self._cache.get(key)
+            if arr is None:
+                arr = self._npz[key]  # zipfile crc-checks the inflate
+                if arr.dtype.kind == "V" and arr.dtype.itemsize in (1, 2):
+                    # A dtype numpy lacks (the reference's ml_dtypes
+                    # bfloat16) loads as raw void: its bits, as the
+                    # port stores bf16 (``shm_handler.storage_dtype``).
+                    arr = arr.view(f"u{arr.dtype.itemsize}")
+                self._cache[key] = arr
+            return arr
+
+    def bounds(self, key: str):
+        """The zip stores no shard bounds: the meta file's govern."""
+        return None
+
+    def get(self, key: str, verify: bool = True) -> np.ndarray:
+        arr = self._member(key)
+        self.bytes_read += arr.nbytes
+        return arr
+
+    def read_slice(self, key: str, slices) -> np.ndarray:
+        out = np.ascontiguousarray(self._member(key)[slices])
+        self.bytes_read += out.nbytes
+        return out
+
+    def read_slice_into(self, key: str, slices, dest: np.ndarray,
+                        verify: bool = False):
+        # ``verify`` is moot here: zipfile already crc-checks every
+        # member as it inflates.
+        src = self._member(key)
+        if slices:
+            src = src[slices]
+        np.copyto(dest, src)
+        self.bytes_read += dest.nbytes
+
+    def close(self):
+        self._cache.clear()
+        self._npz.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def open_proc_shards(checkpoint_dir: str, step: int, process_id: int):
+    """Open one process's shard file for ``step``; None if absent.
+
+    Prefers the raw v1 format; falls back to the legacy ``.npz`` layout.
     The returned reader owns a file handle / mmap — close it (it is a
     context manager) or the mapping lives until GC.
     """
-    raw_path = os.path.join(
-        step_dir(checkpoint_dir, step), f"proc-{process_id}{RAW_SUFFIX}"
-    )
+    base = os.path.join(step_dir(checkpoint_dir, step), f"proc-{process_id}")
+    raw_path = base + RAW_SUFFIX
     if os.path.exists(raw_path):
         return RawShardReader(raw_path)
+    npz_path = base + ".npz"
+    if os.path.exists(npz_path):
+        return NpzShardReader(npz_path)
     return None
 
 

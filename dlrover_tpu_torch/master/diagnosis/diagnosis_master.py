@@ -18,6 +18,7 @@ from dlrover_tpu_torch.common.constants import PreCheckStatus
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.diagnosis.diagnosis_data import (
     DiagnosisData,
+    DiagnosisDataType,
     build_diagnosis_data,
 )
 from dlrover_tpu_torch.diagnosis.diagnosis_manager import DiagnosisManager
@@ -98,6 +99,16 @@ class DiagnosisMaster:
             return
         with self._lock:
             self._node_data[data.node_id].append(data)
+        if data.data_type in (DiagnosisDataType.STACK_DUMP,
+                              DiagnosisDataType.FLIGHT_RECORDER):
+            # A dead or wedged worker's post-mortem: one line each, so
+            # the master's log shows what reached it.
+            payload = report.payload or {}
+            logger.info(
+                "received %s diagnosis data from node %d (pid %s, dumped "
+                "at %s, reason %r, %d steps)", data.data_type,
+                data.node_id, payload.get("pid"), payload.get("dumped_at"),
+                payload.get("reason", ""), len(payload.get("steps", [])))
 
     def node_data(self, node_id: int) -> List[DiagnosisData]:
         with self._lock:

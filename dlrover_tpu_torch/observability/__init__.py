@@ -1,2 +1,3 @@
 """Observability of the port: the metrics registry, the flight
-recorder's event ring and the span layer (``tracing``)."""
+recorder (its event ring and crash and on-demand dumps), the hang
+watchdog and the span layer (``tracing``)."""

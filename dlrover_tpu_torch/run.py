@@ -18,12 +18,15 @@ Usage:
 port's probe on the card) before the workers start, and exits 3 without
 starting them if this node fails it. With ``DLROVER_TPU_MASTER_JOURNAL``
 set, the local master keeps its durable journal there and a restarted
-master comes back from it. Launcher switches whose paths are
-not ported yet raise ``NotImplementedError`` naming their ROADMAP §A
-item: ``--ckpt_replica_group`` above 1 (item 2) and
-``DLROVER_TPU_TIMER`` (item 7). The launcher leaves the checkpoint
-saver's shared-memory segments behind when it exits, as the
-reference's does: whoever owns the job's name unlinks them.
+master comes back from it. ``--ckpt_replica_group N`` (N > 1) starts
+the checkpoint replica service (``flash_ckpt/replica.py``): the saver
+pushes each shm image to the node's group peers, and a relaunched node
+pulls its missing segments back from a peer before its workers start,
+so they restore from memory; without a replica token it runs without
+replicas. ``DLROVER_TPU_TIMER`` is not ported yet and raises
+``NotImplementedError`` naming ROADMAP §A item 7. The launcher leaves
+the checkpoint saver's shared-memory segments behind when it exits, as
+the reference's does: whoever owns the job's name unlinks them.
 """
 
 import argparse
@@ -185,16 +188,70 @@ def _merge_master_config(client: MasterClient, args):
 def _refuse_unported(args):
     """The launcher's switches whose paths are not ported yet fail
     before anything starts, naming their ROADMAP §A item."""
-    if args.ckpt_replica_group > 1:
-        raise NotImplementedError(
-            "--ckpt_replica_group > 1 needs flash_ckpt/replica.py, not "
-            "ported yet: ROADMAP §A item 2"
-        )
     if get_env_bool("DLROVER_TPU_TIMER"):
         raise NotImplementedError(
             "DLROVER_TPU_TIMER needs the tpu_timer daemons and their "
             "collectors, not ported yet: ROADMAP §A item 7"
         )
+
+
+def _start_replica_manager(args, client: MasterClient, node_rank: int,
+                           max_nodes: int):
+    """The checkpoint replica service for ``--ckpt_replica_group`` above
+    1 (reference run.py:263-303), or None: without a replica token the
+    node runs without replicas. A relaunched node pulls its missing shm
+    segments from a peer before any worker starts."""
+    if args.ckpt_replica_group <= 1:
+        return None
+    from dlrover_tpu_torch.common.env_utils import get_hostname_ip
+    from dlrover_tpu_torch.flash_ckpt.replica import (
+        CkptReplicaManager,
+        ReplicaTokenUnavailable,
+    )
+
+    try:
+        replica_manager = CkptReplicaManager(
+            node_rank=node_rank,
+            master_client=client,
+            group_size=args.ckpt_replica_group,
+        )
+    except ReplicaTokenUnavailable:
+        logger.error(
+            "no replica auth token available; running WITHOUT "
+            "cross-host checkpoint replicas"
+        )
+        return None
+    # Publish a routable address, not loopback: peers resolve it from
+    # the master KV store.
+    replica_manager.start(advertise_host=get_hostname_ip()[1])
+    try:
+        # Ask every possible rank: the push-time grouping used the
+        # rendezvous world, which this fresh node cannot reconstruct.
+        t0 = time.monotonic()
+        restored = replica_manager.restore_missing_segments(
+            args.nproc_per_node,
+            candidate_ranks=list(range(max_nodes)),
+        )
+        seconds = time.monotonic() - t0
+        missing = replica_manager.last_pull_missing
+        if restored:
+            logger.info(
+                "restored %d shm checkpoint segments from peers (%d bytes "
+                "in %.3f s)", restored, replica_manager.last_pull_bytes,
+                seconds,
+            )
+        if missing > restored:
+            logger.warning(
+                "%d shm checkpoint segments missing and on no peer; the "
+                "workers restore from storage if it holds a step",
+                missing - restored,
+            )
+    except Exception:
+        logger.warning(
+            "replica pull failed; storage restore will be used",
+            exc_info=True,
+        )
+    return replica_manager
 
 
 def _stop_master(master_proc: Optional[subprocess.Popen],
@@ -328,7 +385,12 @@ def run(args) -> int:
     )
     from dlrover_tpu_torch.flash_ckpt.saver import AsyncCheckpointSaver
 
-    saver = AsyncCheckpointSaver.start_async_saving_ckpt(client=client)
+    replica_manager = _start_replica_manager(
+        args, client, node_rank, max_nodes
+    )
+    saver = AsyncCheckpointSaver.start_async_saving_ckpt(
+        client=client, replica_manager=replica_manager
+    )
     agent = ElasticAgent(
         spec, client, ckpt_saver=saver, diagnosis_agent=diagnosis_agent
     )
@@ -353,6 +415,8 @@ def run(args) -> int:
     # sockets down before exiting; its shm segments stay.
     agent.wait_breakpoint_save()
     saver.stop()
+    if replica_manager is not None:
+        replica_manager.stop()
     monitor.stop()
     if training_monitor is not None:
         training_monitor.poll_once()  # flush the final steps

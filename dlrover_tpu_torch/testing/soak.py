@@ -34,10 +34,9 @@ the serving scenario runs the port's ``ServingEngine`` there: the
 reference's ``tiny_config()`` unless ``SoakConfig.serving_model`` names
 another model config (``chip_smoke.py`` passes the flagship's width).
 Each report of a serving episode also carries the engine's
-``call_counts`` (``serving``). The port keeps the flight recorder's ring
-alone, so a worker SIGTERMed by the watchdog leaves no dump. Two
-episode kinds wait for their harnesses and raise ``NotImplementedError``
-naming their ROADMAP §A item: the fleet kinds (``replica_kill_reroute``,
+``call_counts`` (``serving``). Two episode kinds wait for their
+harnesses and raise ``NotImplementedError`` naming their ROADMAP §A
+item: the fleet kinds (``replica_kill_reroute``,
 ``kill_during_migration``: ``testing/fleet_soak.py``, item 7) and
 ``straggler_evict`` (the autoscaler, item 4).
 """

@@ -205,7 +205,8 @@ def main(argv=None) -> int:
     from dlrover_tpu_torch.observability import flight_recorder
 
     flight_recorder.install_recorder(
-        meta={"soak_generation": args.generation, "node_rank": args.node_id},
+        node_rank=args.node_id, local_rank=0,
+        meta={"soak_generation": args.generation},
     )
 
     from dlrover_tpu_torch.agent.master_client import MasterClient

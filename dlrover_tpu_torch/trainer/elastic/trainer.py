@@ -5,8 +5,8 @@ are alive: the global batch is ``micro_batch_per_device x dp_size x
 grad_accum``, and on a re-scale the trainer recomputes grad_accum for
 the new dp size (the caller rebuilds its step with it).
 
-Master reporting runs only when a client is passed; the reference's
-hang-watchdog beacon has no counterpart in the port yet.
+Master reporting runs only when a client is passed. Each completed step
+beats the process's hang watchdog when one is installed.
 """
 
 import time
@@ -150,6 +150,15 @@ class ElasticTrainer:
             step_time_s * max(steps, 1),
             data_wait_s, allreduce_wait_s, ckpt_block_s,
         )
+        # Progress beacon for the rolling-deadline hang watchdog: one
+        # global check when none is installed.
+        from dlrover_tpu_torch.observability.hang_watchdog import (
+            active_watchdog,
+        )
+
+        watchdog = active_watchdog()
+        if watchdog is not None:
+            watchdog.beat()
         self._last_step_ts = now
         if (
             self._client is not None

@@ -10,12 +10,14 @@ skips ``torch.distributed``, as the reference skips
 ``world_mesh`` lays the live world out as a mesh, as the reference's
 worker builds ``MeshConfig(dp=n_devices)``.
 
-Tracing (``DLROVER_TPU_TRACE_FILE``) and the flight recorder are armed
-from the port's own copies, and SIGUSR2 dumps every thread's Python
-stack to stderr (the agent's post-mortem stop sends it; without the
-handler its default action would kill the worker without a dump). The
-reference's hang watchdog and tpu_timer daemon have no counterpart in
-the port yet.
+SIGUSR2 dumps every thread's Python stack to stderr (the agent's
+post-mortem stop sends it; without the handler its default action would
+kill the worker without a dump). Then, in the reference's order, the
+flight recorder is armed (its ring dumped to the agent-collectable path
+on SIGTERM, an unhandled exception and exit, and with every stack on
+SIGUSR1), tracing (``DLROVER_TPU_TRACE_FILE``), and the hang watchdog
+(``DLROVER_TPU_HANG_DEADLINE_S``). The reference's tpu_timer daemon has
+no counterpart in the port yet.
 """
 
 import faulthandler
@@ -97,6 +99,7 @@ def init_distributed(timeout_secs: int = 300,
     install_stack_dump_handler()
     _setup_flight_recorder(ctx)
     _setup_tracing(ctx)
+    _setup_hang_watchdog(ctx)
     _context = ctx
     return ctx
 
@@ -130,19 +133,54 @@ def _setup_tracing(ctx: DistributedContext):
     logger.info("tracing armed -> %s", path)
 
 
-def _setup_flight_recorder(ctx: DistributedContext):
-    """The per-step ring of host-side records (never on the device
-    path), stamped with where this worker sits in the world."""
-    from dlrover_tpu_torch.observability import flight_recorder
+def _setup_hang_watchdog(ctx: DistributedContext):
+    """Arm the rolling-deadline hang watchdog (on by default: a wedged
+    worker that stops beating past ``max(DLROVER_TPU_HANG_DEADLINE_S,
+    factor x EWMA(step gap))`` dumps all-thread stacks to the
+    agent-collectable path). ``DLROVER_TPU_HANG_DEADLINE_S=0`` disables;
+    the default 300s floor keeps slow first steps quiet."""
+    try:
+        from dlrover_tpu_torch.observability import hang_watchdog
 
-    flight_recorder.install_recorder(meta={
-        "node_rank": int(os.getenv(NodeEnv.NODE_RANK, "0")),
-        "local_rank": ctx.local_rank,
-        "process_id": ctx.process_id,
-        "num_processes": ctx.num_processes,
-        "restart_count": ctx.restart_count,
-        "rdzv_round": ctx.rdzv_round,
-    })
+        raw = os.getenv("DLROVER_TPU_HANG_DEADLINE_S", "300")
+        try:
+            floor_s = float(raw)
+        except ValueError:
+            floor_s = 300.0
+        if floor_s <= 0:
+            return
+        node_rank = int(os.getenv(NodeEnv.NODE_RANK, "0"))
+        hang_watchdog.install_watchdog(
+            node_rank=node_rank,
+            local_rank=ctx.local_rank,
+            min_deadline_s=floor_s,
+            meta={"process_id": ctx.process_id},
+        )
+    except Exception:
+        logger.warning("hang watchdog unavailable", exc_info=True)
+
+
+def _setup_flight_recorder(ctx: DistributedContext):
+    """Arm the per-step flight recorder: a host-side ring (never on the
+    device path) dumped as JSON on crash/SIGTERM at a path the agent can
+    reconstruct from (node_rank, local_rank), so the last N steps of a
+    dead worker survive for diagnosis."""
+    try:
+        from dlrover_tpu_torch.observability import flight_recorder
+
+        node_rank = int(os.getenv(NodeEnv.NODE_RANK, "0"))
+        flight_recorder.install_recorder(
+            node_rank=node_rank,
+            local_rank=ctx.local_rank,
+            meta={
+                "process_id": ctx.process_id,
+                "num_processes": ctx.num_processes,
+                "restart_count": ctx.restart_count,
+                "rdzv_round": ctx.rdzv_round,
+            },
+        )
+    except Exception:
+        logger.warning("flight recorder unavailable", exc_info=True)
 
 
 def world_mesh(mesh: str = "", device: str = "cuda"):

@@ -16,9 +16,13 @@ and a dead standby falls back to a cold spawn. The node check
 CPU worlds, the reference's ``tests/test_node_check.py``): two healthy
 nodes, a rigged node isolated and marked broken, a straggler flagged.
 The switches of the reference's agent the port does not carry yet
-raise; a journaled local master comes back from its journal.
+raise; a journaled local master comes back from its journal. A worker
+held past its hang deadline, then SIGTERMed: the agent reports its hang
+watchdog's stack dump and its flight recorder's crash dump to the master,
+for that incarnation only.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import json
 import os
 import signal
@@ -433,6 +437,66 @@ def test_worker_dumps_stacks_on_sigusr2(tmp_path):
         proc.kill()
         _, err = proc.communicate(timeout=30)
     assert "Current thread" in err or "Thread 0x" in err
+
+
+HANG_WORKER = os.path.join(os.path.dirname(__file__), "workers",
+                           "torch_hang_worker.py")
+
+
+def test_hung_worker_post_mortem_reaches_the_master_once(
+        master, saver_client, tmp_path, monkeypatch):
+    """A worker held past a 1 s hang deadline writes its hang watchdog's
+    stack dump; SIGTERMed, it writes its flight recorder's crash dump.
+    The agent reports both to the master (``STACK_DUMP`` and
+    ``FLIGHT_RECORDER``) on that failure; the next incarnation dies
+    without a dump, and the agent reports nothing for it (the earlier
+    incarnation's files predate its start); the third exits 0."""
+    from dlrover_tpu_torch.diagnosis.diagnosis_data import DiagnosisDataType
+    from dlrover_tpu_torch.observability import hang_watchdog
+
+    monkeypatch.setenv("DLROVER_TPU_FLIGHT_DIR", str(tmp_path / "flight"))
+    monkeypatch.setenv("DLROVER_TPU_HANG_DEADLINE_S", "1")
+    client, saver = saver_client
+    out = str(tmp_path / "up.txt")
+    spec = WorkerSpec(entrypoint=HANG_WORKER, args=[out], nproc_per_node=1,
+                      max_restarts=3, node_rank=0, monitor_interval=0.2)
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    t, box = _run_in_thread(agent)
+    deadline = time.time() + 120
+    while not os.path.exists(out):
+        assert time.time() < deadline, "the worker never came up"
+        time.sleep(0.05)
+    pid = int(open(out).read().split()[0])
+    hang_path = hang_watchdog.hang_dump_path(0, 0)
+    while True:
+        try:
+            with open(hang_path) as f:
+                dump = json.load(f)
+        except (OSError, ValueError):
+            dump = {}
+        if dump.get("pid") == pid:
+            break
+        assert time.time() < deadline, "no hang dump of the held worker"
+        time.sleep(0.05)
+    os.kill(pid, signal.SIGTERM)
+    t.join(timeout=120)
+    assert box.get("result") == RunResult.SUCCEEDED
+    ups = [line.split() for line in open(out)]
+    assert [int(r) for _, r in ups] == [0, 1, 2]
+    data = master.diagnosis_master.node_data(0)
+    stacks = [d for d in data if d.data_type == DiagnosisDataType.STACK_DUMP]
+    flights = [d for d in data
+               if d.data_type == DiagnosisDataType.FLIGHT_RECORDER]
+    assert len(stacks) == 1 and len(flights) == 1, data
+    assert stacks[0].reason == "hang:train" and stacks[0].hang_for_s > 1.0
+    assert stacks[0].meta == {"process_id": 0, "node_rank": 0,
+                              "local_rank": 0}
+    main = [s for k, s in stacks[0].stacks.items()
+            if k.startswith("MainThread")][0]
+    assert any("torch_hang_worker.py" in fr and fr.endswith(" main")
+               for fr in main)
+    assert flights[0].local_rank == 0
+    assert [r["step"] for r in flights[0].steps] == [1, 2, 3]
 
 
 def test_breakpoint_save_and_saver_loop_persist_one_at_a_time(

@@ -5,6 +5,7 @@ scales; tolerance 2e-5 (f32 sums in another order: the reference kernel
 sweeps 16-row blocks with an online softmax, the port's plain version
 takes one softmax over all rows)."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

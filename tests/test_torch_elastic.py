@@ -19,6 +19,7 @@
   an uninterrupted run's bit for bit.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 import json
 import os
@@ -303,7 +304,10 @@ def test_killed_worker_replays_bitwise(monkeypatch):
     config under the port's launcher, killed after step 5 (the agent's
     restart restores it from memory) and after step 8 with its segment
     unlinked (restored from storage), ends bitwise equal to an
-    uninterrupted run; the phase's gates raise otherwise."""
+    uninterrupted run beside it; each held worker writes a hang dump
+    (its watchdog), which the master receives through the agent, and an
+    on-demand flight dump (SIGUSR1); the uninterrupted run writes no
+    hang dump; the phase's gates raise otherwise."""
     monkeypatch.syspath_prepend(str(REPO))
     import chip_smoke
 

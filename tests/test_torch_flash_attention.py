@@ -9,6 +9,7 @@ outputs within 2e-2 absolute at |out| < 4 and bf16 gradients within
 summed in another order, so a few elements round one bf16 ulp apart.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,7 @@ names derive from them) and unlinks its segments, so the tests run in
 parallel workers and leave nothing in ``/dev/shm``.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import os
 import pickle
 import threading

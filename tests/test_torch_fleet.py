@@ -19,6 +19,7 @@
   mid-decode, every request completed exactly once.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 import json
 import time

@@ -12,6 +12,7 @@ rounding (see the bf16 tests), a tolerance that logits rounded to bf16
 fail.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ decode-attention kernel (interpret mode on the CPU), the route the port
 takes. Under its default append-free step an int8 cache would attend to
 the new token's own K/V unquantized, which the port never does."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

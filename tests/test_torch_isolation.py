@@ -16,6 +16,7 @@ and a warm standby; in the chaos soak's master, which also loads no
 the port's sources, the ``tools/torch_*.py`` scripts and
 ``chip_smoke.py``."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import ast
 import json
 import os
@@ -629,3 +630,70 @@ def test_master_kill_processes_load_no_jax_and_the_master_no_torch(
     assert len(masters) == 1 and len(workers) == 1, reports
     assert masters[0]["torch"] is False
     assert all(r["leaked"] == [] for r in reports), reports
+
+
+def test_scan_covers_the_replica_and_observability_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
+    assert {"flash_ckpt/replica.py", "observability/hang_watchdog.py",
+            "observability/flight_recorder.py",
+            "testing/replica_worker.py"} <= scanned
+
+
+_REPLICA_CHILD = r"""
+import json, os, signal, sys
+import torch
+from dlrover_tpu_torch.trainer.runtime import init_distributed
+init_distributed(device="cpu")
+from dlrover_tpu_torch.flash_ckpt.engine import shm_segment_name
+from dlrover_tpu_torch.flash_ckpt.replica import (
+    CkptReplicaManager, snapshot_segment)
+from dlrover_tpu_torch.flash_ckpt.shm_handler import SharedMemoryHandler
+from dlrover_tpu_torch.observability import flight_recorder, hang_watchdog
+name = shm_segment_name(0)
+SharedMemoryHandler(name).save_state_dict(3, {"w": torch.ones(8)})
+m0 = CkptReplicaManager(node_rank=0, group_size=2)
+m1 = CkptReplicaManager(node_rank=1, group_size=2)
+m0._addr_map = m1._addr_map = {0: f"127.0.0.1:{m0.port}",
+                               1: f"127.0.0.1:{m1.port}"}
+for m in (m0, m1):
+    m.start()
+    m.set_world([0, 1])
+before = snapshot_segment(name)
+pushed = m0.push_node_image(1)
+SharedMemoryHandler(name).unlink()
+pulled = m0.restore_missing_segments(1)
+same = snapshot_segment(name) == before
+SharedMemoryHandler(name).unlink()
+m0.stop(); m1.stop()
+wd = hang_watchdog.active_watchdog()
+wd.beat(now=0.0)
+fired = wd.check(now=10.0)
+os.kill(os.getpid(), signal.SIGUSR1)
+rec = flight_recorder.active_recorder()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu"))
+print(json.dumps({"pushed": pushed, "pulled": pulled, "same": same,
+                  "fired": fired, "on_demand": os.path.exists(
+                      rec.on_demand_path()), "leaked": leaked}))
+"""
+
+
+def test_replica_and_watchdog_paths_load_no_jax(tmp_path):
+    """The replica push and pull, the hang watchdog and the flight
+    recorder's dumps, in a worker runtime on the CPU: nothing of JAX or
+    the JAX package is loaded."""
+    import uuid
+
+    job = f"isorep{uuid.uuid4().hex[:10]}"
+    env = dict(os.environ, PYTHONPATH=str(REPO), DLROVER_TPU_JOB_NAME=job,
+               DLROVER_TPU_REPLICA_TOKEN="t", DLROVER_TPU_HANG_DEADLINE_S="1",
+               DLROVER_TPU_FLIGHT_DIR=str(tmp_path / "flight"))
+    proc = subprocess.run([sys.executable, "-c", _REPLICA_CHILD], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"pushed": 1, "pulled": 1, "same": True,
+                      "fired": str(tmp_path / "flight" /
+                                   "hang_node0_rank0.json"),
+                      "on_demand": True, "leaked": []}

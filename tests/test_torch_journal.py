@@ -21,6 +21,7 @@ journal and port, and the lease whose reply died is handed out exactly
 once more.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 import importlib
 import json

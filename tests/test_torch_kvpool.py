@@ -28,6 +28,7 @@ Two things differ from the reference on purpose, and the tests say so:
   counterpart here.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

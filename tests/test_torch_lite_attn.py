@@ -8,6 +8,7 @@ the port's own escape (a flash attention function without
 the backward (x, out and lse, not q/k/v); and that the flash forward
 runs once a layer a step (its plain version counted on the CPU)."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 
 import jax

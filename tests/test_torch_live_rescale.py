@@ -18,6 +18,7 @@ runs under the schedules the reference's chaos soak builds for seed 0
 reference's on the same values.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import copy
 import dataclasses
 import os

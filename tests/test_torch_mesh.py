@@ -9,6 +9,7 @@ same device. (Rank r sits at the row-major coordinate of r, as
 ``init_device_mesh`` lays out ``arange(world)``; the gloo worlds of
 ``test_torch_sharded_train.py`` check it on a live mesh.)"""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 import types
 

@@ -18,6 +18,7 @@ on ``tiny_config`` (f32), ``device="cpu"``.
   ``admit_decode`` errors, the migrate span between prefill and decode.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import ml_dtypes
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ bf16 logits within 0.1 absolute at |logits| < 4, where one bf16 ulp is
 1/64: both frameworks round every matmul output and the residual stream
 to bf16, at slightly different places."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 
 import numpy as np

@@ -10,6 +10,7 @@ Tolerances (f32): outputs and every gradient within 1e-5 + 1e-4 * |ref|
 rtol 1e-6; ``dropped_fraction`` exactly equal (it counts tokens).
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ away, and that step can pass through the next product: within 2e-2 *
 |ref| + 2e-2 * rms(ref).
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

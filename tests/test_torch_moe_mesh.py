@@ -19,6 +19,7 @@ over as many of its 8 virtual CPU devices (f32, the same numpy inputs).
 Each world runs in its own subprocesses with a timeout (``run_world``).
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 import math
 

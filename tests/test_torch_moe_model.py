@@ -18,6 +18,7 @@ pool, and with an int8 pool tokens within the 0.2 logit distance
 ``tests/test_torch_kvpool.py`` pins; spec on gives spec off's tokens.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 
 import numpy as np

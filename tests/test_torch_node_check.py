@@ -5,6 +5,7 @@ per local rank with the agent's env and reads each result file): a
 parses; the fail variable leaves no file; the slow variable adds its
 seconds."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import os
 import socket
 import tempfile

@@ -2,6 +2,7 @@
 same numpy inputs through both, f32, tolerance 1e-5 (the two frameworks
 reduce in different orders; the ops are otherwise the same math)."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@ bf16 inputs within 1e-2 (both round one f32 result to bf16, and the
 reference kernel also rounds its probabilities to bf16 before p.v).
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,7 @@ layout of the layer params, against the JAX package.
   micro-batch (its plain version counted on the CPU).
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 import types
 

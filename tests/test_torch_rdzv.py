@@ -7,6 +7,7 @@ the two transcripts of what the managers answered must be equal, and
 the reference test's own assertions hold on the port's.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import importlib
 import math
 import time

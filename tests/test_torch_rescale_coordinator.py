@@ -12,6 +12,7 @@ bounded barrier expiry with self-healing re-plans, and the servicer
 round trip including the plan-broadcast fault point) run on the port's
 coordinator, servicer and local master."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 

@@ -12,6 +12,7 @@
 - A shard whose bounds moved by one row is refused.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import os
 import pickle
 import shutil

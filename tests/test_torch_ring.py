@@ -15,6 +15,7 @@ and a 5-step trajectory on (dp=2, sp=2) against JAX's
 ``make_train_step`` (which picks ring attention on an sp mesh).
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import math
 
 import jax

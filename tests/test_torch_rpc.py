@@ -14,6 +14,7 @@ transcript. Also here: the restricted unpickler admits the wire's
 classes and nothing else, and the HTTP stub keeps its connection.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import json
 import os
 import pickle

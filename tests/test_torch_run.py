@@ -13,9 +13,15 @@ the agent's env reads back through the worker's ``read_worker_env``;
 ``--network-check`` probes the node before the worker trains, and a
 failed probe starts no worker; the master CLI wires a batch config; with
 ``DLROVER_TPU_MASTER_JOURNAL`` set the launcher's master journals the
-job; and the launcher switches whose paths are not ported raise.
+job; the launcher switches whose paths are not ported raise. Two
+launchers of one two-node world with ``--ckpt_replica_group 2``
+(``chip_smoke.phase_replica_restore`` at the tiny config): node 1, lost
+with its segment, restores from node 0's replica of it (from memory,
+the same bytes), and with node 0's replica port unreachable it restores
+from storage.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import json
 import os
 import re
@@ -212,7 +218,6 @@ def test_worker_env_round_trips_through_read_worker_env(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, env, item", [
-    (["--ckpt_replica_group", "2"], {}, "item 2"),
     ([], {"DLROVER_TPU_TIMER": "1"}, "item 7"),
 ])
 def test_launcher_refuses_unported_switches(monkeypatch, argv, env, item):
@@ -394,3 +399,18 @@ def test_launcher_runs_a_journaled_master(tmp_path):
         assert state.kinds["rdzv"] >= 1 and state.kinds["kv_set"] >= 1
         epochs.append(state.master_epoch)
     assert epochs == [1, 2]
+
+
+def test_lost_node_restores_from_its_peers_replica(monkeypatch):
+    """``python -m dlrover_tpu_torch.run --nnodes 2 --ckpt_replica_group
+    2`` on the CPU: the card phase at the tiny config, every gate of it
+    (the pulled segment's bytes are the lost one's, the relaunch restores
+    the kill step from memory bit for bit, the control falls back to
+    storage and says so, both launchers exit 0, nothing is left)."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    launches = chip_smoke.phase_replica_restore(device="cpu",
+                                                config="tiny")
+    assert launches == {"flash_forward": 0, "flash_backward_dq": 0,
+                        "flash_backward_dkv": 0}

@@ -9,6 +9,7 @@ and the metrics landing in the port's registry. JAX params (from
 ``params_from_numpy``; the oracle is the port's forward, which
 ``test_torch_model.py`` holds to the JAX forward."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ and the mesh case that still raises (the 2-process world too).
 
 The ranks run ``tests/workers/torch_mesh_worker.py`` (no JAX there)."""
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 import os
 import pickle

@@ -15,6 +15,7 @@ leases, the prefetching loader over the client, and ``stop`` waking a
 blocked fetch.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import importlib
 import json
 import random

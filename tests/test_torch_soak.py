@@ -21,6 +21,7 @@
   kill finds a job's worker by its environment.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import json
 import os
 import signal

@@ -29,6 +29,7 @@ prompt drafts nothing and would pass vacuously); it chooses no data
 around a defect, and the engine tests assert that drafts were proposed.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import numpy as np
 import pytest
 import torch

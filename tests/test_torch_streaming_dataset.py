@@ -13,6 +13,7 @@ package's checkpoint restores in the other's manager to the same next
 tasks.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import importlib
 import json
 import random

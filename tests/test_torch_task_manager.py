@@ -10,6 +10,7 @@ process. The two transcripts must be equal (the shuffles draw from
 assertions hold on the port's.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import importlib
 import json
 import random

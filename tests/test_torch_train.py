@@ -16,6 +16,7 @@ f32 sums cancel differently) still moves by up to lr in a direction that
 noise picks.
 """
 
+import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
 
 import numpy as np
