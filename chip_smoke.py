@@ -32,7 +32,12 @@ phases that each print JSON lines:
    kernels with falling loss,
    exact kernel launch counts and a second run from the same seed that
    gives the same losses; step time, tokens/s, model FLOP share, peak
-   memory and a profiled step;
+   memory and a profiled step: the port's per-op profile
+   (``tpu_timer/xla_capture.capture_op_profile``, one window), every
+   B1/B2 launch of the step bucketed under the model's ``attn`` scope
+   and the scope shares (attn, mlp, vocab, optimizer, other) summing to
+   1; then ``tpu_timer/analysis.matmul_analysis`` at 2048, 4096 and 8192,
+   TFLOP/s each at no more than 105% of the bf16 dense peak;
 7. fused CE kernels: B3 (forward) and B4 (dx, dw) against their plain
    versions at the CE A/B shape (n=16384, d=1024, V=32000, bf16), a
    ragged one (n=4100, V=32003) and a masked one (30% of the rows with
@@ -173,7 +178,10 @@ phases that each print JSON lines:
     incarnation of run B writes one hang dump naming the fault point's
     frame and, on SIGUSR1, one on-demand flight-recorder dump whose last
     step is its kill step; the master receives each hang dump through
-    the agent; run A writes none;
+    the agent; run A writes none. Seeing the hang dump, the agent
+    appends the held worker's native stacks (``tpu_timer/native_stack``,
+    ptrace; the host's ``ptrace_scope`` printed first) to its log, within
+    12 s;
 17. mesh_train: the sharded train step (``make_train_step(...,
     mesh=build_mesh(MeshConfig()))``, the state as DTensors) on a world
     of one over nccl at phase 6's shape (the flagship cut to MESH_LAYERS
@@ -224,10 +232,17 @@ phases that each print JSON lines:
     process tree) and a flipped CRC rejected. Plan-to-first-step and
     barrier seconds per rescale, restore bytes and seconds;
 25. agent_paths: the launcher's ``--network-check`` (the probe on the
-    card, then 2 training steps; a rigged probe starts no worker) and
-    the agent's warm standby (a crash through the fault schedule, the
-    relaunch the adopted standby on the card), with the crash to first
-    step against a cold relaunch;
+    card, then TIMER_STEPS training steps under ``DLROVER_TPU_TIMER=1``
+    and ``DLROVER_TPU_TIMER_XLA=1``; a rigged probe starts no worker):
+    after the first step the capture trigger; the worker's daemon serves
+    ``/metrics``, the launcher's collector forwards the gauges to the
+    master, and the timeline fetched through ``tpu_timer/dump.py`` holds
+    B1/B2's kernels; the capture window's seconds and the step time in
+    and out of it. Then the agent's warm standby (a crash through the
+    fault schedule, the relaunch the adopted standby on the card), with
+    the crash to first step against a cold relaunch; the capture
+    listener runs in every interpreter, host-only in a waiting standby,
+    which holds no CUDA context when adopted;
 26. chaos_soak: the seeded chaos soak (``testing/soak.run_soak``, seed 0,
     episodes ``crash_drop``, ``torn_ckpt`` and ``serving_report``), the
     master in this process and each worker generation's state (``sum``,
@@ -278,6 +293,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -393,14 +409,29 @@ def phase_build():
     (entry functions, registers, shared memory, spills)."""
     from dlrover_tpu_torch.ops import _ext
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dlrover_tpu_torch.tpu_timer import bridge, native_stack
+
+    def native():
+        t0 = time.monotonic()
+        bridge.library_path()
+        native_stack.ensure_built()
+        return time.monotonic() - t0
+
     t0 = time.monotonic()
-    per_source = _ext.build()
+    # The profiler's native runtime and stack sampler (g++) build beside
+    # the kernels, before any worker process would build them.
+    with ThreadPoolExecutor(1) as pool:
+        native_s = pool.submit(native)
+        per_source = _ext.build()
     ptxas = {s: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln
                  or "entry function" in ln or "C75" in ln]
              for s, log in _ext.build_logs.items()}
     emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "per_source_s": per_source, "ptxas": ptxas})
+          "per_source_s": per_source, "native_s": native_s.result(),
+          "ptxas": ptxas})
     return ptxas
 
 
@@ -1054,9 +1085,13 @@ def _device_profile(fn):
     # The profiler's raw events: ``prof.events()`` would first build the
     # tree of every host op (tens of seconds for a few hundred thousand
     # events), which only the device rows below would read.
+    # Kernels, copies and memsets only: the model's ``record_function``
+    # scopes also appear on the device's timeline (user annotations
+    # spanning the kernels they enclose) and would count twice.
     device = {}
     for evt in prof.profiler.kineto_results.events():
-        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+        if (evt.device_type() == torch.autograd.DeviceType.CUDA
+                and not evt.is_user_annotation()):
             n, ms = device.get(evt.name(), (0, 0.0))
             device[evt.name()] = (n + 1, ms + evt.duration_ns() / 1e6)
     return wall, device
@@ -2214,6 +2249,81 @@ def _check_step_gates(phase, one, fault):
               f"({one[fault][key]})")
 
 
+# The model's scopes (``record_function`` ranges, the reference's
+# ``jax.named_scope`` names) and the buckets of the JAX bench's
+# mfu_breakdown.
+SCOPE_BUCKETS = {"attn": ("attn",), "mlp": ("mlp",),
+                 "vocab": ("vocab", "lm_head"), "optimizer": ("optimizer",)}
+# B1/B2's kernels as the profiler names them, by their wrappers' counts.
+FLASH_KERNELS = {"flash_forward": "flash_fwd_kernel",
+                 "flash_backward_dq": "flash_dq_kernel",
+                 "flash_backward_dkv": "flash_dkv_kernel"}
+# The GEMM sweep (tpu_timer/analysis.matmul_analysis): square bf16 sizes.
+MATMUL_SIZES = (2048, 4096, 8192)
+
+
+def _scope_profile(cfg, fn):
+    """One flagship step under the port's per-op profile
+    (``xla_capture.capture_op_profile``, one window on this thread).
+    Gates: every B1/B2 launch of the step is a device row bucketed under
+    ``attn``, ``n_layers x TRAIN_GA`` of each kernel; the scope shares
+    sum to 1. Emits the kernel breakdown and the shares."""
+    from dlrover_tpu_torch.tpu_timer import xla_capture as xc
+
+    box = {}
+
+    def window():
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        box["wall"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    rows = xc.capture_op_profile(fn=window)
+    capture_s = time.monotonic() - t0
+    device = {}
+    for r in rows:
+        n, ms = device.get(r["name"], (0, 0.0))
+        device[r["name"]] = (n + 1, ms + r["dur_us"] / 1e3)
+    emit(_profile_row("train/step", box["wall"], device, kernel="flash",
+                      match="flash_", top_n=10))
+    shares = xc.bucket_by_scope(rows, SCOPE_BUCKETS)
+    flash = {}
+    for wrapper, kernel in FLASH_KERNELS.items():
+        mine = [r for r in rows if xc.base_name(r["name"]) == kernel]
+        flash[wrapper] = {
+            "rows": len(mine),
+            "outside_attn": [r["scope"] for r in mine
+                             if xc.bucket_by_scope([r], SCOPE_BUCKETS)
+                             .get("attn") != 1.0][:4]}
+    emit({"phase": "scope_profile", "run": "train/step",
+          "device_rows": len(rows), "capture_s": capture_s,
+          "step_wall_s": box["wall"], "shares": shares,
+          "shares_sum": sum(shares.values()), "flash": flash})
+    want = cfg.n_layers * TRAIN_GA
+    for wrapper, got in flash.items():
+        check(got["rows"] == want and not got["outside_attn"],
+              f"scope_profile: {wrapper} has {got['rows']} rows (want "
+              f"{want}), outside attn under {got['outside_attn']}")
+    check(set(shares) == set(SCOPE_BUCKETS) | {"other"}
+          and abs(sum(shares.values()) - 1.0) <= 1e-6,
+          f"scope_profile: shares {shares}")
+
+
+def _matmul_sweep():
+    """``tpu_timer/analysis.matmul_analysis`` at MATMUL_SIZES: TFLOP/s of
+    each, gated at no more than 105% of the card's bf16 dense peak."""
+    from dlrover_tpu_torch.tpu_timer import analysis
+
+    rows = analysis.matmul_analysis(list(MATMUL_SIZES), iters=50)
+    peak = PEAK_OPS_PER_S["bfloat16"] / 1e12
+    emit({"phase": "matmul_analysis", "peak_tflops": peak, "rows": rows})
+    for row in rows:
+        check(0 < row["tflops"] <= 1.05 * peak,
+              f"matmul_analysis: {row['size']}: {row['tflops']} TFLOP/s "
+              f"against a {peak} TFLOP/s peak")
+
+
 def phase_train(cfg):
     """The training main path: ``make_train_step`` -> ``loss_fn`` ->
     ``forward`` -> ``run_layer_stack`` with the flash kernels, on a
@@ -2281,12 +2391,11 @@ def phase_train(cfg):
         peak = torch.cuda.max_memory_allocated()
         runs.append((losses, norms, times, launches, peak))
         if run == 0:
-            # Where a step's time goes (profiling adds host time per op,
-            # so the busy share is a lower bound).
-            wall, device = _device_profile(
-                lambda: float(step(state, {"tokens": tokens})[1]["loss"]))
-            emit(_profile_row("train/step", wall, device, kernel="flash",
-                              match="flash_", top_n=10))
+            # Where a step's time goes, by kernel and by the model's
+            # scopes (profiling adds host time per op, so the busy share
+            # is a lower bound).
+            _scope_profile(cfg, lambda: float(
+                step(state, {"tokens": tokens})[1]["loss"]))
         del opt, state, step
         torch.cuda.empty_cache()
 
@@ -2321,6 +2430,7 @@ def phase_train(cfg):
         check(n == want, f"train: {name} launched {n} times, want {want}")
     check(rerun_rel <= 1e-6, f"train: a second run gave {runs[1][0]}, "
                              f"the first {losses}")
+    _matmul_sweep()
     return launches
 
 
@@ -3648,6 +3758,14 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
     cfg = (llama.flagship_config(n_layers=ELASTIC_LAYERS)
            if config == "flagship" else llama.tiny_config(n_layers=4))
     ga = 2
+    # The agent's native stacks ptrace the held workers: first what the
+    # host allows (1: only a tracer with CAP_SYS_PTRACE, or an ancestor).
+    try:
+        with open("/proc/sys/kernel/yama/ptrace_scope") as f:
+            ptrace_scope = f.read().strip()
+    except OSError:
+        ptrace_scope = "absent"
+    emit({"phase": "elastic_ckpt", "ptrace_scope": ptrace_scope})
     free_gib = None
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -3705,9 +3823,27 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
             check(time.monotonic() < deadline, f"elastic_ckpt: incarnation "
                   f"{i} (pid {pid}) wrote no on-demand dump")
             time.sleep(0.02)
+        t_demand = time.monotonic()
+        # The agent saw the hang dump and appends the worker's native
+        # stacks to its log (the launcher's stderr here) within the
+        # reference's 12 s bound.
+        sampled = re.compile(rf"native stacks of worker pid {pid}: (\d+) "
+                             r"threads in ([0-9.]+) s")
+        while not (found := sampled.findall(launcher.log())):
+            check(time.monotonic() < t_hang + 20, f"elastic_ckpt: no native "
+                  f"stacks of incarnation {i} (pid {pid}); ptrace_scope "
+                  f"{ptrace_scope}")
+            time.sleep(0.05)
+        frames = re.search(rf"Native thread {pid} \(most recent call "
+                           r"first\):\n((?:  #\d+ .*\n)+)", launcher.log())
         held.append({"inc": i, "pid": pid, "hang": hang, "on_demand": demand,
                      "hang_wait_s": t_hang - t0,
-                     "on_demand_s": time.monotonic() - t_hang,
+                     "on_demand_s": t_demand - t_hang,
+                     "native_threads": int(found[0][0]),
+                     "native_s": float(found[0][1]),
+                     "native_wait_s": time.monotonic() - t_hang,
+                     "native_main_thread": frames.group(1).splitlines()[:6]
+                     if frames else [],
                      "hang_path": hang_path})
 
     def fired_once(entry):
@@ -3968,12 +4104,20 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
                     f"{h['pid']}, dumped at {hang['dumped_at']},")
         check(received in b_log, f"{label}: the master did not receive "
                                   f"incarnation {h['inc']}'s hang dump")
+        check(h["native_threads"] >= 1 and h["native_s"] <= 12.0
+              and h["native_main_thread"],
+              f"{label}: incarnation {h['inc']}'s native stacks: "
+              f"{h['native_threads']} threads in {h['native_s']} s, main "
+              f"thread {h['native_main_thread']}")
         watchdog.append({
             "inc": h["inc"], "pid": h["pid"], "restart_count": restart_count,
             "hang_for_s": hang["hang_for_s"], "deadline_s": hang["deadline_s"],
             "beats": hang["beats"], "hang_wait_s": h["hang_wait_s"],
             "on_demand_s": h["on_demand_s"], "last_step": recorded[-1],
-            "main_thread_top": main_frames[-3:]})
+            "main_thread_top": main_frames[-3:],
+            "native_threads": h["native_threads"],
+            "native_s": h["native_s"], "native_wait_s": h["native_wait_s"],
+            "native_main_thread": h["native_main_thread"]})
     launches = {}
     for inc_steps in steps:
         n = len(inc_steps)
@@ -4044,6 +4188,7 @@ def phase_elastic_ckpt(device="cuda", config="flagship", micro=TRAIN_MICRO,
         "planted_fault_rejected": True, "launches": launches,
         "hang_deadline_floor_s": ELASTIC_HANG_DEADLINE_S,
         "watchdog": watchdog, "hang_dumps_run_a": len(hang_files_a),
+        "ptrace_scope": ptrace_scope,
         "master_received_hang_dumps": True,
     }
     emit(row)
@@ -4938,6 +5083,13 @@ RESCALE_VEC_LEN = 1 << 20
 # first two incarnations crash at (through its fault schedule).
 AGENT_STEPS, AGENT_CRASH_STEPS = 6, (3, 5)
 AGENT_TIMEOUT_S = 300.0
+# phase 25(b): the injected capture listener's interval in every
+# interpreter of the run (standbys and workers).
+STANDBY_CAPTURE_S = 2.0
+# phase 25: the most a capture window opened after the worker's first
+# step may wait for the profiler to start (a first window opened during
+# a process's start-up waited 10.1-11.2 s on the H100).
+CAPTURE_STARTUP_MAX_S = 2.0
 
 
 def _agent_worker_args(device, steps, ckpt_dir):
@@ -5102,9 +5254,168 @@ class _LogTail:
         return out
 
 
+# phase 25(a): the timed run's steps (a capture window's worth and
+# more: the worker's steps run on through the window), the listener's
+# window, and the most this process waits for the launcher's collector
+# (a scrape every 30 s) to forward one taken after the capture.
+TIMER_STEPS, TIMER_WINDOW_S, TIMER_FORWARD_S = 40, 0.5, 75.0
+
+
+def _timer_run(device, root, repo, env):
+    """The network check's healthy run under ``DLROVER_TPU_TIMER=1`` and
+    ``DLROVER_TPU_TIMER_XLA=1``: the worker (held after its last step)
+    trains TIMER_STEPS steps; once it reports its first step this
+    process touches its capture trigger, waits for the listener's
+    capture, then fetches the worker's ``/metrics`` and ``/timeline``
+    through ``tpu_timer/dump.py`` and waits for the launcher's collector
+    (every 30 s) to forward a scrape taken after the capture to the
+    master. Gates: the daemon served ``/metrics``; the master received
+    the parsed gauges with the capture's event count; the timeline holds
+    B1/B2's kernels with positive durations; the window's profiler
+    start-up within CAPTURE_STARTUP_MAX_S; the run's steps and exit; the
+    network check as before. Returns the row."""
+    from dlrover_tpu_torch.common.constants import NodeEnv
+    from dlrover_tpu_torch.diagnosis.collectors import parse_prometheus_text
+    from dlrover_tpu_torch.tpu_timer import bridge, dump, xla_capture
+
+    job = env[NodeEnv.JOB_NAME]
+    os.makedirs(os.path.join(root, "pass"), exist_ok=True)
+    hold = os.path.join(root, "pass", "hold")
+    with _process_env({NodeEnv.JOB_NAME: job}):
+        trigger = xla_capture.trigger_path(0)
+        port_file = bridge.port_file_path(0)
+    env = dict(env, DLROVER_TPU_TIMER="1", DLROVER_TPU_TIMER_XLA="1",
+               DLROVER_TPU_TIMER_XLA_INTERVAL="3600",
+               DLROVER_TPU_TIMER_XLA_WINDOW=str(TIMER_WINDOW_S))
+    args = _agent_worker_args(device, TIMER_STEPS, os.path.join(
+        root, "pass", "ckpt")) + ["--hold-file", hold]
+    args[args.index("--persist-every") + 1] = str(TIMER_STEPS)
+    launcher = _Launcher(
+        args, env, os.path.join(root, "pass_launcher.log"),
+        launch=("--standalone", "--network-check", "--nproc_per_node", "1",
+                "--monitor_interval", "0.2", "-m",
+                "dlrover_tpu_torch.examples.train_llama"),
+        phase="agent_paths")
+    t0 = time.monotonic()
+    try:
+        launcher.wait_event(lambda e: e["event"] == "step", "a first step")
+        with open(trigger, "w") as f:
+            f.write(str(time.time()))
+        t_trigger = time.monotonic()
+        deadline = t_trigger + 60
+        while not (found := re.findall(
+                r"xla capture #1 \(pid \d+\): (\d+) runtime events "
+                r"recorded \((\d+) device events[^)]*\) in a ([0-9.]+) s "
+                r"window after ([0-9.]+) s start-up", launcher.log())):
+            check(time.monotonic() < deadline and launcher.proc.poll()
+                  is None, "agent_paths/timer: no capture in 60 s")
+            time.sleep(0.05)
+        t_captured = time.monotonic()
+        recorded, device_events, window_s, startup_s = found[0]
+        with open(port_file) as f:
+            port = int(f.read())
+        metrics = parse_prometheus_text(dump.fetch_with_retries(
+            port, "/metrics", retries=3).decode())
+        timeline = json.loads(dump.annotate_clock_sync(
+            dump.fetch_with_retries(port, "/timeline", retries=3)))
+        # The collector's first scrape after the capture reaches the
+        # master (its log line carries the capture's event count; a
+        # window on the CPU records none).
+        received = re.compile(
+            r"received xpu_timer_metric diagnosis data from node 0 \((\d+) "
+            r"metrics, xla_capture_events ([0-9.]+)")
+        while not (forwarded := [
+                m for m in received.findall(launcher.log())
+                if float(m[1]) > 0 or device != "cuda"]):
+            check(time.monotonic() < t_captured + TIMER_FORWARD_S,
+                  "agent_paths/timer: the master received no scrape with "
+                  "the capture")
+            time.sleep(0.05)
+        t_forwarded = time.monotonic()
+        launcher.wait_event(lambda e: e["event"] == "held", "the hold")
+        with open(hold, "w"):
+            pass
+        launcher.wait_event(lambda e: e["event"] == "done", "the end")
+        rc = launcher.proc.wait(timeout=AGENT_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        log = launcher.log()
+    finally:
+        launcher.stop()
+    events = launcher.incarnations()[0]
+    steps = [e for e in events if e["event"] == "step"]
+    probes = [json.loads(ln) for ln in log.splitlines()
+              if ln.startswith('{"event": "node_check_probe"')]
+    check(rc == 0, f"timer run: rc {rc}: {log[-3000:]}")
+    check(len(probes) == 1 and probes[0]["device"].startswith(device)
+          and probes[0]["elapsed"] > 0, f"timer run: probes {probes}")
+    check("the master's fault nodes [] after round" in log,
+          "timer run: the master did not record the node healthy")
+    check([e["step"] for e in steps] == list(range(1, TIMER_STEPS + 1))
+          and events[-1]["event"] == "done",
+          f"timer run: steps {[e['step'] for e in steps]}")
+    if device == "cuda":
+        check(steps[-1]["launches"].get("flash_forward", 0) > 0,
+              "timer run: the worker launched no B1")
+    captured = metrics.get("tpu_timer_gauge/xla_capture_events")
+    check("tpu_timer_hang_spans" in metrics and captured is not None
+          and (captured > 0 or device != "cuda"),
+          f"timer run: /metrics {sorted(metrics)[:12]}")
+    spans = {}
+    window = None
+    for e in timeline.get("traceEvents", []):
+        spans.setdefault(e["name"], []).append(e["dur"])
+        if e["name"] == "xla_capture_window":
+            window = (e["ts"] / 1e6, (e["ts"] + e["dur"]) / 1e6)
+    kernels = {k: spans.get(f"xla/{k}", [])
+               for k in FLASH_KERNELS.values()} if device == "cuda" else {}
+    # The kernels land on the native clock inside the capture window.
+    outside = [e["name"] for e in timeline.get("traceEvents", [])
+               if e["name"].startswith("xla/") and window and not (
+                   window[0] - 0.05 <= e["ts"] / 1e6
+                   and (e["ts"] + e["dur"]) / 1e6 <= window[1] + 0.05)]
+    check(float(startup_s) <= CAPTURE_STARTUP_MAX_S,
+          f"timer run: the capture waited {startup_s} s for the profiler")
+    check(all(durs and min(durs) > 0 for durs in kernels.values())
+          and window is not None and "clock_sync" in timeline
+          and not outside,
+          f"timer run: timeline kernels "
+          f"{ {k: len(v) for k, v in kernels.items()} }, "
+          f"window {window}, names {sorted(spans)[:12]}, {len(outside)} "
+          f"kernels outside the window: {outside[:4]}")
+    # The worker's step seconds whose step line arrived in the window
+    # (the native clock is CLOCK_MONOTONIC, as this process's).
+    inside = [e["compute_s"] for e in steps
+              if window and window[0] <= e["t"] <= window[1]]
+    outside = [e["compute_s"] for e in steps[1:]
+               if not (window and window[0] <= e["t"] <= window[1])]
+    ready = next(e for e in events if e["event"] == "ready")
+    held = next(e for e in events if e["event"] == "held")
+    return {"rc": rc, "wall_s": wall, "probe": probes[0],
+            "launch_to_ready_s": ready["t"] - launcher.spawned,
+            "ready_to_first_step_s": steps[0]["t"] - ready["t"],
+            "steps_s": steps[-1]["t"] - steps[0]["t"],
+            "held_s": events[-1]["t"] - held["t"],
+            "losses": [e["loss"] for e in steps],
+            "trigger_to_capture_s": t_captured - t_trigger,
+            "capture_to_master_s": t_forwarded - t_captured,
+            "capture": {"recorded": int(recorded),
+                        "device_events": int(device_events),
+                        "window_s": float(window_s),
+                        "startup_s": float(startup_s)},
+            "step_s_in_window": inside, "step_s_outside_window": outside,
+            "step_s_in_window_mean": float(np.mean(inside)) if inside
+            else None,
+            "step_s_outside_window_mean": float(np.mean(outside)),
+            "metrics": len(metrics),
+            "master_reports": [[int(a), float(b)] for a, b in forwarded],
+            "timeline_kernels": {k: [len(v), float(np.mean(v))]
+                                 for k, v in kernels.items()}}
+
+
 def _network_check_runs(device):
     """``python -m dlrover_tpu_torch.run --standalone --network-check``
-    twice at once: healthy, and with the probe rigged to fail."""
+    twice at once: healthy (under the profiler daemon and its capture,
+    ``_timer_run``), and with the probe rigged to fail."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -5113,7 +5424,7 @@ def _network_check_runs(device):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     root = tempfile.mkdtemp(prefix="network_check_")
-    out, jobs = {}, []
+    out, jobs = {}, {}
     try:
         for label, extra in (("pass", {}), ("fail", {
                 "DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS": "0"})):
@@ -5126,9 +5437,10 @@ def _network_check_runs(device):
                                                           "events"),
                        DLROVER_TPU_CHECK_DEVICE=device, **extra)
             env.pop(SCHEDULE_ENV, None)
-            jobs.append((label, job, env))
+            jobs[label] = (job, env)
 
-        def launch(label, job, env):
+        def fail_run():
+            job, env = jobs["fail"]
             t0 = time.monotonic()
             try:
                 proc = subprocess.run(
@@ -5137,50 +5449,33 @@ def _network_check_runs(device):
                      "1", "--monitor_interval", "0.2", "-m",
                      "dlrover_tpu_torch.examples.train_llama",
                      *_agent_worker_args(device, 2, os.path.join(
-                         root, label, "ckpt"))],
+                         root, "fail", "ckpt"))],
                     env=env, cwd=repo, capture_output=True, text=True,
                     timeout=AGENT_TIMEOUT_S)
             finally:
                 _unlink_job_segments(job)
             return proc, time.monotonic() - t0
 
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            runs = [(label, pool.submit(launch, label, job, env))
-                    for label, job, env in jobs]
-        for label, fut in runs:
-            proc, wall = fut.result()
-            events = [json.loads(ln) for ln in proc.stdout.splitlines()
-                      if ln.startswith("{")]
-            probes = [json.loads(ln) for ln in proc.stderr.splitlines()
-                      if ln.startswith('{"event": "node_check_probe"')]
-            tail = proc.stderr[-3000:]
-            if label == "pass":
-                steps = [e for e in events if e["event"] == "step"]
-                check(proc.returncode == 0,
-                      f"network check run: rc {proc.returncode}: {tail}")
-                check(len(probes) == 1
-                      and probes[0]["device"].startswith(device)
-                      and probes[0]["elapsed"] > 0,
-                      f"network check run: probes {probes}")
-                check("the master's fault nodes [] after round"
-                      in proc.stderr,
-                      "network check run: the master did not record the "
-                      "node healthy")
-                check([e["step"] for e in steps] == [1, 2]
-                      and events[-1]["event"] == "done",
-                      f"network check run: steps {[e['step'] for e in steps]}")
-                if device == "cuda":
-                    check(steps[-1]["launches"].get("flash_forward", 0) > 0,
-                          "network check run: the worker launched no B1")
-                out[label] = {"rc": proc.returncode, "wall_s": wall,
-                              "probe": probes[0],
-                              "losses": [e["loss"] for e in steps]}
-            else:
-                check(proc.returncode != 0 and probes == [] and events == []
-                      and "started worker" not in proc.stderr,
-                      f"network check fail run: rc {proc.returncode}, "
-                      f"probes {probes}, {len(events)} worker lines")
-                out[label] = {"rc": proc.returncode, "wall_s": wall}
+        def pass_run():
+            job, env = jobs["pass"]
+            try:
+                return _timer_run(device, root, repo, env)
+            finally:
+                _unlink_job_segments(job)
+
+        with ThreadPoolExecutor(2) as pool:
+            failed = pool.submit(fail_run)
+            out["pass"] = pass_run()
+            proc, wall = failed.result()
+        events = [json.loads(ln) for ln in proc.stdout.splitlines()
+                  if ln.startswith("{")]
+        probes = [json.loads(ln) for ln in proc.stderr.splitlines()
+                  if ln.startswith('{"event": "node_check_probe"')]
+        check(proc.returncode != 0 and probes == [] and events == []
+              and "started worker" not in proc.stderr,
+              f"network check fail run: rc {proc.returncode}, "
+              f"probes {probes}, {len(events)} worker lines")
+        out["fail"] = {"rc": proc.returncode, "wall_s": wall}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -5251,7 +5546,9 @@ def _standby_run(device, root, repo):
             nproc_per_node=1, max_restarts=2, node_rank=0,
             monitor_interval=0.2, redirect_output=log_dir,
             env={SCHEDULE_ENV: schedule, TRACE_ENV: trace,
-                 "PYTHONPATH": repo},
+                 "PYTHONPATH": repo, "DLROVER_TPU_TIMER_XLA": "1",
+                 "DLROVER_TPU_TIMER_XLA_INTERVAL": str(STANDBY_CAPTURE_S),
+                 "DLROVER_TPU_TIMER_XLA_WINDOW": "0.1"},
             warm_standby=True)
         agent = ElasticAgent(spec, client, ckpt_saver=saver)
         t0 = time.monotonic()
@@ -5302,8 +5599,38 @@ def _standby_run(device, root, repo):
           f"agent_paths/standby: a waiting standby initialised CUDA: "
           f"{standbys}")
     standby_pids = {e["pid"] for e in standbys}
+    # The injected capture listener ran in every interpreter, and a
+    # waiting standby, which has not stepped, opened no window: a
+    # capture comes only from a worker after its first step, so none
+    # touched a standby's CUDA state or its start-up.
+    text = "\n".join(ln for _, p, ln in tail.lines if p == log_path)
+    armed = {int(pid) for pid in re.findall(
+        r"xla capture listener on in pid (\d+)", text)}
+    firsts = {}  # worker pid -> the time of its first step line
+    pid = None
+    for t, e in lines:
+        if e.get("event") == "ready":
+            pid = e["pid"]
+        elif e.get("event") == "step" and pid is not None:
+            firsts.setdefault(pid, t)
+    captures = [(t, int(m.group(1)), int(m.group(2)), float(m.group(3)))
+                for t, p, ln in tail.lines if p == log_path
+                for m in [re.search(
+                    r"xla capture #\d+ \(pid (\d+)\): \d+ runtime events "
+                    r"recorded \((\d+) device events[^)]*\) in a [0-9.]+ s "
+                    r"window after ([0-9.]+) s start-up", ln)] if m]
+    early = [(pid, t) for t, pid, _, _ in captures
+             if pid not in firsts or t < firsts[pid]]
+    check(standby_pids and standby_pids <= armed and not early
+          and all(up <= CAPTURE_STARTUP_MAX_S for *_, up in captures),
+          f"agent_paths/standby: listeners armed in pids {sorted(armed)}, "
+          f"standbys {sorted(standby_pids)}, captures before a first step "
+          f"{early}, start-ups {[c[3] for c in captures]}")
     row = {"wall_s": wall, "standby_import_s": [e["import_s"]
-                                                for e in standbys]}
+                                                for e in standbys],
+           "listeners": len(armed), "captures": len(captures),
+           "captures_on_card": sum(n > 0 for _, _, n, _ in captures),
+           "startup_s": [up for *_, up in captures]}
     for i, label in enumerate(labels):
         t_ready, relaunch = readies[i + 1]
         end = AGENT_CRASH_STEPS[i + 1] if i + 1 < len(labels) else (
@@ -5350,7 +5677,10 @@ def phase_agent_paths(device="cuda"):
     killed. Gates: the agent exits 0; each relaunch (restart counts 1
     and 2) resumes at its restored step + 1 and trains on ``device``;
     the first is the adopted standby, the second a cold spawn (the dead
-    standby's fallback); no waiting standby initialised CUDA. Prints
+    standby's fallback); no waiting standby initialised CUDA; the
+    injected capture listener ran in every standby, and no window opened
+    before its process's first step, each within CAPTURE_STARTUP_MAX_S
+    of profiler start-up. Prints
     the seconds from each crash (its fault trace line) to the
     relaunch's ready line and first step: warm against cold."""
     import shutil

@@ -15,15 +15,24 @@ Run states per monitor tick:
                               actions), resource report
 
 The port's copy of ``dlrover_tpu/agent/training.py``, the warm standby
-(``WorkerSpec.warm_standby``, ``agent/standby.py``) included. It leaves
-out the reference's hooks for JAX on a TPU, and refuses their switch
-with ``NotImplementedError`` naming the ROADMAP item: the XLA-capture
-injection (``DLROVER_TPU_TIMER_XLA``, item 7). The post-mortem stop
-sends SIGUSR2 for the worker's Python stacks (the port's
-``init_distributed`` registers the dump), without the reference's
-out-of-process native stacks (item 7). On a worker failure the agent
-reports the failed workers' flight-recorder crash dumps and hang-watchdog
-stack dumps of the current incarnation to the master.
+(``WorkerSpec.warm_standby``, ``agent/standby.py``) included. Under
+``DLROVER_TPU_TIMER_XLA`` the workers' PYTHONPATH starts with the
+capture injection (``tpu_timer/_inject``). The post-mortem stop sends
+SIGUSR2 for the worker's Python stacks (the port's ``init_distributed``
+registers the dump) and appends every live worker's native stacks
+(``tpu_timer/native_stack``, at most 12 s, the sampler prebuilt when
+the agent starts) to its log, or to the agent's stderr where the
+worker's output goes when it is not redirected. Beyond the reference,
+a live worker whose hang watchdog writes a hang dump has its native
+stacks appended the same way, once per dump, without stopping it: the
+sampler seizes each thread (``PTRACE_SEIZE``) and queues nothing on
+it, so a thread wedged in the kernel is skipped and a sampler killed at
+its timeout leaves the worker running. (The reference's post-mortem
+stop reaches a hung worker only once the master's hang diagnostician
+escalates, after minutes.) On
+a worker failure the agent reports the failed workers' flight-recorder
+crash dumps and hang-watchdog stack dumps of the current incarnation to
+the master.
 """
 
 import json
@@ -132,6 +141,9 @@ class ElasticAgent:
         self._current_outcome: Optional[RendezvousOutcome] = None
         self._stopping = False
         self._workers_started_at = 0.0
+        # local rank -> mtime of the hang dump whose native stacks were
+        # taken (``_sample_hung_workers``).
+        self._hang_sampled: Dict[int, float] = {}
         from dlrover_tpu_torch.observability.registry import default_registry
 
         registry = default_registry()
@@ -185,13 +197,19 @@ class ElasticAgent:
             )
         env.update(spec.env)
         # Gate AFTER merging spec.env (the launcher may enable the
-        # flag there).
+        # flag there). Zero-cooperation profiling: when the capture is
+        # enabled, the injection dir's sitecustomize arms the listener
+        # at interpreter startup even if the train script never imports
+        # this framework (reference xpu_timer's LD_PRELOAD contract).
+        # It chain-loads any sitecustomize it shadows.
         from dlrover_tpu_torch.common.env_utils import env_bool
 
         if env_bool(env, "DLROVER_TPU_TIMER_XLA"):
-            raise NotImplementedError(
-                "DLROVER_TPU_TIMER_XLA: the XLA-capture injection "
-                "(tpu_timer/) is not ported yet: ROADMAP §A item 7"
+            inject_dir = os.path.join(
+                pkg_root, "dlrover_tpu_torch", "tpu_timer", "_inject"
+            )
+            env["PYTHONPATH"] = (
+                f"{inject_dir}{os.pathsep}" + env["PYTHONPATH"]
             )
         return env
 
@@ -350,6 +368,7 @@ class ElasticAgent:
                         pass
             if dumped:
                 time.sleep(0.5)
+            self._capture_native_stacks()
         for w in self._workers:
             if w.process.poll() is None:
                 try:
@@ -371,6 +390,85 @@ class ElasticAgent:
             if w.log_file:
                 w.log_file.close()
                 w.log_file = None
+
+    def _capture_native_stacks(self, workers=None, timeout: float = 12.0):
+        """Append native (ptrace) stacks of every live worker (or of
+        ``workers``) to its log, CONCURRENTLY and with a hard bound —
+        this runs on the hang-recovery path, where the diagnostic must
+        never become the delay (the sampler binary is prebuilt at agent
+        start). A worker whose output is not redirected writes to this
+        process's stderr, so its stacks go there."""
+        try:
+            from dlrover_tpu_torch.tpu_timer.native_stack import (
+                sample_native_stacks,
+            )
+        except Exception:  # noqa: BLE001 - diagnosis best-effort
+            return
+
+        def one(w):
+            t0 = time.monotonic()
+            try:
+                text = sample_native_stacks(w.process.pid, timeout=timeout)
+            except Exception:  # noqa: BLE001
+                text = None
+            if not text:
+                return
+            try:
+                if w.log_file:
+                    w.log_file.write(text.encode())
+                    w.log_file.flush()
+                else:
+                    sys.stderr.write(text)
+                    sys.stderr.flush()
+            except (OSError, ValueError):
+                return
+            logger.info(
+                "native stacks of worker pid %d: %d threads in %.3f s",
+                w.process.pid, text.count("Native thread "),
+                time.monotonic() - t0)
+
+        threads = [
+            threading.Thread(target=one, args=(w,), daemon=True)
+            for w in (self._workers if workers is None else workers)
+            if w.process.poll() is None
+        ]
+        for t in threads:
+            t.start()
+        deadline = time.time() + timeout + 3.0
+        for t in threads:
+            t.join(timeout=max(deadline - time.time(), 0.1))
+
+    def _sample_hung_workers(self):
+        """A live worker whose hang watchdog wrote a new hang dump gets
+        its native stacks appended to its log (in the background, once
+        per dump): the watchdog's Python stacks cannot show a thread
+        wedged in native code."""
+        from dlrover_tpu_torch.observability.hang_watchdog import (
+            hang_dump_path,
+        )
+
+        started = getattr(self, "_workers_started_at", 0.0)
+        for local_rank, w in enumerate(self._workers):
+            path = hang_dump_path(self._spec.node_rank, local_rank)
+            try:
+                mtime = os.path.getmtime(path)
+            except OSError:
+                continue
+            if mtime < started or self._hang_sampled.get(
+                    local_rank) == mtime or w.process.poll() is not None:
+                continue
+            self._hang_sampled[local_rank] = mtime
+            try:
+                with open(path) as f:
+                    pid = json.load(f).get("pid")
+            except (OSError, ValueError):
+                continue
+            if pid != w.process.pid:
+                continue
+            logger.info("hang dump of worker local_rank=%d pid=%d: "
+                        "sampling its native stacks", local_rank, pid)
+            threading.Thread(target=self._capture_native_stacks,
+                             args=([w],), daemon=True).start()
 
     def _restart_workers(self, post_mortem: bool = False):
         restart_start = time.time()
@@ -596,6 +694,21 @@ class ElasticAgent:
 
     def run(self) -> RunResult:
         self._diagnosis_agent.start()
+
+        # Prebuild the native stack sampler off the critical path: a
+        # first-use g++ build during hang recovery would delay the
+        # restart (see _capture_native_stacks).
+        def _prebuild():
+            try:
+                from dlrover_tpu_torch.tpu_timer.native_stack import (
+                    ensure_built,
+                )
+
+                ensure_built()
+            except Exception:  # noqa: BLE001 - diagnosis best-effort
+                pass
+
+        threading.Thread(target=_prebuild, daemon=True).start()
         try:
             return self._run()
         except RendezvousEvictedError:
@@ -643,7 +756,9 @@ class ElasticAgent:
                 if result is not None:
                     return result
                 continue
-            # healthy: heartbeat + membership check
+            # healthy: hung workers' native stacks, heartbeat +
+            # membership check
+            self._sample_hung_workers()
             now = time.time()
             if now - self._last_heartbeat > JobConstant.NODE_HEARTBEAT_INTERVAL:
                 self._last_heartbeat = now

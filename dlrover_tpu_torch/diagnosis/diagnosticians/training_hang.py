@@ -57,13 +57,6 @@ class TrainingHangDiagnostician(Diagnostician):
         # worker wedged inside libtpu still reports — a frozen counter
         # there is independent evidence the in-band RPC path can't give
         # (and an advancing one vetoes a false hang from lost reports).
-        if metric_context is not None:
-            # The out-of-band counters live in common/metric.py, not
-            # ported yet; the local master never passes them.
-            raise NotImplementedError(
-                "metric_context needs common/metric.py, not ported yet: "
-                "ROADMAP §A item 8"
-            )
         self._metric_context = metric_context
 
     def observe(self, **kwargs) -> Observation:

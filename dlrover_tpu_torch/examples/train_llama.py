@@ -33,8 +33,10 @@ restart count, the restored step and its source, and what the restore
 read, the segment's step and the storage tracker's), ``step`` (loss, the
 step's and the save's seconds, the flash kernels' launch counts so
 far), ``shm`` (a step committed to shm,
-with the save's blocking and drain seconds) and a last ``done`` line
-(losses, a digest of the final state, launches).
+with the save's blocking and drain seconds), ``held`` (with
+``--hold-file``: the last step ran, and the process waits for the file)
+and a last ``done`` line (losses, a digest of the final state,
+launches).
 """
 
 import argparse
@@ -95,6 +97,9 @@ def parse_args(argv=None):
                    help='mesh axes, e.g. "dp=2,tp=2" (default dp=<world>)')
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the params and the sampler's shuffle")
+    p.add_argument("--hold-file", default="",
+                   help="after the last step, wait until this file exists "
+                        "(the process and its daemons stay up)")
     return p.parse_args(argv)
 
 
@@ -244,6 +249,10 @@ def main(argv=None):
                   "launches": dict(fa.launch_counts)})
     finally:
         loader.stop()
+    if args.hold_file:
+        emit({"event": "held"})
+        while not os.path.exists(args.hold_file):
+            time.sleep(0.05)
     engine.wait_async_save()
     stop.set()
     reporter.join(timeout=10.0)

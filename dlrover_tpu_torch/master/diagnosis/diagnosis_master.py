@@ -109,6 +109,15 @@ class DiagnosisMaster:
                 "at %s, reason %r, %d steps)", data.data_type,
                 data.node_id, payload.get("pid"), payload.get("dumped_at"),
                 payload.get("reason", ""), len(payload.get("steps", [])))
+        elif data.data_type == DiagnosisDataType.XPU_TIMER_METRIC:
+            # A tpu_timer collector's scrape (one a collector interval).
+            metrics = (report.payload or {}).get("metrics") or {}
+            logger.info(
+                "received %s diagnosis data from node %d (%d metrics, "
+                "xla_capture_events %s, hang_spans %s)", data.data_type,
+                data.node_id, len(metrics),
+                metrics.get("tpu_timer_gauge/xla_capture_events"),
+                metrics.get("tpu_timer_hang_spans"))
 
     def node_data(self, node_id: int) -> List[DiagnosisData]:
         with self._lock:

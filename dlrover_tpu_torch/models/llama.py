@@ -36,6 +36,7 @@ the attention is the flash kernel pair (``ops/flash_attention``), as
 the reference picks its Pallas flash kernel on the TPU.
 """
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -44,6 +45,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
@@ -64,6 +66,18 @@ from dlrover_tpu_torch.parallel.sharding import (
     reduce_from_tp,
     with_logical_constraint,
 )
+
+
+
+def scope(name: str):
+    """A ``record_function`` range named ``name`` while this thread's
+    profiler records (the counterpart of the reference's
+    ``jax.named_scope``), else nothing: a range costs host time on every
+    call even with no profiler, where a name scope costs none."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
+
 
 _DTYPES = {
     "float32": torch.float32,
@@ -391,6 +405,11 @@ def _expert_local_kw(config: TpuLMConfig) -> Dict[str, Any]:
 def mlp_block(config: TpuLMConfig, p, x):
     """Residual MLP, dense SwiGLU or MoE. Returns (x, aux) as the
     reference: for MoE ``aux = aux_loss + 0.001 * router_z_loss``."""
+    with scope("mlp"):
+        return _mlp_block_inner(config, p, x)
+
+
+def _mlp_block_inner(config: TpuLMConfig, p, x):
     cdt = config.compute_dtype
     hx = rms_norm(x, p["mlp_norm"]).to(cdt)
     if config.n_experts > 0:
@@ -454,9 +473,11 @@ def lm_head(config: TpuLMConfig, params):
 def unembed(config: TpuLMConfig, params, x):
     """Logits in f32 from a compute-dtype matmul (under tp, this rank's
     vocab columns)."""
-    x = copy_to_tp(final_hidden(config, params, x))
-    logits = x @ lm_head(config, params)
-    return with_logical_constraint(logits.float(), ("batch", "seq", "vocab"))
+    with scope("vocab"):
+        x = copy_to_tp(final_hidden(config, params, x))
+        logits = x @ lm_head(config, params)
+        return with_logical_constraint(logits.float(),
+                                       ("batch", "seq", "vocab"))
 
 
 def default_attention_fn(device):
@@ -531,10 +552,13 @@ def transformer_layer(config: TpuLMConfig, p, x, positions,
     """One decoder block. x: [b, s, d]; positions: [b, s]. Returns
     (x, aux)."""
     attn_fn = attention_fn or dot_product_attention
-    q, k, v = attention_qkv(config, p, x, positions)
-    attn = attn_fn(q, k, v, causal=True, q_positions=positions,
-                   kv_positions=positions)
-    x = attention_out(config, p, attn, x)
+    # The scope reaches every op under it, forward and backward (the
+    # backward through its forward op, ``tpu_timer.xla_capture``).
+    with scope("attn"):
+        q, k, v = attention_qkv(config, p, x, positions)
+        attn = attn_fn(q, k, v, causal=True, q_positions=positions,
+                       kv_positions=positions)
+        x = attention_out(config, p, attn, x)
     return mlp_block(config, p, x)
 
 
@@ -605,21 +629,24 @@ def run_layer_stack(config: TpuLMConfig, layer_params, x, positions,
         qkv = functools.partial(attention_qkv, config)
 
         def out_mlp(p, attn, residual):
-            return mlp_block(config, p, attention_out(config, p, attn,
-                                                      residual))
+            with scope("attn"):
+                y = attention_out(config, p, attn, residual)
+            return mlp_block(config, p, y)
 
         if config.remat_policy == "attn_save" and getattr(
                 attention_fn, "is_plain_flash", False):
             def body(x, p):
-                attn = attn_block_lite(config, p, x, positions)
+                with scope("attn"):
+                    attn = attn_block_lite(config, p, x, positions)
                 return _remat(out_mlp, False, p, attn, x)
 
         else:
             def body(x, p):
-                q, k, v = _remat(qkv, flank_dots, p, x, positions)
-                attn = attention_fn(q, k, v, causal=True,
-                                    q_positions=positions,
-                                    kv_positions=positions)
+                with scope("attn"):
+                    q, k, v = _remat(qkv, flank_dots, p, x, positions)
+                    attn = attention_fn(q, k, v, causal=True,
+                                        q_positions=positions,
+                                        kv_positions=positions)
                 return _remat(out_mlp, flank_dots, p, attn, x)
 
     else:
@@ -788,13 +815,14 @@ def loss_fn(config: TpuLMConfig, params, batch, attention_fn=None):
                                 attention_fn=attention_fn)
         # Long sequences cap the CE row chunk at 4096, as the reference
         # does for its whole-program compile at 32k tokens.
-        ce = fused_cross_entropy(
-            final_hidden(config, params, x),
-            lm_head(config, params),
-            targets,
-            batch.get("mask"),
-            block_rows=4096 if tokens.shape[1] >= 32768 else None,
-        )
+        with scope("vocab"):
+            ce = fused_cross_entropy(
+                final_hidden(config, params, x),
+                lm_head(config, params),
+                targets,
+                batch.get("mask"),
+                block_rows=4096 if tokens.shape[1] >= 32768 else None,
+            )
     else:
         logits, aux = forward(config, params, tokens,
                               attention_fn=attention_fn)

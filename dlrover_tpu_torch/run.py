@@ -23,8 +23,11 @@ the checkpoint replica service (``flash_ckpt/replica.py``): the saver
 pushes each shm image to the node's group peers, and a relaunched node
 pulls its missing segments back from a peer before its workers start,
 so they restore from memory; without a replica token it runs without
-replicas. ``DLROVER_TPU_TIMER`` is not ported yet and raises
-``NotImplementedError`` naming ROADMAP §A item 7. The launcher leaves
+replicas. With ``DLROVER_TPU_TIMER=1`` each worker runs the tpu_timer
+daemon (``trainer/runtime``) and the launcher starts one collector per
+local rank that scrapes it every 30 s and forwards the parsed gauges
+to the master's diagnosis store; ``DLROVER_TPU_TIMER_XLA=1`` adds the device-capture
+listener in each worker (``tpu_timer/xla_capture``). The launcher leaves
 the checkpoint saver's shared-memory segments behind when it exits, as
 the reference's does: whoever owns the job's name unlinks them.
 """
@@ -185,14 +188,32 @@ def _merge_master_config(client: MasterClient, args):
         args.monitor_interval = float(config["monitor_interval"])
 
 
-def _refuse_unported(args):
-    """The launcher's switches whose paths are not ported yet fail
-    before anything starts, naming their ROADMAP §A item."""
-    if get_env_bool("DLROVER_TPU_TIMER"):
-        raise NotImplementedError(
-            "DLROVER_TPU_TIMER needs the tpu_timer daemons and their "
-            "collectors, not ported yet: ROADMAP §A item 7"
+def _start_timer_collectors(client: MasterClient, node_rank: int,
+                            nproc_per_node: int):
+    """Under ``DLROVER_TPU_TIMER``, one collector per local rank that
+    scrapes the worker's daemon (its published port, or 18889 + local
+    rank) and forwards the parsed gauges to the master (reference
+    run.py:235-248)."""
+    if not get_env_bool("DLROVER_TPU_TIMER"):
+        return []
+    from dlrover_tpu_torch.diagnosis.collectors import (
+        TpuTimerMetricCollector,
+    )
+    from dlrover_tpu_torch.tpu_timer.bridge import port_file_path
+
+    collectors = []
+    for local_rank in range(nproc_per_node):
+        c = TpuTimerMetricCollector(
+            master_client=client,
+            node_id=node_rank,
+            port=18889 + local_rank,
+            port_file=port_file_path(local_rank),
         )
+        c.start()
+        logger.info("tpu_timer collector of local rank %d every %.0f s",
+                    local_rank, c.interval_s)
+        collectors.append(c)
+    return collectors
 
 
 def _start_replica_manager(args, client: MasterClient, node_rank: int,
@@ -271,7 +292,6 @@ def _stop_master(master_proc: Optional[subprocess.Popen],
 
 
 def run(args) -> int:
-    _refuse_unported(args)
     min_nodes, max_nodes = parse_nnodes(args.nnodes)
     master_proc: Optional[subprocess.Popen] = None
 
@@ -307,7 +327,6 @@ def run(args) -> int:
 
     _merge_master_config(client, args)
     wait_pre_check(client, args.pre_check_timeout)
-    _refuse_unported(args)  # the master's config may turn a switch on
 
     if args.network_check:
         from dlrover_tpu_torch.agent.node_check import run_network_check
@@ -369,6 +388,9 @@ def run(args) -> int:
                 ext_spec,
             )
 
+    timer_collectors = _start_timer_collectors(client, node_rank,
+                                               args.nproc_per_node)
+
     spec = WorkerSpec(
         entrypoint=(
             f"-m {args.training_script}" if args.module
@@ -422,6 +444,8 @@ def run(args) -> int:
         training_monitor.poll_once()  # flush the final steps
         training_monitor.stop()
     paral_tuner.stop()
+    for c in timer_collectors:
+        c.stop()
     if result == RunResult.SUCCEEDED:
         code = 0
     elif result == RunResult.RELAUNCH:

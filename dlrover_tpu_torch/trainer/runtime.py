@@ -13,17 +13,16 @@ worker builds ``MeshConfig(dp=n_devices)``.
 SIGUSR2 dumps every thread's Python stack to stderr (the agent's
 post-mortem stop sends it; without the handler its default action would
 kill the worker without a dump). Then, in the reference's order, the
-flight recorder is armed (its ring dumped to the agent-collectable path
-on SIGTERM, an unhandled exception and exit, and with every stack on
+tpu_timer daemon starts (``DLROVER_TPU_TIMER``: ``/metrics`` and
+``/timeline`` at 18889 + local rank, GC pauses as spans, and with
+``DLROVER_TPU_TIMER_XLA`` the device-capture listener), the flight
+recorder is armed (its ring dumped to the agent-collectable path on
+SIGTERM, an unhandled exception and exit, and with every stack on
 SIGUSR1), tracing (``DLROVER_TPU_TRACE_FILE``), and the hang watchdog
-(``DLROVER_TPU_HANG_DEADLINE_S``). The reference's tpu_timer daemon has
-no counterpart in the port yet.
+(``DLROVER_TPU_HANG_DEADLINE_S``).
 """
 
-import faulthandler
 import os
-import signal
-import sys
 from dataclasses import dataclass
 from typing import Optional
 
@@ -96,7 +95,14 @@ def init_distributed(timeout_secs: int = 300,
             world_size=ctx.num_processes, rank=ctx.process_id,
             timeout=timedelta(seconds=timeout_secs))
         ctx.initialized_distributed = True
+    # Always: SIGUSR2 (the agent's hang post-mortem) must never be fatal,
+    # and faulthandler costs nothing until the signal arrives.
+    from dlrover_tpu_torch.tpu_timer.py_tracing import (
+        install_stack_dump_handler,
+    )
+
     install_stack_dump_handler()
+    _maybe_start_tpu_timer(ctx)
     _setup_flight_recorder(ctx)
     _setup_tracing(ctx)
     _setup_hang_watchdog(ctx)
@@ -104,16 +110,38 @@ def init_distributed(timeout_secs: int = 300,
     return ctx
 
 
-def install_stack_dump_handler(fileobj=None):
-    """Dump all-thread tracebacks on SIGUSR2, to stderr by default (the
-    agent redirects it into the worker log). The reference's
-    ``tpu_timer/py_tracing.install_stack_dump_handler``."""
+def _maybe_start_tpu_timer(ctx: DistributedContext):
+    """Start the native profiler daemon when enabled (reference xpu_timer
+    daemon at :18889; here 18889 + local_rank per worker process). The
+    actually-bound port is published to a port file the launcher-side
+    collector re-reads, so an OS-assigned fallback port still gets
+    scraped."""
+    from dlrover_tpu_torch.common.env_utils import get_env_bool
+
+    if not get_env_bool("DLROVER_TPU_TIMER"):
+        return
     try:
-        faulthandler.register(
-            signal.SIGUSR2, file=fileobj or sys.stderr, all_threads=True
+        from dlrover_tpu_torch.tpu_timer import get_timer
+        from dlrover_tpu_torch.tpu_timer.bridge import publish_port
+        from dlrover_tpu_torch.tpu_timer.py_tracing import trace_gc
+
+        timer = get_timer()
+        port = timer.start_server(18889 + ctx.local_rank)
+        if not port:  # port taken (e.g. stale process): let the OS pick
+            port = timer.start_server(0)
+        if port:
+            publish_port(ctx.local_rank, port)
+        trace_gc()
+        # Kernel-level acquisition (torch.profiler windows) — the
+        # counterpart of the reference's LD_PRELOAD hook layer; gated by
+        # DLROVER_TPU_TIMER_XLA.
+        from dlrover_tpu_torch.tpu_timer.xla_capture import (
+            maybe_start_listener,
         )
-    except (AttributeError, ValueError, OSError):
-        logger.warning("stack dump handler not installed", exc_info=True)
+
+        maybe_start_listener(ctx.local_rank)
+    except Exception:
+        logger.warning("tpu_timer daemon failed to start", exc_info=True)
 
 
 def _setup_tracing(ctx: DistributedContext):

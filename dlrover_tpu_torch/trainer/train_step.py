@@ -474,18 +474,20 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
         if mesh is not None:
             _sum_grads_over_pp(params, grads, mesh)
 
-        grad_norm = global_norm(
-            grads, None if mesh is None or mesh.size() == 1 else [
-                sharding.replication(p) for p in param_leaves(params)])
-        fences = state.get("fences")
-        if fences:
-            # A snapshot's copy still reads the tensors about to change.
-            stream = torch.cuda.current_stream(device)
-            for event in fences:
-                stream.wait_event(event)
-            fences.clear()
-        optimizer.update(state["opt_state"], params, grads, grad_norm,
-                         state["step"])
+        with llama.scope("optimizer"):
+            grad_norm = global_norm(
+                grads, None if mesh is None or mesh.size() == 1 else [
+                    sharding.replication(p) for p in param_leaves(params)])
+            fences = state.get("fences")
+            if fences:
+                # A snapshot's copy still reads the tensors about to
+                # change.
+                stream = torch.cuda.current_stream(device)
+                for event in fences:
+                    stream.wait_event(event)
+                fences.clear()
+            optimizer.update(state["opt_state"], params, grads, grad_norm,
+                             state["step"])
         new_state = dict(state, step=state["step"] + 1)
         metrics = {"loss": loss, "grad_norm": grad_norm,
                    "step": new_state["step"]}

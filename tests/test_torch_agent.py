@@ -15,11 +15,14 @@ and a dead standby falls back to a cold spawn. The node check
 (``agent/node_check.run_network_check`` over the port's probe on gloo
 CPU worlds, the reference's ``tests/test_node_check.py``): two healthy
 nodes, a rigged node isolated and marked broken, a straggler flagged.
-The switches of the reference's agent the port does not carry yet
-raise; a journaled local master comes back from its journal. A worker
-held past its hang deadline, then SIGTERMed: the agent reports its hang
+The capture switch (``DLROVER_TPU_TIMER_XLA``) puts the injection
+first on the workers' PYTHONPATH; the master's switches not ported yet
+raise; a journaled local master comes back from its journal; the hang
+diagnostician takes the out-of-band metric context. A worker held past
+its hang deadline, then SIGTERMed: the agent reports its hang
 watchdog's stack dump and its flight recorder's crash dump to the master,
-for that incarnation only.
+for that incarnation only, and appends its native stacks to its log once
+it sees the hang dump; the post-mortem stop appends every live worker's.
 """
 
 import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
@@ -41,6 +44,7 @@ from dlrover_tpu_torch.flash_ckpt.saver import AsyncCheckpointSaver
 from dlrover_tpu_torch.master.local_master import LocalJobMaster
 from tests.torch_event_guard import events_off
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(os.path.dirname(__file__), "workers",
                       "torch_simple_train.py")
 
@@ -318,14 +322,24 @@ def test_dead_standby_falls_back_to_cold_spawn(
     assert all(w.process.pid != standby.pid for w in agent._workers)
 
 
-def test_xla_capture_switch_is_refused(master, saver_client, tmp_path):
+def test_xla_capture_switch_injects_the_listener(master, saver_client,
+                                                tmp_path):
+    """``DLROVER_TPU_TIMER_XLA`` in the spec's env puts the port's
+    ``_inject`` directory first on the workers' PYTHONPATH, and the
+    workers train to success under it."""
     client, saver = saver_client
     spec, out = _spec(tmp_path, total=2)
     spec.env["DLROVER_TPU_TIMER_XLA"] = "1"
+    spec.env["DLROVER_TPU_TIMER_XLA_INTERVAL"] = "3600"
     agent = ElasticAgent(spec, client, ckpt_saver=saver)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 7"):
-        agent.run()
-    assert _read_progress(out) == []
+    path = agent._base_worker_env(spec)["PYTHONPATH"].split(os.pathsep)
+    assert path[0] == os.path.join(REPO, "dlrover_tpu_torch", "tpu_timer",
+                                   "_inject")
+    assert agent.run() == RunResult.SUCCEEDED
+    assert [p[1] for p in _read_progress(out)] == [1, 2]
+    spec.env.pop("DLROVER_TPU_TIMER_XLA")
+    plain = agent._base_worker_env(spec)["PYTHONPATH"].split(os.pathsep)
+    assert not any(p.endswith("_inject") for p in plain)
 
 
 @pytest.mark.parametrize("kwargs, env, item", [
@@ -396,14 +410,30 @@ def test_journaled_local_master_comes_back_with_its_leases(
         m2.stop()
 
 
-def test_training_hang_refuses_a_metric_context():
+def test_training_hang_takes_a_metric_context():
+    """A stalled in-band step with the native step counter advancing
+    is no hang; frozen, it is."""
+    from dlrover_tpu_torch.common.metric import (
+        STEP_COUNTER,
+        JobMetricContext,
+    )
     from dlrover_tpu_torch.diagnosis.diagnosticians.training_hang import (
         TrainingHangDiagnostician,
     )
     from dlrover_tpu_torch.master.monitor.perf_monitor import PerfMonitor
 
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
-        TrainingHangDiagnostician(PerfMonitor(), metric_context=object())
+    now = time.time()
+    perf = PerfMonitor()
+    perf.collect_global_step(100, now - 500)
+    verdicts = []
+    for steps in ([100, 105, 110], [110, 110, 110]):
+        ctx = JobMetricContext()
+        for i, s in enumerate(steps):
+            ctx.record(0, {STEP_COUNTER: float(s)}, ts=now - 3 + i)
+        d = TrainingHangDiagnostician(perf, hang_timeout_s=60.0,
+                                      metric_context=ctx)
+        verdicts.append(d.observe().observation)
+    assert verdicts == ["", "training-hang"]
 
 
 def test_worker_dumps_stacks_on_sigusr2(tmp_path):
@@ -497,6 +527,62 @@ def test_hung_worker_post_mortem_reaches_the_master_once(
                for fr in main)
     assert flights[0].local_rank == 0
     assert [r["step"] for r in flights[0].steps] == [1, 2, 3]
+
+
+def test_hung_worker_gets_its_native_stacks_in_its_log(
+        master, saver_client, tmp_path, monkeypatch):
+    """Once the held worker's hang watchdog writes its dump, the agent
+    appends the worker's native stacks (the out-of-process sampler) to
+    the worker's log, without stopping it."""
+    monkeypatch.setenv("DLROVER_TPU_FLIGHT_DIR", str(tmp_path / "flight"))
+    monkeypatch.setenv("DLROVER_TPU_HANG_DEADLINE_S", "1")
+    client, saver = saver_client
+    out = str(tmp_path / "up.txt")
+    logs = tmp_path / "logs"
+    spec = WorkerSpec(entrypoint=HANG_WORKER, args=[out], nproc_per_node=1,
+                      max_restarts=3, node_rank=0, monitor_interval=0.2,
+                      redirect_output=str(logs))
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    t, box = _run_in_thread(agent)
+    deadline = time.time() + 120
+    while not os.path.exists(out):
+        assert time.time() < deadline, "the worker never came up"
+        time.sleep(0.05)
+    pid = int(open(out).read().split()[0])
+    log = logs / "worker-0-0.log"
+    header = f"Native thread {pid} (most recent call first):"
+    while header not in log.read_text(errors="replace"):
+        assert time.time() < deadline, "no native stacks in the log"
+        time.sleep(0.05)
+    assert os.kill(pid, 0) is None  # still running
+    os.kill(pid, signal.SIGTERM)
+    t.join(timeout=120)
+    assert box.get("result") == RunResult.SUCCEEDED
+    from dlrover_tpu_torch.tpu_timer.native_stack import parse_native_dumps
+
+    assert parse_native_dumps(log.read_text(errors="replace"))
+
+
+def test_post_mortem_stop_appends_native_stacks(master, saver_client,
+                                                tmp_path):
+    """The post-mortem stop (SIGUSR2, then the native sampler, then
+    SIGTERM) leaves both the Python and the native stacks of a live
+    worker in its log."""
+    client, saver = saver_client
+    spec, out = _spec(tmp_path, total=10_000,
+                      redirect_output=str(tmp_path / "logs"))
+    agent = ElasticAgent(spec, client, ckpt_saver=saver)
+    agent._initialize_workers()
+    try:
+        _wait_progress(out, 1)
+        pid = agent._workers[0].process.pid
+        agent._stop_workers(post_mortem=True)
+    finally:
+        agent._stop_workers()
+    text = (tmp_path / "logs" / "worker-0-0.log").read_text(
+        errors="replace")
+    assert f"Native thread {pid} (most recent call first):" in text
+    assert "most recent call first" in text.split("Native thread")[0]
 
 
 def test_breakpoint_save_and_saver_loop_persist_one_at_a_time(

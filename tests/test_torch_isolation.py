@@ -3,9 +3,10 @@ JAX package. Checked in a fresh interpreter that serves (flat and
 paged engines, speculative decoding on both, MoE on the paged one),
 migrates a request between paged engines under tracing, routes one
 through a thread-replica fleet, takes a training step, generates and
-trains one step with a dropless MoE config, and runs the pipeline, the
-lite attention block, the ring's hop loops and the ep expert body on
-the CPU (this test
+trains one step with a dropless MoE config, runs the pipeline, the
+lite attention block, the ring's hop loops and the ep expert body, and
+the profiler (its daemon, a per-op profile window, the metric monitor's
+scrape, the timeline's summary and merge) on the CPU (this test
 process has JAX loaded by ``tests/conftest.py``); in a fleet's
 subprocess worker; in the elastic training worker, which also loads no
 ``ml_dtypes`` on its checkpoint path; in every interpreter of the
@@ -131,6 +132,23 @@ ring = ra.one_process_ring_forward(chunks, chunks, chunks, [0, 8])
 ep_rows = moe_lib.ep_expert_body(
     torch.randn(5, 64), [[2, 1], [0, 2]], 2, 16, torch.randn(2, 64, 256),
     torch.randn(2, 128, 64))
+import os, tempfile
+from dlrover_tpu_torch.common.metric import JobMetricMonitor
+from dlrover_tpu_torch.observability import trace_merge
+from dlrover_tpu_torch.tpu_timer import analysis, get_timer, xla_capture
+timer = get_timer()
+timer.start_server(0)
+prof_rows = xla_capture.capture_op_profile(fn=lambda: llama.loss_fn(
+    cfg, params, {"tokens": torch.zeros((2, 9), dtype=torch.long)}))
+shares = xla_capture.bucket_by_scope(prof_rows, {"attn": ("attn",)})
+xla_capture.record_events([("k", True, 0.0, 5.0)], timer.now_ns())
+monitor = JobMetricMonitor({0: f"127.0.0.1:{timer.port}"})
+fd, timeline_path = tempfile.mkstemp(suffix=".json")
+os.close(fd)
+timer.dump_timeline(timeline_path)
+timeline = json.load(open(timeline_path))
+os.unlink(timeline_path)
+merged = trace_merge.merge_job_timeline(rank_traces={0: timeline})
 print(json.dumps({
     "tokens": out.tokens.shape[1] + len(req.tokens),
     "paged_tokens": paged_tokens, "spec_tokens": spec_tokens,
@@ -143,6 +161,9 @@ print(json.dumps({
     "fleet_tokens": len(freq.result.tokens),
     "pp_logits": list(pp_logits.shape), "lite_loss": float(lite_loss),
     "ring_chunks": len(ring), "ep_rows": ep_rows.shape[0],
+    "attn_share": shares.get("attn", 0.0), "scraped": monitor.scrape_once(),
+    "kernels": analysis.summarize_timeline(timeline)["device_kernel_us"],
+    "merge_problems": trace_merge.validate_merged(merged),
     "leaked": sorted(
         m for m in sys.modules
         if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -173,6 +194,8 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     assert result["fleet_tokens"] == 3
     assert result["pp_logits"] == [2, 8, 256] and result["lite_loss"] > 0
     assert result["ring_chunks"] == 2 and result["ep_rows"] == 5
+    assert result["attn_share"] > 0 and result["scraped"] == 1
+    assert result["kernels"] == 5.0 and result["merge_problems"] == []
     assert result["leaked"] == []
 
 
@@ -359,6 +382,17 @@ def test_elastic_worker_loads_no_jax_and_no_ml_dtypes(tmp_path):
         for seg in os.listdir("/dev/shm"):
             if job in seg:
                 os.unlink(os.path.join("/dev/shm", seg))
+
+
+def test_scan_covers_the_profiler_modules():
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
+    assert {"tpu_timer/__init__.py", "tpu_timer/bridge.py",
+            "tpu_timer/py_tracing.py", "tpu_timer/xla_capture.py",
+            "tpu_timer/native_stack.py", "tpu_timer/analysis.py",
+            "tpu_timer/dump.py", "tpu_timer/launch.py",
+            "tpu_timer/_inject/sitecustomize.py", "diagnosis/collectors.py",
+            "common/metric.py", "observability/trace_merge.py"} <= scanned
+    assert REPO / "tools" / "torch_merge_timeline.py" in _TOOL_SOURCES
 
 
 def test_scan_covers_the_mesh_modules():

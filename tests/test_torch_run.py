@@ -13,7 +13,8 @@ the agent's env reads back through the worker's ``read_worker_env``;
 ``--network-check`` probes the node before the worker trains, and a
 failed probe starts no worker; the master CLI wires a batch config; with
 ``DLROVER_TPU_MASTER_JOURNAL`` set the launcher's master journals the
-job; the launcher switches whose paths are not ported raise. Two
+job; under ``DLROVER_TPU_TIMER`` the worker serves the profiler daemon
+and the launcher forwards its metrics to the master. Two
 launchers of one two-node world with ``--ckpt_replica_group 2``
 (``chip_smoke.phase_replica_restore`` at the tiny config): node 1, lost
 with its segment, restores from node 0's replica of it (from memory,
@@ -217,18 +218,6 @@ def test_worker_env_round_trips_through_read_worker_env(monkeypatch):
         "10.0.0.1:1234", 8, 5, 1, 4, 2, 3, (0, 1), 2)
 
 
-@pytest.mark.parametrize("argv, env, item", [
-    ([], {"DLROVER_TPU_TIMER": "1"}, "item 7"),
-])
-def test_launcher_refuses_unported_switches(monkeypatch, argv, env, item):
-    from dlrover_tpu_torch import run
-
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
-        run.main(["--standalone", *argv, "train.py"])
-
-
 def test_launcher_parses_module_entrypoints():
     from dlrover_tpu_torch import run
 
@@ -347,6 +336,59 @@ def test_launcher_network_check_then_trains(tmp_path):
     assert "the master's fault nodes [] after round 0" in proc.stderr
     assert [e["step"] for e in events if e["event"] == "step"] == [1, 2]
     assert events[-1]["event"] == "done"
+
+
+def test_launcher_runs_the_timer_daemon_and_forwards_its_metrics(
+        tmp_path, monkeypatch):
+    """Under ``DLROVER_TPU_TIMER=1`` the worker serves the tpu_timer
+    daemon and publishes its port, the launcher starts its collector at
+    the reference's 30 s cadence, and the run trains as without it. The
+    launcher's collectors (``run._start_timer_collectors``, here beside
+    an in-process master and daemon, one scrape) forward the parsed
+    gauges to the master's diagnosis store."""
+    import tempfile
+
+    from dlrover_tpu_torch import run
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.diagnosis.diagnosis_data import DiagnosisDataType
+    from dlrover_tpu_torch.master.local_master import LocalJobMaster
+    from dlrover_tpu_torch.master.node.job_context import JobContext
+    from dlrover_tpu_torch.tpu_timer.bridge import get_timer, publish_port
+
+    proc, events, probes = _network_check_run(tmp_path, {
+        "DLROVER_TPU_TIMER": "1", "TMPDIR": str(tmp_path)})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert [e["step"] for e in events if e["event"] == "step"] == [1, 2]
+    assert "tpu_timer daemon on port" in proc.stderr
+    assert "tpu_timer collector of local rank 0 every 30 s" in proc.stderr
+    assert list(tmp_path.glob("dlrover_tpu_timer_*_0.port"))
+
+    fwd = tmp_path / "fwd"
+    fwd.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(fwd))
+    monkeypatch.setenv("DLROVER_TPU_TIMER", "1")
+    monkeypatch.setenv("DLROVER_TPU_JOB_NAME", f"fwd{uuid.uuid4().hex[:8]}")
+    timer = get_timer()
+    publish_port(0, timer.port or timer.start_server(0))
+    JobContext.reset_singleton()
+    master = LocalJobMaster(port=0, node_num=1)
+    master.prepare()
+    client = MasterClient(f"localhost:{master.port}", node_id=0)
+    try:
+        collectors = run._start_timer_collectors(client, 0, 1)
+        try:
+            assert [c.interval_s for c in collectors] == [30.0]
+            assert collectors[0].collect_once()
+        finally:
+            for c in collectors:
+                c.stop()
+        got = [d for d in master.diagnosis_master.node_data(0)
+               if d.data_type == DiagnosisDataType.XPU_TIMER_METRIC]
+        assert len(got) == 1 and "tpu_timer_hang_spans" in got[0].metrics
+    finally:
+        client.close()
+        master.stop()
+        JobContext.reset_singleton()
 
 
 def test_launcher_network_check_failure_starts_no_worker(tmp_path):
