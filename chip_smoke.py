@@ -60,7 +60,9 @@ phases that each print JSON lines:
     the paged engine's shape (b=16, h=kh=8, d=128, block 16, 64 blocks a
     row, 513 blocks; int8 also over its engine's 993 blocks) with
     fills that include 0, 1, 15, 16, 17 and 1024 (and, apart, fills on
-    every split edge), GQA h=32/kh=8, and blocks of 32 and 128 rows;
+    every split edge), GQA h=32/kh=8, blocks of 32 and 128 rows, and
+    the fleet soak's replicas' blocks of 8 and max_len 64 (fp, b=8;
+    their 2 slots share its split-K plan);
     times, the bytes bound, and gather + SDPA
     as the library call. Two planted faults the same tolerance must
     reject (a kernel that ignores the table, one that drops a row's last
@@ -115,6 +117,22 @@ phases that each print JSON lines:
     pipe; a fault schedule SIGKILLs decode replica d1 at its first
     import. Every request exactly once, d1's the only death, block
     conservation on every heartbeat; each child's start seconds;
+11f. fleet_soak (run after phase 19, beside phase 29 and no other):
+    the seeded chaos soak's
+    fleet episodes (seed 0, 4 ``replica_kill_reroute`` and 6
+    ``kill_during_migration``,
+    ``tools/torch_chaos_soak.py --fleet-config flagship``, each in a
+    process of its own, both at once): two paged ``SubprocessReplica``s
+    of the flagship on this card under a ``FleetRouter``, one SIGKILLed
+    mid-decode (4) or holding an unacked KV import (6) and restarted. The
+    harness's invariants (every request terminal once, the victim
+    BROKEN, probed and HEALTHY again, trace trees, block reclaim); the
+    planned crash fired, a restart, in 6 a migration and a migration
+    failure; block conservation on every replica's last heartbeat; every
+    replica start on the card; B6 launched in the replicas (their
+    heartbeats count it). Each episode's wall, replica start seconds,
+    requests, restarts, migrations and the victim's breaker-open to
+    re-admitted seconds;
 12. MoE kernels: the grouped FFN forward (B7) and its dx, dw_gu and
     dw_down kernels (B8) against their plain versions at the MoE
     training shape (8 x 2048 tokens, d = f = 1024, 8 experts, top-2,
@@ -126,8 +144,8 @@ phases that each print JSON lines:
     dx's two launches also apart;
 13. MoE ``generate()`` on ``moe_config()`` (bench.py's moe_phase model:
     the flagship's attention, 8 experts of mlp 1024, top-2, dropless,
-    535M params, 233M active): b=8, prompt 128, 128 new tokens, fp
-    cache; a bitwise rerun and exact B5 and B7 launches. Routing flips
+    535M params, 233M active): b=8, prompt 128, MOE_GEN_NEW new tokens,
+    fp cache; a bitwise rerun and exact B5 and B7 launches. Routing flips
     (positions whose top-2 expert set differs between the cached path
     and the teacher-forced forward at some layer) are counted and
     reported, not bounded. The teacher-forced gap is held to ARGMAX_GAP
@@ -238,11 +256,18 @@ phases that each print JSON lines:
     ``/metrics``, the launcher's collector forwards the gauges to the
     master, and the timeline fetched through ``tpu_timer/dump.py`` holds
     B1/B2's kernels; the capture window's seconds and the step time in
-    and out of it. Then the agent's warm standby (a crash through the
-    fault schedule, the relaunch the adopted standby on the card), with
+    and out of it. Beside it (it runs in an interpreter of its own, so
+    both sides' seconds include the other's load), the agent's warm
+    standby (a crash through the fault schedule, the relaunch the
+    adopted standby on the card), with
     the crash to first step against a cold relaunch; the capture
     listener runs in every interpreter, host-only in a waiting standby,
-    which holds no CUDA context when adopted;
+    which holds no CUDA context when adopted. Its local master runs the
+    autoscale loop (every 0.5 s, recording), its fault history fed the
+    two crashes: the recording's newest ``perf.global_step`` is a step
+    the worker trained on the card, the loop retuned the checkpoint
+    cadence from the observed MTBF, the recording replays to the live
+    ledger, and no decision's actuation failed;
 26. chaos_soak: the seeded chaos soak (``testing/soak.run_soak``, seed 0,
     episodes ``crash_drop``, ``torn_ckpt`` and ``serving_report``), the
     master in this process and each worker generation's state (``sum``,
@@ -274,7 +299,17 @@ phases that each print JSON lines:
     replica port unreachable, the next relaunch falls back to storage
     and says so. Image bytes, push and pull seconds and GB/s, relaunch
     to first step, the memory and storage restores' seconds, and a
-    timeline of the phase.
+    timeline of the phase;
+29. autoscale_soak (beside phase 11f, in a process of its own): the
+    soak's ``straggler_evict`` episode (seed 0, episode 5,
+    ``tools/torch_chaos_soak.py --episode 5``): one seeded schedule (a
+    delayed straggler, three worker deaths, a traffic spike) run static,
+    dry-run and autoscaled over a simulated cluster on the host, which
+    launches nothing on the card (as the reference's). The harness's
+    invariants; the autoscaled goodput above the static, the straggler
+    evicted within the window bound, a dry run with no actuation, the
+    recording's replay identical and a perturbed replay different. Both
+    goodput fractions, the time to mitigate, the decisions.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -289,6 +324,7 @@ B7, B8 dx (first launch) and B8 dw launches, the card's name and power
 limit, and the ``kernels`` line.
 """
 
+import atexit
 import contextlib
 import functools
 import json
@@ -910,6 +946,7 @@ def _paged_sdpa_call(q, k, v, tables, lens, scales=()):
 def phase_paged_kernels():
     from dlrover_tpu_torch.ops import decode_attention as da
     from dlrover_tpu_torch.ops.kv_quant import quantize_kv
+    from dlrover_tpu_torch.testing.fleet_soak import FleetSoakConfig
 
     gen = torch.Generator("cuda").manual_seed(SEED + 6)
     rs = np.random.RandomState(SEED + 6)
@@ -919,14 +956,25 @@ def phase_paged_kernels():
     edge_rs = np.random.RandomState(SEED + 10)
     # (label, b, h, kh, d, block_size, max_blocks, num_blocks, top random
     # fill, kvs): the fp and the int8 paged engine as served below, then GQA
-    # and larger blocks.
+    # and larger blocks, then the fleet soak's replicas (phase fleet_soak,
+    # the harness's blocks and max_len) at 8 rows.
+    fleet = FleetSoakConfig()
     shapes = [
         ("engine", 16, 8, 8, 128, 16, 64, 513, 700, ("fp", "int8")),
         ("engine_int8", 16, 8, 8, 128, 16, 64, 993, 700, ("int8",)),
         ("gqa", 16, 32, 8, 128, 16, 64, 513, 700, ("fp", "int8")),
         ("block_32", 16, 8, 8, 128, 32, 32, 257, 700, ("fp", "int8")),
         ("block_128", 16, 8, 8, 128, 128, 8, 65, 500, ("fp", "int8")),
+        ("fleet_soak", 8, 8, 8, 128, fleet.block_size,
+         fleet.max_len // fleet.block_size, 65, fleet.max_len, ("fp",)),
     ]
+    # The replicas call B6 with their slots (a pool of slots x max_len /
+    # block_size + 1 blocks): the same split-K plan as the row's 8.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(da.split_plan(fleet.slots, 8, 8, fleet.max_len, sms)
+          == da.split_plan(8, 8, 8, fleet.max_len, sms),
+          f"paged fleet_soak: {fleet.slots} slots split max_len unlike "
+          f"the row's 8")
 
     def within(got, want):
         # As B5's rows: bf16 outputs, both round one f32 result, summed
@@ -940,6 +988,8 @@ def phase_paged_kernels():
         lengths = fixed + [int(x) for x in
                            rs.randint(2, top, size=b - len(fixed))]
         edges, split = _split_edges(b, h, kh, bs * mb)
+        # A split as long as max_len puts split + 1 past it.
+        edges = [min(n, bs * mb) for n in edges]
         edge_lengths = edges + [int(x) for x in
                                 edge_rs.randint(2, top, size=b - len(edges))]
         for kv in kvs:
@@ -2112,6 +2162,265 @@ def phase_fleet_subprocess(cfg, params):
     return row
 
 
+# phase 11f: the fleet episodes of the seeded chaos soak, and their
+# watchdog (each replica start pays `import torch` and a CUDA context).
+FLEET_SOAK_EPISODES = {4: "replica_kill_reroute", 6: "kill_during_migration"}
+FLEET_SOAK_WATCHDOG_S = 240.0
+SOAK_PROCESS_TIMEOUT_S = 420.0
+
+
+_CHILDREN = []
+
+
+def _child(proc):
+    """Registers a process that runs beside the phases: one still
+    running when this script exits (a phase failed meanwhile) is
+    killed."""
+    _CHILDREN.append(proc)
+    return proc
+
+
+@atexit.register
+def _kill_children():
+    for proc in _CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+class _ChildRun:
+    """``python <argv>`` in a process of its own, from the repo's root
+    with the repo on its path, started at once; its stderr goes to
+    ``log`` (a path) or to this process's. ``result()`` waits, prints
+    the lines of its stdout but the last, and returns the last one's
+    JSON; the phase fails if the process exited non-zero."""
+
+    def __init__(self, label, argv, log=None):
+        repo = os.path.dirname(os.path.abspath(__file__))
+        self.label = label
+        self.log = open(log, "w") if log else None
+        self.t0 = time.monotonic()
+        self.proc = _child(subprocess.Popen(
+            [sys.executable, *argv], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=repo), stdout=subprocess.PIPE,
+            stderr=self.log, text=True))
+
+    def result(self, timeout):
+        try:
+            out, _ = self.proc.communicate(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            if self.log:
+                self.log.close()
+        self.wall_s = time.monotonic() - self.t0
+        lines = out.splitlines()
+        for ln in lines[:-1]:
+            print(ln, flush=True)
+        check(self.proc.returncode == 0 and lines,
+              f"{self.label}: exit {self.proc.returncode}")
+        return json.loads(lines[-1])
+
+
+def _interpreter_call(name, *args):
+    """``chip_smoke.<name>(*args)`` in a fresh interpreter: its
+    ``result()`` is what that returned."""
+    code = ("import json, sys; import chip_smoke as cs; "
+            f"out = cs.{name}(*json.loads(sys.argv[1])); "
+            "print(json.dumps(out), flush=True)")
+    return _ChildRun(name, ["-c", code, json.dumps(args)])
+
+
+def _soak_episode(episode, work, *args):
+    """``tools/torch_chaos_soak.py`` running one episode of seed SEED in a
+    process of its own (the soak's entry point; the fault registry and
+    the tracer it arms are process-wide, so two episodes cannot share
+    one process), its stderr in ``work/episode<N>.log``."""
+    run_dir = os.path.join(work, f"episode{episode}")
+    os.makedirs(run_dir)
+    return _ChildRun(
+        f"soak episode {episode}",
+        [os.path.join("tools", "torch_chaos_soak.py"), "--seed", str(SEED),
+         "--episode", str(episode), "--work-dir", run_dir, *args],
+        log=os.path.join(work, f"episode{episode}.log"))
+
+
+def _soak_report(run):
+    """Waits for a ``_soak_episode``: its episode's report."""
+    summary = run.result(SOAK_PROCESS_TIMEOUT_S)
+    check(summary["invariants"] == "pass" and summary["episodes"] == 1,
+          f"{run.label}: {summary}")
+    return summary["reports"][0]
+
+
+def start_fleet_soak(device="cuda", config="flagship"):
+    """Starts phase ``fleet_soak``'s two episodes (they run beside the
+    autoscaler's episode); ``finish_fleet_soak`` gates them."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="fleet_soak_")
+    runs = [_soak_episode(episode, work, "--device", device,
+                          "--fleet-config", config,
+                          "--watchdog-s", str(FLEET_SOAK_WATCHDOG_S))
+            for episode in FLEET_SOAK_EPISODES]
+    return work, runs, device, config, time.monotonic()
+
+
+def finish_fleet_soak(started):
+    """Waits for ``start_fleet_soak``'s episodes: the soak's fleet
+    episodes (``tools/torch_chaos_soak.py --episode 4`` and ``--episode
+    6``, seed SEED, ``--fleet-config config``), each in a process of its
+    own, both at once. ``testing/fleet_soak`` runs two paged
+    ``SubprocessReplica``s serving ``config`` (the flagship at full width
+    and depth) on ``device`` under a ``FleetRouter``. In episode 4 a
+    replica is SIGKILLed mid-decode at its seeded step; in episode 6, the
+    decode replica of a prefill/decode pair holding an unacked KV import.
+    Gates: the harness's invariants (the tool exits non-zero otherwise:
+    every request terminal once, the victim BROKEN, probed HALF_OPEN and
+    HEALTHY again, restarted, trace trees, block reclaim); completed +
+    failed == requests and a restart; the planned crash fired
+    (``fleet.replica.step``, ``fleet.replica.import``); in episode 6 a
+    migration and a migration failure; block conservation on every
+    replica's last heartbeat; every replica generation's ready line
+    names ``device``; on the card, B6 (fp) launched in the replicas
+    (their heartbeats count it, from zero in each process). On a failure
+    the tail of every replica and episode log goes to stderr
+    (``_soak_work_dir``). Returns the replicas' decode-kernel launches,
+    summed."""
+    work, runs, device, config, t0 = started
+    launches = {}
+    episodes = []
+    with _soak_work_dir(None, work=work):
+        reports = [(_soak_report(run), run.wall_s) for run in runs]
+    for (rep, wall), (episode, kind) in zip(reports,
+                                            FLEET_SOAK_EPISODES.items()):
+        label = f"fleet_soak/{kind}"
+        check(rep["kind"] == kind, f"{label}: ran {rep['kind']}")
+        check(rep["completed"] + rep["failed"] == rep["requests"]
+              and rep["restarts"] >= 1,
+              f"{label}: {rep['completed']} completed, {rep['failed']} "
+              f"failed of {rep['requests']}, {rep['restarts']} restarts")
+        point = ("fleet.replica.step" if episode == 4
+                 else "fleet.replica.import")
+        check(any(f["point"] == point and f["action"] == "crash"
+                  for f in rep["faults"]),
+              f"{label}: faults fired {rep['faults']}")
+        if episode == 6:
+            check(rep["migrations"] >= 1 and rep["migration_failures"] >= 1,
+                  f"{label}: {rep['migrations']} migrations, "
+                  f"{rep['migration_failures']} failures")
+        for rid, kv in rep["kv_blocks"].items():
+            check(kv["free"] + kv["used"] + kv["cached"] == kv["total"],
+                  f"{label}: replica {rid}'s last heartbeat {kv}")
+        starts = rep["replica_starts"]
+        check(all(gens and all(g["device"].startswith(device) for g in gens)
+                  for gens in starts.values())
+              and len(starts[rep["victim"]]) >= 2,
+              f"{label}: replica starts {starts}")
+        check(rep["victim_recovery_s"] is not None,
+              f"{label}: the victim was never re-admitted")
+        if device == "cuda":
+            check(rep["launches"].get("paged_decode_attention_fp", 0) > 0,
+                  f"{label}: the replicas launched no B6: {rep['launches']}")
+        for name, n in rep["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        episodes.append({
+            "episode": episode, "kind": kind, "wall_s": wall,
+            "harness_wall_s": rep["wall_s"], "victim": rep["victim"],
+            "requests": rep["requests"], "completed": rep["completed"],
+            "failed": rep["failed"], "restarts": rep["restarts"],
+            "reroutes": rep.get("reroutes"),
+            "migrations": rep.get("migrations"),
+            "migration_failures": rep.get("migration_failures"),
+            "victim_recovery_s": rep["victim_recovery_s"],
+            "replica_start_s": {rid: [round(g["start_s"], 3) for g in gens]
+                                for rid, gens in starts.items()},
+            "kv_blocks": rep["kv_blocks"], "launches": rep["launches"],
+            "faults": [(f["point"], f["action"], f["hit"])
+                       for f in rep["faults"]]})
+    emit({"phase": "fleet_soak", "device": device, "config": config,
+          "wall_s": time.monotonic() - t0, "episodes": episodes,
+          "launches": launches})
+    return launches
+
+
+def start_autoscale_soak(device="cuda"):
+    """Starts phase ``autoscale_soak``'s episode in a process of its own
+    (it runs beside the fleet episodes); ``finish_autoscale_soak`` gates
+    it."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="autoscale_soak_")
+    return work, _soak_episode(5, work, "--device", device)
+
+
+def finish_autoscale_soak(started):
+    """The soak's ``straggler_evict`` episode (``tools/torch_chaos_soak.py
+    --episode 5``, seed SEED) through ``testing/autoscale_soak``: one
+    seeded straggler-and-crash schedule run static, dry-run and
+    autoscaled. Like the reference's, this harness simulates its cluster
+    on the host (the sim scaler, the task manager, the perf monitor,
+    wall-clock sleeps as steps) and launches nothing on the card; its
+    process holds no CUDA context. Gates: the harness's invariants (the
+    tool exits non-zero otherwise); the autoscaled run's goodput above
+    the static run's; the straggler evicted within
+    ``mitigate_window_bound`` decision windows; the dry run's leading
+    decision the live one's with zero actuations; the recording's replay
+    identical to the live ledger and the perturbed replay different."""
+    from dlrover_tpu_torch.testing.autoscale_soak import AutoscaleSoakConfig
+
+    work, run = started
+    with _soak_work_dir(None, work=work):
+        rep = _soak_report(run)
+    bound = AutoscaleSoakConfig().mitigate_window_bound
+    label = "autoscale_soak"
+    check(rep["kind"] == "straggler_evict" and rep["invariants"] == "pass",
+          f"{label}: {rep['kind']} {rep['invariants']}")
+    check(rep["autoscale_goodput_frac"] > rep["static_goodput_frac"],
+          f"{label}: goodput {rep['autoscale_goodput_frac']} autoscaled, "
+          f"{rep['static_goodput_frac']} static")
+    check(rep["autoscale_time_to_mitigate_s"] is not None
+          and rep["autoscale_mitigate_windows"] <= bound,
+          f"{label}: mitigated after {rep['autoscale_mitigate_windows']} "
+          f"windows (bound {bound})")
+    check(rep["dry_run_actuations_total"] == 0
+          and rep["dry_run_decisions_total"] > 0,
+          f"{label}: dry run {rep['dry_run_decisions_total']} decisions, "
+          f"{rep['dry_run_actuations_total']} actuations")
+    check(rep["whatif_identity_ok"] is True
+          and rep["whatif_perturbed_decisions"]
+          != rep["whatif_recorded_decisions"],
+          f"{label}: replay identity {rep['whatif_identity_ok']}, "
+          f"{rep['whatif_recorded_decisions']} recorded and "
+          f"{rep['whatif_perturbed_decisions']} perturbed decisions")
+    row = {"phase": label, "wall_s": run.wall_s, "launches_on_card": 0}
+    row.update({k: rep[k] for k in (
+        "ab_wall_s", "goodput_causes",
+        "static_goodput_frac", "autoscale_goodput_frac",
+        "autoscale_time_to_mitigate_s", "autoscale_mitigate_windows",
+        "autoscale_decisions_total", "autoscale_actuations_total",
+        "autoscale_ckpt_retunes", "autoscale_fleet_grow_events",
+        "goodput_attributed_frac", "whatif_recorded_decisions",
+        "whatif_perturbed_decisions", "whatif_replay_snapshots_per_s",
+        "deaths")})
+    emit(row)
+    return row
+
+
+def phase_soak_episodes(device="cuda", config="flagship"):
+    """Phases ``fleet_soak`` and ``autoscale_soak`` at once, beside no
+    other phase: the autoscaler's episode (a simulated cluster on the
+    host) runs while the fleet episodes' harnesses wait on their replica
+    processes, which decode on the card. Each keeps its gates and
+    prints its own row with its wall. Returns the replicas' decode-kernel
+    launches."""
+    autoscale = start_autoscale_soak(device)
+    launches = finish_fleet_soak(start_fleet_soak(device, config))
+    finish_autoscale_soak(autoscale)
+    return launches
+
+
 def _leaf_names(tree, prefix=""):
     """Names of ``train_step.param_leaves(tree)``, in its order."""
     names = []
@@ -2896,6 +3205,11 @@ def phase_train_ce(cfg):
 # ---- MoE (B7, B8) ------------------------------------------------------------
 
 
+# phase 13's new tokens a run (cut from 128 for the script's time
+# limit; greedy, so they are the first 64 of a 128-token run).
+MOE_GEN_NEW = 64
+
+
 def moe_config():
     """bench.py's moe_phase model (:725-729): the flagship's attention
     with 8 experts of mlp 1024 in every layer, top-2, dropless (535M
@@ -3288,10 +3602,11 @@ def _pinned_routing(ids):
 
 
 def phase_moe_generate(cfg, params):
-    """MoE ``generate()``: b=8, prompt 128, 128 new greedy tokens, fp
-    cache, twice (the second timed), after a prefill-alone run. Checks:
-    the two runs agree bit for bit; exact launches per run (B7 once a
-    layer per forward: the prefill and 127 single-token steps; B5 once a
+    """MoE ``generate()``: b=8, prompt 128, MOE_GEN_NEW new greedy
+    tokens, fp cache, twice (the second timed), after a prefill-alone
+    run. Checks: the two runs agree bit for bit; exact launches per run
+    (B7 once a layer per forward: the prefill and MOE_GEN_NEW - 1
+    single-token steps; B5 once a
     layer per single-token step; nothing else); the teacher-forced gap.
 
     The cached path and the teacher-forced forward round bf16 at other
@@ -3307,7 +3622,7 @@ def phase_moe_generate(cfg, params):
     from dlrover_tpu_torch.ops import decode_attention as da
     from dlrover_tpu_torch.ops import moe_dispatch as md
 
-    b, prompt_len, new = 8, 128, 128
+    b, prompt_len, new = 8, 128, MOE_GEN_NEW
     L = cfg.n_layers
     prompt = torch.randint(
         0, cfg.vocab_size, (b, prompt_len),
@@ -5086,6 +5401,8 @@ AGENT_TIMEOUT_S = 300.0
 # phase 25(b): the injected capture listener's interval in every
 # interpreter of the run (standbys and workers).
 STANDBY_CAPTURE_S = 2.0
+# phase 25(b): the local master's autoscale loop cadence.
+AUTOSCALE_INTERVAL_S = 0.5
 # phase 25: the most a capture window opened after the worker's first
 # step may wait for the profiler to start (a first window opened during
 # a process's start-up waited 10.1-11.2 s on the H100).
@@ -5530,7 +5847,10 @@ def _standby_run(device, root, repo):
     os.environ.update({NodeEnv.JOB_NAME: job, NodeEnv.NODE_RANK: "0",
                        NodeEnv.SHARED_DIR: sock_dir})
     JobContext.reset_singleton()
-    master = LocalJobMaster(port=0, node_num=1)
+    record = os.path.join(root, "autoscale", "signals.jsonl")
+    master = LocalJobMaster(port=0, node_num=1, autoscale_loop=True,
+                            autoscale_interval_s=AUTOSCALE_INTERVAL_S,
+                            autoscale_record=record)
     master.prepare()
     client = MasterClient(f"localhost:{master.port}", node_id=0)
     AsyncCheckpointSaver.reset()
@@ -5545,7 +5865,11 @@ def _standby_run(device, root, repo):
                                     os.path.join(root, "ckpt")),
             nproc_per_node=1, max_restarts=2, node_rank=0,
             monitor_interval=0.2, redirect_output=log_dir,
+            # The master's address, as the launcher exports it: the
+            # worker reports its steps to the master's perf monitor,
+            # which the autoscale loop samples.
             env={SCHEDULE_ENV: schedule, TRACE_ENV: trace,
+                 NodeEnv.MASTER_ADDR: f"localhost:{master.port}",
                  "PYTHONPATH": repo, "DLROVER_TPU_TIMER_XLA": "1",
                  "DLROVER_TPU_TIMER_XLA_INTERVAL": str(STANDBY_CAPTURE_S),
                  "DLROVER_TPU_TIMER_XLA_WINDOW": "0.1"},
@@ -5557,14 +5881,18 @@ def _standby_run(device, root, repo):
             daemon=True)
         thread.start()
         deadline = t0 + AGENT_TIMEOUT_S
+
+        def wait_for(what, cond):
+            while not cond():
+                check(thread.is_alive() and time.monotonic() < deadline,
+                      f"agent_paths/standby: no {what}")
+                time.sleep(0.02)
+
         for i in range(len(labels)):
             # Incarnation i read the schedule once its ready line is out.
-            while sum(e.get("event") == "ready"
-                      for _, e in tail.json_lines(log_path)) <= i:
-                check(thread.is_alive() and time.monotonic() < deadline,
-                      f"agent_paths/standby: no ready line of "
-                      f"incarnation {i}")
-                time.sleep(0.02)
+            wait_for(f"ready line of incarnation {i}", lambda: sum(
+                e.get("event") == "ready"
+                for _, e in tail.json_lines(log_path)) > i)
             crash_at(i + 1)
             if i == 1:
                 # The standby spawned after the adoption dies before the
@@ -5575,6 +5903,19 @@ def _standby_run(device, root, repo):
                 standby.kill()
                 standby.wait(timeout=10)
                 killed.append(standby.pid)
+        # A cluster's master feeds its fault history from node failures;
+        # the local master has none, so this harness feeds it the two
+        # crashes (their trace lines' times), as the soak's harness does:
+        # an observed MTBF the loop retunes the checkpoint cadence from
+        # while the cold relaunch runs.
+        def crash_times():
+            return [t for t, e in tail.json_lines(trace)
+                    if e.get("rule_id") in labels]
+
+        wait_for("crash trace line of each incarnation",
+                 lambda: len(crash_times()) == len(labels))
+        for t in crash_times():
+            master.fault_history.record_failure(t)
         thread.join(timeout=max(deadline - time.monotonic(), 1.0))
         check(not thread.is_alive(), f"agent_paths/standby: the agent "
               f"did not finish in {AGENT_TIMEOUT_S} s")
@@ -5588,6 +5929,8 @@ def _standby_run(device, root, repo):
         _unlink_job_segments(job)
     check(box.get("result") == RunResult.SUCCEEDED,
           f"agent_paths/standby: agent result {box.get('result')}")
+    autoscale = _autoscale_recording_gates(
+        record, master, tail.json_lines(log_path))
     lines = tail.json_lines(log_path)
     readies = [(t, e) for t, e in lines if e.get("event") == "ready"]
     standbys = [e for _, e in lines if e.get("event") == "standby_ready"]
@@ -5626,8 +5969,8 @@ def _standby_run(device, root, repo):
           f"agent_paths/standby: listeners armed in pids {sorted(armed)}, "
           f"standbys {sorted(standby_pids)}, captures before a first step "
           f"{early}, start-ups {[c[3] for c in captures]}")
-    row = {"wall_s": wall, "standby_import_s": [e["import_s"]
-                                                for e in standbys],
+    row = {"wall_s": wall, "autoscale": autoscale,
+           "standby_import_s": [e["import_s"] for e in standbys],
            "listeners": len(armed), "captures": len(captures),
            "captures_on_card": sum(n > 0 for _, _, n, _ in captures),
            "startup_s": [up for *_, up in captures]}
@@ -5661,6 +6004,55 @@ def _standby_run(device, root, repo):
     return row
 
 
+def _autoscale_recording_gates(record, master, worker_lines):
+    """Phase 25(b)'s master ran the autoscale loop, recording to
+    ``record``: the recording's snapshots carry the worker's steps as
+    the master's perf monitor received them (the newest recorded
+    ``perf.global_step`` is the monitor's, a step the worker printed on
+    the card, of its last incarnation or later), it replays to the live
+    ledger (``assert_replay_identity``), and no ledger entry carries an
+    actuation error."""
+    from dlrover_tpu_torch.autoscaler import (
+        SET_CKPT_INTERVAL,
+        assert_replay_identity,
+        load_recording,
+    )
+
+    recording = load_recording(record)
+    steps = [s.values.get("perf.global_step") for s in recording.snapshots]
+    printed = [e["step"] for _, e in worker_lines if e.get("event") == "step"]
+    readies = [e for _, e in worker_lines if e.get("event") == "ready"]
+    newest = max((n for n in steps if n is not None), default=None)
+    check(newest is not None and newest == master.perf_monitor.global_step
+          and newest in printed
+          and newest > readies[-1]["restored_step"],
+          f"agent_paths/autoscale: recorded global steps {steps[-5:]}, "
+          f"the monitor's {master.perf_monitor.global_step}, printed "
+          f"{printed}")
+    check(steps == sorted(steps, key=lambda n: -1 if n is None else n),
+          f"agent_paths/autoscale: global steps went back: {steps}")
+    diff = assert_replay_identity(recording)
+    entries = master.autoscaler.ledger.entries()
+    errors = [d.to_dict(include_signals=False) for d in entries
+              if d.outcome.startswith("error")]
+    check(not errors, f"agent_paths/autoscale: actuation errors {errors}")
+    retunes = [d for d in entries if d.action == SET_CKPT_INTERVAL
+               and d.outcome == "actuated"]
+    check(retunes and master.ckpt_cadence.interval_s() == float(
+        retunes[-1].target),
+          f"agent_paths/autoscale: no checkpoint cadence retune from the "
+          f"two crashes' MTBF: decisions "
+          f"{[(d.action, d.target, d.outcome) for d in entries]}, cadence "
+          f"{master.ckpt_cadence.interval_s()}")
+    return {"snapshots": len(recording.snapshots),
+            "decisions": len(entries), "replayed": diff["identical"],
+            "ckpt_interval_s": master.ckpt_cadence.interval_s(),
+            "retune_reason": retunes[-1].reason,
+            "newest_global_step": newest,
+            "sources": sorted({k.split(".")[0] for k in
+                               recording.snapshots[-1].values})}
+
+
 def phase_agent_paths(device="cuda"):
     """(a) ``python -m dlrover_tpu_torch.run --standalone --network-check
     --nproc_per_node 1 -m dlrover_tpu_torch.examples.train_llama`` (one
@@ -5669,8 +6061,10 @@ def phase_agent_paths(device="cuda"):
     wrote its result, the master's fault nodes are empty, then the worker
     trained 2 steps (launching B1 on the card); under
     ``DLROVER_TPU_CHAOS_CHECK_FAIL_RANKS=0`` the launcher exits non-zero
-    and no worker starts (the two launchers run at once). (b) The port's ``ElasticAgent`` under an
-    in-process local master and saver runs the same worker for
+    and no worker starts (the two launchers run at once; (a) runs in an
+    interpreter of its own, beside (b)). (b) The port's ``ElasticAgent``
+    under an in-process local master (its autoscale loop on, recording)
+    and saver runs the same worker for
     AGENT_STEPS steps with ``WorkerSpec(warm_standby=True)``; its first
     two incarnations crash at AGENT_CRASH_STEPS through their fault
     schedule, and the standby spawned before the second crash is
@@ -5680,9 +6074,10 @@ def phase_agent_paths(device="cuda"):
     standby's fallback); no waiting standby initialised CUDA; the
     injected capture listener ran in every standby, and no window opened
     before its process's first step, each within CAPTURE_STARTUP_MAX_S
-    of profiler start-up. Prints
-    the seconds from each crash (its fault trace line) to the
-    relaunch's ready line and first step: warm against cold."""
+    of profiler start-up; the autoscale recording's gates
+    (``_autoscale_recording_gates``). Prints the seconds from each crash
+    (its fault trace line) to the relaunch's ready line and first step:
+    warm against cold."""
     import shutil
     import tempfile
 
@@ -5690,7 +6085,10 @@ def phase_agent_paths(device="cuda"):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     row = {"phase": "agent_paths", "device": device}
-    row["network_check"] = _network_check_runs(device)
+    # (a) runs in an interpreter of its own beside (b) (a cut for the
+    # script's time limit): (b) sets this process's env for its
+    # agent, and both spend most of their wall in process starts.
+    network_check = _interpreter_call("_network_check_runs", device)
     saved_env = {k: os.environ.get(k) for k in (
         NodeEnv.JOB_NAME, NodeEnv.NODE_RANK, NodeEnv.SHARED_DIR)}
     root = tempfile.mkdtemp(prefix="agent_standby_")
@@ -5703,6 +6101,7 @@ def phase_agent_paths(device="cuda"):
             else:
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
+    row["network_check"] = network_check.result(AGENT_TIMEOUT_S * 2)
     emit(row)
     return row
 
@@ -5743,15 +6142,15 @@ def _soak_ledger_gates(phase, events, device):
 
 
 @contextlib.contextmanager
-def _soak_work_dir(prefix):
-    """A soak phase's work directory: on a failure the tail of every
-    worker and master log and ledger under it goes to stderr, and the
-    directory goes in any case."""
+def _soak_work_dir(prefix, work=None):
+    """A soak phase's work directory (a new one, or ``work``): on a
+    failure the tail of every worker and master log and ledger under it
+    goes to stderr, and the directory goes in any case."""
     import glob
     import shutil
     import tempfile
 
-    work = tempfile.mkdtemp(prefix=prefix)
+    work = work or tempfile.mkdtemp(prefix=prefix)
     try:
         yield work
     except Exception:
@@ -6402,6 +6801,11 @@ def main():
     del mesh_state
     torch.cuda.empty_cache()
     timed("node_check", phase_node_check)
+    # The soak's fleet and autoscaler episodes, beside each other only:
+    # the fleet replica processes' heartbeats count B6, from zero in
+    # each process.
+    for name, n in timed("soak_episodes", phase_soak_episodes).items():
+        launches[name] += n
     # The mesh's last axes: long context through the lite block, the
     # pipeline, the ring's hops and the ep expert body (launches exact
     # inside each phase).

@@ -233,6 +233,21 @@ class FaultRule:
         return d
 
 
+# A delay sleeps in slices of at most this long. CPython runs a signal's
+# handler only on its main thread, and a signal that the kernel hands to
+# another thread wakes no sleep of the main thread. The kernel does so
+# whenever the main thread is stopped, as while a tracer (the native
+# stack sampler) holds it: one long sleep would hold a SIGUSR1's
+# on-demand dump for the whole delay.
+DELAY_SLICE_S = 0.05
+
+
+def _sleep_in_slices(seconds: float):
+    end = time.monotonic() + seconds
+    while (left := end - time.monotonic()) > 0:
+        time.sleep(min(left, DELAY_SLICE_S))
+
+
 class FaultSchedule:
     """A seeded set of rules + the trace of everything that fired.
 
@@ -302,7 +317,7 @@ class FaultSchedule:
 
     def _execute(self, rule: FaultRule, name: str, entry: Dict):
         if rule.action == FaultAction.DELAY:
-            time.sleep(rule.delay_s)
+            _sleep_in_slices(rule.delay_s)
             return None
         if rule.action == FaultAction.RAISE:
             raise FaultInjected(name, rule.rule_id)

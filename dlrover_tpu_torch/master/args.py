@@ -2,11 +2,13 @@
 port's copy of ``dlrover_tpu/master/args.py``, whose transport defaults
 to HTTP).
 
-Only the flags the local master reads are here. The distributed
+Only the flags the local master reads are here, the four autoscale
+flags among them (``--autoscale_loop``, ``--autoscale_dry_run``,
+``--autoscale_interval_s``, ``--autoscale_record``). The distributed
 master's flags (namespace, network check, dashboard, brain, metric
-endpoints, topology, node unit, auto-scaling, legal worker counts) come
-back with it (ROADMAP §A item 8). ``--autoscale_loop``, whose path is not
-ported, raises ``NotImplementedError`` naming its ROADMAP §A item (4).
+endpoints, topology, node unit, auto-scaling, legal worker counts,
+``--autoscale_max_world`` and ``--autoscale_ckpt_interval_s``) come back
+with it (ROADMAP §A item 8).
 """
 
 import argparse
@@ -60,8 +62,32 @@ def build_master_parser() -> argparse.ArgumentParser:
         "--autoscale_loop",
         action="store_true",
         default=False,
-        help="run the closed-loop autoscaler (not ported: ROADMAP §A "
-        "item 4)",
+        help="run the closed-loop autoscaler: watch goodput/straggler/"
+        "queue/fault signals; actuate straggler eviction and the ckpt "
+        "cadence (Young/Daly from observed MTBF); world and fleet "
+        "decisions stay advisory in the local master",
+    )
+    parser.add_argument(
+        "--autoscale_dry_run",
+        action="store_true",
+        default=False,
+        help="autoscaler decides and ledgers but never actuates "
+        "(advisory mode)",
+    )
+    parser.add_argument(
+        "--autoscale_interval_s",
+        type=float,
+        default=5.0,
+        help="autoscaler decision-loop cadence in seconds",
+    )
+    parser.add_argument(
+        "--autoscale_record",
+        type=str,
+        default="",
+        help="durably record the autoscaler's signal/decision/outcome "
+        "stream to this JSONL path for offline what-if policy replay "
+        "(tools/torch_whatif.py); also armed by "
+        "DLROVER_TPU_AUTOSCALE_RECORD",
     )
     return parser
 

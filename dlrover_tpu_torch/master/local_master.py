@@ -14,8 +14,11 @@ rendezvous and the rescale plans to the worlds it can train at
 durable journal (``master/journal.py``): it rehydrates the kv, sync,
 task, rendezvous, rescale and job state from the journal before the
 servicer exists, journals every plan cut, and closes the journal with a
-clean-shutdown record on stop. The autoscale loop raises
-``NotImplementedError`` naming its ROADMAP item.
+clean-shutdown record on stop. With ``autoscale_loop`` it runs the
+closed-loop autoscaler (``autoscaler/``) over the perf, data, fleet,
+fault, ckpt and control-plane signals: a straggler is evicted through
+the rescale coordinator, the checkpoint cadence is retuned, and world
+resizes stay advisory (the local master has no cluster scaler).
 """
 
 import threading
@@ -45,15 +48,11 @@ class LocalJobMaster:
         batch_config=None,
         devices_per_node: int = 1,
         autoscale_loop: bool = False,
+        autoscale_dry_run: bool = False,
+        autoscale_interval_s: float = 5.0,
+        autoscale_record: str = "",
         journal_path: str = "",
     ):
-        # Not ported yet, refused rather than ignored (ROADMAP §A): the
-        # closed-loop autoscaler.
-        if autoscale_loop:
-            raise NotImplementedError(
-                "the autoscale loop (autoscaler/) is not ported yet: "
-                "ROADMAP §A item 4"
-            )
         self.job_name = job_name
         self._job_context = get_job_context()
         self.job_manager = LocalJobManager(job_name, max_relaunch_count)
@@ -152,9 +151,75 @@ class LocalJobMaster:
         self.port = self._server.port
         self._node_num = node_num
         self._stopped = threading.Event()
+        # §30 autoscaler, standalone flavor: full signal plane
+        # (straggler scores, shard queues, fleet load, fault history)
+        # + the rescale coordinator's eviction actuation. The local
+        # master has no cluster scaler, so world-resize decisions stay
+        # advisory — visible in the ledger and metrics, acted on by
+        # the operator.
         self.autoscaler = None
         self.fault_history = None
         self.ckpt_cadence = None
+        if autoscale_loop:
+            from dlrover_tpu_torch.autoscaler import (
+                AutoScaler,
+                CadenceController,
+                EVICT_STRAGGLER,
+                FaultHistory,
+                SET_CKPT_INTERVAL,
+                SignalBus,
+                SignalRecorder,
+                control_plane_source,
+                data_source,
+                fault_source,
+                fleet_source,
+                perf_source,
+            )
+
+            self.fault_history = FaultHistory()
+            # The cadence knob: the "ckpt" source makes the Young/Daly
+            # rule live once an MTBF is observed; a standalone trainer
+            # polls master.ckpt_cadence.interval_s() (or the gauge).
+            self.ckpt_cadence = CadenceController(60.0)
+            bus = (
+                SignalBus()
+                .add_source("perf", perf_source(self.perf_monitor))
+                .add_source("data", data_source(self.task_manager))
+                .add_source("fleet", fleet_source())
+                .add_source("fault", fault_source(self.fault_history))
+                .add_source("ckpt", self.ckpt_cadence.as_source())
+                # §32 master saturation signal.
+                .add_source("control_plane", control_plane_source(
+                    self.servicer.control_plane_state
+                ))
+            )
+
+            def evict(decision):
+                rank = int(decision.target)
+                if not self.rescale_coordinator.evict_worker(rank):
+                    raise ValueError(
+                        f"rank {decision.target} not in the live set"
+                    )
+                # Fresh EWMA for the seat's next occupant.
+                self.perf_monitor.reset_rank(rank)
+
+            self.autoscaler = AutoScaler(
+                bus,
+                actuators={
+                    EVICT_STRAGGLER: evict,
+                    SET_CKPT_INTERVAL: self.ckpt_cadence.apply,
+                },
+                interval_s=autoscale_interval_s,
+                dry_run=autoscale_dry_run,
+                job_name=job_name,
+                # §34: durable signal/decision/outcome recording for
+                # offline what-if replay (env arming still applies when
+                # the flag is unset — AutoScaler falls back to it).
+                recorder=(
+                    SignalRecorder(autoscale_record)
+                    if autoscale_record else None
+                ),
+            )
 
     def _build_diagnosis_master(self):
         from dlrover_tpu_torch.diagnosis.diagnosis_manager import DiagnosisManager

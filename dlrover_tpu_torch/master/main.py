@@ -53,6 +53,9 @@ def run(args) -> int:
             batch_config=batch_config,
             devices_per_node=args.devices_per_node,
             autoscale_loop=args.autoscale_loop,
+            autoscale_dry_run=args.autoscale_dry_run,
+            autoscale_interval_s=args.autoscale_interval_s,
+            autoscale_record=args.autoscale_record,
         )
     else:
         # The distributed master (k8s, GKE, the simulated cluster) is

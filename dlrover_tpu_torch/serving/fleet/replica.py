@@ -523,6 +523,12 @@ class SubprocessReplica:
         # mid-run must not be masked by a clean final state).
         self.last_kv: Dict = {}
         self.kv_violation: Optional[str] = None
+        # One entry a generation: its ready line (pid, device) and the
+        # seconds from spawn to it; and each generation's decode-kernel
+        # launches as its last heartbeat counted them.
+        self.starts: List[Dict] = []
+        self.launches: Dict[int, Dict[str, int]] = {}
+        self._spawned = 0.0
         self._proc: Optional[subprocess.Popen] = None
         self._reader: Optional[threading.Thread] = None
         self._outbox: Deque[dict] = deque()
@@ -593,6 +599,7 @@ class SubprocessReplica:
             f"replica{self.replica_id}_gen{self.generation}.log",
         )
         self._ready.clear()
+        self._spawned = time.monotonic()
         with open(log_path, "w") as log:
             # The child duplicates the fd; closing the parent handle
             # keeps long fleets from accumulating fds.
@@ -696,12 +703,17 @@ class SubprocessReplica:
                 kind = event.get("kind")
                 if kind == "heartbeat":
                     self._hb = self._clock()
+                    if "launches" in event:
+                        self.launches[generation] = event["launches"]
                     kv = event.get("kv")
                     if kv:
                         self.last_kv = kv
                         self._check_kv(kv)
                 elif kind == "ready":
                     self._hb = self._clock()
+                    self.starts.append(dict(
+                        event, generation=generation,
+                        start_s=time.monotonic() - self._spawned))
                     self._ready.set()
                 elif kind in ("done", "exported", "imported"):
                     event.setdefault("generation", generation)

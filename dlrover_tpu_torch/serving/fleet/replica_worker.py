@@ -123,6 +123,7 @@ def main(argv=None) -> int:
     tracing.arm_from_env(service=f"replica{args.replica_id}")
 
     from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import decode_attention
     from dlrover_tpu_torch.serving.engine import ServingEngine
     from dlrover_tpu_torch.serving.fleet.replica import (
         serve_control,
@@ -169,8 +170,10 @@ def main(argv=None) -> int:
     )
     reader.start()
 
+    # The ready line names the device the engine's weights live on, and
+    # every heartbeat carries this process's decode-kernel launches.
     _emit({"kind": "ready", "replica": args.replica_id,
-           "pid": os.getpid()})
+           "pid": os.getpid(), "device": str(engine.device)})
     by_rid = {}  # engine rid -> (request_id, attempt)
     migrate_rids = set()  # engine rids flagged for post-prefill export
     last_hb = 0.0
@@ -181,7 +184,8 @@ def main(argv=None) -> int:
                 fault_point(
                     "fleet.health.heartbeat", replica=args.replica_id
                 )
-                beat = {"kind": "heartbeat", "replica": args.replica_id}
+                beat = {"kind": "heartbeat", "replica": args.replica_id,
+                        "launches": dict(decode_attention.launch_counts)}
                 if args.paged:
                     # Allocator accounting rides every beat so block
                     # conservation is checkable THROUGH a crash: the

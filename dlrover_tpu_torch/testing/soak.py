@@ -34,11 +34,12 @@ the serving scenario runs the port's ``ServingEngine`` there: the
 reference's ``tiny_config()`` unless ``SoakConfig.serving_model`` names
 another model config (``chip_smoke.py`` passes the flagship's width).
 Each report of a serving episode also carries the engine's
-``call_counts`` (``serving``). Two episode kinds wait for their
-harnesses and raise ``NotImplementedError`` naming their ROADMAP §A
-item: the fleet kinds (``replica_kill_reroute``,
-``kill_during_migration``: ``testing/fleet_soak.py``, item 7) and
-``straggler_evict`` (the autoscaler, item 4).
+``call_counts`` (``serving``). The fleet kinds (``replica_kill_reroute``,
+``kill_during_migration``) run ``testing/fleet_soak.py``, whose
+subprocess replicas take ``SoakConfig.device`` and serve
+``SoakConfig.fleet_config`` (``tiny`` unless it names ``flagship``);
+``straggler_evict`` runs ``testing/autoscale_soak.py``, which simulates
+its cluster on the host.
 """
 
 import glob
@@ -122,6 +123,9 @@ class SoakConfig:
     device: str = "cuda"
     # A TpuLMConfig for the serving scenario; None is tiny_config().
     serving_model: Optional[object] = None
+    # The model the fleet episodes' subprocess replicas serve: "tiny"
+    # or "flagship" (SubprocessReplica's config names).
+    fleet_config: str = "tiny"
 
 
 @dataclass
@@ -826,25 +830,67 @@ def _run_rescale_kind(seed, episode, plan, cfg, work_dir, artifact_dir):
     return report
 
 
-def _run_fleet_kind(seed, episode, plan, cfg, work_dir, artifact_dir):
-    """Episode kind 5 (replica_kill_reroute): the reference delegates to
-    the serving-fleet harness (``testing/fleet_soak.py``), which the
-    port has not ported yet."""
-    raise NotImplementedError(
-        "the replica_kill_reroute episode needs testing/fleet_soak.py, "
-        "not ported yet: ROADMAP §A item 7"
+def _fleet_soak_config(cfg):
+    from dlrover_tpu_torch.testing.fleet_soak import FleetSoakConfig
+
+    return FleetSoakConfig(
+        watchdog_s=cfg.watchdog_s,
+        keep_artifacts_on_success=cfg.keep_artifacts_on_success,
+        device=cfg.device,
+        config=cfg.fleet_config,
     )
+
+
+def _run_fleet_kind(seed, episode, plan, cfg, work_dir, artifact_dir):
+    """Episode kind replica_kill_reroute: delegate to the serving-fleet
+    harness — a subprocess replica is SIGKILLed mid-decode, the router
+    re-routes its in-flight ledger and walks the victim's breaker back
+    to HEALTHY through half-open probes. The report is already
+    soak-shaped."""
+    from dlrover_tpu_torch.testing.fleet_soak import run_fleet_episode
+
+    try:
+        return run_fleet_episode(
+            seed,
+            episode=episode,
+            cfg=_fleet_soak_config(cfg),
+            work_dir=work_dir,
+            artifact_dir=artifact_dir,
+            runner_schedule=plan.runner_schedule,
+        )
+    except SoakInvariantError:
+        print(
+            f"  repro: python tools/torch_chaos_soak.py --seed {seed} "
+            f"--episode {episode}",
+            file=sys.stderr, flush=True,
+        )
+        raise
 
 
 def _run_migration_kind(seed, episode, plan, cfg, work_dir,
                         artifact_dir):
-    """Episode kind 6 (kill_during_migration): the reference delegates to
-    the fleet harness's §36 scenario (``testing/fleet_soak.py``), which
-    the port has not ported yet."""
-    raise NotImplementedError(
-        "the kill_during_migration episode needs testing/fleet_soak.py, "
-        "not ported yet: ROADMAP §A item 7"
-    )
+    """Episode kind 6 (kill_during_migration): delegate to the fleet
+    harness's §36 scenario — a prefill+decode split fleet whose
+    destination replica is SIGKILLed between KV export and import ack.
+    The report is already soak-shaped."""
+    from dlrover_tpu_torch.testing.fleet_soak import run_migration_episode
+
+    try:
+        return run_migration_episode(
+            seed,
+            episode=episode,
+            cfg=_fleet_soak_config(cfg),
+            work_dir=work_dir,
+            artifact_dir=artifact_dir,
+            runner_schedule=plan.runner_schedule,
+        )
+    except SoakInvariantError:
+        print(
+            f"  repro: python tools/torch_chaos_soak.py --seed {seed} "
+            f"--episode {episode}",
+            file=sys.stderr, flush=True,
+        )
+        raise
 
 
 def _run_master_kill_kind(seed, episode, plan, cfg, work_dir,
@@ -864,14 +910,29 @@ def _run_master_kill_kind(seed, episode, plan, cfg, work_dir,
 
 
 def _run_autoscale_kind(seed, episode, cfg):
-    """Episode kind 5 (straggler_evict): the reference delegates to the
-    closed-loop autoscaler harness (``testing/autoscale_soak.py``); the
-    autoscaler is not ported yet."""
-    raise NotImplementedError(
-        "the straggler_evict episode needs the autoscaler "
-        "(autoscaler/, testing/autoscale_soak.py), not ported yet: "
-        "ROADMAP §A item 4"
+    """Episode kind 5 (straggler_evict): delegate to the closed-loop
+    autoscaler harness
+    — the same seeded fault+traffic schedule run static, dry-run and
+    autoscaled; the autoscaled run must evict the delayed straggler
+    within bounded decision windows and strictly beat the static
+    goodput fraction. The report is already soak-shaped."""
+    from dlrover_tpu_torch.testing.autoscale_soak import (
+        AutoscaleSoakConfig,
+        run_autoscale_episode,
     )
+
+    acfg = AutoscaleSoakConfig(
+        watchdog_s=min(cfg.watchdog_s, 120.0),
+    )
+    try:
+        return run_autoscale_episode(seed, episode=episode, cfg=acfg)
+    except SoakInvariantError:
+        print(
+            f"  repro: python tools/torch_chaos_soak.py --seed {seed} "
+            f"--episode {episode}",
+            file=sys.stderr, flush=True,
+        )
+        raise
 
 
 def run_soak(seed: int = 0, episodes: int = 3,

@@ -342,15 +342,97 @@ def test_xla_capture_switch_injects_the_listener(master, saver_client,
     assert not any(p.endswith("_inject") for p in plain)
 
 
-@pytest.mark.parametrize("kwargs, env, item", [
-    ({"autoscale_loop": True}, {}, "item 4"),
-])
-def test_local_master_refuses_unported_switches(monkeypatch, kwargs, env,
-                                                item):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
-        LocalJobMaster(port=0, **kwargs)
+def test_local_master_autoscale_loop_evicts_a_flagged_rank(tmp_path):
+    """``LocalJobMaster(autoscale_loop=True)`` runs the autoscaler on
+    its own thread: a rank whose step times run 3x the median is
+    evicted through the rescale coordinator (a plan without it, reason
+    ``straggler_evict``) and its perf history reset; the recording
+    replays to the live ledger; ``stop()`` leaves no loop thread."""
+    from dlrover_tpu_torch.autoscaler import (
+        EVICT_STRAGGLER,
+        assert_replay_identity,
+        load_recording,
+    )
+
+    record = str(tmp_path / "autoscale" / "signals.jsonl")
+    master = LocalJobMaster(port=0, node_num=3, autoscale_loop=True,
+                            autoscale_interval_s=0.05,
+                            autoscale_record=record)
+    coordinator = master.rescale_coordinator
+    try:
+        master.prepare()
+        for rank in range(3):
+            coordinator.note_worker_joined(rank)
+        assert coordinator.current_plan().rank_order == [0, 1, 2]
+        now = time.time()
+        for step in range(1, 5):
+            for rank in range(3):
+                master.perf_monitor.collect_global_step(
+                    step, now + step, node_id=rank,
+                    step_time_s=0.3 if rank == 2 else 0.1)
+        deadline = time.monotonic() + 20
+        while (coordinator.current_plan().rank_order != [0, 1]
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        plan = coordinator.current_plan()
+        assert plan.rank_order == [0, 1]
+        assert plan.reason == "straggler_evict"
+        evictions = [d for d in master.autoscaler.ledger.entries()
+                     if d.action == EVICT_STRAGGLER]
+        assert [(d.target, d.outcome) for d in evictions][:1] == [
+            (2, "actuated")]
+        assert 2 not in master.perf_monitor.straggler_report()["ranks"]
+    finally:
+        master.stop()
+    assert not any(t.name == "autoscaler" for t in threading.enumerate())
+    recording = load_recording(record)
+    assert recording.snapshots and recording.decisions
+    assert set(recording.snapshots[0].values) >= {
+        "perf.global_step", "data.todo", "fault.failures_total",
+        "ckpt.interval_s", "control_plane.shed_level"}
+    assert assert_replay_identity(recording)["identical"]
+
+
+def test_local_master_autoscale_loop_retunes_the_cadence_from_its_faults(
+        tmp_path):
+    """Two failures fed to the local master's fault history give its
+    loop an observed MTBF: the Young/Daly rule retunes the checkpoint
+    cadence (``SET_CKPT_INTERVAL`` actuated on the master's
+    ``CadenceController``, 60 s before), once, and the recording replays
+    to the live ledger."""
+    from dlrover_tpu_torch.autoscaler import (
+        SET_CKPT_INTERVAL,
+        assert_replay_identity,
+        load_recording,
+    )
+    from dlrover_tpu_torch.flash_ckpt.autotune import optimal_save_interval_s
+
+    record = str(tmp_path / "signals.jsonl")
+    master = LocalJobMaster(port=0, node_num=1, autoscale_loop=True,
+                            autoscale_interval_s=0.05,
+                            autoscale_record=record)
+    try:
+        master.prepare()
+        assert master.ckpt_cadence.interval_s() == 60.0
+        now = time.monotonic()
+        master.fault_history.record_failure(now - 8.0)
+        master.fault_history.record_failure(now)
+        deadline = time.monotonic() + 20
+        while (master.ckpt_cadence.interval_s() == 60.0
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        time.sleep(0.3)  # a few more ticks: the dead band holds
+    finally:
+        master.stop()
+    want = optimal_save_interval_s(0.01, mtbf_s=8.0, min_interval_s=0.05)
+    retunes = [d for d in master.autoscaler.ledger.entries()
+               if d.action == SET_CKPT_INTERVAL]
+    assert [d.outcome for d in retunes] == ["actuated"]
+    assert retunes[0].target == pytest.approx(want, abs=1e-4)
+    assert master.ckpt_cadence.interval_s() == float(retunes[0].target)
+    recording = load_recording(record)
+    assert recording.decisions
+    assert assert_replay_identity(recording)["identical"]
 
 
 @pytest.mark.parametrize("switch", ["journal_path",

@@ -5,7 +5,8 @@ flight_recorder.py``) against the JAX package's: each package's
 port's crash dump lands on SIGTERM (the process still dies by the
 signal) and on an unhandled exception; SIGUSR1 writes the on-demand dump
 with every stack beside the crash dump's path, leaves that path alone
-and the process running; the worker runtime arms it with the
+and the process running, also in a worker held in a delay fault while a
+tracer holds its main thread; the worker runtime arms it with the
 incarnation's meta. A recorder installed without ranks arms nothing.
 """
 
@@ -102,6 +103,15 @@ for s in range(1, 4):
 print(json.dumps({"pid": os.getpid(), "meta": rec.meta}), flush=True)
 if mode == "raise":
     raise RuntimeError("boom")
+if mode == "held":
+    # Held as chip_smoke's elastic phase holds a worker: a delay fault.
+    import threading
+    from dlrover_tpu_torch import fault
+    for _ in range(2):
+        threading.Thread(target=threading.Event().wait, daemon=True).start()
+    fault.arm(fault.FaultSchedule([fault.FaultRule(
+        "agent.worker.crash", action="delay", delay_s=60.0)]))
+    fault.fault_point("agent.worker.crash", step=3)
 time.sleep(60)
 """
 
@@ -173,6 +183,52 @@ def test_on_demand_dump_keeps_the_worker_and_the_crash_path(flight_dir):
         assert main[-1].endswith(" dump_all_stacks")
         with open(crash_path) as f:
             assert json.load(f)["marker"] == "earlier crash"
+    finally:
+        proc.kill()
+        proc.communicate(timeout=30)
+
+
+def _hold_main_thread(pid):
+    """Seizes and stops ``pid``'s main thread alone (as the native stack
+    sampler does while it walks it); returns the detach."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.ptrace.argtypes = [ctypes.c_long, ctypes.c_long, ctypes.c_void_p,
+                            ctypes.c_void_p]
+    seize, interrupt, detach = 0x4206, 0x4207, 17
+    assert libc.ptrace(seize, pid, None, None) == 0, ctypes.get_errno()
+    assert libc.ptrace(interrupt, pid, None, None) == 0
+    _, status = os.waitpid(pid, 0x40000000)  # __WALL
+    assert os.WIFSTOPPED(status)
+    return lambda: libc.ptrace(detach, pid, None, None)
+
+
+def test_on_demand_dump_of_a_held_worker_while_its_main_thread_is_traced(
+        flight_dir):
+    """A worker held in a delay fault writes its on-demand dump within a
+    second of a SIGUSR1 that arrived while a tracer held its main thread:
+    the kernel then hands the signal to another thread, which wakes no
+    sleep of the main thread, so the delay sleeps in slices (one 60 s
+    sleep held the dump for the whole delay)."""
+    proc = _child(flight_dir, "held")
+    try:
+        up = _up(proc)
+        demand_path = os.path.join(flight_dir,
+                                   "flight_node1_rank0.ondemand.json")
+        time.sleep(0.5)  # into the delay
+        release = _hold_main_thread(up["pid"])
+        try:
+            proc.send_signal(signal.SIGUSR1)
+            time.sleep(0.2)
+        finally:
+            release()
+        deadline = time.time() + 1.0
+        while not os.path.exists(demand_path):
+            assert time.time() < deadline, "no on-demand dump"
+            time.sleep(0.02)
+        assert port_fr.load_dump(demand_path)["pid"] == up["pid"]
+        assert proc.poll() is None
     finally:
         proc.kill()
         proc.communicate(timeout=30)

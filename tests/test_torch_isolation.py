@@ -6,7 +6,8 @@ through a thread-replica fleet, takes a training step, generates and
 trains one step with a dropless MoE config, runs the pipeline, the
 lite attention block, the ring's hop loops and the ep expert body, and
 the profiler (its daemon, a per-op profile window, the metric monitor's
-scrape, the timeline's summary and merge) on the CPU (this test
+scrape, the timeline's summary and merge), and an autoscaler tick that
+evicts a straggler through the sim scaler on the CPU (this test
 process has JAX loaded by ``tests/conftest.py``); in a fleet's
 subprocess worker; in the elastic training worker, which also loads no
 ``ml_dtypes`` on its checkpoint path; in every interpreter of the
@@ -149,7 +150,26 @@ timer.dump_timeline(timeline_path)
 timeline = json.load(open(timeline_path))
 os.unlink(timeline_path)
 merged = trace_merge.merge_job_timeline(rank_traces={0: timeline})
+from dlrover_tpu_torch import autoscaler as asc
+from dlrover_tpu_torch.master.scaler.base_scaler import ScalePlan
+from dlrover_tpu_torch.master.scaler.sim_scaler import SimClusterScaler
+from dlrover_tpu_torch.observability.registry import MetricsRegistry
+from dlrover_tpu_torch.common.node import NodeGroupResource
+sim = SimClusterScaler("isolation")
+sim.scale(ScalePlan(node_group_resources={"worker": NodeGroupResource(2)}))
+world = asc.TrainWorldActuator.for_sim(sim)
+bus = asc.SignalBus().add_source("perf", lambda: {
+    "straggler_ranks": [1], "straggler_scores": {1: 3.0},
+    "median_step_s": 0.01}).add_source("world", world.as_source())
+autoscaler = asc.AutoScaler(
+    bus, policy=asc.RulePolicy(asc.PolicyConfig(straggler_confirm_ticks=1)),
+    actuators=world.bindings(), registry=MetricsRegistry())
+autoscaler.tick()
+autoscaler.stop()
 print(json.dumps({
+    "autoscale": [(d.action, d.outcome)
+                  for d in autoscaler.ledger.entries()],
+    "world": world.world_size(),
     "tokens": out.tokens.shape[1] + len(req.tokens),
     "paged_tokens": paged_tokens, "spec_tokens": spec_tokens,
     "train_step": state["step"], "loss": float(m["loss"]),
@@ -196,6 +216,8 @@ def test_port_runs_without_loading_jax_or_the_jax_package():
     assert result["ring_chunks"] == 2 and result["ep_rows"] == 5
     assert result["attn_share"] > 0 and result["scraped"] == 1
     assert result["kernels"] == 5.0 and result["merge_problems"] == []
+    assert result["autoscale"] == [["evict_straggler", "actuated"]]
+    assert result["world"] == 2
     assert result["leaked"] == []
 
 

@@ -236,14 +236,51 @@ def test_distributed_master_platform_is_refused():
         main.main(["--platform", "k8s"])
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--autoscale_loop"], "item 4"),
-])
-def test_master_cli_refuses_unported_switches(argv, item):
-    from dlrover_tpu_torch.master import main
+def test_master_cli_runs_the_autoscale_loop(tmp_path):
+    """``python -m dlrover_tpu_torch.master.main --platform local
+    --autoscale_loop --autoscale_dry_run --autoscale_interval_s 0.1
+    --autoscale_record R``: the master serves, its loop records
+    snapshots of every source to R (the dry-run policy config first),
+    and SIGTERM stops it with exit code 0."""
+    from dlrover_tpu_torch.autoscaler import load_recording
+    from dlrover_tpu_torch.master.args import parse_master_args
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
-        main.main(["--platform", "local", *argv])
+    record = tmp_path / "rec" / "signals.jsonl"
+    argv = ["--platform", "local", "--autoscale_loop", "--autoscale_dry_run",
+            "--autoscale_interval_s", "0.1",
+            "--autoscale_record", str(record)]
+    args = parse_master_args(argv)
+    assert (args.autoscale_loop, args.autoscale_dry_run,
+            args.autoscale_interval_s, args.autoscale_record) == (
+        True, True, 0.1, str(record))
+    port_file = tmp_path / "port"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dlrover_tpu_torch.master.main", *argv,
+         "--port_file", str(port_file)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        deadline = time.monotonic() + 60
+        snapshots = []
+        while time.monotonic() < deadline and len(snapshots) < 3:
+            time.sleep(0.2)
+            assert proc.poll() is None, proc.communicate()[1][-2000:]
+            if port_file.exists() and record.exists():
+                snapshots = load_recording(str(record)).snapshots
+        assert len(snapshots) >= 3
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-2000:]
+    assert "autoscaler loop started (interval 0.1s, DRY RUN)" in err
+    recording = load_recording(str(record))
+    assert recording.policy_config["max_world"] == 0
+    assert {k.split(".")[0] for k in recording.snapshots[-1].values} >= {
+        "perf", "data", "fault", "ckpt", "control_plane"}
 
 
 @pytest.mark.parametrize("parser, flag", [
@@ -253,7 +290,7 @@ def test_master_cli_refuses_unported_switches(argv, item):
     ("master", "--node_unit"), ("master", "--auto_scale"),
     ("master", "--autoscale_max_world"),
     ("master", "--autoscale_ckpt_interval_s"),
-    ("master", "--legal_worker_counts"), ("master", "--autoscale_dry_run"),
+    ("master", "--legal_worker_counts"),
 ])
 def test_distributed_master_flags_are_not_taken(parser, flag):
     """Flags only the distributed master or the autoscaler reads are

@@ -16,9 +16,12 @@
   rescale episode through the soak's dispatch; two copies of episode 0
   run at once, and one runs beside the other's shm checkpoint image,
   without either restoring the other's;
-- the episode kinds whose harnesses are not ported raise naming their
-  ROADMAP item, and so does the chaos harness's pod deletion; its local
-  kill finds a job's worker by its environment.
+- episodes 4-6 go to their harnesses (``testing/fleet_soak``,
+  ``testing/autoscale_soak``) with the soak's seed, schedules, device
+  and fleet model; end to end on the CPU they are slow, as the
+  reference's are;
+- the chaos harness's pod deletion raises naming its ROADMAP item; its
+  local kill finds a job's worker by its environment.
 """
 
 import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
@@ -366,12 +369,94 @@ def test_rescale_episode_through_the_soak(tmp_path):
         "worker-sigkill", "kill-mid-rescale", "drop-plan-broadcast"}
 
 
-@pytest.mark.parametrize("episode, item", [(4, "item 7"), (5, "item 4"),
-                                           (6, "item 7")])
-def test_unported_episode_kinds_raise(tmp_path, episode, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §A {item}"):
-        soak.run_episode(0, episode, _cpu_cfg(), str(tmp_path),
-                         str(tmp_path / "art"))
+@pytest.mark.parametrize("episode, module, harness, kind", [
+    (4, "fleet_soak", "run_fleet_episode", "replica_kill_reroute"),
+    (5, "autoscale_soak", "run_autoscale_episode", "straggler_evict"),
+    (6, "fleet_soak", "run_migration_episode", "kill_during_migration"),
+])
+def test_harness_kinds_dispatch_to_their_harnesses(
+        monkeypatch, tmp_path, episode, module, harness, kind):
+    """The soak hands episodes 4 and 6 to ``testing/fleet_soak`` with
+    their seed, the plan's runner schedule and the directories, their
+    replicas on ``SoakConfig``'s device serving its fleet model, and
+    episode 5 to ``testing/autoscale_soak`` under the soak's watchdog
+    (at most 120 s)."""
+    import importlib
+
+    mod = importlib.import_module(f"dlrover_tpu_torch.testing.{module}")
+    seen = {}
+
+    def harness_fn(seed, episode, cfg, **kw):
+        seen.update(seed=seed, episode=episode, cfg=cfg, **kw)
+        return {"episode": episode, "kind": kind}
+
+    monkeypatch.setattr(mod, harness, harness_fn)
+    cfg = _cpu_cfg(device="cuda", fleet_config="flagship", watchdog_s=177.0)
+    report = soak.run_episode(2, episode, cfg, str(tmp_path),
+                              str(tmp_path / "art"))
+    assert report == {"episode": episode, "kind": kind}
+    plan = soak.build_episode_plan(2, episode, cfg)
+    assert plan.kind == kind
+    assert (seen["seed"], seen["episode"]) == (2, episode)
+    if module == "autoscale_soak":
+        assert seen["cfg"].watchdog_s == 120.0
+        assert set(seen) == {"seed", "episode", "cfg"}
+        return
+    assert (seen["cfg"].device, seen["cfg"].config) == ("cuda", "flagship")
+    assert seen["cfg"].watchdog_s == 177.0
+    assert [r.to_dict() for r in seen["runner_schedule"].rules] == [
+        r.to_dict() for r in plan.runner_schedule.rules]
+    assert (seen["work_dir"], seen["artifact_dir"]) == (
+        str(tmp_path), str(tmp_path / "art"))
+    assert soak.SoakConfig().fleet_config == "tiny"
+
+
+@pytest.mark.slow
+def test_straggler_evict_episode_through_the_soak(tmp_path):
+    """Episode 5 (``straggler_evict``) at seed 0 through the soak's
+    dispatch to the autoscale harness: static, dry-run and autoscaled
+    runs of one schedule; the harness's invariants hold (it raises
+    otherwise), the autoscaled run beats the static goodput, the
+    straggler is evicted within the bound, the dry run actuates nothing
+    and the recording replays to the live ledger. Slow, as the
+    reference's episode: its wall-clock attribution invariant (90% of
+    the non-train time) sits at its edge inside pytest, for the
+    reference's harness as for this one."""
+    summary = soak.run_soak(seed=0, episode=5, cfg=_cpu_cfg(),
+                            work_dir=str(tmp_path))
+    rep = summary["reports"][0]
+    assert rep["kind"] == "straggler_evict" and rep["invariants"] == "pass"
+    assert rep["autoscale_goodput_frac"] > rep["static_goodput_frac"]
+    assert rep["autoscale_mitigate_windows"] <= 30
+    assert rep["dry_run_actuations_total"] == 0
+    assert rep["whatif_identity_ok"] is True
+    assert rep["whatif_perturbed_decisions"] != rep[
+        "whatif_recorded_decisions"]
+    assert rep["deaths"] == 3
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("episode", [4, 6])
+def test_fleet_episodes_through_the_soak(tmp_path, episode):
+    """Episodes 4 (``replica_kill_reroute``) and 6
+    (``kill_during_migration``) end to end on the CPU: tiny paged
+    subprocess replicas, one SIGKILLed mid-decode or holding an unacked
+    import; every request completes or fails once, the victim restarts,
+    the planned crash fired and every pool conserves its blocks."""
+    summary = soak.run_soak(seed=0, episode=episode, cfg=_cpu_cfg(
+        watchdog_s=150.0), work_dir=str(tmp_path))
+    report = summary["reports"][0]
+    assert report["completed"] + report["failed"] == report["requests"]
+    assert report["restarts"] >= 1
+    point = {4: "fleet.replica.step", 6: "fleet.replica.import"}[episode]
+    assert any(f["point"] == point and f["action"] == "crash"
+               for f in report["faults"])
+    if episode == 6:
+        assert report["migrations"] >= 1
+        assert report["migration_failures"] >= 1
+    for stats in report["kv_blocks"].values():
+        assert stats["used"] + stats["free"] + stats["cached"] == (
+            stats["total"])
 
 
 def test_chaos_kills_a_local_worker_and_refuses_pods():

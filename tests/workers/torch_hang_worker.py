@@ -4,8 +4,8 @@ behaviour follows its restart count.
     python tests/workers/torch_hang_worker.py <out>
 
 - restart 0: three steps through ``ElasticTrainer`` (each beats the hang
-  watchdog and records a flight-recorder step), then it hangs in a
-  sleep until it is killed;
+  watchdog and records a flight-recorder step), then it hangs in short
+  sleeps until it is killed;
 - restart 1: dies at once by ``os._exit(3)`` (no dump is written);
 - later: exits 0.
 
@@ -36,7 +36,13 @@ def main():
         for _ in range(3):
             time.sleep(0.05)
             trainer.step_completed()
-        time.sleep(600)
+        # Hung, in short sleeps: the agent's native stack sampler may
+        # hold this main thread when the test's SIGTERM comes, and the
+        # kernel then hands the signal to another thread, which wakes no
+        # sleep of this one; CPython runs the handler here only once the
+        # sleep ends.
+        for _ in range(12000):
+            time.sleep(0.05)
     return 0
 
 

@@ -6,21 +6,25 @@ fault episodes and assert the system invariants.
     python tools/torch_chaos_soak.py --seed 0 --episode 3      # rescale kill
     python tools/torch_chaos_soak.py --seed 0 --episode 7      # master kill
     python tools/torch_chaos_soak.py --device cpu --episode 0  # no card
+    python tools/torch_chaos_soak.py --episode 4 --fleet-config flagship
+    python tools/torch_chaos_soak.py --device cpu --episode 5  # autoscaler
 
 Each episode runs a master, worker subprocesses and a serving engine
 under a deterministic seeded fault schedule (worker SIGKILL mid-step,
 dropped RPC replies, torn checkpoint shard writes, serving step errors,
 SIGKILL mid-live-rescale, SIGKILL of the master between a journaled
-dispatch and its reply). The worker's state and the serving engine live
-on ``--device`` (``cuda`` by default). The implementation and the
+dispatch and its reply, SIGKILL of a serving replica mid-decode or
+holding an unacked KV import, a delayed straggler the autoscaler must
+evict). The worker's state, the serving engine and the fleet episodes'
+replicas live on ``--device`` (``cuda`` by default); the replicas serve
+``--fleet-config`` (``tiny`` by default, or ``flagship``). The autoscaler's
+episode (5) simulates its cluster on the host. The implementation and the
 invariant definitions live in ``dlrover_tpu_torch/testing/soak.py``;
 exit code 0 means every episode held every invariant. Prints one JSON
 summary line with goodput fraction and per-fault MTTR.
 
-The port's copy of ``tools/chaos_soak.py``. Episodes 4 and 6 (the
-serving fleet) and 5 (the autoscaler) raise ``NotImplementedError``
-naming their ROADMAP §A item until their harnesses are ported, so
-``--episodes`` defaults to 3.
+The port's copy of ``tools/chaos_soak.py``, with ``--device`` and
+``--fleet-config``. Every episode kind (0–7) runs.
 """
 
 import argparse
@@ -56,6 +60,13 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="where the worker state and the serving "
                         "engine live: cuda (default) or cpu")
+    parser.add_argument("--fleet-config", default="tiny",
+                        choices=("tiny", "flagship"),
+                        help="the model the fleet episodes' replicas "
+                        "serve")
+    parser.add_argument("--work-dir", default=None,
+                        help="the episodes' work directory (default: a "
+                        "new temporary one)")
     parser.add_argument(
         "--artifact-dir", default=None,
         help="where failure evidence lands (default: under the work dir)",
@@ -72,6 +83,7 @@ def main(argv=None) -> int:
         serve=not args.no_serving,
         keep_artifacts_on_success=args.keep_artifacts,
         device=args.device,
+        fleet_config=args.fleet_config,
     )
     try:
         summary = run_soak(
@@ -79,6 +91,7 @@ def main(argv=None) -> int:
             episodes=args.episodes,
             episode=args.episode,
             cfg=cfg,
+            work_dir=args.work_dir,
             artifact_dir=args.artifact_dir,
         )
     except SoakInvariantError:
