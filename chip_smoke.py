@@ -93,7 +93,8 @@ phases that each print JSON lines:
 11b. the same on the paged engine at phase 11's settings: fp spec off,
     n-gram and early exit; int8 spec off and n-gram (B6 exact, block
     conservation);
-11c. migrate: phase 11's 32 requests through two paged engines at its
+11c. migrate: the first 24 of phase 11's 32 requests (cut for the
+    script's time limit, PR 22) through two paged engines at its
     settings, fp and int8: each request exported from the first right
     after prefill (a quarter after 3 decode steps), imported into the
     second, released by the first. Every request complete, tokens within
@@ -310,6 +311,27 @@ phases that each print JSON lines:
     evicted within the window bound, a dry run with no actuation, the
     recording's replay identical and a perturbed replay different. Both
     goodput fractions, the time to mitigate, the decisions.
+30. gshard_sp_body: gshard MoE under sp as each sp rank computes it
+    (``models/moe.moe_mlp_chunk``) at ``moe_config``'s widths with
+    ``moe_impl="gshard"`` and the default capacity factor, expert 0's
+    router column doubled so capacity binds: one layer over 8 x 2048
+    tokens split into 4 chunks of 512, each run with the lower chunks'
+    and the whole sequence's per-round expert counts, against the
+    whole-sequence ``moe_mlp``: every token's kept/dropped choice equal,
+    ``dropped_fraction`` equal and above 0, out and every gradient
+    within TRAIN_GATES' relative L2 distance, a bitwise rerun, and a
+    planted fault (chunk-local capacities) rejected. Seconds and the
+    dropped fraction;
+31. ckpt_bridges: the flagship's train state at 2 layers (params and
+    AdamW's moments after one step on the card) saved by the port's
+    ``Checkpointer``, exported to a ``torch.distributed.checkpoint`` step
+    (``flash_ckpt/dcp_io``), loaded back onto the card without a
+    template, imported into a second flash dir and restored by the engine
+    onto the card, each bit for bit; then the same params as an
+    ``nn.Module`` with fused AdamW and a LambdaLR through
+    ``trainer/hf_flash.FlashCkptCallback``'s ``on_save`` and a fresh
+    callback's ``on_train_begin``, bit for bit, every tensor on the
+    card. The dirs on ``/dev/shm``; bytes and seconds of each step.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -1681,6 +1703,10 @@ def phase_moe_paged_engine(cfg, params, served):
 
 FP_BLOCKS, INT8_BLOCKS = 513, 993   # phase 11's pools (equal bytes)
 MIGRATE_LATE_STEPS = 3              # a quarter exported after 3 decode steps
+# Phase 11c's requests: the first 24 of phase 11's 32 (cut for the
+# script's time limit, PR 22); more than the destination's 16 slots, so
+# ready requests still wait for room there.
+MIGRATE_REQUESTS = 24
 
 
 def _migrate_wire_check(eng, req, payload):
@@ -1700,7 +1726,7 @@ def _migrate_wire_check(eng, req, payload):
 
 
 def _migrate_run(cfg, params, work, kv, unmigrated):
-    """Phase 11's 32 requests through two paged engines: each request is
+    """Phase 11c's requests through two paged engines: each request is
     exported from the first right after its prefill (a quarter after
     MIGRATE_LATE_STEPS decode steps, the live-drain case), imported into
     the second, and released by the first. Returns the row and the B6
@@ -1855,10 +1881,10 @@ def _migrate_one_at_a_time(cfg, params, work):
 def phase_migrate(cfg, params, unmigrated):
     """Block migration between two paged engines at phase 11's settings
     (16 slots, block 16, 513 fp blocks, 993 int8 at equal bytes) over
-    phase 11's 32 requests (see ``_migrate_run``), then the int8
-    one-at-a-time equality. ``unmigrated`` {kv: tokens} are phase 11's
+    the first MIGRATE_REQUESTS of phase 11's 32 requests (see
+    ``_migrate_run``), then the int8 one-at-a-time equality. ``unmigrated`` {kv: tokens} are phase 11's
     runs of the same requests. Returns the B6 launches by kernel."""
-    work = _paged_workload(cfg)
+    work = _paged_workload(cfg)[:MIGRATE_REQUESTS]
     out = {"paged_decode_attention_fp": 0, "paged_decode_attention_int8": 0}
     for kv in ("fp", "int8"):
         _, n = _migrate_run(cfg, params, work, kv, unmigrated[kv])
@@ -5387,6 +5413,367 @@ def phase_pipeline_train():
     return launches
 
 
+# ---- the mesh case gshard under sp, the checkpoint bridges ----------------
+
+# gshard_sp_body: moe_config's widths at gshard's default capacity factor,
+# one micro-batch split into GSHARD_SP chunks of every sequence; expert
+# 0's router column scaled by GSHARD_HOT (a hot expert) so that capacity
+# binds.
+GSHARD_SP, GSHARD_HOT = 4, 2.0
+# ckpt_bridges: the flagship at full width cut to this many layers.
+BRIDGE_LAYERS = 2
+
+
+def _gshard_inputs(d, f, e, micro, seq, device):
+    gen = torch.Generator(device).manual_seed(SEED + 23)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    router = randn(d, e) / 8
+    router[:, 0] *= GSHARD_HOT
+    # f32 master weights, cast to bf16 inside the layer as the model's.
+    return {
+        "x": randn(micro, seq, d).bfloat16(), "router": router,
+        "w_gate": randn(e, d, f) / d ** 0.5,
+        "w_up": randn(e, d, f) / d ** 0.5,
+        "w_down": randn(e, f, d) / f ** 0.5,
+        "dy": randn(micro, seq, d).bfloat16(),
+    }
+
+
+def phase_gshard_sp_body(device="cuda", micro=TRAIN_MICRO, seq=TRAIN_SEQ):
+    """gshard MoE under sp as an sp rank computes it
+    (``models/moe.moe_mlp_chunk``), at ``moe_config``'s widths (d = f =
+    1024, 8 experts, top-2) with ``moe_impl="gshard"`` and the default
+    capacity factor (640 slots an expert a 2048-token sequence): one
+    layer (bf16 activations, f32 master weights cast to bf16 inside, as
+    the model's) over a micro-batch of 8 x 2048, each sequence split into
+    GSHARD_SP chunks of 512, each chunk run on the card with the
+    per-round expert counts of the lower chunks and of the whole
+    sequence that the sp group's all-gather delivers (a world of one
+    holds no sp > 1: NCCL refuses two ranks on one card), the outputs
+    concatenated, forward and backward (``sum(y * dy) + 0.01 (aux +
+    0.001 z)``, the model's aux weight). Against the whole-sequence
+    ``moe_mlp`` on the card: every token's kept or dropped choice in
+    every round equal, ``dropped_fraction`` equal and above 0, out, dx
+    and the router and expert gradients each within TRAIN_GATES' per-leaf
+    relative L2 distance (a chunk's weight gradients are rounded to bf16
+    before the chunks' sum, as each sp rank's are before the sum over
+    sp), aux and z within TRAIN_GATES' loss gap, and a rerun bitwise; a
+    planted fault (each chunk under its own capacity and offsets) fails
+    the decision gate. ``device="cpu"`` with a smaller micro-batch
+    rehearses it."""
+    from dlrover_tpu_torch.models import moe
+
+    mcfg = moe_config()
+    d, f, e, k = mcfg.embed_dim, mcfg.mlp_dim, mcfg.n_experts, mcfg.moe_top_k
+    cf = mcfg.capacity_factor
+    aux_w = mcfg.moe_aux_weight
+    inp = _gshard_inputs(d, f, e, micro, seq, device)
+    names = ("x", "router", "w_gate", "w_up", "w_down")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def run(chunked):
+        leaves = [inp[n].clone().requires_grad_(True) for n in names]
+        t0 = time.monotonic()
+        if chunked:
+            xs = leaves[0].chunk(GSHARD_SP, dim=1)
+            counts = [moe.gshard_counts(c, leaves[1], k) for c in xs]
+            totals = torch.stack(counts).sum(dim=0)
+            lower = torch.zeros_like(totals)
+            ys, stats, kept = [], [], []
+            for c, n in zip(xs, counts):
+                y, st, kp = moe.moe_mlp_chunk(c, *leaves[1:], lower, totals,
+                                              seq, k, cf)
+                lower = lower + n
+                ys.append(y)
+                stats.append(st)
+                kept.append(kp)
+            y = torch.cat(ys, dim=1)
+            kept = torch.cat(kept, dim=2)
+            aux, z = moe.router_losses_from_stats(
+                torch.stack(stats).mean(dim=0), e)
+            dropped = torch.stack([moe.dropped_share(kp) for kp in
+                                   kept.chunk(GSHARD_SP, dim=2)]).mean() / k
+        else:
+            y, m = moe.moe_mlp(*leaves, top_k=k, capacity_factor=cf)
+            aux, z, dropped = m.aux_loss, m.router_z_loss, m.dropped_fraction
+            kept = None
+        loss = ((y.float() * inp["dy"].float()).sum()
+                + aux_w * (aux + 0.001 * z))
+        grads = torch.autograd.grad(loss, leaves)
+        sync()
+        return {"y": y.detach(), "grads": grads, "kept": kept,
+                "aux": float(aux.detach()), "z": float(z.detach()),
+                "dropped": float(dropped), "s": time.monotonic() - t0}
+
+    whole = run(False)
+    chunked = run(True)
+    rerun = run(True)
+    # The whole sequence's decisions, from the chunk body with no
+    # offsets; and a planted fault: each chunk under its own capacity
+    # and offsets, which the decision gate must reject.
+    weights = [inp[n] for n in names[1:]]
+    with torch.no_grad():
+        counts = moe.gshard_counts(inp["x"], inp["router"], k)
+        whole_kept = moe.moe_mlp_chunk(
+            inp["x"], *weights, torch.zeros_like(counts), counts, seq, k,
+            cf)[2]
+        local_kept = []
+        for c in inp["x"].chunk(GSHARD_SP, dim=1):
+            n = moe.gshard_counts(c, inp["router"], k)
+            local_kept.append(moe.moe_mlp_chunk(
+                c, *weights, torch.zeros_like(n), n, c.shape[1], k, cf)[2])
+        fault_caught = not torch.equal(torch.cat(local_kept, dim=2),
+                                       whole_kept)
+    got = dict(zip(names, chunked["grads"]), y=chunked["y"])
+    want = dict(zip(names, whole["grads"]), y=whole["y"])
+    rel_l2 = {n: float((got[n].float() - want[n].float()).norm()
+                       / want[n].float().norm()) for n in want}
+    max_abs = {n: float((got[n].float() - want[n].float()).abs().max())
+               for n in want}
+    bitwise_whole = {n: bool(torch.equal(got[n], want[n])) for n in want}
+    bitwise_rerun = (torch.equal(chunked["y"], rerun["y"]) and all(
+        torch.equal(a, b) for a, b in zip(chunked["grads"],
+                                          rerun["grads"])))
+    kept_equal = bool(torch.equal(chunked["kept"], whole_kept))
+    gaps = {n: abs(chunked[n] - whole[n]) / max(abs(whole[n]), 1e-30)
+            for n in ("aux", "z")}
+    emit({"phase": "gshard_sp_body", "sp": GSHARD_SP, "micro_batch": micro,
+          "seq": seq, "chunk": seq // GSHARD_SP, "experts": e, "top_k": k,
+          "capacity_factor": cf, "capacity": moe.expert_capacity(
+              seq, e, k, cf), "hot_expert_scale": GSHARD_HOT,
+          "dropped_fraction": chunked["dropped"],
+          "whole_dropped_fraction": whole["dropped"],
+          "kept_equal": kept_equal, "rel_l2": rel_l2, "max_abs_err": max_abs,
+          "bitwise_vs_whole": bitwise_whole, "aux_z_gap": gaps,
+          "bitwise_rerun": bitwise_rerun, "fault_caught": fault_caught,
+          "whole_s": whole["s"],
+          "chunked_s": chunked["s"], "rerun_s": rerun["s"]})
+    check(kept_equal, "gshard_sp_body: a token's kept/dropped choice differs "
+                      "from the whole sequence's")
+    check(chunked["dropped"] == whole["dropped"] and chunked["dropped"] > 0,
+          f"gshard_sp_body: dropped fraction {chunked['dropped']} against "
+          f"the whole sequence's {whole['dropped']} (must be equal, > 0)")
+    for n, val in rel_l2.items():
+        check(val <= TRAIN_GATES["grads"],
+              f"gshard_sp_body: {n} at a relative L2 distance of {val}")
+    for n, gap in gaps.items():
+        check(gap <= TRAIN_GATES["loss"],
+              f"gshard_sp_body: {n} {gap} from the whole sequence's")
+    check(bitwise_rerun, "gshard_sp_body: a rerun gave other bits")
+    check(fault_caught, "gshard_sp_body: chunk-local capacities passed "
+                        "the decision gate")
+    return chunked["dropped"]
+
+
+def _same_tree(a, b, where, on_card=True):
+    """Two checkpoint trees equal leaf for leaf: tensors bit for bit in
+    the same dtype (on the card where ``on_card``), other leaves
+    equal."""
+    from dlrover_tpu_torch.flash_ckpt.shm_handler import tree_flatten
+
+    la, sa = tree_flatten(a)
+    lb, sb = tree_flatten(b)
+    check(sa == sb, f"ckpt_bridges: {where}: another tree")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if not isinstance(x, torch.Tensor):
+            check(x == y, f"ckpt_bridges: {where}: leaf {i} {y} != {x}")
+            continue
+        check(isinstance(y, torch.Tensor) and x.dtype == y.dtype
+              and x.shape == y.shape,
+              f"ckpt_bridges: {where}: leaf {i} {getattr(y, 'dtype', y)}")
+        if on_card:
+            check(y.is_cuda, f"ckpt_bridges: {where}: leaf {i} on {y.device}")
+        xb = x.detach().reshape(-1).view(torch.uint8)
+        yb = y.detach().reshape(-1).view(torch.uint8).to(xb.device)
+        check(torch.equal(xb, yb), f"ckpt_bridges: {where}: leaf {i} differs")
+
+
+class _ParamModule(torch.nn.Module):
+    """The train state's params as an ``nn.Module``: one parameter per
+    leaf, named by its path."""
+
+    def __init__(self, params):
+        from dlrover_tpu_torch.trainer import train_step as ts
+
+        super().__init__()
+        self.leaves = torch.nn.ParameterDict({
+            name.replace(".", "__"): torch.nn.Parameter(p.detach().clone())
+            for name, p in zip(_leaf_names(params),
+                               ts.param_leaves(params))})
+
+
+def _hf_stack(params, device, seed):
+    """``_ParamModule`` over ``params`` (redrawn from ``seed`` unless it
+    is None), fused AdamW on the card (its step counts live beside the
+    params) and a LambdaLR."""
+    module = _ParamModule(params).to(device)
+    if seed is not None:
+        gen = torch.Generator(device).manual_seed(seed)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen, device=device))
+    opt = torch.optim.AdamW(module.parameters(), lr=1e-3,
+                            fused=device == "cuda")
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda s: 1.0 / (s + 1))
+    return module, opt, sched
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, n))
+               for r, _, names in os.walk(path) for n in names)
+
+
+def phase_ckpt_bridges(device="cuda", layers=BRIDGE_LAYERS, micro=2,
+                       seq=256):
+    """The checkpoint bridges on the flagship's train state at full
+    width cut to BRIDGE_LAYERS layers (params, AdamW's moments and step
+    counts after one step of ``make_train_step`` on the card): the
+    port's ``Checkpointer`` saves it to storage; ``dcp_io.export_step``
+    writes it as a ``torch.distributed.checkpoint`` step and
+    ``load_dcp`` reads it back onto the card without a template, bit for
+    bit; ``import_step`` brings it into a second flash dir, and the
+    engine restores that onto the card, in place, bit for bit. Then the
+    same params as an ``nn.Module`` on the card with fused AdamW after
+    one step and a LambdaLR: ``FlashCkptCallback.on_save`` snapshots
+    them, and a fresh callback's ``on_train_begin`` restores them into a
+    freshly drawn module, optimizer and scheduler, bit for bit, every
+    tensor on the card. The dirs sit on ``/dev/shm`` where the host has
+    it (the bridge's bytes, not the disk's speed) and are removed at the
+    end. Bytes and seconds of each step. ``device="cpu"`` with
+    ``layers`` and the tiny config's width rehearses it."""
+    import shutil
+    import tempfile
+    import types
+    import uuid
+
+    from dlrover_tpu_torch.flash_ckpt import dcp_io
+    from dlrover_tpu_torch.flash_ckpt import engine as ckpt_engine
+    from dlrover_tpu_torch.flash_ckpt.checkpointer import (
+        Checkpointer,
+        StorageType,
+    )
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.trainer import hf_flash, runtime
+    from dlrover_tpu_torch.trainer import train_step as ts
+
+    cfg = (llama.flagship_config(n_layers=layers) if device == "cuda"
+           else llama.tiny_config(n_layers=layers))
+    tc = ts.TrainConfig()
+    params = llama.init_params(
+        cfg, torch.Generator(device).manual_seed(SEED), device=device)
+    opt = ts.make_optimizer(tc)
+    state = ts.init_train_state(cfg, opt, params)
+    rs = np.random.RandomState(SEED + 5)
+    tokens = torch.from_numpy(rs.randint(0, cfg.vocab_size, (
+        micro, seq + 1)).astype(np.int32)).to(device)
+    state, _ = ts.make_train_step(cfg, tc, opt, device=device)(
+        state, {"tokens": tokens})
+    tree = ts.state_tree(state)
+    nbytes = ckpt_engine.state_nbytes(tree)
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="ckpt_bridges_", dir=shm)
+    job = f"bridges{uuid.uuid4().hex[:8]}"
+    dirs = {n: os.path.join(root, n) for n in ("flash", "dcp", "flash2",
+                                              "hf")}
+    row = {"phase": "ckpt_bridges", "layers": layers, "root": root,
+           "state_bytes": nbytes}
+    timings = {}
+
+    def timed_step(name, fn):
+        t0 = time.monotonic()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        timings[name] = time.monotonic() - t0
+        return out
+
+    try:
+        with _process_env({"DLROVER_TPU_JOB_NAME": job,
+                           "DLROVER_TPU_SHARED_DIR":
+                               os.path.join(root, "uds")}):
+            runtime._context = None  # noqa: SLF001 (a world of one)
+            ckpt = Checkpointer(dirs["flash"], standalone=True)
+            timed_step("save_s", lambda: ckpt.save_checkpoint(
+                state["step"], tree, StorageType.DISK))
+            check(ckpt.wait_saving_complete(),
+                  "ckpt_bridges: the save was not committed")
+            ckpt._engine._shm.unlink()  # noqa: SLF001
+            ckpt.close()
+            step = timed_step("export_s", lambda: dcp_io.export_step(
+                dirs["flash"], dirs["dcp"]))
+            check(step == state["step"], f"ckpt_bridges: exported {step}")
+            _, loaded = timed_step("load_dcp_s", lambda: dcp_io.load_dcp(
+                dirs["dcp"], device=device))
+            _same_tree(tree, loaded, "load_dcp", on_card=device == "cuda")
+            del loaded
+            timed_step("import_s", lambda: dcp_io.import_step(
+                dirs["dcp"], dirs["flash2"]))
+            target = ts.params_like(tree, lambda x: torch.zeros_like(x)
+                                    if isinstance(x, torch.Tensor) else 0)
+            ckpt2 = Checkpointer(dirs["flash2"], standalone=True)
+            restored = timed_step("restore_s", lambda: ckpt2.load_checkpoint(
+                target=target))
+            ckpt2.close()
+            check(restored is not None and restored[0] == step
+                  and ckpt2._engine.last_restore_source == "storage",  # noqa
+                  "ckpt_bridges: the imported step did not restore")
+            # In place: AdamW's step counts stay where AdamW keeps them.
+            _same_tree(tree, restored[1], "engine restore", on_card=False)
+            _same_tree(tree["params"], restored[1]["params"],
+                       "engine restore params", on_card=device == "cuda")
+            del restored, target
+            # The HF callback on an nn.Module of the same params.
+            module, hopt, sched = _hf_stack(state["params"], device, None)
+            for p in module.parameters():
+                p.grad = p.detach().clone()
+            hopt.step()
+            sched.step()
+            hf_state = types.SimpleNamespace(global_step=step)
+            cb = hf_flash.FlashCkptCallback(dirs["hf"])
+            timed_step("hf_save_s", lambda: cb.on_save(
+                None, hf_state, None, model=module, optimizer=hopt,
+                lr_scheduler=sched))
+            cb.close()
+            module2, hopt2, sched2 = _hf_stack(state["params"], device,
+                                               SEED + 9)
+            hf_state2 = types.SimpleNamespace(global_step=0)
+            cb2 = hf_flash.FlashCkptCallback(dirs["hf"])
+            timed_step("hf_restore_s", lambda: cb2.on_train_begin(
+                None, hf_state2, None, model=module2, optimizer=hopt2,
+                lr_scheduler=sched2))
+            check(hf_state2.global_step == step,
+                  f"ckpt_bridges: HF resumed at {hf_state2.global_step}")
+            check(cb2._ckpt._engine.last_restore_source == "memory",  # noqa
+                  "ckpt_bridges: the HF restore did not read shm")
+            cb2._ckpt._engine._shm.unlink()  # noqa: SLF001
+            cb2.close()
+            want = hf_flash.snapshot_training_state(module, hopt, sched)
+            got = hf_flash.snapshot_training_state(module2, hopt2, sched2)
+            _same_tree(want["model"], got["model"], "HF model",
+                       on_card=device == "cuda")
+            _same_tree(want["optimizer"], got["optimizer"], "HF optimizer",
+                       on_card=device == "cuda")
+            check(want["scheduler"] == got["scheduler"],
+                  "ckpt_bridges: HF scheduler state differs")
+            row["hf_bytes"] = ckpt_engine.state_nbytes(want)
+            row["dcp_bytes"] = _dir_bytes(dirs["dcp"])
+            row["flash_bytes"] = _dir_bytes(dirs["flash"])
+            row["import_bytes"] = _dir_bytes(dirs["flash2"])
+            row["step"] = step
+            row["bitwise"] = True
+            runtime._context = None  # noqa: SLF001
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row.update(timings)
+    row["gb_per_s"] = {k: nbytes / 1e9 / max(v, 1e-9) for k, v in
+                       timings.items()}
+    emit(row)
+    return row
+
+
 # ---- the live rescale plane, the network check, the warm standby ----------
 
 # phase 24: the reference test's live episode, w and opt 8 MiB of int64
@@ -6819,6 +7206,11 @@ def main():
     for counts in axes_launches.values():
         for name, n in counts.items():
             launches[name] += n
+    # gshard MoE under sp as each sp rank computes it (plain PyTorch, no
+    # kernel), and the checkpoint bridges (DCP, the HF callback) on the
+    # flagship's train state.
+    timed("gshard_sp_body", phase_gshard_sp_body)
+    timed("ckpt_bridges", phase_ckpt_bridges)
     # The live rescale plane (the episode's workers hold their state on
     # the card), the launcher's network check and the agent's warm
     # standby: control planes on the host, each gated inside its phase.

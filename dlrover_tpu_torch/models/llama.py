@@ -23,8 +23,9 @@ ring attention (``ops/ring_attention.py``). MoE experts sharded over ep
 stay on their rank under the expert-parallel dropless MoE and are
 gathered otherwise; every tp rank runs the whole expert FFN. Pipeline
 stages (``pp_stages > 1``) run ``trainer/pipeline.py`` from
-:func:`forward`. Not run: gshard MoE under sp > 1 (its capacity is per
-sequence; ROADMAP §A "Cases the port refuses").
+:func:`forward`; a pp axis without stages runs the whole stack on every
+pp rank, a replica. gshard MoE under sp takes the whole sequences'
+capacity and slots from the sp group (``moe.moe_mlp(sp_group=)``).
 
 Training runs ``loss_fn`` -> ``forward_hidden`` -> ``run_layer_stack``,
 a loop over the stacked layers with the reference's remat policies as
@@ -375,18 +376,6 @@ def _moe_resolve_impl(config: TpuLMConfig) -> str:
     return "gshard"
 
 
-def require_run_moe(config: TpuLMConfig) -> None:
-    """Raise for the MoE case the port refuses under the current mesh:
-    gshard under sp > 1, whose expert capacity is per sequence while an
-    sp rank holds a chunk of each."""
-    if (config.n_experts > 0 and sharding.axis_size("sp") > 1
-            and _moe_resolve_impl(config) == "gshard"):
-        raise NotImplementedError(
-            "gshard MoE under sp > 1: its expert capacity is per sequence, "
-            "and a rank holds a chunk of each (ROADMAP §A, cases the port "
-            "refuses); use moe_impl='dropless'")
-
-
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
@@ -424,10 +413,10 @@ def _mlp_block_inner(config: TpuLMConfig, p, x):
             out, metrics = fn(hx, *experts, mesh=sharding.current_mesh(),
                               top_k=config.moe_top_k)
         else:
-            require_run_moe(config)
             out, metrics = moe_lib.moe_mlp(
                 hx, *experts, top_k=config.moe_top_k,
-                capacity_factor=config.capacity_factor)
+                capacity_factor=config.capacity_factor,
+                sp_group=sharding.axis_group("sp"))
         aux = metrics.aux_loss + 0.001 * metrics.router_z_loss
     else:
         hx = copy_to_tp(hx)

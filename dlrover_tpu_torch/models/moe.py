@@ -20,6 +20,12 @@ gives (``torch.topk`` leaves the order of ties undefined), and
 On a mesh (``parallel.sharding.use_mesh``) each rank holds its own
 tokens:
 
+- **gshard** on every rank's rows; under sp each rank holds a
+  contiguous chunk of every sequence and runs :func:`moe_mlp_chunk` on
+  it, with the whole sequences' capacity and slot offsets from one
+  all-gather of the chunks' per-round expert counts over the sp group
+  (:func:`sp_offsets`), which the reference's GSPMD cumsum over the
+  sharded sequence computes;
 - **dropless sharded** (:func:`moe_mlp_dropless_sharded`, ep == 1): every
   rank holds every expert and runs :func:`_dropless_core` on its tokens;
 - **dropless under ep** (:func:`moe_mlp_dropless_ep`): each rank holds
@@ -67,42 +73,78 @@ def _router_logits(x, router_w):
     return x.float() @ router_w.float()
 
 
-def moe_mlp(x, router_w, w_gate, w_up, w_down, top_k: int = 2,
-            capacity_factor: float = 1.25):
-    """x: [batch, seq, embed] -> (out, MoEMetrics). Groups are batch
-    rows (tokens of one sequence compete for expert capacity);
-    over-capacity tokens are dropped."""
+def _gshard_rounds(probs, top_k: int):
+    """The ``top_k`` routing rounds of gshard: per round the chosen
+    expert's one-hot ``[b, s, e]`` (f32) and its probability ``[b, s]``,
+    each round's choice masked out of the next."""
+    e = probs.shape[-1]
+    rounds = []
+    remaining = probs
+    for _ in range(top_k):
+        idx = torch.argmax(remaining, dim=-1)                    # [g, s]
+        onehot = F.one_hot(idx, e).float()                       # [g, s, e]
+        rounds.append((onehot, (remaining * onehot).sum(dim=-1)))
+        remaining = remaining * (1.0 - onehot)
+    return rounds
+
+
+def gshard_counts(x, router_w, top_k: int = 2):
+    """``[top_k, b, e]`` int64: how many of the tokens ``x [b, s, d]``
+    pick each expert in each routing round of :func:`moe_mlp_chunk`.
+    Routing needs no capacity, so a chunk's counts are known before any
+    slot is assigned."""
+    with torch.no_grad():
+        probs = torch.softmax(_router_logits(x, router_w), dim=-1)
+        return torch.stack([onehot.sum(dim=1) for onehot, _ in
+                            _gshard_rounds(probs, top_k)]).long()
+
+
+def moe_mlp_chunk(x, router_w, w_gate, w_up, w_down, lower, totals,
+                  seq: int, top_k: int = 2, capacity_factor: float = 1.25):
+    """gshard on one contiguous chunk ``x [b, s_c, d]`` of sequences of
+    ``seq`` tokens, as :func:`moe_mlp` computes the whole sequences.
+
+    ``lower [top_k, b, e]`` counts the tokens of the chunks before this
+    one that pick each expert in each round, ``totals [top_k, b, e]``
+    those of the whole sequences (both from :func:`gshard_counts`). The
+    capacity is ``seq``'s; in each round a token's slot is the exclusive
+    cumsum of the round's one-hots inside the chunk, plus ``lower``, plus
+    the slots the earlier rounds kept, which grow by ``min(totals,
+    cap - used)``: the reference's cumsum over the whole sequence. Each
+    kept token's output depends only on its own gates and slot, so the
+    expert compute and the combine need nothing of the other chunks.
+
+    Returns ``(out, stats, kept)``: ``stats`` the router's local means
+    (:func:`_router_stats`), for the caller to average over the chunks
+    (:func:`moe_mlp` over the ranks holding distinct tokens), and
+    ``kept [top_k, b, s_c]`` whether each token's choice of each round
+    took a slot (:func:`dropped_share` of it is the chunk's share of
+    dropped choices)."""
     b, s, d = x.shape
     e = router_w.shape[-1]
-    cap = expert_capacity(s, e, top_k, capacity_factor)
+    cap = expert_capacity(seq, e, top_k, capacity_factor)
     router_logits = _router_logits(x, router_w)
     probs = torch.softmax(router_logits, dim=-1)
 
     # Iterative top-k one-hot assignment with capacity.
     combine = torch.zeros((b, s, e, cap), dtype=torch.float32,
                           device=x.device)
-    remaining = probs
-    # Position counters per expert, advanced between the k rounds.
+    # Slots per expert taken by the earlier rounds, over whole sequences.
     used = torch.zeros((b, e), dtype=torch.int64, device=x.device)
-    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
-    for _ in range(top_k):
-        idx = torch.argmax(remaining, dim=-1)                    # [g, s]
-        onehot = F.one_hot(idx, e).float()                       # [g, s, e]
-        gate = (remaining * onehot).sum(dim=-1)                  # [g, s]
-        remaining = remaining * (1.0 - onehot)
+    kept = []
+    for r, (onehot, gate) in enumerate(_gshard_rounds(probs, top_k)):
         pos_in_expert = (torch.cumsum(onehot, dim=1) - onehot
-                         + used[:, None, :])                     # [g, s, e]
+                         + (lower[r] + used)[:, None, :])        # [g, s, e]
         pos = (pos_in_expert * onehot).sum(dim=-1).long()
         fits = pos < cap
-        dropped = dropped + (1.0 - fits.float()).mean()
+        kept.append(fits)
         gate = gate * fits
         # Out-of-range positions give an all-zero one-hot row.
         pos_onehot = F.one_hot(torch.where(fits, pos, cap), cap + 1)[
             ..., :cap].float()
         combine = combine + (gate[..., None, None] * onehot[..., None]
                              * pos_onehot[:, :, None, :])
-        used = used + (onehot * fits[..., None]).sum(dim=1).long()
-    dropped = sharding.mean_over_shares(dropped.detach())
+        used = used + torch.minimum(totals[r], (cap - used).clamp(min=0))
 
     # Renormalize the kept gates so they sum to 1 per token (when any).
     denom = combine.sum(dim=(-2, -1), keepdim=True)
@@ -116,25 +158,90 @@ def moe_mlp(x, router_w, w_gate, w_up, w_down, top_k: int = 2,
     h = F.silu(h) * u
     expert_out = torch.einsum("egcf,efd->egcd", h, w_down.to(x.dtype))
     out = torch.einsum("egcd,gsec->gsd", expert_out, combine)
+    return out, _router_stats(router_logits, probs), torch.stack(kept)
 
-    aux, z = _router_losses(router_logits, probs)
+
+def dropped_share(kept):
+    """The mean over the tokens of dropped choices, summed over the
+    rounds, from :func:`moe_mlp_chunk`'s ``kept`` (the reference's sum,
+    round by round)."""
+    dropped = torch.zeros((), dtype=torch.float32, device=kept.device)
+    for fits in kept:
+        dropped = dropped + (1.0 - fits.float()).mean()
+    return dropped
+
+
+def sp_offsets(counts, group=None):
+    """``(lower, totals)`` of :func:`moe_mlp_chunk` for this rank's chunk
+    from its :func:`gshard_counts`: one all-gather of the counts over the
+    sp ``group`` (chunk order = group rank). Without a group the chunk
+    is the whole sequence."""
+    if group is None:
+        return torch.zeros_like(counts), counts
+    import torch.distributed as dist
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    gathered = counts.new_empty((n * counts.shape[0],)
+                                + tuple(counts.shape[1:]))
+    dist.all_gather_into_tensor(gathered, counts.contiguous(), group=group)
+    gathered = gathered.reshape((n,) + tuple(counts.shape))
+    return gathered[:me].sum(dim=0), gathered.sum(dim=0)
+
+
+def moe_mlp(x, router_w, w_gate, w_up, w_down, top_k: int = 2,
+            capacity_factor: float = 1.25, sp_group=None):
+    """x: [batch, seq, embed] -> (out, MoEMetrics). Groups are batch
+    rows (tokens of one sequence compete for expert capacity);
+    over-capacity tokens are dropped.
+
+    Under sp (``sp_group``, the current mesh's sp group) ``x`` is this
+    rank's contiguous chunk of every sequence, and the capacity and
+    slots are the whole sequences' (:func:`moe_mlp_chunk`, offsets from
+    :func:`sp_offsets`), as GSPMD computes the reference's cumsum over
+    the sharded sequence. ``dropped_fraction`` and the router losses
+    are global means over the ranks holding distinct tokens."""
+    b, s, d = x.shape
+    e = router_w.shape[-1]
+    sp = 1
+    if sp_group is not None:
+        import torch.distributed as dist
+
+        sp = dist.get_world_size(sp_group)
+    lower, totals = sp_offsets(gshard_counts(x, router_w, top_k), sp_group)
+    out, stats, kept = moe_mlp_chunk(
+        x, router_w, w_gate, w_up, w_down, lower, totals, s * sp, top_k,
+        capacity_factor)
+    dropped = sharding.mean_over_shares(dropped_share(kept))
+    aux, z = router_losses_from_stats(sharding.mean_over_shares(stats), e)
     return out, MoEMetrics(aux_loss=aux, router_z_loss=z,
                            dropped_fraction=dropped / top_k)
+
+
+def _router_stats(router_logits, probs):
+    """This rank's router means in one vector: the top-1 fractions
+    ``[e]``, the mean probabilities ``[e]`` and the mean squared
+    log-sum-exp."""
+    e = probs.shape[-1]
+    top1 = F.one_hot(torch.argmax(probs, dim=-1), e).float()
+    lead = tuple(range(top1.ndim - 1))
+    z = torch.logsumexp(router_logits, dim=-1).square().mean()
+    return torch.cat([top1.mean(dim=lead), probs.mean(dim=lead), z[None]])
+
+
+def router_losses_from_stats(stats, e: int):
+    """(aux, z) from :func:`_router_stats` averaged over every token:
+    ``aux = e * sum(frac_tokens * mean_probs)``, a product of two global
+    means."""
+    frac_tokens, mean_probs = stats[:e], stats[e:2 * e]
+    return e * (frac_tokens * mean_probs).sum(), stats[2 * e]
 
 
 def _router_losses(router_logits, probs):
     """(aux, z) over the whole batch: under a mesh the per-rank means
     (top-1 fractions, mean probabilities, mean squared log-sum-exp) are
     averaged over the ranks holding distinct tokens in one reduction."""
-    e = probs.shape[-1]
-    top1 = F.one_hot(torch.argmax(probs, dim=-1), e).float()
-    lead = tuple(range(top1.ndim - 1))
-    z = torch.logsumexp(router_logits, dim=-1).square().mean()
-    stats = sharding.mean_over_shares(torch.cat(
-        [top1.mean(dim=lead), probs.mean(dim=lead), z[None]]))
-    frac_tokens, mean_probs = stats[:e], stats[e:2 * e]
-    aux = e * (frac_tokens * mean_probs).sum()
-    return aux, stats[2 * e]
+    return router_losses_from_stats(sharding.mean_over_shares(
+        _router_stats(router_logits, probs)), probs.shape[-1])
 
 
 def _top_k(probs, k: int):

@@ -367,7 +367,9 @@ class _GatherReplicated(torch.autograd.Function):
                 None, None, None)
 
 
-def _group(name: str):
+def axis_group(name: str):
+    """The current mesh's process group of axis ``name``, or None without
+    a mesh or where the axis has one rank."""
     mesh = current_mesh()
     if mesh is None or axis_size(name, mesh) == 1:
         return None
@@ -410,20 +412,20 @@ class _ReduceFromGroup(torch.autograd.Function):
 def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
     """The input of a column-parallel product: the same on every tp rank,
     its gradient the sum of theirs. Identity without a tp axis."""
-    group = _group("tp")
+    group = axis_group("tp")
     return x if group is None else _CopyToGroup.apply(x, group)
 
 
 def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
     """A row-parallel product's partial sums, summed over tp (the
     gradient passes as it is). Identity without a tp axis."""
-    group = _group("tp")
+    group = axis_group("tp")
     return x if group is None else _ReduceFromGroup.apply(x, group)
 
 
 def max_over_tp(x: torch.Tensor) -> torch.Tensor:
     """Elementwise max over tp, outside autograd."""
-    group = _group("tp")
+    group = axis_group("tp")
     if group is None:
         return x
     import torch.distributed as dist

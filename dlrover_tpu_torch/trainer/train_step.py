@@ -25,14 +25,16 @@ attention is then ring attention, as the reference's step picks it).
 Each rank computes its tokens on local tensors (``parallel.sharding``)
 and differentiates its share of the global loss: its tokens' mean over
 the number of ranks holding distinct tokens (batch axes times sp), and
-under a pp axis only the rank of the last stage holds the CE
+under pipeline stages only the rank of the last stage holds the CE
 (``trainer/pipeline.py``). The gradients of params replicated over pp
 (embedding, unembedding, final norm) are summed over pp after the
-backward. The loss and the metrics are the global means, the grad norm
-counts each element once, and clipping and AdamW run on the local
-shards. A world of one runs the same code with every collective an
-identity. A pp axis above 1 without pipeline stages raises
-``NotImplementedError`` (ROADMAP §A, cases the port refuses).
+backward. A pp axis with ``pp_stages`` 1 holds replicas, as under the
+reference's rules (no stage dim to shard, the batch not split over pp):
+every pp rank reads the same rows, runs the whole stack and computes the
+same gradients, so nothing is summed over pp. The loss and the metrics
+are the global means, the grad norm counts each element once, and
+clipping and AdamW run on the local shards. A world of one runs the same
+code with every collective an identity.
 """
 
 import dataclasses
@@ -196,17 +198,6 @@ def batch_spec(rules=DEFAULT_RULES):
     return logical_to_spec(("batch", None), rules)
 
 
-def _require_mesh_path(config: llama.TpuLMConfig, mesh) -> None:
-    """Raise for the mesh cases the port refuses (ROADMAP §A)."""
-    if sharding.axis_size("pp", mesh) > 1 and config.pp_stages == 1:
-        raise NotImplementedError(
-            "a pp axis above 1 with pp_stages 1: every pp rank would run "
-            "the whole stack as a replica (ROADMAP §A, cases the port "
-            "refuses); set pp_stages to a multiple of pp")
-    with sharding.use_mesh(mesh):
-        llama.require_run_moe(config)
-
-
 def shard_params(config: llama.TpuLMConfig, params, mesh,
                  rules=DEFAULT_RULES):
     """A tree of full tensors (the same on every rank) as DTensors laid
@@ -232,7 +223,6 @@ def init_train_state(config: llama.TpuLMConfig, optimizer: Optimizer,
     if mesh is not None:
         from torch.distributed.tensor import DTensor
 
-        _require_mesh_path(config, mesh)
         if not isinstance(param_leaves(params)[0], DTensor):
             params = shard_params(config, params, mesh, rules)
     for p in param_leaves(params):
@@ -324,14 +314,16 @@ def _mesh_device(mesh) -> torch.device:
 class _MeshSplit:
     """How a micro-batch's tokens split over a mesh: rows over the batch
     axes, each sequence into contiguous chunks over sp. ``shares`` ranks
-    hold distinct tokens; each tp rank holds the same ones."""
+    hold distinct tokens; ``copies`` ranks hold each share: the tp ranks,
+    and the pp ranks where pp holds replicas (``pp_stages`` 1)."""
 
-    def __init__(self, mesh, local_batch: bool):
+    def __init__(self, mesh, local_batch: bool, pp_replicas: bool):
         self.b_idx, self.b_count = sharding.batch_index(mesh)
         self.sp = sharding.axis_size("sp", mesh)
         self.sp_idx = mesh.get_local_rank("sp") if self.sp > 1 else 0
         self.shares = self.b_count * self.sp
-        self.tp = sharding.axis_size("tp", mesh)
+        self.copies = sharding.axis_size("tp", mesh) * (
+            sharding.axis_size("pp", mesh) if pp_replicas else 1)
         self.local_batch = local_batch
 
     def local(self, batch: Dict[str, torch.Tensor]):
@@ -363,22 +355,23 @@ class _MeshSplit:
 
     def global_mean(self, share: torch.Tensor) -> torch.Tensor:
         """The global value from this rank's share of it: the sum over
-        the world, each tp rank holding the same share."""
+        the world, each of ``copies`` ranks holding the same share."""
         import torch.distributed as dist
 
         share = share.clone()
         dist.all_reduce(share)
-        return share / self.tp
+        return share / self.copies
 
 
-def _sum_grads_over_pp(params, grads, mesh) -> None:
+def _sum_grads_over_pp(config, params, grads, mesh) -> None:
     """Sum over pp the gradients of the params replicated over pp (each
     pp rank holds the gradient of its own stages' use of them), in
-    place."""
+    place. Without pipeline stages the pp ranks are replicas that each
+    hold the whole gradient: nothing is summed."""
     from torch.distributed.tensor import Replicate
     import torch.distributed as dist
 
-    if sharding.axis_size("pp", mesh) == 1:
+    if sharding.axis_size("pp", mesh) == 1 or config.pp_stages == 1:
         return
     group = mesh.get_group("pp")
     dim = mesh.mesh_dim_names.index("pp")
@@ -405,9 +398,8 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
     under ``use_mesh(mesh)``, through ring attention when sp > 1."""
     attention_fn = None
     if mesh is not None:
-        _require_mesh_path(config, mesh)
         device = _mesh_device(mesh)
-        split = _MeshSplit(mesh, local_batch)
+        split = _MeshSplit(mesh, local_batch, config.pp_stages == 1)
         if split.sp > 1:
             from dlrover_tpu_torch.ops.ring_attention import (
                 make_ring_attention,
@@ -472,7 +464,7 @@ def make_train_step(config: llama.TpuLMConfig, tc: TrainConfig,
             grads = list(g_1)
         loss = mean_loss(loss)
         if mesh is not None:
-            _sum_grads_over_pp(params, grads, mesh)
+            _sum_grads_over_pp(config, params, grads, mesh)
 
         with llama.scope("optimizer"):
             grad_norm = global_norm(
@@ -500,9 +492,9 @@ def make_eval_step(config: llama.TpuLMConfig, device="cuda", mesh=None):
     """Returns ``ev(params, batch) -> ce`` (no gradients). With ``mesh``
     every rank passes the global batch and gets the global mean CE."""
     if mesh is not None:
-        _require_mesh_path(config, mesh)
         device = _mesh_device(mesh)
-        split = _MeshSplit(mesh, local_batch=False)
+        split = _MeshSplit(mesh, local_batch=False,
+                           pp_replicas=config.pp_stages == 1)
     device = torch.device(device)
 
     def ev(params, batch):

@@ -753,3 +753,54 @@ def test_replica_and_watchdog_paths_load_no_jax(tmp_path):
                       "fired": str(tmp_path / "flight" /
                                    "hang_node0_rank0.json"),
                       "on_demand": True, "leaked": []}
+
+
+def test_scan_covers_the_checkpoint_bridges():
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
+    assert {"flash_ckpt/dcp_io.py", "trainer/hf_flash.py",
+            "models/moe.py", "trainer/train_step.py"} <= scanned
+
+
+_BRIDGE_CHILD = r"""
+import json, os, sys, warnings
+warnings.simplefilter("ignore")
+import torch
+from dlrover_tpu_torch.flash_ckpt import dcp_io
+from dlrover_tpu_torch.flash_ckpt.checkpointer import Checkpointer
+from dlrover_tpu_torch.trainer import hf_flash
+root = sys.argv[1]
+ckpt = Checkpointer(os.path.join(root, "flash"), standalone=True)
+ckpt.save_checkpoint(3, {"w": torch.ones(2, 2, dtype=torch.bfloat16)},
+                     "disk")
+ckpt.close()
+dcp_io.export_step(os.path.join(root, "flash"), os.path.join(root, "d"))
+dcp_io.import_step(os.path.join(root, "d"), os.path.join(root, "back"))
+step, state = dcp_io.load_dcp(os.path.join(root, "d"), device="cpu")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "dlrover_tpu", "orbax", "ml_dtypes"))
+print(json.dumps({"step": step, "leaked": leaked,
+                  "callback": hf_flash.FlashCkptCallback.__mro__[1].__name__}))
+"""
+
+
+def test_checkpoint_bridges_load_no_jax_orbax_or_ml_dtypes(tmp_path):
+    """The DCP bridge's export, import and load and the HF callback's
+    module, in a process of their own: nothing of JAX, orbax, ml_dtypes
+    or the JAX package is loaded."""
+    import uuid
+
+    job = f"isobr{uuid.uuid4().hex[:10]}"
+    env = dict(os.environ, PYTHONPATH=str(REPO), DLROVER_TPU_JOB_NAME=job,
+               DLROVER_TPU_SHARED_DIR=str(tmp_path / "uds"))
+    try:
+        proc = subprocess.run([sys.executable, "-c", _BRIDGE_CHILD,
+                               str(tmp_path)], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=300)
+    finally:
+        for seg in os.listdir("/dev/shm"):
+            if job in seg:
+                os.unlink(os.path.join("/dev/shm", seg))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"step": 3, "leaked": [],
+                      "callback": "TrainerCallback"}

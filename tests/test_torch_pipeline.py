@@ -21,7 +21,6 @@ layout of the layer params, against the JAX package.
 
 import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -175,11 +174,3 @@ def test_pp_trajectory_on_a_world_matches_jax(tmp_path, mesh_kw):
     check_trajectory(tmp_path, jax_llama.tiny_config(
         n_layers=4, pp_stages=2, num_microbatches=2), mesh_kw)
 
-
-def test_pp_axis_without_stages_raises():
-    mesh = types.SimpleNamespace(
-        mesh_dim_names=("dcn", "dp", "ep", "pp", "sp", "tp"),
-        size=lambda dim=None: 2 if dim in (None, 3) else 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts._require_mesh_path(llama.tiny_config(), mesh)
-    ts._require_mesh_path(llama.tiny_config(pp_stages=2), mesh)

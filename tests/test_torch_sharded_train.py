@@ -6,9 +6,9 @@ rtol 1e-4 each step, final params within rtol 1e-4 / atol 1e-5, as
 ``tests/test_torch_train.py`` holds the one-device path; then the eval
 step's CE within rtol 1e-4). The world on
 (dp=2, tp=2) also checks grad accumulation 2 against 1, the CE routes
-under tp, one step each of an sp axis, a pp axis, pipeline stages and a
-dropless MoE on a mesh of the world against the same step without one,
-and the mesh case that still raises (the 2-process world too).
+under tp, one step each of an sp axis, a pp axis, pipeline stages, a pp
+axis of replicas (``pp_stages`` 1) and a dropless MoE on a mesh of the
+world against the same step without one (the 2-process world too).
 
 The ranks run ``tests/workers/torch_mesh_worker.py`` (no JAX there)."""
 
@@ -161,13 +161,12 @@ def test_sharded_trajectory_matches_jax(tmp_path, mesh_kw):
     if not extra:
         return
     out = outs[0]
-    # The axes that used to raise run on the world and take the step the
-    # port takes without a mesh; a pp axis without stages still raises.
-    for name in ("sp", "pp_axis", "pp_stages", "moe"):
+    # Each axis runs on the world and takes the step the port takes
+    # without a mesh: a pp axis without stages holds replicas.
+    for name in ("sp", "pp_axis", "pp_stages", "pp_replicas", "moe"):
         (loss, norm), (want_loss, want_norm) = out["runs"][name]
         np.testing.assert_allclose(loss, want_loss, rtol=1e-5, err_msg=name)
         np.testing.assert_allclose(norm, want_norm, rtol=1e-4, err_msg=name)
-    assert "ROADMAP §A" in out["raises"]["pp_replicas"], out["raises"]
     # grad_accum 2 takes the same step as 1 over the same batch.
     (l1, n1, p1, _), (l2, n2, p2, _) = out["ga1"], out["ga2"]
     np.testing.assert_allclose(l2, l1, rtol=1e-5)

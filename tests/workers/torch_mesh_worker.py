@@ -10,13 +10,17 @@ writes ``out<r>.pkl``. Cases:
 - ``train``: the tiny config's trajectory on ``in["mesh"]`` from the
   JAX package's state, then the eval step's CE on the first batch;
   with ``in["extra"]`` also grad accumulation 2 against 1, the CE
-  routes under tp, one step of each of sp, a pp axis, pipeline stages
-  and a dropless MoE on a mesh of the world (against the same step
-  without a mesh), and the mesh case that raises;
+  routes under tp, one step of each of sp, a pp axis, pipeline stages,
+  a pp axis of replicas (``pp_stages`` 1) and a dropless MoE on a mesh
+  of the world (against the same step without a mesh);
 - ``moe``: one dropless MoE layer (``in["impl"]`` "ep" or "sharded")
   on this rank's rows, its params laid out by the model's rules and
   gathered as the model gathers them; the output, the global router
   losses, and the gradients of a weighted loss;
+- ``gshard``: one gshard MoE layer (``moe_mlp`` with the mesh's sp
+  group) on this rank's rows and sequence chunk, its weights laid out
+  and gathered as the model's; the output, ``dropped_fraction``, the
+  global router losses, and the gradients of a weighted loss;
 - ``ring``: ring attention on this rank's rows, sequence chunk and
   heads, both impls, causal and not: outputs and the gradients of a
   weighted loss; packed positions through both impls; an unknown
@@ -67,14 +71,6 @@ def _trajectory(cfg, tc, crossed, mesh, batches):
             float(ce))
 
 
-def _raises(fn) -> str:
-    try:
-        fn()
-    except NotImplementedError as e:
-        return str(e)
-    return ""
-
-
 def _one_step(cfg, tc, params_np, mesh, tokens):
     """(loss, grad norm) of one step from ``params_np`` with a fresh
     optimizer, on ``mesh`` or without one."""
@@ -87,7 +83,7 @@ def _one_step(cfg, tc, params_np, mesh, tokens):
 
 
 def _extra(cfg, tc, crossed, mesh, batches, out):
-    """Grad accumulation, the CE routes and the cases that raise."""
+    """Grad accumulation, the CE routes and the mesh axes."""
     ga2 = ts.TrainConfig(**{**tc.__dict__, "grad_accum": 2})
     out["ga1"] = _trajectory(cfg, tc, crossed, mesh, batches[:1])
     out["ga2"] = _trajectory(cfg, ga2, crossed, mesh, batches[:1])
@@ -116,8 +112,8 @@ def _extra(cfg, tc, crossed, mesh, batches, out):
         "dx": float((dx_got - dx_want).abs().max()),
         "dw": float((dw_got - dw_want[:, lo:lo + cols]).abs().max()),
     }
-    # The axes that used to raise now run on the world: one step each, against
-    # the same step without a mesh.
+    # Each axis on the world: one step each, against the same step
+    # without a mesh.
     n = mesh.size()
     tokens = batches[0]
     flat = crossed["params"]
@@ -130,6 +126,7 @@ def _extra(cfg, tc, crossed, mesh, batches, out):
         "sp": (cfg, flat, MeshConfig(sp=n)),
         "pp_axis": (pp_cfg, staged, MeshConfig(pp=2, dp=n // 2)),
         "pp_stages": (pp_cfg, staged, None),
+        "pp_replicas": (cfg, flat, MeshConfig(pp=n)),
         "moe": (moe, moe_np, None),
     }
     out["runs"] = {}
@@ -137,9 +134,6 @@ def _extra(cfg, tc, crossed, mesh, batches, out):
         m = mesh if mcfg is None else build_mesh(mcfg, "cpu")
         out["runs"][name] = (_one_step(c, tc, p_np, m, tokens),
                              _one_step(c, tc, p_np, None, tokens))
-    opt = ts.make_optimizer(tc)
-    out["raises"] = {"pp_replicas": _raises(lambda: ts.make_train_step(
-        cfg, tc, opt, mesh=build_mesh(MeshConfig(pp=n), "cpu")))}
 
 
 _MOE_AXES = {"router": ("embed", "expert"),
@@ -189,6 +183,49 @@ def _moe_case(inp, mesh, out):
             "dx": grads[0].numpy(),
             "grads": {k: (bounds[k], gr.numpy())
                       for k, gr in zip(leaves, grads[1:])}}
+
+
+def _seq(mesh, seq_len):
+    """(lo, hi) of this rank's contiguous chunk of a sequence over sp."""
+    sp = sharding.axis_size("sp", mesh)
+    r = mesh.get_local_rank("sp") if sp > 1 else 0
+    return r * seq_len // sp, (r + 1) * seq_len // sp
+
+
+def _gshard_case(inp, mesh, out):
+    """One gshard MoE layer on this rank's tokens (see the module doc)."""
+    from dlrover_tpu_torch.models import moe as moe_lib
+
+    lo, hi = _rows(mesh, inp["x"].shape[0])
+    s0, s1 = _seq(mesh, inp["x"].shape[1])
+    x = torch.from_numpy(np.ascontiguousarray(
+        inp["x"][lo:hi, s0:s1])).requires_grad_(True)
+    g = torch.from_numpy(np.ascontiguousarray(inp["gout"][lo:hi, s0:s1]))
+    leaves, bounds, local = {}, {}, {}
+    for name, axes in _MOE_AXES.items():
+        dt = sharding.shard_tensor(torch.from_numpy(inp[name]), mesh,
+                                   sharding.logical_to_spec(axes))
+        leaves[name] = dt.to_local().clone().requires_grad_(True)
+        bounds[name] = sharding.shard_bounds(dt.shape, mesh, dt.placements)
+        view = sharding.ShardedParam(leaves[name], mesh, dt.placements)
+        kw = {} if name == "router" else {"gather_tp": True}
+        local[name] = sharding.local_param(view, **kw)
+    with sharding.use_mesh(mesh):
+        y, metrics = moe_lib.moe_mlp(
+            x, *(local[k] for k in _MOE_AXES), top_k=inp["top_k"],
+            capacity_factor=inp["capacity_factor"],
+            sp_group=sharding.axis_group("sp"))
+        aux = metrics.aux_loss + 0.001 * metrics.router_z_loss
+        loss = (y * g).sum() + inp["aux_weight"] * aux / (
+            sharding.share_count(mesh))
+        grads = torch.autograd.grad(loss, [x] + list(leaves.values()))
+    out["gshard"] = {
+        "rows": (lo, hi), "seq": (s0, s1), "y": y.detach().numpy(),
+        "aux": float(metrics.aux_loss), "z": float(metrics.router_z_loss),
+        "dropped": float(metrics.dropped_fraction),
+        "dx": grads[0].numpy(),
+        "grads": {k: (bounds[k], gr.numpy())
+                  for k, gr in zip(leaves, grads[1:])}}
 
 
 def _ring_case(inp, mesh, out):
@@ -268,6 +305,8 @@ def main():
             _extra(cfg, tc, inp["state"], mesh, inp["batches"], out)
     elif case == "moe":
         _moe_case(inp, mesh, out)
+    elif case == "gshard":
+        _gshard_case(inp, mesh, out)
     elif case == "ring":
         _ring_case(inp, mesh, out)
     elif case == "restore":

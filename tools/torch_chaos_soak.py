@@ -94,9 +94,11 @@ def main(argv=None) -> int:
             work_dir=args.work_dir,
             artifact_dir=args.artifact_dir,
         )
-    except SoakInvariantError:
-        # run_episode already printed the failure, artifact dir and the
-        # one-line repro command.
+    except SoakInvariantError as e:
+        # run_episode printed the repro command (and for most kinds the
+        # failure and the artifact dir); the autoscaler's kind prints
+        # only the repro, so the broken invariant goes to stderr here.
+        print(f"soak invariant failed: {e}", file=sys.stderr, flush=True)
         return 1
     print(json.dumps(summary), flush=True)
     return 0
