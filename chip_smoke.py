@@ -70,7 +70,8 @@ phases that each print JSON lines:
     equals B5 bit for bit (reported);
 11. PagedServingEngine on the flagship, full depth: (a) fp at the bytes
     of phase 5's flat engine and twice its slots (16 slots, 513 blocks
-    of 16 rows), 32 greedy requests (prompts 16-300, 32-128 new tokens,
+    of 16 rows), 24 greedy requests (cut from 32 for the script's time
+    limit, PR 23; prompts 16-300, 32-128 new tokens,
     60% opening with one shared 48-token prefix), run twice from the
     same seed; (b) the same requests over 129 blocks, which forces cache
     eviction and preemption and must give the same tokens; (c) an int8
@@ -93,8 +94,8 @@ phases that each print JSON lines:
 11b. the same on the paged engine at phase 11's settings: fp spec off,
     n-gram and early exit; int8 spec off and n-gram (B6 exact, block
     conservation);
-11c. migrate: the first 24 of phase 11's 32 requests (cut for the
-    script's time limit, PR 22) through two paged engines at its
+11c. migrate: phase 11's 24 requests (cut from 32 for the script's
+    time limit, PR 22) through two paged engines at its
     settings, fp and int8: each request exported from the first right
     after prefill (a quarter after 3 decode steps), imported into the
     second, released by the first. Every request complete, tokens within
@@ -254,8 +255,10 @@ phases that each print JSON lines:
     card, then TIMER_STEPS training steps under ``DLROVER_TPU_TIMER=1``
     and ``DLROVER_TPU_TIMER_XLA=1``; a rigged probe starts no worker):
     after the first step the capture trigger; the worker's daemon serves
-    ``/metrics``, the launcher's collector forwards the gauges to the
-    master, and the timeline fetched through ``tpu_timer/dump.py`` holds
+    ``/metrics``; the launcher started its collector, whose class
+    forwards a post-capture scrape's gauges to the launcher's master
+    (this process calls it rather than wait for its 30 s tick); the
+    timeline fetched through ``tpu_timer/dump.py`` holds
     B1/B2's kernels; the capture window's seconds and the step time in
     and out of it. Beside it (it runs in an interpreter of its own, so
     both sides' seconds include the other's load), the agent's warm
@@ -332,6 +335,29 @@ phases that each print JSON lines:
     ``trainer/hf_flash.FlashCkptCallback``'s ``on_save`` and a fresh
     callback's ``on_train_begin``, bit for bit, every tensor on the
     card. The dirs on ``/dev/shm``; bytes and seconds of each step.
+32. dist_master (alone): the distributed master over the simulated
+    cluster, built from the master CLI's own parse (``--platform sim
+    --node_num 2 --transport http --pre_check``) in this process, this
+    process
+    playing the cluster's hosts: one ``python -m dlrover_tpu_torch.run
+    --master`` launcher for each running node, over
+    ``testing/replica_worker`` (the flagship at ELASTIC_LAYERS layers
+    on the card, DIST_STEPS steps, a persist every DIST_PERSIST to
+    ``/dev/shm``), each
+    exit reported to the cluster. Both ranks pause at their committed
+    step DIST_PERSIST; node 1 is then lost with its host and reported
+    preempted; the master's relaunch machinery creates its next
+    incarnation, whose launcher this process starts; the world re-forms,
+    both ranks train on from the committed step and end on one model.
+    The master's node table, exit reason and pre-check, the restores of
+    the committed step (the relaunch's from storage, node 0's from
+    memory), each later step once a rank, exact B1/B2 launches. Master ready to first step, and host loss to the
+    replacement's first step split into sim relaunch, launcher start,
+    rendezvous, worker start, restore and first step;
+33. control_plane: ``tools/torch_bench_control_plane.py --workers
+    CONTROL_PLANE_WORKERS`` on the host, alone: max sustainable RPCs/s,
+    master CPU s per 1k RPCs, time to quorum per world and the shed
+    counts, its three invariants raising inside it.
 
 Phases 4, 5, 11, 11a-d check the tokens against the argmax of the
 port's own teacher-forced forward over prompt + output, check that
@@ -1304,8 +1330,15 @@ def phase_engine(cfg, params, phase="engine", gated=True):
     return launches, [(p, r.tokens, n) for p, r, n in zip(prompts, reqs, news)]
 
 
-def _paged_workload(cfg, n_requests=32, prefix_share=0.6, prefix_len=48):
-    """32 greedy requests, all submitted at once: prompts of 16-300
+# Phase 11's requests (cut from 32 for the script's time limit, PR 23):
+# more than its 16 slots, so the ones that wait can hit the prefix cache.
+PAGED_REQUESTS = 24
+
+
+def _paged_workload(cfg, n_requests=PAGED_REQUESTS, prefix_share=0.6,
+                    prefix_len=48):
+    """``n_requests`` greedy requests, all submitted at once (the first
+    requests of a longer workload from the same seed): prompts of 16-300
     tokens, 32-128 new tokens, and ``prefix_share`` of the prompts
     opening with ONE fixed ``prefix_len``-token system prefix (the
     shared-system-prompt workload a prefix cache exists for; the prefix
@@ -1493,7 +1526,7 @@ def phase_paged_engine(cfg, params):
           "paged fp, 129 blocks: tokens differ from the 513-block run")
     # int8 at equal bytes: a row costs 132 bytes a head against 256, so
     # ~1.94x the blocks. The slots stay at 16: with a slot for each of
-    # the 32 requests all are admitted before any prompt is cached, and
+    # the 24 requests all are admitted before any prompt is cached, and
     # nothing could hit.
     fp_row = bytes_per_head_row(cfg.head_dim, "fp", 2)
     int8_blocks = ((fp_blocks - 1) * fp_row
@@ -1703,10 +1736,10 @@ def phase_moe_paged_engine(cfg, params, served):
 
 FP_BLOCKS, INT8_BLOCKS = 513, 993   # phase 11's pools (equal bytes)
 MIGRATE_LATE_STEPS = 3              # a quarter exported after 3 decode steps
-# Phase 11c's requests: the first 24 of phase 11's 32 (cut for the
-# script's time limit, PR 22); more than the destination's 16 slots, so
-# ready requests still wait for room there.
-MIGRATE_REQUESTS = 24
+# Phase 11c's requests: phase 11's (cut from 32 for the script's time
+# limit, PR 22); more than the destination's 16 slots, so ready requests
+# still wait for room there.
+MIGRATE_REQUESTS = PAGED_REQUESTS
 
 
 def _migrate_wire_check(eng, req, payload):
@@ -1881,7 +1914,7 @@ def _migrate_one_at_a_time(cfg, params, work):
 def phase_migrate(cfg, params, unmigrated):
     """Block migration between two paged engines at phase 11's settings
     (16 slots, block 16, 513 fp blocks, 993 int8 at equal bytes) over
-    the first MIGRATE_REQUESTS of phase 11's 32 requests (see
+    the first MIGRATE_REQUESTS of phase 11's requests (see
     ``_migrate_run``), then the int8 one-at-a-time equality. ``unmigrated`` {kv: tokens} are phase 11's
     runs of the same requests. Returns the B6 launches by kernel."""
     work = _paged_workload(cfg)[:MIGRATE_REQUESTS]
@@ -5960,9 +5993,9 @@ class _LogTail:
 
 # phase 25(a): the timed run's steps (a capture window's worth and
 # more: the worker's steps run on through the window), the listener's
-# window, and the most this process waits for the launcher's collector
-# (a scrape every 30 s) to forward one taken after the capture.
-TIMER_STEPS, TIMER_WINDOW_S, TIMER_FORWARD_S = 40, 0.5, 75.0
+# window, and the most this process waits for the master to log the
+# forwarded scrape.
+TIMER_STEPS, TIMER_WINDOW_S, TIMER_FORWARD_S = 40, 0.5, 15.0
 
 
 def _timer_run(device, root, repo, env):
@@ -5971,15 +6004,23 @@ def _timer_run(device, root, repo, env):
     trains TIMER_STEPS steps; once it reports its first step this
     process touches its capture trigger, waits for the listener's
     capture, then fetches the worker's ``/metrics`` and ``/timeline``
-    through ``tpu_timer/dump.py`` and waits for the launcher's collector
-    (every 30 s) to forward a scrape taken after the capture to the
-    master. Gates: the daemon served ``/metrics``; the master received
+    through ``tpu_timer/dump.py``. The launcher runs one
+    ``TpuTimerMetricCollector`` a local rank, which scrapes every 30 s
+    (the reference's cadence); rather than wait up to that long for its
+    next tick, this process forwards a scrape taken after the capture
+    through the same collector class to the launcher's local master
+    (its address from the launcher's log). Gates: the launcher started
+    its collector; the daemon served ``/metrics``; the master received
     the parsed gauges with the capture's event count; the timeline holds
     B1/B2's kernels with positive durations; the window's profiler
     start-up within CAPTURE_STARTUP_MAX_S; the run's steps and exit; the
     network check as before. Returns the row."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
     from dlrover_tpu_torch.common.constants import NodeEnv
-    from dlrover_tpu_torch.diagnosis.collectors import parse_prometheus_text
+    from dlrover_tpu_torch.diagnosis.collectors import (
+        TpuTimerMetricCollector,
+        parse_prometheus_text,
+    )
     from dlrover_tpu_torch.tpu_timer import bridge, dump, xla_capture
 
     job = env[NodeEnv.JOB_NAME]
@@ -6022,9 +6063,24 @@ def _timer_run(device, root, repo, env):
             port, "/metrics", retries=3).decode())
         timeline = json.loads(dump.annotate_clock_sync(
             dump.fetch_with_retries(port, "/timeline", retries=3)))
-        # The collector's first scrape after the capture reaches the
-        # master (its log line carries the capture's event count; a
-        # window on the CPU records none).
+        # The launcher's collector class forwards a scrape taken after
+        # the capture to the launcher's master (the master's log line
+        # carries the capture's event count; a window on the CPU records
+        # none).
+        log = launcher.log()
+        check("tpu_timer collector of local rank 0 every 30 s" in log,
+              "agent_paths/timer: the launcher started no collector")
+        addr = re.findall(r"local master pid=\d+ serving at (\S+) after",
+                          log)
+        check(len(addr) == 1, f"agent_paths/timer: master address {addr}")
+        client = MasterClient(addr[0], node_id=0)
+        try:
+            check(TpuTimerMetricCollector(
+                master_client=client, node_id=0,
+                port_file=port_file).collect_once(),
+                "agent_paths/timer: the collector forwarded nothing")
+        finally:
+            client.close()
         received = re.compile(
             r"received xpu_timer_metric diagnosis data from node 0 \((\d+) "
             r"metrics, xla_capture_events ([0-9.]+)")
@@ -7064,6 +7120,373 @@ def phase_elastic_paths():
             for name, n in elastic.items()}
 
 
+DIST_STEPS, DIST_PERSIST = 5, 3
+DIST_TIMEOUT_S = 300.0
+_DIST_LAUNCH = ("--nnodes", "2", "--nproc_per_node", "1",
+                "--max_restarts", "3", "--monitor_interval", "0.2",
+                "-m", "dlrover_tpu_torch.testing.replica_worker")
+
+
+def _event_walls(events_dir, name, kind):
+    """Wall-clock stamps and contents of the ``kind`` ("begin"/"end")
+    training events called ``name`` under ``events_dir``."""
+    out = []
+    for fname in sorted(os.listdir(events_dir)) if os.path.isdir(
+            events_dir) else []:
+        with open(os.path.join(events_dir, fname)) as f:
+            out += [(e["ts"], e["content"]) for e in map(json.loads, f)
+                    if e["name"] == name and e["type"] == kind]
+    return sorted(out, key=lambda x: x[0])
+
+
+def phase_dist_master(device="cuda", config="flagship"):
+    """The distributed master on the simulated cluster, built from the
+    CLI's own parse (``DistributedJobMaster.from_args(parse_master_args(
+    ["--platform", "sim", "--node_num", "2", "--transport", "http",
+    "--pre_check"]))``) in this process: ``prepare()``, then
+    ``pre_check()`` and ``run()`` on a thread. This process plays the
+    cluster's hosts, as a kubelet would: it polls the master's sim
+    cluster (through the master's scaler, ``list_nodes()``) and starts
+    one ``python -m dlrover_tpu_torch.run --master <addr> --nnodes 2
+    --node_rank <rank> --nproc_per_node 1`` launcher for each running
+    node, over ``testing/replica_worker`` (the flagship's train state at
+    ELASTIC_LAYERS layers on ``device``, the same batches on both ranks,
+    no process group; a persist every DIST_PERSIST steps); a launcher
+    that exits is reported to the cluster (``succeed_node`` on 0,
+    ``fail_node`` otherwise). Both ranks' first workers train
+    DIST_PERSIST steps and pause (``--pause-at``); once that step is
+    committed, node 1's launcher and worker are SIGKILLed, its segment
+    unlinked and the node reported ``preempt_node``: the master's
+    relaunch machinery creates rank 1's next incarnation through
+    ``SimScaler``, this process starts its launcher, the world re-forms
+    (node 0's agent restarts its worker) and both ranks train from the
+    committed step to DIST_STEPS. Gates: ``run()`` returns 0 with
+    ``exit_reason`` SUCCEEDED and the pre-check passed;
+    ``get_job_detail()`` shows rank 1 with two incarnations (the first
+    PREEMPTED and deleted, the second succeeded, relaunch count 1) and
+    rank 0 with one, and no other node; the relaunched worker restored
+    the step the master had committed from storage (its
+    ``restore_read``), node 0's restarted worker the same step from its
+    memory; every step after it ran once on each rank, in the re-formed
+    world; both nodes' last images have equal leaf crc32s; each
+    incarnation's B1/B2 launches are n_layers per step. Returns the
+    workers' B1/B2 launches."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dlrover_tpu_torch.common.constants import (
+        JobExitReason,
+        NodeEnv,
+        NodeExitReason,
+        NodeStatus,
+    )
+    from dlrover_tpu_torch.fault import SCHEDULE_ENV
+    from dlrover_tpu_torch.flash_ckpt.shm_handler import SharedMemoryHandler
+    from dlrover_tpu_torch.master.args import parse_master_args
+    from dlrover_tpu_torch.master.dist_master import DistributedJobMaster
+    from dlrover_tpu_torch.master.node.job_context import JobContext
+    from dlrover_tpu_torch.testing.replica_worker import image_digest
+
+    label = "dist_master"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # Storage on /dev/shm where the host has it (the default temp dir of
+    # the card's host is a network file system).
+    root = tempfile.mkdtemp(prefix="dist_master_", dir=(
+        "/dev/shm" if os.path.isdir("/dev/shm") else None))
+    job = f"chipsmoke{os.getpid()}dist"
+    ckpt_dir = os.path.join(root, "ckpt")
+    release = os.path.join(root, "release")
+    n_layers = ELASTIC_LAYERS if config == "flagship" else 2
+    model = (["--config", "flagship", "--layers", str(n_layers),
+              "--seq", "128"] if config == "flagship"
+             else ["--config", "tiny", "--layers", "2", "--seq", "8"])
+
+    def segment(rank):
+        # ``shm_segment_name(0)`` under the node's env, built without
+        # setting the process env: this phase runs beside others that
+        # set it.
+        return f"dlrover_tpu_ckpt_{job}_n{rank}_0"
+
+    JobContext.reset_singleton()
+    t_phase, wall_phase = time.monotonic(), time.time()
+    master = DistributedJobMaster.from_args(parse_master_args(
+        ["--platform", "sim", "--node_num", "2", "--transport", "http",
+         "--pre_check", "--job_name", job]))
+    cluster = master.job_manager._scaler._cluster  # noqa: SLF001
+    master.prepare()
+    t_ready = time.monotonic()
+    served = {}
+
+    def serve():
+        served["pre_check"] = master.pre_check()
+        if served["pre_check"]:
+            served["rc"] = master.run()
+        else:
+            master.stop()
+            served["rc"] = 1
+
+    server = threading.Thread(target=serve, name="dist-master", daemon=True)
+    server.start()
+    launchers = {}          # cluster node id -> (rank, tag, _Launcher)
+    reported, lost = {}, set()
+
+    def launch(node):
+        rank = node.rank_index
+        tag = f"node{node.id}_rank{rank}"
+        node_dir = os.path.join(root, tag)
+        os.makedirs(node_dir)
+        env = dict(os.environ, PYTHONPATH=repo, DLROVER_TPU_JOB_NAME=job,
+                   DLROVER_TPU_SHARED_DIR=os.path.join(root, f"sock{rank}"),
+                   DLROVER_TPU_EVENT_DIR=os.path.join(node_dir, "events"),
+                   DLROVER_TPU_FLIGHT_DIR=os.path.join(root, "flight"))
+        env.pop(SCHEDULE_ENV, None)
+        env.pop(NodeEnv.NODE_RANK, None)
+        launchers[node.id] = (rank, tag, _Launcher(
+            model + ["--device", device, "--seed", str(SEED),
+                     "--micro-batch", "1", "--steps", str(DIST_STEPS),
+                     "--persist-every", str(DIST_PERSIST),
+                     "--pause-at", str(DIST_PERSIST),
+                     "--ckpt-dir", ckpt_dir, "--hold-file", release],
+            env, os.path.join(node_dir, "launcher.log"),
+            launch=("--master", f"localhost:{master.port}", "--node_rank",
+                    str(rank), *_DIST_LAUNCH), phase=label))
+
+    def kubelet():
+        """One poll: a launcher for each running node without one; each
+        exited launcher's node reported to the cluster once."""
+        for node in cluster.list_nodes():
+            if node.status == NodeStatus.RUNNING and node.id not in launchers:
+                launch(node)
+        for node_id, (_, _, launcher) in list(launchers.items()):
+            rc = launcher.proc.poll()
+            if rc is None or node_id in reported or node_id in lost:
+                continue
+            reported[node_id] = rc
+            (cluster.succeed_node if rc == 0 else cluster.fail_node)(node_id)
+
+    def until(cond, what, master_exits=False):
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while True:
+            kubelet()
+            if cond():
+                return
+            check(master_exits or server.is_alive(),
+                  f"{label}: the master exited ({served}) before {what}")
+            check(time.monotonic() < deadline,
+                  f"{label}: no {what} in {DIST_TIMEOUT_S} s")
+            time.sleep(0.05)
+
+    def by_rank(rank):
+        return [(nid, lc) for nid, (r, _, lc) in sorted(launchers.items())
+                if r == rank]
+
+    def last_event(launcher, event, step):
+        """The launcher's last incarnation has had ``event`` at
+        ``step``."""
+        incs = launcher.incarnations()
+        return bool(incs) and any(
+            e["event"] == event and e["step"] == step for e in incs[-1])
+
+    try:
+        until(lambda: len(launchers) == 2, "a launcher for each node")
+        (id0, node0), = by_rank(0)
+        (id1, first1), = by_rank(1)
+        until(lambda: last_event(node0, "paused", DIST_PERSIST)
+              and last_event(first1, "paused", DIST_PERSIST)
+              and master.job_manager.get_committed_ckpt_step()
+              >= DIST_PERSIST,
+              f"both nodes paused at the committed step {DIST_PERSIST}")
+        first_steps = [lc.wait_event(lambda e: e["event"] == "step",
+                                     "a first step")["t"]
+                       for lc in (node0, first1)]
+        committed_at_kill = master.job_manager.get_committed_ckpt_step()
+        # The host is lost: launcher (its agent) and worker at once, its
+        # segment with it; the cluster reports a preemption.
+        _, workers = first1.pids()
+        pids = [first1.proc.pid, *workers]
+        lost.add(id1)
+        for pid in pids:
+            if not _proc_gone(pid):
+                os.kill(pid, signal.SIGKILL)
+        until(lambda: all(_proc_gone(p) for p in pids), "exit of node 1")
+        SharedMemoryHandler(segment(1)).unlink()
+        t_lost = time.monotonic()
+        cluster.preempt_node(id1)
+        until(lambda: len(by_rank(1)) == 2, "rank 1's relaunched node")
+        t_relaunched = time.monotonic()
+        (id2, relaunch), = by_rank(1)[1:]
+        ready = relaunch.wait_event(lambda e: e["event"] == "ready",
+                                    "the relaunch's ready line",
+                                    DIST_TIMEOUT_S)
+        first = relaunch.wait_event(lambda e: e["event"] == "step",
+                                    "the relaunch's first step",
+                                    DIST_TIMEOUT_S)
+        # The world re-formed: node 0's agent restarted its worker, which
+        # restored the committed step from its memory and trains on.
+        until(lambda: last_event(relaunch, "saved", DIST_STEPS)
+              and len(node0.incarnations()) >= 2
+              and last_event(node0, "saved", DIST_STEPS),
+              "both nodes' last saves")
+        # Both images' crc32s at once (zlib lets go of the GIL).
+        with ThreadPoolExecutor(2) as pool:
+            digests = list(pool.map(image_digest, map(segment, (0, 1))))
+        with open(release, "w"):
+            pass
+        until(lambda: not server.is_alive(), "the master's exit",
+              master_exits=True)
+        wall = time.monotonic() - t_phase
+        job_nodes = master.job_manager.worker_manager.nodes
+        detail = master.job_manager.get_job_detail().nodes
+    finally:
+        for _, _, launcher in launchers.values():
+            launcher.stop()
+        if server.is_alive():
+            master.request_stop()
+            server.join(timeout=30)
+        socks = []
+        for r in (0, 1):
+            sock_dir = os.path.join(root, f"sock{r}")
+            if os.path.isdir(sock_dir):
+                socks += os.listdir(sock_dir)
+        _unlink_job_segments(job)
+    try:
+        tags = {nid: tag for nid, (_, tag, _) in launchers.items()}
+        rdzv = _event_walls(os.path.join(root, tags[id2], "events"),
+                            "rendezvous", "begin")
+        rdzv_end = _event_walls(os.path.join(root, tags[id2], "events"),
+                                "rendezvous", "end")
+        started = _log_walls(relaunch.log(), "started worker")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    check(served.get("pre_check") is True,
+          f"{label}: the pre-check did not pass ({served})")
+    check(served.get("rc") == 0
+          and master.exit_reason == JobExitReason.SUCCEEDED,
+          f"{label}: run() returned {served.get('rc')} with exit reason "
+          f"{master.exit_reason!r}")
+    # (A succeeded node's exit reason is the cluster's "Succeeded" or,
+    # when its agent's success report came first and the master exited
+    # before the cluster's event, empty.)
+    table = sorted((n.rank_index, nid, n.status, n.relaunch_count)
+                   for nid, n in job_nodes.items())
+    want = [(0, id0, NodeStatus.SUCCEEDED, 0),
+            (1, id1, NodeStatus.DELETED, 0),
+            (1, id2, NodeStatus.SUCCEEDED, 1)]
+    check(table == want and sorted(detail) == sorted(job_nodes)
+          and job_nodes[id1].exit_reason == NodeExitReason.PREEMPTED,
+          f"{label}: the master's nodes {table} (node {id1}'s exit reason "
+          f"{job_nodes[id1].exit_reason!r}), want {want} (detail {detail})")
+    check(ready["restored_from"] == "storage"
+          and ready["restored_step"] == committed_at_kill == DIST_PERSIST
+          and ready["restore_read"]["tracker_step"] == committed_at_kill,
+          f"{label}: the relaunch restored {ready['restored_step']} from "
+          f"{ready['restored_from']} (read {ready['restore_read']}), the "
+          f"master had committed {committed_at_kill}")
+    node0_incs = node0.incarnations()
+    reformed = [e for e in node0_incs[-1] if e["event"] == "ready"]
+    check(len(node0_incs) == 2 and reformed
+          and reformed[0]["restored_from"] == "memory"
+          and reformed[0]["restored_step"] == committed_at_kill,
+          f"{label}: node 0's {len(node0_incs)} incarnations, the last "
+          f"restored {reformed}")
+    ran = {0: [[e["step"] for e in inc if e["event"] == "step"]
+               for inc in node0_incs],
+           1: [[e["step"] for e in inc if e["event"] == "step"]
+               for lc in (first1, relaunch) for inc in lc.incarnations()]}
+    before = list(range(1, committed_at_kill + 1))
+    after = list(range(committed_at_kill + 1, DIST_STEPS + 1))
+    check(all(r == [before, after] for r in ran.values()),
+          f"{label}: steps run by incarnation {ran}, want "
+          f"{[before, after]} on each rank")
+    check(all(d is not None and d["step"] == DIST_STEPS for d in digests)
+          and digests[0]["leaf_crc32"] == digests[1]["leaf_crc32"],
+          f"{label}: the nodes' last images differ: "
+          f"{[(d or {}).get('step') for d in digests]}")
+    left = [n for n in os.listdir("/dev/shm") if job in n]
+    check(left == [] and socks == [],
+          f"{label}: segments {left}, sockets {socks} left")
+    launches = {}
+    per_inc = []
+    for _, _, launcher in launchers.values():
+        for inc in launcher.incarnations():
+            steps = [e for e in inc if e["event"] == "step"]
+            if not steps:
+                continue
+            counts = steps[-1]["launches"]
+            want_n = n_layers * len(steps) if device == "cuda" else 0
+            per_inc.append((len(steps), counts))
+            check(all(v == want_n for v in counts.values()),
+                  f"{label}: an incarnation ran {len(steps)} steps with "
+                  f"launches {counts}, want {want_n} each")
+            for name, v in counts.items():
+                launches[name] = launches.get(name, 0) + v
+    to_wall = wall_phase - t_phase
+    spawn_wall = relaunch.spawned + to_wall
+    split = {
+        "sim_relaunch_s": t_relaunched - t_lost,
+        "launcher_start_s": (rdzv[0][0] - spawn_wall) if rdzv else None,
+        "rendezvous_s": rdzv_end[0][1]["duration_s"] if rdzv_end else None,
+        "worker_start_s": ((ready["t"] + to_wall - started[0])
+                           - ready["restore_s"]) if started else None,
+        "restore_s": ready["restore_s"],
+        "first_step_s": first["t"] - ready["t"],
+    }
+    row = {
+        "phase": label, "config": config, "device": device,
+        "n_layers": n_layers, "steps": DIST_STEPS,
+        "persist_every": DIST_PERSIST, "committed_at_kill": committed_at_kill,
+        "master_ready_s": t_ready - t_phase,
+        "ready_to_first_step_s": {"rank0": first_steps[0] - t_ready,
+                                  "rank1": first_steps[1] - t_ready},
+        "loss_to_first_step_s": first["t"] - t_lost,
+        "loss_split_s": split,
+        "wall_s": wall, "nodes": table,
+        "lost_exit_reason": job_nodes[id1].exit_reason, "steps_run": ran,
+        "pre_check": True, "exit_reason": master.exit_reason,
+        "leaf_crc32_equal": True, "launches_per_incarnation": per_inc,
+        "launches": launches,
+    }
+    emit(row)
+    return launches
+
+
+CONTROL_PLANE_WORKERS = 1024
+CONTROL_PLANE_TIMEOUT_S = 120.0
+
+
+def phase_control_plane(workers=CONTROL_PLANE_WORKERS):
+    """The master's saturation harness on the host, alone:
+    ``tools/torch_bench_control_plane.py --workers N`` in a process of
+    its own (``testing/control_plane_soak``: N sim workers over the HTTP
+    transport against one ``MasterServicer``; the ramp, time to quorum
+    at worlds 8 to N, the shed phase). Its three invariants (the shed
+    ordering law, the bounded buffers' accounting, the per-verb metric
+    and span means within 15%) raise inside it, and fail the phase
+    through its exit code. Prints max sustainable RPCs/s, master CPU s
+    per 1k RPCs, time to quorum per world and the shed counts."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(repo, "tools",
+                                      "torch_bench_control_plane.py"),
+         "--workers", str(workers)],
+        env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+        text=True, timeout=CONTROL_PLANE_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    tail = proc.stderr[-2000:]
+    check(proc.returncode == 0,
+          f"control_plane: the bench exited {proc.returncode}: {tail}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(rep["invariants"] == "pass" and rep["max_rps"] > 0
+          and rep["cpu_s_per_1k_rpcs"] > 0 and rep["shed_diagnostic"] > 0
+          and rep[f"quorum_{workers}_s"] > 0,
+          f"control_plane: {rep}")
+    emit({"phase": "control_plane", **rep, "wall_s": wall})
+    return rep
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -7188,6 +7611,11 @@ def main():
     del mesh_state
     torch.cuda.empty_cache()
     timed("node_check", phase_node_check)
+    # The distributed master on the simulated cluster, alone: two
+    # launchers' workers on the card, one host lost and relaunched by the
+    # master (B1/B2 exact per incarnation inside).
+    for name, n in timed("dist_master", phase_dist_master).items():
+        launches[name] += n
     # The soak's fleet and autoscaler episodes, beside each other only:
     # the fleet replica processes' heartbeats count B6, from zero in
     # each process.
@@ -7222,6 +7650,8 @@ def main():
     for name, n in timed("chaos_soak", phase_chaos_soak).items():
         launches[name] += n
     timed("master_kill", phase_master_kill)
+    # The master's saturation harness on the host, alone.
+    timed("control_plane", phase_control_plane)
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the main path")
 

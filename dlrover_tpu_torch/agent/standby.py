@@ -29,10 +29,15 @@ import time
 
 
 def prepay_imports() -> float:
-    """Import what every worker imports first; returns the seconds."""
+    """Import what every worker imports first; returns the seconds.
+    ``torch._dynamo`` too: ``torch.optim``'s optimizers import it at
+    their first use (their constructor and ``step``), which the port's
+    training step makes in every worker; on a card host that import
+    takes about as long as ``import torch``."""
     t0 = time.monotonic()
     import numpy  # noqa: F401
     import torch  # noqa: F401
+    import torch._dynamo  # noqa: F401
 
     return time.monotonic() - t0
 

@@ -19,7 +19,7 @@ reports the achieved goodput back to ``/persist_metrics`` so the next
 job of this name starts smarter.
 
 The port's copy of ``dlrover_tpu/autoscaler/loop.py``. The brain
-service's client is not ported (ROADMAP §A item 8), so
+service's client is not ported (ROADMAP §A item 8b), so
 :class:`BrainPrior` raises ``NotImplementedError`` naming that item
 instead of reading as an unreachable brain.
 """
@@ -574,7 +574,7 @@ class BrainPrior:
         # refused rather than read as an unreachable brain.
         raise NotImplementedError(
             "the brain prior needs the brain service's client "
-            "(brain/client.py), not ported yet: ROADMAP §A item 8"
+            "(brain/client.py), not ported yet: ROADMAP §A item 8b"
         )
 
     def initial_world(self) -> Optional[Dict]:

@@ -30,6 +30,7 @@ that needs no cooperation from the training loop.
 """
 
 import collections
+import http.client
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -192,7 +193,11 @@ class JobMetricMonitor:
                     node_id, parse_prometheus_text(text)
                 )
                 ok += 1
-            except OSError as e:
+            except (OSError, http.client.HTTPException, ValueError) as e:
+                # One endpoint's bad status line, cut body or undecodable
+                # bytes marks that node unreachable; the round goes on
+                # (the reference catches OSError only, and one such
+                # endpoint aborts its whole round).
                 self.context.record_unreachable(node_id)
                 logger.debug(
                     "metric scrape %s (%s) failed: %s", node_id, addr, e

@@ -9,6 +9,9 @@ observability event to a job-level restart.
 TPU note: without per-kernel NCCL introspection the primary hang signal
 is step stagnation from the PerfMonitor plus (when the native profiler is
 running) a frozen executable-launch counter from tpu_timer metrics.
+The port's one divergence: in-band steps that rose between two
+observations within the hang window veto a hang that only flat
+out-of-band counters claim.
 
 The port's copy of ``dlrover_tpu/diagnosis/diagnosticians/training_hang.py``.
 """
@@ -58,8 +61,27 @@ class TrainingHangDiagnostician(Diagnostician):
         # there is independent evidence the in-band RPC path can't give
         # (and an advancing one vetoes a false hang from lost reports).
         self._metric_context = metric_context
+        # The in-band global step at the last observation, and the clock
+        # time this diagnostician last saw it rise (None: never).
+        self._seen_step = None
+        self._advanced_at = None
+
+    def _note_in_band_step(self):
+        step = self._perf_monitor.global_step
+        if self._seen_step is not None and step > self._seen_step:
+            self._advanced_at = self._clock()
+        self._seen_step = step
+
+    def _in_band_advancing(self) -> bool:
+        """True while the in-band global step rose between two of this
+        diagnostician's observations within the hang window."""
+        return (
+            self._advanced_at is not None
+            and self._clock() - self._advanced_at <= self._hang_timeout_s
+        )
 
     def observe(self, **kwargs) -> Observation:
+        self._note_in_band_step()
         started = self._perf_monitor.global_step > 0
         stagnated = started and self._perf_monitor.step_stagnated(
             self._hang_timeout_s
@@ -86,7 +108,12 @@ class TrainingHangDiagnostician(Diagnostician):
                 # not evidence — daemons that answered once then died
                 # must not veto a real hang.)
                 stagnated = False
-            elif not stagnated and oob_frozen:
+            elif not stagnated and oob_frozen and not self._in_band_advancing():
+                # Every native counter is flat and the in-band reports
+                # show no new step either. In-band steps that advance
+                # veto this: flat out-of-band counters alone (a stale
+                # daemon, a loop that does not tick the counter) do not
+                # mark a training job hung (the reference's do).
                 stagnated = True
         nodes_alive = True
         if self._job_manager is not None and hasattr(

@@ -2,8 +2,11 @@
 
 Parity: reference dlrover/python/master/main.py. Run as
 ``python -m dlrover_tpu_torch.master.main --platform local --node_num 2``
-(the port's copy of ``dlrover_tpu/master/main.py``: the local platform,
-over HTTP unless ``--transport grpc``).
+(the port's copy of ``dlrover_tpu/master/main.py``, over HTTP unless
+``--transport grpc``). ``--platform sim`` runs the distributed master
+over the simulated cluster; ``k8s`` and ``gke_tpu`` raise
+``NotImplementedError`` until their scaler and watcher are ported
+(ROADMAP §A item 8b).
 """
 
 import os
@@ -58,12 +61,9 @@ def run(args) -> int:
             autoscale_record=args.autoscale_record,
         )
     else:
-        # The distributed master (k8s, GKE, the simulated cluster) is
-        # not ported yet.
-        raise NotImplementedError(
-            f"platform {args.platform!r} needs the distributed master "
-            "(master/dist_master.py), not ported yet: ROADMAP §A item 8"
-        )
+        from dlrover_tpu_torch.master.dist_master import DistributedJobMaster
+
+        master = DistributedJobMaster.from_args(args)
     master.prepare()
     _install_sigterm(master)
     if args.port_file:

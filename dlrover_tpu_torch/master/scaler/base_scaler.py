@@ -9,7 +9,7 @@ flavor for TPU slices.
 
 The port's copy of ``dlrover_tpu/master/scaler/base_scaler.py``. Of its
 backends the port has the in-memory one (``sim_scaler.py``); the k8s
-scalers wait for ROADMAP §A item 8.
+scalers wait for ROADMAP §A item 8b.
 """
 
 import abc

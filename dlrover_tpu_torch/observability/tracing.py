@@ -15,7 +15,9 @@ control-plane call yields ONE tree across processes:
   module-level ``_tracer`` global (:func:`active_tracer`); when None
   (the default) the site returns the shared :data:`NOOP_SPAN`.
 - **Armed is cheap.** A finished span is one dict append into a bounded
-  ring plus (when a sink is configured) one buffered JSONL line.
+  ring plus (when a sink is configured) one buffered JSONL line. A
+  server span costs its RPC thread less: one append to a pending queue,
+  which a finisher thread turns into its record (:func:`flush`).
 - **Hot loops emit retrospectively.** The engine never opens spans
   inside its step loop — it records the timestamps it needs
   (submit/admit/first-token/finish) and emits the whole phase tree in
@@ -31,6 +33,7 @@ main (fleet replica workers and the master do). Records have the
 reference's schema, so span files from either package merge.
 """
 
+import atexit
 import json
 import os
 import threading
@@ -71,13 +74,14 @@ class Span:
     __slots__ = (
         "trace_id", "span_id", "parent_id", "name", "kind",
         "start_wall", "start_mono", "end_mono", "attrs", "status",
-        "_tracer", "_token",
+        "_tracer", "_token", "_defer",
     )
 
     def __init__(self, tracer, name, kind, trace_id, parent_id,
                  attrs=None, start_mono=None, start_wall=None):
         self._tracer = tracer
         self._token = None
+        self._defer = False  # server_span: record on the finisher thread
         self.name = str(name)
         self.kind = str(kind)
         self.trace_id = trace_id
@@ -313,6 +317,12 @@ class Tracer:
     # ---- finish path -------------------------------------------------------
 
     def _finish(self, span: Span):
+        if span._defer:
+            _defer(span)
+        else:
+            self._record(span)
+
+    def _record(self, span: Span):
         record = span.to_dict()
         if self.service:
             record["service"] = self.service
@@ -348,6 +358,7 @@ class Tracer:
     # ---- consumption -------------------------------------------------------
 
     def finished(self, last_n: Optional[int] = None) -> List[Dict]:
+        flush()
         with self._lock:
             out = list(self._ring)
         return out[-last_n:] if last_n is not None else out
@@ -362,6 +373,7 @@ class Tracer:
         """Pop up to ``max_n`` finished spans for piggybacking on a
         report RPC (worker -> master push). Dropped-by-overflow count
         rides along as telemetry honesty."""
+        flush()
         out: List[Dict] = []
         with self._lock:
             while self._exports and len(out) < max_n:
@@ -369,6 +381,7 @@ class Tracer:
         return out
 
     def close(self):
+        flush()
         with self._lock:
             if self._sink_file is not None:
                 try:
@@ -376,6 +389,67 @@ class Tracer:
                 except OSError:
                     pass
                 self._sink_file = None
+
+
+# ---------------------------------------------------------------------------
+# Deferred finishing: a server span's RPC thread pays one deque append;
+# its record, ring and export entries, sink line and on_finish hook are
+# made by one finisher thread every _FINISH_POLL_S, or sooner by any read
+# (Tracer.finished/drain_exports/close, the aggregator's reads, flush()).
+# ---------------------------------------------------------------------------
+
+_FINISH_POLL_S = 0.005
+_pending: "deque[Span]" = deque()
+_drain_lock = threading.RLock()
+_finisher: Optional[threading.Thread] = None
+_finisher_lock = threading.Lock()
+
+
+def flush():
+    """Record every deferred span ended so far, of every tracer, in the
+    order they ended."""
+    with _drain_lock:
+        while _pending:
+            span = _pending.popleft()
+            span._tracer._record(span)
+
+
+def _finisher_loop():
+    while True:
+        time.sleep(_FINISH_POLL_S)
+        if _pending:
+            flush()
+
+
+def _defer(span: Span):
+    _pending.append(span)
+    if _finisher is None:
+        _start_finisher()
+
+
+def _start_finisher():
+    global _finisher
+    with _finisher_lock:
+        if _finisher is None:
+            thread = threading.Thread(
+                target=_finisher_loop, name="trace-finisher", daemon=True
+            )
+            thread.start()
+            _finisher = thread
+
+
+def _reset_after_fork():
+    # The child has no finisher thread, and its parent's pending spans
+    # are the parent's to record.
+    global _finisher, _drain_lock, _finisher_lock
+    _pending.clear()
+    _finisher = None
+    _drain_lock = threading.RLock()
+    _finisher_lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_reset_after_fork)
+atexit.register(flush)
 
 
 # ---------------------------------------------------------------------------
@@ -430,14 +504,18 @@ def server_span(name: str, carrier, start_mono=None, start_wall=None,
                 **attrs):
     """A server-side span parented to a remote carrier (or a fresh
     trace when the caller sent none). ``start_mono``/``start_wall``
-    optionally back-date it to pre-deserialize dispatch clocks."""
+    optionally back-date it to pre-deserialize dispatch clocks. Its
+    finish path (the tracer's lock, the on_finish hook) runs on the
+    finisher thread, not in the RPC's window."""
     tracer = _tracer
     if tracer is None:
         return NOOP_SPAN
     parent = carrier if isinstance(carrier, dict) else None
-    return tracer.start_span(name, kind="server", parent=parent,
-                             attrs=attrs or None,
-                             start_mono=start_mono, start_wall=start_wall)
+    sp = tracer.start_span(name, kind="server", parent=parent,
+                           attrs=attrs or None,
+                           start_mono=start_mono, start_wall=start_wall)
+    sp._defer = True
+    return sp
 
 
 def current_carrier() -> Optional[Dict[str, str]]:
@@ -536,6 +614,7 @@ class TraceAggregator:
         """Occupancy + drop accounting for /api/traces and
         /api/control_plane: a bounded buffer that cannot report its
         occupancy and drops is indistinguishable from a lossless one."""
+        flush()
         with self._lock:
             spans = sum(len(b) for b in self._traces.values())
             return {
@@ -551,10 +630,12 @@ class TraceAggregator:
             }
 
     def trace_ids(self) -> List[str]:
+        flush()
         with self._lock:
             return list(self._traces)
 
     def spans(self, trace_id: str) -> List[Dict]:
+        flush()
         with self._lock:
             return [dict(r) for r in self._traces.get(trace_id, ())]
 
@@ -566,6 +647,7 @@ class TraceAggregator:
 
     def recent(self, limit: int = 20) -> List[Dict]:
         """Newest-trace-first summaries for the dashboard list view."""
+        flush()
         with self._lock:
             items = list(self._traces.items())[-limit:]
         out = []

@@ -355,6 +355,7 @@ def run_sim_job(mode: str, seed: int, episode: int,
             if time.time() > deadline:
                 failure = f"watchdog: {mode} run exceeded its deadline"
                 break
+            t_lease = time.time()
             nodes = scaler.alive_nodes(NodeType.WORKER)
             leases = {}
             for node in nodes:
@@ -422,13 +423,14 @@ def run_sim_job(mode: str, seed: int, episode: int,
                 replay = (step - last_save_step) * cfg.base_step_s
                 time.sleep(replay)
                 replay_s += replay
-                # The dead step + restart + replay is all rescale
-                # machinery time, for every lockstep participant.
+                # The dead step (its leases too) + restart + replay is
+                # all rescale machinery time, for every lockstep
+                # participant.
                 t_recovered = time.time()
                 for node in stepping:
                     perf.collect_phase(
                         node.rank_index, GoodputPhase.RESTART,
-                        t_step, t_recovered, cause="rescale",
+                        t_lease, t_recovered, cause="rescale",
                     )
                 continue
             now = time.time()
@@ -441,9 +443,20 @@ def run_sim_job(mode: str, seed: int, episode: int,
                     step_time_s=cfg.base_step_s
                     + rank_fault.get(node.id, 0.0),
                 )
+            # A healthy step is its leases, its compute and its reports:
+            # all of it is the step's (the lockstep loop does the
+            # world's lease fetches and done reports on this thread, and
+            # under host load they stretched into the unattributed
+            # residual). The fault section between is the stall's.
+            t_reported = time.time()
+            for node in stepping:
                 perf.collect_phase(
                     node.rank_index, GoodputPhase.TRAIN,
-                    t_compute, now,
+                    t_lease, t_step,
+                )
+                perf.collect_phase(
+                    node.rank_index, GoodputPhase.TRAIN,
+                    t_fault_end, t_reported,
                 )
             productive_s += cfg.base_step_s
             step += 1
@@ -456,7 +469,7 @@ def run_sim_job(mode: str, seed: int, episode: int,
                 for node in stepping:
                     perf.collect_phase(
                         node.rank_index, GoodputPhase.CKPT,
-                        now, t_saved, cause="ckpt",
+                        t_reported, t_saved, cause="ckpt",
                     )
                 last_save_wall = t_saved
                 last_save_step = step

@@ -94,7 +94,7 @@ def delete_one_pod(
     raise NotImplementedError(
         "deleting a pod needs the k8s client "
         "(master/scheduler/k8s_client.py), not ported yet: "
-        "ROADMAP §A item 8"
+        "ROADMAP §A item 8b"
     )
 
 

@@ -22,6 +22,10 @@ all-reduce) and saves its own image. It:
   asks the agent's saver to persist it, then waits for that step's
   commit (a commit needs every node's files of one step: ranks of a
   world that shares no collective keep their persists in step so);
+- with ``--pause-at N``, stops after its step N (once that step is in
+  shm and committed) and waits to be stopped: its agent restarts it when
+  the world re-forms, and the next incarnation restores step N and
+  trains on;
 - waits, after its last step and the last save's commit, until
   ``--hold-file`` exists (a node stays up to serve its peers' replicas
   until the run lets it go), then exits 0.
@@ -30,7 +34,7 @@ Stdout carries one JSON line per event, each with the node's rank:
 ``ready`` (pid, restart count, the image read before the restore, the
 restored step and source, the restore's seconds, the leaves' crc32s),
 ``step`` (loss, the flash kernels' launch counts so far), ``saved``
-(the newest step committed to shm) and ``done``.
+(the newest step committed to shm), ``paused`` and ``done``.
 """
 
 import argparse
@@ -70,6 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--hold-file", required=True)
     p.add_argument("--hold-timeout", type=float, default=600.0,
                    help="seconds to wait for a commit or the hold file")
+    p.add_argument("--pause-at", type=int, default=0,
+                   help="after this step, wait to be stopped (0: never)")
     p.add_argument("--config", choices=["tiny", "flagship"], default="tiny")
     p.add_argument("--layers", type=int, default=0,
                    help="cut the config's depth (0: the config's own)")
@@ -187,6 +193,10 @@ def main(argv=None) -> int:
                   deadline, f"the commit of step {step}")
         emit({"event": "step", "step": step, "loss": float(metrics["loss"]),
               "launches": dict(fa.launch_counts)})
+        if step == args.pause_at:
+            engine.wait_async_save()
+            emit({"event": "paused", "step": engine.last_written_step})
+            _wait(lambda: False, deadline, "stop after the pause")
     engine.wait_async_save()
     emit({"event": "saved", "step": engine.last_written_step})
     _wait(lambda: os.path.exists(args.hold_file), deadline, args.hold_file)

@@ -232,7 +232,7 @@ def test_launcher_parses_module_entrypoints():
 def test_distributed_master_platform_is_refused():
     from dlrover_tpu_torch.master import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8b"):
         main.main(["--platform", "k8s"])
 
 
@@ -283,6 +283,23 @@ def test_master_cli_runs_the_autoscale_loop(tmp_path):
         "perf", "data", "fault", "ckpt", "control_plane"}
 
 
+def _dist_flag_probe(master, flag):
+    """What each distributed-master flag changed in the built master."""
+    return {
+        "--namespace": lambda: True,
+        "--network_check": lambda: True,
+        "--metric_endpoints": lambda: master.metric_monitor is not None,
+        "--topology_aware": lambda: (
+            master.rdzv_managers["training"]._topology_sorter is not None),
+        "--node_unit": lambda: master.job_manager._node_group_size == 2,
+        "--auto_scale": lambda: master.auto_scaler is not None,
+        "--autoscale_max_world": lambda: master.autoscaler is not None,
+        "--autoscale_ckpt_interval_s": lambda: (
+            master.ckpt_cadence.interval_s() == 7.0),
+        "--legal_worker_counts": lambda: master.auto_scaler is not None,
+    }[flag]()
+
+
 @pytest.mark.parametrize("parser, flag", [
     ("master", "--namespace"), ("master", "--network_check"),
     ("master", "--dashboard_port"), ("master", "--brain_addr"),
@@ -293,16 +310,45 @@ def test_master_cli_runs_the_autoscale_loop(tmp_path):
     ("master", "--legal_worker_counts"),
 ])
 def test_distributed_master_flags_are_not_taken(parser, flag):
-    """Flags only the distributed master or the autoscaler reads are
-    not parsed and then ignored: argparse refuses them."""
-    from dlrover_tpu_torch import run
+    """Flags only the distributed master reads are not parsed and then
+    ignored there: each reaches ``DistributedJobMaster.from_args`` on the
+    simulated platform and changes what it builds, or, where it needs a
+    module of ROADMAP §A item 8b (the dashboard, the brain), raises
+    ``NotImplementedError`` naming it."""
     from dlrover_tpu_torch.master.args import parse_master_args
+    from dlrover_tpu_torch.master.dist_master import DistributedJobMaster
+    from dlrover_tpu_torch.master.node.job_context import JobContext
 
-    with pytest.raises(SystemExit):
-        if parser == "master":
-            parse_master_args([flag, "1"])
-        else:
-            run.build_parser().parse_args([flag, "train.py"])
+    values = {"--namespace": ["ns"], "--dashboard_port": ["0"],
+              "--brain_addr": ["localhost:1"],
+              "--metric_endpoints": ["0=127.0.0.1:1"],
+              "--node_unit": ["2"], "--autoscale_max_world": ["4"],
+              "--autoscale_ckpt_interval_s": ["7"],
+              "--legal_worker_counts": ["1,2"]}
+    extra = {"--autoscale_max_world": ["--autoscale_loop"],
+             "--autoscale_ckpt_interval_s": ["--autoscale_loop"],
+             "--legal_worker_counts": ["--auto_scale"]}
+    args = parse_master_args(
+        ["--platform", "sim", "--node_num", "2",
+         flag, *values.get(flag, []), *extra.get(flag, [])])
+    assert getattr(args, flag[2:]) == {
+        "--namespace": "ns", "--dashboard_port": 0,
+        "--brain_addr": "localhost:1",
+        "--metric_endpoints": "0=127.0.0.1:1", "--node_unit": 2,
+        "--autoscale_max_world": 4, "--autoscale_ckpt_interval_s": 7.0,
+        "--legal_worker_counts": "1,2"}.get(flag, True)
+    JobContext.reset_singleton()
+    if flag in ("--dashboard_port", "--brain_addr"):
+        with pytest.raises(NotImplementedError, match="ROADMAP §A item 8b"):
+            DistributedJobMaster.from_args(args)
+        return
+    master = DistributedJobMaster.from_args(args)
+    try:
+        assert _dist_flag_probe(master, flag)
+    finally:
+        master._server.start()
+        master._server.stop()
+        JobContext.reset_singleton()
 
 
 def test_master_cli_wires_a_batch_config(monkeypatch):
@@ -491,5 +537,22 @@ def test_lost_node_restores_from_its_peers_replica(monkeypatch):
 
     launches = chip_smoke.phase_replica_restore(device="cpu",
                                                 config="tiny")
+    assert launches == {"flash_forward": 0, "flash_backward_dq": 0,
+                        "flash_backward_dkv": 0}
+
+
+def test_dist_master_relaunches_a_lost_host_under_two_launchers(
+        monkeypatch):
+    """The distributed master on the simulated cluster with two
+    ``python -m dlrover_tpu_torch.run --master`` launchers on the CPU:
+    the card phase at the tiny config, every gate of it (``run()``
+    returns 0 after the pre-check, rank 1 has two incarnations, the
+    first preempted, the relaunch restores the committed step from
+    storage, each step runs once a rank, both ranks end on one model,
+    nothing is left)."""
+    monkeypatch.syspath_prepend(str(REPO))
+    import chip_smoke
+
+    launches = chip_smoke.phase_dist_master(device="cpu", config="tiny")
     assert launches == {"flash_forward": 0, "flash_backward_dq": 0,
                         "flash_backward_dkv": 0}
