@@ -1263,14 +1263,27 @@ def phase_generate(cfg, params):
     return out
 
 
-def phase_engine(cfg, params, phase="engine", gated=True):
+# The tokens the engine phases counted into the port's default registry,
+# by kind, each from the engine's own requests (prompt lengths and
+# generated tokens): what phase 32's ``/api/goodput`` serving branch must
+# show.
+SERVING_TOKENS = {}
+
+
+def phase_engine(cfg, params, phase="engine", gated=True, shared=False):
     """The flat engine: 8 slots, 16 greedy requests. Every request must
     complete; the teacher-forced gap is held to ARGMAX_GAP when
-    ``gated``, else reported. Returns the decode-attention and grouped
-    FFN launches counted up to the engine's last step, before the
-    teacher-forced checks (whose forward launches B7 on a MoE model),
-    and each request's (prompt, tokens, max_new_tokens)."""
-    from dlrover_tpu_torch.observability.registry import MetricsRegistry
+    ``gated``, else reported. With ``shared`` the engine counts into the
+    port's default registry (as a served model does, for the master's
+    dashboard) and its requests' tokens are added to SERVING_TOKENS;
+    else into a registry of its own. Returns the decode-attention and
+    grouped FFN launches counted up to the engine's last step, before
+    the teacher-forced checks (whose forward launches B7 on a MoE
+    model), and each request's (prompt, tokens, max_new_tokens)."""
+    from dlrover_tpu_torch.observability.registry import (
+        MetricsRegistry,
+        default_registry,
+    )
     from dlrover_tpu_torch.ops import decode_attention as da
     from dlrover_tpu_torch.ops import moe_dispatch as md
     from dlrover_tpu_torch.serving import ServingEngine
@@ -1279,9 +1292,12 @@ def phase_engine(cfg, params, phase="engine", gated=True):
     prompts = [rs.randint(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in rs.randint(16, 301, size=16)]
     news = [int(n) for n in rs.randint(16, 65, size=16)]
-    reg = MetricsRegistry()
+    reg = default_registry() if shared else MetricsRegistry()
     eng = ServingEngine(cfg, params, slots=8, max_len=1024,
                         prefill_chunk=64, registry=reg)
+    # What the registry held before this engine (a shared one may have).
+    base = {name: reg.get(name).value() for name in (
+        "serving_step_errors_total", "serving_iterations_total")}
     eng.warmup()
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -1297,7 +1313,8 @@ def phase_engine(cfg, params, phase="engine", gated=True):
         check(len(r.tokens) == n,
               f"{phase}: request {r.rid} got {len(r.tokens)} of {n}")
         check(r.requeues == 0, f"{phase}: request {r.rid} was requeued")
-    errors = reg.get("serving_step_errors_total").value()
+    errors = (reg.get("serving_step_errors_total").value()
+              - base["serving_step_errors_total"])
     check(errors == 0, f"{phase}: {errors} step errors")
     worst = 0.0
     agree = []
@@ -1311,6 +1328,12 @@ def phase_engine(cfg, params, phase="engine", gated=True):
         agree.append(a)
     ttfts = sorted(r.ttft_s for r in reqs)
     gen_tokens = sum(len(r.tokens) for r in reqs)
+    if shared:
+        # No request was requeued: each prompt token was prefilled once
+        # and each token generated once.
+        for kind, n in (("prefill", sum(len(p) for p in prompts)),
+                        ("decode", gen_tokens)):
+            SERVING_TOKENS[kind] = SERVING_TOKENS.get(kind, 0) + n
     row = {
         "phase": phase, "requests": len(reqs), "slots": 8,
         "max_len": 1024, "prefill_chunk": 64,
@@ -1320,7 +1343,8 @@ def phase_engine(cfg, params, phase="engine", gated=True):
         "total_tok_s": (gen_tokens + sum(len(p) for p in prompts)) / wall,
         "ttft_p50_s": float(np.median(ttfts)),
         "ttft_max_s": ttfts[-1],
-        "iterations": reg.get("serving_iterations_total").value(),
+        "iterations": (reg.get("serving_iterations_total").value()
+                       - base["serving_iterations_total"]),
         "step_errors": errors, "argmax_gap_max": worst,
         "argmax_gap_gated": gated,
         "argmax_agree": float(np.mean(agree)),
@@ -7139,6 +7163,128 @@ def _event_walls(events_dir, name, kind):
     return sorted(out, key=lambda x: x[0])
 
 
+def _http(port, method, path, payload=None):
+    """One request to a local HTTP server: (status, parsed JSON or the
+    text, seconds)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request(method, path,
+                     None if payload is None else json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        if resp.getheader("Content-Type") == "application/json":
+            body = json.loads(body)
+        return resp.status, body, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _dashboard_read(port, paths):
+    """{path: (status, body)} of the dashboard's panels, read once."""
+    return {path: _http(port, "GET", path)[:2] for path in paths}
+
+
+def _dist_master_watch_gates(label, job, reads, detail, id1, id2,
+                             serving_absent):
+    """Phase 32's dashboard gates over its three reads; returns the
+    numbers the phase prints. ``serving_absent``: the default registry
+    holds no serving token family (no engine counted into it)."""
+    from dlrover_tpu_torch.common.constants import NodeExitReason
+    from dlrover_tpu_torch.diagnosis.collectors import parse_prometheus_text
+
+    final = reads["final"]
+    bad = {p: st for p, (st, _) in final.items() if st != 200}
+    check(not bad and "<title>dlrover-tpu</title>" in final["/"][1],
+          f"{label}: the dashboard's final panels answered {bad}")
+    job_panel = final["/api/job"][1]
+    want_table = {str(nid): row for nid, row in detail.items()}
+    check(job_panel["job_name"] == job and job_panel["nodes"] == want_table,
+          f"{label}: /api/job {job_panel}, want {job} and {want_table}")
+    nodes = final["/api/nodes"][1]
+    table = {str(r["id"]): {k: r[k] for k in (
+        "type", "rank", "status", "relaunch_count", "host")} for r in nodes}
+    by_rank = {rank: [(r["id"], r["relaunch_count"], r["exit_reason"])
+                      for r in nodes if r["rank"] == rank] for rank in (0, 1)}
+    check(table == want_table and len(by_rank[0]) == 1
+          and by_rank[1] == [(id1, 0, NodeExitReason.PREEMPTED),
+                             (id2, 1, by_rank[1][-1][2])],
+          f"{label}: /api/nodes {nodes}, want get_job_detail()'s "
+          f"{want_table} with rank 1 twice (first preempted)")
+    node_status, node_page = reads["relaunched"][f"/api/node/worker-{id2}"]
+    timeline = [e["status"] for e in (node_page or {}).get("timeline", [])] \
+        if node_status == 200 else []
+    check(len(timeline) >= 2 and timeline[-1] == node_page["status"],
+          f"{label}: /api/node/worker-{id2} answered {node_status} "
+          f"{node_page}")
+    rdzv = {}
+    for point in ("paused", "relaunched"):
+        rows = [r for r in reads[point]["/api/rdzv"][1]
+                if r["name"] == "training"]
+        rdzv[point] = (rows[0]["round"], rows[0]["world_size"]) if rows \
+            else None
+    check(rdzv["paused"] is not None and rdzv["relaunched"] is not None
+          and rdzv["paused"][1] == rdzv["relaunched"][1] == 2
+          and rdzv["relaunched"][0] > rdzv["paused"][0] >= 1,
+          f"{label}: /api/rdzv (round, world) at the pause and the "
+          f"relaunch: {rdzv}")
+    perf = final["/api/perf"][1]
+    check(perf["global_step"] == DIST_STEPS,
+          f"{label}: /api/perf's global step {perf['global_step']}, want "
+          f"{DIST_STEPS}")
+    plane = final["/api/control_plane"][1]
+    verbs = {v: r["count"] for v, r in plane["rpc"]["verbs"].items()}
+    check(plane["enabled"] is True and verbs
+          and all(n > 0 for n in verbs.values()),
+          f"{label}: /api/control_plane verbs {verbs}")
+    check(final["/api/autoscaler"][1] == {"enabled": False},
+          f"{label}: /api/autoscaler {final['/api/autoscaler'][1]}")
+    goodput = {}
+    for point, metrics, perf_now in (
+            ("paused", reads["paused"]["/metrics"][1],
+             reads["paused"]["/api/perf"][1]),
+            ("final", final["/metrics"][1], perf)):
+        scraped = parse_prometheus_text(metrics)
+        goodput[point] = (scraped.get("dlrover_goodput"), perf_now["goodput"])
+    prom_g, api_g = goodput["final"]
+    check(prom_g is not None and api_g > 0
+          and abs(prom_g - api_g) <= 1e-9 * max(1, api_g),
+          f"{label}: /metrics' dlrover_goodput {prom_g}, /api/perf's "
+          f"{api_g} (the workers report their train phases)")
+    # The serving branch: the engine phases' own token counts, when they
+    # ran in this process; disabled when no engine counted into the
+    # default registry; else (another engine in this process, as under
+    # pytest) only that it is enabled.
+    serving = final["/api/goodput"][1]["serving"]
+    if SERVING_TOKENS:
+        serving_ok = serving.get("enabled") is True and (
+            serving["tokens_by_kind"] == SERVING_TOKENS
+            and serving["tokens_total"] == sum(SERVING_TOKENS.values())
+            and serving["tokens_wasted_total"] == 0)
+    elif serving_absent:
+        serving_ok = serving == {"enabled": False}
+    else:
+        serving_ok = serving.get("enabled") is True
+    check(serving_ok,
+          f"{label}: /api/goodput's serving {serving}, the engine phases "
+          f"counted {SERVING_TOKENS} (no family: {serving_absent})")
+    return {"rdzv_round_world": rdzv, "global_step": perf["global_step"],
+            "speed": perf["speed"], "goodput": goodput,
+            "rpc_verbs": verbs, "metrics_samples": len(parse_prometheus_text(
+                final["/metrics"][1])),
+            "relaunched_timeline": timeline,
+            "serving_tokens": serving.get("tokens_by_kind")}
+
+
+# The panels phase 32 reads after the run, the job's final state.
+DIST_FINAL_PANELS = ("/", "/api/job", "/api/nodes", "/api/perf",
+                     "/api/control_plane", "/api/autoscaler", "/api/goodput",
+                     "/metrics")
+
+
 def phase_dist_master(device="cuda", config="flagship"):
     """The distributed master on the simulated cluster, built from the
     CLI's own parse (``DistributedJobMaster.from_args(parse_master_args(
@@ -7169,12 +7315,44 @@ def phase_dist_master(device="cuda", config="flagship"):
     ``restore_read``), node 0's restarted worker the same step from its
     memory; every step after it ran once on each rank, in the re-formed
     world; both nodes' last images have equal leaf crc32s; each
-    incarnation's B1/B2 launches are n_layers per step. Returns the
-    workers' B1/B2 launches."""
+    incarnation's B1/B2 launches are n_layers per step.
+
+    The master also serves its dashboard (``--dashboard_port 0``) and
+    reports to a brain (``--brain_addr``): this process starts the
+    port's ``BrainService`` on port 0 (a sqlite store under the phase's
+    root) before the master and stops it after ``master.stop()``, which
+    posts the job's completion record. The dashboard is read at the
+    phase's wait points only (both ranks paused at the committed step;
+    the relaunch's first step; after ``run()`` returns, when the phase
+    serves the master's stopped ``DashboardServer`` once more to read
+    the job's final state). Gates: the page answers; ``/api/job`` names
+    the job; ``/api/nodes`` is ``get_job_detail()``'s table (rank 1's
+    two incarnations, the first PREEMPTED, the second relaunched once;
+    rank 0's one); the relaunched node's ``/api/node/`` page has a
+    status timeline; ``/api/rdzv`` shows a world of 2 at the pause and
+    at the relaunch, the second in a later round; ``/api/perf``'s
+    global step reaches DIST_STEPS (the workers report each step);
+    ``/api/control_plane`` counts every verb's RPCs; ``/api/autoscaler``
+    is disabled; ``/metrics`` parses with the port's
+    ``parse_prometheus_text`` and its ``dlrover_goodput`` is
+    ``/api/perf``'s to the exposition's 10 digits and above 0 (each
+    worker reports each step as a train phase); ``/api/goodput``'s
+    serving branch holds, token for token, what the engine phases of
+    this process counted (SERVING_TOKENS; disabled when no engine
+    counted into the default registry). The brain holds the completion
+    record, SUCCEEDED, and a runtime sample with 2 workers, speed > 0
+    and step DIST_STEPS: the collector's ``collect_once`` at the wait
+    point where both ranks have saved their last step (its 30 s timer
+    may or may not fall between the first step and the end of ``run()``:
+    its samples are counted and their times printed beside the phase's);
+    ``/optimize`` answers with the plan and the three evaluators'
+    assessments of those records. Returns the workers' B1/B2 launches."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
+    from dlrover_tpu_torch.brain import evaluators
+    from dlrover_tpu_torch.brain.service import BrainService
     from dlrover_tpu_torch.common.constants import (
         JobExitReason,
         NodeEnv,
@@ -7186,6 +7364,7 @@ def phase_dist_master(device="cuda", config="flagship"):
     from dlrover_tpu_torch.master.args import parse_master_args
     from dlrover_tpu_torch.master.dist_master import DistributedJobMaster
     from dlrover_tpu_torch.master.node.job_context import JobContext
+    from dlrover_tpu_torch.observability.registry import default_registry
     from dlrover_tpu_torch.testing.replica_worker import image_digest
 
     label = "dist_master"
@@ -7209,14 +7388,19 @@ def phase_dist_master(device="cuda", config="flagship"):
         return f"dlrover_tpu_ckpt_{job}_n{rank}_0"
 
     JobContext.reset_singleton()
+    brain = BrainService(port=0, data_dir=os.path.join(root, "brain"),
+                         store="sqlite")
+    brain.start()
     t_phase, wall_phase = time.monotonic(), time.time()
     master = DistributedJobMaster.from_args(parse_master_args(
         ["--platform", "sim", "--node_num", "2", "--transport", "http",
-         "--pre_check", "--job_name", job]))
+         "--pre_check", "--job_name", job, "--dashboard_port", "0",
+         "--brain_addr", f"127.0.0.1:{brain.port}"]))
     cluster = master.job_manager._scaler._cluster  # noqa: SLF001
     master.prepare()
     t_ready = time.monotonic()
-    served = {}
+    dash_port = master.dashboard.port
+    served, reads = {}, {}
 
     def serve():
         served["pre_check"] = master.pre_check()
@@ -7301,6 +7485,8 @@ def phase_dist_master(device="cuda", config="flagship"):
                                      "a first step")["t"]
                        for lc in (node0, first1)]
         committed_at_kill = master.job_manager.get_committed_ckpt_step()
+        reads["paused"] = _dashboard_read(
+            dash_port, ("/api/rdzv", "/api/perf", "/metrics"))
         # The host is lost: launcher (its agent) and worker at once, its
         # segment with it; the cluster reports a preemption.
         _, workers = first1.pids()
@@ -7322,12 +7508,19 @@ def phase_dist_master(device="cuda", config="flagship"):
         first = relaunch.wait_event(lambda e: e["event"] == "step",
                                     "the relaunch's first step",
                                     DIST_TIMEOUT_S)
+        reads["relaunched"] = _dashboard_read(
+            dash_port, ("/api/rdzv", f"/api/node/worker-{id2}"))
         # The world re-formed: node 0's agent restarted its worker, which
         # restored the committed step from its memory and trains on.
         until(lambda: last_event(relaunch, "saved", DIST_STEPS)
               and len(node0.incarnations()) >= 2
               and last_event(node0, "saved", DIST_STEPS),
               "both nodes' last saves")
+        # Both ranks alive at their last step: one sample of the
+        # collector to the brain, whatever its timer's phase.
+        t_sample = time.time()
+        watch_sample = master.metric_collector.collect_once()
+        t_sampled = time.time()
         # Both images' crc32s at once (zlib lets go of the GIL).
         with ThreadPoolExecutor(2) as pool:
             digests = list(pool.map(image_digest, map(segment, (0, 1))))
@@ -7338,6 +7531,16 @@ def phase_dist_master(device="cuda", config="flagship"):
         wall = time.monotonic() - t_phase
         job_nodes = master.job_manager.worker_manager.nodes
         detail = master.job_manager.get_job_detail().nodes
+        # run() stopped the master, its dashboard with it: the same
+        # server serves the job's final state once more.
+        master.dashboard.start()
+        try:
+            reads["final"] = _dashboard_read(master.dashboard.port,
+                                             DIST_FINAL_PANELS)
+        finally:
+            master.dashboard.stop()
+        serving_absent = default_registry().get(
+            "serving_tokens_total") is None
     finally:
         for _, _, launcher in launchers.values():
             launcher.stop()
@@ -7357,7 +7560,22 @@ def phase_dist_master(device="cuda", config="flagship"):
         rdzv_end = _event_walls(os.path.join(root, tags[id2], "events"),
                                 "rendezvous", "end")
         started = _log_walls(relaunch.log(), "started worker")
+        # The brain after master.stop(): its records of the job, what
+        # /optimize makes of them (against the three evaluators run here
+        # on the same store), and one round trip of each verb.
+        brain_runtime = brain.store.load("runtime", job_name=job)
+        brain_done = brain.store.load("completion", job_name=job)
+        assess_want = [a for a in (
+            evaluators.EVALUATORS[name](brain.store).evaluate(job)
+            for name in sorted(evaluators.EVALUATORS)) if a is not None]
+        opt_status, optimized, optimize_s = _http(
+            brain.port, "POST", "/optimize", {"job_name": job})
+        persist_status, _, persist_s = _http(
+            brain.port, "POST", "/persist_metrics", {
+                "kind": "runtime", "record": {"job_name": job + "-probe"}})
+        brain_evaluators = _http(brain.port, "GET", "/admin/evaluators")[1]
     finally:
+        brain.stop()
         shutil.rmtree(root, ignore_errors=True)
 
     check(served.get("pre_check") is True,
@@ -7422,6 +7640,47 @@ def phase_dist_master(device="cuda", config="flagship"):
                   f"launches {counts}, want {want_n} each")
             for name, v in counts.items():
                 launches[name] = launches.get(name, 0) + v
+    watch = _dist_master_watch_gates(
+        label, job, reads, detail, id1, id2, serving_absent)
+    samples = [r for r in brain_runtime
+               if r.get("worker_count") == 2 and r.get("speed", 0) > 0]
+    watched = [r for r in brain_runtime
+               if t_sample <= r["ts"] <= t_sampled
+               and r["worker_count"] == watch_sample.worker_count == 2
+               and r["speed"] == watch_sample.speed > 0
+               and r["global_step"] == DIST_STEPS]
+    check(watched and len(brain_done) == 1
+          and brain_done[0]["exit_reason"] == JobExitReason.SUCCEEDED
+          and brain_done[0]["success"] is True,
+          f"{label}: the brain holds runtime {brain_runtime} (the "
+          f"sample at the last saves: {watch_sample}) and completions "
+          f"{brain_done}")
+    check(opt_status == 200 and persist_status == 200
+          and optimized["plan"] is not None
+          and optimized["assessments"] == assess_want
+          and brain_evaluators["evaluators"] == [
+              "oom_risk", "straggler", "throughput_trend"],
+          f"{label}: /optimize answered {opt_status} {optimized} (want "
+          f"assessments {assess_want}; evaluators {brain_evaluators})")
+    # The collector's timer against the job: its samples' times, the
+    # first step's and the end of run(), from the phase's start.
+    emit({"phase": "dist_master_watch", **watch,
+          "brain": {"runtime_samples": len(brain_runtime),
+                    "samples_2_workers_moving": len(samples),
+                    "sample_at_s": [r["ts"] - wall_phase
+                                    for r in brain_runtime],
+                    "watched_sample_at_s": watched[0]["ts"] - wall_phase,
+                    "first_step_at_s": max(first_steps) - t_phase,
+                    "run_end_at_s": wall,
+                    "last_sample": {k: brain_runtime[-1].get(k) for k in (
+                        "global_step", "speed", "goodput", "worker_count")},
+                    "completion": {k: brain_done[0].get(k) for k in (
+                        "success", "exit_reason", "duration_s",
+                        "failure_count")},
+                    "plan": optimized["plan"],
+                    "assessments": optimized["assessments"],
+                    "optimize_ms": optimize_s * 1e3,
+                    "persist_metrics_ms": persist_s * 1e3}})
     to_wall = wall_phase - t_phase
     spawn_wall = relaunch.spawned + to_wall
     split = {
@@ -7516,7 +7775,8 @@ def main():
     gen_launches = dict(da.launch_counts)
     da.reset_launch_counts()
     md.reset_launch_counts()
-    eng_launches, served = timed("engine", phase_engine, cfg, params)
+    eng_launches, served = timed("engine", phase_engine, cfg, params,
+                                 shared=True)
     da.reset_launch_counts()
     paged_want, paged_tokens = timed("paged_engine", phase_paged_engine,
                                      cfg, params)

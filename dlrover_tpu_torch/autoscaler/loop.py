@@ -18,10 +18,7 @@ the same ledger/actuation path as everything else), and at stop it
 reports the achieved goodput back to ``/persist_metrics`` so the next
 job of this name starts smarter.
 
-The port's copy of ``dlrover_tpu/autoscaler/loop.py``. The brain
-service's client is not ported (ROADMAP §A item 8b), so
-:class:`BrainPrior` raises ``NotImplementedError`` naming that item
-instead of reading as an unreachable brain.
+The port's copy of ``dlrover_tpu/autoscaler/loop.py``.
 """
 
 import threading
@@ -570,20 +567,15 @@ class BrainPrior:
         self._timeout = timeout_s
 
     def _post(self, path: str, payload: Dict) -> Optional[Dict]:
-        # The brain's client (``brain/client.py``) is not ported yet:
-        # refused rather than read as an unreachable brain.
-        raise NotImplementedError(
-            "the brain prior needs the brain service's client "
-            "(brain/client.py), not ported yet: ROADMAP §A item 8b"
-        )
+        from dlrover_tpu_torch.brain.client import _post
+
+        return _post(self._addr, path, payload, timeout=self._timeout)
 
     def initial_world(self) -> Optional[Dict]:
         try:
             result = self._post(
                 "/optimize", {"job_name": self._job_name}
             )
-        except NotImplementedError:
-            raise
         except Exception:  # noqa: BLE001 — prior only, never gate
             logger.warning("brain prior unreachable; no seed")
             return None
@@ -615,7 +607,5 @@ class BrainPrior:
                     "worker_count": worker_count,
                 },
             })
-        except NotImplementedError:
-            raise
         except Exception:  # noqa: BLE001
             logger.warning("brain outcome report failed")

@@ -2,10 +2,9 @@
 port's copy of ``dlrover_tpu/master/args.py``, whose transport defaults
 to HTTP).
 
-The distributed master (``--platform sim``) reads the flags that follow
-``--namespace``; ``--dashboard_port >= 0``, ``--brain_addr`` and the
-``k8s``/``gke_tpu`` platforms reach modules not ported yet and raise
-``NotImplementedError`` (ROADMAP §A item 8b).
+The distributed master (``--platform sim``, ``k8s`` or ``gke_tpu``)
+reads the flags that follow ``--namespace``: ``--dashboard_port >= 0``
+serves the dashboard, ``--brain_addr`` reports to a brain service.
 """
 
 import argparse
@@ -20,7 +19,7 @@ def build_master_parser() -> argparse.ArgumentParser:
         type=str,
         default="local",
         choices=["local", "sim", "k8s", "gke_tpu"],
-        help="cluster backend (k8s and gke_tpu are not ported)",
+        help="cluster backend",
     )
     parser.add_argument("--node_num", type=int, default=1)
     parser.add_argument("--max_relaunch_count", type=int, default=3)
@@ -144,7 +143,7 @@ def build_master_parser() -> argparse.ArgumentParser:
         default=60.0,
         help="starting flash-ckpt cadence the autoscaler retunes from "
         "observed MTBF (Young/Daly); published on the "
-        "autoscaler_ckpt_interval_s gauge",
+        "autoscaler_ckpt_interval_s gauge and /api/autoscaler",
     )
     parser.add_argument(
         "--legal_worker_counts",

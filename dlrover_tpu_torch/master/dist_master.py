@@ -6,13 +6,10 @@ every few seconds checking: workers all exited, training hang, pending
 timeout; a parallel diagnose thread executes job-level DiagnosisActions
 (JobRestartAction/JobAbortionAction/NodeAction, reference :236-263).
 
-The port's copy of ``dlrover_tpu/master/dist_master.py``. Three things
-it reaches only behind a flag are not ported (ROADMAP §A item 8b), and
-each raises ``NotImplementedError`` before the master binds its port:
-the dashboard (``dashboard_port >= 0``), the brain service's client
-(``brain_addr``) and the pod scaler and watcher of the ``k8s`` and
-``gke_tpu`` platforms (the reference's ``SystemExit`` for a missing
-kubernetes client becomes that error too).
+The port's copy of ``dlrover_tpu/master/dist_master.py``, flags and
+platforms included: the dashboard (``dashboard_port >= 0``), the brain
+service's client (``brain_addr``) and the pod scaler and watcher of the
+``k8s`` and ``gke_tpu`` platforms.
 """
 
 import threading
@@ -66,12 +63,6 @@ def _parse_metric_endpoints(raw: str):
     return out or None
 
 
-def _not_ported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs {module}, not ported yet: ROADMAP §A item 8b"
-    )
-
-
 class DistributedJobMaster:
     def __init__(
         self,
@@ -106,10 +97,6 @@ class DistributedJobMaster:
         autoscale_record: str = "",
         journal_path: str = "",
     ):
-        if dashboard_port >= 0:
-            raise _not_ported("the dashboard", "master/dashboard.py")
-        if brain_addr:
-            raise _not_ported("the brain service", "brain/client.py")
         self.job_name = job_name
         self._job_context = get_job_context()
         self.perf_monitor = PerfMonitor()
@@ -271,8 +258,16 @@ class DistributedJobMaster:
 
         from dlrover_tpu_torch.master.stats.job_collector import JobMetricCollector
 
+        stats_reporter = None
+        if brain_addr:
+            from dlrover_tpu_torch.brain.client import BrainStatsReporter
+
+            stats_reporter = BrainStatsReporter(brain_addr, job_name)
         self.metric_collector = JobMetricCollector(
-            job_name, self.job_manager, self.perf_monitor
+            job_name,
+            self.job_manager,
+            self.perf_monitor,
+            reporter=stats_reporter,
         )
         # §30 closed-loop autoscaler (self.autoscaler — distinct from
         # the legacy throughput-driven self.auto_scaler below): observe
@@ -300,21 +295,50 @@ class DistributedJobMaster:
                 record_path=autoscale_record,
             )
         self.dashboard = None
+        if dashboard_port >= 0:
+            from dlrover_tpu_torch.master.dashboard import DashboardServer
+
+            self.dashboard = DashboardServer(
+                self.job_manager,
+                self.perf_monitor,
+                dashboard_port,
+                rdzv_managers=self.rdzv_managers,
+                task_manager=self.task_manager,
+                # /metrics also exposes the out-of-band daemon
+                # aggregates when the metric monitor is on.
+                metric_context=(
+                    self.metric_monitor.context
+                    if self.metric_monitor is not None
+                    else None
+                ),
+                trace_aggregator=self.trace_aggregator,
+                autoscaler=self.autoscaler,
+                # §32: /api/control_plane — overload governor state,
+                # per-verb RPC telemetry, bounded-buffer occupancy.
+                control_plane=self.servicer.control_plane_state,
+            )
         self.auto_scaler = None
         if auto_scale:
             from dlrover_tpu_torch.master.node.job_auto_scaler import (
                 AllreduceTrainingAutoScaler,
             )
 
-            from dlrover_tpu_torch.master.resource.optimizer import (
-                AllreduceLocalOptimizer,
-            )
+            if brain_addr:
+                from dlrover_tpu_torch.brain.client import (
+                    BrainResourceOptimizer,
+                )
 
-            optimizer = AllreduceLocalOptimizer(
-                self.job_manager,
-                self.perf_monitor,
-                legal_counts=legal_worker_counts,
-            )
+                optimizer = BrainResourceOptimizer(brain_addr, job_name)
+            else:
+                from dlrover_tpu_torch.master.resource.optimizer import (
+                    AllreduceLocalOptimizer,
+                )
+
+                optimizer = AllreduceLocalOptimizer(
+                    self.job_manager,
+                    self.perf_monitor,
+                    legal_counts=legal_worker_counts,
+                )
             self.auto_scaler = AllreduceTrainingAutoScaler(
                 self.job_manager,
                 scaler,
@@ -537,11 +561,21 @@ class DistributedJobMaster:
             scaler = SimScaler(args.job_name, cluster)
             watcher = SimNodeWatcher(args.job_name, cluster)
         elif args.platform in ("k8s", "gke_tpu"):
-            raise _not_ported(
-                f"platform {args.platform!r}",
-                "master/scaler/pod_scaler.py and "
-                "master/watcher/k8s_watcher.py",
-            )
+            try:
+                from dlrover_tpu_torch.master.scaler.pod_scaler import (
+                    PodScaler,
+                )
+                from dlrover_tpu_torch.master.watcher.k8s_watcher import (
+                    PodWatcher,
+                )
+
+                scaler = PodScaler(args.job_name, args.namespace)
+                watcher = PodWatcher(args.job_name, args.namespace)
+            except ImportError as e:
+                raise SystemExit(
+                    f"platform {args.platform!r} needs the kubernetes "
+                    f"python client installed on the master: {e}"
+                )
         else:
             raise ValueError(f"unknown platform {args.platform!r}")
         legal_counts = None

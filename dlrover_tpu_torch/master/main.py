@@ -4,9 +4,10 @@ Parity: reference dlrover/python/master/main.py. Run as
 ``python -m dlrover_tpu_torch.master.main --platform local --node_num 2``
 (the port's copy of ``dlrover_tpu/master/main.py``, over HTTP unless
 ``--transport grpc``). ``--platform sim`` runs the distributed master
-over the simulated cluster; ``k8s`` and ``gke_tpu`` raise
-``NotImplementedError`` until their scaler and watcher are ported
-(ROADMAP §A item 8b).
+over the simulated cluster; ``k8s`` and ``gke_tpu`` run it over the
+cluster's pods (``master/scaler/pod_scaler.py``,
+``master/watcher/k8s_watcher.py``), which needs the ``kubernetes``
+client or an API set with ``k8s_client.set_k8s_api``.
 """
 
 import os

@@ -7,9 +7,9 @@ Backends: the in-memory simulator (testing/sim_cluster.py), the k8s Pod
 scaler (pod_scaler.py, reference pod_scaler.py:84), and the GKE JobSet
 flavor for TPU slices.
 
-The port's copy of ``dlrover_tpu/master/scaler/base_scaler.py``. Of its
-backends the port has the in-memory one (``sim_scaler.py``); the k8s
-scalers wait for ROADMAP §A item 8b.
+The port's copy of ``dlrover_tpu/master/scaler/base_scaler.py``, with
+the same backends: ``sim_scaler.py``, ``pod_scaler.py`` and
+``elasticjob_scaler.py``.
 """
 
 import abc

@@ -19,9 +19,7 @@ Usage::
 
     python -m dlrover_tpu_torch.testing.chaos --job myjob --interval 60
 
-The port's copy of ``dlrover_tpu/testing/chaos.py``. The k8s surface
-(``delete_one_pod``, ``--mode k8s``) needs the distributed master's k8s
-client and raises ``NotImplementedError`` naming its ROADMAP §A item.
+The port's copy of ``dlrover_tpu/testing/chaos.py``.
 """
 
 import argparse
@@ -91,11 +89,23 @@ def delete_one_pod(
 ) -> Optional[str]:
     """Delete a random running worker pod of the job (the reference's
     k8s surface)."""
-    raise NotImplementedError(
-        "deleting a pod needs the k8s client "
-        "(master/scheduler/k8s_client.py), not ported yet: "
-        "ROADMAP §A item 8b"
-    )
+    from dlrover_tpu_torch.master.scheduler.k8s_client import get_k8s_api
+
+    api = api or get_k8s_api()
+    pods = [
+        p["metadata"]["name"]
+        for p in api.list_pods(namespace, f"job-name={job_name}")
+        if p.get("metadata", {}).get("labels", {}).get("role")
+        != "dlrover-master"
+        and p.get("status", {}).get("phase") == "Running"
+    ]
+    if not pods:
+        logger.info("chaos: no running worker pods of %s", job_name)
+        return None
+    victim = random.choice(pods)
+    logger.warning("chaos: deleting pod %s", victim)
+    api.delete_pod(namespace, victim)
+    return victim
 
 
 def run_chaos(

@@ -26,6 +26,11 @@ all-reduce) and saves its own image. It:
   shm and committed) and waits to be stopped: its agent restarts it when
   the world re-forms, and the next incarnation restores step N and
   trains on;
+- under a master (the launcher exports ``DLROVER_TPU_MASTER_ADDR``),
+  reports each step to the master's perf monitor, with its rank as its
+  node id: the step (``MasterClient.report_global_step``) and its wall
+  interval as a train phase (``report_goodput_phase``), which the
+  master's goodput counts;
 - waits, after its last step and the last save's commit, until
   ``--hold-file`` exists (a node stays up to serve its peers' replicas
   until the run lets it go), then exits 0.
@@ -48,7 +53,13 @@ import zlib
 import torch
 
 from dlrover_tpu_torch import fault
-from dlrover_tpu_torch.common.constants import NodeEnv, WorkerEnv
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.common.constants import (
+    GoodputPhase,
+    NodeEnv,
+    WorkerEnv,
+)
+from dlrover_tpu_torch.common.env_utils import get_master_addr
 from dlrover_tpu_torch.flash_ckpt.engine import (
     CheckpointEngine,
     shm_segment_name,
@@ -182,6 +193,10 @@ def main(argv=None) -> int:
           "restore_s": restore_s, "leaf_crc32": crcs,
           "start_s": time.monotonic() - t_start})
 
+    master_addr = get_master_addr()
+    client = MasterClient(master_addr, node_id=node_rank) if master_addr \
+        else None
+    t_prev, wall_prev = time.monotonic(), time.time()
     for step in range(start_step + 1, args.steps + 1):
         state, metrics = step_fn(state, batch(step, args.micro_batch,
                                               args.seq, cfg.vocab_size))
@@ -193,6 +208,12 @@ def main(argv=None) -> int:
                   deadline, f"the commit of step {step}")
         emit({"event": "step", "step": step, "loss": float(metrics["loss"]),
               "launches": dict(fa.launch_counts)})
+        if client is not None:
+            now, wall_now = time.monotonic(), time.time()
+            client.report_global_step(step, step_time_s=now - t_prev)
+            client.report_goodput_phase(GoodputPhase.TRAIN, wall_prev,
+                                        wall_now)
+            t_prev, wall_prev = now, wall_now
         if step == args.pause_at:
             engine.wait_async_save()
             emit({"event": "paused", "step": engine.last_written_step})

@@ -2,9 +2,8 @@
 from the reference's ``tests/test_autoscaler.py``: the signal bus, the
 rule policy, the loop, the actuators over the sim scaler, the router's
 live sizing and the rescale coordinator's eviction, on injectable
-clocks. The reference's two dashboard tests wait for the dashboard
-(ROADMAP §A item 8), and its brain-service tests become one: the port's
-``BrainPrior`` raises naming that item. The wall-clock
+clocks, and its brain-prior and dashboard tests over the port's brain
+service and dashboard. The wall-clock
 static-vs-autoscaled episode runs in the slow lane
 (``test_autoscale_soak_episode``) and, through the soak's dispatch, in
 ``tests/test_torch_soak.py``.
@@ -628,26 +627,76 @@ def test_router_survives_concurrent_sizing_from_another_thread():
 
 
 # ---------------------------------------------------------------------------
-# Brain prior: refused until the brain service is ported
+# Brain prior: seed from /optimize, report achieved goodput back
 # ---------------------------------------------------------------------------
 
 
 def test_brain_prior_post_raises_naming_its_roadmap_item():
-    """The brain service's client is not ported: the prior refuses
-    rather than reading as an unreachable brain (the reference degrades
-    an unreachable one to no seed)."""
+    """An unreachable brain degrades as the reference's does: the post
+    raises its connection error, the prior reads no seed, the outcome
+    report is dropped, and the loop ticks on without a seed. (The name
+    is the refusal test's that this one replaced.)"""
     from dlrover_tpu_torch.autoscaler import BrainPrior
 
     prior = BrainPrior("localhost:1", "nope", timeout_s=0.2)
-    for call in (lambda: prior._post("/optimize", {}),
-                 prior.initial_world,
-                 lambda: prior.report_outcome(0.5, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
-            call()
+    with pytest.raises(OSError):
+        prior._post("/optimize", {})
+    assert prior.initial_world() is None
+    prior.report_outcome(0.5, 2)  # must not raise
     bus = SignalBus(clock=FakeClock())
     bus.add_source("world", lambda: {"size": 4})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        AutoScaler(bus, brain_prior=prior).tick()
+    a = AutoScaler(bus, brain_prior=prior)
+    a.tick()
+    assert a.ledger.decisions_total == 0
+
+
+def test_brain_prior_seeds_world_and_reports_outcome(tmp_path):
+    from dlrover_tpu_torch.autoscaler import BrainPrior
+    from dlrover_tpu_torch.brain.service import BrainService
+
+    service = BrainService(port=0, data_dir=str(tmp_path))
+    service.start()
+    try:
+        # Cross-job memory: past runs of this job name were fastest
+        # per-worker at 2 workers.
+        service.store.append("runtime", {
+            "job_name": "as-job", "speed": 5.0, "worker_count": 2,
+        })
+        service.store.append("runtime", {
+            "job_name": "as-job", "speed": 8.0, "worker_count": 4,
+        })
+        prior = BrainPrior(f"localhost:{service.port}", "as-job")
+        sets = []
+        bus = SignalBus(clock=FakeClock())
+        bus.add_source("world", lambda: {"size": 4})
+        bus.add_source("perf", lambda: {"goodput": 0.93, "speed": 5.0})
+        a = AutoScaler(
+            bus,
+            actuators={SEED_WORLD: lambda d: sets.append(d.target)},
+            brain_prior=prior, job_name="as-job",
+        )
+        a.tick()
+        # speedup optimizer: 5.0/2 beats 8.0/4 -> seed target 2.
+        assert sets == [2]
+        entries = a.ledger.entries()
+        assert entries[0].action == SEED_WORLD
+        assert "brain prior" in entries[0].reason
+        assert entries[0].signals["world.size"] == 4
+        # Second tick must not re-seed.
+        a.tick()
+        assert a.ledger.decisions_total == 1
+        # Completion reports the achieved goodput back into the store.
+        a.stop()
+        completions = service.store.load(
+            "completion", job_name="as-job"
+        )
+        assert len(completions) == 1
+        assert completions[0]["goodput"] == pytest.approx(0.93)
+        runtime = service.store.load("runtime", job_name="as-job")
+        assert runtime[-1]["goodput"] == pytest.approx(0.93)
+        assert runtime[-1]["worker_count"] == 4
+    finally:
+        service.stop()
 
 
 def test_brain_seed_snaps_to_legal_world_counts():
@@ -783,3 +832,64 @@ def test_lockstep_bookkeeping_under_load_stays_attributed(monkeypatch):
     att = rep["goodput_attribution"]
     assert rep["deaths"] == 3
     assert att["attributed_frac"] >= 0.9, att["causes"]
+
+
+# ---------------------------------------------------------------------------
+# Dashboard surface
+# ---------------------------------------------------------------------------
+
+
+def test_dashboard_serves_api_autoscaler():
+    import json
+    import urllib.request
+
+    from dlrover_tpu_torch.master.dashboard import DashboardServer
+
+    feed = [
+        {"straggler_ranks": [1], "straggler_scores": {1: 4.0}},
+        {"straggler_ranks": [1], "straggler_scores": {1: 4.0}},
+    ]
+    bus = SignalBus(clock=FakeClock())
+    bus.add_source("perf", lambda: feed.pop(0) if feed else {})
+    a = AutoScaler(
+        bus,
+        policy=RulePolicy(PolicyConfig(straggler_confirm_ticks=2)),
+        actuators={EVICT_STRAGGLER: lambda d: None},
+    )
+    a.tick()
+    a.tick()
+    dash = DashboardServer(None, None, 0, autoscaler=a)
+    dash.start()
+    try:
+        with urllib.request.urlopen(
+            f"http://localhost:{dash.port}/api/autoscaler", timeout=5
+        ) as resp:
+            state = json.loads(resp.read())
+        assert state["enabled"] is True
+        assert state["dry_run"] is False
+        assert state["decisions_total"] == 1
+        assert state["dry_run_diff"]["suppressed"] == 0
+        d = state["decisions"][0]
+        assert d["action"] == EVICT_STRAGGLER
+        assert d["outcome"] == "actuated"
+        assert d["signals"]["perf.straggler_ranks"] == [1]
+        assert state["signals"]["values"] is not None
+    finally:
+        dash.stop()
+
+
+def test_dashboard_without_autoscaler_reports_disabled():
+    import json
+    import urllib.request
+
+    from dlrover_tpu_torch.master.dashboard import DashboardServer
+
+    dash = DashboardServer(None, None, 0)
+    dash.start()
+    try:
+        with urllib.request.urlopen(
+            f"http://localhost:{dash.port}/api/autoscaler", timeout=5
+        ) as resp:
+            assert json.loads(resp.read()) == {"enabled": False}
+    finally:
+        dash.stop()

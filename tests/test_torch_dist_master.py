@@ -13,7 +13,8 @@
   packages on the same inputs;
 - the CLI, ``python -m dlrover_tpu_torch.master.main --platform sim``,
   serving two launchers through a lost host's relaunch to exit 0, and
-  the platforms and flags that wait for ROADMAP §A item 8b;
+  the platforms and flags of the cluster side (the k8s platforms over a
+  fake API, the dashboard, the brain);
 - the port's divergences: an agent reporting with its rank's ended
   incarnation's id lands on the live incarnation, an agent's success
   report ends its node, in-band steps that advance veto a hang only
@@ -31,6 +32,7 @@ import subprocess
 import sys
 import time
 import types
+import urllib.request
 from pathlib import Path
 
 import pytest
@@ -1369,7 +1371,7 @@ def test_job_metric_collector_equals_the_reference():
 
 
 # ---------------------------------------------------------------------------
-# The CLI, and what waits for ROADMAP §A item 8b
+# The CLI, its platforms and flags
 # ---------------------------------------------------------------------------
 
 
@@ -1377,13 +1379,62 @@ def test_job_metric_collector_equals_the_reference():
     ["--platform", "k8s"],
     ["--platform", "gke_tpu"],
     ["--platform", "sim", "--dashboard_port", "0"],
-    ["--platform", "sim", "--brain_addr", "localhost:1"],
+    ["--platform", "sim", "--brain_addr", "<brain>"],
 ])
-def test_unported_platforms_and_flags_raise_naming_8b(argv):
-    from dlrover_tpu_torch.master import main
+def test_unported_platforms_and_flags_raise_naming_8b(argv, tmp_path):
+    """The platforms and flags the port once refused build their parts
+    and run: the k8s platforms create the workers' pods through a fake
+    API and watch them run; the dashboard serves the job; the brain
+    receives the job's completion record at ``stop()``. (The name is
+    the refusal test's that this one replaced.)"""
+    from dlrover_tpu_torch.brain.service import BrainService
+    from dlrover_tpu_torch.master.args import parse_master_args
+    from dlrover_tpu_torch.master.dashboard import DashboardServer
+    from dlrover_tpu_torch.master.dist_master import DistributedJobMaster
+    from dlrover_tpu_torch.master.scaler.pod_scaler import PodScaler
+    from dlrover_tpu_torch.master.scheduler import k8s_client
+    from dlrover_tpu_torch.master.watcher.k8s_watcher import PodWatcher
+    from tests.test_torch_k8s_backend import FakeK8sApi, wait_until
 
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8b"):
-        main.main(argv + ["--port", "0"])
+    brain = BrainService(port=0, data_dir=str(tmp_path / "brain"))
+    brain.start()
+    api = FakeK8sApi()
+    k8s_client.set_k8s_api(api)
+    argv = [f"127.0.0.1:{brain.port}" if a == "<brain>" else a
+            for a in argv]
+    try:
+        master = DistributedJobMaster.from_args(parse_master_args(
+            argv + ["--port", "0", "--node_num", "2", "--job_name", "cli",
+                    "--namespace", "ns"]))
+        master.prepare()
+        try:
+            if argv[1] != "sim":
+                assert isinstance(master.job_manager._scaler, PodScaler)
+                assert isinstance(master.job_manager._watcher, PodWatcher)
+                assert wait_until(lambda: sorted(
+                    (n.rank_index, n.status)
+                    for n in master.job_manager.worker_manager.nodes.values()
+                ) == [(0, NodeStatus.RUNNING), (1, NodeStatus.RUNNING)])
+                assert sorted(api.pods) == ["cli-worker-0", "cli-worker-1"]
+                env = api.pods["cli-worker-0"]["spec"]["containers"][0]["env"]
+                assert {"name": "DLROVER_TPU_MASTER_ADDR",
+                        "value": master.job_manager._scaler._master_addr} \
+                    in env
+            elif "--dashboard_port" in argv:
+                assert isinstance(master.dashboard, DashboardServer)
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{master.dashboard.port}/api/job",
+                        timeout=10) as resp:
+                    assert json.loads(resp.read())["job_name"] == "cli"
+        finally:
+            master.stop()
+        if "--brain_addr" in argv:
+            (done,) = brain.store.load("completion", job_name="cli")
+            assert done["success"] is False
+    finally:
+        api.stop_watch()
+        k8s_client.set_k8s_api(None)
+        brain.stop()
 
 
 def test_from_args_builds_the_sim_master_with_every_flag():

@@ -804,3 +804,53 @@ def test_checkpoint_bridges_load_no_jax_orbax_or_ml_dtypes(tmp_path):
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result == {"step": 3, "leaked": [],
                       "callback": "TrainerCallback"}
+
+
+_CLUSTER_MODULES = {
+    "master/scheduler/__init__.py", "master/scheduler/k8s_client.py",
+    "master/scaler/pod_scaler.py", "master/scaler/elasticjob_scaler.py",
+    "master/watcher/k8s_watcher.py", "operator/__init__.py",
+    "operator/reconciler.py", "operator/__main__.py",
+    "brain/__init__.py", "brain/evaluators.py", "brain/service.py",
+    "brain/client.py", "observability/prom.py", "master/dashboard.py",
+    "common/global_context.py"}
+
+
+def _kubernetes_imports(path: Path):
+    """(enclosing class, enclosing function) of each import of
+    ``kubernetes`` in the file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+
+    def walk(node, cls, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.ClassDef):
+                walk(child, child.name, fn)
+            elif isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                walk(child, cls, child.name)
+            else:
+                names = []
+                if isinstance(child, ast.Import):
+                    names = [a.name for a in child.names]
+                elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                    names = [child.module or ""]
+                if any(n.split(".")[0] == "kubernetes" for n in names):
+                    found.append((cls, fn))
+                walk(child, cls, fn)
+
+    walk(tree, None, None)
+    return found
+
+
+def test_scan_covers_the_cluster_modules():
+    """The cluster side and the brain are scanned like every port
+    module (no JAX, no JAX package), and the ``kubernetes`` client is
+    imported in one place only: ``RealK8sApi``'s constructor, so every
+    module imports without it."""
+    scanned = {str(p.relative_to(PORT)) for p in _PORT_SOURCES}
+    assert _CLUSTER_MODULES <= scanned
+    where = {str(p.relative_to(REPO)): _kubernetes_imports(p)
+             for p in _SOURCES}
+    assert {k: v for k, v in where.items() if v} == {
+        "dlrover_tpu_torch/master/scheduler/k8s_client.py": [
+            ("RealK8sApi", "__init__")]}

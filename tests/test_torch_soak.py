@@ -460,6 +460,9 @@ def test_fleet_episodes_through_the_soak(tmp_path, episode):
 
 
 def test_chaos_kills_a_local_worker_and_refuses_pods():
+    """``run_chaos`` SIGKILLs the job's local worker and spares another
+    job's process; ``delete_one_pod`` deletes a running worker pod of
+    the job and refuses the rest (a pending worker, the master's pod)."""
     from dlrover_tpu_torch.testing import chaos
 
     job = f"chaos{os.getpid()}"
@@ -485,5 +488,19 @@ def test_chaos_kills_a_local_worker_and_refuses_pods():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 8"):
-        chaos.delete_one_pod(job)
+    # The k8s surface: one running worker pod of the job goes, never
+    # the master's pod nor a pending one.
+    from tests.test_torch_k8s_backend import FakeK8sApi
+
+    api = FakeK8sApi(auto_run=False)
+    for name, labels, phase in (
+            (f"{job}-worker-0", {"job-name": job}, "Pending"),
+            (f"{job}-worker-1", {"job-name": job}, "Running"),
+            (f"{job}-dlrover-master",
+             {"job-name": job, "role": "dlrover-master"}, "Running")):
+        api.create_pod("default", {"metadata": {"name": name,
+                                                "labels": labels}})
+        api.set_phase(name, phase)
+    assert chaos.delete_one_pod(job, api=api) == f"{job}-worker-1"
+    assert api.deleted == [f"{job}-worker-1"]
+    assert chaos.delete_one_pod(job, api=api) is None

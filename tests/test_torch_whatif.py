@@ -5,7 +5,8 @@
 loop's outcome attribution, the what-if replay engine (identity
 invariant, perturbed counterfactual, scoring), per-cause goodput
 attribution and ``tools/torch_whatif.py``. The reference's dashboard
-test waits for the dashboard (ROADMAP §A item 8).
+test (``/api/goodput`` and the paginated ``/api/autoscaler``) runs on
+the port in ``tests/test_torch_dashboard.py``.
 """
 
 import tests.torch_threads  # noqa: F401  (caps torch's CPU pool)
